@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (`modal_tpu_torch`) on one NVIDIA GPU, in phases.
+
+    python3 chip_smoke.py                 # every phase, as a release check
+    python3 chip_smoke.py --phases device,build,kernels --out chiprun_out/smoke.json
+
+Phases (each failure raises; the script then exits non-zero and prints no
+result line):
+
+1. device   — the card's name and power limit (nvidia-smi), TF32 off.
+2. build    — compile every CUDA kernel of the port from `modal_tpu_torch/csrc`
+              (one nvcc per source, all started together).
+3. kernels  — each kernel against its plain PyTorch version at the serving
+              path's shapes (bf16), then timed beside the plain version, the
+              card's bound for the same work, and one PyTorch library call
+              computing the same function (a yardstick only: the port never
+              calls it).
+4. serve    — llama3-8b at full width with seeded random weights: the
+              ServingEngine answers 8 requests (one through the ASGI app's
+              /v1/generate, driven in process); every request must finish with
+              64 tokens and the paged decode kernel must have launched exactly
+              n_layers times per decode step.
+5. parity   — one greedy request's first decode step through the kernel,
+              through attn_impl="gather" and through fp32 attention, on the
+              same engine state, at depths 1 to 32.
+6. forward  — cache-less `llama.forward` on [1, 2048] tokens: the flash
+              kernel launches once per layer; its logits are compared with a
+              forward through the plain einsum attention and one through fp32
+              attention.
+
+Parity at depth: with random weights a single bf16 rounding inside
+attention moves llama3-8b's logits by a few 1e-2 (max over the 128256-entry
+vocabulary), and the gap grows with depth. So phases 5 and 6 print the
+kernel-vs-plain gap and require that the kernel land at least as close to
+fp32 attention as the plain version does, and pick fp32 attention's greedy
+token at least as often.
+
+Output: progress lines, then the nvidia-smi line, then one JSON line
+{"kernels": [...]}, and last {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("device", "build", "kernels", "serve", "parity", "forward")
+
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
+# bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of `fn` over `iters` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device(torch, ctx: dict) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    ctx["nvidia_smi"] = smi.stdout.strip().splitlines()[0]
+    ctx["kind"] = torch.cuda.get_device_name(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[device] {ctx['kind']} | nvidia-smi: {ctx['nvidia_smi']} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+
+
+def phase_build(torch, ctx: dict) -> None:
+    from modal_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    report = _build.build(verbose=True)
+    ctx["build_s"] = time.perf_counter() - t0
+    for name, rep in report.items():
+        regs = [ln.strip() for ln in rep["log"].splitlines() if "registers" in ln or "spill" in ln]
+        log(f"[build] {name}: {rep['seconds']:.1f}s cached={rep['cached']}")
+        for ln in regs:
+            log(f"[build]   {ln}")
+    ctx["build_log"] = {name: rep["log"] for name, rep in report.items()}
+    log(f"[build] all kernels in {ctx['build_s']:.1f}s")
+
+
+def _k4_inputs(torch, gen):
+    """The decode attention's inputs at llama3-8b's serving shapes: 8 slots,
+    n_kv 8, n_rep 4, hd 128, page 16, 512 pages per slot, lengths spread over
+    1..4096 with slot 3 inactive (length 0, table pointing at scratch)."""
+    s, n_kv, n_rep, hd, page, pps = 8, 8, 4, 128, 16, 512
+    n_pages = 1 + s * pps
+    dev = "cuda"
+    q = torch.randn((s, n_kv, n_rep, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k_pages = torch.randn((n_pages, page, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v_pages = torch.randn((n_pages, page, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev).to(torch.int32) + 1
+    page_table = perm.reshape(s, pps).contiguous()
+    seq_lens = torch.tensor([0, 4095, 1, 0, 2047, 517, 3000, 100], dtype=torch.int32, device=dev)
+    page_table[3] = 0  # inactive slot
+    return q, k_pages, v_pages, page_table, seq_lens, [3]
+
+
+def phase_kernels(torch, ctx: dict) -> None:
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.ops.attention import flash_attention_fwd, flash_attention_fwd_ref
+    from modal_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_ref,
+    )
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    results = ctx.setdefault("kernels", {})
+
+    # -- K4: paged decode attention --------------------------------------
+    q, kp, vp, pt, sl, inactive = _k4_inputs(torch, gen)
+    out = paged_decode_attention(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_ref(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    live = [i for i in range(q.shape[0]) if i not in inactive]
+    err = (out[live].float() - ref[live].float()).abs().max().item()
+    log(f"[kernels] paged_decode max|kernel-plain| = {err:.3e} (atol 2e-2)")
+    if not err <= 2e-2:
+        raise AssertionError(f"paged_decode disagrees with its plain version: {err}")
+    s, n_kv, n_rep, hd = q.shape
+    span = pt.shape[1] * kp.shape[1]
+    live_tokens = sum(int(sl[i]) + 1 for i in live)
+    kv_bytes = live_tokens * n_kv * hd * 2 * 2  # K and V rows each read once, bf16
+    io_bytes = 2 * q.numel() * 2 + pt.numel() * 4 + sl.numel() * 4
+    flops = 4 * live_tokens * n_kv * n_rep * hd
+    bound = max((kv_bytes + io_bytes) / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    # library yardstick: SDPA over the pre-gathered, head-repeated span
+    idx = pt.long()
+    k_att = kp[idx].reshape(s, span, n_kv, hd).repeat_interleave(n_rep, dim=2).transpose(1, 2).contiguous()
+    v_att = vp[idx].reshape(s, span, n_kv, hd).repeat_interleave(n_rep, dim=2).transpose(1, 2).contiguous()
+    q_sd = q.reshape(s, n_kv * n_rep, 1, hd)
+    vis = (torch.arange(span, device="cuda")[None, :] <= sl.long()[:, None])[:, None, None, :]
+    k4 = {
+        "ms": time_ms(torch, lambda: paged_decode_attention(q, kp, vp, pt, sl), 50),
+        "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(q, kp, vp, pt, sl), 10),
+        "library_ms": time_ms(
+            torch, lambda: F.scaled_dot_product_attention(q_sd, k_att, v_att, attn_mask=vis), 50
+        ),
+    }
+    del k_att, v_att
+    k4.update(bound_ms=bound, bound_by="bytes" if (kv_bytes + io_bytes) / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations", max_abs_err=err)
+    results["paged_decode"] = k4
+    log(f"[kernels] paged_decode kernel_ms={k4['ms']:.4f} plain_ms={k4['plain_ms']:.4f} "
+        f"bound_ms={k4['bound_ms']:.4f} library_ms={k4['library_ms']:.4f} "
+        f"(live KV {kv_bytes / 1e6:.1f} MB over {live_tokens} tokens)")
+
+    # -- K1: flash-attention forward ---------------------------------------
+    def qkv(b, sq, h, d):
+        return [torch.randn((b, sq, h, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3)]
+
+    worst = 0.0
+    for (b, sq, h, d, causal) in ((1, 2048, 32, 128, True), (2, 256, 4, 64, False), (1, 384, 2, 128, True)):
+        fq, fk, fv = qkv(b, sq, h, d)
+        o, lse = flash_attention_fwd(fq, fk, fv, causal)
+        torch.cuda.synchronize()
+        ro, rlse = flash_attention_fwd_ref(fq, fk, fv, causal)
+        torch.cuda.synchronize()
+        e_out = (o.float() - ro.float()).abs().max().item()
+        e_lse = (lse - rlse).abs().max().item()
+        ok = torch.allclose(o.float(), ro.float(), atol=5e-2, rtol=5e-2) and e_lse <= 5e-2
+        log(f"[kernels] flash_fwd B{b} S{sq} H{h} D{d} causal={causal}: "
+            f"max|out| err {e_out:.3e}, max|lse| err {e_lse:.3e} (atol=rtol=5e-2)")
+        if not ok:
+            raise AssertionError(f"flash_fwd disagrees with its plain version at {(b, sq, h, d, causal)}")
+        worst = max(worst, e_out)
+    fq, fk, fv = qkv(1, 2048, 32, 128)
+    b, sq, h, d = fq.shape
+    flops = 4 * b * h * d * (sq * (sq + 1) // 2)  # QKᵀ and PV over the causal triangle
+    io_bytes = 4 * fq.numel() * 2 + b * h * sq * 4
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
+    k1 = {
+        "ms": time_ms(torch, lambda: flash_attention_fwd(fq, fk, fv, True), 20),
+        "plain_ms": time_ms(torch, lambda: flash_attention_fwd_ref(fq, fk, fv, True), 5),
+        "library_ms": time_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20
+        ),
+        "bound_ms": max(flops / BF16_FLOPS, io_bytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOPS >= io_bytes / HBM_BYTES_PER_S else "bytes",
+        "max_abs_err": worst,
+    }
+    results["flash_fwd"] = k1
+    log(f"[kernels] flash_fwd kernel_ms={k1['ms']:.4f} plain_ms={k1['plain_ms']:.4f} "
+        f"bound_ms={k1['bound_ms']:.4f} library_ms={k1['library_ms']:.4f} "
+        f"(B1 S2048 H32 D128 causal, {flops / 1e9:.1f} GFLOP)")
+    _build.reset_launches()  # comparison launches do not count toward any path
+
+
+def _load_8b(torch, ctx: dict):
+    if "params" not in ctx:
+        from modal_tpu_torch.models.llama import get_config, init_params
+
+        cfg = get_config("llama3-8b")
+        t0 = time.perf_counter()
+        ctx["params"] = init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        ctx["cfg"] = cfg
+        log(f"[serve] llama3-8b random params (seed 0) in {time.perf_counter() - t0:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    return ctx["params"], ctx["cfg"]
+
+
+def _prompts(cfg, n: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(100, 601, size=n)
+    return [rng.integers(0, cfg.vocab_size, size=int(ln)).tolist() for ln in lens]
+
+
+def phase_serve(torch, ctx: dict) -> None:
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.serving import ServingEngine, asgi_request, serving_asgi_app
+
+    params, cfg = _load_8b(torch, ctx)
+    engine = ServingEngine(params, cfg, max_slots=8, page_size=16, prefill_chunk=128, device="cuda")
+    log(f"[serve] engine: attn_impl={engine.attn_impl} pages={engine.allocator.num_pages - 1} "
+        f"pool {engine.cache.pool_bytes() / 1e9:.2f} GB")
+    if engine.attn_impl != "kernel":
+        raise AssertionError(f"engine on CUDA chose attn_impl={engine.attn_impl!r}")
+    prompts = _prompts(cfg, 8, seed=1)
+    sampled = {5, 7}
+    new_tokens = 64
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    engine.start()
+    try:
+        app = serving_asgi_app(engine)
+        reqs = [
+            engine.submit(p, new_tokens, temperature=0.8 if i in sampled else 0.0,
+                          top_p=0.9 if i in sampled else 1.0, seed=1000 + i)
+            for i, p in enumerate(prompts[1:], start=1)
+        ]
+        status, body = asyncio.run(asgi_request(
+            app, "POST", "/v1/generate", {"prompt": prompts[0], "max_new_tokens": new_tokens}
+        ))
+        outs = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    if status != 200:
+        raise AssertionError(f"/v1/generate answered {status}: {body[:300]!r}")
+    api = json.loads(body)
+    if api["num_tokens"] != new_tokens:
+        raise AssertionError(f"/v1/generate returned {api['num_tokens']} tokens")
+    for i, out in enumerate(outs, start=1):
+        if len(out) != new_tokens or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"request {i} returned {len(out)} tokens")
+    steps = stats["steps"]
+    if launches["paged_decode"] != cfg.n_layers * steps or steps == 0:
+        raise AssertionError(
+            f"paged_decode launched {launches['paged_decode']} times over {steps} decode steps "
+            f"({cfg.n_layers} layers)"
+        )
+    ttfts = sorted([api["ttft_s"]] + [r.ttft_s for r in reqs])
+    pct = lambda p: ttfts[min(len(ttfts) - 1, int(p * len(ttfts)))]  # noqa: E731
+    ctx["launches"] = {"paged_decode": launches["paged_decode"]}
+    ctx["serve"] = {
+        "requests": 8, "new_tokens": new_tokens, "decode_steps": steps,
+        "tokens_generated": stats["tokens_generated"], "wall_s": wall,
+        "tokens_per_s": stats["tokens_generated"] / wall,
+        "ttft_p50_s": pct(0.5), "ttft_p95_s": pct(0.95), "preemptions": stats["preemptions"],
+        "prompt_tokens": sum(len(p) for p in prompts), "launches": launches,
+    }
+    log(f"[serve] 8 requests x {new_tokens} tokens in {wall:.2f}s: "
+        f"{ctx['serve']['tokens_per_s']:.1f} tokens/s, steps={steps}, "
+        f"TTFT p50 {pct(0.5):.3f}s p95 {pct(0.95):.3f}s, launches={launches}")
+
+
+def _fp32_decode_attention(q, k_pages, v_pages, page_table, mask, positions=None, attn_impl="gather"):
+    """Stand-in for paged_kv._paged_attention on the decode step: the plain
+    version computed entirely in fp32 (probabilities never rounded), the
+    output rounded once to the model dtype. The yardstick both paths are
+    held against."""
+    from modal_tpu_torch.ops.paged_attention import paged_decode_attention_ref
+
+    s, sq, h, hd = q.shape
+    n_kv = k_pages.shape[2]
+    out = paged_decode_attention_ref(
+        q.float().reshape(s, n_kv, h // n_kv, hd), k_pages.float(), v_pages.float(),
+        page_table, positions,
+    )
+    return out.to(q.dtype).reshape(s, sq, h, hd)
+
+
+def _first_step_logits(torch, params, cfg, prompt):
+    """A greedy request's first decode step, run three times on the same
+    engine state (lengths rolled back between runs; each run writes the same
+    K/V row, only attention differs): through the kernel, through
+    attn_impl="gather", and through fp32 attention."""
+    from modal_tpu_torch.models import paged_kv
+    from modal_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(params, cfg, max_slots=8, page_size=16, prefill_chunk=128,
+                           num_pages=257, device="cuda")
+    engine.submit(prompt, 8)
+    engine._admit()
+    while engine.slots[0].state == "prefill":
+        engine._prefill_one()
+    tokens = torch.zeros((8,), dtype=torch.int64, device="cuda")
+    tokens[0] = engine.slots[0].cur_token
+    active = torch.zeros((8,), dtype=torch.bool, device="cuda")
+    active[0] = True
+    lens = engine.cache.seq_lens.clone()
+    out = {}
+    for name in ("kernel", "gather", "fp32"):
+        engine.cache.seq_lens.copy_(lens)
+        if name == "fp32":
+            paged_kv._paged_attention, saved = _fp32_decode_attention, paged_kv._paged_attention
+        try:
+            logits, _t, _c = paged_kv.paged_decode_step(
+                params, cfg, tokens, engine.cache, active, "gather" if name == "fp32" else name
+            )
+        finally:
+            if name == "fp32":
+                paged_kv._paged_attention = saved
+        out[name] = logits[0]
+    torch.cuda.synchronize()
+    engine.stop()
+    return out
+
+
+def _gaps(torch, out: dict) -> dict:
+    """Max and mean |difference| of the logits, kernel vs plain and each vs
+    fp32, and how often each picks fp32 attention's greedy token."""
+    def agree(a):
+        return (out[a].argmax(-1) == out["fp32"].argmax(-1)).float().mean().item()
+
+    def gap(a, b):
+        d = (out[a] - out[b]).abs()
+        return {"max": d.max().item(), "mean": d.mean().item()}
+
+    return {
+        "kernel_vs_plain": gap("kernel", "plain"),
+        "kernel_vs_fp32": gap("kernel", "fp32"),
+        "plain_vs_fp32": gap("plain", "fp32"),
+        # share of positions whose greedy token matches fp32 attention's
+        "kernel_token_agreement": agree("kernel"),
+        "plain_token_agreement": agree("plain"),
+        "logit_std": out["fp32"].std().item(),
+    }
+
+
+def _check_faithful(name: str, g: dict, bar: float) -> None:
+    """The kernel must sit at least as close to fp32 attention as the plain
+    version does (max and mean over the logits) and pick fp32 attention's
+    greedy token at least as often.
+    `bar` is the tolerance the kernel-vs-plain gap is reported against."""
+    log(f"[{name}] max|kernel - plain| {g['kernel_vs_plain']['max']:.3e} (bar {bar:g}); "
+        f"vs fp32 attention: kernel max {g['kernel_vs_fp32']['max']:.3e} mean "
+        f"{g['kernel_vs_fp32']['mean']:.3e}, plain max {g['plain_vs_fp32']['max']:.3e} mean "
+        f"{g['plain_vs_fp32']['mean']:.3e}; logits std {g['logit_std']:.3f}; greedy tokens "
+        f"matching fp32: kernel {g['kernel_token_agreement']:.4f} plain {g['plain_token_agreement']:.4f}")
+    ok = (
+        g["kernel_vs_fp32"]["max"] <= g["plain_vs_fp32"]["max"]
+        and g["kernel_vs_fp32"]["mean"] <= g["plain_vs_fp32"]["mean"]
+        and g["kernel_token_agreement"] >= g["plain_token_agreement"]
+    )
+    if not ok:
+        raise AssertionError(f"{name}: the kernel is farther from fp32 attention than the plain version")
+
+
+def phase_parity(torch, ctx: dict) -> None:
+    """Kernel vs gather on the first decode step of a llama3-8b request, at
+    depths 1..32 (a prefix of the same stacked layers): the 1-layer gap is
+    the kernel's own numerics, its growth with depth is how far a random-init
+    model carries a bf16 difference."""
+    import dataclasses
+
+    params, cfg = _load_8b(torch, ctx)
+    prompt = _prompts(cfg, 1, seed=2)[0]
+    sweep = {}
+    for depth in (1, 4, 16, cfg.n_layers):
+        cfg_d = dataclasses.replace(cfg, n_layers=depth)
+        params_d = {**params, "layers": {k: v[:depth] for k, v in params["layers"].items()}}
+        out = _first_step_logits(torch, params_d, cfg_d, prompt)
+        out["plain"] = out.pop("gather")
+        sweep[depth] = _gaps(torch, out)
+        _check_faithful(f"parity depth {depth}", sweep[depth], 3e-2)
+    ctx["parity"] = {"prompt_tokens": len(prompt), "by_depth": sweep}
+
+
+def phase_forward(torch, ctx: dict) -> None:
+    from modal_tpu_torch.models.llama import attention, forward
+    from modal_tpu_torch.ops import _build
+
+    def fp32_attention(q, k, v, mask):
+        return attention(q.float(), k.float(), v.float(), mask).to(q.dtype)
+
+    params, cfg = _load_8b(torch, ctx)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.LAUNCHES["flash_fwd"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"flash_fwd launched {launches} times, want {cfg.n_layers}")
+    finite = bool(torch.isfinite(logits).all())
+    if not finite or list(logits.shape) != [1, 2048, cfg.vocab_size]:
+        raise AssertionError("cache-less forward produced a wrong shape or non-finite logits")
+    out = {"kernel": logits[0]}
+    del logits
+    out["plain"] = forward(params, cfg, tokens, attn_impl=attention)[0][0]
+    out["fp32"] = forward(params, cfg, tokens, attn_impl=fp32_attention)[0][0]
+    torch.cuda.synchronize()
+    g = _gaps(torch, out)
+    ctx.setdefault("launches", {})["flash_fwd"] = launches
+    ctx["forward"] = {**g, "wall_s": wall, "launches": launches}
+    log(f"[forward] llama3-8b [1, 2048] cache-less: {wall:.2f}s, flash_fwd launches {launches}")
+    _check_faithful("forward", g, 5e-2)
+
+
+KERNELS = {
+    "paged_decode": ("modal_tpu_torch/csrc/paged_decode.cu", "modal_tpu/ops/paged_attention.py:42"),
+    "flash_fwd": ("modal_tpu_torch/csrc/flash_fwd.cu", "modal_tpu/ops/attention.py:50"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES), help="comma list of " + ",".join(PHASES))
+    ap.add_argument("--out", default="", help="also write every measurement as JSON here")
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import modal_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
+
+    ctx: dict = {}
+    t_all = time.perf_counter()
+    for name in PHASES:
+        if name in phases:
+            t0 = time.perf_counter()
+            globals()[f"phase_{name}"](torch, ctx)
+            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s")
+    ctx.pop("params", None)
+    ctx.pop("cfg", None)
+    log(f"[total] {time.perf_counter() - t_all:.1f}s")
+    rows = []
+    for name, m in ctx.get("kernels", {}).items():
+        source, replaces = KERNELS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": ctx.get("launches", {}).get(name, 0), "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        })
+    if "serve" in phases or "forward" in phases:
+        for row in rows:
+            if (row["name"] == "paged_decode" and "serve" in phases or
+                    row["name"] == "flash_fwd" and "forward" in phases) and row["launches"] == 0:
+                raise AssertionError(f"{row['name']} was never launched on its path")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"phases": phases, **ctx}, f, indent=1, default=str)
+    print(ctx["nvidia_smi"] if "nvidia_smi" in ctx else "nvidia-smi: not queried", flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+"""The serving metric families the engine and its ASGI app emit.
+
+Names and help texts are those of the JAX package's catalog, so a scrape of
+either implementation reads the same way. Importing this module registers
+every family on the process-wide REGISTRY.
+"""
+
+from __future__ import annotations
+
+from .metrics import REGISTRY
+
+SERVING_TTFT = REGISTRY.histogram(
+    "modal_tpu_serving_ttft_seconds",
+    "Time to first generated token per request (submit → first token in the "
+    "buffer); observations carry the request's trace id as an exemplar.",
+    buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 15, 60),
+)
+SERVING_TTFT_P95 = REGISTRY.gauge(
+    "modal_tpu_serving_ttft_p95_seconds",
+    "p95 TTFT over the engine's recent-request window.",
+)
+SERVING_TOKENS_PER_S = REGISTRY.gauge(
+    "modal_tpu_serving_tokens_per_second",
+    "Generated tokens/s over the engine's trailing 10s window.",
+)
+SERVING_TOKENS = REGISTRY.counter(
+    "modal_tpu_serving_tokens_total",
+    "Generated tokens, cumulative.",
+)
+SERVING_BATCH_OCCUPANCY = REGISTRY.histogram(
+    "modal_tpu_serving_batch_occupancy",
+    "Active decode slots per continuous-batching step (how full the running "
+    "batch actually is).",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+)
+SERVING_QUEUE_DEPTH = REGISTRY.gauge(
+    "modal_tpu_serving_queue_depth",
+    "Requests admitted to the engine but not yet holding a decode slot.",
+)
+SERVING_REQUESTS = REGISTRY.counter(
+    "modal_tpu_serving_requests_total",
+    "Serving requests finished, by outcome (ok | error | stopped).",
+    ("outcome",),
+)
+SERVING_PREEMPTIONS = REGISTRY.counter(
+    "modal_tpu_serving_preemptions_total",
+    "Requests preempted out of their decode slot by KV-pool pressure "
+    "(requeued with their generated prefix; no tokens lost).",
+)
+SERVING_STREAM_EVENTS = REGISTRY.counter(
+    "modal_tpu_serving_stream_events_total",
+    "SSE delivery lifecycle (open | token | done | buffered_fallback).",
+    ("event",),
+)
+KV_PAGES_ALLOCATED = REGISTRY.gauge(
+    "modal_tpu_kv_pages_allocated",
+    "KV-cache pages currently allocated out of the shared pool.",
+)
+KV_PAGES_FREE = REGISTRY.gauge(
+    "modal_tpu_kv_pages_free",
+    "KV-cache pages free in the shared pool.",
+)
+SERVING_PREFIX_HITS = REGISTRY.counter(
+    "modal_tpu_serving_prefix_cache_hits_total",
+    "Admissions that reused cached prefix KV pages (the follower prefills "
+    "only its suffix).",
+)
+SERVING_PREFIX_MISSES = REGISTRY.counter(
+    "modal_tpu_serving_prefix_cache_misses_total",
+    "Admissions with no cached prefix.",
+)
+KV_PAGES_COW = REGISTRY.counter(
+    "modal_tpu_kv_pages_cow_copies_total",
+    "Copy-on-write page copies: a write aimed at a refcount-shared KV page "
+    "copied it first — shared prefix bytes are never mutated.",
+)
+SERVING_SAMPLED_TOKENS = REGISTRY.counter(
+    "modal_tpu_serving_sampled_tokens_total",
+    "Tokens emitted via temperature/top-k/top-p sampling (temperature > 0).",
+)

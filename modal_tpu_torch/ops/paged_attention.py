@@ -1,0 +1,110 @@
+"""Paged decode attention: one query token per slot over its KV pages.
+
+`paged_decode_attention` is the port of modal_tpu/ops/paged_attention.py:93
+(the Pallas `_paged_decode_kernel`), with the same contract and layout:
+q [S, n_kv, n_rep, hd], pages [P, page, n_kv, hd], page_table
+[S, pages_per_slot] int32, seq_lens [S] int32 holding each slot's decode
+position q_pos (inclusive: kv_pos <= q_pos is attended). Output has q's
+layout. Inactive slots produce garbage the caller must not read, exactly as
+in the JAX package.
+
+On a CUDA tensor it launches the hand-written kernel in
+`csrc/paged_decode.cu` (or raises); on a CPU tensor it runs
+`paged_decode_attention_ref`, the plain gather + fp32-softmax version (the
+gather branch of modal_tpu/models/paged_kv.py:305-317).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+KERNEL = "paged_decode"
+_SUPPORTED_HD = (32, 64, 128)
+_SUPPORTED_NREP = (1, 2, 4, 8)
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+) -> torch.Tensor:
+    """Gather every slot's page span, fp32 logits and softmax, probs cast to
+    q.dtype before P·V."""
+    s, n_kv, n_rep, hd = q.shape
+    page = k_pages.shape[1]
+    span = page_table.shape[1] * page
+    idx = page_table.long()
+    k_att = k_pages[idx].reshape(s, span, n_kv, hd)
+    v_att = v_pages[idx].reshape(s, span, n_kv, hd)
+    logits = torch.einsum("snrd,sknd->snrk", q.float(), k_att.float()) / math.sqrt(hd)
+    kv_pos = torch.arange(span, device=q.device)
+    visible = kv_pos[None, :] <= seq_lens.long()[:, None]  # [S, K]
+    logits = logits.masked_fill(~visible[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("snrk,sknd->snrd", probs, v_att)
+
+
+def _check_cuda(q, k_pages, v_pages, page_table, seq_lens) -> None:
+    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+               "page_table": page_table, "seq_lens": seq_lens}
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"paged_decode_attention: {name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_decode_attention: {name} must be contiguous")
+    for name in ("q", "k_pages", "v_pages"):
+        if tensors[name].dtype != torch.bfloat16:
+            raise TypeError(f"paged_decode_attention: {name} must be bfloat16, got {tensors[name].dtype}")
+    for name in ("page_table", "seq_lens"):
+        if tensors[name].dtype != torch.int32:
+            raise TypeError(f"paged_decode_attention: {name} must be int32, got {tensors[name].dtype}")
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError("paged_decode_attention: q is [S, n_kv, n_rep, hd], pages [P, page, n_kv, hd]")
+    s, n_kv, n_rep, hd = q.shape
+    if k_pages.shape != v_pages.shape or k_pages.shape[2:] != (n_kv, hd):
+        raise ValueError(
+            f"paged_decode_attention: pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)} "
+            f"do not match q {tuple(q.shape)}"
+        )
+    if page_table.dim() != 2 or page_table.shape[0] != s or tuple(seq_lens.shape) != (s,):
+        raise ValueError("paged_decode_attention: page_table [S, pps] and seq_lens [S] must match q's S")
+    if hd not in _SUPPORTED_HD or n_rep not in _SUPPORTED_NREP:
+        raise ValueError(
+            f"paged_decode_attention: kernel built for hd in {_SUPPORTED_HD}, "
+            f"n_rep in {_SUPPORTED_NREP}; got hd={hd}, n_rep={n_rep}"
+        )
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [S, n_kv, n_rep, hd]
+    k_pages: torch.Tensor,  # [P, page, n_kv, hd]
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [S, pages_per_slot] int32
+    seq_lens: torch.Tensor,  # [S] int32 — each slot's decode position
+) -> torch.Tensor:
+    """One decode step's attention over paged KV. Returns [S, n_kv, n_rep, hd]."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, page_table, seq_lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+    _check_cuda(q, k_pages, v_pages, page_table, seq_lens)
+    s, n_kv, n_rep, hd = q.shape
+    out = torch.empty_like(q)
+    fn = _build.entry(KERNEL, "paged_decode_bf16", _ARGTYPES)
+    err = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), s, n_kv, n_rep, hd, k_pages.shape[1],
+        page_table.shape[1], 1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(KERNEL, err)
+    return out

@@ -1,0 +1,312 @@
+"""HTTP surface of the serving engine: JSON + SSE over ASGI 3 (port of
+modal_tpu/serving/api.py without the prefill/decode disaggregation routes).
+
+Routes:
+
+- ``POST /v1/generate`` — body ``{"prompt": [ids...]} | {"text": "..."}``
+  plus ``max_new_tokens``, ``stream``, ``request_id``, ``eos_token_id`` and
+  the sampling fields ``temperature``, ``top_k``, ``top_p``, ``seed``.
+  ``stream=false`` answers one JSON object at completion; ``stream=true``
+  answers ``text/event-stream``: a ``start`` event with the request id, one
+  ``token`` event per generated token (SSE ``id`` = token index), and a
+  final ``done`` event.
+- ``GET /v1/result/{request_id}`` — the buffered result (blocks until the
+  request completes): a client whose stream died re-fetches every token
+  exactly once from the engine's per-request buffer.
+- ``GET /v1/stats`` — engine stats; ``GET /healthz`` — liveness.
+
+``text`` prompts use byte-level tokens (ids 0-255). ``/v1/prefill`` and
+``/v1/prefilled`` wait for a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import math
+import time
+from typing import Callable, Optional
+
+from ..config import logger
+from ..observability import tracing
+from ..observability.catalog import SERVING_STREAM_EVENTS
+from .engine import EngineStopped, GenRequest, ServingEngine
+
+
+def _decode_prompt(body: dict, vocab_size: int) -> list[int]:
+    if "prompt" in body:
+        prompt = body["prompt"]
+        if not isinstance(prompt, list) or not all(isinstance(t, int) for t in prompt):
+            raise ValueError("'prompt' must be a list of int token ids")
+        bad = [t for t in prompt if not 0 <= t < vocab_size]
+        if bad:
+            raise ValueError(f"token ids out of range [0, {vocab_size}): {bad[:5]}")
+        return prompt
+    if "text" in body:
+        if vocab_size < 256:
+            raise ValueError("byte-level 'text' prompts need vocab_size >= 256")
+        data = str(body["text"]).encode("utf-8")
+        if not data:
+            raise ValueError("empty text prompt")
+        return list(data)
+    raise ValueError("body needs 'prompt' (token ids) or 'text'")
+
+
+def _sse(event: str, data: dict, event_id: Optional[int] = None) -> bytes:
+    lines = [f"event: {event}"]
+    if event_id is not None:
+        lines.append(f"id: {event_id}")
+    lines.append(f"data: {json.dumps(data, separators=(',', ':'))}")
+    return ("\n".join(lines) + "\n\n").encode()
+
+
+def _result_payload(req: GenRequest, vocab_size: int) -> dict:
+    out = {
+        "request_id": req.id,
+        "tokens": list(req.tokens),
+        "num_tokens": len(req.tokens),
+        "ttft_s": req.ttft_s,
+        "preemptions": req.preemptions,
+        "temperature": req.temperature,
+        "top_k": req.top_k,
+        "top_p": req.top_p,
+        "seed": req.seed,
+    }
+    if req.error:
+        out["error"] = req.error
+    if vocab_size >= 256 and all(t < 256 for t in req.tokens):
+        out["text"] = bytes(req.tokens).decode("utf-8", "replace")
+    return out
+
+
+def _parse_sampling(body: dict, defaults: dict) -> dict:
+    """Validate temperature/top_k/top_p/seed; omitted fields take the
+    service defaults. Bad values are 400s here, before the engine."""
+    temperature = body.get("temperature", defaults.get("temperature", 0.0))
+    try:
+        temperature = float(temperature)
+    except (TypeError, ValueError):
+        raise ValueError(f"temperature must be a number, got {temperature!r}")
+    if math.isnan(temperature) or math.isinf(temperature) or temperature < 0:
+        raise ValueError(f"temperature must be finite and >= 0, got {temperature}")
+    top_k = body.get("top_k", defaults.get("top_k", 0))
+    if not isinstance(top_k, int) or isinstance(top_k, bool) or top_k < 0:
+        raise ValueError(f"top_k must be an int >= 0, got {top_k!r}")
+    top_p = body.get("top_p", defaults.get("top_p", 1.0))
+    try:
+        top_p = float(top_p)
+    except (TypeError, ValueError):
+        raise ValueError(f"top_p must be a number, got {top_p!r}")
+    if math.isnan(top_p) or not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    seed = body.get("seed", defaults.get("seed", 0))
+    if not isinstance(seed, int) or isinstance(seed, bool):
+        raise ValueError(f"seed must be an int, got {seed!r}")
+    return {"temperature": temperature, "top_k": top_k, "top_p": top_p, "seed": seed}
+
+
+async def _lifespan_protocol(receive, send) -> None:
+    """Complete the ASGI lifespan protocol (no startup/shutdown work)."""
+    while True:
+        msg = await receive()
+        if msg["type"] == "lifespan.startup":
+            await send({"type": "lifespan.startup.complete"})
+        elif msg["type"] == "lifespan.shutdown":
+            await send({"type": "lifespan.shutdown.complete"})
+            return
+
+
+def serving_asgi_app(
+    engine: ServingEngine,
+    max_new_tokens_limit: int = 4096,
+    sampling_defaults: Optional[dict] = None,
+) -> Callable:
+    """Build the ASGI 3 application fronting `engine`."""
+    vocab_size = engine.cfg.vocab_size
+    defaults = dict(sampling_defaults or {})
+
+    async def send_json(send, status: int, payload: dict) -> None:
+        data = json.dumps(payload).encode()
+        await send(
+            {
+                "type": "http.response.start",
+                "status": status,
+                "headers": [
+                    (b"content-type", b"application/json"),
+                    (b"content-length", str(len(data)).encode()),
+                ],
+            }
+        )
+        await send({"type": "http.response.body", "body": data})
+
+    async def read_body(receive) -> bytes:
+        body = b""
+        while True:
+            msg = await receive()
+            if msg["type"] != "http.request":
+                return body
+            body += msg.get("body", b"")
+            if not msg.get("more_body"):
+                return body
+
+    async def wait_done(req: GenRequest) -> None:
+        offset, done = 0, False
+        while not done:
+            new, done = await req.wait_new_async(offset, timeout=None)
+            offset += len(new)
+
+    async def handle_generate(receive, send) -> None:
+        try:
+            raw = await read_body(receive)
+            body = json.loads(raw) if raw else {}
+            if not isinstance(body, dict):
+                raise ValueError("JSON body must be an object")
+            prompt = _decode_prompt(body, vocab_size)
+            max_new = int(body.get("max_new_tokens", 64))
+            if not 1 <= max_new <= max_new_tokens_limit:
+                raise ValueError(f"max_new_tokens must be in [1, {max_new_tokens_limit}]")
+            stream = bool(body.get("stream", False))
+            eos = body.get("eos_token_id")
+            request_id = str(body.get("request_id", ""))
+            sampling = _parse_sampling(body, defaults)
+        except (ValueError, json.JSONDecodeError) as exc:
+            await send_json(send, 400, {"error": str(exc)})
+            return
+        try:
+            req = engine.submit(
+                prompt, max_new, request_id=request_id,
+                eos_token_id=int(eos) if eos is not None else None,
+                **sampling,
+            )
+        except EngineStopped as exc:
+            # backpressure (429: retry here) vs drain (503: retry elsewhere)
+            await send_json(send, 429 if "queue full" in str(exc) else 503, {"error": str(exc)})
+            return
+        except ValueError as exc:
+            await send_json(send, 400, {"error": str(exc)})
+            return
+        if not stream:
+            await wait_done(req)
+            await send_json(send, 500 if req.error else 200, _result_payload(req, vocab_size))
+            return
+        await stream_sse(send, req)
+
+    async def stream_sse(send, req: GenRequest) -> None:
+        """SSE delivery with a cursor into the request's buffer."""
+        await send(
+            {
+                "type": "http.response.start",
+                "status": 200,
+                "headers": [
+                    (b"content-type", b"text/event-stream"),
+                    (b"cache-control", b"no-cache"),
+                    (b"x-accel-buffering", b"no"),
+                ],
+            }
+        )
+        SERVING_STREAM_EVENTS.inc(event="open")
+        with tracing.span("serving.stream", attrs={"request_id": req.id}, parent=req.trace_context):
+            start = {
+                "request_id": req.id,
+                "temperature": req.temperature,
+                "top_k": req.top_k,
+                "top_p": req.top_p,
+                "seed": req.seed,
+            }
+            await send({"type": "http.response.body", "body": _sse("start", start), "more_body": True})
+            offset = 0
+            while True:
+                tokens, done = await req.wait_new_async(offset, timeout=30.0)
+                for i, tok in enumerate(tokens):
+                    await send(
+                        {
+                            "type": "http.response.body",
+                            "body": _sse("token", {"token": tok, "i": offset + i}, event_id=offset + i),
+                            "more_body": True,
+                        }
+                    )
+                    SERVING_STREAM_EVENTS.inc(event="token")
+                offset += len(tokens)
+                if done:
+                    break
+                if not tokens:
+                    # keep-alive comment per the SSE spec (idle admission queue)
+                    await send(
+                        {"type": "http.response.body", "body": b": keep-alive\n\n", "more_body": True}
+                    )
+            await send(
+                {
+                    "type": "http.response.body",
+                    "body": _sse("done", _result_payload(req, vocab_size)),
+                    "more_body": True,
+                }
+            )
+            SERVING_STREAM_EVENTS.inc(event="done")
+            await send({"type": "http.response.body", "body": b""})
+
+    async def handle_result(receive, send, request_id: str) -> None:
+        await read_body(receive)
+        req = engine.get(request_id)
+        if req is None:
+            await send_json(send, 404, {"error": f"unknown request {request_id!r}"})
+            return
+        SERVING_STREAM_EVENTS.inc(event="buffered_fallback")
+        await wait_done(req)
+        await send_json(send, 500 if req.error else 200, _result_payload(req, vocab_size))
+
+    async def app(scope, receive, send):
+        if scope["type"] == "lifespan":
+            return await _lifespan_protocol(receive, send)
+        if scope["type"] != "http":
+            return
+        path = scope.get("path", "/")
+        method = scope.get("method", "GET").upper()
+        try:
+            if path == "/healthz" and method == "GET":
+                await read_body(receive)
+                await send_json(send, 200, {"ok": True, "time": time.time()})
+            elif path == "/v1/stats" and method == "GET":
+                await read_body(receive)
+                await send_json(send, 200, engine.stats())
+            elif path == "/v1/generate" and method == "POST":
+                await handle_generate(receive, send)
+            elif path.startswith("/v1/result/") and method == "GET":
+                await handle_result(receive, send, path[len("/v1/result/"):])
+            else:
+                await read_body(receive)
+                await send_json(send, 404, {"error": f"no route {method} {path}"})
+        except (ConnectionResetError, BrokenPipeError, asyncio.CancelledError):
+            raise
+        except Exception as exc:  # noqa: BLE001 — one request must not kill the app
+            logger.warning(f"serving api error on {method} {path}: {exc}")
+            await send_json(send, 500, {"error": f"{type(exc).__name__}: {exc}"})
+
+    return app
+
+
+async def asgi_request(app: Callable, method: str, path: str, body: Optional[dict] = None) -> tuple[int, bytes]:
+    """Drive one HTTP exchange through an ASGI app in process (no socket).
+    Returns (status, response body bytes)."""
+    payload = json.dumps(body).encode() if body is not None else b""
+    sent = False
+    status = 0
+    chunks: list[bytes] = []
+
+    async def receive():
+        nonlocal sent
+        if not sent:
+            sent = True
+            return {"type": "http.request", "body": payload, "more_body": False}
+        await asyncio.sleep(3600)
+        return {"type": "http.disconnect"}
+
+    async def send(msg):
+        nonlocal status
+        if msg["type"] == "http.response.start":
+            status = msg["status"]
+        elif msg["type"] == "http.response.body":
+            chunks.append(msg.get("body", b""))
+
+    scope = {"type": "http", "method": method, "path": path, "headers": []}
+    await app(scope, receive, send)
+    return status, b"".join(chunks)

@@ -1,0 +1,97 @@
+"""The PyTorch port stands alone: it imports neither `jax` nor the JAX
+package, serves without them, and its entry points default to CUDA."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "modal_tpu_torch")
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "modal_tpu", "flax", "optax")
+
+
+def test_no_source_of_the_port_imports_jax_or_modal_tpu():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names if _forbidden(n)]
+    assert len(_port_sources()) > 10
+    assert not offenders, offenders
+
+
+def test_port_serves_with_jax_and_modal_tpu_unimportable():
+    script = textwrap.dedent(
+        """
+        import sys
+        for name in ("jax", "jaxlib", "modal_tpu"):
+            sys.modules[name] = None  # any import of them raises ImportError
+        import modal_tpu_torch
+        from modal_tpu_torch.models.llama import get_config, init_params
+        from modal_tpu_torch.serving import ServingEngine
+
+        cfg = get_config("debug-1l")
+        params = init_params(cfg, seed=0, device="cpu")
+        engine = ServingEngine(params, cfg, max_slots=2, num_pages=9, page_size=8,
+                               pages_per_slot=4, prefill_chunk=16, device="cpu").start()
+        try:
+            outs = [engine.submit([1, 2, 3 + i], 5).result(timeout=120) for i in range(2)]
+        finally:
+            engine.stop()
+        assert [len(o) for o in outs] == [5, 5], outs
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu") and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("served", outs)
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=240
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "served" in proc.stdout
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is satisfied here")
+    from modal_tpu_torch import resolve_device
+    from modal_tpu_torch.models.llama import KVCache, get_config, init_params
+    from modal_tpu_torch.models.paged_kv import PagedKVCache
+    from modal_tpu_torch.serving import ServingEngine
+
+    cfg = get_config("debug-1l")
+    for call in (
+        lambda: resolve_device(),
+        lambda: init_params(cfg),
+        lambda: KVCache.create(cfg, 1, 8),
+        lambda: PagedKVCache.create(cfg, 2, 4),
+        lambda: ServingEngine(init_params(cfg, device="cpu"), cfg),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")

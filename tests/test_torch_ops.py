@@ -1,0 +1,167 @@
+"""The PyTorch port's attention ops against the JAX package's Pallas kernels.
+
+On the CPU every wrapper runs its plain PyTorch version; those are held
+against the Pallas kernels in interpret mode on the same seeded inputs. The
+CUDA kernels themselves are held against the plain versions in the tests
+marked `cuda`, which skip without a card.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modal_tpu.ops.attention import _flash_forward
+from modal_tpu.ops.paged_attention import paged_decode_attention as jax_paged_decode
+from modal_tpu_torch.models import llama as tllama
+from modal_tpu_torch.ops import _build
+from modal_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_fwd,
+    flash_attention_fwd_ref,
+    flash_attention_kernel,
+)
+from modal_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_ref,
+)
+
+_DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _pair(rng, shape, dtype):
+    """The same seeded values as a JAX array and a torch tensor (bf16 rounds
+    identically on both sides: round-to-nearest-even from the same fp32)."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    jd, td = _DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else jnp.asarray(x, jnp.float32))
+
+
+# -- flash forward -------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "shape,causal,dtype,block_q,block_k,tol",
+    [
+        ((2, 256, 4, 64), True, "float32", 128, 128, 2e-3),
+        ((1, 256, 2, 64), False, "float32", 128, 128, 2e-3),
+        ((1, 128, 2, 64), True, "bfloat16", 128, 128, 5e-2),
+        # partial diagonal: block_k > block_q, the causal loop's ceiling division
+        ((1, 256, 2, 32), True, "float32", 64, 128, 2e-3),
+    ],
+)
+def test_flash_fwd_plain_matches_pallas(shape, causal, dtype, block_q, block_k, tol):
+    rng = np.random.default_rng(sum(shape) + block_q)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, shape, dtype) for _ in range(3))
+    j_out, j_lse = _flash_forward(jq, jk, jv, causal, block_q, block_k, interpret=True)
+    t_out, t_lse = flash_attention_fwd(tq, tk, tv, causal, block_q, block_k)
+    assert t_out.dtype == tq.dtype and tuple(t_out.shape) == shape
+    assert t_lse.dtype == torch.float32 and tuple(t_lse.shape) == (shape[0], shape[2], shape[1], 1)
+    np.testing.assert_allclose(_np(t_out), _np(j_out), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(t_lse), _np(j_lse), atol=tol, rtol=tol)
+    kernel_out = flash_attention_kernel(tq, tk, tv, causal, block_q, block_k)
+    np.testing.assert_array_equal(_np(kernel_out), _np(t_out))
+
+
+def test_flash_errors_match_jax():
+    q = torch.zeros((1, 256, 2, 32))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        flash_attention_fwd(q, q[:, :128], q[:, :128], causal=True)
+    q192 = torch.zeros((1, 192, 2, 32))
+    with pytest.raises(ValueError, match="divide"):
+        flash_attention_fwd(q192, q192, q192, block_q=128, block_k=128)
+    with pytest.raises(ValueError, match="Sq=256 != Sk=128"):
+        flash_attention(q, q[:, :128], q[:, :128], None)
+
+
+def test_flash_dispatch_on_cpu_is_the_einsum_reference():
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 128, 2, 32)).astype(np.float32)) for _ in range(3))
+    before = dict(_build.LAUNCHES)
+    out = flash_attention(q, k, v, None)
+    np.testing.assert_array_equal(out.numpy(), tllama.attention(q, k, v, None).numpy())
+    assert _build.LAUNCHES == before  # the CPU path launches nothing
+
+
+# -- paged decode ----------------------------------------------------------------
+
+
+def _paged_inputs(rng, dtype, s=4, n_kv=2, n_rep=2, hd=32, page=8, pps=4, n_pages=18):
+    jq, tq = _pair(rng, (s, n_kv, n_rep, hd), dtype)
+    jk, tk = _pair(rng, (n_pages, page, n_kv, hd), dtype)
+    jv, tv = _pair(rng, (n_pages, page, n_kv, hd), dtype)
+    table = rng.permutation(np.arange(1, n_pages))[: s * pps].reshape(s, pps).astype(np.int32)
+    # ragged lengths: mid-page, page boundary, one token, and an inactive slot
+    lens = np.array([13, 16, 0, 31], np.int32)[:s]
+    table[2] = 0  # inactive slot: table at scratch
+    return (jq, jk, jv, jnp.asarray(table), jnp.asarray(lens)), (
+        tq, tk, tv, torch.from_numpy(table), torch.from_numpy(lens)
+    )
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_paged_decode_plain_matches_pallas(dtype, tol):
+    j_args, t_args = _paged_inputs(np.random.default_rng(11), dtype)
+    j_out = jax_paged_decode(*j_args, interpret=True)
+    before = _build.LAUNCHES["paged_decode"]
+    t_out = paged_decode_attention(*t_args)
+    assert _build.LAUNCHES["paged_decode"] == before  # CPU: the plain version, no launch
+    live = [0, 1, 3]  # slot 2 is inactive: garbage by contract, on both sides
+    np.testing.assert_allclose(_np(t_out)[live], _np(j_out)[live], atol=tol, rtol=tol)
+
+
+def test_paged_decode_plain_is_dense_attention_over_the_span():
+    """The plain version equals the einsum reference on each slot's gathered
+    tokens 0..q_pos (independent of the page table's indirection)."""
+    _j, (q, kp, vp, table, lens) = _paged_inputs(np.random.default_rng(12), "float32")
+    out = paged_decode_attention_ref(q, kp, vp, table, lens)
+    page = kp.shape[1]
+    for s in (0, 1, 3):
+        n = int(lens[s]) + 1
+        pos = torch.arange(n)
+        keys = kp[table[s].long()[pos // page], pos % page]  # [n, n_kv, hd]
+        vals = vp[table[s].long()[pos // page], pos % page]
+        logits = torch.einsum("krd,nkd->krn", q[s], keys) / math.sqrt(q.shape[-1])
+        want = torch.einsum("krn,nkd->krd", torch.softmax(logits, -1), vals)
+        np.testing.assert_allclose(out[s].numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+# -- the CUDA kernels against their plain versions (on the card only) ------------
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_matches_plain(cuda_device):
+    _j, t_args = _paged_inputs(np.random.default_rng(13), "bfloat16", hd=128, n_rep=4, pps=4)
+    args = [t.to(cuda_device) for t in t_args]
+    out = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_ref(*args)
+    live = [0, 1, 3]
+    torch.testing.assert_close(out[live].float(), ref[live].float(), atol=2e-2, rtol=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        paged_decode_attention(args[0].float(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((1, 256, 4, 128), True), ((2, 128, 2, 64), False)])
+def test_flash_fwd_kernel_matches_plain(cuda_device, shape, causal):
+    rng = np.random.default_rng(14)
+    q, k, v = (_pair(rng, shape, "bfloat16")[1].to(cuda_device) for _ in range(3))
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_fwd_ref(q, k, v, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=5e-2, rtol=5e-2)
