@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as a release check
     python3 chip_smoke.py --phases device,build,kernels --out chiprun_out/smoke.json
+    python3 chip_smoke.py --phases device,build,kernels,train
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -10,8 +11,8 @@ result line):
 1. device   — the card's name and power limit (nvidia-smi), TF32 off.
 2. build    — compile every CUDA kernel of the port from `modal_tpu_torch/csrc`
               (one nvcc per source, all started together).
-3. kernels  — each kernel against its plain PyTorch version at the serving
-              path's shapes (bf16), then timed beside the plain version, the
+3. kernels  — each kernel against its plain PyTorch version at its path's
+              shapes (bf16), then timed beside the plain version, the
               card's bound for the same work, and one PyTorch library call
               computing the same function (a yardstick only: the port never
               calls it).
@@ -27,6 +28,16 @@ result line):
               kernel launches once per layer; its logits are compared with a
               forward through the plain einsum attention and one through fp32
               attention.
+7. train    — the serving state is released first. Gradient parity: the
+              grads of `loss_fn` on llama3-8b at full width and 2 layers
+              ([1, 2048] tokens) through the kernels, through the einsum
+              attention and through fp32 attention; the kernel path must be
+              at least as close to the fp32 grads as the einsum path (global
+              relative L2). Then `train_demo("llama3-8b", steps=4)`, the
+              full model on one card: finite loss and grad norm, params that
+              move once the lr is above 0, and per step exactly 2 x 32
+              forward launches (remat runs each layer's forward again in the
+              backward) and 32 launches of each backward kernel.
 
 Parity at depth: with random weights a single bf16 rounding inside
 attention moves llama3-8b's logits by a few 1e-2 (max over the 128256-entry
@@ -44,13 +55,15 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "parity", "forward")
+PHASES = ("device", "build", "kernels", "serve", "parity", "forward", "train")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -213,7 +226,82 @@ def phase_kernels(torch, ctx: dict) -> None:
     log(f"[kernels] flash_fwd kernel_ms={k1['ms']:.4f} plain_ms={k1['plain_ms']:.4f} "
         f"bound_ms={k1['bound_ms']:.4f} library_ms={k1['library_ms']:.4f} "
         f"(B1 S2048 H32 D128 causal, {flops / 1e9:.1f} GFLOP)")
+    del qt, kt, vt
+    _flash_bwd_kernels(torch, gen, qkv, results)
     _build.reset_launches()  # comparison launches do not count toward any path
+
+
+def _flash_bwd_kernels(torch, gen, qkv, results: dict) -> None:
+    """K2 and K3 against the plain backward at the training path's shape
+    (B1 S2048 H32 D128 causal) and two more, bar max|kernel − plain| < 0.35
+    on dQ, dK and dV (the JAX package's bf16 backward bar, bench.py:193-195),
+    then timed at the training shape."""
+    from modal_tpu_torch.ops.attention import (
+        flash_attention_bwd_ref,
+        flash_attention_delta,
+        flash_attention_fwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    F = torch.nn.functional
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for (b, sq, h, d, causal) in ((1, 2048, 32, 128, True), (2, 256, 4, 64, False), (1, 384, 2, 128, True)):
+        q, k, v = qkv(b, sq, h, d)
+        do = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        delta = flash_attention_delta(out, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        ref = flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+        errs = {}
+        for name, g, r in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+            diff = g.float() - r
+            errs[name] = (diff.abs().max().item(), (diff.norm() / r.norm()).item())
+        log(f"[kernels] flash_bwd B{b} S{sq} H{h} D{d} causal={causal}: "
+            + ", ".join(f"{n} max|err| {e[0]:.3e} rel L2 {e[1]:.3e}" for n, e in errs.items())
+            + " (bar max|err| < 0.35)")
+        if not all(e[0] < 0.35 for e in errs.values()):
+            raise AssertionError(f"flash backward disagrees with its plain version at {(b, sq, h, d, causal)}")
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"][0])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"][0], errs["dv"][0])
+        del ref
+    q, k, v = qkv(1, 2048, 32, 128)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    delta = flash_attention_delta(out, do)
+    b, sq, h, d = q.shape
+    matmul_flops = 2 * b * h * d * (sq * (sq + 1) // 2)  # one product over the causal triangle
+    tile = q.numel() * 2
+    stats = 2 * b * h * sq * 4  # lse and delta
+    plain_ms = time_ms(torch, lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, True), 3)
+    # library yardstick: SDPA's backward through autograd, one call for dQ,
+    # dK and dV together, so both rows carry the same time
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    o_sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_sd = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(
+        torch, lambda: torch.autograd.grad(o_sd, (qt, kt, vt), do_sd, retain_graph=True), 20
+    )
+    for name, fn, n_mm, io_bytes in (
+        ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, do, lse, delta, True), 3, 5 * tile + stats),
+        ("flash_bwd_dkv", lambda: flash_bwd_dkv(q, k, v, do, lse, delta, True), 4, 6 * tile + stats),
+    ):
+        flops = n_mm * matmul_flops
+        results[name] = {
+            "ms": time_ms(torch, fn, 20),
+            "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": max(flops / BF16_FLOPS, io_bytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if flops / BF16_FLOPS >= io_bytes / HBM_BYTES_PER_S else "bytes",
+            "max_abs_err": worst[name],
+        }
+        m = results[name]
+        log(f"[kernels] {name} kernel_ms={m['ms']:.4f} "
+            f"plain_ms={m['plain_ms']:.4f} (whole plain backward) bound_ms={m['bound_ms']:.4f} "
+            f"library_ms={m['library_ms']:.4f} (SDPA backward, dQ+dK+dV) "
+            f"(B1 S2048 H32 D128 causal, {flops / 1e9:.1f} GFLOP)")
 
 
 def _load_8b(torch, ctx: dict):
@@ -446,10 +534,166 @@ def phase_forward(torch, ctx: dict) -> None:
     _check_faithful("forward", g, 5e-2)
 
 
+def _release_serving_state(torch, ctx: dict) -> None:
+    """Drop the 8B serving weights (and everything else the earlier phases
+    left on the card) before the trainer builds its ~64 GB of state."""
+    import gc
+
+    ctx.pop("params", None)
+    ctx.pop("cfg", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    log(f"[train] released earlier phases: {left / 1e6:.1f} MB still allocated")
+    if left > 256e6:
+        raise AssertionError(f"{left / 1e9:.2f} GB still allocated before training")
+
+
+def _grad_parity(torch) -> dict:
+    """Grads of loss_fn on llama3-8b at full width, 2 layers, [1, 2048]
+    tokens: through the kernels, through the einsum attention and through
+    fp32 attention. Returns the global relative L2 error of each path's
+    grads against the fp32 grads, and the tensor where it is largest."""
+    import gc
+
+    from modal_tpu_torch.models.convert import unstack_layers
+    from modal_tpu_torch.models.llama import attention, get_config, init_params
+    from modal_tpu_torch.parallel.train import loss_fn
+
+    cfg = get_config("llama3-8b", n_layers=2)
+    params = unstack_layers(init_params(cfg, seed=0, device="cuda"))
+    named = [(k, params[k]) for k in ("embed", "final_norm", "lm_head")] + [
+        (f"layers[{i}].{k}", t) for i, layer in enumerate(params["layers"]) for k, t in layer.items()
+    ]
+    names = [n for n, _ in named]
+    leaves = [t for _, t in named]
+    for p in leaves:
+        p.requires_grad_(True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+
+    def fp32_attention(q, k, v, mask):
+        return attention(q.float(), k.float(), v.float(), mask).to(q.dtype)
+
+    paths = {
+        "kernel": None,  # the default attn_impl: flash_attention → FlashAttentionCausal
+        "einsum": attention,
+        "fp32": fp32_attention,
+    }
+    grads, losses = {}, {}
+    for name, impl in paths.items():
+        for p in leaves:
+            p.grad = None
+        loss = loss_fn(params, cfg, tokens, False, impl)
+        loss.backward()
+        losses[name] = loss.item()
+        grads[name] = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    ref = grads.pop("fp32")
+    ref_sq = [torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in ref]
+    out = {"loss": losses}
+    for name, gs in grads.items():
+        diff_sq = [torch.linalg.vector_norm(g.float() - r.float()).square() for g, r in zip(gs, ref)]
+        per = [(d / r).sqrt().item() for d, r in zip(diff_sq, ref_sq)]
+        worst = max(range(len(per)), key=per.__getitem__)
+        out[name] = {
+            "global_rel_l2": (torch.stack(diff_sq).sum() / torch.stack(ref_sq).sum()).sqrt().item(),
+            "worst_tensor": names[worst], "worst_rel_l2": per[worst],
+        }
+    del grads, ref, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, ctx: dict) -> None:
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.observability.catalog import STEP_SECONDS
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.parallel.train import train_demo
+
+    _release_serving_state(torch, ctx)
+    t0 = time.perf_counter()
+    parity = _grad_parity(torch)
+    k, e = parity["kernel"], parity["einsum"]
+    log(f"[train] grad parity, llama3-8b 2 layers [1, 2048], vs fp32 attention (global rel L2): "
+        f"kernel {k['global_rel_l2']:.4e} (worst {k['worst_tensor']} "
+        f"{k['worst_rel_l2']:.4e}); einsum {e['global_rel_l2']:.4e} "
+        f"(worst {e['worst_tensor']} {e['worst_rel_l2']:.4e}); losses {parity['loss']} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    if not k["global_rel_l2"] <= e["global_rel_l2"]:
+        raise AssertionError("train: the kernel path's grads are farther from fp32 attention than the einsum path's")
+
+    cfg = get_config("llama3-8b")
+    steps, seq_len = 4, 2048
+    per_step: list[dict] = []
+
+    def on_step(state, metrics):
+        per_step.append({
+            "step": metrics["step"], "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "launches": dict(_build.LAUNCHES), "step_s_total": STEP_SECONDS.totals(kind="train")[0],
+            "wq0": state.params["layers"][0]["wq"].detach().clone(),
+        })
+
+    torch.cuda.reset_peak_memory_stats()
+    base_s = STEP_SECONDS.totals(kind="train")[0]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    final = train_demo("llama3-8b", steps=steps, per_device_batch=1, seq_len=seq_len, on_step=on_step)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.LAUNCHES)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    prev_launches, prev_s = {n: 0 for n in want}, base_s
+    step_s = []
+    for i, rec in enumerate(per_step):
+        got = {n: rec["launches"][n] - prev_launches[n] for n in want}
+        if got != want:
+            raise AssertionError(f"train step {i + 1} launched {got}, want {want}")
+        if not (math.isfinite(rec["loss"]) and rec["loss"] > 0 and math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0):
+            raise AssertionError(f"train step {i + 1}: loss {rec['loss']}, grad norm {rec['grad_norm']}")
+        prev_launches = rec["launches"]
+        step_s.append(rec["step_s_total"] - prev_s)
+        prev_s = rec["step_s_total"]
+    # the first update runs at lr = schedule(0) = 0; every later one moves the params
+    moved = [not torch.equal(a["wq0"], b["wq0"]) for a, b in zip(per_step, per_step[1:])]
+    if not all(moved):
+        raise AssertionError(f"train: layer 0 wq unchanged by an update with lr > 0 ({moved})")
+    # the median of the steps after the first: one slow step on a shared host
+    # should not set the steady time
+    steady = statistics.median(step_s[1:])
+    tokens = seq_len  # B 1
+    attn_flops = 2 * 2 * cfg.n_heads * cfg.head_dim * (seq_len * (seq_len + 1) // 2) * cfg.n_layers
+    step_flops = 6 * (cfg.param_count() - cfg.vocab_size * cfg.dim) * tokens + 3 * attn_flops
+    path_launches = ctx.setdefault("launches", {})
+    for n in want:  # flash_fwd also ran on the forward phase's path
+        path_launches[n] = path_launches.get(n, 0) + launches[n]
+    ctx["train"] = {
+        "grad_parity": parity, "steps": steps, "seq_len": seq_len, "final": final, "wall_s": wall,
+        "step_s": step_s, "steady_step_ms": steady * 1e3, "tokens_per_s": tokens / steady,
+        "step_flops": step_flops, "flops_bound_ms": step_flops / BF16_FLOPS * 1e3,
+        "mfu": step_flops / steady / BF16_FLOPS, "peak_memory_bytes": peak,
+        "losses": [r["loss"] for r in per_step], "grad_norms": [r["grad_norm"] for r in per_step],
+        "launches": launches,
+    }
+    log(f"[train] train_demo llama3-8b 4 steps [1, 2048] in {wall:.1f}s: step s {[round(x, 4) for x in step_s]}, "
+        f"steady (median of steps 2-{steps}) {steady * 1e3:.1f} ms, {tokens / steady:.1f} tokens/s, MFU {ctx['train']['mfu']:.4f} "
+        f"({step_flops / 1e12:.1f} TFLOP/step, bound {step_flops / BF16_FLOPS * 1e3:.1f} ms), "
+        f"peak {peak / 1e9:.2f} GB, losses {ctx['train']['losses']}, grad norms "
+        f"{ctx['train']['grad_norms']}, launches {launches}")
+
+
 KERNELS = {
     "paged_decode": ("modal_tpu_torch/csrc/paged_decode.cu", "modal_tpu/ops/paged_attention.py:42"),
     "flash_fwd": ("modal_tpu_torch/csrc/flash_fwd.cu", "modal_tpu/ops/attention.py:50"),
+    "flash_bwd_dq": ("modal_tpu_torch/csrc/flash_bwd_dq.cu", "modal_tpu/ops/attention.py:106"),
+    "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
+# the phases whose run each kernel's launch count is read from
+PATHS = {"paged_decode": ("serve",), "flash_fwd": ("forward", "train"),
+         "flash_bwd_dq": ("train",), "flash_bwd_dkv": ("train",)}
 
 
 def main() -> int:
@@ -462,6 +706,9 @@ def main() -> int:
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
+    # the trainer holds ~64 GB of state on an 80 GB card: grow segments
+    # instead of caching fixed blocks, so freed blocks of one size serve others
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -489,11 +736,9 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
-    if "serve" in phases or "forward" in phases:
-        for row in rows:
-            if (row["name"] == "paged_decode" and "serve" in phases or
-                    row["name"] == "flash_fwd" and "forward" in phases) and row["launches"] == 0:
-                raise AssertionError(f"{row['name']} was never launched on its path")
+    for row in rows:
+        if set(PATHS[row["name"]]) & set(phases) and row["launches"] == 0:
+            raise AssertionError(f"{row['name']} was never launched on its path")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

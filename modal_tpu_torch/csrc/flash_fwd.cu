@@ -32,10 +32,13 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+using flash::load_tile;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
@@ -72,21 +75,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// rows [row0, row0 + rows) of a [S, D] slice with row stride `ss` into a
-// shared tile of pitch `ld`; rows past `limit` are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src, long long ss,
-                                          int row0, int rows, int limit) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CPR; c += NTHREADS) {
-    const int r = c / CPR;
-    const int col = (c % CPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + col);
-    *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -115,7 +103,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vg = v + b * v_sb + h * v_sh;
   bf16* og = out + b * o_sb + h * o_sh;
 
-  load_tile<D>(Qs, L::LDQ, qg, q_ss, q0, BQ, Sq);
+  load_tile<D, NTHREADS>(Qs, L::LDQ, qg, q_ss, q0, BQ, Sq);
   for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) Os[i] = 0.f;
   if (threadIdx.x < BQ) {
     m_s[threadIdx.x] = NEG;
@@ -128,8 +116,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();  // previous tile's readers are done (and Q/O init is visible)
-    load_tile<D>(Ks, L::LDQ, kg, k_ss, k0, BK, Sk);
-    load_tile<D>(Vs, L::LDQ, vg, v_ss, k0, BK, Sk);
+    load_tile<D, NTHREADS>(Ks, L::LDQ, kg, k_ss, k0, BK, Sk);
+    load_tile<D, NTHREADS>(Vs, L::LDQ, vg, v_ss, k0, BK, Sk);
     __syncthreads();
 
     // S = Q Kᵀ for this warp's 16 rows

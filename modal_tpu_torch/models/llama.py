@@ -4,6 +4,9 @@ Parameters are a plain dict with the JAX package's key names: layer tensors
 are stacked `[n_layers, ...]` and weights keep JAX's `[in, out]` layout
 (`x @ w`), so a converted JAX tree (models/convert.py) drops straight in.
 The JAX `lax.scan` over layers is a Python loop over the stacked index.
+Training holds the layers instead as a list of per-layer dicts
+(`convert.unstack_layers`): under autograd, the backward of each index into
+a stacked tensor would build a zero tensor of the whole stack.
 
 bf16 rounding happens where the JAX reference rounds (parity depends on it):
 `rms_norm` casts to `x.dtype` before the gain multiply, `apply_rope` runs in
@@ -19,6 +22,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import resolve_device
 from .quant import is_quantized, qembed, qmm
@@ -154,8 +158,12 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> dict:
     }
 
 
-def layer_params(layers: dict, i: int) -> dict:
-    """Layer `i`'s slice of the stacked layer tree (views, no copy)."""
+def layer_params(layers: dict | list, i: int) -> dict:
+    """Layer `i`'s parameters: its slice of the stacked layer tree (views, no
+    copy), or entry `i` of the training layout, a list of per-layer dicts
+    (`convert.unstack_layers`)."""
+    if isinstance(layers, list):
+        return layers[i]
     return {
         k: ({"q": v["q"][i], "s": v["s"][i]} if is_quantized(v) else v[i])
         for k, v in layers.items()
@@ -291,7 +299,6 @@ def _layer_forward(
     return x + swiglu(h, layer, x.dtype)
 
 
-@torch.no_grad()
 def forward(
     params: dict,
     cfg: LlamaConfig,
@@ -299,17 +306,19 @@ def forward(
     positions: Optional[torch.Tensor] = None,  # [B, S]
     cache: Optional[KVCache] = None,
     attn_impl: Optional[Callable] = None,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """Full forward pass. Without cache: causal prefill forward, attention
-    through `ops.attention.flash_attention` (the CUDA kernel for
+    """Full forward pass. Without cache: causal training/prefill forward,
+    attention through `ops.attention.flash_attention` (the CUDA kernels for
     block-aligned bf16 sequences on the card, the einsum elsewhere). With
     cache: writes K/V at cache.length in place and attends over the cache.
-    Returns (logits fp32 [B, S, V], cache with its length advanced)."""
-    logits, new_cache, _ = forward_with_aux(params, cfg, tokens, positions, cache, attn_impl)
+    Returns (logits fp32 [B, S, V], cache with its length advanced).
+    Autograd records the graph when grad mode is on and the params require
+    grad; the serving callers run under `torch.no_grad()`."""
+    logits, new_cache, _ = forward_with_aux(params, cfg, tokens, positions, cache, attn_impl, remat)
     return logits, new_cache
 
 
-@torch.no_grad()
 def forward_with_aux(
     params: dict,
     cfg: LlamaConfig,
@@ -317,8 +326,13 @@ def forward_with_aux(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[KVCache] = None,
     attn_impl: Optional[Callable] = None,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, Optional[KVCache], torch.Tensor]:
-    """`forward` plus the mean MoE aux loss (always 0.0: dense only)."""
+    """`forward` plus the mean MoE aux loss (always 0.0: dense only).
+    `remat` checkpoints each layer of the cache-less path (non-reentrant
+    `torch.utils.checkpoint`, as JAX's `jax.checkpoint` of the scan body,
+    llama.py:363-368): the backward recomputes one layer at a time from the
+    inter-layer activations."""
     _reject_moe(cfg)
     b, s = tokens.shape
     dev = tokens.device
@@ -334,10 +348,15 @@ def forward_with_aux(
             from ..ops.attention import flash_attention
 
             attn_impl = flash_attention
+
+        def layer_fn(x: torch.Tensor, layer: dict) -> torch.Tensor:
+            return _layer_forward(cfg, x, layer, positions, None, inv_freq, None, 0, attn_impl)
+
         for i in range(cfg.n_layers):
-            x = _layer_forward(
-                cfg, x, layer_params(layers, i), positions, None, inv_freq, None, 0, attn_impl
-            )
+            if remat:
+                x = checkpoint(layer_fn, x, layer_params(layers, i), use_reentrant=False)
+            else:
+                x = layer_fn(x, layer_params(layers, i))
         new_cache = None
     else:
         offset = cache.length
@@ -355,3 +374,19 @@ def forward_with_aux(
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = qmm(x, params["lm_head"]).float()
     return logits, new_cache, torch.zeros((), dtype=torch.float32, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Loss (training)
+# ---------------------------------------------------------------------------
+
+
+def causal_lm_loss(
+    params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_impl: Optional[Callable] = None
+) -> torch.Tensor:
+    """Next-token cross-entropy, mean over all positions (llama.py:403).
+    It forwards `tokens[:, :-1]`; the training step uses
+    `parallel.train.loss_fn`, which forwards the full sequence."""
+    logits, _ = forward(params, cfg, tokens[:, :-1], attn_impl=attn_impl)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, tokens[:, 1:, None]).squeeze(-1).mean()

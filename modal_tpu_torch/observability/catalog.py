@@ -1,4 +1,5 @@
-"""The serving metric families the engine and its ASGI app emit.
+"""The metric families the port emits: serving (the engine and its ASGI
+app) and device telemetry (step times, device memory).
 
 Names and help texts are those of the JAX package's catalog, so a scrape of
 either implementation reads the same way. Importing this module registers
@@ -77,4 +78,19 @@ KV_PAGES_COW = REGISTRY.counter(
 SERVING_SAMPLED_TOKENS = REGISTRY.counter(
     "modal_tpu_serving_sampled_tokens_total",
     "Tokens emitted via temperature/top-k/top-p sampling (temperature > 0).",
+)
+
+# -- device telemetry (observability/device_telemetry.py) ----------------------
+
+DEVICE_MEMORY_BYTES = REGISTRY.gauge(
+    "modal_tpu_device_memory_bytes",
+    "Live per-device memory from torch.cuda.memory_stats() (bytes_in_use | "
+    "bytes_limit | peak_bytes_in_use); the CPU falls back to host RSS.",
+    ("device", "kind"),
+)
+STEP_SECONDS = REGISTRY.histogram(
+    "modal_tpu_step_seconds",
+    "Train/decode step wall time (post-compile steady state), by loop kind.",
+    ("kind",),
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 15, 60),
 )

@@ -96,6 +96,12 @@ class Histogram(_Metric):
             if exemplar:
                 series.exemplars[idx] = (str(exemplar), float(value), time.time())
 
+    def totals(self, **labels: str) -> tuple[float, int]:
+        """(sum, count) of the observations in one series; (0.0, 0) if none."""
+        with self._lock:
+            series = self._series.get(tuple(str(labels[n]) for n in self.labelnames))
+            return (series.sum, series.count) if series is not None else (0.0, 0)
+
 
 class MetricsRegistry:
     """Homes every metric family; definition is idempotent by name."""

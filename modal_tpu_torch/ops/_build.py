@@ -3,7 +3,8 @@
 Each `.cu` file is compiled by its own `nvcc` into a shared library with a
 plain C interface (no PyTorch headers: seconds, not minutes), loaded with
 `ctypes`. Libraries land in `modal_tpu_torch/_build/` under a name that
-hashes the source and flags, so an edited source never loads a stale build;
+hashes the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source never loads a stale build;
 a finished build is moved into place atomically, so concurrent processes
 can race on the same target safely. Nothing here falls back: no `nvcc`, a
 failed compile or a failed load raises.
@@ -32,7 +33,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu"}
+SOURCES = {
+    "paged_decode": "paged_decode.cu",
+    "flash_fwd": "flash_fwd.cu",
+    "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_bwd_dkv": "flash_bwd_dkv.cu",
+}
 
 LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -59,9 +65,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """The build's path, named by a hash of the source, the shared headers
+    (`csrc/*.cuh`) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> dict[str, dict]:

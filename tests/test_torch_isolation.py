@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither `jax` nor the JAX
-package, serves without them, and its entry points default to CUDA."""
+"""The PyTorch port stands alone: it imports neither `jax`, `optax` nor the
+JAX package, serves and trains without them, and its entry points default
+to CUDA."""
 
 import ast
 import os
@@ -47,7 +48,7 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
     script = textwrap.dedent(
         """
         import sys
-        for name in ("jax", "jaxlib", "modal_tpu"):
+        for name in ("jax", "jaxlib", "modal_tpu", "optax"):
             sys.modules[name] = None  # any import of them raises ImportError
         import modal_tpu_torch
         from modal_tpu_torch.models.llama import get_config, init_params
@@ -62,9 +63,16 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
         finally:
             engine.stop()
         assert [len(o) for o in outs] == [5, 5], outs
-        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu") and sys.modules[m] is not None)
-        assert not leaked, leaked
         print("served", outs)
+
+        from modal_tpu_torch.parallel.train import TrainConfig, create_state
+        import torch
+        state, train_step = create_state(get_config("tiny"), TrainConfig(), seed=0, device="cpu")
+        state, metrics = train_step(state, torch.randint(0, 512, (1, 128)))
+        assert metrics["step"] == 1 and float(metrics["loss"]) > 0, metrics
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu", "optax") and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("trained", float(metrics["loss"]))
         """
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
@@ -73,7 +81,7 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
         [sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=240
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "served" in proc.stdout
+    assert "served" in proc.stdout and "trained" in proc.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -82,11 +90,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from modal_tpu_torch import resolve_device
     from modal_tpu_torch.models.llama import KVCache, get_config, init_params
     from modal_tpu_torch.models.paged_kv import PagedKVCache
+    from modal_tpu_torch.parallel.train import train_demo
     from modal_tpu_torch.serving import ServingEngine
 
     cfg = get_config("debug-1l")
     for call in (
         lambda: resolve_device(),
+        lambda: train_demo("debug-1l"),
         lambda: init_params(cfg),
         lambda: KVCache.create(cfg, 1, 8),
         lambda: PagedKVCache.create(cfg, 2, 4),

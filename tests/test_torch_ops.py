@@ -13,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from modal_tpu.ops.attention import _flash_forward
+from modal_tpu.ops.attention import _flash_backward, _flash_forward
 from modal_tpu.ops.paged_attention import paged_decode_attention as jax_paged_decode
 from modal_tpu_torch.models import llama as tllama
 from modal_tpu_torch.ops import _build
 from modal_tpu_torch.ops.attention import (
+    FlashAttentionCausal,
     flash_attention,
+    flash_attention_backward,
+    flash_attention_bwd_ref,
+    flash_attention_causal,
     flash_attention_fwd,
     flash_attention_fwd_ref,
     flash_attention_kernel,
@@ -96,6 +100,73 @@ def test_flash_dispatch_on_cpu_is_the_einsum_reference():
     assert _build.LAUNCHES == before  # the CPU path launches nothing
 
 
+# -- flash backward ------------------------------------------------------------
+
+
+def _bwd_inputs(shape, causal, dtype, block_q, block_k, seed):
+    """q, k, v, dO and the Pallas forward's (out, lse), as JAX arrays and
+    torch tensors holding the same values."""
+    rng = np.random.default_rng(seed)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (_pair(rng, shape, dtype) for _ in range(4))
+    j_out, j_lse = _flash_forward(jq, jk, jv, causal, block_q, block_k, interpret=True)
+    t_out = torch.from_numpy(np.array(_np(j_out))).to(tq.dtype)
+    t_lse = torch.from_numpy(np.array(_np(j_lse)))
+    return (jq, jk, jv, j_out, j_lse, jdo), (tq, tk, tv, t_out, t_lse, tdo)
+
+
+@pytest.mark.parametrize(
+    "shape,causal,dtype,block_q,block_k,tol",
+    [
+        # tests/test_ops.py:53-95's shapes and tolerances
+        ((2, 256, 2, 64), True, "float32", 128, 128, 2e-3),
+        ((1, 128, 4, 32), True, "float32", 128, 128, 2e-3),
+        ((1, 128, 2, 64), True, "bfloat16", 128, 128, 1e-1),
+        ((1, 256, 2, 64), False, "float32", 128, 128, 2e-3),
+        # partial diagonal: block_k > block_q
+        ((1, 256, 2, 32), True, "float32", 64, 128, 2e-3),
+    ],
+)
+def test_flash_bwd_plain_matches_pallas(shape, causal, dtype, block_q, block_k, tol):
+    j_args, t_args = _bwd_inputs(shape, causal, dtype, block_q, block_k, seed=sum(shape) + block_q)
+    j_grads = _flash_backward(*j_args, causal, block_q, block_k, interpret=True)
+    ref = flash_attention_bwd_ref(*t_args, causal)
+    before = dict(_build.LAUNCHES)
+    wrapped = flash_attention_backward(*t_args, causal, block_q, block_k)
+    assert _build.LAUNCHES == before  # the CPU path launches nothing
+    for name, jg, rg, wg in zip(("dq", "dk", "dv"), j_grads, ref, wrapped):
+        assert rg.dtype == torch.float32 and wg.dtype == t_args[0].dtype and tuple(wg.shape) == shape
+        np.testing.assert_allclose(_np(rg), _np(jg), atol=tol, rtol=tol, err_msg=name)
+        np.testing.assert_array_equal(_np(wg), _np(rg.to(wg.dtype)), err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 2, 64), (1, 128, 4, 32)])
+def test_flash_causal_function_grads_match_autograd(shape):
+    """FlashAttentionCausal's explicit backward against torch autograd
+    through the einsum attention (fp32), as tests/test_ops.py:54 holds the
+    Pallas backward against JAX's autodiff."""
+    rng = np.random.default_rng(3)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for _ in range(4))
+    grads = []
+    for fn in (lambda q, k, v: flash_attention_causal(q, k, v, 128, 128), lambda q, k, v: tllama.attention(q, k, v)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for name, gf, gr in zip("qkv", *grads):
+        np.testing.assert_allclose(gf.numpy(), gr.numpy(), atol=2e-4, rtol=2e-4, err_msg=f"d{name}")
+
+
+def test_flash_causal_function_forward_and_errors():
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 128, 2, 32)).astype(np.float32)) for _ in range(3))
+    out = FlashAttentionCausal.apply(q, k, v, 128, 128)
+    np.testing.assert_array_equal(out.numpy(), flash_attention_fwd(q, k, v, True)[0].numpy())
+    with torch.no_grad():  # the serving callers: no graph, same values
+        np.testing.assert_array_equal(flash_attention_causal(q, k, v).numpy(), out.numpy())
+    q192 = torch.zeros((1, 192, 2, 32))
+    with pytest.raises(ValueError, match="divide"):
+        flash_attention_backward(q192, q192, q192, q192, torch.zeros((1, 2, 192, 1)), q192)
+
+
 # -- paged decode ----------------------------------------------------------------
 
 
@@ -165,3 +236,45 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, shape, causal):
     ref, ref_lse = flash_attention_fwd_ref(q, k, v, causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(lse, ref_lse, atol=5e-2, rtol=5e-2)
+
+
+def _cuda_bwd_case(device, shape, causal, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (_pair(rng, shape, "bfloat16")[1].to(device) for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,causal", [((1, 256, 4, 128), True), ((2, 128, 2, 64), False), ((1, 384, 2, 32), True)]
+)
+def test_flash_bwd_kernels_match_plain(cuda_device, shape, causal):
+    """K2 and K3 against the plain backward on the same inputs, at the JAX
+    package's bf16 backward bar (bench.py:193-195)."""
+    args = _cuda_bwd_case(cuda_device, shape, causal, seed=15)
+    before = dict(_build.LAUNCHES)
+    grads = flash_attention_backward(*args, causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert _build.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    ref = flash_attention_bwd_ref(*args, causal)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == torch.bfloat16
+        err = (g.float() - r).abs().max().item()
+        assert err < 0.35, (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_causal_function_launches_k1_k2_k3(cuda_device):
+    q, k, v, _out, _lse, do = _cuda_bwd_case(cuda_device, (1, 256, 4, 64), True, seed=16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(_build.LAUNCHES)
+    out = flash_attention(*leaves, None)
+    # a non-contiguous gradient: the wrapper makes dO contiguous
+    out.backward(do.transpose(1, 2).contiguous().transpose(1, 2))
+    torch.cuda.synchronize()
+    assert {n: _build.LAUNCHES[n] - before[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+    }
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in leaves)
