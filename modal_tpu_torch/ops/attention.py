@@ -9,8 +9,9 @@
   the port of `_flash_backward` (:275). delta = rowsum(dO∘O) is plain torch,
   as in JAX (:292-298); on CUDA it then launches `flash_bwd_dq`
   (`csrc/flash_bwd_dq.cu`, K2, `_flash_dq_kernel` :106) and `flash_bwd_dkv`
-  (`csrc/flash_bwd_dkv.cu`, K3, `_flash_dkv_kernel` :152); on the CPU it
-  runs `flash_attention_bwd_ref`.
+  (`csrc/flash_bwd_dkv.cu`, K3, `_flash_dkv_kernel` :152); on CPU tensors
+  each of those runs the plain version (`flash_attention_bwd_ref`'s
+  formulas from the same delta).
 - `FlashAttentionCausal` / `flash_attention_causal(q, k, v)`: the
   differentiable causal attention, counterpart of the `custom_vjp` at :351.
   It saves (q, k, v, out, lse) and its backward is the one above.
@@ -55,19 +56,22 @@ def _blocks(s: int, skv: int, block_q: int, block_k: int) -> tuple[int, int]:
     return block_q, block_k
 
 
-def _check_args(q, k, v, causal: bool, block_q: int, block_k: int) -> None:
+def _check_shapes(q, k, v, causal: bool) -> None:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError("flash attention takes q [B,S,H,D] and k, v [B,Skv,H,D]")
     b, s, h, d = q.shape
     if k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on B, H or D")
-    skv = k.shape[1]
-    if causal and s != skv:
+    if causal and s != k.shape[1]:
         raise ValueError(
-            f"causal flash attention requires Sq == Sk (got {s} != {skv}): the kernel "
+            f"causal flash attention requires Sq == Sk (got {s} != {k.shape[1]}): the kernel "
             "aligns q and k at position 0; cached/chunked calls need an explicit mask"
         )
-    _blocks(s, skv, block_q, block_k)
+
+
+def _check_args(q, k, v, causal: bool, block_q: int, block_k: int) -> None:
+    _check_shapes(q, k, v, causal)
+    _blocks(q.shape[1], k.shape[1], block_q, block_k)
 
 
 def flash_attention_fwd_ref(
@@ -97,6 +101,11 @@ def flash_attention_bwd_ref(
     """Plain version of the backward, the kernels' formulas in fp32 (not
     autograd): P = exp(s − lse), δ = rowsum(dO∘O), dS = P∘(dP − δ)·scale,
     dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO. Returns fp32 (dq, dk, dv)."""
+    return _bwd_plain(q, k, v, do, lse, flash_attention_delta(out, do), causal)
+
+
+def _bwd_plain(q, k, v, do, lse, delta, causal: bool):
+    """`flash_attention_bwd_ref` from the saved delta, as K2 and K3 take it."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
@@ -105,7 +114,7 @@ def flash_attention_bwd_ref(
         s = s.masked_fill(~keep, float("-inf"))
     p = torch.exp(s - lse)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - flash_attention_delta(out, do)) * scale
+    ds = p * (dp - delta) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
@@ -187,19 +196,32 @@ def flash_attention_kernel(
     return flash_attention_fwd(q, k, v, causal, block_q, block_k)[0]
 
 
-def _check_bwd_operands(fn: str, q, k, v, do, lse, delta) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        _check_operand(fn, name, t, q.device)
+def _check_bwd_operands(fn: str, q, k, v, do, lse, delta, causal: bool) -> bool:
+    """The shapes K2 and K3 index by (q's B, S, H and D for k, v and dO);
+    True when the operands lie on the CPU and the plain version runs, False
+    on CUDA once they meet the kernels' layout rules."""
+    _check_shapes(q, k, v, causal)
+    if do.shape != q.shape:
+        raise ValueError(f"{fn}: do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
     b, s, h, _d = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s, 1) or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous fp32 [B, H, Sq, 1], got {tuple(t.shape)} {t.dtype}")
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_operand(fn, name, t, q.device)
+    return False
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
     """K2 on the card (`csrc/flash_bwd_dq.cu`): dQ [B, S, H, D] like q, from
-    the forward's lse and delta = rowsum(dO∘O), both [B, H, S, 1] fp32."""
-    _check_bwd_operands("flash_bwd_dq", q, k, v, do, lse, delta)
+    the forward's lse and delta = rowsum(dO∘O), both [B, H, S, 1] fp32. On
+    CPU tensors, the plain version."""
+    if _check_bwd_operands("flash_bwd_dq", q, k, v, do, lse, delta, causal):
+        return _bwd_plain(q, k, v, do, lse, delta, causal)[0].to(q.dtype)
     b, s, h, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     launch = _build.entry(KERNEL_DQ, "flash_bwd_dq_bf16", _argtypes(7))
@@ -213,8 +235,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True) -> torch.Tensor:
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
-    """K3 on the card (`csrc/flash_bwd_dkv.cu`): (dK, dV) like k and v."""
-    _check_bwd_operands("flash_bwd_dkv", q, k, v, do, lse, delta)
+    """K3 on the card (`csrc/flash_bwd_dkv.cu`): (dK, dV) like k and v. On
+    CPU tensors, the plain version."""
+    if _check_bwd_operands("flash_bwd_dkv", q, k, v, do, lse, delta, causal):
+        _dq, dk, dv = _bwd_plain(q, k, v, do, lse, delta, causal)
+        return dk.to(k.dtype), dv.to(v.dtype)
     b, s, h, d = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -249,11 +274,6 @@ def flash_attention_backward(
     first: it arrives as a reshape of the output projection's gradient, and
     the kernels' tile loads need unit stride on D."""
     _check_args(q, k, v, causal, block_q, block_k)
-    if q.device.type == "cpu":
-        dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_backward: unsupported device {q.device}")
     do = do.contiguous()
     delta = flash_attention_delta(out, do)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
