@@ -16,7 +16,7 @@
 // (b, h) over the causal triangle, 2·h·d·S(S+1)/2 FLOP each; at S 2048,
 // D 128 that is ~750 FLOP per byte moved, above the ~295 FLOP/byte ridge.
 //
-// Design, simple first (K1's pieces, csrc/flash_common.cuh): one block of 4
+// Design, simple first (csrc/flash_common.cuh): one block of 4
 // warps per (64-row q tile, head, batch); Q and dO tiles stay in shared
 // memory, each 64-row K and V tile is staged with 16-byte loads straight
 // from the [B, S, H, D] layout through its strides. S = QKᵀ and dP = dO·Vᵀ

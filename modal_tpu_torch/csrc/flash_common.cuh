@@ -1,8 +1,8 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): 16-byte tile loads read straight from
-// the [B, S, H, D] layout through its strides, and the two WMMA products
-// (mma.sync 16x16x16 bf16, fp32 accumulate) that the backward kernels run
-// on tiles in shared memory, one warp per 16 rows.
+// The pieces of the dQ backward kernel (flash_bwd_dq.cu, K2), which keeps
+// its first, WMMA design; the forward and dK/dV kernels use hopper.cuh:
+// 16-byte tile loads read straight from the [B, S, H, D] layout through its
+// strides, and the two WMMA products (mma.sync 16x16x16 bf16, fp32
+// accumulate) that K2 runs on tiles in shared memory, one warp per 16 rows.
 
 #pragma once
 

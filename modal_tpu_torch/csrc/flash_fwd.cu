@@ -11,220 +11,266 @@
 // What bounds it on the H100: operations. At S 2048, D 128 a (b, h) pair
 // does ~4*S*S*D/2 FLOP on 4*S*D*2 bytes, ~500 FLOP per byte, above the
 // ~295 FLOP/byte ridge, so the bound is causal FLOPs / 989 TFLOP/s (bf16
-// tensor cores).
+// tensor cores). P·V runs twice (hi and lo halves of P, below), so the
+// tensor cores do 1.5x the bound's work.
 //
-// Design, simple first: one block of 4 warps per (64-row q block, head,
-// batch). Q, then each 64-row K and V tile, are staged in shared memory as
-// bf16 with 16-byte loads read straight from the [B, S, H, D] layout through
-// its strides (no transpose copy). Q·Kᵀ and P·V run on the tensor cores via
-// WMMA (mma.sync 16x16x16 bf16, fp32 accumulate); each warp owns 16 query
-// rows, so the online softmax (fp32 m and l per row) needs only warp syncs.
-// The fp32 output accumulator lives in shared memory and is rescaled there.
-// P enters P·V as two bf16 halves (hi + lo, two MMAs), so the product keeps
-// about 16 mantissa bits of the fp32 P instead of bf16's 8: at llama3-8b's
-// depth a single bf16 rounding of P moves the logits more than the plain
-// reference's own tolerance. l sums the fp32 P. wgmma, TMA and
-// register-resident accumulators are later work.
+// Design (FA3-shaped, csrc/hopper.cuh): one block of three warpgroups per
+// 128-row q tile. Warpgroup 0 is the producer: it gives its registers back
+// (setmaxnreg) and one thread streams the Q tile, then each 64-row K and V
+// tile, with TMA (128B swizzle; 64B at D 32) into a ring of NST stages
+// guarded by full/empty mbarriers. Warpgroups 1 and 2 are consumers, 64 q
+// rows each: S = Q·Kᵀ runs on wgmma from shared memory into fp32 registers;
+// the online softmax works on those registers, reducing each row over the 4
+// lanes that hold it (shuffles 1 and 2), masking only the diagonal tile and
+// a ragged last tile; P = exp(S − m) is converted to bf16 in place and fed
+// to O += P·V as wgmma's register A operand (the m64nN accumulator layout is
+// the next product's A fragment, so no data moves between threads); O stays
+// in registers for the whole loop and is rescaled there. P enters P·V as
+// two bf16 halves (hi + lo, two wgmmas on the same V descriptor), so the
+// product keeps about 16 mantissa bits of the fp32 P instead of bf16's 8:
+// at llama3-8b's depth a single bf16 rounding of P moves the logits more
+// than the plain reference's own tolerance. l sums the fp32 P. Blocks are
+// numbered heaviest q tile first, so the causal tail is short tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-#include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-using flash::load_tile;
+using namespace hopper;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
-constexpr float NEG = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int BQ = 128;  // q rows per block: two consumer warpgroups x 64
+constexpr int BK = 64;   // K/V rows per tile
+constexpr int NST = 4;   // K/V ring stages
+constexpr int NTHREADS = 384;
+constexpr int CONSUMERS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct Layout {
-  static constexpr int LDQ = D + 8;   // bf16 row pitch of Q, K, V tiles
-  static constexpr int LDS = BK + 4;  // fp32 row pitch of scores
-  static constexpr int LDP = BK + 8;  // bf16 row pitch of P
-  static constexpr int LDO = D + 4;   // fp32 row pitch of the output accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(bf16) * BQ * LDQ;
-  static constexpr size_t v_off = k_off + sizeof(bf16) * BK * LDQ;
-  static constexpr size_t s_off = v_off + sizeof(bf16) * BK * LDQ;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t o_off = p_off + sizeof(bf16) * BQ * LDP;
-  static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
-  static constexpr size_t l_off = m_off + sizeof(float) * BQ;
-  static constexpr size_t bytes = l_off + sizeof(float) * BQ;
+struct Smem {
+  static constexpr int Q_BYTES = Swz<D>::template tile_bytes<BQ>();
+  static constexpr int KV_BYTES = Swz<D>::template tile_bytes<BK>();
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + Q_BYTES;
+  static constexpr int v_off = k_off + NST * KV_BYTES;
+  static constexpr int bar_off = v_off + NST * KV_BYTES;
+  static constexpr int bytes = bar_off + (1 + 2 * NST) * 8 + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
+struct Params {
+  bf16* out;
+  float* lse;
+  int B, H, Sq, Sk, n_qb;
+  long long o_sb, o_ss, o_sh;
+  float scale;
+  int causal;
+};
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                 int H, int Sq, int Sk, long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                 long long v_sh, long long o_sb, long long o_ss, long long o_sh, float scale,
-                 int causal) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
   bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
   bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-  bf16* Pl = reinterpret_cast<bf16*>(smem + L::s_off);  // lo half of P, over the scores
-  float* Os = reinterpret_cast<float*>(smem + L::o_off);
-  float* m_s = reinterpret_cast<float*>(smem + L::m_off);
-  float* l_s = reinterpret_cast<float*>(smem + L::l_off);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + NST;
 
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // heaviest q tiles first under the causal mask: block i takes tile
+  // n_qb - 1 - i / (H·B)
+  const int heads = p.H * p.B;
+  const int tile = blockIdx.x / heads;
+  const int qb = p.causal ? p.n_qb - 1 - tile : tile;
+  const int h = (blockIdx.x % heads) % p.H, b = (blockIdx.x % heads) / p.H;
   const int q0 = qb * BQ;
-  const bf16* qg = q + b * q_sb + h * q_sh;
-  const bf16* kg = k + b * k_sb + h * k_sh;
-  const bf16* vg = v + b * v_sb + h * v_sh;
-  bf16* og = out + b * o_sb + h * o_sh;
+  int n_kb = (p.Sk + BK - 1) / BK;
+  if (p.causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);  // ceiling: include the diagonal
 
-  load_tile<D, NTHREADS>(Qs, L::LDQ, qg, q_ss, q0, BQ, Sq);
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) Os[i] = 0.f;
-  if (threadIdx.x < BQ) {
-    m_s[threadIdx.x] = NEG;
-    l_s[threadIdx.x] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  int n_kb = (Sk + BK - 1) / BK;
-  if (causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);  // ceiling: include the diagonal
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues every load
+    regs_dealloc<40>();
+    if (threadIdx.x == 0) {
+      prefetch_tensormap(&tq);
+      prefetch_tensormap(&tk);
+      prefetch_tensormap(&tv);
+      mbar_arrive_tx(q_bar, L::Q_BYTES);
+      tma_load_tile<D, BQ>(Qs, &tq, q_bar, q0, h, b);
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % NST;
+        if (kb >= NST) mbar_wait(&empty[s], ((kb / NST) - 1) & 1);
+        mbar_arrive_tx(&full[s], 2 * L::KV_BYTES);
+        tma_load_tile<D, BK>(Ks + s * (L::KV_BYTES / 2), &tk, &full[s], kb * BK, h, b);
+        tma_load_tile<D, BK>(Vs + s * (L::KV_BYTES / 2), &tv, &full[s], kb * BK, h, b);
+      }
+    }
+  } else {
+    regs_alloc<232>();
+    const int cw = wg - 1;          // consumer warpgroup: q rows [qw0, qw0 + 64)
+    const int t = threadIdx.x % 128;
+    const int row = (t / 32) * 16 + (t % 32) / 4;  // this thread's rows: row, row + 8
+    const int col2 = 2 * (t % 4);                  // and columns 8i + col2 + {0, 1}
+    const int qw0 = q0 + 64 * cw;
+    const float sl2 = p.scale * LOG2E;
 
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // previous tile's readers are done (and Q/O init is visible)
-    load_tile<D, NTHREADS>(Ks, L::LDQ, kg, k_ss, k0, BK, Sk);
-    load_tile<D, NTHREADS>(Vs, L::LDQ, vg, v_ss, k0, BK, Sk);
-    __syncthreads();
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    // S = Q Kᵀ for this warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BK / 16];
+    mbar_wait(q_bar, 0);
+    for (int kb = 0; kb < n_kb; ++kb) {
+      const int s = kb % NST;
+      const int k0 = kb * BK;
+      mbar_wait(&full[s], (kb / NST) & 1);
+      // a K tile past this warpgroup's last row is all masked: skip it
+      if (!(p.causal && k0 > qw0 + 63)) {
+        const uint32_t Qa = smem_addr(Qs), Kt = smem_addr(Ks) + s * L::KV_BYTES,
+                       Vt = smem_addr(Vs) + s * L::KV_BYTES;
+        float sc[BK / 2];
+        wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sacc[n], 0.f);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sc, desc_kmajor<D, BQ>(Qa, 64 * cw, kk), desc_kmajor<D, BK>(Kt, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        // the diagonal tile and a ragged last tile are masked; the others not
+        if ((p.causal && k0 + BK - 1 > qw0) || k0 + BK > p.Sk) {
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * L::LDQ + kk, L::LDQ);
+          for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          // Kᵀ as a col-major B operand: B[d][j] = K[j][d]
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, Ks + n * 16 * L::LDQ + kk, L::LDQ);
-          wmma::mma_sync(sacc[n], a, bk, sacc[n]);
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int kpos = k0 + 8 * i + col2 + c, qpos = qw0 + row + 8 * j;
+                if (kpos >= p.Sk || (p.causal && kpos > qpos)) sc[4 * i + 2 * j + c] = -INFINITY;
+              }
         }
-      }
+        float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(Ss + warp * 16 * L::LDS + n * 16, sacc[n], L::LDS,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) mx[j] = fmaxf(mx[j], fmaxf(sc[4 * i + 2 * j], sc[4 * i + 2 * j + 1]));
+        float msc[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+          mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+          const float m_new = fmaxf(m[j], mx[j]);
+          msc[j] = m_new == -INFINITY ? 0.f : m_new * sl2;  // a row masked so far stays at 0
+          corr[j] = exp2f(m[j] * sl2 - msc[j]);
+          m[j] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float pv = exp2f(fmaf(sc[4 * i + 2 * j + c], sl2, -msc[j]));
+              sc[4 * i + 2 * j + c] = pv;
+              rs[j] += pv;
+            }
+        // l stays a per-thread partial sum (its 16 columns); the 4 lanes
+        // of a row add theirs at the end
+#pragma unroll
+        for (int j = 0; j < 2; ++j) l[j] = l[j] * corr[j] + rs[j];
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            o[4 * i + 2 * j] *= corr[j];
+            o[4 * i + 2 * j + 1] *= corr[j];
+          }
 
-    // online softmax over this warp's rows; each lane owns 2 of the 64 columns
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = warp * 16 + rr;
-      const int qpos = q0 + row;
-      const int kp0 = k0 + lane, kp1 = k0 + lane + 32;
-      const bool ok0 = kp0 < Sk && (!causal || kp0 <= qpos);
-      const bool ok1 = kp1 < Sk && (!causal || kp1 <= qpos);
-      const float s0 = ok0 ? Ss[row * L::LDS + lane] * scale : NEG;
-      const float s1 = ok1 ? Ss[row * L::LDS + lane + 32] * scale : NEG;
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      const float psum = warp_sum(p0 + p1);
-      const float corr = expf(m_old - m_new);
-      // P = hi + lo, both bf16: P·V then keeps ~16 mantissa bits of P
-      // (the scores of this row were all read before warp_max, so the lo
-      // half may overwrite them in place)
-      const bf16 h0 = __float2bfloat16(p0), h1 = __float2bfloat16(p1);
-      Ps[row * L::LDP + lane] = h0;
-      Ps[row * L::LDP + lane + 32] = h1;
-      Pl[row * 2 * L::LDS + lane] = __float2bfloat16(p0 - __bfloat162float(h0));
-      Pl[row * 2 * L::LDS + lane + 32] = __float2bfloat16(p1 - __bfloat162float(h1));
-      for (int d = lane; d < D; d += 32) Os[row * L::LDO + d] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[row] = m_new;
-        l_s[row] = l_s[row] * corr + psum;
+        // P = hi + lo, both bf16, as register A fragments of O += P·V
+        uint32_t hi[BK / 16][4], lo[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t dv = desc_mnmajor<D, BK>(Vt, kk);
+          wgmma_rs<D>(o, hi[kk], dv, 1);
+          wgmma_rs<D>(o, lo[kk], dv, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // out = O / l in bf16 straight from registers; lse = m·scale + log l
+    bf16* og = p.out + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float lt = l[j];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float l_safe = lt == 0.f ? 1.f : lt;
+      const float inv = 1.f / l_safe;
+      const int qpos = qw0 + row + 8 * j;
+      if (qpos < p.Sq) {
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+          *reinterpret_cast<uint32_t*>(og + qpos * p.o_ss + 8 * i + col2) =
+              pack_bf16(o[4 * i + 2 * j] * inv, o[4 * i + 2 * j + 1] * inv);
+        if (t % 4 == 0) p.lse[((long long)b * p.H + h) * p.Sq + qpos] = m[j] * p.scale + logf(l_safe);
       }
     }
-    __syncwarp();
-
-    // O += P V for this warp's rows
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, Os + warp * 16 * L::LDO + n * 16, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a, a_lo;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * L::LDP + kk, L::LDP);
-        wmma::load_matrix_sync(a_lo, Pl + warp * 16 * 2 * L::LDS + kk, 2 * L::LDS);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, Vs + kk * L::LDQ + n * 16, L::LDQ);
-        wmma::mma_sync(o, a, bv, o);
-        wmma::mma_sync(o, a_lo, bv, o);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * L::LDO + n * 16, o, L::LDO, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = warp * 16 + rr;
-    const int qpos = q0 + row;
-    if (qpos >= Sq) break;
-    const float l = l_s[row];
-    const float l_safe = (l == 0.f) ? 1.f : l;
-    for (int d = lane; d < D; d += 32)
-      og[qpos * o_ss + d] = __float2bfloat16(Os[row * L::LDO + d] / l_safe);
-    if (lane == 0) lse[((long long)blockIdx.z * H + h) * Sq + qpos] = m_s[row] + logf(l_safe);
   }
 }
 
 template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B,
-                   int H, int Sq, int Sk, const long long* st, float scale, int causal,
-                   cudaStream_t stream) {
-  constexpr size_t smem = Layout<D>::bytes;
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H, int Sq,
+           int Sk, const long long* st, float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = Smem<D>::bytes;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      q, k, v, out, lse, H, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale, causal);
+  CUtensorMap tq, tk, tv;
+  int err = encode_bshd(&tq, q, B, Sq, H, D, st[0], st[1], st[2], BQ);
+  if (!err) err = encode_bshd(&tk, k, B, Sk, H, D, st[3], st[4], st[5], BK);
+  if (!err) err = encode_bshd(&tv, v, B, Sk, H, D, st[6], st[7], st[8], BK);
+  if (err) return err;
+  Params p;
+  p.out = static_cast<bf16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.B = B;
+  p.H = H;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.n_qb = (Sq + BQ - 1) / BQ;
+  p.o_sb = st[9];
+  p.o_ss = st[10];
+  p.o_sh = st[11];
+  p.scale = scale;
+  p.causal = causal;
+  flash_fwd_kernel<D><<<p.n_qb * H * B, NTHREADS, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -235,21 +281,12 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
                               int B, int H, int Sq, int Sk, int D, const long long* strides,
                               float scale, int causal, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  auto* ob = static_cast<bf16*>(out);
-  auto* lb = static_cast<float*>(lse);
-  cudaError_t err;
   switch (D) {
-    case 32: err = launch<32>(qb, kb, vb, ob, lb, B, H, Sq, Sk, strides, scale, causal, st); break;
-    case 64: err = launch<64>(qb, kb, vb, ob, lb, B, H, Sq, Sk, strides, scale, causal, st); break;
-    case 128: err = launch<128>(qb, kb, vb, ob, lb, B, H, Sq, Sk, strides, scale, causal, st); break;
-    default: err = cudaErrorInvalidValue;
+    case 32: return launch<32>(q, k, v, out, lse, B, H, Sq, Sk, strides, scale, causal, st);
+    case 64: return launch<64>(q, k, v, out, lse, B, H, Sq, Sk, strides, scale, causal, st);
+    case 128: return launch<128>(q, k, v, out, lse, B, H, Sq, Sk, strides, scale, causal, st);
+    default: return cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
 }
 
-extern "C" const char* flash_fwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* flash_fwd_error_string(int err) { return error_string(err); }

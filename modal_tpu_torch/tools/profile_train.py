@@ -5,12 +5,15 @@ weights), B 1, S 2048, remat on, one card.
 
 Built from `create_state` and its step function, as `train_demo` runs them.
 After two warm-up steps, `--steps` steps are timed on the host clock (each
-ends in a device synchronise), then `--steps` more run under
+ends in a device synchronise; the time until the step function returns is
+the host's part), then `--steps` more run under
 `torch.profiler` for device time by kernel, grouped into the attention
 kernels, cuBLAS GEMMs, the fused AdamW and the rest, and the device's busy
 share (kernel time over the window's wall time; the step runs on one
 stream; host-side ranges that the profiler also draws on the device are
-left out). Needs one CUDA card.
+left out), and the profiled device time per step over the unprofiled step
+time, which leaves out the profiler's own host overhead. Needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -63,17 +66,22 @@ def main() -> int:
     gen.manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
 
-    def step() -> float:
+    def step() -> tuple[float, float]:
+        """(step ms, host ms): the wall time to the device's end of the
+        step, and the time until the step function returned to the host."""
         nonlocal state
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _metrics = step_fn(state, tokens)
+        t_host = time.perf_counter()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3, (t_host - t0) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
-    warmup_ms = [step() for _ in range(2)]
-    step_ms = [step() for _ in range(args.steps)]
+    warmup_ms = [step()[0] for _ in range(2)]
+    timed = [step() for _ in range(args.steps)]
+    step_ms = [t for t, _h in timed]
+    host_ms = [h for _t, h in timed]
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -106,11 +114,18 @@ def main() -> int:
         "warmup_step_ms": warmup_ms,
         "step_ms": step_ms,
         "step_ms_mean": mean_ms,
+        # the host's share of the step: until the step function returns
+        # (its launches and the clip's one device sync) over the step
+        "host_ms": host_ms,
+        "host_share": sum(host_ms) / sum(step_ms),
         "tokens_per_s": 2048 * 1e3 / mean_ms,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "profiled_window_ms": window_ms,
         "profiled_device_ms": device_ms,
         "device_busy_share": device_ms / window_ms,
+        # the profiled device time per step over the unprofiled step time:
+        # the busy share without the profiler's own host overhead
+        "device_share_of_step": device_ms / args.steps / mean_ms,
         "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms_per_step"])),
         "top_kernels": [
             {"name": k[:120], "ms_per_step": ms / args.steps, "calls_per_step": n / args.steps}
@@ -121,8 +136,11 @@ def main() -> int:
     print(f"step ms: warm-up {[round(x, 1) for x in warmup_ms]}, timed {[round(x, 1) for x in step_ms]} "
           f"(mean {mean_ms:.1f} -> {result['tokens_per_s']:.1f} tokens/s), peak "
           f"{result['peak_memory_bytes'] / 1e9:.2f} GB")
+    print(f"host: the step function returned after {[round(x, 1) for x in host_ms]} ms "
+          f"(host share {result['host_share']:.3f})")
     print(f"profiled {args.steps} steps: wall {window_ms:.1f} ms, device {device_ms:.1f} ms, "
-          f"busy share {result['device_busy_share']:.3f}")
+          f"busy share {result['device_busy_share']:.3f} under the profiler; device ms per step over "
+          f"the unprofiled step: {result['device_share_of_step']:.3f}")
     for name, g in result["groups"].items():
         print(f"  {g['ms_per_step']:8.2f} ms/step  {g['calls_per_step']:7.1f} calls/step  {name}")
     for row in result["top_kernels"]:

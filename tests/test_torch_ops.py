@@ -18,7 +18,10 @@ from modal_tpu.ops.paged_attention import paged_decode_attention as jax_paged_de
 from modal_tpu_torch.models import llama as tllama
 from modal_tpu_torch.ops import _build
 from modal_tpu_torch.ops.attention import (
+    BWD_TILE_REL_L2,
+    FWD_TILE_REL_L2,
     FlashAttentionCausal,
+    _check_operand,
     flash_attention,
     flash_attention_backward,
     flash_attention_bwd_ref,
@@ -29,6 +32,7 @@ from modal_tpu_torch.ops.attention import (
     flash_attention_kernel,
     flash_bwd_dkv,
     flash_bwd_dq,
+    worst_tile_rel_l2,
 )
 from modal_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
@@ -101,6 +105,78 @@ def test_flash_dispatch_on_cpu_is_the_einsum_reference():
     out = flash_attention(q, k, v, None)
     np.testing.assert_array_equal(out.numpy(), tllama.attention(q, k, v, None).numpy())
     assert _build.LAUNCHES == before  # the CPU path launches nothing
+
+
+def _skip_k_tile(q, k, v, tile):
+    """The plain causal forward with one 64-wide K/V tile left out of every
+    row: what a kernel that skipped that tile would return."""
+    s, d = q.shape[1], q.shape[-1]
+    keep = torch.ones(s, s, dtype=torch.bool).tril()
+    keep[:, tile * 64:(tile + 1) * 64] = False
+    keep[:, 0] = True  # no row left empty
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    probs = torch.softmax(logits.masked_fill(~keep, float("-inf")), -1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+
+
+@pytest.mark.parametrize("mutation", ["skip_first_k_tile", "skip_diagonal_k_tile", "zero_last_q_tile"])
+def test_fwd_tile_bar_flags_a_wrong_tile(mutation):
+    """K1's tile bar catches a last 64-row q tile of one head that skipped a
+    K/V tile, which the elementwise atol = rtol = 5e-2 bar passes at S 2048
+    (late rows average ~2000 V rows, entries ~0.04), or that was zeroed."""
+    rng = np.random.default_rng(21)
+    q, k, v = (_pair(rng, (1, 2048, 2, 128), "bfloat16")[1] for _ in range(3))
+    ref = flash_attention_fwd_ref(q, k, v, True)[0].float()
+    bad = ref.clone()
+    if mutation == "zero_last_q_tile":
+        bad[:, -64:, 1] = 0
+    else:
+        skipped = _skip_k_tile(q, k, v, 0 if mutation == "skip_first_k_tile" else 2048 // 64 - 1)
+        bad[:, -64:, 1] = skipped[:, -64:, 1]
+        assert torch.allclose(bad, ref, atol=5e-2, rtol=5e-2)  # the old bar alone passes it
+    assert worst_tile_rel_l2(bad - ref, ref) > 10 * FWD_TILE_REL_L2
+    assert worst_tile_rel_l2(torch.zeros_like(ref), ref) == 0.0
+
+
+def test_worst_tile_rel_l2_needs_whole_tiles():
+    ref = torch.ones((1, 96, 2, 32))
+    with pytest.raises(ValueError, match="64-row tile"):
+        worst_tile_rel_l2(ref, ref)
+    assert worst_tile_rel_l2(ref[:, :64] * 0.5, ref[:, :64]) == pytest.approx(0.5)
+
+
+def _bad_operand(kind, device="cpu"):
+    """A [B, S, H, D] bf16 operand that K1's and K3's TMA tensor maps (or
+    their template instances) cannot take, made on `device` (a copy to
+    another device would make it contiguous)."""
+    if kind == "misaligned_base":  # 2 bytes past a 16-byte boundary
+        flat = torch.zeros(1 * 64 * 2 * 32 + 1, dtype=torch.bfloat16, device=device)
+        return flat[1:].view(1, 64, 2, 32)
+    if kind == "stride_not_multiple_of_8":  # row stride 36 elements = 72 bytes
+        return torch.zeros((1, 64, 2, 36), dtype=torch.bfloat16, device=device)[..., :32]
+    if kind == "head_dim_96":
+        return torch.zeros((1, 64, 2, 96), dtype=torch.bfloat16, device=device)
+    return torch.zeros((1, 64, 2, 32), dtype=torch.float16, device=device)
+
+
+@pytest.mark.parametrize(
+    "kind,err,match",
+    [
+        ("misaligned_base", ValueError, "16-byte aligned"),
+        ("stride_not_multiple_of_8", ValueError, "multiples of 8"),
+        ("head_dim_96", ValueError, "D in"),
+        ("float16", TypeError, "bfloat16"),
+    ],
+)
+@pytest.mark.parametrize("fn", ["flash_attention_fwd", "flash_bwd_dkv"])
+def test_kernel_operand_rules(fn, kind, err, match):
+    """The checks K1's and K3's wrappers run on a CUDA operand before any
+    launch (`_check_operand`), on the same layouts on the CPU."""
+    t = _bad_operand(kind)
+    with pytest.raises(err, match=match):
+        _check_operand(fn, "q", t, t.device)
+    good = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16)
+    _check_operand(fn, "q", good, good.device)
 
 
 # -- flash backward ------------------------------------------------------------
@@ -279,16 +355,52 @@ def test_paged_decode_kernel_matches_plain(cuda_device):
         paged_decode_attention(args[0].float(), *args[1:])
 
 
+# (B, S, H, D) and causal for K1 and K3 on the card: S 64 half fills the
+# kernels' 128-row tiles, S 384 is three of them, D 32 and 64 take the 64-byte
+# and single-atom swizzles, and B 2 the batch stride
+CUDA_FLASH_CASES = [
+    ((1, 256, 4, 128), True),
+    ((2, 128, 2, 64), False),
+    ((1, 64, 2, 128), True),
+    ((1, 384, 2, 128), True),
+    ((1, 384, 2, 32), True),
+    ((1, 384, 2, 64), True),
+    ((2, 256, 4, 128), True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,causal", [((1, 256, 4, 128), True), ((2, 128, 2, 64), False)])
+@pytest.mark.parametrize("shape,causal", CUDA_FLASH_CASES)
 def test_flash_fwd_kernel_matches_plain(cuda_device, shape, causal):
+    """K1 against the plain forward: atol = rtol = 5e-2 on out and lse, and
+    relative L2 <= FWD_TILE_REL_L2 on every 64-row tile of every (batch,
+    head), which a skipped K/V tile fails where the elementwise bar passes."""
     rng = np.random.default_rng(14)
     q, k, v = (_pair(rng, shape, "bfloat16")[1].to(cuda_device) for _ in range(3))
+    before = _build.LAUNCHES["flash_fwd"]
     out, lse = flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_fwd"] == before + 1
     ref, ref_lse = flash_attention_fwd_ref(q, k, v, causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(lse, ref_lse, atol=5e-2, rtol=5e-2)
+    assert worst_tile_rel_l2(out.float() - ref.float(), ref) <= FWD_TILE_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["misaligned_base", "stride_not_multiple_of_8", "head_dim_96"])
+def test_flash_kernel_wrappers_reject_operands_on_the_card(cuda_device, kind):
+    """K1 and K3 raise before any launch on an operand their tensor maps or
+    template instances cannot take."""
+    bad = _bad_operand(kind, cuda_device)
+    good = torch.zeros(bad.shape, dtype=torch.bfloat16, device=cuda_device)
+    stats = torch.zeros((1, 2, 64, 1), device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(bad, good, good, True)
+    with pytest.raises(ValueError):
+        flash_bwd_dkv(good, bad, good, good, stats, stats, True)
+    assert _build.LAUNCHES == before
 
 
 def _cuda_bwd_case(device, shape, causal, seed):
@@ -299,14 +411,13 @@ def _cuda_bwd_case(device, shape, causal, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "shape,causal", [((1, 256, 4, 128), True), ((2, 128, 2, 64), False), ((1, 384, 2, 32), True)]
-)
+@pytest.mark.parametrize("shape,causal", CUDA_FLASH_CASES)
 def test_flash_bwd_kernels_match_plain(cuda_device, shape, causal):
     """K2 and K3 against the plain backward on the same inputs, at the JAX
-    package's bf16 backward bar (bench.py:193-195) and at a relative L2 bar
-    of 1e-2 on every 64-row tile of every (batch, head): typical gradient
-    entries are ~0.05, so the max bar alone would pass a skipped tile."""
+    package's bf16 backward bar (bench.py:193-195) and at relative L2 <=
+    BWD_TILE_REL_L2 on every 64-row tile of every (batch, head): typical
+    gradient entries are ~0.05, so the max bar alone would pass a skipped
+    tile."""
     args = _cuda_bwd_case(cuda_device, shape, causal, seed=15)
     before = dict(_build.LAUNCHES)
     grads = flash_attention_backward(*args, causal)
@@ -317,11 +428,8 @@ def test_flash_bwd_kernels_match_plain(cuda_device, shape, causal):
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
         assert g.dtype == torch.bfloat16
         diff = g.float() - r
-        b, s, h, d = shape
-        tiles = (b, s // 64, 64, h, d)
-        rel = (diff.reshape(tiles).norm(dim=(2, 4)) / r.reshape(tiles).norm(dim=(2, 4))).max().item()
-        err = diff.abs().max().item()
-        assert err < 0.35 and rel <= 1e-2, (name, err, rel)
+        err, rel = diff.abs().max().item(), worst_tile_rel_l2(diff, r)
+        assert err < 0.35 and rel <= BWD_TILE_REL_L2, (name, err, rel)
 
 
 @pytest.mark.cuda
