@@ -12,166 +12,257 @@
 //     dQ = dS · K
 // The causal loop stops at the diagonal by CEILING division (:143-145).
 //
-// What bounds it on the H100: operations. Three S×S×D products per
-// (b, h) over the causal triangle, 2·h·d·S(S+1)/2 FLOP each; at S 2048,
-// D 128 that is ~750 FLOP per byte moved, above the ~295 FLOP/byte ridge.
+// What bounds it on the H100: operations. Three S×S×D products per (b, h)
+// over the causal triangle, 2·h·d·S(S+1)/2 FLOP each; at S 2048, D 128
+// that is ~750 FLOP per byte moved, above the ~295 FLOP/byte ridge, so the
+// bound is causal FLOPs / 989 TFLOP/s (bf16 tensor cores).
 //
-// Design, simple first (csrc/flash_common.cuh): one block of 4
-// warps per (64-row q tile, head, batch); Q and dO tiles stay in shared
-// memory, each 64-row K and V tile is staged with 16-byte loads straight
-// from the [B, S, H, D] layout through its strides. S = QKᵀ and dP = dO·Vᵀ
-// run on the tensor cores via WMMA (mma.sync 16x16x16 bf16, fp32
-// accumulate); each warp owns 16 query rows, so the elementwise step needs
-// only warp syncs and no atomics are needed anywhere: the block owns its
-// dQ rows. The fp32 dQ accumulator lives in shared memory. dS is rounded to
-// bf16 once for dS·K: at llama3-8b that keeps the grads closer to fp32
+// Design (csrc/hopper.cuh; K1's loop with one more product): one block of
+// two warpgroups per 128-row q tile, 64 q rows each. Thread 0 loads the
+// block's Q and dO tiles once with TMA, then keeps a ring of NST 64-row K
+// and V tiles in flight (128B swizzle; 64B at D 32), refilling the slot of
+// tile i − 1 with tile i − 1 + NST once both warpgroups have released it
+// (full/empty mbarriers). Each warpgroup runs S = Q·Kᵀ and dP = dO·Vᵀ on
+// wgmma (m64n64k16, A and B K-major from shared memory, K1's descriptors)
+// into fp32 registers; P = exp2(S·scale·log2e − lse·log2e) and dS =
+// P∘(dP − delta)·scale are computed there (each thread's two q rows keep
+// their lse and delta in registers for the whole loop), masking only the
+// diagonal tile and a ragged last tile. dS is rounded to bf16 once and fed
+// as the register A operand of dQ += dS·K (m64nDk16), whose B is the same
+// K tile under an MN-major descriptor, as K1 feeds P into P·V: the m64nN
+// accumulator layout is the next product's A fragment, so no data moves
+// between threads. dQ stays in fp32 registers for the whole loop and is
+// written once, as bf16, at the end; the block owns its dQ rows, so no
+// atomics are needed. Blocks are numbered heaviest q tile first, so the
+// causal tail is short tiles.
+//
+// Registers decide the layout: each thread holds S 32, dP 32, dQ D/2 and
+// the packed dS 16. K3's lesson (PERF.md) holds here too: a
+// 256-thread block with thread 0 issuing the loads leaves every thread 255
+// registers, where a producer warpgroup under setmaxnreg made ptxas spill
+// and serialize the wgmmas. ptxas gives 156 registers at D 128 (125 at
+// 64, 108 at 32) with no spill and no serialization. dS is rounded to bf16
+// once for dS·K: at llama3-8b that keeps the grads closer to fp32
 // attention than the einsum path's (PERF.md), so K1's hi + lo split of P
-// is not needed here. wgmma, TMA, register-resident accumulators and a
-// fused dQ/dKV kernel are later work.
+// is not needed here.
+//
+// What holds it from its bound (2.4x at S 2048, D 128; PERF.md): a
+// warpgroup waits on its own products in turn (S and dP, then dS·K), so
+// the tensor cores idle while it computes P and dS; 193 KB of shared
+// memory at D 128 leaves one block per SM, with no second block to fill
+// those gaps.
 
-#include <cuda_runtime.h>
 #include <math.h>
 
-#include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using flash::bf16;
-using flash::load_tile;
-using flash::mma_abt;
-using flash::mma_acc_ab;
-using flash::Strides;
+using namespace hopper;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
+constexpr int BQ = 128;        // q rows per block: two warpgroups x 64
+constexpr int BK = 64;         // K/V rows per streamed tile
+constexpr int NST = 4;         // K/V ring stages
+constexpr int NTHREADS = 256;  // two warpgroups, no producer warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int Q_BYTES = Swz<D>::template tile_bytes<BQ>();
+  static constexpr int KV_BYTES = Swz<D>::template tile_bytes<BK>();
+  static constexpr int q_off = 0;
+  static constexpr int do_off = q_off + Q_BYTES;
+  static constexpr int k_off = do_off + Q_BYTES;
+  static constexpr int v_off = k_off + NST * KV_BYTES;
+  static constexpr int bar_off = v_off + NST * KV_BYTES;
+  static constexpr int bytes = bar_off + (1 + 2 * NST) * 8 + 1024;  // + alignment slack
+};
 
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
   const float* lse;
   const float* delta;
   bf16* dq;
-  Strides q_st, k_st, v_st, do_st, dq_st;
-  int H, Sq, Sk;
+  long long dq_sb, dq_ss, dq_sh;
+  int B, H, Sq, Sk, n_qb;
   float scale;
   int causal;
 };
 
 template <int D>
-struct Layout {
-  static constexpr int LDQ = D + 8;   // bf16 row pitch of Q, dO, K, V tiles
-  static constexpr int LDS = BK + 4;  // fp32 row pitch of S and dP
-  static constexpr int LDP = BK + 8;  // bf16 row pitch of dS
-  static constexpr int LDA = D + 4;   // fp32 row pitch of the dQ accumulator
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + sizeof(bf16) * BQ * LDQ;
-  static constexpr size_t k_off = do_off + sizeof(bf16) * BQ * LDQ;
-  static constexpr size_t v_off = k_off + sizeof(bf16) * BK * LDQ;
-  static constexpr size_t s_off = v_off + sizeof(bf16) * BK * LDQ;
-  static constexpr size_t dp_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t ds_off = dp_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t acc_off = ds_off + sizeof(bf16) * BQ * LDP;
-  static constexpr size_t lse_off = acc_off + sizeof(float) * BQ * LDA;
-  static constexpr size_t dlt_off = lse_off + sizeof(float) * BQ;
-  static constexpr size_t bytes = dlt_off + sizeof(float) * BQ;
-};
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const Params p) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
   bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
   bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
   bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp_off);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds_off);
-  float* acc = reinterpret_cast<float*>(smem + L::acc_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* dlt_s = reinterpret_cast<float*>(smem + L::dlt_off);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + NST;
 
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // heaviest q tiles first under the causal mask: block i takes tile
+  // n_qb - 1 - i / (H·B)
+  const int heads = p.H * p.B;
+  const int tile = blockIdx.x / heads;
+  const int qb = p.causal ? p.n_qb - 1 - tile : tile;
+  const int h = (blockIdx.x % heads) % p.H, b = (blockIdx.x % heads) / p.H;
   const int q0 = qb * BQ;
-  const bf16* qg = p.q + b * p.q_st.b + h * p.q_st.h;
-  const bf16* dog = p.dout + b * p.do_st.b + h * p.do_st.h;
-  const bf16* kg = p.k + b * p.k_st.b + h * p.k_st.h;
-  const bf16* vg = p.v + b * p.v_st.b + h * p.v_st.h;
-  bf16* dqg = p.dq + b * p.dq_st.b + h * p.dq_st.h;
-
-  load_tile<D, NTHREADS>(Qs, L::LDQ, qg, p.q_st.s, q0, BQ, p.Sq);
-  load_tile<D, NTHREADS>(dOs, L::LDQ, dog, p.do_st.s, q0, BQ, p.Sq);
-  for (int i = threadIdx.x; i < BQ * L::LDA; i += NTHREADS) acc[i] = 0.f;
-  if (threadIdx.x < BQ) {
-    const int qpos = q0 + threadIdx.x;
-    const long long row = ((long long)b * p.H + h) * p.Sq + qpos;
-    lse_s[threadIdx.x] = qpos < p.Sq ? p.lse[row] : 0.f;
-    dlt_s[threadIdx.x] = qpos < p.Sq ? p.delta[row] : 0.f;
-  }
-
   int n_kb = (p.Sk + BK - 1) / BK;
   if (p.causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);  // ceiling: include the diagonal
 
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // previous tile's readers are done (and the init is visible)
-    load_tile<D, NTHREADS>(Ks, L::LDQ, kg, p.k_st.s, k0, BK, p.Sk);
-    load_tile<D, NTHREADS>(Vs, L::LDQ, vg, p.v_st.s, k0, BK, p.Sk);
-    __syncthreads();
-
-    // S = Q Kᵀ and dP = dO Vᵀ for this warp's 16 rows
-    mma_abt<D, BK>(Ss + warp * 16 * L::LDS, L::LDS, Qs + warp * 16 * L::LDQ, L::LDQ, Ks, L::LDQ);
-    mma_abt<D, BK>(dPs + warp * 16 * L::LDS, L::LDS, dOs + warp * 16 * L::LDQ, L::LDQ, Vs, L::LDQ);
-    __syncwarp();
-
-    // dS = P ∘ (dP − delta) · scale; each lane owns 2 of the 64 columns
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = warp * 16 + rr;
-      const int qpos = q0 + row;
-      const float lse = lse_s[row], dlt = dlt_s[row];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int col = lane + half * 32;
-        const int kpos = k0 + col;
-        const bool ok = qpos < p.Sq && kpos < p.Sk && (!p.causal || kpos <= qpos);
-        const float pr = ok ? expf(Ss[row * L::LDS + col] * p.scale - lse) : 0.f;
-        const float ds = pr * (dPs[row * L::LDS + col] - dlt) * p.scale;
-        dSs[row * L::LDP + col] = __float2bfloat16(ds);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NTHREADS);
     }
-    __syncwarp();
-
-    // dQ += dS K for this warp's rows
-    mma_acc_ab<D, BK>(acc + warp * 16 * L::LDA, L::LDA, dSs + warp * 16 * L::LDP, L::LDP, Ks, L::LDQ);
+    mbar_fence_init();
   }
   __syncthreads();
 
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = warp * 16 + rr;
-    const int qpos = q0 + row;
-    if (qpos >= p.Sq) break;
-    for (int d = lane; d < D; d += 32)
-      dqg[qpos * p.dq_st.s + d] = __float2bfloat16(acc[row * L::LDA + d]);
+  // K/V tile `kb` into its ring slot (thread 0 only)
+  auto load_kv_tile = [&](int kb) {
+    const int s = kb % NST;
+    mbar_arrive_tx(&full[s], 2 * L::KV_BYTES);
+    tma_load_tile<D, BK>(Ks + s * (L::KV_BYTES / 2), &tk, &full[s], kb * BK, h, b);
+    tma_load_tile<D, BK>(Vs + s * (L::KV_BYTES / 2), &tv, &full[s], kb * BK, h, b);
+  };
+  if (threadIdx.x == 0) {
+    prefetch_tensormap(&tk);
+    prefetch_tensormap(&tv);
+    mbar_arrive_tx(q_bar, 2 * L::Q_BYTES);
+    tma_load_tile<D, BQ>(Qs, &tq, q_bar, q0, h, b);
+    tma_load_tile<D, BQ>(dOs, &tdo, q_bar, q0, h, b);
+    for (int kb = 0; kb < min(NST, n_kb); ++kb) load_kv_tile(kb);
+  }
+
+  const int cw = threadIdx.x / 128;  // warpgroup: q rows [qw0, qw0 + 64)
+  const int t = threadIdx.x % 128;
+  const int row = (t / 32) * 16 + (t % 32) / 4;  // this thread's q rows: row, row + 8
+  const int col2 = 2 * (t % 4);                  // and columns 8i + col2 + {0, 1}
+  const int qw0 = q0 + 64 * cw;
+  const float sl2 = p.scale * LOG2E;
+
+  // lse·log2(e) and delta of this thread's two q rows, for the whole loop
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int qpos = qw0 + row + 8 * j;
+    const long long at = ((long long)b * p.H + h) * p.Sq + qpos;
+    lse2[j] = qpos < p.Sq ? __ldg(p.lse + at) * LOG2E : 0.f;
+    dlt[j] = qpos < p.Sq ? __ldg(p.delta + at) : 0.f;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_bar, 0);
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int s = kb % NST;
+    const int k0 = kb * BK;
+    // the slot of tile kb − 1 takes tile kb − 1 + NST once both
+    // warpgroups are done with it
+    if (threadIdx.x == 0 && kb >= 1 && kb - 1 + NST < n_kb) {
+      mbar_wait(&empty[(kb - 1) % NST], ((kb - 1) / NST) & 1);
+      load_kv_tile(kb - 1 + NST);
+    }
+    __syncwarp();
+    mbar_wait(&full[s], (kb / NST) & 1);
+    // a K tile past this warpgroup's last row is all masked: skip it
+    if (!(p.causal && k0 > qw0 + 63)) {
+      const uint32_t Qa = smem_addr(Qs), dOa = smem_addr(dOs);
+      const uint32_t Kt = smem_addr(Ks) + s * L::KV_BYTES, Vt = smem_addr(Vs) + s * L::KV_BYTES;
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, desc_kmajor<D, BQ>(Qa, 64 * cw, kk), desc_kmajor<D, BK>(Kt, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_kmajor<D, BQ>(dOa, 64 * cw, kk), desc_kmajor<D, BK>(Vt, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // P in place of S; the diagonal tile and a ragged last tile are masked
+      const bool masked = (p.causal && k0 + BK - 1 > qw0) || k0 + BK > p.Sk;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int idx = 4 * i + 2 * j + c;
+            float pv = exp2f(fmaf(sc[idx], sl2, -lse2[j]));
+            if (masked) {
+              const int kpos = k0 + 8 * i + col2 + c, qpos = qw0 + row + 8 * j;
+              if (kpos >= p.Sk || (p.causal && kpos > qpos)) pv = 0.f;
+            }
+            sc[idx] = pv;
+          }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // dS = P ∘ (dP − delta) · scale, rounded to bf16 once, as the register
+      // A fragments of dQ += dS·K
+      uint32_t ds[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx = 8 * kk + 2 * r;  // row + 8·(r % 2), columns 16kk + 8·(r / 2) + col2 + {0, 1}
+          const int j = r % 2;
+          ds[kk][r] = pack_bf16(sc[idx] * (dp[idx] - dlt[j]) * p.scale,
+                                sc[idx + 1] * (dp[idx + 1] - dlt[j]) * p.scale);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(dq, ds[kk], desc_mnmajor<D, BK>(Kt, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  // dQ in bf16 straight from registers
+  bf16* dqg = p.dq + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int qpos = qw0 + row + 8 * j;
+    if (qpos < p.Sq) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dqg + qpos * p.dq_ss + 8 * i + col2) =
+            pack_bf16(dq[4 * i + 2 * j], dq[4 * i + 2 * j + 1]);
+    }
   }
 }
 
 template <int D>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = Layout<D>::bytes;
+int launch(const void* q, const void* k, const void* v, const void* dout, const Params& base,
+           const long long* st, cudaStream_t stream) {
+  constexpr int smem = Smem<D>::bytes;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  const int B = base.B, H = base.H;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = encode_bshd(&tq, q, B, base.Sq, H, D, st[0], st[1], st[2], BQ);
+  if (!err) err = encode_bshd(&tk, k, B, base.Sk, H, D, st[3], st[4], st[5], BK);
+  if (!err) err = encode_bshd(&tv, v, B, base.Sk, H, D, st[6], st[7], st[8], BK);
+  if (!err) err = encode_bshd(&tdo, dout, B, base.Sq, H, D, st[9], st[10], st[11], BQ);
+  if (err) return err;
+  flash_bwd_dq_kernel<D><<<base.n_qb * H * B, NTHREADS, smem, stream>>>(tq, tk, tv, tdo, base);
   return cudaGetLastError();
 }
 
@@ -183,34 +274,26 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
                                  int Sq, int Sk, int D, const long long* st, float scale,
                                  int causal, void* stream) {
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dq = static_cast<bf16*>(dq);
-  p.q_st = {st[0], st[1], st[2]};
-  p.k_st = {st[3], st[4], st[5]};
-  p.v_st = {st[6], st[7], st[8]};
-  p.do_st = {st[9], st[10], st[11]};
-  p.dq_st = {st[12], st[13], st[14]};
+  p.dq_sb = st[12];
+  p.dq_ss = st[13];
+  p.dq_sh = st[14];
+  p.B = B;
   p.H = H;
   p.Sq = Sq;
   p.Sk = Sk;
+  p.n_qb = (Sq + BQ - 1) / BQ;
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (D) {
-    case 32: err = launch<32>(p, B, s); break;
-    case 64: err = launch<64>(p, B, s); break;
-    case 128: err = launch<128>(p, B, s); break;
-    default: err = cudaErrorInvalidValue;
+    case 32: return launch<32>(q, k, v, dout, p, st, s);
+    case 64: return launch<64>(q, k, v, dout, p, st, s);
+    case 128: return launch<128>(q, k, v, dout, p, st, s);
+    default: return cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
 }
 
-extern "C" const char* flash_bwd_dq_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* flash_bwd_dq_error_string(int err) { return error_string(err); }

@@ -145,10 +145,9 @@ def _bwd_plain(q, k, v, do, lse, delta, causal: bool):
 
 
 def _check_operand(fn: str, name: str, t: torch.Tensor, device: torch.device) -> None:
-    """What the kernels need of a [B, S, H, D] operand: K1's and K3's TMA
-    tensor maps (csrc/hopper.cuh) take 16-byte aligned bases and strides,
-    as K2's 16-byte tile loads do, and the kernels are built for D in
-    {32, 64, 128}."""
+    """What the kernels need of a [B, S, H, D] operand: K1's, K2's and K3's
+    TMA tensor maps (csrc/hopper.cuh) take 16-byte aligned bases and
+    strides, and the kernels are built for D in {32, 64, 128}."""
     if t.device != device:
         raise ValueError(f"{fn}: {name} on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:

@@ -12,6 +12,11 @@ On a CUDA tensor it launches the hand-written kernel in
 `csrc/paged_decode.cu` (or raises); on a CPU tensor it runs
 `paged_decode_attention_ref`, the plain gather + fp32-softmax version (the
 gather branch of modal_tpu/models/paged_kv.py:305-317).
+
+The kernel splits each slot's span into chunks of `DECODE_CHUNK` tokens,
+one block per (kv head, slot, chunk), and merges a slot's chunks in the same
+launch through a workspace of per-chunk softmax partials and per-(slot,
+kv head) counters (`_decode_workspace`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,30 @@ from . import _build
 KERNEL = "paged_decode"
 _SUPPORTED_HD = (32, 64, 128)
 _SUPPORTED_NREP = (1, 2, 4, 8)
+# tokens of a slot each block of the kernel takes: 16 pages at page 16
+DECODE_CHUNK = 256
+# The bar the kernel is held to against its plain version on every (slot,
+# kv head) of the live slots (`worst_head_rel_l2`), beside max|·| <= 2e-2:
+# ~4x the worst value measured on an H100 80GB HBM3 at 700 W, 3.30e-3 (the
+# bf16 rounding of the output), at the serving lengths and at q_pos on and
+# around the chunk boundaries. With random V a slot that attends to ~8192
+# tokens has outputs of ~1e-2, so the elementwise bar alone passes a lost or
+# doubled chunk, which fails this one by more than 5x (tests/test_torch_ops.py).
+DECODE_REL_L2 = 1.3e-2
+
+
+def decode_splits(page: int, pages_per_slot: int, chunk: int = DECODE_CHUNK) -> int:
+    """The kernel's split count, from the shapes alone: reading seq_lens on
+    the host would sync the device on every decode step."""
+    return -(-page * pages_per_slot // chunk)
+
+
+def worst_head_rel_l2(out: torch.Tensor, ref: torch.Tensor, live) -> float:
+    """The largest ‖out − ref‖ / ‖ref‖ over the (slot, kv head) pairs of the
+    `live` slots of two [S, n_kv, n_rep, hd] results: a slot that lost or
+    doubled part of its sequence shows at full size there."""
+    out, ref = (t[list(live)].float() for t in (out, ref))
+    return ((out - ref).norm(dim=(2, 3)) / ref.norm(dim=(2, 3))).max().item()
 
 
 def paged_decode_attention_ref(
@@ -82,7 +111,34 @@ def _check_cuda(q, k_pages, v_pages, page_table, seq_lens) -> None:
         )
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+
+# (device, S, n_kv, n_rep, hd, n_split) -> (stream, partials, counters)
+_WORKSPACES: dict[tuple, tuple[int, torch.Tensor, torch.Tensor]] = {}
+
+
+def _decode_workspace(device: torch.device, key: tuple, stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's fp32 chunk partials [S, n_kv, n_split, n_rep·(hd + 2)]
+    and its int32 counters [S, n_kv], zeroed once: made at the first call
+    for (device, shapes) and reused by every later one. Each launch leaves
+    the counters at zero, so calls on one stream may share them; calls on
+    two streams could interleave, so the workspace is bound to the stream of
+    its first call and a call from another stream raises."""
+    s, n_kv, n_rep, hd, n_split = key
+    full = (device, *key)
+    if full not in _WORKSPACES:
+        _WORKSPACES[full] = (
+            stream,
+            torch.empty((s, n_kv, n_split, n_rep * (hd + 2)), dtype=torch.float32, device=device),
+            torch.zeros((s, n_kv), dtype=torch.int32, device=device),
+        )
+    bound, partials, counters = _WORKSPACES[full]
+    if bound != stream:
+        raise RuntimeError(
+            f"paged_decode_attention: the workspace for {key} on {device} is bound to stream "
+            f"{bound:#x}; this call comes from stream {stream:#x}"
+        )
+    return partials, counters
 
 
 def paged_decode_attention(
@@ -92,19 +148,27 @@ def paged_decode_attention(
     page_table: torch.Tensor,  # [S, pages_per_slot] int32
     seq_lens: torch.Tensor,  # [S] int32 — each slot's decode position
 ) -> torch.Tensor:
-    """One decode step's attention over paged KV. Returns [S, n_kv, n_rep, hd]."""
+    """One decode step's attention over paged KV. Returns [S, n_kv, n_rep, hd].
+
+    On CUDA the kernel's workspace (chunk partials and counters, one per
+    device and shapes) is tied to the stream of its first call: a later call
+    with the same shapes from another stream raises instead of racing."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table, seq_lens)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     _check_cuda(q, k_pages, v_pages, page_table, seq_lens)
     s, n_kv, n_rep, hd = q.shape
+    page, pps = k_pages.shape[1], page_table.shape[1]
+    n_split = decode_splits(page, pps)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    partials, counters = _decode_workspace(q.device, (s, n_kv, n_rep, hd, n_split), stream)
     out = torch.empty_like(q)
     fn = _build.entry(KERNEL, "paged_decode_bf16", _ARGTYPES)
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), s, n_kv, n_rep, hd, k_pages.shape[1],
-        page_table.shape[1], 1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream,
+        seq_lens.data_ptr(), out.data_ptr(), partials.data_ptr(), counters.data_ptr(),
+        s, n_kv, n_rep, hd, page, pps, DECODE_CHUNK, n_split, 1.0 / math.sqrt(hd), stream,
     )
     _build.check(KERNEL, err)
     return out

@@ -1,6 +1,6 @@
-"""Check and time the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV)
-of one checkout of this repository, so that two checkouts can be compared
-on one card inside one call.
+"""Check and time the attention kernels (K1 flash forward, K2 dQ, K3 dK/dV,
+K4 paged decode) of one checkout of this repository, so that two checkouts
+can be compared on one card inside one call.
 
     python modal_tpu_torch/tools/compare_flash.py [--root PATH] [--rounds 5] [--out PATH]
 
@@ -13,7 +13,17 @@ out, K2's dQ and K3's dK and dV (K2 and K3 from the plain forward's lse, so
 a fault in K1 does not reach them). Then, at B1 S2048 H32 D128 causal, the
 median, min and max of `--rounds` rounds of each kernel's mean time over 20
 launches (CUDA events), in turns with SDPA's forward and backward (its
-cuDNN backend). Needs one CUDA card.
+cuDNN backend).
+
+K4 goes through the public `paged_decode_attention` and its plain version
+`paged_decode_attention_ref`, which every checkout since the first has, at
+the serving shapes (8 slots, n_kv 8, n_rep 4, hd 128, page 16, 512 pages per
+slot): held to its plain version (largest |kernel − plain| and the worst
+relative L2 over each (slot, kv head) of the live slots) at the serving
+lengths and at q_pos on and around 256-token boundaries, then timed warm (50
+back-to-back calls per round, in the same turns) and cold (the median of 20
+calls, each timed alone after a 256 MB write flushes the 50 MB L2). Needs
+one CUDA card.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ def main() -> int:
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from modal_tpu_torch.ops import attention as A
+    from modal_tpu_torch.ops import paged_attention as PA
 
     if not torch.cuda.is_available():
         raise SystemExit("compare_flash needs a CUDA card")
@@ -77,6 +88,35 @@ def main() -> int:
             f"{n} max {row[n]['max_err']:.3e} tile {row[n]['worst_tile_rel_l2']:.3e}" for n in ("out", "dq", "dk", "dv")),
             flush=True)
 
+    # K4 at the serving shapes: the serving lengths (slot 3 inactive, its
+    # table at the scratch page), then q_pos on and around 256-token
+    # boundaries and at the span's end
+    s, n_kv, n_rep, hd, page, pps = 8, 8, 4, 128, 16, 512
+    span = page * pps
+    pq = rnd((s, n_kv, n_rep, hd))
+    kp, vp = rnd((1 + s * pps, page, n_kv, hd)), rnd((1 + s * pps, page, n_kv, hd))
+
+    def tables(lens, inactive=()):
+        pt = (torch.randperm(s * pps, generator=gen, device="cuda").to(torch.int32) + 1).reshape(s, pps)
+        for i in inactive:
+            pt[i] = 0
+        return pt.contiguous(), torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    pt, sl = tables([0, 4095, 1, 0, 2047, 517, 3000, 100], inactive=[3])
+    live = [0, 1, 2, 4, 5, 6, 7]
+    boundary = tables([0, 255, 256, 257, span - 1, 511, 512, 4097])
+    for label, (tab, lens), rows in (("serving", (pt, sl), live), ("boundaries", boundary, list(range(s)))):
+        got = PA.paged_decode_attention(pq, kp, vp, tab, lens)
+        torch.cuda.synchronize()
+        ref = PA.paged_decode_attention_ref(pq, kp, vp, tab, lens)
+        diff = (got[rows].float() - ref[rows].float())
+        row = {"kernel": "K4 paged_decode", "lengths": lens.tolist(), "max_err": diff.abs().max().item(),
+               "worst_head_rel_l2": (diff.norm(dim=(2, 3)) / ref[rows].float().norm(dim=(2, 3))).max().item()}
+        checks.append(row)
+        print(f"check K4 {label} q_pos {row['lengths']}: max {row['max_err']:.3e} "
+              f"worst (slot, kv head) rel L2 {row['worst_head_rel_l2']:.3e}", flush=True)
+    del boundary
+
     q, k, v, do = (rnd((1, 2048, 32, 128)) for _ in range(4))
     out, lse = A.flash_attention_fwd(q, k, v, True)
     delta = A.flash_attention_delta(out, do)
@@ -93,7 +133,9 @@ def main() -> int:
         "K2 flash_bwd_dq": lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, True),
         "K3 flash_bwd_dkv": lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, True),
         "SDPA backward": lambda: torch.autograd.grad(o_sd, (qt, kt, vt), do_sd, retain_graph=True),
+        "K4 paged_decode": lambda: PA.paged_decode_attention(pq, kp, vp, pt, sl),
     }
+    iters = {"K4 paged_decode": 50}
 
     def time_ms(fn, iters: int = 20) -> float:
         """As chip_smoke.py's: a spin kernel holds the card while the host
@@ -114,12 +156,25 @@ def main() -> int:
     with sdpa_cudnn():
         for r in range(args.rounds):
             for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-                times[name].append(time_ms(fns[name]))
+                times[name].append(time_ms(fns[name], iters.get(name, 20)))
     timing = {n: {"median_ms": statistics.median(ts), "min_ms": min(ts), "max_ms": max(ts)} for n, ts in times.items()}
-    print(f"card: {card}; root {os.path.abspath(args.root)}; B1 S2048 H32 D128 causal, median [min, max] of "
-          f"{args.rounds} rounds:")
+
+    # K4 cold: each call timed alone after a write of 5x the L2
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(20)]
+    torch.cuda._sleep(100_000_000)
+    for start, end in events:
+        flush.fill_(1)
+        start.record()
+        fns["K4 paged_decode"]()
+        end.record()
+    torch.cuda.synchronize()
+    cold = [start.elapsed_time(end) for start, end in events]
+    timing["K4 paged_decode cold"] = {"median_ms": statistics.median(cold), "min_ms": min(cold), "max_ms": max(cold)}
+    print(f"card: {card}; root {os.path.abspath(args.root)}; K1-K3 at B1 S2048 H32 D128 causal, K4 at the "
+          f"serving shapes; median [min, max] of {args.rounds} rounds (K4 cold: of 20 calls):")
     for n, t in timing.items():
-        print(f"  {n:18s} {t['median_ms']:.4f} [{t['min_ms']:.4f}, {t['max_ms']:.4f}] ms", flush=True)
+        print(f"  {n:20s} {t['median_ms']:.4f} [{t['min_ms']:.4f}, {t['max_ms']:.4f}] ms", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

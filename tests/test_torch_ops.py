@@ -35,8 +35,12 @@ from modal_tpu_torch.ops.attention import (
     worst_tile_rel_l2,
 )
 from modal_tpu_torch.ops.paged_attention import (
+    DECODE_CHUNK,
+    DECODE_REL_L2,
+    _decode_workspace,
     paged_decode_attention,
     paged_decode_attention_ref,
+    worst_head_rel_l2,
 )
 
 _DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -168,9 +172,9 @@ def _bad_operand(kind, device="cpu"):
         ("float16", TypeError, "bfloat16"),
     ],
 )
-@pytest.mark.parametrize("fn", ["flash_attention_fwd", "flash_bwd_dkv"])
+@pytest.mark.parametrize("fn", ["flash_attention_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
 def test_kernel_operand_rules(fn, kind, err, match):
-    """The checks K1's and K3's wrappers run on a CUDA operand before any
+    """The checks K1's, K2's and K3's wrappers run on a CUDA operand before any
     launch (`_check_operand`), on the same layouts on the CPU."""
     t = _bad_operand(kind)
     with pytest.raises(err, match=match):
@@ -342,17 +346,115 @@ def test_paged_decode_plain_is_dense_attention_over_the_span():
 # -- the CUDA kernels against their plain versions (on the card only) ------------
 
 
+def _drop_or_double_chunk(q, kp, vp, table, lens, slot, chunk, weight):
+    """The plain version with the tokens of chunk `chunk` (DECODE_CHUNK
+    tokens) of `slot` given softmax weight `weight` x theirs: 0 is a split
+    kernel that lost that chunk, 2 one that merged it twice."""
+    s, n_kv, _n_rep, hd = q.shape
+    span = table.shape[1] * kp.shape[1]
+    idx = table.long()
+    k_att = kp[idx].reshape(s, span, n_kv, hd).float()
+    v_att = vp[idx].reshape(s, span, n_kv, hd)
+    logits = torch.einsum("snrd,sknd->snrk", q.float(), k_att) / math.sqrt(hd)
+    visible = torch.arange(span)[None, :] <= lens.long()[:, None]
+    logits = logits.masked_fill(~visible[:, None, None, :], float("-inf"))
+    w = torch.ones(s, span)
+    w[slot, chunk * DECODE_CHUNK:(chunk + 1) * DECODE_CHUNK] = weight
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True)) * w[:, None, None, :]
+    probs = (probs / probs.sum(-1, keepdim=True)).to(q.dtype)
+    return torch.einsum("snrk,sknd->snrd", probs, v_att)
+
+
+@pytest.mark.parametrize("weight", [0.0, 2.0], ids=["dropped_chunk", "doubled_chunk"])
+def test_decode_head_bar_flags_a_wrong_chunk(weight):
+    """K4's per-(slot, kv head) relative-L2 bar catches a slot at q_pos 8191
+    (the serving span) that lost or doubled one of its 32 chunks, which the
+    elementwise max|kernel − plain| <= 2e-2 bar passes: such a slot's
+    outputs are ~1e-2, a chunk's share of them a few 1e-3."""
+    rng = np.random.default_rng(31)
+    s, n_kv, n_rep, hd, page, pps = 2, 2, 4, 128, 16, 512
+    q, kp, vp = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+                 for shape in ((s, n_kv, n_rep, hd), (1 + s * pps, page, n_kv, hd), (1 + s * pps, page, n_kv, hd)))
+    table = torch.from_numpy((rng.permutation(s * pps) + 1).reshape(s, pps).astype(np.int32))
+    lens = torch.tensor([page * pps - 1, 1000], dtype=torch.int32)
+    ref = paged_decode_attention_ref(q, kp, vp, table, lens).float()
+    bad = _drop_or_double_chunk(q, kp, vp, table, lens, slot=0, chunk=13, weight=weight).float()
+    assert (bad - ref).abs().max().item() <= 2e-2  # the elementwise bar alone passes it
+    assert worst_head_rel_l2(bad, ref, [0, 1]) > 5 * DECODE_REL_L2
+    assert worst_head_rel_l2(ref, ref, [0, 1]) == 0.0
+
+
+def test_decode_workspace_is_made_once_and_bound_to_its_stream():
+    """K4's partials and counters are allocated (counters zeroed) at the
+    first call for a (device, shapes) and reused; a call from another
+    stream raises instead of racing on them."""
+    key = (3, 2, 4, 32, 5)  # S, n_kv, n_rep, hd, n_split
+    dev = torch.device("cpu")
+    partials, counters = _decode_workspace(dev, key, stream=11)
+    assert partials.shape == (3, 2, 5, 4 * (32 + 2)) and partials.dtype == torch.float32
+    assert counters.shape == (3, 2) and counters.dtype == torch.int32 and not counters.any()
+    again = _decode_workspace(dev, key, stream=11)
+    assert again[0] is partials and again[1] is counters
+    with pytest.raises(RuntimeError, match="bound to stream"):
+        _decode_workspace(dev, key, stream=12)
+    other = _decode_workspace(dev, (3, 2, 4, 32, 6), stream=12)  # other shapes: their own workspace
+    assert other[0] is not partials
+
+
+def _paged_case(device, case):
+    """K4's inputs on the card: `ragged` is `_paged_inputs`' small set
+    (mid-page, page boundary, one token, an inactive slot); the others put
+    q_pos at 0, on and around the kernel's chunk boundaries and at the span's
+    end over a 3-chunk span, at llama3-8b's head shape and at two others."""
+    if case == "ragged":
+        _j, t_args = _paged_inputs(np.random.default_rng(13), "bfloat16", hd=128, n_rep=4, pps=4)
+        return [t.to(device) for t in t_args], [0, 1, 3]
+    n_kv, n_rep, hd = {"boundaries_hd128_rep4": (8, 4, 128), "boundaries_hd64_rep8": (2, 8, 64),
+                       "boundaries_hd32_rep1": (4, 1, 32)}[case]
+    page, pps = 16, 3 * DECODE_CHUNK // 16
+    span = page * pps
+    lens = [0, DECODE_CHUNK - 1, DECODE_CHUNK, DECODE_CHUNK + 1, 2 * DECODE_CHUNK - 1, 2 * DECODE_CHUNK, span - 1]
+    rng = np.random.default_rng(19)
+    s = len(lens)
+    q, kp, vp = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+                 for shape in ((s, n_kv, n_rep, hd), (1 + s * pps, page, n_kv, hd), (1 + s * pps, page, n_kv, hd)))
+    table = torch.from_numpy((rng.permutation(s * pps) + 1).reshape(s, pps).astype(np.int32))
+    args = [q, kp, vp, table, torch.tensor(lens, dtype=torch.int32)]
+    return [t.to(device) for t in args], list(range(s))
+
+
 @pytest.mark.cuda
-def test_paged_decode_kernel_matches_plain(cuda_device):
-    _j, t_args = _paged_inputs(np.random.default_rng(13), "bfloat16", hd=128, n_rep=4, pps=4)
-    args = [t.to(cuda_device) for t in t_args]
-    out = paged_decode_attention(*args)
+@pytest.mark.parametrize(
+    "case", ["ragged", "boundaries_hd128_rep4", "boundaries_hd64_rep8", "boundaries_hd32_rep1"]
+)
+def test_paged_decode_kernel_matches_plain(cuda_device, case):
+    """K4 against the plain version on the live slots: max|kernel − plain|
+    <= 2e-2 and relative L2 <= DECODE_REL_L2 on every (slot, kv head), which
+    a lost or doubled chunk fails where the elementwise bar passes; twice,
+    so the counters the first launch left must be back at zero."""
+    args, live = _paged_case(cuda_device, case)
+    before = _build.LAUNCHES["paged_decode"]
+    outs = [paged_decode_attention(*args) for _ in range(2)]
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_decode"] == before + 2
     ref = paged_decode_attention_ref(*args)
-    live = [0, 1, 3]
-    torch.testing.assert_close(out[live].float(), ref[live].float(), atol=2e-2, rtol=0)
+    for out in outs:
+        torch.testing.assert_close(out[live].float(), ref[live].float(), atol=2e-2, rtol=0)
+        assert worst_head_rel_l2(out, ref, live) <= DECODE_REL_L2
     with pytest.raises(TypeError, match="bfloat16"):
         paged_decode_attention(args[0].float(), *args[1:])
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_refuses_a_second_stream(cuda_device):
+    """The workspace of a shape is bound to the stream of its first call."""
+    args, _live = _paged_case(cuda_device, "ragged")
+    args[0] = args[0][:, :, :1].contiguous()  # n_rep 1: shapes of their own, a fresh workspace
+    paged_decode_attention(*args)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side), pytest.raises(RuntimeError, match="bound to stream"):
+        paged_decode_attention(*args)
+    torch.cuda.synchronize()
 
 
 # (B, S, H, D) and causal for K1 and K3 on the card: S 64 half fills the
@@ -390,8 +492,8 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, shape, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["misaligned_base", "stride_not_multiple_of_8", "head_dim_96"])
 def test_flash_kernel_wrappers_reject_operands_on_the_card(cuda_device, kind):
-    """K1 and K3 raise before any launch on an operand their tensor maps or
-    template instances cannot take."""
+    """K1, K2 and K3 raise before any launch on an operand their tensor maps
+    or template instances cannot take."""
     bad = _bad_operand(kind, cuda_device)
     good = torch.zeros(bad.shape, dtype=torch.bfloat16, device=cuda_device)
     stats = torch.zeros((1, 2, 64, 1), device=cuda_device)
@@ -400,6 +502,8 @@ def test_flash_kernel_wrappers_reject_operands_on_the_card(cuda_device, kind):
         flash_attention_fwd(bad, good, good, True)
     with pytest.raises(ValueError):
         flash_bwd_dkv(good, bad, good, good, stats, stats, True)
+    with pytest.raises(ValueError):
+        flash_bwd_dq(good, good, good, bad, stats, stats, True)
     assert _build.LAUNCHES == before
 
 
@@ -430,6 +534,29 @@ def test_flash_bwd_kernels_match_plain(cuda_device, shape, causal):
         diff = g.float() - r
         err, rel = diff.abs().max().item(), worst_tile_rel_l2(diff, r)
         assert err < 0.35 and rel <= BWD_TILE_REL_L2, (name, err, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 64, 2, 128), (1, 192, 2, 128), (2, 320, 2, 64), (1, 192, 4, 32)])
+def test_flash_bwd_dq_kernel_at_tile_boundaries(cuda_device, shape, causal):
+    """K2 where its tiles end ragged: S a multiple of its 64-row K/V tiles
+    but not of its 128-row q tile, so the last block's second warpgroup has
+    no rows (TMA fills them with zeros and nothing is written) and, causal,
+    the diagonal falls in the first warpgroup. lse and delta come from the
+    plain forward, since K1's wrapper takes only whole 128-row blocks."""
+    rng = np.random.default_rng(20)
+    q, k, v, do = (_pair(rng, shape, "bfloat16")[1].to(cuda_device) for _ in range(4))
+    out, lse = flash_attention_fwd_ref(q, k, v, causal)
+    delta = flash_attention_delta(out, do)
+    before = _build.LAUNCHES["flash_bwd_dq"]
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_bwd_dq"] == before + 1
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, causal)[0]
+    diff = dq.float() - ref
+    err, rel = diff.abs().max().item(), worst_tile_rel_l2(diff, ref)
+    assert err < 0.35 and rel <= BWD_TILE_REL_L2, (err, rel)
 
 
 @pytest.mark.cuda
