@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as a release check
     python3 chip_smoke.py --phases device,build,kernels --out chiprun_out/smoke.json
     python3 chip_smoke.py --phases device,build,kernels,train
+    python3 chip_smoke.py --phases device,build,serve,spec,disagg
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -17,20 +18,35 @@ result line):
               computing the same function (a yardstick only: the port never
               calls it). K4 is also checked at q_pos on and around its
               chunk boundaries, and timed cold (L2 flushed before each call)
-              beside its warm time.
+              beside its warm time, at llama3-8b's head shape and at the
+              speculative draft's (hd 64).
 4. serve    — llama3-8b at full width with seeded random weights: the
               ServingEngine answers 8 requests (one through the ASGI app's
               /v1/generate, driven in process); every request must finish with
               64 tokens and the paged decode kernel must have launched exactly
               n_layers times per decode step.
-5. parity   — one greedy request's first decode step through the kernel,
+5. spec     — the same traffic through speculative decoding (spec_k 3, the
+              two slot groups of a round queued before either is read back;
+              a host sync inside a dispatch raises): (a) a llama3-1b-proxy
+              draft at full width, whose decode steps run the paged decode
+              kernel at hd 64 exactly draft layers × (spec_k + 1) times per
+              dispatch; (b) the target as its own draft, where every rejected
+              proposal must sit at a near-tie of the target's logits
+              (SELF_DRAFT_TIE).
+6. disagg   — a prefill-role and a decode-role engine on the card, sharing the
+              weights, driven through /v1/prefill and /v1/prefilled with a
+              shared shipment dir: 8 remote prefills and no degrade, pages that
+              land bit-equal to the shipment, the decode engine's kernel
+              launches exactly n_layers per step, and token streams equal to the
+              serve phase's (an all-in-one engine's when serve did not run).
+7. parity   — one greedy request's first decode step through the kernel,
               through attn_impl="gather" and through fp32 attention, on the
               same engine state, at depths 1 to 32.
-6. forward  — cache-less `llama.forward` on [1, 2048] tokens: the flash
+8. forward  — cache-less `llama.forward` on [1, 2048] tokens: the flash
               kernel launches once per layer; its logits are compared with a
               forward through the plain einsum attention and one through fp32
               attention.
-7. train    — the serving state is released first. Gradient parity: the
+9. train    — the serving state is released first. Gradient parity: the
               grads of `loss_fn` on llama3-8b at full width and 2 layers
               ([1, 2048] tokens) through the kernels, through the einsum
               attention and through fp32 attention; the kernel path must be
@@ -65,7 +81,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "parity", "forward", "train")
+PHASES = ("device", "build", "kernels", "serve", "spec", "disagg", "parity", "forward", "train")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -166,17 +182,38 @@ def phase_build(torch, ctx: dict) -> None:
         for ln in regs:
             log(f"[build]   {ln}")
     ctx["build_log"] = {name: rep["log"] for name, rep in report.items()}
+    if "paged_decode" in report and not report["paged_decode"]["cached"]:
+        # the instance the speculative draft (llama3-1b-proxy) runs: hd 64, n_rep 4
+        lines = _ptxas_instance(report["paged_decode"]["log"], "paged_decode_kernelILi64ELi4E")
+        if not lines:
+            raise AssertionError("ptxas reported no paged_decode_kernel<64, 4> instance")
+        for ln in lines:
+            log(f"[build] paged_decode hd 64 n_rep 4 (the draft's instance): {ln}")
     log(f"[build] all kernels in {ctx['build_s']:.1f}s")
 
 
-# K4's serving shapes: 8 slots, n_kv 8, n_rep 4, hd 128, page 16, 512 pages
-# per slot (an 8192-token span)
+def _ptxas_instance(ptxas_log: str, mangled: str) -> list[str]:
+    """ptxas' `-v` lines for the kernel instance whose mangled name holds
+    `mangled`: its entry line, properties (stack, spills) and registers."""
+    out, inside = [], False
+    for ln in ptxas_log.splitlines():
+        if "Compiling entry function" in ln:
+            inside = mangled in ln
+        if inside and ln.strip():
+            out.append(ln.strip())
+    return out
+
+
+# K4's serving shapes (S, n_kv, n_rep, hd, page, pages per slot): 8 slots,
+# an 8192-token span per slot, at llama3-8b's heads and at those of the
+# speculative draft, llama3-1b-proxy (hd 64)
 K4_SHAPE = (8, 8, 4, 128, 16, 512)
+K4_DRAFT_SHAPE = (8, 8, 4, 64, 16, 512)
 
 
-def _k4_pages(torch, gen):
-    """q and the K/V page pool at K4_SHAPE, 1 + 8 x 512 pages (page 0 scratch)."""
-    s, n_kv, n_rep, hd, page, pps = K4_SHAPE
+def _k4_pages(torch, gen, shape):
+    """q and the K/V page pool at `shape`, 1 + S x pps pages (page 0 scratch)."""
+    s, n_kv, n_rep, hd, page, pps = shape
     n_pages = 1 + s * pps
     q = torch.randn((s, n_kv, n_rep, hd), generator=gen, device="cuda").to(torch.bfloat16)
     k_pages = torch.randn((n_pages, page, n_kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -184,10 +221,10 @@ def _k4_pages(torch, gen):
     return q, k_pages, v_pages
 
 
-def _k4_tables(torch, gen, lens, inactive=()):
+def _k4_tables(torch, gen, shape, lens, inactive=()):
     """A random page table over pages 1.. and the slots' q_pos; an inactive
     slot's table points at the scratch page."""
-    s, _n_kv, _n_rep, _hd, _page, pps = K4_SHAPE
+    s, _n_kv, _n_rep, _hd, _page, pps = shape
     perm = torch.randperm(s * pps, generator=gen, device="cuda").to(torch.int32) + 1
     page_table = perm.reshape(s, pps).contiguous()
     for i in inactive:
@@ -245,55 +282,15 @@ def phase_kernels(torch, ctx: dict) -> None:
         flash_attention_fwd_ref,
         worst_tile_rel_l2,
     )
-    from modal_tpu_torch.ops.paged_attention import (
-        DECODE_CHUNK,
-        paged_decode_attention,
-        paged_decode_attention_ref,
-    )
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     results = ctx.setdefault("kernels", {})
 
-    # -- K4: paged decode attention --------------------------------------
-    # the serving lengths (spread over 1..4096, slot 3 inactive), then q_pos
-    # on and around the kernel's chunk boundaries and at the span's end
-    q, kp, vp = _k4_pages(torch, gen)
-    s, n_kv, n_rep, hd = q.shape
-    span = K4_SHAPE[4] * K4_SHAPE[5]
-    pt, sl = _k4_tables(torch, gen, [0, 4095, 1, 0, 2047, 517, 3000, 100], inactive=[3])
-    live = [i for i in range(s) if i != 3]
-    err = _k4_check(torch, "serving lengths", q, kp, vp, pt, sl, live)
-    bpt, bsl = _k4_tables(torch, gen, [0, DECODE_CHUNK - 1, DECODE_CHUNK, DECODE_CHUNK + 1, span - 1,
-                                        2 * DECODE_CHUNK - 1, 2 * DECODE_CHUNK, 16 * DECODE_CHUNK + 1])
-    err = max(err, _k4_check(torch, "chunk boundaries", q, kp, vp, bpt, bsl, list(range(s))))
-    del bpt, bsl
-    live_tokens = sum(int(sl[i]) + 1 for i in live)
-    kv_bytes = live_tokens * n_kv * hd * 2 * 2  # K and V rows each read once, bf16
-    io_bytes = 2 * q.numel() * 2 + pt.numel() * 4 + sl.numel() * 4
-    flops = 4 * live_tokens * n_kv * n_rep * hd
-    bound = max((kv_bytes + io_bytes) / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    # library yardstick: SDPA over the pre-gathered, head-repeated span
-    idx = pt.long()
-    k_att = kp[idx].reshape(s, span, n_kv, hd).repeat_interleave(n_rep, dim=2).transpose(1, 2).contiguous()
-    v_att = vp[idx].reshape(s, span, n_kv, hd).repeat_interleave(n_rep, dim=2).transpose(1, 2).contiguous()
-    q_sd = q.reshape(s, n_kv * n_rep, 1, hd)
-    vis = (torch.arange(span, device="cuda")[None, :] <= sl.long()[:, None])[:, None, None, :]
-    t = time_turns(torch, {
-        "kernel": lambda: paged_decode_attention(q, kp, vp, pt, sl),
-        "library": lambda: F.scaled_dot_product_attention(q_sd, k_att, v_att, attn_mask=vis),
-    }, 50)
-    cold = time_cold_ms(torch, lambda: paged_decode_attention(q, kp, vp, pt, sl))
-    k4 = _timed(t["kernel"], t["library"], cold_ms=cold,
-                plain_ms=time_ms(torch, lambda: paged_decode_attention_ref(q, kp, vp, pt, sl), 10))
-    del k_att, v_att
-    k4.update(bound_ms=bound, bound_by="bytes" if (kv_bytes + io_bytes) / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations", max_abs_err=err)
-    results["paged_decode"] = k4
-    log(f"[kernels] paged_decode kernel_ms warm={_spread(t['kernel'])} cold={cold:.4f} "
-        f"plain_ms={k4['plain_ms']:.4f} bound_ms={k4['bound_ms']:.4f} library_ms={_spread(t['library'])} "
-        f"(warm: median [min, max] of {TIMING_ROUNDS} rounds of 50 back-to-back calls; cold: median of 20 "
-        f"calls after a 256 MB write; live KV {kv_bytes / 1e6:.1f} MB over {live_tokens} tokens)")
+    # -- K4: paged decode attention, at the target's heads and the draft's --
+    results["paged_decode"] = _k4_measure(torch, gen, K4_SHAPE, "hd 128")
+    ctx["paged_decode_draft_shape"] = _k4_measure(torch, gen, K4_DRAFT_SHAPE, "hd 64")
 
     # -- K1: flash-attention forward ---------------------------------------
     def qkv(b, sq, h, d):
@@ -342,6 +339,58 @@ def phase_kernels(torch, ctx: dict) -> None:
     del qt, kt, vt
     _flash_bwd_kernels(torch, gen, qkv, results)
     _build.reset_launches()  # comparison launches do not count toward any path
+
+
+def _k4_measure(torch, gen, shape, label: str) -> dict:
+    """K4 at `shape`: checked against its plain version at the serving
+    lengths (spread over 1..4096, slot 3 inactive) and at q_pos on and
+    around its chunk boundaries and at the span's end; then timed warm (in
+    turns with SDPA over the pre-gathered span), cold, and as the plain
+    version, beside the bound of the live KV bytes."""
+    from modal_tpu_torch.ops.paged_attention import (
+        DECODE_CHUNK,
+        paged_decode_attention,
+        paged_decode_attention_ref,
+    )
+
+    F = torch.nn.functional
+    q, kp, vp = _k4_pages(torch, gen, shape)
+    s, n_kv, n_rep, hd = q.shape
+    span = shape[4] * shape[5]
+    pt, sl = _k4_tables(torch, gen, shape, [0, 4095, 1, 0, 2047, 517, 3000, 100], inactive=[3])
+    live = [i for i in range(s) if i != 3]
+    err = _k4_check(torch, f"{label} serving lengths", q, kp, vp, pt, sl, live)
+    bpt, bsl = _k4_tables(torch, gen, shape, [0, DECODE_CHUNK - 1, DECODE_CHUNK, DECODE_CHUNK + 1, span - 1,
+                                               2 * DECODE_CHUNK - 1, 2 * DECODE_CHUNK, 16 * DECODE_CHUNK + 1])
+    err = max(err, _k4_check(torch, f"{label} chunk boundaries", q, kp, vp, bpt, bsl, list(range(s))))
+    del bpt, bsl
+    live_tokens = sum(int(sl[i]) + 1 for i in live)
+    kv_bytes = live_tokens * n_kv * hd * 2 * 2  # K and V rows each read once, bf16
+    io_bytes = 2 * q.numel() * 2 + pt.numel() * 4 + sl.numel() * 4
+    flops = 4 * live_tokens * n_kv * n_rep * hd
+    bound = max((kv_bytes + io_bytes) / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    # library yardstick: SDPA over the pre-gathered, head-repeated span
+    idx = pt.long()
+    k_att = kp[idx].reshape(s, span, n_kv, hd).repeat_interleave(n_rep, dim=2).transpose(1, 2).contiguous()
+    v_att = vp[idx].reshape(s, span, n_kv, hd).repeat_interleave(n_rep, dim=2).transpose(1, 2).contiguous()
+    q_sd = q.reshape(s, n_kv * n_rep, 1, hd)
+    vis = (torch.arange(span, device="cuda")[None, :] <= sl.long()[:, None])[:, None, None, :]
+    t = time_turns(torch, {
+        "kernel": lambda: paged_decode_attention(q, kp, vp, pt, sl),
+        "library": lambda: F.scaled_dot_product_attention(q_sd, k_att, v_att, attn_mask=vis),
+    }, 50)
+    cold = time_cold_ms(torch, lambda: paged_decode_attention(q, kp, vp, pt, sl))
+    k4 = _timed(t["kernel"], t["library"], cold_ms=cold,
+                plain_ms=time_ms(torch, lambda: paged_decode_attention_ref(q, kp, vp, pt, sl), 10))
+    del k_att, v_att
+    k4.update(bound_ms=bound, bound_by="bytes" if (kv_bytes + io_bytes) / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+              max_abs_err=err, shape=list(shape))
+    log(f"[kernels] paged_decode {label} (S {s}, n_kv {n_kv}, n_rep {n_rep}, hd {hd}) kernel_ms "
+        f"warm={_spread(t['kernel'])} cold={cold:.4f} plain_ms={k4['plain_ms']:.4f} "
+        f"bound_ms={k4['bound_ms']:.4f} ({k4['ms'] / k4['bound_ms']:.2f}x) library_ms={_spread(t['library'])} "
+        f"(warm: median [min, max] of {TIMING_ROUNDS} rounds of 50 back-to-back calls; cold: median of 20 "
+        f"calls after a 256 MB write; live KV {kv_bytes / 1e6:.1f} MB over {live_tokens} tokens)")
+    return k4
 
 
 def _flash_bwd_kernels(torch, gen, qkv, results: dict) -> None:
@@ -442,65 +491,463 @@ def _prompts(cfg, n: int, seed: int):
     return [rng.integers(0, cfg.vocab_size, size=int(ln)).tolist() for ln in lens]
 
 
-def phase_serve(torch, ctx: dict) -> None:
-    from modal_tpu_torch.ops import _build
-    from modal_tpu_torch.serving import ServingEngine, asgi_request, serving_asgi_app
+# the serving traffic of the serve, spec and disagg phases: 8 requests of 64
+# new tokens, requests 5 and 7 sampled (T 0.8, top-p 0.9), seeds 1000 + i
+NEW_TOKENS = 64
+SAMPLED = (5, 7)
+# the self-draft's near-tie bar: a greedy proposal may be rejected only this
+# far below the target's best logit, a sampled one only where the draft's and
+# the target's logits of the two contested tokens differ by this much in all.
+# It is the kernel-vs-gather gap of llama3-8b's logits at 32 layers, 2.71e-1
+# (PERF.md, parity phase), rounded up; a draft cache off by a position
+# proposes tokens several logit std (~1) below the target's best
+SELF_DRAFT_TIE = 0.3
 
-    params, cfg = _load_8b(torch, ctx)
-    engine = ServingEngine(params, cfg, max_slots=8, page_size=16, prefill_chunk=128, device="cuda")
-    log(f"[serve] engine: attn_impl={engine.attn_impl} pages={engine.allocator.num_pages - 1} "
-        f"pool {engine.cache.pool_bytes() / 1e9:.2f} GB")
+
+def _traffic(i: int) -> dict:
+    sampled = i in SAMPLED
+    return {"temperature": 0.8 if sampled else 0.0, "top_p": 0.9 if sampled else 1.0, "seed": 1000 + i}
+
+
+def _engine_8b(params, cfg, **kw):
+    """The serving engine of the serve, spec and disagg phases: 8 slots,
+    page 16, prefill chunk 128, the default pool (2048 pages)."""
+    from modal_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(params, cfg, max_slots=8, page_size=16, prefill_chunk=128, device="cuda", **kw)
     if engine.attn_impl != "kernel":
         raise AssertionError(f"engine on CUDA chose attn_impl={engine.attn_impl!r}")
+    return engine
+
+
+def _check_streams(label: str, outs, vocab_size: int) -> None:
+    for i, out in enumerate(outs):
+        if len(out) != NEW_TOKENS or not all(0 <= t < vocab_size for t in out):
+            raise AssertionError(f"{label}: request {i} returned {len(out)} tokens (or one out of the vocabulary)")
+
+
+def _run_traffic(engine, prompts, vocab_size: int, label: str):
+    """Start `engine`, submit the serving traffic over `prompts`, wait for
+    every stream, stop it. Returns (streams, requests, wall s, stats)."""
+    t0 = time.perf_counter()
+    engine.start()
+    try:
+        reqs = [engine.submit(p, NEW_TOKENS, **_traffic(i)) for i, p in enumerate(prompts)]
+        outs = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+    finally:
+        engine.stop()  # joins the loop: the last iteration's counters are in
+    _check_streams(label, outs, vocab_size)
+    return outs, reqs, wall, engine.stats()
+
+
+def _pcts(values) -> tuple[float, float]:
+    ordered = sorted(values)
+    pct = lambda p: ordered[min(len(ordered) - 1, int(p * len(ordered)))]  # noqa: E731
+    return pct(0.5), pct(0.95)
+
+
+def _add_launches(ctx: dict, name: str, n: int) -> None:
+    launches = ctx.setdefault("launches", {})
+    launches[name] = launches.get(name, 0) + n
+
+
+def phase_serve(torch, ctx: dict) -> None:
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.serving import asgi_request, serving_asgi_app
+
+    params, cfg = _load_8b(torch, ctx)
+    engine = _engine_8b(params, cfg)
+    log(f"[serve] engine: attn_impl={engine.attn_impl} pages={engine.allocator.num_pages - 1} "
+        f"pool {engine.cache.pool_bytes() / 1e9:.2f} GB")
     prompts = _prompts(cfg, 8, seed=1)
-    sampled = {5, 7}
-    new_tokens = 64
     _build.reset_launches()
     t0 = time.perf_counter()
     engine.start()
     try:
         app = serving_asgi_app(engine)
-        reqs = [
-            engine.submit(p, new_tokens, temperature=0.8 if i in sampled else 0.0,
-                          top_p=0.9 if i in sampled else 1.0, seed=1000 + i)
-            for i, p in enumerate(prompts[1:], start=1)
-        ]
+        reqs = [engine.submit(p, NEW_TOKENS, **_traffic(i)) for i, p in enumerate(prompts[1:], start=1)]
         status, body = asyncio.run(asgi_request(
-            app, "POST", "/v1/generate", {"prompt": prompts[0], "max_new_tokens": new_tokens}
+            app, "POST", "/v1/generate", {"prompt": prompts[0], "max_new_tokens": NEW_TOKENS, **_traffic(0)}
         ))
         outs = [r.result(timeout=600) for r in reqs]
         wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-        stats = engine.stats()
     finally:
-        engine.stop()
+        engine.stop()  # joins the loop: the last iteration's counters are in
+    launches = dict(_build.LAUNCHES)
+    stats = engine.stats()
     if status != 200:
         raise AssertionError(f"/v1/generate answered {status}: {body[:300]!r}")
     api = json.loads(body)
-    if api["num_tokens"] != new_tokens:
-        raise AssertionError(f"/v1/generate returned {api['num_tokens']} tokens")
-    for i, out in enumerate(outs, start=1):
-        if len(out) != new_tokens or not all(0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"request {i} returned {len(out)} tokens")
+    streams = [api["tokens"]] + outs
+    _check_streams("serve", streams, cfg.vocab_size)
     steps = stats["steps"]
     if launches["paged_decode"] != cfg.n_layers * steps or steps == 0:
         raise AssertionError(
             f"paged_decode launched {launches['paged_decode']} times over {steps} decode steps "
             f"({cfg.n_layers} layers)"
         )
-    ttfts = sorted([api["ttft_s"]] + [r.ttft_s for r in reqs])
-    pct = lambda p: ttfts[min(len(ttfts) - 1, int(p * len(ttfts)))]  # noqa: E731
-    ctx["launches"] = {"paged_decode": launches["paged_decode"]}
+    p50, p95 = _pcts([api["ttft_s"]] + [r.ttft_s for r in reqs])
+    _add_launches(ctx, "paged_decode", launches["paged_decode"])
+    ctx["serve_streams"] = streams
     ctx["serve"] = {
-        "requests": 8, "new_tokens": new_tokens, "decode_steps": steps,
+        "requests": 8, "new_tokens": NEW_TOKENS, "decode_steps": steps,
         "tokens_generated": stats["tokens_generated"], "wall_s": wall,
-        "tokens_per_s": stats["tokens_generated"] / wall,
-        "ttft_p50_s": pct(0.5), "ttft_p95_s": pct(0.95), "preemptions": stats["preemptions"],
+        "tokens_per_s": 8 * NEW_TOKENS / wall,
+        "ttft_p50_s": p50, "ttft_p95_s": p95, "preemptions": stats["preemptions"],
         "prompt_tokens": sum(len(p) for p in prompts), "launches": launches,
     }
-    log(f"[serve] 8 requests x {new_tokens} tokens in {wall:.2f}s: "
+    log(f"[serve] 8 requests x {NEW_TOKENS} tokens in {wall:.2f}s: "
         f"{ctx['serve']['tokens_per_s']:.1f} tokens/s, steps={steps}, "
-        f"TTFT p50 {pct(0.5):.3f}s p95 {pct(0.95):.3f}s, launches={launches}")
+        f"TTFT p50 {p50:.3f}s p95 {p95:.3f}s, launches={launches}")
+
+
+def _checked_dispatches(torch, engine, records: list) -> None:
+    """Run each `_spec_dispatch` of `engine` under torch.cuda's sync debug
+    mode "error": a host sync inside it (an `.item()`, a `.cpu()`, a copy
+    from pageable memory) raises, fails the round and so the run. Each
+    dispatch's group (slot, seed, next token index, temperature, max new
+    tokens) and its target chain go to `records`."""
+    dispatch = engine._spec_dispatch
+
+    def checked(group):
+        info = [(i, s.request.seed, len(s.request.tokens), s.request.temperature, s.request.max_new_tokens)
+                for i, s in group]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            proposals, targets = dispatch(group)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        records.append({"group": info, "targets": targets})
+        return proposals, targets
+
+    engine._spec_dispatch = checked
+
+
+def _dispatch_samples(samples: list, n_dispatches: int, k: int) -> list:
+    """The draft logits of each dispatch: its sample_step calls are k [slots,
+    V] draft calls then one [slots·(k+1), V] verify call; other calls (a
+    prefill's sampled first token, [1, V]) come between dispatches."""
+    drafts, run = [], []
+    for logits in samples:
+        if logits.shape[0] == 1:
+            continue
+        run.append(logits)
+        if len(run) == k + 1:
+            drafts.append(run[:k])
+            run = []
+    if len(drafts) != n_dispatches or run:
+        raise AssertionError(f"spec: {len(drafts)} dispatches' draft logits for {n_dispatches} dispatches")
+    return drafts
+
+
+def _walk_rounds(torch, records: list, verifies: list, drafts: list, k: int) -> dict:
+    """Replay acceptance over each dispatch's verify (fed tokens and logits),
+    its draft logits and its target chain, as `_spec_accept` walks it. For
+    every rejected proposal p against the target's token t at that
+    position: the gap logit(t) − logit(p) in the target's logits, and the
+    deviation |draft(t) − target(t)| + |draft(p) − target(p)| between the
+    draft's logits and the target's at the two tokens. A greedy row's gap is
+    at most its deviation. A sampled row's decision also turns on the top-p
+    cut (a token at the nucleus edge is in for one and out for the other),
+    so there only the deviation bounds what bf16 noise can flip."""
+    rejections = []
+    accepted = 0
+    for rec, (fed, logits), dlogits in zip(records, verifies, drafts):
+        fed_h = fed.cpu()
+        targets = rec["targets"].cpu().reshape(fed.shape[0], k + 1)
+        for i, _seed, index, temp, max_new in rec["group"]:
+            for j in range(k):
+                if index + j + 1 >= max_new:
+                    break
+                prop, tgt = int(fed_h[i, j + 1]), int(targets[i, j])
+                if prop == tgt:
+                    accepted += 1
+                    continue
+                row, drow = logits[i, j].float(), dlogits[j][i].float()
+                rejections.append({
+                    "sampled": temp > 0,
+                    "gap": (row[tgt] - row[prop]).item(),
+                    "deviation": ((drow[tgt] - row[tgt]).abs() + (drow[prop] - row[prop]).abs()).item(),
+                })
+                break
+    return {"accepted": accepted, "rejections": rejections}
+
+
+def phase_spec(torch, ctx: dict) -> None:
+    import gc
+
+    from modal_tpu_torch.models.llama import get_config, init_params
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.serving import engine as engine_mod
+
+    params, cfg = _load_8b(torch, ctx)
+    prompts = _prompts(cfg, 8, seed=1)
+    k = 3
+    serve_tps = ctx.get("serve", {}).get("tokens_per_s")
+    out = {}
+    dcfg = get_config("llama3-1b-proxy")
+    runs = (("draft", (init_params(dcfg, seed=1, device="cuda"), dcfg)), ("self_draft", (params, cfg)))
+    verify, sample = engine_mod.paged_verify_step, engine_mod.sample_step
+    for name, draft in runs:
+        engine = _engine_8b(params, cfg, draft=draft, spec_k=k)
+        if not engine.spec_overlap:
+            raise AssertionError("the spec phase runs with MODAL_TPU_SPEC_OVERLAP on")
+        records: list = []
+        verifies: list = []
+        samples: list = []
+
+        def kept_verify(*args):
+            logits, cache = verify(*args)
+            verifies.append((args[2], logits))  # the fed tokens and every position's logits
+            return logits, cache
+
+        def kept_sample(logits, *rest):
+            samples.append(logits)  # k draft steps' logits, then the verify's, per dispatch
+            return sample(logits, *rest)
+
+        _checked_dispatches(torch, engine, records)
+        if name == "self_draft":  # the replay keeps each dispatch's logits: ~28 MB
+            engine_mod.paged_verify_step, engine_mod.sample_step = kept_verify, kept_sample
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            outs, reqs, wall, st = _run_traffic(engine, prompts, cfg.vocab_size, f"spec {name}")
+        finally:
+            engine_mod.paged_verify_step, engine_mod.sample_step = verify, sample
+        peak = torch.cuda.max_memory_allocated()
+        launches = _build.LAUNCHES["paged_decode"]
+        d_layers = draft[1].n_layers
+        want = d_layers * (k + 1) * st["spec_dispatches"]
+        if launches != want or st["spec_dispatches"] == 0 or len(records) != st["spec_dispatches"]:
+            raise AssertionError(
+                f"spec {name}: paged_decode launched {launches} times, want {d_layers} draft layers x "
+                f"{k + 1} x {st['spec_dispatches']} dispatches = {want} ({len(records)} dispatches seen)"
+            )
+        p50, p95 = _pcts([r.ttft_s for r in reqs])
+        same = sum(a == b for a, b in zip(outs, ctx.get("serve_streams", [])))
+        out[name] = {
+            "draft": draft[1].name, "spec_k": k, "wall_s": wall,
+            "tokens_per_s": 8 * NEW_TOKENS / wall, "ttft_p50_s": p50, "ttft_p95_s": p95,
+            "spec_rounds": st["spec_rounds"], "spec_dispatches": st["spec_dispatches"],
+            "spec_accept_ratio": st["spec_accept_ratio"], "paged_decode_launches": launches,
+            "streams_equal_to_serve": same, "draft_pool_bytes": engine.draft_cache.pool_bytes(),
+            "peak_memory_bytes": peak,
+        }
+        _add_launches(ctx, "paged_decode", launches)
+        log(f"[spec] {name} ({draft[1].name}, spec_k {k}, overlap on): {8 * NEW_TOKENS} tokens in "
+            f"{wall:.2f}s, {out[name]['tokens_per_s']:.1f} tokens/s (serve phase: "
+            f"{f'{serve_tps:.1f}' if serve_tps else 'not run'}), TTFT p50 {p50:.3f}s p95 {p95:.3f}s, "
+            f"rounds {st['spec_rounds']}, dispatches {st['spec_dispatches']} (no host sync inside one), "
+            f"accept ratio {st['spec_accept_ratio']}, paged_decode launches {launches} (= {d_layers} x "
+            f"{k + 1} x {st['spec_dispatches']}), streams equal to the serve phase's {same}/8, draft pool "
+            f"{out[name]['draft_pool_bytes'] / 1e9:.2f} GB, peak memory {peak / 1e9:.2f} GB")
+        if name == "self_draft":
+            # the prefill emissions call sample_step too (sampled requests,
+            # outside any dispatch): keep each dispatch's k + 1 calls only
+            drafts = _dispatch_samples(samples, len(records), k)
+            walk = _walk_rounds(torch, records, verifies, drafts, k)
+            engine_acc = sum(a for a, _p in engine._spec_window)
+            if walk["accepted"] != engine_acc or len(verifies) != len(records):
+                raise AssertionError(f"spec self_draft: the replay accepted {walk['accepted']} proposals "
+                                     f"over {len(verifies)} verifies, the engine {engine_acc}")
+            rej = walk["rejections"]
+            greedy = [r for r in rej if not r["sampled"]]
+            sampled = [r for r in rej if r["sampled"]]
+            worst = {"greedy_gap": max((r["gap"] for r in greedy), default=0.0),
+                     "greedy_deviation": max((r["deviation"] for r in greedy), default=0.0),
+                     "sampled_gap": max((r["gap"] for r in sampled), default=0.0),
+                     "sampled_deviation": max((r["deviation"] for r in sampled), default=0.0)}
+            out[name].update(rejections={"greedy": len(greedy), "sampled": len(sampled)}, worst=worst)
+            log(f"[spec] self_draft rejections: greedy {len(greedy)} (worst target-logit gap "
+                f"{worst['greedy_gap']:.4f}, worst draft-vs-target deviation {worst['greedy_deviation']:.4f}), "
+                f"sampled {len(sampled)} (worst gap {worst['sampled_gap']:.4f}, worst deviation "
+                f"{worst['sampled_deviation']:.4f}); bar {SELF_DRAFT_TIE} on the greedy gap and the sampled deviation")
+            if max(worst["greedy_gap"], worst["sampled_deviation"]) > SELF_DRAFT_TIE:
+                raise AssertionError(f"spec self_draft: a rejection is no near-tie ({worst}; bar {SELF_DRAFT_TIE}): "
+                                     "the draft's cache is off")
+        del engine, records, verifies, samples, draft
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["breakdown"] = _spec_breakdown(torch, params, cfg, *runs[0][1], k)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx["spec"] = out
+
+
+def _call_ms(torch, fn, iters: int = 5) -> tuple[float, float]:
+    """(wall, device) ms per call of `fn`, after a warm-up: the host clock
+    over `iters` calls ended by a synchronize, and the card's busy time over
+    another `iters` (the kernels' self time under torch.profiler, as
+    `tools/profile_serving.py` reads it). Wall above device means the host
+    paces the calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+                  for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, busy_us / 1e3 / iters
+
+
+def _spec_breakdown(torch, params, cfg, dparams, dcfg, k: int) -> dict:
+    """Where a speculative dispatch's time goes, at the spec phase's shapes
+    (8 slots decoding at q_pos ~600, the engine's 2048-page pools): one draft
+    decode step (the dispatch runs k + 1), the target's decode step for
+    comparison, and the target's (k + 1)-token verify through the gather
+    path, each as wall and device ms per call."""
+    from modal_tpu_torch.models.llama import params_device
+    from modal_tpu_torch.models.paged_kv import PagedKVCache, assign_pages, paged_decode_step, paged_verify_step
+
+    dev = params_device(params)
+
+    def state(c):
+        cache = PagedKVCache.create(c, 8, 2049, 16, 512, device=dev)
+        for slot in range(8):
+            assign_pages(cache, slot, 0, list(range(1 + 40 * slot, 1 + 40 * (slot + 1))))
+        return cache
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (8, k + 1), generator=gen, device=dev)
+    active = torch.ones((8,), dtype=torch.bool, device=dev)
+    out = {}
+    for name, (p, c) in (("draft_decode_step", (dparams, dcfg)), ("target_decode_step", (params, cfg)),
+                         ("target_verify", (params, cfg))):
+        cache = state(c)
+
+        def call():
+            cache.seq_lens.fill_(600)
+            if name == "target_verify":
+                paged_verify_step(p, c, tokens, cache, active)
+            else:
+                paged_decode_step(p, c, tokens[:, 0], cache, active, "kernel")
+
+        out[name] = _call_ms(torch, call)
+        del cache
+    dispatch = (k + 1) * out["draft_decode_step"][0] + out["target_verify"][0]
+    log(f"[spec] breakdown (8 slots at q_pos 600; wall / device-busy ms per call): draft {dcfg.name} "
+        f"decode step {'/'.join(f'{x:.2f}' for x in out['draft_decode_step'])} (x{k + 1} per dispatch), target "
+        f"decode step {'/'.join(f'{x:.2f}' for x in out['target_decode_step'])}, target verify of {k + 1} "
+        f"tokens (gather) {'/'.join(f'{x:.2f}' for x in out['target_verify'])}; a dispatch ~{dispatch:.1f} ms "
+        f"of wall before sampling")
+    return out
+
+
+def phase_disagg(torch, ctx: dict) -> None:
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch.models.paged_kv import export_pages
+    from modal_tpu_torch.observability.catalog import KV_SHIP_SECONDS
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.serving import asgi_request, serving_asgi_app
+
+    params, cfg = _load_8b(torch, ctx)
+    prompts = _prompts(cfg, 8, seed=1)
+    want = ctx.get("serve_streams")
+    if want is None:
+        want, *_ = _run_traffic(_engine_8b(params, cfg), prompts, cfg.vocab_size, "disagg reference")
+        log("[disagg] the serve phase did not run: reference streams from an all-in-one engine")
+    ship_dir = tempfile.mkdtemp(prefix="kvship-")
+    saved_dir = os.environ.get("MODAL_TPU_BLOB_LOCAL_DIR")
+    os.environ["MODAL_TPU_BLOB_LOCAL_DIR"] = ship_dir
+    pre = _engine_8b(params, cfg, role="prefill")
+    dec = _engine_8b(params, cfg, role="decode")
+    page = pre.page_size
+    try:
+        _build.reset_launches()
+        export_s0, export_n0 = KV_SHIP_SECONDS.totals()
+        t0 = time.perf_counter()
+        # request 0 by hand: export, submit, admit, and read the landed pages
+        r0 = pre.prefill_export(prompts[0], **_traffic(0))
+        while not r0.done:
+            pre.run_once()
+        ship = r0.shipment
+        d0 = dec.submit_prefilled(prompts[0], ship, NEW_TOKENS, **_traffic(0))
+        dec._admit()
+        slot = next(s for s in dec.slots if s is not None and s.request is d0)
+        landed = export_pages(dec.cache, slot.pages[: -(-len(prompts[0]) // page)])
+        if not (torch.equal(landed["k"], ship["k"]) and torch.equal(landed["v"], ship["v"])):
+            raise AssertionError("disagg: the imported pages differ from the exported bundle")
+        ship_mb = (ship["k"].numel() + ship["v"].numel()) * ship["k"].element_size() / 1e6
+        mb_per_page = ship_mb / ship["k"].shape[1]
+        del landed, ship
+        pre.start()
+        dec.start()
+        pre_app, dec_app = serving_asgi_app(pre), serving_asgi_app(dec)
+
+        async def legs(i: int):
+            status, body = await asgi_request(pre_app, "POST", "/v1/prefill", {"prompt": prompts[i], **_traffic(i)})
+            if status != 200:
+                raise AssertionError(f"/v1/prefill answered {status}: {body[:300]!r}")
+            ref = json.loads(body)
+            status, body = await asgi_request(dec_app, "POST", "/v1/prefilled", {
+                "prompt": prompts[i], "kv_ref": ref["kv_ref"], "max_new_tokens": NEW_TOKENS, **_traffic(i)})
+            if status != 200:
+                raise AssertionError(f"/v1/prefilled answered {status}: {body[:300]!r}")
+            return pre.get(ref["request_id"]).ttft_s, json.loads(body)
+
+        async def all_legs():
+            return await asyncio.gather(*(legs(i) for i in range(1, 8)))
+
+        answers = asyncio.run(all_legs())
+        outs = [d0.result(timeout=600)] + [a["tokens"] for _t, a in answers]
+        wall = time.perf_counter() - t0
+        pre_st, dec_st = pre.stats(), dec.stats()
+        launches = _build.LAUNCHES["paged_decode"]
+        export_s, export_n = (a - b for a, b in zip(KV_SHIP_SECONDS.totals(), (export_s0, export_n0)))
+    finally:
+        pre.stop()
+        dec.stop()
+        if saved_dir is None:
+            os.environ.pop("MODAL_TPU_BLOB_LOCAL_DIR", None)
+        else:
+            os.environ["MODAL_TPU_BLOB_LOCAL_DIR"] = saved_dir
+        shutil.rmtree(ship_dir, ignore_errors=True)
+    _check_streams("disagg", outs, cfg.vocab_size)
+    pages = sum(-(-len(p) // page) for p in prompts)
+    if (dec_st["remote_prefills"], dec_st["kv_ship_drops"], pre_st["kv_pages_shipped"], export_n) != (8, 0, pages, 8):
+        raise AssertionError(
+            f"disagg: remote prefills {dec_st['remote_prefills']} (want 8), drops {dec_st['kv_ship_drops']} "
+            f"(want 0), pages shipped {pre_st['kv_pages_shipped']} (want {pages}), exports {export_n} (want 8)"
+        )
+    if pre_st["steps"] != 0 or launches != cfg.n_layers * dec_st["steps"] or dec_st["steps"] == 0:
+        raise AssertionError(f"disagg: paged_decode launched {launches} times over the decode engine's "
+                             f"{dec_st['steps']} steps ({cfg.n_layers} layers; prefill engine steps {pre_st['steps']})")
+    differ = [i for i, (a, b) in enumerate(zip(outs, want)) if a != b]
+    if differ:
+        first = {i: next(j for j, (x, y) in enumerate(zip(outs[i], want[i])) if x != y) for i in differ}
+        raise AssertionError(f"disagg: streams {differ} differ from the all-in-one engine's "
+                             f"(first differing token index {first})")
+    dec_ttft = _pcts([d0.ttft_s] + [a["ttft_s"] for _t, a in answers])
+    pre_ttft = _pcts([r0.ttft_s] + [t for t, _a in answers])
+    _add_launches(ctx, "paged_decode", launches)
+    ctx["disagg"] = {
+        "wall_s": wall, "tokens_per_s": 8 * NEW_TOKENS / wall,
+        "decode_steps": dec_st["steps"], "paged_decode_launches": launches,
+        "remote_prefills": dec_st["remote_prefills"], "kv_ship_drops": dec_st["kv_ship_drops"],
+        "kv_pages_shipped": pre_st["kv_pages_shipped"],
+        "shipment_mb_total": pages * mb_per_page, "shipment_mb_request0": ship_mb,
+        "export_ms_mean": export_s / export_n * 1e3,
+        "decode_leg_ttft_p50_s": dec_ttft[0], "decode_leg_ttft_p95_s": dec_ttft[1],
+        "prefill_leg_ttft_p50_s": pre_ttft[0], "prefill_leg_ttft_p95_s": pre_ttft[1],
+    }
+    d = ctx["disagg"]
+    log(f"[disagg] 8 requests x {NEW_TOKENS} tokens in {wall:.2f}s: {d['tokens_per_s']:.1f} tokens/s, "
+        f"decode steps {dec_st['steps']}, paged_decode launches {launches} (= {cfg.n_layers} x steps), "
+        f"remote prefills 8, drops 0, pages shipped {pages} ({d['shipment_mb_total']:.1f} MB; request 0 "
+        f"{ship_mb:.1f} MB, imported bit-equal), export {d['export_ms_mean']:.2f} ms mean over 8 "
+        f"(KV_SHIP_SECONDS), TTFT decode leg p50 {dec_ttft[0]:.4f}s p95 {dec_ttft[1]:.4f}s, prefill leg "
+        f"p50 {pre_ttft[0]:.3f}s p95 {pre_ttft[1]:.3f}s; all 8 streams equal the all-in-one engine's")
 
 
 def _fp32_decode_attention(q, k_pages, v_pages, page_table, mask, positions=None, attn_impl="gather"):
@@ -644,7 +1091,7 @@ def phase_forward(torch, ctx: dict) -> None:
     out["fp32"] = forward(params, cfg, tokens, attn_impl=fp32_attention)[0][0]
     torch.cuda.synchronize()
     g = _gaps(torch, out)
-    ctx.setdefault("launches", {})["flash_fwd"] = launches
+    _add_launches(ctx, "flash_fwd", launches)
     ctx["forward"] = {**g, "wall_s": wall, "launches": launches}
     log(f"[forward] llama3-8b [1, 2048] cache-less: {wall:.2f}s, flash_fwd launches {launches}")
     _check_faithful("forward", g, 5e-2)
@@ -801,9 +1248,8 @@ def phase_train(torch, ctx: dict) -> None:
     tokens = seq_len  # B 1
     attn_flops = 2 * 2 * cfg.n_heads * cfg.head_dim * (seq_len * (seq_len + 1) // 2) * cfg.n_layers
     step_flops = 6 * (cfg.param_count() - cfg.vocab_size * cfg.dim) * tokens + 3 * attn_flops
-    path_launches = ctx.setdefault("launches", {})
     for n in want:  # flash_fwd also ran on the forward phase's path
-        path_launches[n] = path_launches.get(n, 0) + launches[n]
+        _add_launches(ctx, n, launches[n])
     ctx["train"] = {
         "grad_parity": parity, "steps": steps, "seq_len": seq_len, "final": final, "wall_s": wall,
         "step_s": step_s, "steady_step_ms": steady * 1e3, "mean_step_ms": mean_s * 1e3,
@@ -828,7 +1274,7 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve",), "flash_fwd": ("forward", "train"),
+PATHS = {"paged_decode": ("serve", "spec", "disagg"), "flash_fwd": ("forward", "train"),
          "flash_bwd_dq": ("train",), "flash_bwd_dkv": ("train",)}
 
 

@@ -1,4 +1,5 @@
-"""Package logger and the device rule every entry point follows."""
+"""Package logger, the device rule every entry point follows, and the
+host-to-device copy that does not wait for the stream."""
 
 from __future__ import annotations
 
@@ -31,3 +32,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())  # compares equal to tensors' .device
     return dev
+
+
+def host_to_device(values, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host array (numpy, list or CPU tensor) as a tensor on `device`. On
+    CUDA the copy goes through pinned memory with `non_blocking=True`: a
+    copy from pageable memory waits for every launch queued before it, which
+    would put a host sync into code that must only queue work."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,6 +1,6 @@
 """Paged (block) KV cache: fixed-size pages shared by every slot through a
 page table, plus the host-side block allocator and the content-keyed prefix
-cache (port of modal_tpu/models/paged_kv.py:44-466, 515-711).
+cache (port of modal_tpu/models/paged_kv.py).
 
 - pages: `[n_layers, num_pages, page_size, n_kv, hd]` K and V tensors, the
   whole serving tier's KV memory, allocated once at engine start;
@@ -16,8 +16,11 @@ and returns the same object, so call sites read the same way.
 Decode attention is either the hand-written CUDA page-streaming kernel
 (`ops/paged_attention.py`, attn_impl "kernel") or the gather path, which
 materialises every slot's page span and runs the einsum reference (attn_impl
-"gather"). Multi-token calls (prefill) always take the gather path, as in
-the JAX package.
+"gather"). Multi-token calls (prefill, speculative verify) always take the
+gather path, as in the JAX package.
+
+`export_pages` / `import_pages` move whole pages between pools (a
+prefill-role engine ships a prompt's KV to a decode-role engine).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import math
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -205,6 +209,35 @@ def set_seq_lens(cache: PagedKVCache, new_lens, update) -> PagedKVCache:
     return cache
 
 
+# -- KV-page shipment (prefill/decode disaggregation) --------------------------
+
+
+def export_pages(cache: PagedKVCache, page_ids: list[int]) -> dict:
+    """The named pages as CPU tensors {"k", "v"}, each [n_layers,
+    len(page_ids), page_size, n_kv, hd] in the pool dtype. Whole pages
+    travel: positions past the holder's length are garbage that stays
+    unattended on the importer too. Read-only, so exporting pages shared
+    with the prefix cache is safe."""
+    idx = _ids(page_ids, cache.device).long()
+    return {
+        "k": cache.k_pages.index_select(1, idx).cpu(),
+        "v": cache.v_pages.index_select(1, idx).cpu(),
+    }
+
+
+def import_pages(cache: PagedKVCache, page_ids: list[int], data: dict) -> PagedKVCache:
+    """Write a shipped page bundle (`export_pages`' dict; k/v as tensors or
+    numpy arrays) into the named local pages, cast to the pool dtype. The
+    caller owns the allocation and the page-table wiring."""
+    idx = _ids(page_ids, cache.device).long()
+    for name, pages in (("k", cache.k_pages), ("v", cache.v_pages)):
+        src = data[name]
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.array(src))  # a writable copy: torch shares the buffer
+        pages.index_copy_(1, idx, src.to(device=cache.device, dtype=pages.dtype))
+    return cache
+
+
 # -- paged forward internals --------------------------------------------------
 
 
@@ -371,6 +404,43 @@ def paged_decode_step(
     logits = _logits(params, cfg, x[:, 0, :])
     cache.seq_lens.add_(active.to(torch.int32))
     return logits, logits.argmax(dim=-1), cache
+
+
+@torch.no_grad()
+def paged_verify_step(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [slots, K1] int — [cur, draft_1..draft_k] per slot
+    cache: PagedKVCache,
+    active: torch.Tensor,  # [slots] bool
+):
+    """Speculative-decoding verify: K1 = k+1 tokens per slot through the
+    model in one step, their KV written at `seq_lens + [0..k]`. Returns
+    (logits [slots, K1, V] fp32, cache); logits[s, j] is the distribution of
+    the token after tokens[s, j].
+
+    seq_lens does NOT advance: acceptance is the host's decision, which
+    rolls the lengths with `set_seq_lens`; rejected positions stay behind as
+    unattended garbage. The engine keeps every write inside the page table
+    by reserving spec_k positions of context at submit."""
+    dev = cache.device
+    page = cache.page_size
+    _slots, k1 = tokens.shape
+    active = active.to(dev)
+    rows = cache.page_table.long()
+    positions = cache.seq_lens[:, None] + torch.arange(k1, dtype=torch.int32, device=dev)[None, :]
+    pos = positions.long()
+    page_idx = torch.clamp(pos // page, 0, rows.shape[1] - 1)
+    write_page_ids = torch.where(active[:, None], rows.gather(1, page_idx), 0)
+    write_offsets = torch.where(active[:, None], pos % page, 0)
+
+    x = qembed(params["embed"], tokens.to(dev).long())  # [slots, K1, D]
+    mask = _span_mask(cache.kv_span, pos)[:, None]  # [S, 1, K1, K]
+    x = _run_layers(
+        params, cfg, x, positions, write_page_ids.reshape(-1), write_offsets.reshape(-1), mask,
+        cache.page_table, cache,
+    )
+    return _logits(params, cfg, x), cache
 
 
 # -- shared-prefix KV reuse ---------------------------------------------------

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..config import host_to_device
 from .llama import KVCache, LlamaConfig, forward, params_device
 
 
@@ -167,7 +168,9 @@ def sample_step(
 ) -> torch.Tensor:
     """Sample one token per row ([N] int64 on logits' device). Sampled rows
     take the Gumbel-max of their filtered logits with noise from a generator
-    seeded by `row_seed(seed, index)`; temperature <= 0 rows take the argmax."""
+    seeded by `row_seed(seed, index)`; temperature <= 0 rows take the argmax.
+    The per-row knobs are host arrays: nothing here reads the device, so a
+    caller can queue the call behind other work without a sync."""
     dev = logits.device
     n, v = logits.shape
     seeds = torch.as_tensor(seeds).tolist()
@@ -177,12 +180,12 @@ def sample_step(
     rows = [i for i in range(n) if float(temperature[i]) > 0.0]
     if not rows:
         return out
-    sel = torch.as_tensor(rows, device=dev)
+    sel = host_to_device(rows, dev, torch.int64)
     filtered = filter_logits_batched(
         logits[sel],
-        temperature[rows],
-        torch.as_tensor(top_k)[rows],
-        torch.as_tensor(top_p, dtype=torch.float32)[rows],
+        host_to_device(temperature[rows], dev),
+        host_to_device(torch.as_tensor(top_k)[rows], dev),
+        host_to_device(torch.as_tensor(top_p, dtype=torch.float32)[rows], dev),
     )
     noise = torch.empty((len(rows), v), dtype=torch.float32, device=dev)
     for j, i in enumerate(rows):

@@ -79,6 +79,28 @@ SERVING_SAMPLED_TOKENS = REGISTRY.counter(
     "modal_tpu_serving_sampled_tokens_total",
     "Tokens emitted via temperature/top-k/top-p sampling (temperature > 0).",
 )
+SERVING_SPEC_ACCEPT_RATIO = REGISTRY.gauge(
+    "modal_tpu_serving_spec_accept_ratio",
+    "Draft-token acceptance ratio over the engine's trailing speculative "
+    "window (accepted / proposed; higher = more target steps skipped).",
+)
+SERVING_ROLE = REGISTRY.gauge(
+    "modal_tpu_serving_role",
+    "This replica's serving role as a numeric code (0 = both, 1 = prefill, "
+    "2 = decode — engine.ROLE_GAUGE_VALUES); rides the heartbeat so "
+    "`modal_tpu top` and the autoscaler can tell fleet tiers apart.",
+)
+KV_PAGES_SHIPPED = REGISTRY.counter(
+    "modal_tpu_kv_pages_shipped_total",
+    "KV pages exported off-device for prefill→decode shipment (blob-plane "
+    "page bundles; counted on the exporting replica).",
+)
+KV_SHIP_SECONDS = REGISTRY.histogram(
+    "modal_tpu_kv_ship_seconds",
+    "Device→host export time of one KV-page shipment bundle (the prefill "
+    "side of a disaggregated handoff).",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5),
+)
 
 # -- device telemetry (observability/device_telemetry.py) ----------------------
 

@@ -4,7 +4,8 @@ The span model is the JAX package's (trace_id/span_id/parent_id, name,
 start/end wall-clock seconds, attrs). Finished spans go to
 ``spans-<pid>.jsonl`` under the directory given to `configure(trace_dir)`.
 Without it, spans still carry ids (so children stitch under their parent)
-but nothing is written.
+but nothing is written. In-process observers registered with
+`add_span_tap` see every finished span, sink or no sink.
 """
 
 from __future__ import annotations
@@ -76,7 +77,23 @@ def configure(trace_dir: str) -> None:
         _sink_file = open(os.path.join(trace_dir, f"spans-{os.getpid()}.jsonl"), "a", buffering=1)
 
 
+_span_taps: list = []
+
+
+def add_span_tap(tap) -> None:
+    """Call `tap(span)` for every finished span (before the file sink)."""
+    if tap not in _span_taps:
+        _span_taps.append(tap)
+
+
+def remove_span_tap(tap) -> None:
+    if tap in _span_taps:
+        _span_taps.remove(tap)
+
+
 def _write(span: Span) -> None:
+    for tap in list(_span_taps):
+        tap(span)
     if _sink_file is None:
         return
     line = json.dumps(span.to_dict(), default=str)

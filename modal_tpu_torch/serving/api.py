@@ -1,5 +1,5 @@
 """HTTP surface of the serving engine: JSON + SSE over ASGI 3 (port of
-modal_tpu/serving/api.py without the prefill/decode disaggregation routes).
+modal_tpu/serving/api.py).
 
 Routes:
 
@@ -13,10 +13,20 @@ Routes:
 - ``GET /v1/result/{request_id}`` — the buffered result (blocks until the
   request completes): a client whose stream died re-fetches every token
   exactly once from the engine's per-request buffer.
+- ``POST /v1/prefill`` — the prefill leg of a disaggregated request: runs
+  the prompt's prefill, exports its KV pages as a shipment
+  (`shipment.py`) and answers ``{"kv_ref", "first_token", "n_tokens",
+  "request_id"}``. The shipment goes to ``$MODAL_TPU_KV_SHIP_URL/blob/<name>``
+  by HTTP PUT when that is set and ``MODAL_TPU_BLOB_LOCAL_DIR`` is not; else,
+  or when the PUT fails, to a file under ``MODAL_TPU_BLOB_LOCAL_DIR`` (the
+  temp dir when unset).
+- ``POST /v1/prefilled`` — the decode leg: ``kv_ref`` plus the generate
+  fields. The engine imports the shipped pages and goes straight to decode;
+  an unreadable or mismatched shipment degrades to a local prefill (the
+  same tokens, a later first token). A missing ``kv_ref`` is a 400.
 - ``GET /v1/stats`` — engine stats; ``GET /healthz`` — liveness.
 
-``text`` prompts use byte-level tokens (ids 0-255). ``/v1/prefill`` and
-``/v1/prefilled`` wait for a later slice of the port.
+``text`` prompts use byte-level tokens (ids 0-255).
 """
 
 from __future__ import annotations
@@ -24,13 +34,20 @@ from __future__ import annotations
 import asyncio
 import json
 import math
+import os
+import tempfile
 import time
+import urllib.request
 from typing import Callable, Optional
 
 from ..config import logger
 from ..observability import tracing
 from ..observability.catalog import SERVING_STREAM_EVENTS
+from . import shipment as wire
 from .engine import EngineStopped, GenRequest, ServingEngine
+
+BLOB_LOCAL_DIR_ENV = "MODAL_TPU_BLOB_LOCAL_DIR"
+KV_SHIP_URL_ENV = "MODAL_TPU_KV_SHIP_URL"
 
 
 def _decode_prompt(body: dict, vocab_size: int) -> list[int]:
@@ -103,6 +120,48 @@ def _parse_sampling(body: dict, defaults: dict) -> dict:
     if not isinstance(seed, int) or isinstance(seed, bool):
         raise ValueError(f"seed must be an int, got {seed!r}")
     return {"temperature": temperature, "top_k": top_k, "top_p": top_p, "seed": seed}
+
+
+def _ship_dir() -> str:
+    d = os.environ.get(BLOB_LOCAL_DIR_ENV, "") or tempfile.gettempdir()
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _ship_url_base() -> str:
+    """The blob plane's base URL for shipments between engines that share no
+    filesystem; empty when a shared dir is configured (it is preferred)."""
+    if os.environ.get(BLOB_LOCAL_DIR_ENV, ""):
+        return ""
+    return os.environ.get(KV_SHIP_URL_ENV, "").strip().rstrip("/")
+
+
+def _ship_put_http(base: str, name: str, payload: bytes) -> str:
+    """PUT the shipment to the blob plane; returns the URL the decode leg
+    reads. Raises on a transport failure (the caller writes a file)."""
+    url = f"{base}/blob/{name}"
+    req = urllib.request.Request(url, data=payload, method="PUT")
+    urllib.request.urlopen(req, timeout=15.0).close()
+    return url
+
+
+def _ship_get_http(url: str) -> bytes:
+    with urllib.request.urlopen(url, timeout=15.0) as resp:
+        return resp.read()
+
+
+def _write_file(path: str, data: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _read_shipment(kv_ref: str) -> dict:
+    """http(s) refs come from a prefill engine on another host; anything
+    else is a file of the shared-dir handoff."""
+    if kv_ref.startswith(("http://", "https://")):
+        return wire.decode(_ship_get_http(kv_ref))
+    with open(kv_ref, "rb") as f:
+        return wire.decode(f.read())
 
 
 async def _lifespan_protocol(receive, send) -> None:
@@ -244,6 +303,110 @@ def serving_asgi_app(
             SERVING_STREAM_EVENTS.inc(event="done")
             await send({"type": "http.response.body", "body": b""})
 
+    async def handle_prefill(receive, send) -> None:
+        """Prefill leg: generate exactly the first token, export the prompt's
+        KV pages and park them behind a reference. The pages never transit
+        the HTTP response; only the reference does."""
+        try:
+            raw = await read_body(receive)
+            body = json.loads(raw) if raw else {}
+            if not isinstance(body, dict):
+                raise ValueError("JSON body must be an object")
+            prompt = _decode_prompt(body, vocab_size)
+            request_id = str(body.get("request_id", ""))
+            sampling = _parse_sampling(body, defaults)
+        except (ValueError, json.JSONDecodeError) as exc:
+            await send_json(send, 400, {"error": str(exc)})
+            return
+        try:
+            req = engine.prefill_export(prompt, request_id=request_id, **sampling)
+        except EngineStopped as exc:
+            await send_json(send, 429 if "queue full" in str(exc) else 503, {"error": str(exc)})
+            return
+        except ValueError as exc:
+            await send_json(send, 400, {"error": str(exc)})
+            return
+        await wait_done(req)
+        if req.error or req.shipment is None:
+            await send_json(send, 500, {"error": req.error or "prefill produced no shipment"})
+            return
+        payload = await asyncio.to_thread(wire.encode, req.shipment)
+        req.shipment = None  # the reference is the handoff; drop the host copy
+        kv_ref = ""
+        ship_base = _ship_url_base()
+        if ship_base:
+            # no shared filesystem: a failed PUT degrades to the file path
+            # (worst case the decode leg prefills again), never to a 500
+            try:
+                kv_ref = await asyncio.to_thread(_ship_put_http, ship_base, f"kvship-{req.id}", payload)
+            except (OSError, ValueError) as exc:  # transport failure or a malformed URL
+                logger.warning(f"serving: kv ship via {ship_base} failed ({exc}); local file")
+        if not kv_ref:
+            kv_ref = os.path.join(_ship_dir(), f"kvship-{req.id}.bin")
+            await asyncio.to_thread(_write_file, kv_ref, payload)
+        await send_json(
+            send,
+            200,
+            {
+                "kv_ref": kv_ref,
+                "first_token": req.tokens[0] if req.tokens else None,
+                "n_tokens": len(prompt),
+                "request_id": req.id,
+            },
+        )
+
+    async def handle_prefilled(receive, send) -> None:
+        """Decode leg: land a shipped prefill and answer like /v1/generate.
+        A shipment that cannot be read or does not fit degrades to a local
+        prefill, not an error."""
+        try:
+            raw = await read_body(receive)
+            body = json.loads(raw) if raw else {}
+            if not isinstance(body, dict):
+                raise ValueError("JSON body must be an object")
+            prompt = _decode_prompt(body, vocab_size)
+            kv_ref = str(body.get("kv_ref", ""))
+            if not kv_ref:
+                raise ValueError("'kv_ref' is required (the reference /v1/prefill answered)")
+            max_new = int(body.get("max_new_tokens", 64))
+            if not 1 <= max_new <= max_new_tokens_limit:
+                raise ValueError(f"max_new_tokens must be in [1, {max_new_tokens_limit}]")
+            stream = bool(body.get("stream", False))
+            eos = body.get("eos_token_id")
+            request_id = str(body.get("request_id", ""))
+            sampling = _parse_sampling(body, defaults)
+        except (ValueError, json.JSONDecodeError) as exc:
+            await send_json(send, 400, {"error": str(exc)})
+            return
+        bundle = None
+        try:
+            bundle = await asyncio.to_thread(_read_shipment, kv_ref)
+        except Exception as exc:  # noqa: BLE001 — any unreadable shipment degrades to a local prefill
+            logger.warning(f"serving: kv_ref {kv_ref!r} unreadable ({exc}); local prefill")
+        kwargs = dict(
+            request_id=request_id, eos_token_id=int(eos) if eos is not None else None, **sampling
+        )
+        try:
+            try:
+                req = engine.submit_prefilled(prompt, bundle, max_new, **kwargs)
+            except ValueError as exc:
+                if bundle is None or "shipment" not in str(exc):
+                    raise
+                # the shipment does not fit, the request does: prefill locally
+                logger.warning(f"serving: shipment rejected ({exc}); local prefill")
+                req = engine.submit_prefilled(prompt, None, max_new, **kwargs)
+        except EngineStopped as exc:
+            await send_json(send, 429 if "queue full" in str(exc) else 503, {"error": str(exc)})
+            return
+        except ValueError as exc:
+            await send_json(send, 400, {"error": str(exc)})
+            return
+        if not stream:
+            await wait_done(req)
+            await send_json(send, 500 if req.error else 200, _result_payload(req, vocab_size))
+            return
+        await stream_sse(send, req)
+
     async def handle_result(receive, send, request_id: str) -> None:
         await read_body(receive)
         req = engine.get(request_id)
@@ -270,6 +433,10 @@ def serving_asgi_app(
                 await send_json(send, 200, engine.stats())
             elif path == "/v1/generate" and method == "POST":
                 await handle_generate(receive, send)
+            elif path == "/v1/prefill" and method == "POST":
+                await handle_prefill(receive, send)
+            elif path == "/v1/prefilled" and method == "POST":
+                await handle_prefilled(receive, send)
             elif path.startswith("/v1/result/") and method == "GET":
                 await handle_result(receive, send, path[len("/v1/result/"):])
             else:

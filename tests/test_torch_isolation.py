@@ -24,7 +24,7 @@ def _port_sources():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "modal_tpu", "flax", "optax")
+    return top in ("jax", "jaxlib", "modal_tpu", "flax", "optax", "ml_dtypes", "cloudpickle")
 
 
 def test_no_source_of_the_port_imports_jax_or_modal_tpu():
@@ -48,7 +48,7 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
     script = textwrap.dedent(
         """
         import sys
-        for name in ("jax", "jaxlib", "modal_tpu", "optax"):
+        for name in ("jax", "jaxlib", "modal_tpu", "optax", "ml_dtypes", "cloudpickle"):
             sys.modules[name] = None  # any import of them raises ImportError
         import modal_tpu_torch
         from modal_tpu_torch.models.llama import get_config, init_params
@@ -64,6 +64,23 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
             engine.stop()
         assert [len(o) for o in outs] == [5, 5], outs
         print("served", outs)
+
+        from modal_tpu_torch.serving import shipment
+        geometry = dict(max_slots=2, num_pages=9, page_size=8, pages_per_slot=4, prefill_chunk=16,
+                        device="cpu")
+        spec = ServingEngine(params, cfg, draft=(params, cfg), spec_k=2, **geometry).start()
+        pre = ServingEngine(params, cfg, role="prefill", **geometry).start()
+        try:
+            assert len(spec.submit([1, 2, 3], 6).result(timeout=120)) == 6
+            req = pre.prefill_export(list(range(1, 12)))
+            req.result(timeout=120)
+            bundle = shipment.decode(shipment.encode(req.shipment))
+            got = spec.submit_prefilled(list(range(1, 12)), bundle, 4).result(timeout=120)
+        finally:
+            spec.stop()
+            pre.stop()
+        assert len(got) == 4 and spec.stats()["remote_prefills"] == 1
+        print("speculated and shipped")
 
         from modal_tpu_torch.parallel.train import TrainConfig, create_state
         import torch
@@ -82,6 +99,7 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "served" in proc.stdout and "trained" in proc.stdout
+    assert "speculated and shipped" in proc.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

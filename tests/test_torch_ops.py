@@ -405,15 +405,18 @@ def _paged_case(device, case):
     """K4's inputs on the card: `ragged` is `_paged_inputs`' small set
     (mid-page, page boundary, one token, an inactive slot); the others put
     q_pos at 0, on and around the kernel's chunk boundaries and at the span's
-    end over a 3-chunk span, at llama3-8b's head shape and at two others."""
+    end over a 3-chunk span, at llama3-8b's head shape, at the speculative
+    draft's (llama3-1b-proxy: 8 slots, hd 64) and at two others."""
     if case == "ragged":
         _j, t_args = _paged_inputs(np.random.default_rng(13), "bfloat16", hd=128, n_rep=4, pps=4)
         return [t.to(device) for t in t_args], [0, 1, 3]
     n_kv, n_rep, hd = {"boundaries_hd128_rep4": (8, 4, 128), "boundaries_hd64_rep8": (2, 8, 64),
-                       "boundaries_hd32_rep1": (4, 1, 32)}[case]
+                       "boundaries_hd32_rep1": (4, 1, 32), "draft_hd64_rep4": (8, 4, 64)}[case]
     page, pps = 16, 3 * DECODE_CHUNK // 16
     span = page * pps
     lens = [0, DECODE_CHUNK - 1, DECODE_CHUNK, DECODE_CHUNK + 1, 2 * DECODE_CHUNK - 1, 2 * DECODE_CHUNK, span - 1]
+    if case == "draft_hd64_rep4":
+        lens.append(517)  # llama3-1b-proxy's heads in the speculative engine's 8 slots
     rng = np.random.default_rng(19)
     s = len(lens)
     q, kp, vp = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
@@ -425,7 +428,8 @@ def _paged_case(device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "case", ["ragged", "boundaries_hd128_rep4", "boundaries_hd64_rep8", "boundaries_hd32_rep1"]
+    "case",
+    ["ragged", "boundaries_hd128_rep4", "boundaries_hd64_rep8", "boundaries_hd32_rep1", "draft_hd64_rep4"],
 )
 def test_paged_decode_kernel_matches_plain(cuda_device, case):
     """K4 against the plain version on the live slots: max|kernel − plain|

@@ -92,7 +92,7 @@ def test_asgi_generate_round_trip(fp32_tiny):
         result = await asgi_request(app, "GET", f"/v1/result/{json.loads(ok[1])['request_id']}")
         stats = await asgi_request(app, "GET", "/v1/stats")
         health = await asgi_request(app, "GET", "/healthz")
-        missing = await asgi_request(app, "GET", "/v1/prefill")
+        missing = await asgi_request(app, "GET", "/v1/no-such-route")
         return ok, sse, bad, result, stats, health, missing
 
     try:
@@ -114,11 +114,17 @@ def test_asgi_generate_round_trip(fp32_tiny):
 
 
 def test_engine_refuses_what_this_slice_lacks(fp32_tiny):
+    """The JAX engine's refusals, raised at construction or submit: a draft
+    of another vocabulary, an MoE draft, bad sampling knobs, a request past
+    the context limit (which a draft shortens by spec_k)."""
     _jp, _jc, tparams, tcfg = fp32_tiny
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServingEngine(tparams, tcfg, device="cpu", draft=(tparams, tcfg))
-    with pytest.raises(NotImplementedError, match="role"):
-        ServingEngine(tparams, tcfg, device="cpu", role="prefill")
+    with pytest.raises(ValueError, match="draft vocab"):
+        ServingEngine(tparams, tcfg, device="cpu", draft=(tparams, tllama.get_config("debug-1l")))
+    with pytest.raises(ValueError, match="MoE draft"):
+        ServingEngine(tparams, tcfg, device="cpu", draft=(tparams, tllama.get_config("tiny-moe")))
+    spec = ServingEngine(tparams, tcfg, device="cpu", draft=(tparams, tcfg), spec_k=3, **GEOMETRY)
+    with pytest.raises(ValueError, match=r"context limit \(61 = .* spec_k \(3\)"):
+        spec.submit([1] * 60, 2)
     engine = ServingEngine(tparams, tcfg, device="cpu", **GEOMETRY)  # not started
     for bad in (float("nan"), -0.1, float("inf")):
         with pytest.raises(ValueError, match="temperature"):
