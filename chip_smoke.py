@@ -5,13 +5,16 @@
     python3 chip_smoke.py --phases device,build,kernels --out chiprun_out/smoke.json
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,serve,spec,disagg
+    python3 chip_smoke.py --phases device,build,serve,graphs,weights,int8
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
 
 1. device   — the card's name and power limit (nvidia-smi), TF32 off.
 2. build    — compile every CUDA kernel of the port from `modal_tpu_torch/csrc`
-              (one nvcc per source, all started together).
+              (one nvcc per source, all started together), then the AOT
+              warm-up of every entry point (`MODAL_TPU_AOT_LOWER=all`), which
+              must report no error.
 3. kernels  — each kernel against its plain PyTorch version at its path's
               shapes (bf16), then timed beside the plain version, the
               card's bound for the same work, and one PyTorch library call
@@ -22,31 +25,49 @@ result line):
               speculative draft's (hd 64).
 4. serve    — llama3-8b at full width with seeded random weights: the
               ServingEngine answers 8 requests (one through the ASGI app's
-              /v1/generate, driven in process); every request must finish with
-              64 tokens and the paged decode kernel must have launched exactly
-              n_layers times per decode step.
-5. spec     — the same traffic through speculative decoding (spec_k 3, the
+              /v1/generate, driven in process) with its decode step captured
+              as a CUDA graph (the engine's default on a card); every request
+              must finish with 64 tokens and the paged decode kernel must have
+              launched exactly n_layers times per decode step, replays counted.
+5. graphs   — the same traffic through an engine with cuda_graphs=False: the
+              8 streams must equal the serve phase's (a differing token must be
+              a near-tie, SELF_DRAFT_TIE, of the two modes' logits), K4 exact
+              in both; then the decode step of each mode, wall and device ms
+              and busy share at 8 slots, each graph's pool and capture time.
+6. weights  — the serving params exported as a safetensors checkpoint to a
+              temporary local directory (free space checked first) and
+              loaded back (`models/weights.py`): export and load GB/s, peak
+              host RSS, every tensor bit-equal; the cache-less forward on the
+              reloaded params launches the flash kernel once per layer and
+              equals the original's; a serve run on them gives the serve
+              phase's streams. The reloaded params replace the originals.
+7. int8     — `init_params_quantized(llama3-8b, fast_host_init=True)` on the
+              card (bytes, peak memory), the serving traffic through a
+              graphed engine on it (64 tokens each, K4 exact), and its decode
+              step's device ms beside the bf16 step's.
+8. spec     — the same traffic through speculative decoding (spec_k 3, the
               two slot groups of a round queued before either is read back;
               a host sync inside a dispatch raises): (a) a llama3-1b-proxy
               draft at full width, whose decode steps run the paged decode
               kernel at hd 64 exactly draft layers × (spec_k + 1) times per
-              dispatch; (b) the target as its own draft, where every rejected
-              proposal must sit at a near-tie of the target's logits
-              (SELF_DRAFT_TIE).
-6. disagg   — a prefill-role and a decode-role engine on the card, sharing the
+              dispatch (replays of the draft's decode graph counted); (b) the
+              target as its own draft, where every rejected proposal must sit
+              at a near-tie of the target's logits (SELF_DRAFT_TIE); and the
+              draft step's time, eager and graphed.
+9. disagg   — a prefill-role and a decode-role engine on the card, sharing the
               weights, driven through /v1/prefill and /v1/prefilled with a
               shared shipment dir: 8 remote prefills and no degrade, pages that
               land bit-equal to the shipment, the decode engine's kernel
               launches exactly n_layers per step, and token streams equal to the
               serve phase's (an all-in-one engine's when serve did not run).
-7. parity   — one greedy request's first decode step through the kernel,
+10. parity  — one greedy request's first decode step through the kernel,
               through attn_impl="gather" and through fp32 attention, on the
               same engine state, at depths 1 to 32.
-8. forward  — cache-less `llama.forward` on [1, 2048] tokens: the flash
+11. forward — cache-less `llama.forward` on [1, 2048] tokens: the flash
               kernel launches once per layer; its logits are compared with a
               forward through the plain einsum attention and one through fp32
               attention.
-9. train    — the serving state is released first. Gradient parity: the
+12. train   — the serving state is released first. Gradient parity: the
               grads of `loss_fn` on llama3-8b at full width and 2 layers
               ([1, 2048] tokens) through the kernels, through the einsum
               attention and through fp32 attention; the kernel path must be
@@ -55,7 +76,9 @@ result line):
               full model on one card: finite loss and grad norm, params that
               move once the lr is above 0, and per step exactly 2 x 32
               forward launches (remat runs each layer's forward again in the
-              backward) and 32 launches of each backward kernel.
+              backward) and 32 launches of each backward kernel; the second
+              step's optimizer update (clip + AdamW) runs under
+              torch.cuda.set_sync_debug_mode("error"): no host sync.
 
 Parity at depth: with random weights a single bf16 rounding inside
 attention moves llama3-8b's logits by a few 1e-2 (max over the 128256-entry
@@ -81,7 +104,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "spec", "disagg", "parity", "forward", "train")
+PHASES = ("device", "build", "kernels", "serve", "graphs", "weights", "int8", "spec", "disagg", "parity",
+          "forward", "train")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -190,6 +214,23 @@ def phase_build(torch, ctx: dict) -> None:
         for ln in lines:
             log(f"[build] paged_decode hd 64 n_rep 4 (the draft's instance): {ln}")
     log(f"[build] all kernels in {ctx['build_s']:.1f}s")
+    from modal_tpu_torch.runtime import aot
+
+    saved = os.environ.get(aot.AOT_ENV)
+    os.environ[aot.AOT_ENV] = "all,cfg=llama3-8b"
+    try:
+        warm = aot.maybe_aot_lower()
+    finally:
+        if saved is None:
+            del os.environ[aot.AOT_ENV]
+        else:
+            os.environ[aot.AOT_ENV] = saved
+    if warm is None or "errors" in warm or set(warm) != set(aot.ENTRY_POINTS):
+        raise AssertionError(f"AOT warm-up failed: {warm}")
+    ctx["aot"] = warm
+    log(f"[build] AOT warm-up ({aot.AOT_ENV}=all,cfg=llama3-8b): "
+        + ", ".join(f"{k} {v['kernels'] or 'no kernel'} {v['seconds']}s" for k, v in warm.items())
+        + f"; llama3-8b params {warm['decode']['param_bytes'] / 1e9:.2f} GB (meta tree)")
 
 
 def _ptxas_instance(ptxas_log: str, mangled: str) -> list[str]:
@@ -552,15 +593,56 @@ def _add_launches(ctx: dict, name: str, n: int) -> None:
     launches[name] = launches.get(name, 0) + n
 
 
+def _graph_line(engine) -> str:
+    g = engine.decode_graph
+    return (f"decode graph: pool {g.pool_bytes / 1e6:.1f} MB, warm-up + capture {g.capture_s:.2f}s, "
+            f"launches per replay {g.graph.launches}")
+
+
+def _keep_decode_logits(engine, engine_mod) -> tuple:
+    """Keep each decoding slot's logits row of every decode step of
+    `engine`, keyed by (request id, index of the token the row decides).
+    Returns (the dict, a function that undoes the wrapping)."""
+    kept: dict = {}
+
+    def keep(logits):
+        for i, s in engine._decoding():
+            kept[(s.request.id, len(s.request.tokens))] = logits[i].clone()
+
+    if engine.decode_graph is not None:
+        graph = engine.decode_graph
+
+        def graphed(tokens, active):
+            out = graph(tokens, active)
+            keep(out[0])
+            return out
+
+        engine.decode_graph = graphed
+        return kept, lambda: setattr(engine, "decode_graph", graph)
+    step = engine_mod.paged_decode_step
+
+    def eager(*args):
+        out = step(*args)
+        keep(out[0])
+        return out
+
+    engine_mod.paged_decode_step = eager
+    return kept, lambda: setattr(engine_mod, "paged_decode_step", step)
+
+
 def phase_serve(torch, ctx: dict) -> None:
     from modal_tpu_torch.ops import _build
     from modal_tpu_torch.serving import asgi_request, serving_asgi_app
+    from modal_tpu_torch.serving import engine as engine_mod
 
     params, cfg = _load_8b(torch, ctx)
     engine = _engine_8b(params, cfg)
+    if engine.decode_graph is None:
+        raise AssertionError("the engine on CUDA did not capture its decode step")
     log(f"[serve] engine: attn_impl={engine.attn_impl} pages={engine.allocator.num_pages - 1} "
-        f"pool {engine.cache.pool_bytes() / 1e9:.2f} GB")
+        f"pool {engine.cache.pool_bytes() / 1e9:.2f} GB; {_graph_line(engine)}")
     prompts = _prompts(cfg, 8, seed=1)
+    kept, unwrap = _keep_decode_logits(engine, engine_mod)
     _build.reset_launches()
     t0 = time.perf_counter()
     engine.start()
@@ -574,12 +656,16 @@ def phase_serve(torch, ctx: dict) -> None:
         wall = time.perf_counter() - t0
     finally:
         engine.stop()  # joins the loop: the last iteration's counters are in
+        unwrap()
     launches = dict(_build.LAUNCHES)
     stats = engine.stats()
     if status != 200:
         raise AssertionError(f"/v1/generate answered {status}: {body[:300]!r}")
     api = json.loads(body)
     streams = [api["tokens"]] + outs
+    ids = [api["request_id"]] + [r.id for r in reqs]
+    ctx["serve_logits"] = {(i, n): row for (rid, n), row in kept.items() for i in [ids.index(rid)]}
+    ctx["serve_graph"] = {"pool_bytes": engine.decode_graph.pool_bytes, "capture_s": engine.decode_graph.capture_s}
     _check_streams("serve", streams, cfg.vocab_size)
     steps = stats["steps"]
     if launches["paged_decode"] != cfg.n_layers * steps or steps == 0:
@@ -599,7 +685,270 @@ def phase_serve(torch, ctx: dict) -> None:
     }
     log(f"[serve] 8 requests x {NEW_TOKENS} tokens in {wall:.2f}s: "
         f"{ctx['serve']['tokens_per_s']:.1f} tokens/s, steps={steps}, "
-        f"TTFT p50 {p50:.3f}s p95 {p95:.3f}s, launches={launches}")
+        f"TTFT p50 {p50:.3f}s p95 {p95:.3f}s, launches={launches} (= {cfg.n_layers} x {steps} graph replays)")
+
+
+def _first_divergence(want, got, want_logits: dict, got_logits: dict) -> list:
+    """For each stream of `got` that differs from `want`: the first differing
+    token and the two modes' logits there. A greedy row may differ only at a
+    near-tie of the reference's logits (gap logit(a) − logit(b) of its token
+    a over the other's b); a sampled row only where the two rows' logits of
+    the two tokens differ by at most the bar in all (the deviation)."""
+    out = []
+    for i, (a_stream, b_stream) in enumerate(zip(want, got)):
+        if a_stream == b_stream:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(a_stream, b_stream)) if x != y)
+        a, b = a_stream[j], b_stream[j]
+        ref, row = want_logits.get((i, j)), got_logits.get((i, j))
+        if ref is None or row is None:  # the prefill's token: both modes prefill eagerly
+            out.append({"request": i, "token": j, "gap": math.inf, "deviation": math.inf, "sampled": i in SAMPLED})
+            continue
+        out.append({
+            "request": i, "token": j, "sampled": i in SAMPLED,
+            "gap": (ref[a] - ref[b]).item(),
+            "deviation": ((ref[a] - row[a]).abs() + (ref[b] - row[b]).abs()).item(),
+        })
+    return out
+
+
+def _decode_step_times(torch, params, cfg, graphs: bool, steps: int = 16) -> dict:
+    """One engine decode step (`_decode_step`: the step, the sampling of the
+    two sampled rows, the read-back and the host bookkeeping) at 8 slots
+    after the serving prompts' prefill, graphed or eager: wall ms per step
+    (host clock, each step ends in its read-back), device ms per step (the
+    kernels' self time under torch.profiler over `steps` more steps), busy
+    share = device / wall, and decode tokens/s at 8 slots."""
+    import gc
+
+    engine = _engine_8b(params, cfg, cuda_graphs=graphs)
+    for i, p in enumerate(_prompts(cfg, 8, seed=1)):
+        engine.submit(p, 3 * steps + 8, **_traffic(i))
+    engine._admit()
+    while any(s is not None and s.state == "prefill" for s in engine.slots):
+        engine._prefill_one()
+    for _ in range(4):
+        engine._decode_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine._decode_step()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            engine._decode_step()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t1) / steps * 1e3
+    busy_us = sum(float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+                  for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    device = busy_us / 1e3 / steps
+    out = {"wall_ms": wall, "device_ms": device, "profiled_wall_ms": window, "busy_share": device / window,
+           "tokens_per_s": 8 * 1e3 / wall, "q_pos": [s.pos for s in engine.slots if s is not None]}
+    if graphs:
+        out.update(pool_bytes=engine.decode_graph.pool_bytes, capture_s=engine.decode_graph.capture_s)
+    engine.stop()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graphs(torch, ctx: dict) -> None:
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.serving import engine as engine_mod
+
+    params, cfg = _load_8b(torch, ctx)
+    prompts = _prompts(cfg, 8, seed=1)
+    runs = {}
+    modes = ((True, "graphed"), (False, "eager")) if "serve_streams" not in ctx else ((False, "eager"),)
+    for graphs, name in modes:
+        engine = _engine_8b(params, cfg, cuda_graphs=graphs)
+        kept, unwrap = _keep_decode_logits(engine, engine_mod)
+        _build.reset_launches()
+        try:
+            outs, reqs, wall, st = _run_traffic(engine, prompts, cfg.vocab_size, f"graphs {name}")
+        finally:
+            unwrap()
+        launches = _build.LAUNCHES["paged_decode"]
+        if launches != cfg.n_layers * st["steps"] or st["steps"] == 0:
+            raise AssertionError(f"graphs {name}: paged_decode launched {launches} times over {st['steps']} steps")
+        ids = [r.id for r in reqs]
+        runs[name] = {"streams": outs, "logits": {(ids.index(rid), n): row for (rid, n), row in kept.items()},
+                      "wall_s": wall, "tokens_per_s": 8 * NEW_TOKENS / wall, "steps": st["steps"],
+                      "paged_decode_launches": launches}
+        log(f"[graphs] {name} engine: {8 * NEW_TOKENS} tokens in {wall:.2f}s ({8 * NEW_TOKENS / wall:.1f} tokens/s), "
+            f"steps {st['steps']}, paged_decode launches {launches} (= {cfg.n_layers} x steps)")
+        del engine
+    graphed = runs.get("graphed") or {"streams": ctx["serve_streams"], "logits": ctx.pop("serve_logits")}
+    diverged = _first_divergence(graphed["streams"], runs["eager"]["streams"], graphed["logits"], runs["eager"]["logits"])
+    for d in diverged:
+        log(f"[graphs] request {d['request']} ({'sampled' if d['sampled'] else 'greedy'}) differs first at token "
+            f"{d['token']}: graphed-logit gap {d['gap']:.4f}, graphed-vs-eager deviation {d['deviation']:.4f} "
+            f"(bar {SELF_DRAFT_TIE} on the greedy gap and the sampled deviation)")
+    bad = [d for d in diverged if (d["deviation"] if d["sampled"] else d["gap"]) > SELF_DRAFT_TIE]
+    if bad:
+        raise AssertionError(f"graphs: streams differ beyond a near-tie between graphed and eager decode: {bad}")
+    for run in runs.values():
+        run.pop("logits")
+    steps = {name: _decode_step_times(torch, params, cfg, graphs) for graphs, name in ((True, "graphed"), (False, "eager"))}
+    for name, m in steps.items():
+        log(f"[graphs] {name} decode step (8 slots, q_pos {min(m['q_pos'])}-{max(m['q_pos'])}): wall "
+            f"{m['wall_ms']:.2f} ms, device {m['device_ms']:.2f} ms, busy share {m['busy_share']:.3f}, "
+            f"{m['tokens_per_s']:.1f} decode tokens/s"
+            + (f"; graph pool {m['pool_bytes'] / 1e6:.1f} MB, warm-up + capture {m['capture_s']:.2f}s"
+               if name == "graphed" else ""))
+    ctx["graphs"] = {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "streams"} for k, v in runs.items()},
+                     "streams_equal": 8 - len(diverged), "diverged": diverged, "decode_step": steps}
+    ctx["bf16_decode_step"] = steps["graphed"]
+    _add_launches(ctx, "paged_decode", sum(r["paged_decode_launches"] for r in runs.values()))
+    log(f"[graphs] streams equal between graphed and eager decode: {8 - len(diverged)}/8; decode step "
+        f"{steps['eager']['wall_ms']:.2f} -> {steps['graphed']['wall_ms']:.2f} ms wall "
+        f"({steps['eager']['wall_ms'] / steps['graphed']['wall_ms']:.2f}x)")
+
+
+def _free_bytes(path: str) -> int:
+    import shutil
+
+    return shutil.disk_usage(path).free
+
+
+def phase_weights(torch, ctx: dict) -> None:
+    import gc
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch.models.llama import forward
+    from modal_tpu_torch.models.quant import quantized_bytes
+    from modal_tpu_torch.models.weights import export_checkpoint, load_params
+    from modal_tpu_torch.observability.catalog import observe_peak_rss
+    from modal_tpu_torch.ops import _build
+
+    params, cfg = _load_8b(torch, ctx)
+    prompts = _prompts(cfg, 8, seed=1)
+    want = ctx.get("serve_streams")
+    if want is None:
+        want, *_ = _run_traffic(_engine_8b(params, cfg), prompts, cfg.vocab_size, "weights reference")
+        log("[weights] the serve phase did not run: reference streams from the original params")
+    nbytes = quantized_bytes(params)
+    parent = tempfile.gettempdir()
+    free = _free_bytes(parent)
+    log(f"[weights] {nbytes / 1e9:.2f} GB of params; {free / 1e9:.1f} GB free under {parent}")
+    if free < nbytes * 1.1 + (2 << 30):
+        raise AssertionError(f"weights: {free / 1e9:.1f} GB free under {parent}, the checkpoint needs {nbytes / 1e9:.1f}")
+    ckpt = tempfile.mkdtemp(prefix="ckpt-", dir=parent)
+    try:
+        rss0 = observe_peak_rss()
+        t0 = time.perf_counter()
+        index = export_checkpoint(params, cfg, ckpt)
+        export_s = time.perf_counter() - t0
+        rss_export = observe_peak_rss()
+        total = index["metadata"]["total_size"]
+        shards = sorted(set(index["weight_map"].values()))
+        t0 = time.perf_counter()
+        loaded = load_params(ckpt, cfg, device="cuda")
+        load_s = time.perf_counter() - t0
+        rss_load = observe_peak_rss()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[weights] exported {total / 1e9:.2f} GB in {len(shards)} shards in {export_s:.2f}s "
+        f"({total / export_s / 1e9:.2f} GB/s), loaded in {load_s:.2f}s ({total / load_s / 1e9:.2f} GB/s; "
+        f"reads from the page cache the export filled); process peak RSS {rss0 / 1e9:.2f} GB before, "
+        f"{rss_export / 1e9:.2f} after the export, {rss_load / 1e9:.2f} after the load")
+    same = [torch.equal(loaded[k], params[k]) for k in ("embed", "final_norm", "lm_head")]
+    same += [torch.equal(loaded["layers"][k], v) for k, v in params["layers"].items()]
+    if not all(same):
+        raise AssertionError(f"weights: {same.count(False)} reloaded tensors differ from their source")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    _build.reset_launches()
+    logits = forward(loaded, cfg, tokens)[0]
+    torch.cuda.synchronize()
+    k1 = _build.LAUNCHES["flash_fwd"]
+    if k1 != cfg.n_layers or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"weights: the forward on the reloaded params launched flash_fwd {k1} times "
+                             f"(want {cfg.n_layers}) or gave non-finite logits")
+    same_fwd = torch.equal(logits, forward(params, cfg, tokens)[0])
+    _build.reset_launches()  # the comparison forward does not count toward the path
+    del logits
+    if not same_fwd:
+        raise AssertionError("weights: the forward on the reloaded params differs from the original's")
+    ctx["params"] = params = loaded  # the originals are dropped: the bits are the same
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = _engine_8b(params, cfg)  # its warm-up launches come before the count
+    _build.reset_launches()
+    outs, _reqs, wall, st = _run_traffic(engine, prompts, cfg.vocab_size, "weights serve")
+    del engine
+    k4 = _build.LAUNCHES["paged_decode"]
+    if k4 != cfg.n_layers * st["steps"]:
+        raise AssertionError(f"weights: paged_decode launched {k4} times over {st['steps']} steps")
+    differ = [i for i, (a, b) in enumerate(zip(outs, want)) if a != b]
+    if differ:
+        raise AssertionError(f"weights: streams {differ} on the reloaded params differ from the serve phase's")
+    _add_launches(ctx, "flash_fwd", k1)
+    _add_launches(ctx, "paged_decode", k4)
+    ctx["weights"] = {
+        "bytes": total, "shards": len(shards), "export_s": export_s, "export_gb_per_s": total / export_s / 1e9,
+        "load_s": load_s, "load_gb_per_s": total / load_s / 1e9, "peak_rss_before_bytes": rss0,
+        "peak_rss_after_export_bytes": rss_export, "peak_rss_after_load_bytes": rss_load,
+        "serve_tokens_per_s": 8 * NEW_TOKENS / wall, "flash_fwd_launches": k1, "paged_decode_launches": k4,
+    }
+    log(f"[weights] every reloaded tensor bit-equal; forward on them: flash_fwd launches {k1}, logits equal "
+        f"the original's; serve on them: 8/8 streams equal the serve phase's, {8 * NEW_TOKENS / wall:.1f} "
+        f"tokens/s, paged_decode launches {k4} (= {cfg.n_layers} x {st['steps']})")
+
+
+def phase_int8(torch, ctx: dict) -> None:
+    import gc
+
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.models.quant import init_params_quantized, quantized_bytes
+    from modal_tpu_torch.ops import _build
+
+    cfg = get_config("llama3-8b")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = init_params_quantized(cfg, fast_host_init=True, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    qbytes = quantized_bytes(qparams)
+    init_peak = torch.cuda.max_memory_allocated() - base
+    log(f"[int8] llama3-8b int8 params (fast_host_init) in {init_s:.1f}s: quantized_bytes {qbytes / 1e9:.3f} GB, "
+        f"peak device memory of the init {init_peak / 1e9:.3f} GB above the {base / 1e9:.2f} GB already held")
+    engine = _engine_8b(qparams, cfg)
+    prompts = _prompts(cfg, 8, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    outs, _reqs, wall, st = _run_traffic(engine, prompts, cfg.vocab_size, "int8")
+    k4 = _build.LAUNCHES["paged_decode"]
+    serve_peak = torch.cuda.max_memory_allocated() - base
+    if k4 != cfg.n_layers * st["steps"] or st["steps"] == 0:
+        raise AssertionError(f"int8: paged_decode launched {k4} times over {st['steps']} steps")
+    log(f"[int8] graphed engine on int8 params: {8 * NEW_TOKENS} tokens in {wall:.2f}s "
+        f"({8 * NEW_TOKENS / wall:.1f} tokens/s), steps {st['steps']}, paged_decode launches {k4} "
+        f"(= {cfg.n_layers} x steps), peak device memory {serve_peak / 1e9:.2f} GB above the bf16 params; "
+        f"{_graph_line(engine)}")
+    del engine
+    gc.collect()
+    step = _decode_step_times(torch, qparams, cfg, True)
+    bf16 = ctx.get("bf16_decode_step")
+    if bf16 is None:
+        params, _cfg = _load_8b(torch, ctx)
+        bf16 = ctx["bf16_decode_step"] = _decode_step_times(torch, params, cfg, True)
+    _add_launches(ctx, "paged_decode", k4)
+    ctx["int8"] = {"quantized_bytes": qbytes, "init_s": init_s, "init_peak_bytes": init_peak,
+                   "serve_peak_bytes": serve_peak, "tokens_per_s": 8 * NEW_TOKENS / wall, "steps": st["steps"],
+                   "paged_decode_launches": k4, "decode_step": step, "bf16_decode_step": bf16}
+    log(f"[int8] graphed decode step at 8 slots: int8 device {step['device_ms']:.2f} ms (wall {step['wall_ms']:.2f}) "
+        f"against bf16 device {bf16['device_ms']:.2f} ms (wall {bf16['wall_ms']:.2f}): "
+        f"{step['device_ms'] / bf16['device_ms']:.2f}x (qmm converts each int8 weight to bf16 per call)")
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _checked_dispatches(torch, engine, records: list) -> None:
@@ -693,6 +1042,9 @@ def phase_spec(torch, ctx: dict) -> None:
         engine = _engine_8b(params, cfg, draft=draft, spec_k=k)
         if not engine.spec_overlap:
             raise AssertionError("the spec phase runs with MODAL_TPU_SPEC_OVERLAP on")
+        if engine.decode_graph is None:
+            raise AssertionError("the speculative engine did not capture its draft's decode step")
+        log(f"[spec] {name}: draft {_graph_line(engine)}")
         records: list = []
         verifies: list = []
         samples: list = []
@@ -703,7 +1055,9 @@ def phase_spec(torch, ctx: dict) -> None:
             return logits, cache
 
         def kept_sample(logits, *rest):
-            samples.append(logits)  # k draft steps' logits, then the verify's, per dispatch
+            # k draft steps' logits, then the verify's, per dispatch; a copy:
+            # the draft graph's next replay overwrites its logits buffer
+            samples.append(logits.clone())
             return sample(logits, *rest)
 
         _checked_dispatches(torch, engine, records)
@@ -740,7 +1094,8 @@ def phase_spec(torch, ctx: dict) -> None:
             f"{f'{serve_tps:.1f}' if serve_tps else 'not run'}), TTFT p50 {p50:.3f}s p95 {p95:.3f}s, "
             f"rounds {st['spec_rounds']}, dispatches {st['spec_dispatches']} (no host sync inside one), "
             f"accept ratio {st['spec_accept_ratio']}, paged_decode launches {launches} (= {d_layers} x "
-            f"{k + 1} x {st['spec_dispatches']}), streams equal to the serve phase's {same}/8, draft pool "
+            f"{k + 1} x {st['spec_dispatches']}, draft graph replays counted), streams equal to the serve "
+            f"phase's {same}/8, draft pool "
             f"{out[name]['draft_pool_bytes'] / 1e9:.2f} GB, peak memory {peak / 1e9:.2f} GB")
         if name == "self_draft":
             # the prefill emissions call sample_step too (sampled requests,
@@ -805,7 +1160,13 @@ def _spec_breakdown(torch, params, cfg, dparams, dcfg, k: int) -> dict:
     comparison, and the target's (k + 1)-token verify through the gather
     path, each as wall and device ms per call."""
     from modal_tpu_torch.models.llama import params_device
-    from modal_tpu_torch.models.paged_kv import PagedKVCache, assign_pages, paged_decode_step, paged_verify_step
+    from modal_tpu_torch.models.paged_kv import (
+        DecodeGraph,
+        PagedKVCache,
+        assign_pages,
+        paged_decode_step,
+        paged_verify_step,
+    )
 
     dev = params_device(params)
 
@@ -820,25 +1181,33 @@ def _spec_breakdown(torch, params, cfg, dparams, dcfg, k: int) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (8, k + 1), generator=gen, device=dev)
     active = torch.ones((8,), dtype=torch.bool, device=dev)
     out = {}
-    for name, (p, c) in (("draft_decode_step", (dparams, dcfg)), ("target_decode_step", (params, cfg)),
+    for name, (p, c) in (("draft_decode_step", (dparams, dcfg)), ("draft_decode_step_graphed", (dparams, dcfg)),
+                         ("target_decode_step", (params, cfg)), ("target_decode_step_graphed", (params, cfg)),
                          ("target_verify", (params, cfg))):
         cache = state(c)
+        graph = DecodeGraph(p, c, cache) if name.endswith("_graphed") else None
 
         def call():
             cache.seq_lens.fill_(600)
             if name == "target_verify":
                 paged_verify_step(p, c, tokens, cache, active)
+            elif graph is not None:
+                graph(tokens[:, 0], active)
             else:
                 paged_decode_step(p, c, tokens[:, 0], cache, active, "kernel")
 
         out[name] = _call_ms(torch, call)
-        del cache
-    dispatch = (k + 1) * out["draft_decode_step"][0] + out["target_verify"][0]
+        del cache, graph
+    dispatch = (k + 1) * out["draft_decode_step_graphed"][0] + out["target_verify"][0]
+
+    def ms(key):
+        return "/".join(f"{x:.2f}" for x in out[key])
+
     log(f"[spec] breakdown (8 slots at q_pos 600; wall / device-busy ms per call): draft {dcfg.name} "
-        f"decode step {'/'.join(f'{x:.2f}' for x in out['draft_decode_step'])} (x{k + 1} per dispatch), target "
-        f"decode step {'/'.join(f'{x:.2f}' for x in out['target_decode_step'])}, target verify of {k + 1} "
-        f"tokens (gather) {'/'.join(f'{x:.2f}' for x in out['target_verify'])}; a dispatch ~{dispatch:.1f} ms "
-        f"of wall before sampling")
+        f"decode step eager {ms('draft_decode_step')}, graphed {ms('draft_decode_step_graphed')} (x{k + 1} per "
+        f"dispatch), target decode step eager {ms('target_decode_step')}, graphed "
+        f"{ms('target_decode_step_graphed')}, target verify of {k + 1} tokens (gather, eager) "
+        f"{ms('target_verify')}; a dispatch ~{dispatch:.1f} ms of wall before sampling")
     return out
 
 
@@ -1109,6 +1478,12 @@ def _release_serving_state(torch, ctx: dict) -> None:
     left = torch.cuda.memory_allocated()
     log(f"[train] released earlier phases: {left / 1e6:.1f} MB still allocated")
     if left > 256e6:
+        live = sorted((t for t in gc.get_objects() if isinstance(t, torch.Tensor) and t.is_cuda),
+                      key=lambda t: -t.untyped_storage().nbytes())
+        for t in live[:12]:
+            holders = sorted({type(r).__name__ for r in gc.get_referrers(t)} - {"list"})
+            log(f"[train]   live: {tuple(t.shape)} {t.dtype} {t.untyped_storage().nbytes() / 1e6:.1f} MB "
+                f"held by {holders}")
         raise AssertionError(f"{left / 1e9:.2f} GB still allocated before training")
 
 
@@ -1189,7 +1564,7 @@ def phase_train(torch, ctx: dict) -> None:
     from modal_tpu_torch.models.llama import get_config
     from modal_tpu_torch.observability.catalog import STEP_SECONDS
     from modal_tpu_torch.ops import _build
-    from modal_tpu_torch.parallel.train import train_demo
+    from modal_tpu_torch.parallel.train import Optimizer, train_demo
 
     _release_serving_state(torch, ctx)
     t0 = time.perf_counter()
@@ -1217,12 +1592,36 @@ def phase_train(torch, ctx: dict) -> None:
             "wq0": state.params["layers"][0]["wq"].detach().clone(),
         })
 
+    updates = []
+    update = Optimizer.update
+
+    def checked_update(self, opt_state, step):
+        """The second update (the AdamW state exists by then) under sync
+        debug mode "error": a host sync in the clip or AdamW raises."""
+        if len(updates) != 1:
+            updates.append(False)
+            return update(self, opt_state, step)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            norm = update(self, opt_state, step)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        updates.append(True)
+        return norm
+
     torch.cuda.reset_peak_memory_stats()
     base_s = STEP_SECONDS.totals(kind="train")[0]
     _build.reset_launches()
     t0 = time.perf_counter()
-    final = train_demo("llama3-8b", steps=steps, per_device_batch=1, seq_len=seq_len, on_step=on_step)
+    Optimizer.update = checked_update
+    try:
+        final = train_demo("llama3-8b", steps=steps, per_device_batch=1, seq_len=seq_len, on_step=on_step)
+    finally:
+        Optimizer.update = update
     wall = time.perf_counter() - t0
+    if updates.count(True) != 1:
+        raise AssertionError(f"train: the sync-checked update did not run ({updates})")
     peak = torch.cuda.max_memory_allocated()
     launches = dict(_build.LAUNCHES)
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
@@ -1264,7 +1663,8 @@ def phase_train(torch, ctx: dict) -> None:
         f"{tokens / steady:.1f} tokens/s, MFU {ctx['train']['mfu']:.4f} "
         f"({step_flops / 1e12:.1f} TFLOP/step, bound {step_flops / BF16_FLOPS * 1e3:.1f} ms), "
         f"peak {peak / 1e9:.2f} GB, losses {ctx['train']['losses']}, grad norms "
-        f"{ctx['train']['grad_norms']}, launches {launches}")
+        f"{ctx['train']['grad_norms']}, launches {launches}; step 2's optimizer update (clip + AdamW) ran "
+        f"under set_sync_debug_mode('error') without a host sync")
 
 
 KERNELS = {
@@ -1274,8 +1674,8 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve", "spec", "disagg"), "flash_fwd": ("forward", "train"),
-         "flash_bwd_dq": ("train",), "flash_bwd_dkv": ("train",)}
+PATHS = {"paged_decode": ("serve", "graphs", "weights", "int8", "spec", "disagg"),
+         "flash_fwd": ("weights", "forward", "train"), "flash_bwd_dq": ("train",), "flash_bwd_dkv": ("train",)}
 
 
 def main() -> int:
@@ -1302,7 +1702,8 @@ def main() -> int:
         if name in phases:
             t0 = time.perf_counter()
             globals()[f"phase_{name}"](torch, ctx)
-            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s")
+            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s, "
+                f"{torch.cuda.memory_allocated() / 1e6:.1f} MB allocated")
     ctx.pop("params", None)
     ctx.pop("cfg", None)
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

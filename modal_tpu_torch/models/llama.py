@@ -130,8 +130,6 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    hd = cfg.head_dim
-    L = cfg.n_layers
 
     def normal(*shape: int) -> torch.Tensor:
         return torch.empty(shape, dtype=cfg.dtype, device=dev).normal_(0.0, 0.02, generator=gen)
@@ -139,6 +137,26 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> dict:
     def ones(*shape: int) -> torch.Tensor:
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
 
+    return _param_tree(cfg, normal, ones)
+
+
+def init_params_abstract(cfg: LlamaConfig) -> dict:
+    """The param tree's shapes and dtypes as tensors on the "meta" device,
+    which hold no memory (JAX: `jax.eval_shape` of `init_params`). The int8
+    init and the AOT warm-up read shapes and bytes from it."""
+    _reject_moe(cfg)
+
+    def empty(*shape: int) -> torch.Tensor:
+        return torch.empty(shape, dtype=cfg.dtype, device="meta")
+
+    return _param_tree(cfg, empty, empty)
+
+
+def _param_tree(cfg: LlamaConfig, normal: Callable, ones: Callable) -> dict:
+    """The stacked param tree, each weight made by `normal(*shape)` and each
+    norm gain by `ones(*shape)`, in the JAX package's key order."""
+    hd = cfg.head_dim
+    L = cfg.n_layers
     layers = {
         "attn_norm": ones(L, cfg.dim),
         "wq": normal(L, cfg.dim, cfg.n_heads * hd),

@@ -21,12 +21,21 @@ gather path, as in the JAX package.
 
 `export_pages` / `import_pages` move whole pages between pools (a
 prefill-role engine ships a prompt's KV to a decode-role engine).
+
+`DecodeGraph` captures `paged_decode_step` over one persistent cache as a
+CUDA graph: one launch per step, where the JAX package dispatches the step
+as one compiled executable. Its addresses are fixed at capture, which is
+why every helper here updates the cache's tensors in place and none
+rebinds them.
 """
 
 from __future__ import annotations
 
+import gc
 import math
 import os
+import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -404,6 +413,86 @@ def paged_decode_step(
     logits = _logits(params, cfg, x[:, 0, :])
     cache.seq_lens.add_(active.to(torch.int32))
     return logits, logits.argmax(dim=-1), cache
+
+
+# Capture streams that no live DecodeGraph holds, per device. cuBLAS keeps a
+# workspace (32 MiB on Hopper) for every stream it ran on, for the life of
+# the process, and a captured GEMM bakes in its capture stream's: a stream
+# is lent to one graph at a time (so no warm-up runs beside a live graph's
+# replays on the same workspace) and reused once that graph is gone, which
+# bounds the workspaces by the graphs alive at once.
+_FREE_CAPTURE_STREAMS: dict[torch.device, list] = {}
+
+
+class DecodeGraph:
+    """`paged_decode_step` over `cache`, captured once as a CUDA graph and
+    replayed per step: `graph(tokens, active)` copies the step's inputs
+    (device tensors) into the static `tokens` and `active` buffers, replays,
+    and returns the static `(logits, next_tokens)`, which the next replay
+    overwrites (read or copy them first).
+
+    The graph reads the params and the cache's pages, page table and
+    lengths at the addresses they had at capture: the cache must only ever
+    be updated in place. Warm-up and capture run with every slot inactive,
+    so their writes land on the scratch page and no length moves; the
+    warm-up runs eagerly on the capture stream (PyTorch's rule for cuBLAS
+    workspaces) and builds the kernels. K4 takes the graph's own workspace
+    (`graph_workspaces`), never a stream's, and the launches recorded at
+    capture are counted per replay (`_build.CountedGraph`). A failed capture
+    raises. `pool_bytes` is what the graph's private memory pool reserved,
+    `capture_s` the warm-up and capture time. The capture stream is the
+    graph's own while it lives (`_FREE_CAPTURE_STREAMS`); replays run on
+    the caller's stream, the default stream for every engine.
+
+    Nothing flash-based (K1-K3) is captured here. A captured train step
+    would need their one-time `cudaFuncSetAttribute` done by an eager call
+    first, and would bake in the TMA descriptors each call encodes on the
+    host with that call's tensor addresses (csrc/hopper.cuh)."""
+
+    WARMUP = 3
+
+    def __init__(self, params: dict, cfg: LlamaConfig, cache: PagedKVCache, attn_impl: str = "kernel"):
+        from ..ops import _build
+        from ..ops.paged_attention import graph_workspaces
+
+        dev = cache.device
+        if dev.type != "cuda":
+            raise ValueError(f"DecodeGraph captures on a CUDA device; the cache lives on {dev}")
+        t0 = time.perf_counter()
+        self.tokens = torch.zeros((cache.num_slots,), dtype=torch.int64, device=dev)
+        self.active = torch.zeros((cache.num_slots,), dtype=torch.bool, device=dev)
+        self.workspaces: dict = {}
+
+        def step():
+            logits, next_tokens, _cache = paged_decode_step(params, cfg, self.tokens, cache, self.active, attn_impl)
+            return logits, next_tokens
+
+        free = _FREE_CAPTURE_STREAMS.setdefault(dev, [])
+        stream = free.pop() if free else torch.cuda.Stream(dev)
+        weakref.finalize(self, free.append, stream)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with graph_workspaces(self.workspaces):
+            with torch.cuda.stream(stream):
+                for _ in range(self.WARMUP):
+                    step()
+            torch.cuda.synchronize(dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            with _build.recording_launches() as launches:
+                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                    self.logits, self.next_tokens = step()
+        torch.cuda.synchronize(dev)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph = _build.CountedGraph(graph, launches)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, tokens: torch.Tensor, active: torch.Tensor):
+        self.tokens.copy_(tokens, non_blocking=True)
+        self.active.copy_(active, non_blocking=True)
+        self.graph.replay()
+        return self.logits, self.next_tokens
 
 
 @torch.no_grad()

@@ -1,16 +1,21 @@
 """Decode on the dense cache, and per-row sampling for the serving engine
 (port of modal_tpu/models/sampling.py).
 
-`prefill`, `decode_step`, `greedy_generate` and `benchmark_decode` are the
-dense path (`llama.KVCache`); the tests hold the paged path against them.
-`filter_logits_batched` and `sample_step` are what the engine samples with.
+`prefill`, `decode_step`, `decode_tokens`, `greedy_generate`,
+`sample_tokens`, `sample_generate` and `benchmark_decode` are the dense path
+(`llama.KVCache`); the tests hold the paged path against them. The JAX
+package fuses a generation into one `lax.scan` dispatch; here it is a loop
+of eager steps. `filter_logits_batched` and `sample_step` are what the
+engine samples with.
 
 JAX derives row i's key as `fold_in(PRNGKey(seeds[i]), indices[i])`; those
 bits cannot be reproduced in torch. Here each sampled row draws its noise
 from its own `torch.Generator` seeded from `(seed, index)`, which keeps the
 property that matters: a row's token depends only on its own seed, index
 and logits, never on its batch companions. Rows with temperature <= 0 take
-the exact argmax.
+the exact argmax. Where JAX takes a `key`, `sample_tokens` and
+`sample_generate` take a `torch.Generator`: only draws that the filter
+makes deterministic (top_k=1) can match the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,6 +42,20 @@ def decode_step(params: dict, cfg: LlamaConfig, token: torch.Tensor, cache: KVCa
     """One token in, one distribution out. token: [B, 1]."""
     logits, cache = forward(params, cfg, token, cache=cache)
     return logits[:, -1, :], cache
+
+
+@torch.no_grad()
+def decode_tokens(params: dict, cfg: LlamaConfig, first_token: torch.Tensor, cache: KVCache, num_tokens: int):
+    """Generate `num_tokens` greedily from `first_token` [B, 1]. Returns
+    (tokens [B, num_tokens], final_token [B, 1], cache): the emitted tokens
+    include `first_token` and exclude the final one, as the JAX scan's do."""
+    tok = first_token
+    out = []
+    for _ in range(num_tokens):
+        out.append(tok)
+        logits, cache = decode_step(params, cfg, tok, cache)
+        tok = logits.argmax(dim=-1, keepdim=True).to(first_token.dtype)
+    return torch.cat(out, dim=1), tok, cache
 
 
 @torch.no_grad()
@@ -67,9 +86,20 @@ def greedy_generate(
     return torch.cat([prompt, torch.cat(out, dim=1).to(prompt.dtype)], dim=1)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def host_sync(tree) -> None:
+    """Wait until every CUDA device holding a tensor of `tree` (a tensor, or
+    a dict/list/tuple of them) has finished its queued work; CPU tensors
+    are already done. Timing must not trust an enqueue: a CUDA call returns
+    before the device finishes, so a host clock read without this measures
+    the launch, not the work."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for leaf in tree:
+            host_sync(leaf)
+        return
+    if isinstance(tree, torch.Tensor) and tree.device.type == "cuda":
+        torch.cuda.synchronize(tree.device)
 
 
 @torch.no_grad()
@@ -90,7 +120,7 @@ def benchmark_decode(
         cache = KVCache.create(cfg, batch, cache_len, device=dev)
         t0 = time.perf_counter()
         logits, cache = prefill(params, cfg, prompt, cache)
-        _sync(dev)
+        host_sync(logits)
         return time.perf_counter() - t0, logits, cache
 
     first_prefill_s, _l, _c = run_prefill()  # warm-up: kernel builds, allocator
@@ -100,7 +130,7 @@ def benchmark_decode(
     for _ in range(gen_len):
         logits, cache = decode_step(params, cfg, tok, cache)
         tok = logits.argmax(dim=-1, keepdim=True)
-    _sync(dev)
+    host_sync(tok)
     decode_s = time.perf_counter() - t0
     return {
         "device": str(dev),
@@ -111,6 +141,73 @@ def benchmark_decode(
         "decode_tokens_per_s": batch * gen_len / decode_s,
         "ms_per_token": decode_s / gen_len * 1000,
     }
+
+
+def _filter_logits(logits: torch.Tensor, temperature: float, top_k: int) -> torch.Tensor:
+    """Temperature scale and top-k mask (the first token of `sample_generate`
+    and every step of `sample_tokens` sample the same distribution)."""
+    logits = logits / max(temperature, 1e-6)
+    if top_k:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    return logits
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from softmax(logits) ([B, V] → [B, 1])."""
+    return torch.multinomial(torch.softmax(logits.float(), dim=-1), 1, generator=generator)
+
+
+@torch.no_grad()
+def sample_tokens(
+    params: dict,
+    cfg: LlamaConfig,
+    first_token: torch.Tensor,  # [B, 1]
+    cache: KVCache,
+    num_tokens: int,
+    generator: torch.Generator,
+    temperature: float = 1.0,
+    top_k: int = 0,
+):
+    """Temperature / top-k sampling, step by step like `decode_tokens`, each
+    draw from `generator`. Returns (tokens [B, num_tokens], final_token
+    [B, 1], cache)."""
+    tok = first_token
+    out = []
+    for _ in range(num_tokens):
+        out.append(tok)
+        logits, cache = decode_step(params, cfg, tok, cache)
+        tok = _categorical(_filter_logits(logits, temperature, top_k), generator).to(first_token.dtype)
+    return torch.cat(out, dim=1), tok, cache
+
+
+@torch.no_grad()
+def sample_generate(
+    params: dict,
+    cfg: LlamaConfig,
+    prompt: torch.Tensor,  # [B, S] int
+    max_new_tokens: int,
+    *,
+    generator: torch.Generator,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    cache_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Stochastic decode (temperature + optional top-k), every draw from
+    `generator` (on the prompt's device), so a seeded generator reproduces
+    the stream. Returns [B, S + max_new_tokens]."""
+    b, s = prompt.shape
+    cache_len = cache_len or cfg.max_seq_len
+    if s + max_new_tokens > cache_len:
+        raise ValueError(
+            f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds cache_len "
+            f"({cache_len}) — the KV cache would overflow"
+        )
+    cache = KVCache.create(cfg, b, cache_len, device=prompt.device)
+    logits, cache = prefill(params, cfg, prompt, cache)
+    first = _categorical(_filter_logits(logits, temperature, top_k), generator).to(prompt.dtype)
+    toks, _final, _cache = sample_tokens(params, cfg, first, cache, max_new_tokens, generator, temperature, top_k)
+    return torch.cat([prompt, toks], dim=1)
 
 
 # -- batched per-row sampling (serving engine) ---------------------------------

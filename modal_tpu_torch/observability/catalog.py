@@ -50,7 +50,7 @@ SERVING_PREEMPTIONS = REGISTRY.counter(
 )
 SERVING_STREAM_EVENTS = REGISTRY.counter(
     "modal_tpu_serving_stream_events_total",
-    "SSE delivery lifecycle (open | token | done | buffered_fallback).",
+    "SSE delivery lifecycle (open | token | done | reset | buffered_fallback).",
     ("event",),
 )
 KV_PAGES_ALLOCATED = REGISTRY.gauge(
@@ -116,3 +116,29 @@ STEP_SECONDS = REGISTRY.histogram(
     ("kind",),
     buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 15, 60),
 )
+
+# -- weights loader (models/weights.py) ----------------------------------------
+
+WEIGHTS_LOADED_BYTES = REGISTRY.counter(
+    "modal_tpu_weights_loaded_bytes_total",
+    "Checkpoint bytes streamed source→host→device by the weights loader.",
+)
+WEIGHTS_LOAD_GBPS = REGISTRY.gauge(
+    "modal_tpu_weights_load_gbps",
+    "Most recent checkpoint-load throughput (GB/s, ranged source reads overlapped with device placement).",
+)
+PEAK_RSS_BYTES = REGISTRY.gauge(
+    "modal_tpu_peak_rss_bytes",
+    "Process peak RSS (ru_maxrss), sampled at data-plane checkpoints (weights-load finish, bench roll-up).",
+)
+
+
+def observe_peak_rss() -> float:
+    """Sample ru_maxrss into the PEAK_RSS_BYTES gauge; returns bytes."""
+    import resource
+    import sys
+
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    rss *= 1 if sys.platform == "darwin" else 1024  # linux reports KiB
+    PEAK_RSS_BYTES.set(rss)
+    return float(rss)

@@ -44,6 +44,10 @@ class Counter(_Metric):
         with self._lock:
             self._series[key] = self._series.get(key, 0.0) + value
 
+    def value(self, **labels: str) -> float:
+        with self._lock:
+            return float(self._series.get(tuple(str(labels[n]) for n in self.labelnames), 0.0))
+
 
 class Gauge(_Metric):
     def set(self, value: float, **labels: str) -> None:

@@ -12,11 +12,14 @@ failed compile or a failed load raises.
 Every C entry point returns `cudaGetLastError()` after its launch; callers
 raise on a non-zero code. `LAUNCHES` counts successful launches per kernel
 (the only place they are counted), so a run can show which kernels its
-main path went through.
+main path went through. A launch made while a CUDA graph is being captured
+runs nothing: `recording_launches()` collects it for the graph instead, and
+`CountedGraph.replay` adds the graph's launches to `LAUNCHES` per replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +28,8 @@ import subprocess
 import threading
 import time
 from typing import Iterable, Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -44,6 +49,7 @@ LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_capture = threading.local()  # .launches: the dict a capture in this thread records into
 
 
 def reset_launches() -> None:
@@ -52,7 +58,42 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str) -> None:
+    """One launch of `name`: into `LAUNCHES`, or, while this thread captures
+    a graph, into the capture's record (a captured launch runs nothing)."""
+    recording = getattr(_capture, "launches", None)
+    if recording is not None:
+        recording[name] = recording.get(name, 0) + 1
+        return
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name} launched into a CUDA graph outside recording_launches()")
     LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Collect this thread's launches into the yielded dict instead of
+    `LAUNCHES`: wrap a CUDA graph's capture in it."""
+    prev = getattr(_capture, "launches", None)
+    record: dict[str, int] = {}
+    _capture.launches = record
+    try:
+        yield record
+    finally:
+        _capture.launches = prev
+
+
+class CountedGraph:
+    """A captured CUDA graph and the kernel launches its capture recorded;
+    each replay adds those to `LAUNCHES`, as the launches themselves would."""
+
+    def __init__(self, graph, launches: dict[str, int]):
+        self.graph = graph
+        self.launches = dict(launches)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n
 
 
 def nvcc_path() -> str:

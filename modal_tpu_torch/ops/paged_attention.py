@@ -16,13 +16,18 @@ gather branch of modal_tpu/models/paged_kv.py:305-317).
 The kernel splits each slot's span into chunks of `DECODE_CHUNK` tokens,
 one block per (kv head, slot, chunk), and merges a slot's chunks in the same
 launch through a workspace of per-chunk softmax partials and per-(slot,
-kv head) counters (`_decode_workspace`).
+kv head) counters (`_decode_workspace`). An eager call's workspace belongs
+to its stream; inside `graph_workspaces(store)` (a CUDA graph's warm-up and
+capture) calls use the graph's own, so a graph never shares counters with
+eager calls or with another graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -115,6 +120,21 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes
 
 # (device, S, n_kv, n_rep, hd, n_split) -> (stream, partials, counters)
 _WORKSPACES: dict[tuple, tuple[int, torch.Tensor, torch.Tensor]] = {}
+_graph = threading.local()  # .store: the workspace dict of the graph this thread captures
+
+
+@contextlib.contextmanager
+def graph_workspaces(store: dict):
+    """Inside: this thread's calls take their workspaces from `store`, which
+    the caller keeps for one CUDA graph (its warm-up and its capture), not
+    from the per-stream ones. The graph's replays then use its own partials
+    and counters, which each launch, captured or not, leaves at zero."""
+    prev = getattr(_graph, "store", None)
+    _graph.store = store
+    try:
+        yield store
+    finally:
+        _graph.store = prev
 
 
 def _decode_workspace(device: torch.device, key: tuple, stream: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -123,17 +143,23 @@ def _decode_workspace(device: torch.device, key: tuple, stream: int) -> tuple[to
     for (device, shapes) and reused by every later one. Each launch leaves
     the counters at zero, so calls on one stream may share them; calls on
     two streams could interleave, so the workspace is bound to the stream of
-    its first call and a call from another stream raises."""
+    its first call and a call from another stream raises. Inside
+    `graph_workspaces(store)` the graph's store is used instead; a capture
+    outside one raises."""
     s, n_kv, n_rep, hd, n_split = key
     full = (device, *key)
-    if full not in _WORKSPACES:
-        _WORKSPACES[full] = (
+    store = getattr(_graph, "store", None)
+    if store is None and device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("paged_decode_attention captured into a CUDA graph outside graph_workspaces()")
+    workspaces = _WORKSPACES if store is None else store
+    if full not in workspaces:
+        workspaces[full] = (
             stream,
             torch.empty((s, n_kv, n_split, n_rep * (hd + 2)), dtype=torch.float32, device=device),
             torch.zeros((s, n_kv), dtype=torch.int32, device=device),
         )
-    bound, partials, counters = _WORKSPACES[full]
-    if bound != stream:
+    bound, partials, counters = workspaces[full]
+    if store is None and bound != stream:
         raise RuntimeError(
             f"paged_decode_attention: the workspace for {key} on {device} is bound to stream "
             f"{bound:#x}; this call comes from stream {stream:#x}"

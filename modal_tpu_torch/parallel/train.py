@@ -91,13 +91,18 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 
 def clip_by_global_norm_(tensors: list[torch.Tensor], max_norm: float, norm: torch.Tensor) -> None:
-    """optax.clip_by_global_norm, in place: the tensors stay as they are
-    when norm < max_norm, and otherwise each becomes (t / norm) · max_norm
-    (not clip_grad_norm_'s max_norm / (norm + 1e-6))."""
-    if bool(norm < max_norm):
-        return
+    """optax.clip_by_global_norm, in place, selecting on the device as optax
+    does (no host sync): every tensor is multiplied by
+    where(norm < max_norm, 1, max_norm / norm) in its own dtype, one
+    `_foreach_mul_` per dtype. Below the bar the factor is exactly 1; above
+    it, t · (max_norm / norm) rounds once where optax's (t / norm) · max_norm
+    rounds twice (not clip_grad_norm_'s max_norm / (norm + 1e-6))."""
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
-        t.div_(norm.to(t.dtype)).mul_(max_norm)
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for dtype, group in by_dtype.items():
+        torch._foreach_mul_(group, scale.to(dtype))
 
 
 class Optimizer:
@@ -176,14 +181,20 @@ def make_train_step(
 
 
 def create_state(
-    cfg: LlamaConfig, tc: TrainConfig, seed: int = 0, device=None
+    cfg: LlamaConfig, tc: TrainConfig, seed: int = 0, device=None, checkpoint: Optional[str] = None
 ) -> tuple[TrainState, Callable]:
-    """Params initialised on the device (no host staging), held per layer
-    and requiring grad, the AdamW state and the step function. Returns
-    (state, train_step)."""
+    """Params initialised on the device (no host staging), or loaded from
+    the safetensors checkpoint in the directory `checkpoint` straight into
+    the per-layer layout (no stacked copy); held per layer and requiring
+    grad, the AdamW state and the step function. Returns (state, train_step)."""
     dev = resolve_device(device)
     optimizer = make_optimizer(tc)
-    params = unstack_layers(init_params(cfg, seed, dev))  # the stacked tree is dropped here
+    if checkpoint is None:
+        params = unstack_layers(init_params(cfg, seed, dev))  # the stacked tree is dropped here
+    else:
+        from ..models.weights import load_params
+
+        params = load_params(checkpoint, cfg, device=dev, layout="per_layer")
     for p in tree_leaves(params):
         p.requires_grad_(True)
     state = TrainState(params=params, opt_state=optimizer.init(params), step=0)

@@ -48,6 +48,35 @@ from .engine import EngineStopped, GenRequest, ServingEngine
 
 BLOB_LOCAL_DIR_ENV = "MODAL_TPU_BLOB_LOCAL_DIR"
 KV_SHIP_URL_ENV = "MODAL_TPU_KV_SHIP_URL"
+# chaos: cut the next N SSE streams after their first token event, as a
+# transport loss would; the request finishes in the engine and its buffer
+# stays readable through GET /v1/result/{id}
+STREAM_RESET_ENV = "MODAL_TPU_CHAOS_SERVING_STREAM_RESETS"
+_chaos_resets: dict = {"remaining": None}
+
+
+def _consume_stream_reset() -> bool:
+    """Take one unit of the stream-reset budget, read from the env at first
+    use (tests set the env, then `_reset_chaos_for_tests()`)."""
+    if _chaos_resets["remaining"] is None:
+        try:
+            _chaos_resets["remaining"] = int(os.environ.get(STREAM_RESET_ENV, "0") or 0)
+        except ValueError:
+            logger.warning(f"ignoring malformed {STREAM_RESET_ENV}")
+            _chaos_resets["remaining"] = 0
+    if _chaos_resets["remaining"] > 0:
+        _chaos_resets["remaining"] -= 1
+        return True
+    return False
+
+
+def _reset_chaos_for_tests() -> None:
+    _chaos_resets["remaining"] = None
+
+
+class _StreamReset(Exception):
+    """Raised mid-SSE to kill the connection the way a transport loss
+    would: the response has started, so the server can only truncate it."""
 
 
 def _decode_prompt(body: dict, vocab_size: int) -> list[int]:
@@ -251,7 +280,9 @@ def serving_asgi_app(
         await stream_sse(send, req)
 
     async def stream_sse(send, req: GenRequest) -> None:
-        """SSE delivery with a cursor into the request's buffer."""
+        """SSE delivery with a cursor into the request's buffer. A transport
+        death (or the chaos reset) mid-stream leaves the buffer intact: the
+        client re-reads through GET /v1/result/{id}."""
         await send(
             {
                 "type": "http.response.start",
@@ -264,6 +295,7 @@ def serving_asgi_app(
             }
         )
         SERVING_STREAM_EVENTS.inc(event="open")
+        chaos_this_stream = _consume_stream_reset()
         with tracing.span("serving.stream", attrs={"request_id": req.id}, parent=req.trace_context):
             start = {
                 "request_id": req.id,
@@ -274,34 +306,41 @@ def serving_asgi_app(
             }
             await send({"type": "http.response.body", "body": _sse("start", start), "more_body": True})
             offset = 0
-            while True:
-                tokens, done = await req.wait_new_async(offset, timeout=30.0)
-                for i, tok in enumerate(tokens):
-                    await send(
-                        {
-                            "type": "http.response.body",
-                            "body": _sse("token", {"token": tok, "i": offset + i}, event_id=offset + i),
-                            "more_body": True,
-                        }
-                    )
-                    SERVING_STREAM_EVENTS.inc(event="token")
-                offset += len(tokens)
-                if done:
-                    break
-                if not tokens:
-                    # keep-alive comment per the SSE spec (idle admission queue)
-                    await send(
-                        {"type": "http.response.body", "body": b": keep-alive\n\n", "more_body": True}
-                    )
-            await send(
-                {
-                    "type": "http.response.body",
-                    "body": _sse("done", _result_payload(req, vocab_size)),
-                    "more_body": True,
-                }
-            )
-            SERVING_STREAM_EVENTS.inc(event="done")
-            await send({"type": "http.response.body", "body": b""})
+            try:
+                while True:
+                    tokens, done = await req.wait_new_async(offset, timeout=30.0)
+                    for i, tok in enumerate(tokens):
+                        await send(
+                            {
+                                "type": "http.response.body",
+                                "body": _sse("token", {"token": tok, "i": offset + i}, event_id=offset + i),
+                                "more_body": True,
+                            }
+                        )
+                        SERVING_STREAM_EVENTS.inc(event="token")
+                        if chaos_this_stream:
+                            raise _StreamReset()
+                    offset += len(tokens)
+                    if done:
+                        break
+                    if not tokens:
+                        # keep-alive comment per the SSE spec (idle admission queue)
+                        await send(
+                            {"type": "http.response.body", "body": b": keep-alive\n\n", "more_body": True}
+                        )
+                await send(
+                    {
+                        "type": "http.response.body",
+                        "body": _sse("done", _result_payload(req, vocab_size)),
+                        "more_body": True,
+                    }
+                )
+                SERVING_STREAM_EVENTS.inc(event="done")
+                await send({"type": "http.response.body", "body": b""})
+            except _StreamReset:
+                SERVING_STREAM_EVENTS.inc(event="reset")
+                logger.warning(f"serving: chaos stream reset for {req.id} (buffer intact)")
+                raise ConnectionResetError(f"chaos serving stream reset ({req.id})")
 
     async def handle_prefill(receive, send) -> None:
         """Prefill leg: generate exactly the first token, export the prompt's
@@ -339,7 +378,7 @@ def serving_asgi_app(
             # (worst case the decode leg prefills again), never to a 500
             try:
                 kv_ref = await asyncio.to_thread(_ship_put_http, ship_base, f"kvship-{req.id}", payload)
-            except (OSError, ValueError) as exc:  # transport failure or a malformed URL
+            except Exception as exc:  # noqa: BLE001 — degrade, never 500 a good prefill
                 logger.warning(f"serving: kv ship via {ship_base} failed ({exc}); local file")
         if not kv_ref:
             kv_ref = os.path.join(_ship_dir(), f"kvship-{req.id}.bin")
@@ -446,7 +485,10 @@ def serving_asgi_app(
             raise
         except Exception as exc:  # noqa: BLE001 — one request must not kill the app
             logger.warning(f"serving api error on {method} {path}: {exc}")
-            await send_json(send, 500, {"error": f"{type(exc).__name__}: {exc}"})
+            try:
+                await send_json(send, 500, {"error": f"{type(exc).__name__}: {exc}"})
+            except Exception:  # noqa: BLE001 — a started response (SSE) cannot take a second start
+                pass
 
     return app
 

@@ -31,6 +31,11 @@ Two serving modes ride the same loop:
 The loop runs on its own thread and does its device work on the device's
 default stream; it reads results back to the host through `.cpu()`, once
 per prefill chunk, once per decode step and once per speculative slot group.
+
+On CUDA the decode step is a captured CUDA graph (`cuda_graphs=None` or
+True; `paged_kv.DecodeGraph`): the target's step, or in speculative mode the
+draft's, replayed k + 1 times per dispatch. Prefill and the speculative
+verify run eagerly. `cuda_graphs=False` is the explicit eager choice.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from ..config import host_to_device, logger, resolve_device
 from ..models.llama import params_device
 from ..models.paged_kv import (
     DEFAULT_PAGE_SIZE,
+    DecodeGraph,
     PageAllocator,
     PagedKVCache,
     PagePoolExhausted,
@@ -326,7 +332,9 @@ class _Slot:
 class ServingEngine:
     """One shared paged-KV pool + one continuous decode loop. `device`
     defaults to CUDA (raising without a card); the params, and a draft's,
-    must live there."""
+    must live there. `cuda_graphs`: None captures the decode step as a CUDA
+    graph on a card and runs eagerly on the CPU; True requires a card;
+    False runs eagerly (an A/B choice, never a fallback)."""
 
     def __init__(
         self,
@@ -344,9 +352,10 @@ class ServingEngine:
         prefix_cache: Optional[bool] = None,  # None = env default (on)
         role: Optional[str] = None,  # prefill | decode | both; None = env default
         device=None,
+        cuda_graphs: Optional[bool] = None,  # None = on for CUDA, off on the CPU
     ):
         if getattr(cfg, "is_moe", False):
-            raise NotImplementedError("MoE configs are not paged-servable (dense FFN only)")
+            raise ValueError("MoE configs are not paged-servable (dense FFN only)")
         self.device = resolve_device(device)
         if params_device(params) != self.device:
             raise ValueError(f"params live on {params_device(params)}, engine on {self.device}")
@@ -406,6 +415,19 @@ class ServingEngine:
         self.role = role if role in ("prefill", "decode", "both") else resolve_role()
         SERVING_ROLE.set(float(ROLE_GAUGE_VALUES[self.role]))
         self.spec_overlap = _env_on(SPEC_OVERLAP_ENV)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        elif cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA device; this engine runs on {self.device}")
+        # one graph per engine: the step this engine's decode repeats (the
+        # draft's in speculative mode, where the target only verifies)
+        self.decode_graph: Optional[DecodeGraph] = None
+        if cuda_graphs:
+            self.decode_graph = (
+                DecodeGraph(self.draft_params, self.draft_cfg, self.draft_cache, self.attn_impl)
+                if self.spec_k
+                else DecodeGraph(self.params, self.cfg, self.cache, self.attn_impl)
+            )
         self.kv_pages_shipped = 0
         self.kv_ship_drops = 0
         self.remote_prefills = 0
@@ -1139,10 +1161,13 @@ class ServingEngine:
         for i, s in decoding:
             tokens[i] = s.cur_token
             active[i] = True
-        logits, next_tokens, self.cache = paged_decode_step(
-            self.params, self.cfg, host_to_device(tokens, self.device), self.cache,
-            host_to_device(active, self.device), self.attn_impl,
-        )
+        tokens_d, active_d = host_to_device(tokens, self.device), host_to_device(active, self.device)
+        if self.decode_graph is not None:
+            logits, next_tokens = self.decode_graph(tokens_d, active_d)
+        else:
+            logits, next_tokens, self.cache = paged_decode_step(
+                self.params, self.cfg, tokens_d, self.cache, active_d, self.attn_impl
+            )
         n_sampled = sum(1 for _i, s in decoding if s.request.temperature > 0)
         if n_sampled:
             # greedy rows of sample_step are the exact argmax, so a mixed
@@ -1247,15 +1272,10 @@ class ServingEngine:
         props = []
         feed = cur_d
         for j in range(k):
-            dlogits, _g, self.draft_cache = paged_decode_step(
-                self.draft_params, self.draft_cfg, feed, self.draft_cache, active_d,
-                self.attn_impl,
-            )
+            dlogits = self._draft_step(feed, active_d)
             feed = sample_step(dlogits, seeds, indices + j, temps, top_ks, top_ps)
             props.append(feed)
-        _dl, _dg, self.draft_cache = paged_decode_step(
-            self.draft_params, self.draft_cfg, feed, self.draft_cache, active_d, self.attn_impl
-        )
+        self._draft_step(feed, active_d)
 
         # 2) the target verifies [cur, d_1..d_k] in one step
         proposals = torch.stack(props, dim=1)  # [slots, k]
@@ -1271,6 +1291,16 @@ class ServingEngine:
         )
         self.spec_dispatches += 1
         return proposals, targets
+
+    def _draft_step(self, tokens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        """One draft decode step from device tensors (the graph's replay, or
+        eager); returns the draft's logits [slots, V]."""
+        if self.decode_graph is not None:
+            return self.decode_graph(tokens, active)[0]
+        dlogits, _g, self.draft_cache = paged_decode_step(
+            self.draft_params, self.draft_cfg, tokens, self.draft_cache, active, self.attn_impl
+        )
+        return dlogits
 
     def _spec_accept(self, group: list, pending: tuple, batch: int) -> tuple[int, int, int]:
         """Host side of a group's round: read the results back, walk
@@ -1366,6 +1396,7 @@ class ServingEngine:
             "kv_pages_high_water": self.allocator.high_water,
             "kv_pool_bytes": self.cache.pool_bytes(),
             "attn_impl": self.attn_impl,
+            "cuda_graphs": self.decode_graph is not None,
             "sampling_enabled": self.sampling_enabled,
             "prefix_cache_entries": len(pc) if pc else 0,
             "prefix_cache_pages": pc.held_pages if pc else 0,

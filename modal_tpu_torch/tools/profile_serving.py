@@ -1,7 +1,7 @@
 """Where a serving iteration's time goes on the card: llama3-8b (seeded
 random weights) in the ServingEngine, 8 slots decoding at once.
 
-    python -m modal_tpu_torch.tools.profile_serving [--steps 16] [--out PATH]
+    python -m modal_tpu_torch.tools.profile_serving [--steps 16] [--cuda-graphs on|off] [--out PATH]
 
 Driven without the engine thread, so each measured piece is exactly one
 engine method: `_prefill_one` (one 128-token chunk) and `_decode_step` (one
@@ -9,7 +9,9 @@ step over all 8 slots). Host clock around work that ends in a device
 synchronise gives the wall times; `torch.profiler` over the decode window
 gives device time by kernel and the device's busy share (sum of kernel time
 over the window's wall time; overlapping kernels would count twice, and the
-engine runs on one stream). Needs one CUDA card.
+engine runs on one stream). `--cuda-graphs on` (the engine's default on a
+card) replays the captured decode step, `off` runs it eagerly, so the two
+modes' numbers come from the same tool. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=16, help="decode steps in the profiled window")
+    ap.add_argument("--cuda-graphs", choices=("on", "off"), default="on",
+                    help="decode step as a captured CUDA graph (on) or eagerly (off)")
     ap.add_argument("--out", default="", help="write the measurements as JSON here")
     args = ap.parse_args()
 
@@ -43,7 +47,8 @@ def main() -> int:
     _build.build()
     cfg = get_config("llama3-8b")
     params = init_params(cfg, seed=0, device="cuda")
-    engine = ServingEngine(params, cfg, max_slots=8, page_size=16, prefill_chunk=128, device="cuda")
+    engine = ServingEngine(params, cfg, max_slots=8, page_size=16, prefill_chunk=128, device="cuda",
+                           cuda_graphs=args.cuda_graphs == "on")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in rng.integers(100, 601, size=8)]
     for p in prompts:
@@ -85,6 +90,7 @@ def main() -> int:
     device_ms = sum(ms for _k, ms, _n in by_kernel)
     result = {
         "card": card,
+        "cuda_graphs": args.cuda_graphs,
         "slots": 8,
         "prompt_tokens": [len(p) for p in prompts],
         "prefill_chunk_ms": chunk_ms,
@@ -99,7 +105,7 @@ def main() -> int:
             for k, ms, n in by_kernel[:15]
         ],
     }
-    print(f"card: {card}")
+    print(f"card: {card}; decode step {'captured as a CUDA graph' if args.cuda_graphs == 'on' else 'eager'}")
     print(f"prefill chunk ms (128 tokens or fewer): {[round(x, 2) for x in chunk_ms]}")
     print(f"decode step ms (8 slots): mean {result['decode_step_ms_mean']:.2f} "
           f"-> {result['decode_tokens_per_s']:.1f} tokens/s")

@@ -87,9 +87,27 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
         state, train_step = create_state(get_config("tiny"), TrainConfig(), seed=0, device="cpu")
         state, metrics = train_step(state, torch.randint(0, 512, (1, 128)))
         assert metrics["step"] == 1 and float(metrics["loss"]) > 0, metrics
+        print("trained", float(metrics["loss"]))
+
+        import tempfile
+        from modal_tpu_torch.models import quant, sampling, weights
+        from modal_tpu_torch.models.llama import init_params_abstract
+        from modal_tpu_torch.runtime import aot
+        tiny = get_config("tiny")
+        with tempfile.TemporaryDirectory() as ckpt:
+            weights.export_checkpoint(init_params(tiny, seed=0, device="cpu"), tiny, ckpt, max_shard_bytes=1 << 18)
+            state, _step = create_state(tiny, TrainConfig(), device="cpu", checkpoint=ckpt)
+            loaded = weights.load_params(ckpt, tiny, device="cpu")
+        assert torch.equal(state.params["layers"][0]["wq"], loaded["layers"]["wq"][0])
+        qparams = quant.init_params_quantized(tiny, fast_host_init=True, device="cpu")
+        assert quant.quantized_bytes(qparams) < quant.quantized_bytes(init_params_abstract(tiny))
+        out = sampling.sample_generate(loaded, tiny, torch.tensor([[1, 2, 3]]), 4,
+                                       generator=torch.Generator().manual_seed(0), top_k=5, cache_len=16)
+        assert out.shape == (1, 7)
+        assert aot.parse_aot_spec("decode,cfg=tiny") == (["decode"], {**aot._DEFAULTS, "cfg": "tiny"})
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu", "optax") and sys.modules[m] is not None)
         assert not leaked, leaked
-        print("trained", float(metrics["loss"]))
+        print("checkpointed, quantized, sampled")
         """
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
@@ -100,6 +118,16 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "served" in proc.stdout and "trained" in proc.stdout
     assert "speculated and shipped" in proc.stdout
+    assert "checkpointed, quantized, sampled" in proc.stdout
+
+
+def test_every_module_of_the_port_is_scanned():
+    """The modules of each slice, this one's included, are among the sources
+    the import scan reads (a new module cannot slip past it)."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("models/weights.py", "models/quant.py", "models/sampling.py", "runtime/aot.py",
+                "runtime/__init__.py", "serving/api.py", "ops/_build.py", "tools/profile_serving.py"):
+        assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -108,6 +136,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from modal_tpu_torch import resolve_device
     from modal_tpu_torch.models.llama import KVCache, get_config, init_params
     from modal_tpu_torch.models.paged_kv import PagedKVCache
+    from modal_tpu_torch.models.quant import init_params_quantized
+    from modal_tpu_torch.models.weights import load_params
     from modal_tpu_torch.parallel.train import train_demo
     from modal_tpu_torch.serving import ServingEngine
 
@@ -119,6 +149,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: KVCache.create(cfg, 1, 8),
         lambda: PagedKVCache.create(cfg, 2, 4),
         lambda: ServingEngine(init_params(cfg, device="cpu"), cfg),
+        lambda: init_params_quantized(cfg),
+        lambda: load_params("/nonexistent-checkpoint", cfg),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

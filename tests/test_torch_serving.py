@@ -8,6 +8,7 @@ model has under bf16."""
 
 import asyncio
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -133,3 +134,177 @@ def test_engine_refuses_what_this_slice_lacks(fp32_tiny):
         engine.submit([1, 2], 2, top_k=-1)
     with pytest.raises(ValueError, match="context limit"):
         engine.submit([1] * 60, 10)
+
+
+def test_moe_target_and_draft_are_refused_with_value_error(fp32_tiny):
+    """Paged serving is dense-only, as in the JAX engine, which raises
+    ValueError for an MoE target (modal_tpu/serving/engine.py:373-374) as
+    well as for an MoE draft."""
+    jparams, jcfg, tparams, tcfg = fp32_tiny
+    moe = tllama.get_config("tiny-moe")
+    with pytest.raises(ValueError, match="MoE"):
+        ServingEngine(tparams, moe, device="cpu", **GEOMETRY)
+    with pytest.raises(ValueError, match="MoE"):
+        JaxEngine(jparams, jllama.get_config("tiny-moe"), **GEOMETRY)
+    with pytest.raises(ValueError, match="MoE draft"):
+        ServingEngine(tparams, tcfg, device="cpu", draft=(tparams, moe), **GEOMETRY)
+
+
+class _StrictSend:
+    """An ASGI server's send: a second http.response.start, or any message
+    after the response ended, raises (as uvicorn's does)."""
+
+    def __init__(self):
+        self.messages = []
+        self.started = self.ended = False
+
+    async def __call__(self, msg):
+        if self.ended or (msg["type"] == "http.response.start" and self.started):
+            raise RuntimeError(f"unexpected ASGI message {msg['type']!r}")
+        self.started = self.started or msg["type"] == "http.response.start"
+        self.ended = msg["type"] == "http.response.body" and not msg.get("more_body", False)
+        self.messages.append(msg)
+
+
+def _scope(method, path):
+    return {"type": "http", "method": method, "path": path, "headers": []}
+
+
+def _receive_once(body: dict):
+    payload = json.dumps(body).encode()
+    sent = False
+
+    async def receive():
+        nonlocal sent
+        if not sent:
+            sent = True
+            return {"type": "http.request", "body": payload, "more_body": False}
+        await asyncio.sleep(3600)
+        return {"type": "http.disconnect"}
+
+    return receive
+
+
+def test_handler_failing_mid_stream_does_not_raise_out_of_the_app(fp32_tiny, monkeypatch):
+    """Once an SSE stream has started, the 500 reply cannot be sent (a second
+    http.response.start). The JAX app swallows that (modal_tpu/serving/
+    api.py:532-536); so must the port's: the app returns, the stream just ends
+    without its done event."""
+    from modal_tpu_torch.serving import api as tapi
+
+    _jp, _jc, tparams, tcfg = fp32_tiny
+    engine = ServingEngine(tparams, tcfg, device="cpu", **GEOMETRY).start()
+    app = serving_asgi_app(engine)
+
+    def broken_payload(req, vocab_size):
+        raise RuntimeError("payload failed after the stream began")
+
+    monkeypatch.setattr(tapi, "_result_payload", broken_payload)
+    send = _StrictSend()
+    try:
+        asyncio.run(app(_scope("POST", "/v1/generate"),
+                        _receive_once({"prompt": [5, 6, 7], "max_new_tokens": 3, "stream": True}), send))
+    finally:
+        engine.stop()
+    starts = [m for m in send.messages if m["type"] == "http.response.start"]
+    assert [m["status"] for m in starts] == [200]
+    body = b"".join(m.get("body", b"") for m in send.messages if m["type"] == "http.response.body")
+    assert body.count(b"event: token") == 3 and b"event: done" not in body
+
+
+def test_ship_put_http_exception_degrades_to_a_local_file(fp32_tiny, monkeypatch, tmp_path):
+    """Any failure of the blob-plane PUT degrades the prefill leg to the
+    shared-file handoff, never to a 500 (modal_tpu/serving/api.py:404), an
+    http.client.HTTPException (neither OSError nor ValueError) included."""
+    import http.client
+    import tempfile
+
+    from modal_tpu_torch.serving import api as tapi
+
+    def failing_put(base, name, payload):
+        raise http.client.HTTPException("malformed status line from the blob plane")
+
+    monkeypatch.delenv("MODAL_TPU_BLOB_LOCAL_DIR", raising=False)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    monkeypatch.setenv("MODAL_TPU_KV_SHIP_URL", "http://blob-plane.invalid:8000")
+    monkeypatch.setattr(tapi, "_ship_put_http", failing_put)
+    _jp, _jc, tparams, tcfg = fp32_tiny
+    engine = ServingEngine(tparams, tcfg, device="cpu", **GEOMETRY).start()
+    app = serving_asgi_app(engine)
+    prompt = list(range(3, 21))
+
+    async def exchange():
+        ship = await asgi_request(app, "POST", "/v1/prefill", {"prompt": prompt})
+        ref = json.loads(ship[1])
+        out = await asgi_request(app, "POST", "/v1/prefilled",
+                                 {"prompt": prompt, "kv_ref": ref.get("kv_ref", ""), "max_new_tokens": 5})
+        return ship[0], ref, out
+
+    try:
+        status, ref, out = asyncio.run(exchange())
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    assert status == 200, ref
+    assert ref["kv_ref"].startswith(str(tmp_path)) and os.path.exists(ref["kv_ref"])
+    assert out[0] == 200 and len(json.loads(out[1])["tokens"]) == 5
+    assert stats["remote_prefills"] == 1
+
+
+async def _stream_until_reset(app, body: dict):
+    """Drive one streaming /v1/generate through an ASGI app; returns (the
+    bytes sent, whether the app cut the stream with ConnectionResetError)."""
+    send = _StrictSend()
+    try:
+        await app(_scope("POST", "/v1/generate"), _receive_once(body), send)
+        cut = False
+    except ConnectionResetError:
+        cut = True
+    body_bytes = b"".join(m.get("body", b"") for m in send.messages if m["type"] == "http.response.body")
+    return body_bytes, cut
+
+
+def test_chaos_stream_resets_cut_exactly_budget_streams_like_jax(fp32_tiny, monkeypatch):
+    """MODAL_TPU_CHAOS_SERVING_STREAM_RESETS=2 over three streams: the first
+    two are cut after their first token event with ConnectionResetError and
+    the bytes the JAX app sends on the same budget; the third runs to its
+    done event. Every cut request still finishes in its engine, and its
+    buffer holds the whole stream."""
+    from modal_tpu.serving import api as japi
+    from modal_tpu.serving.api import serving_asgi_app as jax_app
+    from modal_tpu_torch.observability.catalog import SERVING_STREAM_EVENTS
+    from modal_tpu_torch.serving import api as tapi
+
+    jparams, jcfg, tparams, tcfg = fp32_tiny
+    monkeypatch.setenv(tapi.STREAM_RESET_ENV, "2")
+    assert tapi.STREAM_RESET_ENV == japi.STREAM_RESET_ENV
+    results = {}
+    engines = {"jax": JaxEngine(jparams, jcfg, **GEOMETRY), "port": ServingEngine(tparams, tcfg, device="cpu", **GEOMETRY)}
+    apps = {"jax": jax_app(engines["jax"]), "port": serving_asgi_app(engines["port"])}
+    resets0 = SERVING_STREAM_EVENTS.value(event="reset")
+    try:
+        for name, module in (("jax", japi), ("port", tapi)):
+            module._reset_chaos_for_tests()
+            engines[name].start()
+
+            async def streams(app=apps[name], tag=name):
+                return [
+                    await _stream_until_reset(app, {"prompt": [9, 8, 7, i], "max_new_tokens": 6, "stream": True,
+                                                    "request_id": f"chaos-{i}"})
+                    for i in range(3)
+                ]
+
+            results[name] = asyncio.run(streams())
+            for i in range(3):
+                req = engines[name].get(f"chaos-{i}")
+                assert req.result(timeout=60) and len(req.tokens) == 6 and req.error is None
+    finally:
+        for name, module in (("jax", japi), ("port", tapi)):
+            engines[name].stop()
+            module._reset_chaos_for_tests()
+    assert [cut for _b, cut in results["port"]] == [True, True, False]
+    assert [cut for _b, cut in results["jax"]] == [True, True, False]
+    for (mine, _c), (ref, _r) in zip(results["port"][:2], results["jax"][:2]):
+        assert mine == ref and mine.count(b"event: token") == 1 and b"event: done" not in mine
+    assert results["port"][2][0].count(b"event: token") == 6 and b"event: done" in results["port"][2][0]
+    assert SERVING_STREAM_EVENTS.value(event="reset") - resets0 == 2

@@ -86,6 +86,44 @@ def test_global_norm_clip_matches_optax(max_norm):
         np.testing.assert_array_equal(mine[0].numpy(), grads["a"])  # untouched, not rescaled
 
 
+# bf16: optax squares and sums in bf16 and rounds (t / norm) · max_norm twice;
+# the port sums in fp32 and rounds t · (max_norm / norm) once: a few bf16 ulps
+BF16_CLIP_RTOL = 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("max_norm", [0.5, 50.0])  # clipped, and left as it is
+def test_clip_selects_on_the_device_like_optax(dtype, max_norm, monkeypatch):
+    """The clip makes no host sync (no bool(), float() or .item() of a
+    tensor: optax selects with lax.select) and matches optax in both branches:
+    fp32 within this file's clip tolerance (rtol 1e-6, atol 1e-7), bf16
+    within BF16_CLIP_RTOL; below the bar the grads are untouched."""
+    rng = np.random.default_rng(6)
+    grads = {"a": rng.standard_normal((4, 8)).astype(np.float32), "b": rng.standard_normal(16).astype(np.float32)}
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jgrads = jax.tree_util.tree_map(lambda g: jnp.asarray(g, jdt), grads)
+    clipped, _ = optax.clip_by_global_norm(max_norm).update(jgrads, None)
+    mine = [torch.from_numpy(grads[k]).to(tdt) for k in ("a", "b")]
+    before = [t.clone() for t in mine]
+    norm = ttrain.global_norm(mine)
+
+    def no_sync(*_a, **_k):
+        raise AssertionError("the clip read a tensor on the host")
+
+    with monkeypatch.context() as m:
+        for name in ("__bool__", "__float__", "item", "tolist"):
+            m.setattr(torch.Tensor, name, no_sync)
+        ttrain.clip_by_global_norm_(mine, max_norm, norm)
+    rtol, atol = (1e-6, 1e-7) if dtype == "float32" else (BF16_CLIP_RTOL, 1e-3)
+    for k, t in zip(("a", "b"), mine):
+        assert t.dtype == tdt
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(clipped[k], np.float32), rtol=rtol, atol=atol)
+    if max_norm > float(norm):
+        assert all(torch.equal(a, b) for a, b in zip(mine, before))  # multiplied by exactly 1
+    else:
+        assert float(ttrain.global_norm(mine)) == pytest.approx(max_norm, rel=1e-6 if dtype == "float32" else 1e-2)
+
+
 # -- the train step against JAX ----------------------------------------------------
 
 
