@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,serve,spec,disagg
     python3 chip_smoke.py --phases device,build,serve,graphs,weights,int8
+    python3 chip_smoke.py --phases device,build,moe,mesh
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -79,6 +80,22 @@ result line):
               backward) and 32 launches of each backward kernel; the second
               step's optimizer update (clip + AdamW) runs under
               torch.cuda.set_sync_debug_mode("error"): no host sync.
+13. moe     — llama3-8x7b-proxy at full width (8 experts, seeded random
+              weights): the cache-less forward on [1, 2048] at full depth
+              (32 layers, 64.9 GB of bf16 params), K1 exactly once per
+              layer, the kernel path at least as close to fp32 attention
+              as the einsum path, aux and the dropped fraction printed; one
+              layer's dispatch / combine / expert einsums timed; then
+              train_demo with n_layers cut to 6, 4 steps of [1, 2048] with
+              the train phase's checks (launches per step 2 x 6 K1, 6 K2, 6
+              K3; the second update under sync debug mode "error"), step
+              time, tokens/s, peak memory and MFU over the active params.
+14. mesh    — a one-rank NCCL group, build_mesh({}), and
+              create_sharded_state's DTensor step on llama3-8b at full
+              width with 2 layers, 2 steps, against the one-device step on
+              the same params and tokens: first-step loss within 1e-3
+              relative, params within a global relative L2 of 1e-2, K1-K3
+              launches exact, AdamW's moments placed like their params.
 
 Parity at depth: with random weights a single bf16 rounding inside
 attention moves llama3-8b's logits by a few 1e-2 (max over the 128256-entry
@@ -105,7 +122,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "graphs", "weights", "int8", "spec", "disagg", "parity",
-          "forward", "train")
+          "forward", "train", "moe", "mesh")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -1560,12 +1577,93 @@ def _grad_parity(torch) -> dict:
     return out
 
 
-def phase_train(torch, ctx: dict) -> None:
+def _train_steps(torch, label: str, cfg_name: str, overrides: dict, steps: int, seq_len: int) -> dict:
+    """`train_demo(cfg_name, steps, B 1, seq_len, overrides)` on one card:
+    finite loss and grad norm every step, params that move once the lr is
+    above 0 (the first update runs at schedule(0) = 0), per step exactly
+    2 x n_layers forward launches (remat runs each layer's forward again in
+    the backward) and n_layers of each backward kernel, and the second
+    step's optimizer update (clip + AdamW) under
+    torch.cuda.set_sync_debug_mode("error"). Returns the per-step record,
+    the step times and the peak memory."""
     from modal_tpu_torch.models.llama import get_config
     from modal_tpu_torch.observability.catalog import STEP_SECONDS
     from modal_tpu_torch.ops import _build
     from modal_tpu_torch.parallel.train import Optimizer, train_demo
 
+    cfg = get_config(cfg_name, **overrides)
+    per_step: list[dict] = []
+
+    def on_step(state, metrics):
+        per_step.append({
+            "step": metrics["step"], "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "launches": dict(_build.LAUNCHES), "step_s_total": STEP_SECONDS.totals(kind="train")[0],
+            "wq0": state.params["layers"][0]["wq"].detach().clone(),
+        })
+
+    updates = []
+    update = Optimizer.update
+
+    def checked_update(self, opt_state, step, *rest):
+        """The second update (the AdamW state exists by then) under sync
+        debug mode "error": a host sync in the clip or AdamW raises."""
+        if len(updates) != 1:
+            updates.append(False)
+            return update(self, opt_state, step, *rest)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            norm = update(self, opt_state, step, *rest)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        updates.append(True)
+        return norm
+
+    torch.cuda.reset_peak_memory_stats()
+    base_s = STEP_SECONDS.totals(kind="train")[0]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    Optimizer.update = checked_update
+    try:
+        final = train_demo(cfg_name, steps=steps, per_device_batch=1, seq_len=seq_len, on_step=on_step,
+                           overrides=overrides)
+    finally:
+        Optimizer.update = update
+    wall = time.perf_counter() - t0
+    if updates.count(True) != 1:
+        raise AssertionError(f"{label}: the sync-checked update did not run ({updates})")
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.LAUNCHES)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    prev_launches, prev_s = {n: 0 for n in want}, base_s
+    step_s = []
+    for i, rec in enumerate(per_step):
+        got = {n: rec["launches"][n] - prev_launches[n] for n in want}
+        if got != want:
+            raise AssertionError(f"{label} step {i + 1} launched {got}, want {want}")
+        if not (math.isfinite(rec["loss"]) and rec["loss"] > 0 and math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0):
+            raise AssertionError(f"{label} step {i + 1}: loss {rec['loss']}, grad norm {rec['grad_norm']}")
+        prev_launches = rec["launches"]
+        step_s.append(rec["step_s_total"] - prev_s)
+        prev_s = rec["step_s_total"]
+    moved = [not torch.equal(a["wq0"], b["wq0"]) for a, b in zip(per_step, per_step[1:])]
+    if not all(moved):
+        raise AssertionError(f"{label}: layer 0 wq unchanged by an update with lr > 0 ({moved})")
+    # the median of the steps after the first sets the steady time; the mean
+    # is printed beside it, so a slow step shows
+    return {"cfg": cfg, "final": final, "wall_s": wall, "step_s": step_s, "steady": statistics.median(step_s[1:]),
+            "mean_s": statistics.fmean(step_s[1:]), "peak": peak, "launches": launches,
+            "losses": [r["loss"] for r in per_step], "grad_norms": [r["grad_norm"] for r in per_step],
+            "want": want}
+
+
+def _attn_flops(cfg, seq_len: int) -> int:
+    """Causal attention FLOPs of one forward: Q·K and P·V over the
+    S(S+1)/2 visible pairs, every head and layer."""
+    return 2 * 2 * cfg.n_heads * cfg.head_dim * (seq_len * (seq_len + 1) // 2) * cfg.n_layers
+
+
+def phase_train(torch, ctx: dict) -> None:
     _release_serving_state(torch, ctx)
     t0 = time.perf_counter()
     parity = _grad_parity(torch)
@@ -1581,90 +1679,281 @@ def phase_train(torch, ctx: dict) -> None:
     if not parity["kernel_vs_einsum_rel_l2"] > 0:
         raise AssertionError("train: the kernel path's grads equal the einsum path's")
 
-    cfg = get_config("llama3-8b")
     steps, seq_len = 4, 2048
-    per_step: list[dict] = []
-
-    def on_step(state, metrics):
-        per_step.append({
-            "step": metrics["step"], "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-            "launches": dict(_build.LAUNCHES), "step_s_total": STEP_SECONDS.totals(kind="train")[0],
-            "wq0": state.params["layers"][0]["wq"].detach().clone(),
-        })
-
-    updates = []
-    update = Optimizer.update
-
-    def checked_update(self, opt_state, step):
-        """The second update (the AdamW state exists by then) under sync
-        debug mode "error": a host sync in the clip or AdamW raises."""
-        if len(updates) != 1:
-            updates.append(False)
-            return update(self, opt_state, step)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            norm = update(self, opt_state, step)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        updates.append(True)
-        return norm
-
-    torch.cuda.reset_peak_memory_stats()
-    base_s = STEP_SECONDS.totals(kind="train")[0]
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    Optimizer.update = checked_update
-    try:
-        final = train_demo("llama3-8b", steps=steps, per_device_batch=1, seq_len=seq_len, on_step=on_step)
-    finally:
-        Optimizer.update = update
-    wall = time.perf_counter() - t0
-    if updates.count(True) != 1:
-        raise AssertionError(f"train: the sync-checked update did not run ({updates})")
-    peak = torch.cuda.max_memory_allocated()
-    launches = dict(_build.LAUNCHES)
-    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
-    prev_launches, prev_s = {n: 0 for n in want}, base_s
-    step_s = []
-    for i, rec in enumerate(per_step):
-        got = {n: rec["launches"][n] - prev_launches[n] for n in want}
-        if got != want:
-            raise AssertionError(f"train step {i + 1} launched {got}, want {want}")
-        if not (math.isfinite(rec["loss"]) and rec["loss"] > 0 and math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0):
-            raise AssertionError(f"train step {i + 1}: loss {rec['loss']}, grad norm {rec['grad_norm']}")
-        prev_launches = rec["launches"]
-        step_s.append(rec["step_s_total"] - prev_s)
-        prev_s = rec["step_s_total"]
-    # the first update runs at lr = schedule(0) = 0; every later one moves the params
-    moved = [not torch.equal(a["wq0"], b["wq0"]) for a, b in zip(per_step, per_step[1:])]
-    if not all(moved):
-        raise AssertionError(f"train: layer 0 wq unchanged by an update with lr > 0 ({moved})")
-    # the median of the steps after the first sets the steady time; the mean
-    # is printed beside it, so a slow step shows
-    steady = statistics.median(step_s[1:])
-    mean_s = statistics.fmean(step_s[1:])
+    run = _train_steps(torch, "train", "llama3-8b", {}, steps, seq_len)
+    cfg, steady, mean_s, peak, launches = run["cfg"], run["steady"], run["mean_s"], run["peak"], run["launches"]
     tokens = seq_len  # B 1
-    attn_flops = 2 * 2 * cfg.n_heads * cfg.head_dim * (seq_len * (seq_len + 1) // 2) * cfg.n_layers
-    step_flops = 6 * (cfg.param_count() - cfg.vocab_size * cfg.dim) * tokens + 3 * attn_flops
-    for n in want:  # flash_fwd also ran on the forward phase's path
+    step_flops = 6 * (cfg.param_count() - cfg.vocab_size * cfg.dim) * tokens + 3 * _attn_flops(cfg, seq_len)
+    for n in run["want"]:  # flash_fwd also ran on the forward phase's path
         _add_launches(ctx, n, launches[n])
     ctx["train"] = {
-        "grad_parity": parity, "steps": steps, "seq_len": seq_len, "final": final, "wall_s": wall,
-        "step_s": step_s, "steady_step_ms": steady * 1e3, "mean_step_ms": mean_s * 1e3,
+        "grad_parity": parity, "steps": steps, "seq_len": seq_len, "final": run["final"], "wall_s": run["wall_s"],
+        "step_s": run["step_s"], "steady_step_ms": steady * 1e3, "mean_step_ms": mean_s * 1e3,
         "tokens_per_s": tokens / steady,
         "step_flops": step_flops, "flops_bound_ms": step_flops / BF16_FLOPS * 1e3,
         "mfu": step_flops / steady / BF16_FLOPS, "peak_memory_bytes": peak,
-        "losses": [r["loss"] for r in per_step], "grad_norms": [r["grad_norm"] for r in per_step],
-        "launches": launches,
+        "losses": run["losses"], "grad_norms": run["grad_norms"], "launches": launches,
     }
-    log(f"[train] train_demo llama3-8b 4 steps [1, 2048] in {wall:.1f}s: step s {[round(x, 4) for x in step_s]}, "
+    log(f"[train] train_demo llama3-8b 4 steps [1, 2048] in {run['wall_s']:.1f}s: step s "
+        f"{[round(x, 4) for x in run['step_s']]}, "
         f"steady (median of steps 2-{steps}) {steady * 1e3:.1f} ms (mean {mean_s * 1e3:.1f} ms), "
         f"{tokens / steady:.1f} tokens/s, MFU {ctx['train']['mfu']:.4f} "
         f"({step_flops / 1e12:.1f} TFLOP/step, bound {step_flops / BF16_FLOPS * 1e3:.1f} ms), "
-        f"peak {peak / 1e9:.2f} GB, losses {ctx['train']['losses']}, grad norms "
-        f"{ctx['train']['grad_norms']}, launches {launches}; step 2's optimizer update (clip + AdamW) ran "
+        f"peak {peak / 1e9:.2f} GB, losses {run['losses']}, grad norms "
+        f"{run['grad_norms']}, launches {launches}; step 2's optimizer update (clip + AdamW) ran "
         f"under set_sync_debug_mode('error') without a host sync")
+
+
+def _release(torch, label: str) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{label}] {torch.cuda.memory_allocated() / 1e6:.1f} MB allocated before the phase")
+
+
+def _moe_dispatch_ms(torch, cfg, t: int) -> dict:
+    """Device ms of one layer's MoE pieces at the path's shapes (bf16, T
+    tokens): the dispatch and combine einsums over the one-hot [T, E, C]
+    tensor, and the expert FFN einsums they feed."""
+    e, d, f = cfg.n_experts, cfg.dim, cfg.ffn_dim
+    c = int(cfg.capacity_factor * t / e)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    x = torch.randn(t, d, device="cuda", dtype=cfg.dtype, generator=gen)
+    dispatch = torch.zeros(t, e, c, device="cuda", dtype=cfg.dtype)
+    dispatch[torch.arange(t, device="cuda"), torch.arange(t, device="cuda") % e,
+             (torch.arange(t, device="cuda") // e) % c] = 1
+    w_in = torch.randn(e, d, f, device="cuda", dtype=cfg.dtype, generator=gen) * 0.02
+    w_out = torch.randn(e, f, d, device="cuda", dtype=cfg.dtype, generator=gen) * 0.02
+    expert_in = torch.einsum("tec,td->ecd", dispatch, x)
+    h = torch.einsum("ecd,edf->ecf", expert_in, w_in)
+    expert_out = torch.einsum("ecf,efd->ecd", h, w_out)
+    out = {
+        "dispatch_ms": time_ms(torch, lambda: torch.einsum("tec,td->ecd", dispatch, x), 10),
+        "combine_ms": time_ms(torch, lambda: torch.einsum("tec,ecd->td", dispatch, expert_out), 10),
+        "experts_ms": time_ms(torch, lambda: torch.einsum("ecf,efd->ecd", torch.einsum("ecd,edf->ecf", expert_in, w_in),
+                                                            w_out), 10),
+        "capacity": c,
+    }
+    del x, dispatch, w_in, w_out, expert_in, h, expert_out
+    return out
+
+
+def phase_moe(torch, ctx: dict) -> None:
+    """llama3-8x7b-proxy at full width (dim 4096, 32 heads, 8 KV heads, FFN
+    14336, 8 experts, vocab 128256, bf16, seeded random weights). (a) The
+    cache-less forward on [1, 2048] tokens at full depth (32 layers): K1
+    launches exactly 32 times, the kernel path sits at least as close to
+    fp32 attention as the einsum path, and aux (> 0, finite) and the
+    dropped fraction are printed. (b) `train_demo` with n_layers cut to 6
+    (32 layers of params, grads and moments exceed one card): 4 steps of B
+    1, S 2048, remat, through `_train_steps`' checks; step time, tokens/s,
+    peak memory and MFU counting one expert per token."""
+    from modal_tpu_torch.models.llama import attention, forward_with_aux, get_config, init_params
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.parallel import moe as moe_mod
+
+    ctx.pop("params", None)
+    ctx.pop("cfg", None)
+    _release(torch, "moe")
+    cfg = get_config("llama3-8x7b-proxy")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"], params["lm_head"],
+                                       *params["layers"].values()])
+    log(f"[moe] llama3-8x7b-proxy params: {n_params / 1e9:.2f} B, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, init {time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+
+    dropped: list = []
+    layer_fn = moe_mod.moe_layer
+
+    def recording_layer(*a, **k):
+        y, aux, drop = layer_fn(*a, **k)
+        dropped.append(drop)
+        return y, aux, drop
+
+    def fp32_attention(q, k, v, mask):
+        return attention(q.float(), k.float(), v.float(), mask).to(q.dtype)
+
+    out = {}
+    with torch.no_grad():
+        _build.reset_launches()
+        moe_mod.moe_layer = recording_layer
+        try:
+            t0 = time.perf_counter()
+            logits, _, aux = forward_with_aux(params, cfg, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            moe_mod.moe_layer = layer_fn
+        launches = _build.LAUNCHES["flash_fwd"]
+        if launches != cfg.n_layers:
+            raise AssertionError(f"moe: flash_fwd launched {launches} times, want {cfg.n_layers}")
+        if not bool(torch.isfinite(logits).all()) or list(logits.shape) != [1, 2048, cfg.vocab_size]:
+            raise AssertionError("moe: the forward produced a wrong shape or non-finite logits")
+        aux_v = aux.item()
+        drops = [d.item() for d in dropped]
+        if not (math.isfinite(aux_v) and aux_v > 0) or len(drops) != cfg.n_layers:
+            raise AssertionError(f"moe: aux {aux_v}, {len(drops)} dropped fractions")
+        out["kernel"] = logits[0]
+        del logits
+        t0 = time.perf_counter()  # the same forward again, warm (its launches are not the path's)
+        forward_with_aux(params, cfg, tokens)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        out["plain"] = forward_with_aux(params, cfg, tokens, attn_impl=attention)[0][0]
+        out["fp32"] = forward_with_aux(params, cfg, tokens, attn_impl=fp32_attention)[0][0]
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    g = _gaps(torch, out)
+    del out, params
+    _add_launches(ctx, "flash_fwd", launches)
+    log(f"[moe] forward llama3-8x7b-proxy 32 layers [1, 2048]: {wall:.2f}s cold, {warm:.3f}s warm, "
+        f"flash_fwd launches {launches}, "
+        f"aux {aux_v:.5f}, dropped fraction per layer mean {statistics.fmean(drops):.4f} "
+        f"(min {min(drops):.4f}, max {max(drops):.4f})")
+    _check_faithful("moe", g, 5e-2)
+    _release(torch, "moe")
+    parts = _moe_dispatch_ms(torch, cfg, 2048)
+    log(f"[moe] one layer's MoE at T 2048, C {parts['capacity']}, bf16: dispatch einsum "
+        f"{parts['dispatch_ms']:.4f} ms, combine einsum {parts['combine_ms']:.4f} ms, expert FFN einsums "
+        f"{parts['experts_ms']:.4f} ms (device ms, forward)")
+
+    steps, seq_len, depth = 4, 2048, 6
+    run = _train_steps(torch, "moe train", "llama3-8x7b-proxy", {"n_layers": depth}, steps, seq_len)
+    tcfg, steady = run["cfg"], run["steady"]
+    # active params: attention, the router and ONE expert's w_in / w_out per layer
+    active = tcfg.param_count() - 2 * (tcfg.n_experts - 1) * tcfg.dim * tcfg.ffn_dim * tcfg.n_layers
+    step_flops = 6 * (active - tcfg.vocab_size * tcfg.dim) * seq_len + 3 * _attn_flops(tcfg, seq_len)
+    for n in run["want"]:
+        _add_launches(ctx, n, run["launches"][n])
+    ctx["moe"] = {
+        "forward": {**g, "wall_s": wall, "warm_s": warm, "launches": launches, "aux": aux_v, "dropped": drops},
+        "dispatch": parts,
+        "train": {"n_layers": depth, "params": tcfg.param_count(), "active_params": active, "steps": steps,
+                  "seq_len": seq_len, "step_s": run["step_s"], "steady_step_ms": steady * 1e3,
+                  "mean_step_ms": run["mean_s"] * 1e3, "tokens_per_s": seq_len / steady,
+                  "step_flops": step_flops, "mfu": step_flops / steady / BF16_FLOPS,
+                  "peak_memory_bytes": run["peak"], "losses": run["losses"], "grad_norms": run["grad_norms"],
+                  "launches": run["launches"]},
+    }
+    log(f"[moe] train_demo llama3-8x7b-proxy {depth} layers ({tcfg.param_count() / 1e9:.2f} B params, "
+        f"{active / 1e9:.2f} B active) {steps} steps [1, {seq_len}] in {run['wall_s']:.1f}s: step s "
+        f"{[round(x, 4) for x in run['step_s']]}, steady {steady * 1e3:.1f} ms (mean {run['mean_s'] * 1e3:.1f}), "
+        f"{seq_len / steady:.1f} tokens/s, MFU {step_flops / steady / BF16_FLOPS:.4f} = (6 x (active params - "
+        f"embedding) x tokens + 3 x causal attention FLOPs) / step time / 989 TFLOP/s "
+        f"({step_flops / 1e12:.1f} TFLOP/step; dispatch/combine einsums not counted: "
+        f"{(parts['dispatch_ms'] + parts['combine_ms']) * depth * 4:.2f} ms a step at 4x the forward's), "
+        f"peak {run['peak'] / 1e9:.2f} GB, losses {run['losses']}, grad norms {run['grad_norms']}, "
+        f"launches {run['launches']}; step 2's optimizer update ran under set_sync_debug_mode('error')")
+
+
+def phase_mesh(torch, ctx: dict) -> None:
+    """The mesh path on a one-rank NCCL group: build_mesh({}) (every axis
+    1) through `create_sharded_state` (DTensor params, AdamW on their local
+    pieces, the SPMD step), not train_demo's one-device path. llama3-8b at
+    full width, 2 layers, [1, 2048], 2 steps (lr 0, then 3e-4), against the
+    one-device step on the same seeded params and tokens: first-step loss
+    within 1e-3 relative, params after 2 steps within a global relative L2
+    of 1e-2, K1-K3 launches exact per step (2 x 2 forward with remat, 2
+    each backward), AdamW's moments placed like their params."""
+    import torch.distributed as dist
+
+    from modal_tpu_torch.models.convert import unstack_layers
+    from modal_tpu_torch.models.llama import get_config, init_params
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.parallel import mesh as mesh_mod
+    from modal_tpu_torch.parallel.sharding import gather_train_params
+    from modal_tpu_torch.parallel.train import (
+        TrainConfig, TrainState, create_sharded_state, make_optimizer, make_train_step, mirror_opt_shardings,
+        sharded_moments, train_state_shardings, tree_leaves,
+    )
+
+    _release(torch, "mesh")
+    cfg = get_config("llama3-8b", n_layers=2)
+    tc = TrainConfig(warmup_steps=1, total_steps=10)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+
+    def run(state, step_fn, label):
+        metrics, launches = [], []
+        for _ in range(2):
+            _build.reset_launches()
+            state, m = step_fn(state, tokens)
+            torch.cuda.synchronize()
+            launches.append({n: _build.LAUNCHES[n] for n in want})
+            metrics.append({k: float(v) for k, v in m.items()})
+        for i, got in enumerate(launches):
+            if got != want:
+                raise AssertionError(f"mesh: {label} step {i + 1} launched {got}, want {want}")
+        return state, metrics
+
+    # the one-device step (train_demo's path) on the same params
+    params = unstack_layers(init_params(cfg, seed=0, device="cuda"))
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    opt = make_optimizer(tc)
+    state = TrainState(params, opt.init(params), 0)
+    t0 = time.perf_counter()
+    state, ref_metrics = run(state, make_train_step(cfg, tc, opt), "one-device")
+    ref_s = time.perf_counter() - t0
+    ref = {"embed": state.params["embed"].detach(), "final_norm": state.params["final_norm"].detach(),
+           "lm_head": state.params["lm_head"].detach(),
+           "layers": {k: torch.stack([layer[k].detach() for layer in state.params["layers"]])
+                      for k in state.params["layers"][0]}}
+    del state, params, opt
+    _release(torch, "mesh")
+
+    mesh_mod.init_process_group("cuda", world_size=1, rank=0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"mesh: the process group runs {dist.get_backend()}, not NCCL")
+        mesh = mesh_mod.build_mesh({})
+        t0 = time.perf_counter()
+        state, step_fn, _ = create_sharded_state(mesh, cfg, tc, params=init_params(cfg, seed=0, device="cuda"))
+        state, metrics = run(state, step_fn, "mesh")
+        mesh_s = time.perf_counter() - t0
+        shardings = train_state_shardings(state)
+        mirrored = shardings["opt"] == mirror_opt_shardings(state.params) and shardings["opt"]["exp_avg"] == shardings["params"]
+        moments = sharded_moments(state)
+        n_dtensor = sum(type(m).__name__ == "DTensor" for m in tree_leaves(moments["exp_avg"]))
+        full = gather_train_params(mesh, state.params)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    if not mirrored or n_dtensor != len(tree_leaves(state.params)):
+        raise AssertionError(f"mesh: AdamW's moments are not placed like their params ({n_dtensor} DTensor moments)")
+    loss_rel = abs(metrics[0]["loss"] - ref_metrics[0]["loss"]) / abs(ref_metrics[0]["loss"])
+    diff_sq = ref_sq = 0.0
+    for k in ("embed", "final_norm", "lm_head"):
+        diff_sq += (full[k].float() - ref[k].float()).square().sum().item()
+        ref_sq += ref[k].float().square().sum().item()
+    for k, v in ref["layers"].items():
+        diff_sq += (full["layers"][k].float() - v.float()).square().sum().item()
+        ref_sq += v.float().square().sum().item()
+    param_rel = (diff_sq / ref_sq) ** 0.5
+    moved = not torch.equal(full["layers"]["wq"], init_params(cfg, seed=0, device="cuda")["layers"]["wq"])
+    ctx["mesh"] = {"one_device": ref_metrics, "mesh": metrics, "loss_rel": loss_rel, "params_rel_l2": param_rel,
+                   "one_device_s": ref_s, "mesh_s": mesh_s, "launches_per_step": want}
+    for n, per in want.items():
+        _add_launches(ctx, n, 2 * per)
+    log(f"[mesh] llama3-8b 2 layers [1, 2048] on a one-rank NCCL mesh {mesh_mod.axis_sizes(mesh)}: losses "
+        f"{[m['loss'] for m in metrics]} vs one-device {[m['loss'] for m in ref_metrics]} (first step rel "
+        f"{loss_rel:.3e}, bar 1e-3); grad norms {[m['grad_norm'] for m in metrics]} vs "
+        f"{[m['grad_norm'] for m in ref_metrics]}; params after 2 steps rel L2 {param_rel:.3e} (bar 1e-2); "
+        f"launches per step {want} in both; {n_dtensor} AdamW moments placed like their params; "
+        f"2 steps {mesh_s:.1f}s (with setup) vs one-device {ref_s:.1f}s")
+    if not loss_rel <= 1e-3:
+        raise AssertionError(f"mesh: first-step loss differs by {loss_rel:.3e} relative")
+    if not param_rel <= 1e-2 or not moved:
+        raise AssertionError(f"mesh: params after 2 steps differ by {param_rel:.3e} (moved {moved})")
 
 
 KERNELS = {
@@ -1675,7 +1964,8 @@ KERNELS = {
 }
 # the phases whose run each kernel's launch count is read from
 PATHS = {"paged_decode": ("serve", "graphs", "weights", "int8", "spec", "disagg"),
-         "flash_fwd": ("weights", "forward", "train"), "flash_bwd_dq": ("train",), "flash_bwd_dkv": ("train",)}
+         "flash_fwd": ("weights", "forward", "train", "moe", "mesh"), "flash_bwd_dq": ("train", "moe", "mesh"),
+         "flash_bwd_dkv": ("train", "moe", "mesh")}
 
 
 def main() -> int:

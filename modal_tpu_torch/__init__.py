@@ -1,4 +1,5 @@
-"""PyTorch / CUDA port of modal_tpu's serving path, for NVIDIA Hopper (H100).
+"""PyTorch / CUDA port of modal_tpu's serving and training paths, for NVIDIA
+Hopper (H100).
 
 The JAX package `modal_tpu` stays the reference; this package imports
 nothing from it (nor `jax`). Layout mirrors the JAX package's file names so
@@ -12,7 +13,8 @@ each module's counterpart is easy to find:
   plain PyTorch version (`paged_attention.py`, `attention.py`), and the
   kernel builder (`_build.py`); sources live in `csrc/`;
 - `serving/`: the continuous-batching engine and its ASGI surface;
-- `parallel/`: the one-card train step;
+- `parallel/`: the train step on one card or over a named mesh (FSDP, TP,
+  expert-parallel MoE, GPipe, ring attention) of gloo or NCCL ranks;
 - `runtime/`: the env-gated warm-up of the entry points (`aot.py`);
 - `observability/`: the serving metrics and spans the engine emits.
 

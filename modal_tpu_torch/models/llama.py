@@ -4,6 +4,8 @@ Parameters are a plain dict with the JAX package's key names: layer tensors
 are stacked `[n_layers, ...]` and weights keep JAX's `[in, out]` layout
 (`x @ w`), so a converted JAX tree (models/convert.py) drops straight in.
 The JAX `lax.scan` over layers is a Python loop over the stacked index.
+MoE configs (`n_experts` > 0) run `parallel.moe`'s switch FFN in place of
+SwiGLU and return its load-balancing aux loss.
 Training holds the layers instead as a list of per-layer dicts
 (`convert.unstack_layers`): under autograd, the backward of each index into
 a stacked tensor would build a zero tensor of the whole stack.
@@ -41,7 +43,7 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    # MoE (switch-style top-1 expert FFNs): not ported yet (ROADMAP)
+    # MoE (switch-style top-1 expert FFNs, parallel/moe.py); 0 = dense SwiGLU
     n_experts: int = 0
     capacity_factor: float = 1.25
     moe_aux_coef: float = 0.01
@@ -109,14 +111,6 @@ def get_config(name: str, **overrides: Any) -> LlamaConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-def _reject_moe(cfg: LlamaConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE configs are not ported to modal_tpu_torch yet "
-            "(ROADMAP.md, PyTorch port queue: parallel/MoE)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -126,7 +120,6 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> dict:
     """Random N(0, 0.02) weights and unit norm gains, sampled straight in
     `cfg.dtype` on the device from one seeded generator (8B's stacked
     `w_gate` alone is 3.7 GB: no fp32 or host staging copy)."""
-    _reject_moe(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -144,7 +137,6 @@ def init_params_abstract(cfg: LlamaConfig) -> dict:
     """The param tree's shapes and dtypes as tensors on the "meta" device,
     which hold no memory (JAX: `jax.eval_shape` of `init_params`). The int8
     init and the AOT warm-up read shapes and bytes from it."""
-    _reject_moe(cfg)
 
     def empty(*shape: int) -> torch.Tensor:
         return torch.empty(shape, dtype=cfg.dtype, device="meta")
@@ -154,7 +146,9 @@ def init_params_abstract(cfg: LlamaConfig) -> dict:
 
 def _param_tree(cfg: LlamaConfig, normal: Callable, ones: Callable) -> dict:
     """The stacked param tree, each weight made by `normal(*shape)` and each
-    norm gain by `ones(*shape)`, in the JAX package's key order."""
+    norm gain by `ones(*shape)`, in the JAX package's key order. MoE layers
+    hold router [D, E], w_in [E, D, F] and w_out [E, F, D] in place of the
+    SwiGLU weights (llama.py:138-147)."""
     hd = cfg.head_dim
     L = cfg.n_layers
     layers = {
@@ -164,10 +158,15 @@ def _param_tree(cfg: LlamaConfig, normal: Callable, ones: Callable) -> dict:
         "wv": normal(L, cfg.dim, cfg.n_kv_heads * hd),
         "wo": normal(L, cfg.n_heads * hd, cfg.dim),
         "mlp_norm": ones(L, cfg.dim),
-        "w_gate": normal(L, cfg.dim, cfg.ffn_dim),
-        "w_up": normal(L, cfg.dim, cfg.ffn_dim),
-        "w_down": normal(L, cfg.ffn_dim, cfg.dim),
     }
+    if cfg.is_moe:
+        layers["router"] = normal(L, cfg.dim, cfg.n_experts)
+        layers["w_in"] = normal(L, cfg.n_experts, cfg.dim, cfg.ffn_dim)
+        layers["w_out"] = normal(L, cfg.n_experts, cfg.ffn_dim, cfg.dim)
+    else:
+        layers["w_gate"] = normal(L, cfg.dim, cfg.ffn_dim)
+        layers["w_up"] = normal(L, cfg.dim, cfg.ffn_dim)
+        layers["w_down"] = normal(L, cfg.ffn_dim, cfg.dim)
     return {
         "embed": normal(cfg.vocab_size, cfg.dim),
         "layers": layers,
@@ -286,6 +285,10 @@ def swiglu(h: torch.Tensor, layer: dict, dtype: torch.dtype) -> torch.Tensor:
     return qmm(gate * qmm(h, layer["w_up"]), layer["w_down"])
 
 
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _layer_forward(
     cfg: LlamaConfig,
     x: torch.Tensor,  # [B, S, D]
@@ -296,13 +299,21 @@ def _layer_forward(
     cache_kv: Optional[tuple[torch.Tensor, torch.Tensor]],  # ([B, max, n_kv, hd], ...), written in place
     cache_offset: int,
     attn_impl: Callable,
-) -> torch.Tensor:
+    plan: Any = None,  # parallel.spmd.SpmdPlan: this rank's heads / FFN / tokens on a mesh
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux): aux is the layer's MoE load-balancing loss (0.0
+    for a dense FFN). With a `plan` the layer's params are this rank's
+    model shard (its heads and FFN columns): the head counts come from the
+    weights' widths, and the projections' partial sums are all-reduced over
+    `model` (Megatron's column / row split)."""
     b, s, _d = x.shape
     hd = cfg.head_dim
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = qmm(h, layer["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = qmm(h, layer["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = qmm(h, layer["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if plan is not None:
+        h = plan.tp_enter(h)
+    q = qmm(h, layer["wq"]).reshape(b, s, -1, hd)
+    k = qmm(h, layer["wk"]).reshape(b, s, -1, hd)
+    v = qmm(h, layer["wv"]).reshape(b, s, -1, hd)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     if cache_kv is not None:
@@ -312,9 +323,17 @@ def _layer_forward(
         k, v = ck, cv
     n_rep = cfg.n_heads // cfg.n_kv_heads
     attn_out = attn_impl(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), mask)
-    x = x + qmm(attn_out.reshape(b, s, cfg.n_heads * hd), layer["wo"])
+    o = qmm(attn_out.reshape(b, s, -1), layer["wo"])
+    x = x + (o if plan is None else plan.tp_exit(o))
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    return x + swiglu(h, layer, x.dtype)
+    if cfg.is_moe:
+        from ..parallel.moe import moe_layer
+
+        y, aux, _dropped = moe_layer(h, layer, cfg, F.silu, plan)
+        return x + y, aux
+    if plan is None:
+        return x + swiglu(h, layer, x.dtype), _no_aux(x)
+    return x + plan.tp_exit(swiglu(plan.tp_enter(h), layer, x.dtype)), _no_aux(x)
 
 
 def forward(
@@ -345,21 +364,37 @@ def forward_with_aux(
     cache: Optional[KVCache] = None,
     attn_impl: Optional[Callable] = None,
     remat: bool = False,
+    plan: Any = None,
 ) -> tuple[torch.Tensor, Optional[KVCache], torch.Tensor]:
-    """`forward` plus the mean MoE aux loss (always 0.0: dense only).
-    `remat` checkpoints each layer of the cache-less path (non-reentrant
+    """`forward` plus the mean per-layer MoE aux loss (0.0 for dense
+    configs); the training loss adds cfg.moe_aux_coef * aux. `remat`
+    checkpoints each layer of the cache-less path (non-reentrant
     `torch.utils.checkpoint`, as JAX's `jax.checkpoint` of the scan body,
     llama.py:363-368): the backward recomputes one layer at a time from the
-    inter-layer activations."""
-    _reject_moe(cfg)
+    inter-layer activations.
+
+    `plan` (a `parallel.spmd.SpmdPlan`, cache-less path only): `params`
+    are DTensors on its mesh, `tokens` and `positions` this rank's block.
+    Each layer gathers its params inside the (checkpointed) layer, so one
+    layer's full weights exist at a time, ZeRO-3 style; the embedding and
+    the head run whole on every rank, and the logits are this rank's
+    [B_l, S_l, V] over the full vocabulary."""
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
         base = cache.length if cache is not None else 0
         positions = (base + torch.arange(s, dtype=torch.int64, device=dev)).expand(b, s)
-    x = qembed(params["embed"], tokens)  # [B, S, D]
+    top = params
+    if plan is not None:
+        if cache is not None:
+            raise ValueError("a KVCache forward runs on one device; pass plan=None")
+        top = {"embed": plan.localize(params["embed"], "embed"),
+               "final_norm": plan.localize(params["final_norm"], "head"),
+               "lm_head": plan.localize(params["lm_head"], "head")}
+    x = qembed(top["embed"], tokens)  # [B, S, D]
     inv_freq = rope_frequencies(cfg, dev)
     layers = params["layers"]
+    aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
 
     if cache is None:
         if attn_impl is None:
@@ -367,14 +402,17 @@ def forward_with_aux(
 
             attn_impl = flash_attention
 
-        def layer_fn(x: torch.Tensor, layer: dict) -> torch.Tensor:
-            return _layer_forward(cfg, x, layer, positions, None, inv_freq, None, 0, attn_impl)
+        def layer_fn(x: torch.Tensor, layer: dict) -> tuple[torch.Tensor, torch.Tensor]:
+            if plan is not None:
+                layer = plan.localize_layer(layer)
+            return _layer_forward(cfg, x, layer, positions, None, inv_freq, None, 0, attn_impl, plan)
 
         for i in range(cfg.n_layers):
             if remat:
-                x = checkpoint(layer_fn, x, layer_params(layers, i), use_reentrant=False)
+                x, aux = checkpoint(layer_fn, x, layer_params(layers, i), use_reentrant=False)
             else:
-                x = layer_fn(x, layer_params(layers, i))
+                x, aux = layer_fn(x, layer_params(layers, i))
+            aux_sum = aux_sum + aux
         new_cache = None
     else:
         offset = cache.length
@@ -383,15 +421,16 @@ def forward_with_aux(
         visible = kv_pos <= positions[:, None, :, None]
         mask = torch.where(visible, 0.0, float("-inf")).float()
         for i in range(cfg.n_layers):
-            x = _layer_forward(
+            x, aux = _layer_forward(
                 cfg, x, layer_params(layers, i), positions, mask, inv_freq,
                 (cache.k[i], cache.v[i]), offset, attn_impl or attention,
             )
+            aux_sum = aux_sum + aux
         new_cache = KVCache(k=cache.k, v=cache.v, length=offset + s)
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = qmm(x, params["lm_head"]).float()
-    return logits, new_cache, torch.zeros((), dtype=torch.float32, device=dev)
+    x = rms_norm(x, top["final_norm"], cfg.norm_eps)
+    logits = qmm(x, top["lm_head"]).float()
+    return logits, new_cache, aux_sum / cfg.n_layers
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ XLA, eager PyTorch materialises the bf16 copy of the weight on every call.
 
 `init_params_quantized` makes random int8 params directly (no bf16 tree):
 with `fast_host_init` they are the JAX package's, bit for bit, because both
-tile the same numpy block. The MoE weight keys (`router`, `w_in`, `w_out`)
-wait for ROADMAP.md Queue A 5.
+tile the same numpy block. MoE expert stacks (`w_in` [.., E, D, F], `w_out`)
+take one scale per expert and output channel, over their second-to-last
+axis, and `parallel/moe.py`'s `_qeinsum` applies it after the einsum.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ import torch
 
 from ..config import host_to_device, resolve_device
 
-# params leaves that are matmul weights (quantizable); norm gains stay as is
+# params leaves that are matmul weights (quantizable); norm gains stay as is.
+# MoE expert weights included (their einsums dequantize on read).
 _WEIGHT_KEYS = frozenset(
-    {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed", "lm_head"}
+    {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed", "lm_head",
+     "router", "w_in", "w_out"}
 )
 
 

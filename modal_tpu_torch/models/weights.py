@@ -17,9 +17,11 @@ streamed to the device (port of modal_tpu/models/weights.py).
   training layout). Host peak is about `PREFETCH` tensors (each read buffer
   and its pinned copy), never the model.
 
-Sources: a local directory (`LocalSource`). `VolumeSource` waits for the
-port's `modal.Volume` (ROADMAP.md Queue A 4); sharded placement
-(`shardings=`) for meshes waits for Queue A 5.
+MoE configs write each expert's matrices as their own tensors
+(`model.layers.N.block_sparse_moe.experts.E.w_in.weight`), as the JAX
+exporter does, and load them stacked per layer. Sources: a local directory
+(`LocalSource`). `VolumeSource` waits for the port's `modal.Volume`
+(ROADMAP.md Queue A 4); `shardings=` places the loaded params on a mesh.
 """
 
 from __future__ import annotations
@@ -214,14 +216,27 @@ _LAYER_MAP = {
     "w_up": ("mlp.up_proj.weight", True),
     "w_down": ("mlp.down_proj.weight", True),
 }
+# MoE layers (Mixtral-style names: block_sparse_moe.gate + per-expert
+# tensors). The switch FFN has two expert matmuls (w_in / w_out); each
+# expert's matrix is its own HF-convention [out, in] tensor, so one shard
+# never holds a layer's whole expert stack.
+_MOE_LAYER_MAP = {
+    **_ATTN_MAP,
+    "router": ("block_sparse_moe.gate.weight", True),
+}
+_EXPERT_MAP = {
+    "w_in": ("w_in.weight", True),
+    "w_out": ("w_out.weight", True),
+}
 
 
 def layer_map(cfg: Optional[LlamaConfig] = None) -> dict:
-    """Per-layer tensor map (dense FFN; the MoE maps wait for ROADMAP.md
-    Queue A 5)."""
-    if cfg is not None and getattr(cfg, "is_moe", False):
-        raise NotImplementedError(f"{cfg.name}: MoE checkpoints wait for ROADMAP.md Queue A 5")
-    return _LAYER_MAP
+    """Per-layer (non-expert) tensor map for this config's FFN flavor."""
+    return _MOE_LAYER_MAP if cfg is not None and getattr(cfg, "is_moe", False) else _LAYER_MAP
+
+
+def _expert_params(cfg: LlamaConfig) -> dict:
+    return _EXPERT_MAP if getattr(cfg, "is_moe", False) else {}
 
 
 def hf_key(
@@ -231,7 +246,8 @@ def hf_key(
     if layer is None:
         return _TOP_MAP[param]
     if expert is not None:
-        raise NotImplementedError("per-expert MoE tensors wait for ROADMAP.md Queue A 5")
+        suffix, t = _EXPERT_MAP[param]
+        return f"model.layers.{layer}.block_sparse_moe.experts.{expert}.{suffix}", t
     suffix, t = layer_map(cfg)[param]
     return f"model.layers.{layer}.{suffix}", t
 
@@ -294,6 +310,14 @@ def export_checkpoint(
                 (f"model.layers.{i}.{suffix}", shape, leaf.dtype, partial(_host_copy, leaf[i], t),
                  _nbytes(shape, leaf.dtype))
             )
+        for our, (_suffix, t) in _expert_params(cfg).items():
+            leaf = params["layers"][our]  # [L, E, in, out]
+            shape = tuple(reversed(leaf.shape[2:])) if t else tuple(leaf.shape[2:])
+            for e in range(cfg.n_experts):
+                entries.append(
+                    (hf_key(our, i, expert=e)[0], shape, leaf.dtype, partial(_host_copy, leaf[i, e], t),
+                     _nbytes(shape, leaf.dtype))
+                )
 
     os.makedirs(dest, exist_ok=True)
     _remove_stale_checkpoint(dest)
@@ -407,12 +431,19 @@ class _LoadPlan:
         self.abstract = init_params_abstract(cfg)
         self.params: dict = {}
         self.top_jobs = list(_TOP_MAP)
-        self.layer_jobs = [(our, t, i) for our, (_s, t) in layer_map(cfg).items() for i in range(cfg.n_layers)]
+        # an expert stack is one job per layer: its experts' tensors are
+        # fetched and stacked on the host
+        self.experts = _expert_params(cfg)
+        lmap = {**layer_map(cfg), **self.experts}
+        self.layer_jobs = [(our, t, i) for our, (_s, t) in lmap.items() for i in range(cfg.n_layers)]
         self.layers: Any = [{} for _ in range(cfg.n_layers)] if self.per_layer else {}
         if not self.per_layer:
-            for our, (_suffix, t) in layer_map(cfg).items():
-                _f, _d, shape0, _a, _b = idx.tensors[hf_key(our, 0, cfg=cfg)[0]]
+            for our, (_suffix, t) in lmap.items():
+                expert = 0 if our in self.experts else None
+                _f, _d, shape0, _a, _b = idx.tensors[hf_key(our, 0, expert=expert, cfg=cfg)[0]]
                 layer_shape = tuple(reversed(shape0)) if t else shape0
+                if expert is not None:
+                    layer_shape = (cfg.n_experts, *layer_shape)
                 self._check_shape(f"layers/{our}", (cfg.n_layers, *layer_shape), self.abstract["layers"][our])
                 self.layers[our] = torch.empty((cfg.n_layers, *layer_shape), dtype=self.target_dtype, device=device)
 
@@ -421,23 +452,30 @@ class _LoadPlan:
         if tuple(shape) != tuple(spec.shape):
             raise ValueError(f"checkpoint tensor {path}: shape {tuple(shape)}, the config wants {tuple(spec.shape)}")
 
-    def cast(self, arr: torch.Tensor, transpose: bool) -> torch.Tensor:
-        """The tensor transposed and cast on the host, written once into
-        pinned memory when it goes to a card."""
-        src = arr.T if transpose else arr
-        out = torch.empty(src.shape, dtype=self.target_dtype, pin_memory=self.device.type == "cuda")
-        out.copy_(src)
+    def cast(self, arrs: list[torch.Tensor], transpose: bool) -> torch.Tensor:
+        """The tensors transposed, cast and stacked on the host, written once
+        into pinned memory when they go to a card; one tensor is not
+        stacked."""
+        srcs = [a.T if transpose else a for a in arrs]
+        shape = srcs[0].shape if len(srcs) == 1 else (len(srcs), *srcs[0].shape)
+        out = torch.empty(shape, dtype=self.target_dtype, pin_memory=self.device.type == "cuda")
+        for j, src in enumerate(srcs):
+            (out if len(srcs) == 1 else out[j]).copy_(src)
         return out
 
     def fetch_top(self, src: Any, our: str) -> torch.Tensor:
         name, transpose = _TOP_MAP[our]
         if name not in self.idx.tensors and our == "lm_head":
             # tied embeddings (Llama-3.2 1B/3B style): lm_head = embed.T
-            return self.cast(_fetch_tensor(src, self.idx, _TOP_MAP["embed"][0]), True)
-        return self.cast(_fetch_tensor(src, self.idx, name), transpose)
+            return self.cast([_fetch_tensor(src, self.idx, _TOP_MAP["embed"][0])], True)
+        return self.cast([_fetch_tensor(src, self.idx, name)], transpose)
 
     def fetch_layer(self, src: Any, our: str, transpose: bool, i: int) -> torch.Tensor:
-        return self.cast(_fetch_tensor(src, self.idx, hf_key(our, i, cfg=self.cfg)[0]), transpose)
+        if our in self.experts:
+            names = [hf_key(our, i, expert=e)[0] for e in range(self.cfg.n_experts)]
+        else:
+            names = [hf_key(our, i, cfg=self.cfg)[0]]
+        return self.cast([_fetch_tensor(src, self.idx, n) for n in names], transpose)
 
     def place_top(self, our: str, host: torch.Tensor) -> None:
         self._check_shape(our, tuple(host.shape), self.abstract[our])
@@ -462,6 +500,7 @@ def load_params(
     cfg: LlamaConfig,
     *,
     shardings: Optional[dict] = None,
+    mesh: Any = None,
     dtype: Optional[torch.dtype] = None,
     device=None,
     layout: str = "stacked",
@@ -473,11 +512,15 @@ def load_params(
     `read_into`, `read_all`, `exists`). `layout`: "stacked" (`{key:
     [n_layers, ...]}`, what serving and `forward` take) or "per_layer" (the
     training layout, a list of per-layer dicts, as `convert.unstack_layers`
-    gives, made without a stacked copy). `shardings` places a mesh's shards
-    and waits for ROADMAP.md Queue A 5: only None is accepted. `dtype`
-    casts (default `cfg.dtype`). Returns when every tensor is on the device."""
-    if shardings is not None:
-        raise NotImplementedError("sharded loading waits for ROADMAP.md Queue A 5; pass shardings=None")
+    gives, made without a stacked copy). `shardings` (a placement tree of
+    the stacked layout, as `parallel.sharding.param_shardings` gives, with
+    its DeviceMesh as `mesh`) returns every leaf as a DTensor holding this
+    rank's piece: the whole tensor is loaded, then cut (no regridding of a
+    sharded checkpoint; that waits for ROADMAP.md Queue A 4's Volume).
+    `dtype` casts (default `cfg.dtype`). Returns when every tensor is on the
+    device."""
+    if shardings is not None and (mesh is None or layout != "stacked"):
+        raise ValueError("shardings= needs its mesh= and the stacked layout")
     if layout not in ("stacked", "per_layer"):
         raise ValueError(f"layout must be 'stacked' or 'per_layer', got {layout!r}")
     dev = resolve_device(device)
@@ -499,4 +542,8 @@ def load_params(
             place_(*args_, fut.result())
     params = plan.finish()
     _record_load_metrics(idx, time.perf_counter() - t0)
+    if shardings is not None:
+        from ..parallel.sharding import place
+
+        params = place(mesh, params, shardings)
     return params

@@ -44,12 +44,29 @@ def test_no_source_of_the_port_imports_jax_or_modal_tpu():
     assert not offenders, offenders
 
 
-def test_port_serves_with_jax_and_modal_tpu_unimportable():
-    script = textwrap.dedent(
+def test_port_serves_with_jax_and_modal_tpu_unimportable(tmp_path):
+    """Serve, speculate, ship, train (a dense and a tiny-moe step, and an
+    fsdp step in 2 spawned gloo ranks, which re-run the script's top level
+    and so refuse the same imports), checkpoint, quantize and sample."""
+    header = textwrap.dedent(
         """
         import sys
         for name in ("jax", "jaxlib", "modal_tpu", "optax", "ml_dtypes", "cloudpickle"):
             sys.modules[name] = None  # any import of them raises ImportError
+
+
+        def fsdp_rank(rank, world):
+            from modal_tpu_torch.parallel.train import train_demo
+
+            m = train_demo("tiny", {"fsdp": 2}, steps=1, seq_len=32, device="cpu")
+            leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "modal_tpu", "optax") and sys.modules[n] is not None)
+            assert not leaked, leaked
+            if rank == 0:
+                print("fsdp step", m["loss"], flush=True)
+        """
+    )
+    body = textwrap.dedent(
+        """
         import modal_tpu_torch
         from modal_tpu_torch.models.llama import get_config, init_params
         from modal_tpu_torch.serving import ServingEngine
@@ -88,6 +105,12 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
         state, metrics = train_step(state, torch.randint(0, 512, (1, 128)))
         assert metrics["step"] == 1 and float(metrics["loss"]) > 0, metrics
         print("trained", float(metrics["loss"]))
+        state, train_step = create_state(get_config("tiny-moe"), TrainConfig(), seed=0, device="cpu")
+        state, metrics = train_step(state, torch.randint(0, 512, (1, 64)))
+        assert metrics["step"] == 1 and float(metrics["loss"]) > 0, metrics
+        from modal_tpu_torch.parallel.mesh import spawn
+        spawn(fsdp_rank, 2)
+        print("trained moe and fsdp")
 
         import tempfile
         from modal_tpu_torch.models import quant, sampling, weights
@@ -112,11 +135,16 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable():
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
     env["PYTHONPATH"] = REPO
+    # the spawned ranks re-run the file's top level: the body runs in main() only
+    script = header + "\n\ndef main():\n" + textwrap.indent(body, "    ") + "\n\nif __name__ == '__main__':\n    main()\n"
+    path = tmp_path / "port_alone.py"
+    path.write_text(script)
     proc = subprocess.run(
-        [sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=240
+        [sys.executable, str(path)], cwd=REPO, env=env, capture_output=True, text=True, timeout=240
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "served" in proc.stdout and "trained" in proc.stdout
+    assert "trained moe and fsdp" in proc.stdout and "fsdp step" in proc.stdout
     assert "speculated and shipped" in proc.stdout
     assert "checkpointed, quantized, sampled" in proc.stdout
 
@@ -126,7 +154,9 @@ def test_every_module_of_the_port_is_scanned():
     the import scan reads (a new module cannot slip past it)."""
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     for rel in ("models/weights.py", "models/quant.py", "models/sampling.py", "runtime/aot.py",
-                "runtime/__init__.py", "serving/api.py", "ops/_build.py", "tools/profile_serving.py"):
+                "runtime/__init__.py", "serving/api.py", "ops/_build.py", "tools/profile_serving.py",
+                "parallel/mesh.py", "parallel/sharding.py", "parallel/spmd.py", "parallel/moe.py",
+                "parallel/pipeline.py", "parallel/ring_attention.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 

@@ -121,6 +121,14 @@ def test_quantized_tree_matches_jax():
 
 
 def test_moe_configs_raise():
+    """MoE configs initialise and run the forward (test_torch_moe.py holds
+    them against JAX); the paged serving engine refuses them with
+    ValueError, as the JAX engine does."""
+    from modal_tpu_torch.serving import ServingEngine
+
     cfg = tllama.get_config("tiny-moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.init_params(cfg, device="cpu")
+    params = tllama.init_params(cfg, device="cpu")
+    logits, _ = tllama.forward(params, cfg, torch.zeros((1, 4), dtype=torch.long))
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    with pytest.raises(ValueError, match="MoE"):
+        ServingEngine(params, cfg, device="cpu")

@@ -238,12 +238,20 @@ def test_causal_lm_loss_matches_jax():
 
 
 def test_train_demo_on_cpu_and_its_mesh_rule():
+    """Every axis 1: the one-device step, no process group. An axis above 1
+    needs the process group every rank joins (tests/test_torch_parallel.py
+    runs those in gloo ranks); pipe × MoE is refused before any init."""
+    import torch.distributed as dist
+
+    from modal_tpu_torch.parallel.mesh import MeshConstraintError
+
     out = ttrain.train_demo("debug-1l", steps=2, seq_len=64, device="cpu", mesh_axes={"data": 1, "fsdp": 1})
     assert out["step"] == 2.0 and np.isfinite(out["loss"]) and out["loss"] > 0 and out["grad_norm"] > 0
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
         ttrain.train_demo("debug-1l", mesh_axes={"fsdp": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttrain.train_demo("tiny-moe", device="cpu")
+    with pytest.raises(MeshConstraintError):
+        ttrain.train_demo("tiny-moe", mesh_axes={"pipe": 2}, device="cpu")
 
 
 def test_train_demo_first_update_keeps_params_then_moves_them():

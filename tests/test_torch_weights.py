@@ -191,13 +191,14 @@ def test_tied_lm_head_and_dtype_cast(tmp_path):
 
 
 def test_load_refuses_what_it_cannot_do(tmp_path):
-    """A mesh's shardings and Volumes wait for later queue items; a missing
-    checkpoint and a config whose shapes differ raise."""
+    """Volumes wait for a later queue item; shardings without their mesh
+    (or into the per-layer layout), a missing checkpoint and a config whose
+    shapes differ raise."""
     _jc, _jp, tcfg, tparams = _models("fp32")
     with pytest.raises(FileNotFoundError):
         tweights.load_params(str(tmp_path), tcfg, device="cpu")
     tweights.export_checkpoint(tparams, tcfg, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
+    with pytest.raises(ValueError, match="mesh"):
         tweights.load_params(str(tmp_path), tcfg, device="cpu", shardings={})
     with pytest.raises(NotImplementedError, match="Queue A 4"):
         tweights.load_params((object(), "ckpt"), tcfg, device="cpu")
