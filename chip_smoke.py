@@ -7,11 +7,14 @@
     python3 chip_smoke.py --phases device,build,serve,spec,disagg
     python3 chip_smoke.py --phases device,build,serve,graphs,weights,int8
     python3 chip_smoke.py --phases device,build,moe,mesh
+    python3 chip_smoke.py --phases device,coldstart
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
 
-1. device   — the card's name and power limit (nvidia-smi), TF32 off.
+1. device   — the card's name and power limit (nvidia-smi), TF32 off; one
+              log line saying whether grpc, google.protobuf, cloudpickle
+              and aiohttp are importable here (a probe, never a failure).
 2. build    — compile every CUDA kernel of the port from `modal_tpu_torch/csrc`
               (one nvcc per source, all started together), then the AOT
               warm-up of every entry point (`MODAL_TPU_AOT_LOWER=all`), which
@@ -96,6 +99,22 @@ result line):
               the same params and tokens: first-step loss within 1e-3
               relative, params within a global relative L2 of 1e-2, K1-K3
               launches exact, AdamW's moments placed like their params.
+15. coldstart — a llama3-8b serving replica booted twice, each boot a fresh
+              interpreter (`chip_smoke.py --boot fresh|warm`) running a
+              container boot's order (modal_tpu/runtime/
+              container_entrypoint.py:505-545): import tracing before `import
+              torch`, the compile hooks and the fleet compile cache,
+              `restore_snapshot` or else the snap-enter state (init_params,
+              seed 0, 16.06 GB) and `save_snapshot`, the AOT warm-up of the
+              decode entry (a post-snapshot enter hook), the graphed engine,
+              8 greedy requests. Both boots share one fleet store and one
+              snapshot directory; each has its own empty build directory.
+              The fresh boot must restore nothing, build K4 with nvcc and
+              publish it; the warm boot must restore every leaf bit-equal
+              (device checksums), run nvcc zero times with a fleet hit for
+              each kernel it loaded, and emit the fresh boot's tokens; K4
+              launches exactly n_layers per decode step in both. Each boot's
+              time from process start to the first token is printed by part.
 
 Parity at depth: with random weights a single bf16 rounding inside
 attention moves llama3-8b's logits by a few 1e-2 (max over the 128256-entry
@@ -122,7 +141,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "graphs", "weights", "int8", "spec", "disagg", "parity",
-          "forward", "train", "moe", "mesh")
+          "forward", "train", "moe", "mesh", "coldstart")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -195,19 +214,40 @@ def _timed(kernel, library, **rest) -> dict:
             "library_ms_min": library[1], "library_ms_max": library[2], **rest}
 
 
-def phase_device(torch, ctx: dict) -> None:
+def _nvidia_smi() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    ctx["nvidia_smi"] = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+# the packages the SDK core of the JAX package imports (client, gRPC utils,
+# protobuf messages, serialization, the blob server)
+SDK_PACKAGES = ("grpc", "google.protobuf", "cloudpickle", "aiohttp")
+
+
+def _importable(name: str) -> bool:
+    import importlib.util
+
+    try:
+        return importlib.util.find_spec(name) is not None
+    except ModuleNotFoundError:  # the parent package (google) is missing
+        return False
+
+
+def phase_device(torch, ctx: dict) -> None:
+    ctx["nvidia_smi"] = _nvidia_smi()
     ctx["kind"] = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[device] {ctx['kind']} | nvidia-smi: {ctx['nvidia_smi']} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+    ctx["sdk_packages"] = {name: _importable(name) for name in SDK_PACKAGES}
+    log("[device] SDK packages importable here: "
+        + ", ".join(f"{name} {'yes' if ok else 'no'}" for name, ok in ctx["sdk_packages"].items()))
 
 
 def phase_build(torch, ctx: dict) -> None:
@@ -219,11 +259,11 @@ def phase_build(torch, ctx: dict) -> None:
     for name, rep in report.items():
         regs = [ln.strip() for ln in rep["log"].splitlines()
                 if any(w in ln for w in ("entry function", "registers", "spill", "C7512"))]
-        log(f"[build] {name}: {rep['seconds']:.1f}s cached={rep['cached']}")
+        log(f"[build] {name}: {rep['seconds']:.1f}s from {rep['source']}")
         for ln in regs:
             log(f"[build]   {ln}")
     ctx["build_log"] = {name: rep["log"] for name, rep in report.items()}
-    if "paged_decode" in report and not report["paged_decode"]["cached"]:
+    if "paged_decode" in report and report["paged_decode"]["source"] == "nvcc":
         # the instance the speculative draft (llama3-1b-proxy) runs: hd 64, n_rep 4
         lines = _ptxas_instance(report["paged_decode"]["log"], "paged_decode_kernelILi64ELi4E")
         if not lines:
@@ -1956,6 +1996,270 @@ def phase_mesh(torch, ctx: dict) -> None:
         raise AssertionError(f"mesh: params after 2 steps differ by {param_rel:.3e} (moved {moved})")
 
 
+# -- coldstart: a llama3-8b replica booted fresh, then warm --------------------
+
+# what the snapshot is keyed by: the boot's function definition
+COLDSTART_DEF = b"chip_smoke coldstart: llama3-8b ServingEngine replica, init_params(seed=0) on cuda"
+COLDSTART_AOT = "decode,cfg=llama3-8b"
+
+
+def _tree_leaves(tree, prefix: str = "") -> list:
+    """(path, tensor) for every tensor of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def _checksum(torch, t) -> list:
+    """A device-side checksum of a tensor's bytes: the sum of its 32-bit
+    (or 8-bit) words and their sum weighted by position mod 65521, in
+    int64, chunk by chunk; any flipped or moved word changes it."""
+    flat = t.reshape(-1).view(torch.uint8)
+    if flat.numel() % 4 == 0:
+        flat = flat.view(torch.int32)
+    plain = torch.zeros((), dtype=torch.int64, device=t.device)
+    weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 26
+    for off in range(0, flat.numel(), step):
+        c = flat[off:off + step].to(torch.int64)
+        pos = torch.arange(off, off + c.numel(), dtype=torch.int64, device=t.device) % 65521 + 1
+        plain += c.sum()
+        weighted += (c * pos).sum()
+    return [int(plain), int(weighted)]
+
+
+def _rss_bytes() -> int:
+    """This process's resident set now, from /proc/self/statm; 0 if unreadable."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGESIZE")
+    except (OSError, ValueError, IndexError):
+        return 0
+
+
+def _sample_peak_rss(peak: list, stop) -> None:
+    """Keep the largest RSS seen in peak[0], sampled every 10 ms until stop
+    is set. Not ru_maxrss: Linux keeps that across execve, so a boot this
+    script spawned reported the parent's peak."""
+    while not stop.wait(0.01):
+        peak[0] = max(peak[0], _rss_bytes())
+
+
+def _boot(role: str, t_spawn: float) -> int:
+    """One cold boot of a llama3-8b serving replica in this fresh
+    interpreter, in the order of modal_tpu/runtime/container_entrypoint.py:
+    505-545; the coldstart phase runs it as `chip_smoke.py --boot ROLE` with
+    the fleet store, snapshot, build and telemetry paths in its environment.
+    Prints progress, then one JSON line of its measurements."""
+    import threading
+
+    t_main = time.time()
+    peak_rss, stop_rss = [_rss_bytes()], threading.Event()
+    threading.Thread(target=_sample_peak_rss, args=(peak_rss, stop_rss), daemon=True).start()
+    sys.path.insert(0, REPO)
+    from modal_tpu_torch.runtime import telemetry
+
+    telemetry.maybe_instrument_from_env()  # before anything heavy is imported
+    import torch
+
+    from modal_tpu_torch.models.llama import get_config, init_params
+    from modal_tpu_torch.observability import catalog, device_telemetry
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.runtime import aot, snapshot
+    from modal_tpu_torch.serving import ServingEngine  # noqa: F401 — imported here, timed with the rest
+
+    t_imported = time.time()
+    if not device_telemetry.install_compile_hooks() or not device_telemetry.maybe_install_fleet_cache():
+        raise AssertionError("compile hooks or fleet cache not installed (torch imported, fleet dir set)")
+    out: dict = {"role": role, "interpreter_s": t_main - t_spawn, "imports_s": t_imported - t_main,
+                 "hooks_s": time.time() - t_imported}
+    cfg = get_config("llama3-8b")
+
+    class Replica:
+        """The service instance: what snap-enter sets lives on it."""
+
+    replica = Replica()
+    t0 = time.time()
+    torch.cuda.init()
+    out["cuda_init_s"] = time.time() - t0
+    t0 = time.time()
+    restored = snapshot.restore_snapshot(COLDSTART_DEF, replica)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.time() - t0
+    out["restored"] = restored
+    if not restored:
+        t0 = time.time()
+        replica.params = init_params(cfg, seed=0, device="cuda")
+        replica.cfg = cfg
+        torch.cuda.synchronize()
+        out["init_s"] = time.time() - t0
+        t0 = time.time()
+        if not snapshot.save_snapshot(COLDSTART_DEF, replica):
+            raise AssertionError("save_snapshot abandoned the snapshot")
+        out["save_s"] = time.time() - t0
+    t0 = time.time()  # this script's check, not a step of a boot: reported apart
+    leaves = _tree_leaves(replica.params)
+    out["state_bytes"] = sum(t.numel() * t.element_size() for _, t in leaves)
+    out["leaf_devices"] = sorted({str(t.device) for _, t in leaves})
+    out["checksums"] = {path: _checksum(torch, t) for path, t in leaves}
+    out["checks_s"] = time.time() - t0
+    t0 = time.time()
+    warm = aot.maybe_aot_lower()  # MODAL_TPU_AOT_LOWER: a post-snapshot enter hook
+    out["kernels_s"] = time.time() - t0
+    if warm is None or "errors" in warm:
+        raise AssertionError(f"AOT warm-up failed: {warm}")
+    t0 = time.time()
+    engine = _engine_8b(replica.params, replica.cfg, cuda_graphs=None)
+    if engine.decode_graph is None:
+        raise AssertionError("the engine on CUDA did not capture its decode step")
+    out["capture_s"] = time.time() - t0
+    prompts = _prompts(cfg, 8, seed=1)
+    _build.reset_launches()
+    t_submit = time.time()
+    reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]  # queued before the loop starts
+    engine.start()
+    try:
+        streams = [r.result(timeout=600) for r in reqs]
+    finally:
+        engine.stop()
+    _check_streams(f"coldstart {role}", streams, cfg.vocab_size)
+    stats = engine.stats()
+    stop_rss.set()
+    first_token = t_submit + min(r.ttft_s for r in reqs)
+    out.update({
+        "first_token_s": first_token - t_spawn - out["checks_s"],
+        "submit_to_first_token_s": first_token - t_submit,
+        "ttft_first_request_s": reqs[0].ttft_s,
+        "serve_s": time.time() - t_submit,
+        "streams": streams,
+        "decode_steps": stats["steps"],
+        "launches": dict(_build.LAUNCHES),
+        "loaded_kernels": sorted(_build._libs),
+        "nvcc_runs": int(catalog.COMPILE_EVENTS.value(event="compile", source="runtime")),
+        "fleet_hits": int(catalog.COMPILE_CACHE_HITS.total()),
+        "fleet_puts": int(catalog.COMPILE_CACHE_PUTS.total()),
+        "graph_capture_s": catalog.COMPILE_SECONDS.totals(phase="graph_capture")[0],
+        "peak_rss_bytes": max(peak_rss[0], _rss_bytes()) or None,  # None: statm unreadable
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "imports_top": [
+            {"module": e["module"], "s": e["duration_s"]}
+            for e in telemetry.summarize(os.environ["MODAL_TPU_TELEMETRY_PATH"], top=5)
+        ],
+        "telemetry_summary": device_telemetry.telemetry_summary(),
+        "report_bytes": len(device_telemetry.container_report()),
+    })
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _boot_line(b: dict) -> str:
+    """A boot's time from process start to its first token (this script's
+    checksums left out), part by part; "other" is what no part covers."""
+    gb = b["state_bytes"] / 1e9
+    if b["restored"]:
+        state = f"restore {b['restore_s']:.2f}s ({gb / b['restore_s']:.2f} GB/s)"
+        state_s = b["restore_s"]
+    else:
+        state = (f"restore miss {b['restore_s']:.3f}s + init {b['init_s']:.2f}s + save {b['save_s']:.2f}s "
+                 f"({gb / b['save_s']:.2f} GB/s)")
+        state_s = b["restore_s"] + b["init_s"] + b["save_s"]
+    parts = (b["interpreter_s"] + b["imports_s"] + b["hooks_s"] + b["cuda_init_s"] + state_s + b["kernels_s"]
+             + b["capture_s"] + b["submit_to_first_token_s"])
+    top = ", ".join(f"{e['module']} {e['s']:.2f}s" for e in b["imports_top"])
+    return (f"process start → first token {b['first_token_s']:.2f}s = interpreter {b['interpreter_s']:.2f}s + "
+            f"imports {b['imports_s']:.2f}s ({top}) + hooks {b['hooks_s']:.3f}s + CUDA init {b['cuda_init_s']:.2f}s "
+            f"+ {state} + kernels "
+            f"{b['kernels_s']:.2f}s ({b['nvcc_runs']} nvcc runs, {b['fleet_hits']} fleet hits, {b['fleet_puts']} "
+            f"puts) + graph capture {b['capture_s']:.2f}s + submit → first token {b['submit_to_first_token_s']:.2f}s "
+            f"+ other {b['first_token_s'] - parts:.2f}s (checksums, {b['checks_s']:.2f}s, left out); first-request "
+            f"TTFT {b['ttft_first_request_s']:.3f}s; peak RSS "
+            + (f"{b['peak_rss_bytes'] / 1e9:.2f} GB (sampled every 10 ms)" if b["peak_rss_bytes"] else "not measured")
+            + f", peak device {b['peak_device_bytes'] / 1e9:.2f} GB")
+
+
+def phase_coldstart(torch, ctx: dict) -> None:
+    import gc
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch.models.llama import get_config, init_params_abstract
+    from modal_tpu_torch.models.quant import quantized_bytes
+
+    ctx.pop("params", None)
+    ctx.pop("cfg", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    cfg = get_config("llama3-8b")
+    nbytes = quantized_bytes(init_params_abstract(cfg))
+    parent = tempfile.gettempdir()
+    free = _free_bytes(parent)
+    log(f"[coldstart] {nbytes / 1e9:.2f} GB of params; {free / 1e9:.1f} GB free under {parent}; "
+        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB allocated here")
+    if free < nbytes * 1.1 + (2 << 30):
+        raise AssertionError(f"coldstart: {free / 1e9:.1f} GB free under {parent}, the snapshot needs {nbytes / 1e9:.1f}")
+    root = tempfile.mkdtemp(prefix="coldstart-", dir=parent)
+    boots: dict = {}
+    try:
+        for role in ("fresh", "warm"):
+            env = {k: v for k, v in os.environ.items() if k != "MODAL_TPU_COMPILE_CACHE_URL"}
+            os.makedirs(os.path.join(root, "fleet"), exist_ok=True)
+            env.update({
+                "MODAL_TPU_COMPILE_CACHE": "1",
+                "MODAL_TPU_COMPILE_CACHE_DIR": os.path.join(root, "fleet"),
+                "MODAL_TPU_SNAPSHOT_DIR": os.path.join(root, "snapshots"),
+                "TORCH_EXTENSIONS_DIR": os.path.join(root, f"build-{role}"),
+                "MODAL_TPU_TELEMETRY_PATH": os.path.join(root, f"imports-{role}.jsonl"),
+                "MODAL_TPU_AOT_LOWER": COLDSTART_AOT,
+            })
+            t_spawn = time.time()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--boot", role, "--boot-t0", repr(t_spawn)],
+                                  env=env, capture_output=True, text=True, timeout=900)
+            lines = proc.stdout.strip().splitlines()
+            for ln in lines[:-1]:
+                log(f"[coldstart:{role}] {ln}")
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"coldstart: the {role} boot exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            boots[role] = json.loads(lines[-1])
+            if role == "fresh":
+                snap = os.path.join(root, "snapshots")
+                files = [os.path.join(d, f) for d, _, fs in os.walk(snap) for f in fs if f.endswith(".bin")]
+                boots[role]["snapshot_bytes"] = sum(os.path.getsize(f) for f in files)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fresh, warm = boots["fresh"], boots["warm"]
+    if fresh["restored"] or not warm["restored"]:
+        raise AssertionError(f"coldstart: restored fresh={fresh['restored']} warm={warm['restored']}")
+    if fresh["snapshot_bytes"] != nbytes or fresh["state_bytes"] != nbytes:
+        raise AssertionError(f"coldstart: snapshot holds {fresh['snapshot_bytes']} bytes of array files, "
+                             f"the state {fresh['state_bytes']}; llama3-8b has {nbytes}")
+    if warm["state_bytes"] != fresh["state_bytes"] or warm["checksums"] != fresh["checksums"]:
+        bad = [p for p in fresh["checksums"] if warm["checksums"].get(p) != fresh["checksums"][p]]
+        raise AssertionError(f"coldstart: restored leaves differ from the saved ones: {bad[:8]}")
+    if warm["leaf_devices"] != fresh["leaf_devices"] or not all(d.startswith("cuda") for d in warm["leaf_devices"]):
+        raise AssertionError(f"coldstart: leaves on {fresh['leaf_devices']} then {warm['leaf_devices']}")
+    if warm["streams"] != fresh["streams"]:
+        raise AssertionError("coldstart: the warm boot's tokens differ from the fresh boot's")
+    if fresh["nvcc_runs"] < 1 or fresh["fleet_puts"] != fresh["nvcc_runs"]:
+        raise AssertionError(f"coldstart: fresh boot ran nvcc {fresh['nvcc_runs']} times, published {fresh['fleet_puts']}")
+    if warm["nvcc_runs"] != 0 or warm["fleet_hits"] != len(warm["loaded_kernels"]) or not warm["loaded_kernels"]:
+        raise AssertionError(f"coldstart: warm boot ran nvcc {warm['nvcc_runs']} times with {warm['fleet_hits']} fleet "
+                             f"hits for kernels {warm['loaded_kernels']}")
+    for b in (fresh, warm):
+        k4 = b["launches"]["paged_decode"]
+        if k4 == 0 or k4 != cfg.n_layers * b["decode_steps"]:
+            raise AssertionError(f"coldstart {b['role']}: paged_decode launched {k4} times over "
+                                 f"{b['decode_steps']} decode steps ({cfg.n_layers} layers)")
+        _add_launches(ctx, "paged_decode", b["launches"]["paged_decode"])
+        log(f"[coldstart] {b['role']}: {_boot_line(b)} | {smi}")
+        b.pop("checksums")
+    ratio = warm["first_token_s"] / fresh["first_token_s"]
+    log(f"[coldstart] {len(fresh['streams'])} streams equal; "
+        f"{nbytes / 1e9:.2f} GB restored bit-equal; warm / fresh process start → first token "
+        f"{warm['first_token_s']:.2f}s / {fresh['first_token_s']:.2f}s = {ratio:.3f} | {smi}")
+    ctx["coldstart"] = {"fresh": fresh, "warm": warm, "warm_over_fresh": ratio, "nvidia_smi": smi}
+
+
 KERNELS = {
     "paged_decode": ("modal_tpu_torch/csrc/paged_decode.cu", "modal_tpu/ops/paged_attention.py:42"),
     "flash_fwd": ("modal_tpu_torch/csrc/flash_fwd.cu", "modal_tpu/ops/attention.py:50"),
@@ -1963,7 +2267,7 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve", "graphs", "weights", "int8", "spec", "disagg"),
+PATHS = {"paged_decode": ("serve", "graphs", "weights", "int8", "spec", "disagg", "coldstart"),
          "flash_fwd": ("weights", "forward", "train", "moe", "mesh"), "flash_bwd_dq": ("train", "moe", "mesh"),
          "flash_bwd_dkv": ("train", "moe", "mesh")}
 
@@ -1972,7 +2276,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES), help="comma list of " + ",".join(PHASES))
     ap.add_argument("--out", default="", help="also write every measurement as JSON here")
+    ap.add_argument("--boot", choices=("fresh", "warm"), help=argparse.SUPPRESS)  # one coldstart boot
+    ap.add_argument("--boot-t0", type=float, default=0.0, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.boot:
+        return _boot(args.boot, args.boot_t0)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:

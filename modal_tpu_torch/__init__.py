@@ -15,12 +15,26 @@ each module's counterpart is easy to find:
 - `serving/`: the continuous-batching engine and its ASGI surface;
 - `parallel/`: the train step on one card or over a named mesh (FSDP, TP,
   expert-parallel MoE, GPipe, ring attention) of gloo or NCCL ranks;
-- `runtime/`: the env-gated warm-up of the entry points (`aot.py`);
-- `observability/`: the serving metrics and spans the engine emits.
+- `runtime/`: the cold-start runtime a container boot calls: warm-state
+  snapshots to and from the card (`snapshot.py`), the fleet compile cache
+  under the kernel builds (`compile_client.py`), import tracing
+  (`telemetry.py`) and the env-gated warm-up of the entry points (`aot.py`);
+- `server/`: the fleet compile-cache store (`compile_cache.py`);
+- `observability/`: serving, device and compile metrics, spans, and the
+  heartbeat report.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
+
+Importing the package imports nothing else (not torch): a boot traces its
+imports with `runtime.telemetry` before anything heavy loads.
 """
 
-from .config import logger, resolve_device
-
 __all__ = ["logger", "resolve_device"]
+
+
+def __getattr__(name: str):
+    if name in __all__:
+        from . import config
+
+        return getattr(config, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,6 @@
-"""Package logger, the device rule every entry point follows, and the
-host-to-device copy that does not wait for the stream."""
+"""Package logger, the settings the cold-start runtime reads, the device
+rule every entry point follows, and the host-to-device copy that does not
+wait for the stream."""
 
 from __future__ import annotations
 
@@ -16,6 +17,26 @@ if not logger.handlers:
     logger.addHandler(_handler)
     logger.setLevel(os.environ.get("MODAL_TPU_TORCH_LOGLEVEL", "WARNING").upper())
     logger.propagate = False
+
+# the JAX package's settings that the cold-start runtime reads, under the same
+# `MODAL_TPU_<KEY>` environment names and defaults (modal_tpu/config.py:120,
+# :127); the port reads the environment only, not the TOML profile
+_SETTINGS = {
+    # local state: snapshots live under <state_dir>/snapshots
+    "state_dir": os.path.expanduser("~/.modal_tpu_state"),
+    "compilation_cache_dir": os.path.expanduser("~/.modal_tpu_state/jit_cache"),
+}
+
+
+class _Config:
+    """`config[key]`: `MODAL_TPU_<KEY>` when set, else the default; read at
+    each access, so a process may point a setting elsewhere at run time."""
+
+    def __getitem__(self, key: str) -> str:
+        return os.environ.get("MODAL_TPU_" + key.upper(), _SETTINGS[key])
+
+
+config = _Config()
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

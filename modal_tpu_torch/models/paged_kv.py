@@ -487,6 +487,7 @@ class DecodeGraph:
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph = _build.CountedGraph(graph, launches)
         self.capture_s = time.perf_counter() - t0
+        _build.report_compile("graph_capture", self.capture_s)
 
     def __call__(self, tokens: torch.Tensor, active: torch.Tensor):
         self.tokens.copy_(tokens, non_blocking=True)

@@ -1,5 +1,6 @@
 """The metric families the port emits: serving (the engine and its ASGI
-app) and device telemetry (step times, device memory).
+app), device telemetry (step times, device memory) and compile telemetry
+(kernel builds, CUDA-graph captures, the fleet compile cache).
 
 Names and help texts are those of the JAX package's catalog, so a scrape of
 either implementation reads the same way. Importing this module registers
@@ -109,6 +110,47 @@ DEVICE_MEMORY_BYTES = REGISTRY.gauge(
     "Live per-device memory from torch.cuda.memory_stats() (bytes_in_use | "
     "bytes_limit | peak_bytes_in_use); the CPU falls back to host RSS.",
     ("device", "kind"),
+)
+COMPILE_EVENTS = REGISTRY.counter(
+    "modal_tpu_compile_events_total",
+    "Kernel-build and graph-capture events (compile = an nvcc run | cache_hit "
+    "= library found in the local build directory | cache_miss | "
+    "graph_capture), attributed to runtime vs Image.prewarm bake; fleet hits "
+    "and misses land here with source=fleet.",
+    ("event", "source"),
+)
+COMPILE_SECONDS = REGISTRY.histogram(
+    "modal_tpu_compile_seconds",
+    "Kernel library build/fetch and CUDA-graph capture durations, by phase "
+    "(nvcc | local | fleet | graph_capture).",
+    ("phase",),
+    buckets=(0.001, 0.01, 0.05, 0.1, 0.5, 1, 2.5, 5, 15, 30, 60, 120, 300, 600),
+)
+COMPILE_CACHE_HITS = REGISTRY.counter(
+    "modal_tpu_compile_cache_hits_total",
+    "Fleet compile-cache lookups served, by transport (local_dir = co-located "
+    "fast path, http = blob-plane GET /compile/<key>). Each hit also lands a "
+    "compile_events cache_hit with source=fleet.",
+    ("source",),
+)
+COMPILE_CACHE_MISSES = REGISTRY.counter(
+    "modal_tpu_compile_cache_misses_total",
+    "Fleet compile-cache lookups that fell through to a local nvcc build, by "
+    "transport consulted.",
+    ("source",),
+)
+COMPILE_CACHE_PUTS = REGISTRY.counter(
+    "modal_tpu_compile_cache_puts_total",
+    "Freshly built kernel libraries pushed into the fleet store, by transport.",
+    ("source",),
+)
+COMPILE_CACHE_ERRORS = REGISTRY.counter(
+    "modal_tpu_compile_cache_errors_total",
+    "Fleet compile-cache degradations, by kind (unreachable = transport "
+    "failure entering/holding the cooldown window, corrupt = integrity "
+    "mismatch → entry evicted). Degradations are silent: the build falls "
+    "back to a local nvcc run, these counters are the only trace.",
+    ("kind",),
 )
 STEP_SECONDS = REGISTRY.histogram(
     "modal_tpu_step_seconds",

@@ -3,6 +3,12 @@
 Dependency-free. Every metric declares its label names up front and the
 number of label-value combinations per metric is capped (MAX_SERIES): past
 the cap, samples collapse into one ``__overflow__`` series.
+
+`export_families` / `merge_families` are the cross-process push of the JAX
+package's metrics.py (:405-458), in its JSON shape: a container exports the
+families it pushes, the control plane merges them (gauges latest-wins,
+counters and histogram buckets by delta against the previous push), so
+either package's worker merges either package's report.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ DEFAULT_BUCKETS = (
 
 
 class _Metric:
+    kind = "untyped"
+
     def __init__(self, name: str, help: str, labelnames: tuple[str, ...]):
         self.name = name
         self.help = help
@@ -37,8 +45,14 @@ class _Metric:
             return tuple(OVERFLOW for _ in self.labelnames)
         return key
 
+    def clear(self) -> None:
+        with self._lock:
+            self._series.clear()
+
 
 class Counter(_Metric):
+    kind = "counter"
+
     def inc(self, value: float = 1.0, **labels: str) -> None:
         key = self._key(labels)
         with self._lock:
@@ -48,8 +62,18 @@ class Counter(_Metric):
         with self._lock:
             return float(self._series.get(tuple(str(labels[n]) for n in self.labelnames), 0.0))
 
+    def total(self) -> float:
+        with self._lock:
+            return float(sum(self._series.values()))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {",".join(k) if k else "": v for k, v in self._series.items()}
+
 
 class Gauge(_Metric):
+    kind = "gauge"
+
     def set(self, value: float, **labels: str) -> None:
         key = self._key(labels)
         with self._lock:
@@ -58,6 +82,9 @@ class Gauge(_Metric):
     def value(self, **labels: str) -> float:
         with self._lock:
             return float(self._series.get(tuple(str(labels[n]) for n in self.labelnames), 0.0))
+
+    total = Counter.total
+    snapshot = Counter.snapshot
 
 
 class _HistSeries:
@@ -72,6 +99,8 @@ class _HistSeries:
 
 
 class Histogram(_Metric):
+    kind = "histogram"
+
     def __init__(
         self,
         name: str,
@@ -105,6 +134,62 @@ class Histogram(_Metric):
         with self._lock:
             series = self._series.get(tuple(str(labels[n]) for n in self.labelnames))
             return (series.sum, series.count) if series is not None else (0.0, 0)
+
+    def count_total(self) -> int:
+        with self._lock:
+            return sum(s.count for s in self._series.values())
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Bucket quantile across all series: the upper bound of the bucket
+        the q-th observation lands in (the last finite bound past it), None
+        when empty; modal_tpu/observability/quantile.py's contract."""
+        with self._lock:
+            total = sum(s.count for s in self._series.values())
+            merged = [0] * len(self.buckets)
+            for s in self._series.values():
+                for i, c in enumerate(s.counts):
+                    merged[i] += c
+        if total <= 0:
+            return None
+        seen = 0
+        for i, c in enumerate(merged):
+            seen += c
+            if seen >= q * total:
+                return self.buckets[i]
+        return self.buckets[-1]
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                ",".join(k) if k else "": {"count": s.count, "sum": round(s.sum, 6)}
+                for k, s in self._series.items()
+            }
+
+    def _merge_series(self, key: tuple[str, ...], state: dict, prev_state: Optional[dict]) -> None:
+        """Apply a pushed series' delta against its previous push. Bucket
+        lists of another length are dropped: the pusher used other bounds."""
+        counts = state.get("counts")
+        if not isinstance(counts, list) or len(counts) != len(self.buckets):
+            return
+        prev_counts = (prev_state or {}).get("counts") or [0] * len(self.buckets)
+        if len(prev_counts) != len(self.buckets):
+            prev_counts = [0] * len(self.buckets)
+        d_count = int(state.get("count", 0)) - int((prev_state or {}).get("count", 0))
+        d_sum = float(state.get("sum", 0.0)) - float((prev_state or {}).get("sum", 0.0))
+        if d_count <= 0:
+            return
+        with self._lock:
+            series = self._series.get(key)
+            if series is None:
+                if len(self._series) >= MAX_SERIES:
+                    key = tuple(OVERFLOW for _ in self.labelnames)
+                series = self._series.setdefault(key, _HistSeries(len(self.buckets)))
+            for i, (c, p) in enumerate(zip(counts, prev_counts)):
+                delta = int(c) - int(p)
+                if delta > 0:
+                    series.counts[i] += delta
+            series.count += d_count
+            series.sum += d_sum
 
 
 class MetricsRegistry:
@@ -140,5 +225,63 @@ class MetricsRegistry:
     ) -> Histogram:
         return self._define(Histogram, name, help, labelnames, buckets=buckets)
 
+    def get(self, name: str) -> Optional[_Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
 
 REGISTRY = MetricsRegistry()
+
+
+def export_families(names: Iterable[str], registry: MetricsRegistry = REGISTRY) -> dict:
+    """JSON-ready snapshot of the named families (full bucket state for
+    histograms, so quantiles survive the merge); unregistered or empty
+    families are left out."""
+    out: dict = {}
+    for name in names:
+        m = registry.get(name)
+        if m is None:
+            continue
+        if isinstance(m, Histogram):
+            with m._lock:
+                series = {
+                    ",".join(k): {"counts": list(s.counts), "sum": s.sum, "count": s.count}
+                    for k, s in m._series.items()
+                }
+            if series:
+                out[name] = {"kind": "histogram", "series": series}
+        elif isinstance(m, (Counter, Gauge)):
+            series = m.snapshot()
+            if series:
+                out[name] = {"kind": m.kind, "series": series}
+    return out
+
+
+def merge_families(report: dict, prev: Optional[dict] = None, registry: MetricsRegistry = REGISTRY) -> None:
+    """Merge one pushed report into `registry`. `prev` is the same source's
+    previous report (for counter and histogram deltas); malformed entries
+    are skipped, so a telemetry bug never breaks the heartbeat path."""
+    prev = prev or {}
+    for name, family in (report or {}).items():
+        m = registry.get(name)
+        if m is None or not isinstance(family, dict):
+            continue
+        series = family.get("series")
+        if family.get("kind") != m.kind or not isinstance(series, dict):
+            continue
+        prev_series = (prev.get(name) or {}).get("series") or {}
+        for key_s, value in series.items():
+            key = tuple(str(key_s).split(",")) if key_s else ()
+            if len(key) != len(m.labelnames):
+                continue
+            try:
+                if isinstance(m, Gauge):
+                    m.set(float(value), **dict(zip(m.labelnames, key)))
+                elif isinstance(m, Counter):
+                    delta = float(value) - float(prev_series.get(key_s, 0.0))
+                    if delta > 0:
+                        m.inc(delta, **dict(zip(m.labelnames, key)))
+                elif isinstance(m, Histogram):
+                    m._merge_series(key, value, prev_series.get(key_s))
+            except (TypeError, ValueError, AttributeError):
+                continue

@@ -29,6 +29,9 @@ every entry; else a csv of entry names, with ``cfg=<name>``/``slots=<n>``/...
 option tokens in the same csv (``MODAL_TPU_AOT_LOWER=prefill,decode,cfg=tiny``).
 A failing entry is logged and listed under ``"errors"`` in the result; the
 rest still run, because a container's ``@enter`` calls `maybe_aot_lower`.
+`maybe_aot_lower` puts the fleet compile-cache tier under the builds first
+(`compile_client.install_fleet_cache`), so what it builds is published to
+the fleet store and what the store holds is fetched, not built.
 """
 
 from __future__ import annotations
@@ -143,6 +146,9 @@ def maybe_aot_lower() -> Optional[dict]:
     if spec is None:
         return None
     entries, options = spec
+    from .compile_client import install_fleet_cache
+
+    install_fleet_cache()
     try:
         t0 = time.monotonic()
         results = run_aot_lowering(entries, options)

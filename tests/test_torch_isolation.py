@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither `jax`, `optax` nor the
-JAX package, serves and trains without them, and its entry points default
-to CUDA."""
+JAX package, serves, trains and snapshots without them, and its entry
+points default to CUDA. The cold-start modules (runtime, observability,
+the compile store and keys) also import none of the SDK core's packages
+(grpc, protobuf, cloudpickle, aiohttp)."""
 
 import ast
 import os
@@ -44,14 +46,46 @@ def test_no_source_of_the_port_imports_jax_or_modal_tpu():
     assert not offenders, offenders
 
 
+# the packages the JAX package's SDK core needs and the cold-start modules do not
+SDK_PACKAGES = ("grpc", "google.protobuf", "cloudpickle", "aiohttp")
+COLD_START_MODULES = ("runtime", "observability", os.path.join("server", "compile_cache.py"),
+                      os.path.join("_utils", "compile_keys.py"))
+
+
+def test_cold_start_modules_import_no_sdk_package():
+    offenders, scanned = [], 0
+    for rel in COLD_START_MODULES:
+        path = os.path.join(PKG, rel)
+        files = [path] if path.endswith(".py") else [
+            os.path.join(path, n) for n in sorted(os.listdir(path)) if n.endswith(".py")]
+        for f in files:
+            scanned += 1
+            with open(f) as fh:
+                tree = ast.parse(fh.read(), f)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                offenders += [f"{os.path.relpath(f, REPO)}:{node.lineno} {n}" for n in names
+                              if any(n == p or n.startswith(p + ".") for p in SDK_PACKAGES)]
+    assert scanned >= 12
+    assert not offenders, offenders
+
+
 def test_port_serves_with_jax_and_modal_tpu_unimportable(tmp_path):
     """Serve, speculate, ship, train (a dense and a tiny-moe step, and an
     fsdp step in 2 spawned gloo ranks, which re-run the script's top level
-    and so refuse the same imports), checkpoint, quantize and sample."""
+    and so refuse the same imports), checkpoint, quantize, sample, and save
+    and restore a debug-1l snapshot with the fleet compile cache and its
+    telemetry installed, grpc, protobuf and aiohttp unimportable too."""
     header = textwrap.dedent(
         """
         import sys
-        for name in ("jax", "jaxlib", "modal_tpu", "optax", "ml_dtypes", "cloudpickle"):
+        for name in ("jax", "jaxlib", "modal_tpu", "optax", "ml_dtypes", "cloudpickle", "grpc",
+                     "google.protobuf", "aiohttp"):
             sys.modules[name] = None  # any import of them raises ImportError
 
 
@@ -131,6 +165,28 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable(tmp_path):
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu", "optax") and sys.modules[m] is not None)
         assert not leaked, leaked
         print("checkpointed, quantized, sampled")
+
+        import os
+        from modal_tpu_torch.observability import device_telemetry
+        from modal_tpu_torch.runtime import snapshot
+
+        class Replica:
+            pass
+
+        with tempfile.TemporaryDirectory() as state:
+            os.environ["MODAL_TPU_SNAPSHOT_DIR"] = os.path.join(state, "snapshots")
+            os.environ["MODAL_TPU_COMPILE_CACHE_DIR"] = state
+            assert device_telemetry.install_compile_hooks() and device_telemetry.maybe_install_fleet_cache()
+            rep = Replica()
+            rep.params, rep.cfg = init_params(cfg, seed=0, device="cpu"), cfg
+            assert snapshot.save_snapshot(b"debug-1l replica", rep)
+            got = Replica()
+            assert snapshot.restore_snapshot(b"debug-1l replica", got)
+            assert got.cfg == cfg and torch.equal(got.params["layers"]["wq"], rep.params["layers"]["wq"])
+            assert device_telemetry.container_report()
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu", "optax", "grpc", "aiohttp", "cloudpickle") and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("snapshot saved and restored")
         """
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
@@ -147,6 +203,7 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable(tmp_path):
     assert "trained moe and fsdp" in proc.stdout and "fsdp step" in proc.stdout
     assert "speculated and shipped" in proc.stdout
     assert "checkpointed, quantized, sampled" in proc.stdout
+    assert "snapshot saved and restored" in proc.stdout
 
 
 def test_every_module_of_the_port_is_scanned():
@@ -156,7 +213,9 @@ def test_every_module_of_the_port_is_scanned():
     for rel in ("models/weights.py", "models/quant.py", "models/sampling.py", "runtime/aot.py",
                 "runtime/__init__.py", "serving/api.py", "ops/_build.py", "tools/profile_serving.py",
                 "parallel/mesh.py", "parallel/sharding.py", "parallel/spmd.py", "parallel/moe.py",
-                "parallel/pipeline.py", "parallel/ring_attention.py"):
+                "parallel/pipeline.py", "parallel/ring_attention.py", "runtime/snapshot.py",
+                "runtime/compile_client.py", "runtime/telemetry.py", "server/compile_cache.py",
+                "_utils/compile_keys.py", "observability/device_telemetry.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
