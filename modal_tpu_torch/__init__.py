@@ -20,13 +20,18 @@ each module's counterpart is easy to find:
   under the kernel builds (`compile_client.py`), import tracing
   (`telemetry.py`) and the env-gated warm-up of the entry points (`aot.py`);
 - `server/`: the fleet compile-cache store (`compile_cache.py`);
-- `observability/`: serving, device and compile metrics, spans, and the
-  heartbeat report.
+- `observability/`: serving, device, compile and client metrics, spans,
+  and the heartbeat report;
+- the SDK core, imported on demand: the wire contract (`proto/`), the
+  client (`client.py`), object handles (`object.py`), payloads
+  (`serialization.py`), `gpu=` (`gpu_config.py`), `config.py`'s settings,
+  `exception.py`, `retries.py`, `_logs.py`, `_output.py` and `_utils/`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 
-Importing the package imports nothing else (not torch): a boot traces its
-imports with `runtime.telemetry` before anything heavy loads.
+Importing the package imports nothing else (not torch, grpc or protobuf):
+a boot traces its imports with `runtime.telemetry` before anything heavy
+loads.
 """
 
 __all__ = ["logger", "resolve_device"]

@@ -1,12 +1,21 @@
-"""Package logger, the settings the cold-start runtime reads, the device
-rule every entry point follows, and the host-to-device copy that does not
-wait for the stream."""
+"""Package logger, the settings of the SDK core and of the cold-start
+runtime, the device rule every entry point follows, and the host-to-device
+copy that does not wait for the stream.
+
+Settings are the JAX package's (modal_tpu/config.py), under the same names
+and defaults. Each is resolved at every read: the environment variable
+``MODAL_TPU_<KEY>``, else the active profile's section of the TOML file
+(``MODAL_TPU_CONFIG_PATH``, default ``~/.modal_tpu.toml``; the profile is
+``MODAL_TPU_PROFILE`` or the section marked ``active = true``), else the
+default.
+"""
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional, Union
+import tomllib
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -18,25 +27,73 @@ if not logger.handlers:
     logger.setLevel(os.environ.get("MODAL_TPU_TORCH_LOGLEVEL", "WARNING").upper())
     logger.propagate = False
 
-# the JAX package's settings that the cold-start runtime reads, under the same
-# `MODAL_TPU_<KEY>` environment names and defaults (modal_tpu/config.py:120,
-# :127); the port reads the environment only, not the TOML profile
-_SETTINGS = {
+
+def user_config_path() -> str:
+    return os.environ.get("MODAL_TPU_CONFIG_PATH") or os.path.expanduser("~/.modal_tpu.toml")
+
+
+def _read_user_config() -> dict:
+    path = user_config_path()
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            return tomllib.load(f)
+    return {}
+
+
+def _active_profile(user_config: dict) -> str:
+    if os.environ.get("MODAL_TPU_PROFILE"):
+        return os.environ["MODAL_TPU_PROFILE"]
+    for key, values in user_config.items():
+        if isinstance(values, dict) and values.get("active", False) is True:
+            return key
+    return "default"
+
+
+class _Setting(NamedTuple):
+    default: Any = None
+    transform: Callable[[Any], Any] = lambda x: x
+
+
+def _to_boolean(x: Any) -> bool:
+    return str(x).lower() not in ("", "0", "false", "no", "none")
+
+
+# the JAX package's settings (modal_tpu/config.py:89-160) that a module of
+# the port reads: the client and the cold-start runtime; the others come
+# with the module that reads them
+_SETTINGS: dict[str, _Setting] = {
+    "server_url": _Setting("grpc://127.0.0.1:9900"),
+    # when the server_url is the default and nothing listens there, the JAX
+    # client boots an in-process LocalSupervisor; the port's client raises
+    # ConnectionError instead until the port has a supervisor
+    "auto_local_server": _Setting(True, _to_boolean),
+    "token_id": _Setting(),
+    "token_secret": _Setting(),
+    "task_id": _Setting(),
     # local state: snapshots live under <state_dir>/snapshots
-    "state_dir": os.path.expanduser("~/.modal_tpu_state"),
-    "compilation_cache_dir": os.path.expanduser("~/.modal_tpu_state/jit_cache"),
+    "state_dir": _Setting(os.path.expanduser("~/.modal_tpu_state")),
+    "compilation_cache_dir": _Setting(os.path.expanduser("~/.modal_tpu_state/jit_cache")),
 }
 
 
-class _Config:
-    """`config[key]`: `MODAL_TPU_<KEY>` when set, else the default; read at
-    each access, so a process may point a setting elsewhere at run time."""
+class Config:
+    """`config[key]`: `MODAL_TPU_<KEY>` when set, else the active TOML
+    profile's value, else the default; read at each access, so a process
+    may point a setting elsewhere at run time."""
 
-    def __getitem__(self, key: str) -> str:
-        return os.environ.get("MODAL_TPU_" + key.upper(), _SETTINGS[key])
+    def __getitem__(self, key: str) -> Any:
+        s = _SETTINGS[key]
+        env_var_key = "MODAL_TPU_" + key.upper()
+        if env_var_key in os.environ:
+            return s.transform(os.environ[env_var_key])
+        user_config = _read_user_config()
+        section = user_config.get(_active_profile(user_config), {})
+        if key in section:
+            return s.transform(section[key])
+        return s.default
 
 
-config = _Config()
+config = Config()
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -1,6 +1,7 @@
 """The metric families the port emits: serving (the engine and its ASGI
-app), device telemetry (step times, device memory) and compile telemetry
-(kernel builds, CUDA-graph captures, the fleet compile cache).
+app), device telemetry (step times, device memory), compile telemetry
+(kernel builds, CUDA-graph captures, the fleet compile cache) and the SDK
+core (client RPCs, payload bytes).
 
 Names and help texts are those of the JAX package's catalog, so a scrape of
 either implementation reads the same way. Importing this module registers
@@ -172,6 +173,35 @@ WEIGHTS_LOAD_GBPS = REGISTRY.gauge(
 PEAK_RSS_BYTES = REGISTRY.gauge(
     "modal_tpu_peak_rss_bytes",
     "Process peak RSS (ru_maxrss), sampled at data-plane checkpoints (weights-load finish, bench roll-up).",
+)
+
+
+# -- SDK client and payloads (_utils/grpc_utils.py, serialization.py) ----------
+
+CLIENT_RPC_LATENCY = REGISTRY.histogram(
+    "modal_tpu_client_rpc_latency_seconds",
+    "Client-observed unary RPC latency (includes transport + server).",
+    ("method",),
+)
+CLIENT_RPC_RETRIES = REGISTRY.counter(
+    "modal_tpu_client_rpc_retries_total",
+    "Transient-error retries performed by retry_transient_errors.",
+    ("method",),
+)
+CIRCUIT_BREAKER_OPENS = REGISTRY.counter(
+    "modal_tpu_circuit_breaker_opens_total",
+    "Times a per-method client circuit breaker opened.",
+    ("method",),
+)
+SERIALIZED_BYTES = REGISTRY.counter(
+    "modal_tpu_serialized_bytes_total",
+    "Payload bytes produced by serialize(), by placement (oob=zero-copy raw segment, inband=pickle stream).",
+    ("placement",),
+)
+DATAPLANE_COPY_BYTES = REGISTRY.counter(
+    "modal_tpu_dataplane_copy_bytes_total",
+    "Full-size memcpys the payload path could not avoid, by site (join=inline proto field, legacy=non-framed fallback).",
+    ("site",),
 )
 
 

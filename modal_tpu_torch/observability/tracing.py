@@ -1,8 +1,11 @@
-"""Spans for the serving engine's per-request timeline.
+"""Spans for the serving engine's per-request timeline and the SDK client's
+RPCs.
 
 The span model is the JAX package's (trace_id/span_id/parent_id, name,
-start/end wall-clock seconds, attrs). Finished spans go to
-``spans-<pid>.jsonl`` under the directory given to `configure(trace_dir)`.
+start/end wall-clock seconds, attrs, timestamped events), and so are the
+gRPC metadata keys that carry a caller's context to the server. Finished
+spans go to ``spans-<pid>.jsonl`` under the directory given to
+`configure(trace_dir)`.
 Without it, spans still carry ids (so children stitch under their parent)
 but nothing is written. In-process observers registered with
 `add_span_tap` see every finished span, sink or no sink.
@@ -19,6 +22,11 @@ from contextlib import contextmanager
 from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Any, Iterator, Optional
+
+
+# gRPC metadata keys of a propagated span context (the JAX package's)
+TRACE_ID_METADATA_KEY = "x-modal-tpu-trace-id"
+SPAN_ID_METADATA_KEY = "x-modal-tpu-span-id"
 
 
 def new_trace_id() -> str:
@@ -45,10 +53,14 @@ class Span:
     end: float = 0.0
     attrs: dict[str, Any] = field(default_factory=dict)
     status: str = "ok"
+    events: list[dict] = field(default_factory=list)
 
     @property
     def context(self) -> SpanContext:
         return SpanContext(self.trace_id, self.span_id)
+
+    def add_event(self, name: str, **attrs: Any) -> None:
+        self.events.append({"name": name, "t": time.time(), **attrs})
 
     def to_dict(self) -> dict:
         return {
@@ -60,6 +72,7 @@ class Span:
             "end": self.end,
             "status": self.status,
             "attrs": self.attrs,
+            "events": self.events,
         }
 
 
@@ -108,6 +121,23 @@ _current_span: ContextVar[Optional[Span]] = ContextVar("modal_tpu_torch_span", d
 def current_context() -> Optional[SpanContext]:
     span = _current_span.get()
     return span.context if span is not None else None
+
+
+def add_event(name: str, **attrs: Any) -> None:
+    """Attach an event to the current span, if any (client retries, circuit
+    breaker opens); a no-op outside a span."""
+    span = _current_span.get()
+    if span is not None:
+        span.add_event(name, **attrs)
+
+
+def context_metadata(ctx: Optional[SpanContext] = None) -> list[tuple[str, str]]:
+    """The gRPC metadata that carries `ctx` (default: the current span's) to
+    a server; empty outside a span."""
+    ctx = ctx or current_context()
+    if ctx is None:
+        return []
+    return [(TRACE_ID_METADATA_KEY, ctx.trace_id), (SPAN_ID_METADATA_KEY, ctx.span_id)]
 
 
 def _child(name: str, parent: Optional[SpanContext], start: Optional[float], attrs) -> Span:

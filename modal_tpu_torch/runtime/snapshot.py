@@ -11,8 +11,8 @@ kernel builds (`compile_client.py`), the two big cold-start costs, weight
 init and kernel builds, leave the boot.
 
 Contract (the JAX package's): snap-enter hooks only establish state on
-`self`. If any attribute cannot be snapshotted (open sockets, locks, a
-lambda: the port pickles with the standard library, not cloudpickle), the
+`self`. If any attribute cannot be snapshotted (open sockets, locks:
+what cloudpickle refuses; a lambda, a closure or a local class is kept), the
 snapshot is abandoned and leaves nothing behind; every boot then pays the
 full enter cost. A restore stages every attribute before setting any, so
 it never applies partially. Snapshots are keyed by the function
@@ -33,7 +33,8 @@ Trees flatten under JAX's pytree rules for the standard types (dict and
 defaultdict by sorted key, OrderedDict in order, list, tuple, NamedTuple;
 None is an empty node; anything else is a leaf), so a state has the leaf
 order and count `jax.tree_util.tree_flatten` gives it. The treedef and the
-non-array leaves are pickled with `pickle` (protocol 5), and "devices"
+non-array leaves are pickled with the port's cloudpickle `serialization`
+(imported at save and restore time, as the JAX package does), and "devices"
 records where each array leaf lived ("cuda", "cpu" or "numpy"): a leaf
 goes back to the kind of device it came from, where JAX `device_put`s
 every leaf.
@@ -64,17 +65,17 @@ import hashlib
 import json
 import math
 import os
-import pickle
 import shutil
 import sys
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from ..config import config, logger
 
-# bytes of each of the two pinned staging buffers
+# the most bytes of each of the two pinned staging buffers (a smaller tensor
+# gets buffers of its own size)
 CHUNK_BYTES = 256 << 20
 WRITER = "modal_tpu_torch"
 
@@ -243,25 +244,29 @@ def _read_exact(f, buf) -> None:
         view = view[n:]
 
 
-class _Staging:
-    """Two pinned host buffers that stream CUDA leaves between the card and
-    files chunk by chunk; allocated at the first CUDA leaf."""
+class Staging:
+    """Two pinned host buffers that stream CUDA tensors between the card and
+    the host chunk by chunk (files here, host tensors in the serializer);
+    allocated at the first CUDA tensor, at most `chunk` bytes each
+    (`CHUNK_BYTES` unless given), grown when a later tensor needs more."""
 
-    def __init__(self, chunk: int = CHUNK_BYTES):
-        self.chunk = chunk
+    def __init__(self, chunk: Optional[int] = None):
+        self.chunk = chunk or CHUNK_BYTES
         self.bufs: list = []
         self.events: list = [None, None]
 
-    def _buffers(self):
-        if not self.bufs:
-            self.bufs = [torch.empty(self.chunk, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+    def _buffers(self, nbytes: int):
+        size = min(self.chunk, nbytes)
+        if not self.bufs or self.bufs[0].numel() < size:
+            self.drain()
+            self.bufs = [torch.empty(size, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
             self.views = [b.numpy() for b in self.bufs]
         return self.bufs
 
-    def to_file(self, f, flat: torch.Tensor) -> None:
-        """Write a CUDA uint8 tensor: chunk j's copy to the host runs while
-        chunk j - 1 is written."""
-        bufs, pending = self._buffers(), None
+    def to_host(self, flat: torch.Tensor, sink: Callable[[int, np.ndarray], None]) -> None:
+        """Pass a CUDA uint8 tensor to `sink(offset, chunk)` in order: chunk
+        j's copy to the host runs while `sink` takes chunk j - 1."""
+        bufs, pending = self._buffers(flat.numel()), None
         with torch.cuda.device(flat.device):
             for j, off in enumerate(range(0, flat.numel(), self.chunk)):
                 k, n = j % 2, min(self.chunk, flat.numel() - off)
@@ -269,17 +274,17 @@ class _Staging:
                 event = torch.cuda.Event()
                 event.record()
                 if pending is not None:
-                    pending[2].synchronize()
-                    _write_all(f, self.views[pending[0]][:pending[1]])
-                pending = (k, n, event)
+                    pending[3].synchronize()
+                    sink(pending[1], self.views[pending[0]][:pending[2]])
+                pending = (k, off, n, event)
             if pending is not None:
-                pending[2].synchronize()
-                _write_all(f, self.views[pending[0]][:pending[1]])
+                pending[3].synchronize()
+                sink(pending[1], self.views[pending[0]][:pending[2]])
 
     def from_file(self, f, flat: torch.Tensor) -> None:
         """Fill a CUDA uint8 tensor: chunk j is read while chunk j - 1 copies
         to the card; a buffer is refilled only after its copy finished."""
-        bufs = self._buffers()
+        bufs = self._buffers(flat.numel())
         with torch.cuda.device(flat.device):
             for j, off in enumerate(range(0, flat.numel(), self.chunk)):
                 k, n = j % 2, min(self.chunk, flat.numel() - off)
@@ -303,7 +308,7 @@ def _flush_file(f) -> None:
         os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
 
 
-def _write_leaf(leaf: Any, path: str, staging: _Staging) -> dict:
+def _write_leaf(leaf: Any, path: str, staging: Staging) -> dict:
     meta: dict = {}
     if isinstance(leaf, torch.Tensor):
         dtensor = _dtensor_type()
@@ -321,7 +326,7 @@ def _write_leaf(leaf: Any, path: str, staging: _Staging) -> dict:
         head = {"shape": list(arr.shape), "dtype": _dtype_str(arr.dtype)}
     with open(path, "wb", buffering=0) as f:
         if isinstance(flat, torch.Tensor) and flat.device.type == "cuda":
-            staging.to_file(f, flat)
+            staging.to_host(flat, lambda _off, chunk: _write_all(f, chunk))
         else:
             _write_all(f, flat.numpy() if isinstance(flat, torch.Tensor) else flat)
         _flush_file(f)
@@ -335,7 +340,7 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
-def _read_leaf(path: str, meta: dict, device: Optional[str], staging: _Staging, meshes: dict) -> Any:
+def _read_leaf(path: str, meta: dict, device: Optional[str], staging: Staging, meshes: dict) -> Any:
     sharding = meta.get("sharding")
     placed = _restore_mesh(sharding, meshes) if sharding else None
     shape = tuple(meta["shape"])
@@ -372,6 +377,8 @@ def save_snapshot(function_def: Any, user_instance: Any) -> bool:
     """Snapshot user_instance's attributes after the snap-enter hooks.
     Returns True when a complete snapshot landed; False (with everything
     cleaned up) otherwise."""
+    from ..serialization import serialize
+
     if user_instance is None:
         return False
     world = _world_size()
@@ -386,16 +393,16 @@ def save_snapshot(function_def: Any, user_instance: Any) -> bool:
     shutil.rmtree(tmp_dir, ignore_errors=True)
     os.makedirs(tmp_dir, exist_ok=True)
     manifest: dict = {"attrs": {}, "writer": WRITER}
-    staging = _Staging()
+    staging = Staging()
     try:
         for name, value in vars(user_instance).items():
             leaves: list = []
             treedef = _flatten(value, leaves)
-            entry: dict = {"treedef": pickle.dumps(treedef, protocol=5).hex(), "leaves": [], "devices": []}
+            entry: dict = {"treedef": serialize(treedef).hex(), "leaves": [], "devices": []}
             for i, leaf in enumerate(leaves):
                 device = _leaf_device(leaf)
                 if device is None:
-                    entry["leaves"].append({"kind": "pickle", "data": pickle.dumps(leaf, protocol=5).hex()})
+                    entry["leaves"].append({"kind": "pickle", "data": serialize(leaf).hex()})
                 else:
                     fname = f"{name}.{i}.bin"
                     meta = _write_leaf(leaf, os.path.join(tmp_dir, fname), staging)
@@ -421,6 +428,8 @@ def restore_snapshot(function_def: Any, user_instance: Any) -> bool:
     partially applies: every attribute is staged first. A snapshot this
     process cannot host stays on disk; one that fails to restore is
     dropped, so the next boot's save rewrites it."""
+    from ..serialization import deserialize
+
     if user_instance is None:
         return False
     key = snapshot_key(function_def)
@@ -428,7 +437,7 @@ def restore_snapshot(function_def: Any, user_instance: Any) -> bool:
     manifest_path = os.path.join(snap_dir, "manifest.json")
     if not os.path.exists(manifest_path):
         return False
-    staging = _Staging()
+    staging = Staging()
     try:
         with open(manifest_path) as f:
             manifest = json.load(f)
@@ -437,13 +446,13 @@ def restore_snapshot(function_def: Any, user_instance: Any) -> bool:
         staged: dict[str, Any] = {}
         meshes: dict = {}
         for name, entry in manifest["attrs"].items():
-            treedef = pickle.loads(bytes.fromhex(entry["treedef"]))
+            treedef = deserialize(bytes.fromhex(entry["treedef"]))
             leaves = []
             for meta, device in zip(entry["leaves"], entry["devices"], strict=True):
                 if meta["kind"] == "array":
                     leaves.append(_read_leaf(os.path.join(snap_dir, meta["file"]), meta, device, staging, meshes))
                 else:
-                    leaves.append(pickle.loads(bytes.fromhex(meta["data"])))
+                    leaves.append(deserialize(bytes.fromhex(meta["data"])))
             staged[name] = _unflatten(treedef, iter(leaves))
         for name, value in staged.items():
             setattr(user_instance, name, value)

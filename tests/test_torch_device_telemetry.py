@@ -18,9 +18,11 @@ import pytest
 
 from modal_tpu.observability import catalog as jcatalog
 from modal_tpu.observability import device_telemetry as jdt
+from modal_tpu.observability import metrics as jmetrics
 from modal_tpu.runtime import telemetry as jtelemetry
 from modal_tpu_torch.observability import catalog as tcatalog
 from modal_tpu_torch.observability import device_telemetry as tdt
+from modal_tpu_torch.observability import metrics as tmetrics
 from modal_tpu_torch.ops import _build
 from modal_tpu_torch.runtime import telemetry as ttelemetry
 
@@ -123,7 +125,14 @@ def test_pushed_gauge_reads_what_jax_reads():
         assert tdt.pushed_gauge(report, name) == jdt.pushed_gauge(report, name), name
 
 
-def test_telemetry_summary_keys_are_jaxs():
+def test_telemetry_summary_keys_are_jaxs(monkeypatch):
+    # each package's step histogram holds only this test's samples: other test
+    # files sharing the worker process observe train and decode steps into the
+    # process-wide registries, so their p50s would compare those histories
+    for catalog, metrics in ((tcatalog, tmetrics), (jcatalog, jmetrics)):
+        step = catalog.STEP_SECONDS
+        monkeypatch.setattr(catalog, "STEP_SECONDS",
+                            metrics.Histogram(step.name, step.help, step.labelnames, buckets=step.buckets))
     _port_samples()
     _jax_samples()
     tcatalog.COMPILE_CACHE_PUTS.inc(source="local_dir")

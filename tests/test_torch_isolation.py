@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports neither `jax`, `optax` nor the
 JAX package, serves, trains and snapshots without them, and its entry
 points default to CUDA. The cold-start modules (runtime, observability,
-the compile store and keys) also import none of the SDK core's packages
-(grpc, protobuf, cloudpickle, aiohttp)."""
+the compile store and keys) also import none of the SDK core's network
+packages (grpc, protobuf, aiohttp); they may pickle with cloudpickle, and
+importing the package loads neither grpc nor protobuf."""
 
 import ast
 import os
@@ -26,7 +27,7 @@ def _port_sources():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "modal_tpu", "flax", "optax", "ml_dtypes", "cloudpickle")
+    return top in ("jax", "jaxlib", "modal_tpu", "flax", "optax", "ml_dtypes")
 
 
 def test_no_source_of_the_port_imports_jax_or_modal_tpu():
@@ -46,8 +47,8 @@ def test_no_source_of_the_port_imports_jax_or_modal_tpu():
     assert not offenders, offenders
 
 
-# the packages the JAX package's SDK core needs and the cold-start modules do not
-SDK_PACKAGES = ("grpc", "google.protobuf", "cloudpickle", "aiohttp")
+# the network packages of the SDK core, which the cold-start modules do not need
+SDK_PACKAGES = ("grpc", "google.protobuf", "aiohttp")
 COLD_START_MODULES = ("runtime", "observability", os.path.join("server", "compile_cache.py"),
                       os.path.join("_utils", "compile_keys.py"))
 
@@ -80,12 +81,13 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable(tmp_path):
     fsdp step in 2 spawned gloo ranks, which re-run the script's top level
     and so refuse the same imports), checkpoint, quantize, sample, and save
     and restore a debug-1l snapshot with the fleet compile cache and its
-    telemetry installed, grpc, protobuf and aiohttp unimportable too."""
+    telemetry installed and a lambda in its state, grpc, protobuf and aiohttp
+    unimportable too."""
     header = textwrap.dedent(
         """
         import sys
-        for name in ("jax", "jaxlib", "modal_tpu", "optax", "ml_dtypes", "cloudpickle", "grpc",
-                     "google.protobuf", "aiohttp"):
+        for name in ("jax", "jaxlib", "modal_tpu", "optax", "ml_dtypes", "grpc", "google.protobuf",
+                     "aiohttp"):
             sys.modules[name] = None  # any import of them raises ImportError
 
 
@@ -179,12 +181,14 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable(tmp_path):
             assert device_telemetry.install_compile_hooks() and device_telemetry.maybe_install_fleet_cache()
             rep = Replica()
             rep.params, rep.cfg = init_params(cfg, seed=0, device="cpu"), cfg
+            rep.post = lambda toks: toks[:2]
             assert snapshot.save_snapshot(b"debug-1l replica", rep)
             got = Replica()
             assert snapshot.restore_snapshot(b"debug-1l replica", got)
             assert got.cfg == cfg and torch.equal(got.params["layers"]["wq"], rep.params["layers"]["wq"])
+            assert got.post([7, 8, 9]) == [7, 8]
             assert device_telemetry.container_report()
-        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu", "optax", "grpc", "aiohttp", "cloudpickle") and sys.modules[m] is not None)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu", "optax", "grpc", "aiohttp") and sys.modules[m] is not None)
         assert not leaked, leaked
         print("snapshot saved and restored")
         """
@@ -215,8 +219,43 @@ def test_every_module_of_the_port_is_scanned():
                 "parallel/mesh.py", "parallel/sharding.py", "parallel/spmd.py", "parallel/moe.py",
                 "parallel/pipeline.py", "parallel/ring_attention.py", "runtime/snapshot.py",
                 "runtime/compile_client.py", "runtime/telemetry.py", "server/compile_cache.py",
-                "_utils/compile_keys.py", "observability/device_telemetry.py"):
+                "_utils/compile_keys.py", "observability/device_telemetry.py", "exception.py",
+                "gpu_config.py", "retries.py", "client.py", "object.py", "serialization.py", "_logs.py",
+                "_output.py", "proto/rpc.py", "proto/regen.py", "proto/api_pb2.py", "_utils/async_utils.py",
+                "_utils/grpc_utils.py", "_utils/hash_utils.py", "_utils/cbor.py", "_utils/jwt_utils.py",
+                "_utils/auth_token_manager.py", "_utils/traceback_utils.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
+
+
+def test_importing_the_package_and_its_pickler_loads_no_grpc_or_protobuf():
+    """`import modal_tpu_torch` stays free of the SDK's network stack, and so
+    does the serialization module a snapshot pickles with (the wire
+    contract loads only when a data-format function asks for it)."""
+    code = textwrap.dedent(
+        """
+        import sys
+
+        def network():
+            return sorted(m for m in sys.modules if m.split(".")[0] in ("grpc", "aiohttp")
+                          or m == "google.protobuf" or m.startswith("google.protobuf."))
+
+        import modal_tpu_torch
+        assert not network() and "torch" not in sys.modules, network()
+        from modal_tpu_torch import serialization
+        serialization.deserialize(serialization.serialize({"f": lambda x: x}))
+        assert not network(), network()
+        from modal_tpu_torch.proto import api_pb2
+        assert serialization.deserialize_data_format(
+            serialization.serialize_data_format([1, "a"], api_pb2.DATA_FORMAT_CBOR), api_pb2.DATA_FORMAT_CBOR
+        ) == [1, "a"]
+        print("clean")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr[-3000:]
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

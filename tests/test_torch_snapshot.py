@@ -5,10 +5,11 @@ The same `tiny` params (PRNGKey(0), carried across with `params_from_jax`)
 go through JAX's `save_snapshot` as jax arrays and the port's as tensors,
 in fp32 and bf16, beside a numpy leaf and pickled leaves: every leaf file
 must be byte-equal, the manifests' leaf entries equal (the treedef and the
-pickle bytes aside: JAX pickles with cloudpickle, the port with `pickle`),
-and the snapshot keys equal. Then the port's own contract: a CPU restore is
-bit-equal and keeps each leaf's kind, unpicklable state abandons the
-snapshot without a trace, a DTensor leaf recorded on a larger mesh than
+pickle bytes aside: both packages pickle with cloudpickle, each through its
+own serialization module and tree types), and the snapshot keys equal. Then
+the port's own contract: a CPU restore is bit-equal and keeps each leaf's
+kind, a lambda, a closure and a local class are kept as under JAX, state
+that cloudpickle refuses (a lock) abandons the snapshot without a trace, a DTensor leaf recorded on a larger mesh than
 the process group keeps the snapshot, a restore never applies partially.
 The `cuda` case streams leaves through the pinned staging buffers."""
 
@@ -128,18 +129,55 @@ def test_flatten_follows_jax_pytree_rules():
 
 
 def test_unpicklable_state_abandons_without_a_trace(tmp_path, monkeypatch):
-    """The port pickles with the standard library: a lambda, which JAX's
-    cloudpickle would take, abandons the snapshot; nothing stays behind."""
+    """What cloudpickle also refuses (a lock) abandons the snapshot; nothing
+    stays behind, and a restore finds nothing."""
     import threading
 
     monkeypatch.setenv("MODAL_TPU_SNAPSHOT_DIR", str(tmp_path))
-    for bad in (lambda x: x, threading.Lock()):
+    for bad in (threading.Lock(), threading.RLock()):
         inst = Instance()
         inst.w = torch.arange(4.0)
         inst.bad = {"h": bad}
         assert tsnap.save_snapshot(FUNCTION, inst) is False
         assert os.listdir(tmp_path) == []
         assert tsnap.restore_snapshot(FUNCTION, Instance()) is False
+
+
+def test_lambdas_closures_and_local_classes_are_kept_as_under_jax(tmp_path, monkeypatch):
+    """The port pickles the treedef and non-array leaves with its cloudpickle
+    serialization, as JAX does: a lambda, a closure and an instance of a
+    local class save and restore (in both packages), and still work."""
+    scale = 3.0
+
+    def closure(x):
+        return x * scale
+
+    class Local:
+        def __init__(self, k):
+            self.k = k
+
+        def twice(self):
+            return 2 * self.k
+
+    def state(inst, tensor):
+        inst.w = tensor
+        inst.hooks = {"lam": lambda x: x + 1, "clo": closure}
+        inst.local = Local(5)
+        return inst
+
+    monkeypatch.setenv("MODAL_TPU_SNAPSHOT_DIR", str(tmp_path / "jax"))
+    assert jsnap.save_snapshot(FUNCTION, state(Instance(), jnp.arange(4.0)))
+    jgot = Instance()
+    assert jsnap.restore_snapshot(FUNCTION, jgot)
+    monkeypatch.setenv("MODAL_TPU_SNAPSHOT_DIR", str(tmp_path / "port"))
+    assert tsnap.save_snapshot(FUNCTION, state(Instance(), torch.arange(4.0)))
+    got = Instance()
+    assert tsnap.restore_snapshot(FUNCTION, got)
+    for g in (jgot, got):
+        assert g.hooks["lam"](1) == 2 and g.hooks["clo"](2.0) == 6.0 and g.local.twice() == 10
+    assert torch.equal(got.w, torch.arange(4.0))
+    with open(os.path.join(tmp_path / "port", tsnap.snapshot_key(FUNCTION), "manifest.json")) as f:
+        assert [e["kind"] for e in json.load(f)["attrs"]["hooks"]["leaves"]] == ["pickle", "pickle"]
 
 
 def test_a_save_across_ranks_is_abandoned(tmp_path, monkeypatch):
