@@ -7,8 +7,8 @@
     python3 chip_smoke.py --phases device,build,serve,spec,disagg
     python3 chip_smoke.py --phases device,build,serve,graphs,weights,int8
     python3 chip_smoke.py --phases device,build,moe,mesh
-    python3 chip_smoke.py --phases device,coldstart
     python3 chip_smoke.py --phases device,build,sdk
+    python3 chip_smoke.py --phases device,build,serve,sdk,worker
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -48,23 +48,50 @@ result line):
               then the 1.05 GB bf16 embedding table on the card goes through
               `serialize_payload` → frame bytes → `deserialize`: bit-equal,
               its pickle stream under 4 KiB, GB/s each way and peak host RSS.
-6. graphs   — the same traffic through an engine with cuda_graphs=False: the
+6. worker   — the function path on one host, the port's end to end: its
+              LocalSupervisor in this process (control plane, blob server,
+              scheduler, one worker whose nvidia-smi probe must find this
+              card); the sdk phase's serving function asked for with
+              gpu="H100", placed by the scheduler on card 0 and run by the
+              worker in a container process of
+              `modal_tpu_torch.runtime.container_entrypoint` pinned to it
+              (CUDA_VISIBLE_DEVICES); two inputs, served by the same task:
+              each result through the blob server, its logits rebuilt on
+              this card and hashing as the container's and the sdk child's,
+              K4 exactly n_layers per decode step, streams equal to serve's;
+              each call's boot split from the control plane's span sink;
+              then gpu="H100:2" refused as unsatisfiable after the grace
+              window, no task launched. Then the llama3-8b replica booted
+              twice as containers of a second control plane (its own fleet
+              store and snapshot dir): a serialized class whose
+              `@enter(snap=True)` builds the state (init_params, seed 0,
+              16.06 GB, a lambda and a closure), run by the entrypoint's
+              boot order (compile hooks, fleet cache, restore or enter and
+              save, ContainerCheckpoint, the AOT warm-up of K4), then its
+              `serve` method: 8 greedy requests through the graphed
+              engine. The fresh boot must restore nothing, build K4 with
+              nvcc and publish it; the warm boot must restore every leaf
+              bit-equal (device checksums), run nvcc zero times with a fleet
+              hit for each kernel it loaded, emit the fresh boot's tokens,
+              and call the restored lambda and closure. Each boot's time
+              from the spawn to the first token is printed by part.
+7. graphs   — the same traffic through an engine with cuda_graphs=False: the
               8 streams must equal the serve phase's (a differing token must be
               a near-tie, SELF_DRAFT_TIE, of the two modes' logits), K4 exact
               in both; then the decode step of each mode, wall and device ms
               and busy share at 8 slots, each graph's pool and capture time.
-7. weights  — the serving params exported as a safetensors checkpoint to a
+8. weights  — the serving params exported as a safetensors checkpoint to a
               temporary local directory (free space checked first) and
               loaded back (`models/weights.py`): export and load GB/s, peak
               host RSS, every tensor bit-equal; the cache-less forward on the
               reloaded params launches the flash kernel once per layer and
               equals the original's; a serve run on them gives the serve
               phase's streams. The reloaded params replace the originals.
-8. int8     — `init_params_quantized(llama3-8b, fast_host_init=True)` on the
+9. int8     — `init_params_quantized(llama3-8b, fast_host_init=True)` on the
               card (bytes, peak memory), the serving traffic through a
               graphed engine on it (64 tokens each, K4 exact), and its decode
               step's device ms beside the bf16 step's.
-9. spec     — the same traffic through speculative decoding (spec_k 3, the
+10. spec     — the same traffic through speculative decoding (spec_k 3, the
               two slot groups of a round queued before either is read back;
               a host sync inside a dispatch raises): (a) a llama3-1b-proxy
               draft at full width, whose decode steps run the paged decode
@@ -73,20 +100,20 @@ result line):
               target as its own draft, where every rejected proposal must sit
               at a near-tie of the target's logits (SELF_DRAFT_TIE); and the
               draft step's time, eager and graphed.
-10. disagg   — a prefill-role and a decode-role engine on the card, sharing the
+11. disagg   — a prefill-role and a decode-role engine on the card, sharing the
               weights, driven through /v1/prefill and /v1/prefilled with a
               shared shipment dir: 8 remote prefills and no degrade, pages that
               land bit-equal to the shipment, the decode engine's kernel
               launches exactly n_layers per step, and token streams equal to the
               serve phase's (an all-in-one engine's when serve did not run).
-11. parity  — one greedy request's first decode step through the kernel,
+12. parity  — one greedy request's first decode step through the kernel,
               through attn_impl="gather" and through fp32 attention, on the
               same engine state, at depths 1 to 32.
-12. forward — cache-less `llama.forward` on [1, 2048] tokens: the flash
+13. forward — cache-less `llama.forward` on [1, 2048] tokens: the flash
               kernel launches once per layer; its logits are compared with a
               forward through the plain einsum attention and one through fp32
               attention.
-13. train   — the serving state is released first. Gradient parity: the
+14. train   — the serving state is released first. Gradient parity: the
               grads of `loss_fn` on llama3-8b at full width and 2 layers
               ([1, 2048] tokens) through the kernels, through the einsum
               attention and through fp32 attention; the kernel path must be
@@ -98,7 +125,7 @@ result line):
               backward) and 32 launches of each backward kernel; the second
               step's optimizer update (clip + AdamW) runs under
               torch.cuda.set_sync_debug_mode("error"): no host sync.
-14. moe     — llama3-8x7b-proxy at full width (8 experts, seeded random
+15. moe     — llama3-8x7b-proxy at full width (8 experts, seeded random
               weights): the cache-less forward on [1, 2048] at full depth
               (32 layers, 64.9 GB of bf16 params), K1 exactly once per
               layer, the kernel path at least as close to fp32 attention
@@ -108,31 +135,12 @@ result line):
               the train phase's checks (launches per step 2 x 6 K1, 6 K2, 6
               K3; the second update under sync debug mode "error"), step
               time, tokens/s, peak memory and MFU over the active params.
-15. mesh    — a one-rank NCCL group, build_mesh({}), and
+16. mesh    — a one-rank NCCL group, build_mesh({}), and
               create_sharded_state's DTensor step on llama3-8b at full
               width with 2 layers, 2 steps, against the one-device step on
               the same params and tokens: first-step loss within 1e-3
               relative, params within a global relative L2 of 1e-2, K1-K3
               launches exact, AdamW's moments placed like their params.
-16. coldstart — a llama3-8b serving replica booted twice, each boot a fresh
-              interpreter (`chip_smoke.py --boot fresh|warm`) running a
-              container boot's order (modal_tpu/runtime/
-              container_entrypoint.py:505-545): import tracing before `import
-              torch`, the compile hooks and the fleet compile cache,
-              `restore_snapshot` or else the snap-enter state (init_params,
-              seed 0, 16.06 GB) and `save_snapshot`, the AOT warm-up of the
-              decode entry (a post-snapshot enter hook), the graphed engine,
-              8 greedy requests. Both boots share one fleet store and one
-              snapshot directory; each has its own empty build directory.
-              The fresh boot must restore nothing, build K4 with nvcc and
-              publish it; the warm boot must restore every leaf bit-equal
-              (device checksums), run nvcc zero times with a fleet hit for
-              each kernel it loaded, and emit the fresh boot's tokens; K4
-              launches exactly n_layers per decode step in both. The
-              snap-enter state also holds a lambda and a closure: the warm
-              boot restores them from the snapshot and calls them on its
-              streams. Each boot's time from process start to the first
-              token is printed by part.
 
 Parity at depth: with random weights a single bf16 rounding inside
 attention moves llama3-8b's logits by a few 1e-2 (max over the 128256-entry
@@ -158,8 +166,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "sdk", "graphs", "weights", "int8", "spec", "disagg", "parity",
-          "forward", "train", "moe", "mesh", "coldstart")
+PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "graphs", "weights", "int8", "spec", "disagg",
+          "parity", "forward", "train", "moe", "mesh")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -972,8 +980,6 @@ def phase_sdk(torch, ctx: dict) -> None:
         f"10 ms) | {smi}")
     log(f"[sdk] the embedding to the host, alternated: .cpu() {host_copy_s['cpu']} s, serialize_payload "
         f"(pinned staging) {host_copy_s['serialize_payload']} s | {smi}")
-    log("[sdk] not driven on the card yet: the port's client against a control plane (the port has none until "
-        "its worker slice; the CPU tests hold it against the JAX package's), and .remote() (worker and App slices)")
     ctx["sdk"] = {
         "gpu": {"spec": str(spec), "wire": wire.hex(), "device": kind, "count": count},
         "function": {"bytes": len(blob), "serialize_ms": fn_serialize_ms, **child, "child_s": child_s,
@@ -2238,11 +2244,12 @@ def phase_mesh(torch, ctx: dict) -> None:
         raise AssertionError(f"mesh: params after 2 steps differ by {param_rel:.3e} (moved {moved})")
 
 
-# -- coldstart: a llama3-8b replica booted fresh, then warm --------------------
+# -- worker: the port's control plane, scheduler, worker and containers ---------
 
-# what the snapshot is keyed by: the boot's function definition
-COLDSTART_DEF = b"chip_smoke coldstart: llama3-8b ServingEngine replica, init_params(seed=0) on cuda"
+# what the coldstart boots build and warm: K4 at llama3-8b's decode shapes
 COLDSTART_AOT = "decode,cfg=llama3-8b"
+# a card count the one-card host cannot hold
+WORKER_UNSAT_GPU = "H100:2"
 
 
 def _tree_leaves(tree, prefix: str = "") -> list:
@@ -2281,204 +2288,488 @@ def _rss_bytes() -> int:
 
 def _sample_peak_rss(peak: list, stop) -> None:
     """Keep the largest RSS seen in peak[0], sampled every 10 ms until stop
-    is set. Not ru_maxrss: Linux keeps that across execve, so a boot this
-    script spawned reported the parent's peak."""
+    is set. Not ru_maxrss: Linux keeps that across execve, so a process this
+    script (or its worker) spawned would report the parent's peak."""
     while not stop.wait(0.01):
         peak[0] = max(peak[0], _rss_bytes())
 
 
-def _boot(role: str, t_spawn: float) -> int:
-    """One cold boot of a llama3-8b serving replica in this fresh
-    interpreter, in the order of modal_tpu/runtime/container_entrypoint.py:
-    505-545; the coldstart phase runs it as `chip_smoke.py --boot ROLE` with
-    the fleet store, snapshot, build and telemetry paths in its environment.
-    Prints progress, then one JSON line of its measurements."""
-    import threading
+def _worker_serving_fn(cfg_name: str, seed: int, prompts: list):
+    """The sdk phase's serving function, run as a container of the port's
+    worker: it also returns what the container saw of its card."""
+    serve = _sdk_serving_fn(cfg_name, seed, prompts)
 
-    t_main = time.time()
-    peak_rss, stop_rss = [_rss_bytes()], threading.Event()
-    threading.Thread(target=_sample_peak_rss, args=(peak_rss, stop_rss), daemon=True).start()
-    sys.path.insert(0, REPO)
-    from modal_tpu_torch.runtime import telemetry
+    def serve_in_container() -> dict:
+        import hashlib
 
-    telemetry.maybe_instrument_from_env()  # before anything heavy is imported
-    import torch
+        import torch
 
-    from modal_tpu_torch.models.llama import get_config, init_params
-    from modal_tpu_torch.observability import catalog, device_telemetry
-    from modal_tpu_torch.ops import _build
-    from modal_tpu_torch.runtime import aot, snapshot
-    from modal_tpu_torch.serving import ServingEngine  # noqa: F401 — imported here, timed with the rest
+        torch.cuda.reset_peak_memory_stats()
+        out = serve()
+        out.update(pid=os.getpid(), cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   peak_device_bytes=torch.cuda.max_memory_allocated(),
+                   logits_sha256=hashlib.sha256(out["logits"].cpu().numpy().tobytes()).hexdigest())
+        return out
 
-    t_imported = time.time()
-    if not device_telemetry.install_compile_hooks() or not device_telemetry.maybe_install_fleet_cache():
-        raise AssertionError("compile hooks or fleet cache not installed (torch imported, fleet dir set)")
-    out: dict = {"role": role, "interpreter_s": t_main - t_spawn, "imports_s": t_imported - t_main,
-                 "hooks_s": time.time() - t_imported}
-    cfg = get_config("llama3-8b")
+    return serve_in_container
+
+
+def _coldstart_class(cfg_name: str, prompts: list):
+    """The coldstart boots' serialized class: `@enter(snap=True)` builds the
+    replica's state (init_params, seed 0, on the card, and a lambda and a
+    closure that the standard library's pickle refuses and cloudpickle
+    keeps); `serve` runs the graphed engine over 8 greedy requests and
+    returns the boot's measurements. The container entrypoint runs the boot
+    order around them: compile hooks and fleet cache, restore or enter and
+    save, ContainerCheckpoint, the AOT warm-up of K4 (MODAL_TPU_AOT_LOWER)."""
+    from modal_tpu_torch.partial_function import _PartialFunctionFlags, enter, find_partial_methods_for_user_cls, method
+
+    # what lives in this process only, not on the instance (a snapshot takes
+    # the instance's attributes): the snap-enter's time, which a restored
+    # boot never sets, and the peak RSS sampled from instantiation on
+    init: dict = {}
 
     class Replica:
-        """The service instance: what snap-enter sets lives on it."""
+        def __init__(self):
+            import threading
 
-    replica = Replica()
-    t0 = time.time()
-    torch.cuda.init()
-    out["cuda_init_s"] = time.time() - t0
-    t0 = time.time()
-    restored = snapshot.restore_snapshot(COLDSTART_DEF, replica)
-    torch.cuda.synchronize()
-    out["restore_s"] = time.time() - t0
-    out["restored"] = restored
-    if not restored:
-        t0 = time.time()
-        replica.params = init_params(cfg, seed=0, device="cuda")
-        replica.cfg = cfg
-        # state the standard library's pickle refuses and cloudpickle keeps
-        replica.count_tokens = lambda streams: sum(len(s) for s in streams)
-        vocab = cfg.vocab_size
+            init["peak_rss"] = [_rss_bytes()]  # sampled until the container exits
+            threading.Thread(target=_sample_peak_rss, args=(init["peak_rss"], threading.Event()), daemon=True).start()
 
-        def in_vocab(streams):
-            return all(0 <= t < vocab for s in streams for t in s)
+        @enter(snap=True)
+        def load(self):
+            import torch
 
-        replica.in_vocab = in_vocab
-        torch.cuda.synchronize()
-        out["init_s"] = time.time() - t0
-        t0 = time.time()
-        if not snapshot.save_snapshot(COLDSTART_DEF, replica):
-            raise AssertionError("save_snapshot abandoned the snapshot")
-        out["save_s"] = time.time() - t0
-    t0 = time.time()  # this script's check, not a step of a boot: reported apart
-    leaves = _tree_leaves(replica.params)
-    out["state_bytes"] = sum(t.numel() * t.element_size() for _, t in leaves)
-    out["leaf_devices"] = sorted({str(t.device) for _, t in leaves})
-    out["checksums"] = {path: _checksum(torch, t) for path, t in leaves}
-    out["checks_s"] = time.time() - t0
-    t0 = time.time()
-    warm = aot.maybe_aot_lower()  # MODAL_TPU_AOT_LOWER: a post-snapshot enter hook
-    out["kernels_s"] = time.time() - t0
-    if warm is None or "errors" in warm:
-        raise AssertionError(f"AOT warm-up failed: {warm}")
-    t0 = time.time()
-    engine = _engine_8b(replica.params, replica.cfg, cuda_graphs=None)
-    if engine.decode_graph is None:
-        raise AssertionError("the engine on CUDA did not capture its decode step")
-    out["capture_s"] = time.time() - t0
-    prompts = _prompts(cfg, 8, seed=1)
-    _build.reset_launches()
-    t_submit = time.time()
-    reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]  # queued before the loop starts
-    engine.start()
-    try:
-        streams = [r.result(timeout=600) for r in reqs]
-    finally:
-        engine.stop()
-    _check_streams(f"coldstart {role}", streams, cfg.vocab_size)
-    out["snap_functions"] = {"count_tokens": replica.count_tokens(streams), "in_vocab": replica.in_vocab(streams),
-                             "closure_cells": len(replica.in_vocab.__closure__ or ())}
-    stats = engine.stats()
-    stop_rss.set()
-    first_token = t_submit + min(r.ttft_s for r in reqs)
-    out.update({
-        "first_token_s": first_token - t_spawn - out["checks_s"],
-        "submit_to_first_token_s": first_token - t_submit,
-        "ttft_first_request_s": reqs[0].ttft_s,
-        "serve_s": time.time() - t_submit,
-        "streams": streams,
-        "decode_steps": stats["steps"],
-        "launches": dict(_build.LAUNCHES),
-        "loaded_kernels": sorted(_build._libs),
-        "nvcc_runs": int(catalog.COMPILE_EVENTS.value(event="compile", source="runtime")),
-        "fleet_hits": int(catalog.COMPILE_CACHE_HITS.total()),
-        "fleet_puts": int(catalog.COMPILE_CACHE_PUTS.total()),
-        "graph_capture_s": catalog.COMPILE_SECONDS.totals(phase="graph_capture")[0],
-        "peak_rss_bytes": max(peak_rss[0], _rss_bytes()) or None,  # None: statm unreadable
-        "peak_device_bytes": torch.cuda.max_memory_allocated(),
-        "imports_top": [
-            {"module": e["module"], "s": e["duration_s"]}
-            for e in telemetry.summarize(os.environ["MODAL_TPU_TELEMETRY_PATH"], top=5)
-        ],
-        "telemetry_summary": device_telemetry.telemetry_summary(),
-        "report_bytes": len(device_telemetry.container_report()),
-    })
-    print(json.dumps(out), flush=True)
-    return 0
+            from modal_tpu_torch.models.llama import get_config, init_params
+
+            t0 = time.time()
+            cfg = get_config(cfg_name)
+            self.params = init_params(cfg, seed=0, device="cuda")
+            self.cfg = cfg
+            self.count_tokens = lambda streams: sum(len(s) for s in streams)
+            vocab = cfg.vocab_size
+
+            def in_vocab(streams):
+                return all(0 <= t < vocab for s in streams for t in s)
+
+            self.in_vocab = in_vocab
+            torch.cuda.synchronize()
+            init["s"] = time.time() - t0
+
+        @method()
+        def serve(self) -> dict:
+            import torch
+
+            from modal_tpu_torch.observability import catalog, device_telemetry
+            from modal_tpu_torch.ops import _build
+            from modal_tpu_torch.runtime import telemetry
+
+            out: dict = {"restored": "s" not in init, "init_s": init.get("s", 0.0)}
+            t0 = time.time()  # this script's check, not a step of a boot: reported apart
+            leaves = _tree_leaves(self.params)
+            out["state_bytes"] = sum(t.numel() * t.element_size() for _, t in leaves)
+            out["leaf_devices"] = sorted({str(t.device) for _, t in leaves})
+            out["checksums"] = {path: _checksum(torch, t) for path, t in leaves}
+            out["checks_s"] = time.time() - t0
+            t0 = time.time()
+            engine = _engine_8b(self.params, self.cfg, cuda_graphs=None)
+            if engine.decode_graph is None:
+                raise AssertionError("the engine on CUDA did not capture its decode step")
+            out["capture_s"] = time.time() - t0
+            _build.reset_launches()
+            t_submit = time.time()
+            reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]  # queued before the loop starts
+            engine.start()
+            try:
+                streams = [r.result(timeout=600) for r in reqs]
+            finally:
+                engine.stop()
+            _check_streams("coldstart", streams, self.cfg.vocab_size)
+            out["snap_functions"] = {"count_tokens": self.count_tokens(streams), "in_vocab": self.in_vocab(streams),
+                                     "closure_cells": len(self.in_vocab.__closure__ or ())}
+            out.update({
+                "first_token_at": t_submit + min(r.ttft_s for r in reqs),
+                "submit_to_first_token_s": min(r.ttft_s for r in reqs),
+                "ttft_first_request_s": reqs[0].ttft_s,
+                "serve_s": time.time() - t_submit,
+                "streams": streams,
+                "decode_steps": engine.stats()["steps"],
+                "launches": dict(_build.LAUNCHES),
+                "loaded_kernels": sorted(_build._libs),
+                "nvcc_runs": int(catalog.COMPILE_EVENTS.value(event="compile", source="runtime")),
+                "fleet_hits": int(catalog.COMPILE_CACHE_HITS.total()),
+                "fleet_puts": int(catalog.COMPILE_CACHE_PUTS.total()),
+                "peak_rss_bytes": max(init["peak_rss"][0], _rss_bytes()) or None,  # None: statm unreadable
+                "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                "imports_top": [
+                    {"module": e["module"], "s": e["duration_s"]}
+                    for e in telemetry.summarize(os.environ["MODAL_TPU_TELEMETRY_PATH"], top=5)
+                ],
+                "telemetry_summary": device_telemetry.telemetry_summary(),
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            })
+            return out
+
+    find_partial_methods_for_user_cls(Replica, _PartialFunctionFlags.all())  # what a class decorator registers
+    return Replica
+
+
+class _Plane:
+    """Raw RPCs from the port's client to the port's control plane, on the
+    port's synchronizer thread: one app at a time, functions on it, calls
+    whose context the control plane carries to the containers' spans."""
+
+    def __init__(self, sup):
+        from modal_tpu_torch.client import _Client
+
+        self.sup = sup
+        self.client = _Client(sup.server_url)
+        self.client._open()  # blocking: synchronize_api wrapped the client's coroutines
+        self.app_id = ""
+
+    def run(self, coro):
+        from modal_tpu_torch._utils.async_utils import synchronizer
+
+        return synchronizer.run(coro)
+
+    def call(self, name: str, req):
+        from modal_tpu_torch._utils.grpc_utils import retry_transient_errors
+
+        return self.run(retry_transient_errors(getattr(self.client.stub, name), req))
+
+    def new_app(self, description: str) -> str:
+        from modal_tpu_torch.proto import api_pb2
+
+        self.app_id = self.call("AppCreate", api_pb2.AppCreateRequest(description=description)).app_id
+        return self.app_id
+
+    def stop_app(self, timeout: float = 120.0) -> None:
+        """Stop the app and wait until each of its tasks has finished."""
+        from modal_tpu_torch.proto import api_pb2
+
+        self.call("AppStop", api_pb2.AppStopRequest(app_id=self.app_id))
+        deadline = time.monotonic() + timeout
+        while any(not t.finished_at for t in self.sup.state.tasks.values() if t.app_id == self.app_id):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"worker: the tasks of {self.app_id} did not finish in {timeout}s")
+            time.sleep(0.2)
+
+    def create(self, tag: str, gpu: str, **fields) -> str:
+        from modal_tpu_torch.gpu_config import parse_gpu_config
+        from modal_tpu_torch.proto import api_pb2
+
+        fdef = api_pb2.Function(function_name=tag, definition_type="serialized", **fields)
+        fdef.resources.gpu_config.CopyFrom(parse_gpu_config(gpu).to_proto())
+        fdef.autoscaler_settings.scaledown_window = 600  # kept warm for a second input
+        req = api_pb2.FunctionCreateRequest(app_id=self.app_id, function=fdef, tag=tag)
+        return self.call("FunctionCreate", req).function_id
+
+    def task_logs(self) -> str:
+        """The tail of every container's stderr under the supervisor's state dir."""
+        tails = []
+        for task_id in sorted(self.sup.state.tasks):
+            path = os.path.join(self.sup.state_dir, "tasks", task_id, "stderr.log")
+            if os.path.exists(path):
+                with open(path, errors="replace") as f:
+                    tails.append(f"--- {task_id} stderr ---\n{f.read()[-3000:]}")
+        return "\n".join(tails)
+
+    def remote(self, fn_id: str, method_name: str = "", timeout: float = 300.0) -> dict:
+        """One input through FunctionMap (under a span, so the launch and the
+        container's boot spans join its trace) and FunctionGetOutputs; the
+        result fetched from the blob server when it went there."""
+        from modal_tpu_torch._utils.blob_utils import resolve_blob_data
+        from modal_tpu_torch._utils.grpc_utils import retry_transient_errors
+        from modal_tpu_torch.observability import tracing
+        from modal_tpu_torch.proto import api_pb2
+        from modal_tpu_torch.serialization import serialize
+
+        inp = api_pb2.FunctionInput(args=serialize(((), {})), data_format=api_pb2.DATA_FORMAT_PICKLE,
+                                    method_name=method_name)
+        req = api_pb2.FunctionMapRequest(function_id=fn_id, pipelined_inputs=[api_pb2.FunctionPutInputsItem(idx=0, input=inp)])
+
+        async def submit():
+            with tracing.span("chip_smoke.remote") as sp:
+                resp = await retry_transient_errors(self.client.stub.FunctionMap, req)
+            return resp.function_call_id, sp.trace_id
+
+        t_map = time.time()
+        call_id, trace_id = self.run(submit())
+        deadline = time.monotonic() + timeout
+        while True:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"worker: no output of {fn_id} in {timeout}s\n{self.task_logs()}")
+            resp = self.call("FunctionGetOutputs", api_pb2.FunctionGetOutputsRequest(
+                function_call_id=call_id, timeout=30, clear_on_success=True))
+            if resp.outputs:
+                break
+        t_out = time.time()
+        result = resp.outputs[0].result
+        out = {"t_map": t_map, "t_output": t_out, "trace_id": trace_id, "status": result.status,
+               "exception": result.exception, "traceback": result.traceback, "blob_id": result.data_blob_id}
+        if result.status == api_pb2.GENERIC_STATUS_SUCCESS:
+            t0 = time.perf_counter()
+            out["data"] = self.run(resolve_blob_data(result, self.client.stub))
+            out["download_s"] = time.perf_counter() - t0
+        return out
+
+    def close(self) -> None:
+        self.client._close()
+
+
+def _spans_of(sup, trace_id: str) -> dict:
+    """{span name: span record (start, end, attrs, ...)} of one call's
+    trace, across the processes that wrote to the supervisor's span sink."""
+    from modal_tpu_torch.observability import tracing
+
+    return {s["name"]: s for s in tracing.read_spans(tracing.trace_dir()) if s["trace_id"] == trace_id}
+
+
+BOOT_PARTS = ("container.imports", "container.snapshot_state", "container.enter_hooks", "container.aot_lower")
+
+
+def _boot_split(sup, task, call: dict) -> dict:
+    """A container's boot from the worker's spawn decision, by part: the
+    interpreter up to ContainerHello (python, `import torch`, the runtime,
+    the client), the user's code, the snapshot state (restore, or enter and
+    save), the other enter hooks, the AOT warm-up, then to the first output
+    (the first input's execution). FunctionMap → first output on the
+    client's clock beside it. Every part must have its span, and the AOT
+    warm-up must have built every entry: the entrypoint writes no
+    `container.aot_lower` span when the warm-up did not run, and a failed
+    entry only into that span's `errors`."""
+    spans = _spans_of(sup, call["trace_id"])
+    missing = [name for name in ("container.boot",) + BOOT_PARTS if name not in spans]
+    if missing:
+        raise AssertionError(f"worker: the call's trace has no {missing} span (it has {sorted(spans)})")
+    errors = spans["container.aot_lower"]["attrs"].get("errors")
+    if errors:
+        raise AssertionError(f"worker: the container's AOT warm-up failed: {errors}")
+    t0, ready = spans["container.boot"]["start"], spans["container.boot"]["end"]
+    part = {name: spans[name]["end"] - spans[name]["start"] for name in BOOT_PARTS}
+    return {
+        "spawn_to_hello_s": task.started_at - t0,
+        "user_import_s": part["container.imports"],
+        "snapshot_state_s": part["container.snapshot_state"],
+        "enter_s": part["container.enter_hooks"],
+        "aot_s": part["container.aot_lower"],
+        "spawn_to_ready_s": ready - t0,
+        "spawn_to_first_output_s": task.first_output_at - t0,
+        "map_to_output_s": call["t_output"] - call["t_map"],
+        "spawn_at": t0,
+    }
+
+
+def _split_line(b: dict) -> str:
+    return (f"FunctionMap → output {b['map_to_output_s']:.2f}s; from the spawn: ContainerHello "
+            f"{b['spawn_to_hello_s']:.2f}s, user import {b['user_import_s']:.3f}s, snapshot state "
+            f"{b['snapshot_state_s']:.2f}s, enter {b['enter_s']:.3f}s, AOT {b['aot_s']:.2f}s, ready "
+            f"{b['spawn_to_ready_s']:.2f}s, first output {b['spawn_to_first_output_s']:.2f}s")
 
 
 def _boot_line(b: dict) -> str:
-    """A boot's time from process start to its first token (this script's
+    """A coldstart boot from the spawn to its first token (this script's
     checksums left out), part by part; "other" is what no part covers."""
     gb = b["state_bytes"] / 1e9
+    snap = b["split"]["snapshot_state_s"]
     if b["restored"]:
-        state = f"restore {b['restore_s']:.2f}s ({gb / b['restore_s']:.2f} GB/s)"
-        state_s = b["restore_s"]
+        state = f"restore {snap:.2f}s ({gb / snap:.2f} GB/s)"
     else:
-        state = (f"restore miss {b['restore_s']:.3f}s + init {b['init_s']:.2f}s + save {b['save_s']:.2f}s "
-                 f"({gb / b['save_s']:.2f} GB/s)")
-        state_s = b["restore_s"] + b["init_s"] + b["save_s"]
-    parts = (b["interpreter_s"] + b["imports_s"] + b["hooks_s"] + b["cuda_init_s"] + state_s + b["kernels_s"]
-             + b["capture_s"] + b["submit_to_first_token_s"])
+        save = snap - b["init_s"]
+        state = f"init {b['init_s']:.2f}s + save {save:.2f}s ({gb / save:.2f} GB/s)"
+    sp = b["split"]
+    parts = (sp["spawn_to_hello_s"] + sp["user_import_s"] + snap + sp["enter_s"] + sp["aot_s"] + b["capture_s"]
+             + b["submit_to_first_token_s"])
     top = ", ".join(f"{e['module']} {e['s']:.2f}s" for e in b["imports_top"])
-    return (f"process start → first token {b['first_token_s']:.2f}s = interpreter {b['interpreter_s']:.2f}s + "
-            f"imports {b['imports_s']:.2f}s ({top}) + hooks {b['hooks_s']:.3f}s + CUDA init {b['cuda_init_s']:.2f}s "
-            f"+ {state} + kernels "
-            f"{b['kernels_s']:.2f}s ({b['nvcc_runs']} nvcc runs, {b['fleet_hits']} fleet hits, {b['fleet_puts']} "
+    return (f"spawn → first token {b['first_token_s']:.2f}s = spawn → ContainerHello {sp['spawn_to_hello_s']:.2f}s "
+            f"({top}) + user import {sp['user_import_s']:.3f}s + {state} (CUDA init inside) + kernels "
+            f"{sp['aot_s']:.2f}s ({b['nvcc_runs']} nvcc runs, {b['fleet_hits']} fleet hits, {b['fleet_puts']} "
             f"puts) + graph capture {b['capture_s']:.2f}s + submit → first token {b['submit_to_first_token_s']:.2f}s "
             f"+ other {b['first_token_s'] - parts:.2f}s (checksums, {b['checks_s']:.2f}s, left out); first-request "
             f"TTFT {b['ttft_first_request_s']:.3f}s; peak RSS "
-            + (f"{b['peak_rss_bytes'] / 1e9:.2f} GB (sampled every 10 ms)" if b["peak_rss_bytes"] else "not measured")
+            + (f"{b['peak_rss_bytes'] / 1e9:.2f} GB (sampled every 10 ms from the class's instantiation on)"
+               if b["peak_rss_bytes"] else "not measured")
             + f", peak device {b['peak_device_bytes'] / 1e9:.2f} GB")
 
 
-def phase_coldstart(torch, ctx: dict) -> None:
-    import gc
-    import shutil
-    import tempfile
+def _worker_env(root: str) -> dict:
+    """What the containers of the phase read from this process's
+    environment (the worker hands its own to each container): the coldstart
+    boots' fleet-cache gate, snapshot dir, AOT warm-up and import trace,
+    and no build dir of this process (each task builds in its own)."""
+    return {"MODAL_TPU_COMPILE_CACHE": "1", "MODAL_TPU_SNAPSHOT_DIR": os.path.join(root, "snapshots"),
+            "MODAL_TPU_AOT_LOWER": COLDSTART_AOT, "MODAL_TPU_IMPORT_TRACE": "1", "TORCH_EXTENSIONS_DIR": None,
+            "MODAL_TPU_COMPILE_CACHE_DIR": None, "MODAL_TPU_COMPILE_CACHE_URL": None}
 
+
+def _serve_through_worker(torch, ctx: dict, sup, smi: str) -> None:
+    """Steps 1-5: the llama3-8b serving function asked for with gpu="H100",
+    placed, run in a container pinned to the card, twice; then an ask the
+    host cannot hold."""
+    import hashlib
+
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.serialization import deserialize, serialize
+    from modal_tpu_torch.server.scheduler import PLACEMENT_UNSAT_GRACE_S
+
+    cfg = get_config("llama3-8b")
+    prompts = _prompts(cfg, 8, seed=1)
+    plane = _Plane(sup)
+    try:
+        plane.new_app("chip_smoke worker")
+        blob = serialize(_worker_serving_fn("llama3-8b", 0, prompts))
+        fn_id = plane.create("serve", "H100", function_serialized=blob)
+        log(f"[worker] FunctionCreate serve ({len(blob)} bytes, gpu='H100'); {torch.cuda.memory_allocated() / 1e6:.1f} MB "
+            f"allocated here before the container spawns")
+        calls, results = [], []
+        for i in range(2):
+            call = plane.remote(fn_id)
+            if call["status"] != api_pb2.GENERIC_STATUS_SUCCESS:
+                raise AssertionError(f"worker: input {i} failed: {call['exception']}\n{call['traceback'][-4000:]}\n"
+                                     f"{plane.task_logs()}")
+            t0 = time.perf_counter()
+            result = deserialize(call["data"])
+            call["deserialize_s"] = time.perf_counter() - t0
+            calls.append(call)
+            results.append(result)
+        tasks = plane.call("TaskList", api_pb2.TaskListRequest()).tasks
+        mine = [t for t in tasks if t.app_id == plane.app_id]
+        first, second = results
+        if len(mine) != 1 or list(mine[0].gpu_ids) != [0]:
+            raise AssertionError(f"worker: TaskList shows {[(t.task_id, list(t.gpu_ids)) for t in mine]}")
+        if first["pid"] != second["pid"]:
+            raise AssertionError(f"worker: the second input ran in pid {second['pid']}, the first in {first['pid']}")
+        task = sup.state.tasks[mine[0].task_id]
+        kind = torch.cuda.get_device_name(0)
+        for i, r in enumerate(results):
+            logits = r["logits"]
+            on_card = logits.to("cuda")  # rebuilt on this process's card
+            digest = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
+            if (type(logits) is not torch.Tensor or logits.dtype != torch.float32
+                    or tuple(logits.shape) != (8, cfg.vocab_size) or not torch.isfinite(on_card).all()):
+                raise AssertionError(f"worker: input {i}'s logits came back as {type(logits)} "
+                                     f"{getattr(logits, 'dtype', '')} {tuple(getattr(logits, 'shape', ()))}")
+            if digest != r["logits_sha256"]:
+                raise AssertionError(f"worker: input {i}'s logits sha256 {digest} here, {r['logits_sha256']} in the container")
+            if "sdk" in ctx and digest != ctx["sdk"]["function"]["logits_sha256"]:
+                raise AssertionError(f"worker: input {i}'s logits sha256 {digest}, the sdk child's "
+                                     f"{ctx['sdk']['function']['logits_sha256']}")
+            steps, k4 = r["decode_steps"], r["paged_decode_launches"]
+            if steps == 0 or k4 != cfg.n_layers * steps:
+                raise AssertionError(f"worker: input {i}: paged_decode launched {k4} times over {steps} decode steps")
+            if r["cuda_visible_devices"] != str(mine[0].gpu_ids[0]) or r["device"] != kind:
+                raise AssertionError(f"worker: input {i}: the container saw CUDA_VISIBLE_DEVICES="
+                                     f"{r['cuda_visible_devices']!r} and {r['device']!r}; pinned {list(mine[0].gpu_ids)}, "
+                                     f"the card is {kind!r}")
+            _check_streams("worker", r["streams"], cfg.vocab_size)
+            if "serve_streams" in ctx:
+                diverged = _first_divergence(ctx["serve_streams"], r["streams"], ctx.get("serve_logits", {}), {})
+                bad = [d for d in diverged if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
+                if bad:
+                    raise AssertionError(f"worker: input {i}'s streams differ from the serve phase's beyond a greedy "
+                                         f"near-tie: {bad}")
+                r["streams_equal"] = 8 - len(diverged)
+            _add_launches(ctx, "paged_decode", k4)
+            del on_card
+        split = _boot_split(sup, task, calls[0])
+        nbytes = len(calls[0]["data"])
+        t0 = time.perf_counter()
+        up_id = plane.run(_blob_upload(calls[0]["data"], plane.client.stub))
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = plane.run(_blob_download(up_id, plane.client.stub))
+        down_s = time.perf_counter() - t0
+        if bytes(back) != bytes(calls[0]["data"]):
+            raise AssertionError("worker: the result payload came back from the blob server changed")
+        log(f"[worker] served through the port's supervisor, scheduler and worker: task {task.task_id} pinned to "
+            f"card {list(mine[0].gpu_ids)}, the container saw CUDA_VISIBLE_DEVICES={first['cuda_visible_devices']!r} "
+            f"and {first['device']!r}; input 1 (cold): {_split_line(split)}; input 2 (warm, same task, pid "
+            f"{second['pid']}): FunctionMap → output {calls[1]['t_output'] - calls[1]['t_map']:.2f}s | {smi}")
+        for i, (r, c) in enumerate(zip(results, calls)):
+            log(f"[worker] input {i + 1}: 8 requests x {NEW_TOKENS} tokens in {r['wall_s']:.2f}s, {r['decode_steps']} "
+                f"decode steps, paged_decode launches {r['paged_decode_launches']} (= {cfg.n_layers} x "
+                f"{r['decode_steps']}); logits [8, {cfg.vocab_size}] fp32 sha256 {r['logits_sha256'][:16]}… equal to "
+                f"the container's{' and the sdk child' + chr(39) + 's' if 'sdk' in ctx else ''}; streams equal to "
+                f"serve's: {r.get('streams_equal', 'serve not run')}/8; result {len(c['data'])} bytes through blob "
+                f"{c['blob_id']}, fetched in {c['download_s'] * 1e3:.2f} ms, deserialized in "
+                f"{c['deserialize_s'] * 1e3:.2f} ms; the container's peak device memory "
+                f"{r['peak_device_bytes'] / 1e9:.2f} GB")
+        log(f"[worker] blob server, the result payload ({nbytes} bytes) from this process: upload {up_s * 1e3:.2f} ms "
+            f"({nbytes / up_s / 1e9:.3f} GB/s), download {down_s * 1e3:.2f} ms ({nbytes / down_s / 1e9:.3f} GB/s)")
+
+        unsat_id = plane.create("unsat", WORKER_UNSAT_GPU, function_serialized=serialize(lambda: "never"))
+        refused = plane.remote(unsat_id, timeout=120)
+        waited = refused["t_output"] - refused["t_map"]
+        want = f"unsatisfiable placement for unsat: gpu={WORKER_UNSAT_GPU} matches no registered worker"
+        if refused["status"] != api_pb2.GENERIC_STATUS_FAILURE or refused["exception"] != want:
+            raise AssertionError(f"worker: gpu={WORKER_UNSAT_GPU!r} gave {refused['status']} {refused['exception']!r}")
+        if waited < PLACEMENT_UNSAT_GRACE_S - 0.1:
+            raise AssertionError(f"worker: the refusal came after {waited:.2f}s, before the grace window")
+        if any(t.function_id == unsat_id for t in sup.state.tasks.values()):
+            raise AssertionError("worker: a task was launched for the unsatisfiable ask")
+        log(f"[worker] gpu={WORKER_UNSAT_GPU!r} on this one-card host: refused after {waited:.2f}s "
+            f"(grace {PLACEMENT_UNSAT_GRACE_S}s): {refused['exception']!r}")
+        plane.stop_app()
+    finally:
+        plane.close()
+    ctx["worker"] = {
+        "function_bytes": len(blob), "task_id": task.task_id, "gpu_ids": list(mine[0].gpu_ids),
+        "cuda_visible_devices": first["cuda_visible_devices"], "split_cold": split,
+        "map_to_output_s": [c["t_output"] - c["t_map"] for c in calls],
+        "results": [{k: v for k, v in r.items() if k not in ("logits", "streams")} for r in results],
+        "result_bytes": nbytes, "blob_upload_s": up_s, "blob_download_s": down_s,
+        "unsat": {"waited_s": waited, "exception": refused["exception"]}, "nvidia_smi": smi,
+    }
+
+
+async def _blob_upload(data, stub) -> str:
+    from modal_tpu_torch._utils.blob_utils import blob_upload
+
+    return await blob_upload(data, stub)
+
+
+async def _blob_download(blob_id: str, stub):
+    from modal_tpu_torch._utils.blob_utils import blob_download
+
+    return await blob_download(blob_id, stub)
+
+
+def _coldstart_through_worker(torch, ctx: dict, sup, root: str, smi: str) -> None:
+    """Step 6: the replica booted fresh, then warm, each a container of the
+    port's worker running the real entrypoint's boot order."""
     from modal_tpu_torch.models.llama import get_config, init_params_abstract
     from modal_tpu_torch.models.quant import quantized_bytes
+    from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.serialization import deserialize, serialize
 
-    ctx.pop("params", None)
-    ctx.pop("cfg", None)
-    gc.collect()
-    torch.cuda.empty_cache()
-    smi = ctx.get("nvidia_smi") or _nvidia_smi()
     cfg = get_config("llama3-8b")
     nbytes = quantized_bytes(init_params_abstract(cfg))
-    parent = tempfile.gettempdir()
-    free = _free_bytes(parent)
-    log(f"[coldstart] {nbytes / 1e9:.2f} GB of params; {free / 1e9:.1f} GB free under {parent}; "
-        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB allocated here")
-    if free < nbytes * 1.1 + (2 << 30):
-        raise AssertionError(f"coldstart: {free / 1e9:.1f} GB free under {parent}, the snapshot needs {nbytes / 1e9:.1f}")
-    root = tempfile.mkdtemp(prefix="coldstart-", dir=parent)
+    plane = _Plane(sup)
+    class_bytes = serialize(_coldstart_class("llama3-8b", _prompts(cfg, 8, seed=1)))
     boots: dict = {}
     try:
         for role in ("fresh", "warm"):
-            env = {k: v for k, v in os.environ.items() if k != "MODAL_TPU_COMPILE_CACHE_URL"}
-            os.makedirs(os.path.join(root, "fleet"), exist_ok=True)
-            env.update({
-                "MODAL_TPU_COMPILE_CACHE": "1",
-                "MODAL_TPU_COMPILE_CACHE_DIR": os.path.join(root, "fleet"),
-                "MODAL_TPU_SNAPSHOT_DIR": os.path.join(root, "snapshots"),
-                "TORCH_EXTENSIONS_DIR": os.path.join(root, f"build-{role}"),
-                "MODAL_TPU_TELEMETRY_PATH": os.path.join(root, f"imports-{role}.jsonl"),
-                "MODAL_TPU_AOT_LOWER": COLDSTART_AOT,
-            })
-            t_spawn = time.time()
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--boot", role, "--boot-t0", repr(t_spawn)],
-                                  env=env, capture_output=True, text=True, timeout=900)
-            lines = proc.stdout.strip().splitlines()
-            for ln in lines[:-1]:
-                log(f"[coldstart:{role}] {ln}")
-            if proc.returncode != 0 or not lines:
-                raise AssertionError(f"coldstart: the {role} boot exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-            boots[role] = json.loads(lines[-1])
+            plane.new_app(f"chip_smoke coldstart {role}")
+            fn_id = plane.create("Replica", "H100", is_class=True, class_serialized=class_bytes,
+                                 enable_memory_snapshot=True, experimental_options={"methods": "serve"})
+            call = plane.remote(fn_id, method_name="serve")
+            if call["status"] != api_pb2.GENERIC_STATUS_SUCCESS:
+                raise AssertionError(f"coldstart: the {role} boot failed: {call['exception']}\n"
+                                     f"{call['traceback'][-4000:]}\n{plane.task_logs()}")
+            b = deserialize(call["data"])
+            (task,) = [t for t in sup.state.tasks.values() if t.app_id == plane.app_id]
+            b["role"] = role
+            b["split"] = _boot_split(sup, task, call)
+            b["first_token_s"] = b["first_token_at"] - b["split"]["spawn_at"] - b["checks_s"]
+            plane.stop_app()
             if role == "fresh":
                 snap = os.path.join(root, "snapshots")
                 files = [os.path.join(d, f) for d, _, fs in os.walk(snap) for f in fs if f.endswith(".bin")]
-                boots[role]["snapshot_bytes"] = sum(os.path.getsize(f) for f in files)
+                b["snapshot_bytes"] = sum(os.path.getsize(f) for f in files)
+            boots[role] = b
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        plane.close()
     fresh, warm = boots["fresh"], boots["warm"]
     if fresh["restored"] or not warm["restored"]:
         raise AssertionError(f"coldstart: restored fresh={fresh['restored']} warm={warm['restored']}")
@@ -2506,16 +2797,82 @@ def phase_coldstart(torch, ctx: dict) -> None:
         if k4 == 0 or k4 != cfg.n_layers * b["decode_steps"]:
             raise AssertionError(f"coldstart {b['role']}: paged_decode launched {k4} times over "
                                  f"{b['decode_steps']} decode steps ({cfg.n_layers} layers)")
-        _add_launches(ctx, "paged_decode", b["launches"]["paged_decode"])
-        log(f"[coldstart] {b['role']}: {_boot_line(b)} | {smi}")
+        if b["cuda_visible_devices"] != "0":
+            raise AssertionError(f"coldstart {b['role']}: the container saw CUDA_VISIBLE_DEVICES="
+                                 f"{b['cuda_visible_devices']!r}")
+        _add_launches(ctx, "paged_decode", k4)
+        log(f"[worker:coldstart] {b['role']}: {_boot_line(b)} | {smi}")
         b.pop("checksums")
     ratio = warm["first_token_s"] / fresh["first_token_s"]
-    log(f"[coldstart] the warm boot restored the snap-enter lambda and closure and called them: "
+    log(f"[worker:coldstart] the warm boot restored the snap-enter lambda and closure and called them: "
         f"{warm['snap_functions']}")
-    log(f"[coldstart] {len(fresh['streams'])} streams equal; "
-        f"{nbytes / 1e9:.2f} GB restored bit-equal; warm / fresh process start → first token "
-        f"{warm['first_token_s']:.2f}s / {fresh['first_token_s']:.2f}s = {ratio:.3f} | {smi}")
+    log(f"[worker:coldstart] {len(fresh['streams'])} streams equal; {nbytes / 1e9:.2f} GB restored bit-equal; warm / "
+        f"fresh spawn → first token {warm['first_token_s']:.2f}s / {fresh['first_token_s']:.2f}s = {ratio:.3f} | {smi}")
     ctx["coldstart"] = {"fresh": fresh, "warm": warm, "warm_over_fresh": ratio, "nvidia_smi": smi}
+
+
+def phase_worker(torch, ctx: dict) -> None:
+    """The function path on one host: the port's LocalSupervisor (control
+    plane, blob server, scheduler, one worker that probed this host's card)
+    in this process; llama3-8b asked for with gpu="H100", served by the
+    port's container entrypoint in a process pinned to the card; then the
+    coldstart replica booted fresh and warm as containers of its worker."""
+    import gc
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.models.llama import get_config, init_params_abstract
+    from modal_tpu_torch.models.quant import quantized_bytes
+    from modal_tpu_torch.server.supervisor import LocalSupervisor
+
+    for key in ("params", "cfg"):  # the containers build their own 16 GB beside this process's context
+        ctx.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    nbytes = quantized_bytes(init_params_abstract(get_config("llama3-8b")))
+    parent = tempfile.gettempdir()
+    free = _free_bytes(parent)
+    if free < nbytes * 1.1 + (2 << 30):
+        raise AssertionError(f"worker: {free / 1e9:.1f} GB free under {parent}, the snapshot needs {nbytes / 1e9:.1f}")
+    roots = [tempfile.mkdtemp(prefix="worker-", dir=parent), tempfile.mkdtemp(prefix="coldstart-", dir=parent)]
+    saved = {}
+    for key, value in _worker_env(roots[1]).items():
+        saved[key] = os.environ.pop(key, None)
+        if value is not None:
+            os.environ[key] = value
+    try:
+        for root, step in zip(roots, ("serve", "coldstart")):
+            # each step has its own control plane: the coldstart's fresh boot
+            # must find an empty fleet store
+            sup = LocalSupervisor(num_workers=1, state_dir=root)
+            synchronizer.run(sup.start())
+            try:
+                worker = sup.workers[0]
+                kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+                if worker.gpu_type != kind or len(worker.card_indices) != count:
+                    raise AssertionError(f"worker: the probe found {len(worker.card_indices)} x {worker.gpu_type!r}; "
+                                         f"this process sees {count} x {kind!r}")
+                log(f"[worker] LocalSupervisor at {sup.server_url} ({step}); the worker's probe (nvidia-smi): "
+                    f"{len(worker.card_indices)} x {worker.gpu_type!r}, cards {worker.card_indices}")
+                if step == "serve":
+                    _serve_through_worker(torch, ctx, sup, smi)
+                else:
+                    _coldstart_through_worker(torch, ctx, sup, root, smi)
+            finally:
+                synchronizer.run(sup.stop())
+    finally:
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    ctx["worker"]["parent_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[worker] this process's peak device memory during the phase "
+        f"{ctx['worker']['parent_peak_device_bytes'] / 1e9:.2f} GB | {smi}")
 
 
 KERNELS = {
@@ -2525,7 +2882,7 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve", "sdk", "graphs", "weights", "int8", "spec", "disagg", "coldstart"),
+PATHS = {"paged_decode": ("serve", "sdk", "worker", "graphs", "weights", "int8", "spec", "disagg"),
          "flash_fwd": ("weights", "forward", "train", "moe", "mesh"), "flash_bwd_dq": ("train", "moe", "mesh"),
          "flash_bwd_dkv": ("train", "moe", "mesh")}
 
@@ -2534,11 +2891,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES), help="comma list of " + ",".join(PHASES))
     ap.add_argument("--out", default="", help="also write every measurement as JSON here")
-    ap.add_argument("--boot", choices=("fresh", "warm"), help=argparse.SUPPRESS)  # one coldstart boot
-    ap.add_argument("--boot-t0", type=float, default=0.0, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.boot:
-        return _boot(args.boot, args.boot_t0)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:

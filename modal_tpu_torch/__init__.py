@@ -15,16 +15,21 @@ each module's counterpart is easy to find:
 - `serving/`: the continuous-batching engine and its ASGI surface;
 - `parallel/`: the train step on one card or over a named mesh (FSDP, TP,
   expert-parallel MoE, GPipe, ring attention) of gloo or NCCL ranks;
-- `runtime/`: the cold-start runtime a container boot calls: warm-state
+- `runtime/`: the container runtime: the entrypoint a worker spawns, its
+  input loop and user code, and the cold start it calls: warm-state
   snapshots to and from the card (`snapshot.py`), the fleet compile cache
   under the kernel builds (`compile_client.py`), import tracing
   (`telemetry.py`) and the env-gated warm-up of the entry points (`aot.py`);
-- `server/`: the fleet compile-cache store (`compile_cache.py`);
+- `server/`: the control plane of the function path on one host: state,
+  scheduler (GPU placement), RPC handlers, blob server, worker and
+  `LocalSupervisor` (`python -m modal_tpu_torch.server`), and the fleet
+  compile-cache store (`compile_cache.py`);
 - `observability/`: serving, device, compile and client metrics, spans,
   and the heartbeat report;
 - the SDK core, imported on demand: the wire contract (`proto/`), the
   client (`client.py`), object handles (`object.py`), payloads
-  (`serialization.py`), `gpu=` (`gpu_config.py`), `config.py`'s settings,
+  (`serialization.py`), `gpu=` (`gpu_config.py`), method and lifecycle
+  decorators (`partial_function.py`), `config.py`'s settings,
   `exception.py`, `retries.py`, `_logs.py`, `_output.py` and `_utils/`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.

@@ -7,21 +7,24 @@ Reference: py/modal/client.py `_Client` (client.py:77): `from_env`
 registry-derived `ModalTPUStub` over the port's messages, so this client
 talks to any server of the wire contract, the JAX package's included.
 
-Three parts of the JAX client rest on modules the port does not have yet.
+Where the JAX client would (the default URL, nothing listening,
+`auto_local_server` on, not in a container), this client boots the port's
+in-process LocalSupervisor: control plane, blob server and one worker.
+
+Two parts of the JAX client rest on modules the port does not have yet.
 Each degrades the way the JAX client does when that module is off:
 
 - the local fast-path ladder (in-process, then Unix socket, then TCP):
-  every stub stays on TCP, as in the JAX client with the fast path off;
+  every stub stays on TCP, as in the JAX client with the fast path off
+  (ROADMAP Queue A 4b');
 - the shard router: a sharded control plane's director is used for every
-  call, as the JAX client does with a one-owner shard map;
-- the auto-booted local supervisor: where the JAX client would boot one
-  (the default URL, nothing listening, `auto_local_server` on, not in a
-  container), this client raises `ConnectionError`.
+  call, as the JAX client does with a one-owner shard map (4e).
 """
 
 from __future__ import annotations
 
 import asyncio
+import atexit
 import os
 import socket
 from typing import Any, ClassVar, Optional
@@ -31,7 +34,7 @@ import grpc
 from ._utils.async_utils import synchronize_api
 from ._utils.grpc_utils import create_channel, retry_transient_errors
 from .config import _SETTINGS, config, logger
-from .exception import ClientClosed, ConnectionError
+from .exception import ClientClosed
 from .proto import api_pb2
 from .proto.rpc import ModalTPUStub
 
@@ -134,14 +137,18 @@ class _Client:
     async def __aexit__(self, *exc: Any) -> None:
         await self._close()
 
+    _local_supervisor: ClassVar[Optional[Any]] = None
+
     @classmethod
-    def _check_local_server(cls, server_url: str) -> str:
-        """Where the JAX client boots an in-process LocalSupervisor (the
-        default localhost URL, nothing listening, `auto_local_server` on,
-        not in a container), raise ConnectionError: the port has no
-        supervisor of its own yet. Any other URL is returned as it is, and
-        a refused connection there surfaces on the first RPC, as in the JAX
-        client."""
+    async def _maybe_boot_local_server(cls, server_url: str) -> str:
+        """Zero-config local mode: when the configured server is the default
+        localhost URL and nothing listens there, boot an in-process
+        LocalSupervisor (control plane + worker + blob server) on that port
+        and use it. Containers (task_id set) never boot one, and an
+        explicitly configured URL is returned as it is: a refused
+        connection there surfaces on the first RPC."""
+        if cls._local_supervisor is not None:
+            return cls._local_supervisor.server_url
         if config["task_id"] or not config["auto_local_server"]:
             return server_url
         if server_url != _SETTINGS["server_url"].default:
@@ -154,10 +161,25 @@ class _Client:
             return server_url  # a real server is listening
         except OSError:
             pass
-        raise ConnectionError(
-            f"no control plane listening at {server_url}, and modal_tpu_torch has no local supervisor to boot "
-            "in its place: start one and set MODAL_TPU_SERVER_URL, or set MODAL_TPU_AUTO_LOCAL_SERVER=0"
-        )
+        from .server.supervisor import LocalSupervisor
+
+        sup = LocalSupervisor(num_workers=1, port=int(port_s))
+        try:
+            await sup.start()
+        except Exception as exc:  # noqa: BLE001 — e.g. lost a port race
+            logger.debug(f"local supervisor auto-boot failed: {exc}")
+            await sup.stop()  # release what did bind (the port)
+            return server_url
+        cls._local_supervisor = sup
+        loop = asyncio.get_running_loop()
+
+        def _shutdown() -> None:
+            if not loop.is_closed() and loop.is_running():
+                asyncio.run_coroutine_threadsafe(sup.stop(), loop).result(timeout=30.0)
+
+        atexit.register(_shutdown)
+        logger.info(f"auto-booted local supervisor at {sup.server_url}")
+        return sup.server_url
 
     @classmethod
     async def from_env(cls) -> "_Client":
@@ -172,7 +194,7 @@ class _Client:
         # ONE handshake instead of racing dials
         async with cls._client_from_env_lock:  # lint: disable=lock-across-await
             if cls._client_from_env is None or cls._client_from_env._closed:
-                server_url = cls._check_local_server(config["server_url"])
+                server_url = await cls._maybe_boot_local_server(config["server_url"])
                 token_id = config["token_id"]
                 token_secret = config["token_secret"]
                 credentials = (token_id, token_secret) if token_id else None

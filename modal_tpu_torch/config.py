@@ -59,20 +59,29 @@ def _to_boolean(x: Any) -> bool:
 
 
 # the JAX package's settings (modal_tpu/config.py:89-160) that a module of
-# the port reads: the client and the cold-start runtime; the others come
-# with the module that reads them
+# the port reads: the client, the control plane, the worker, the container
+# runtime and the cold-start runtime; the others come with the module that
+# reads them
 _SETTINGS: dict[str, _Setting] = {
     "server_url": _Setting("grpc://127.0.0.1:9900"),
-    # when the server_url is the default and nothing listens there, the JAX
-    # client boots an in-process LocalSupervisor; the port's client raises
-    # ConnectionError instead until the port has a supervisor
+    # when the server_url is the default and nothing listens there, the
+    # client boots an in-process LocalSupervisor (client.py)
     "auto_local_server": _Setting(True, _to_boolean),
     "token_id": _Setting(),
     "token_secret": _Setting(),
     "task_id": _Setting(),
-    # local state: snapshots live under <state_dir>/snapshots
+    # a container heartbeats every heartbeat_interval / 3 seconds (io_manager)
+    "heartbeat_interval": _Setting(15.0, float),
+    # local state: the control plane's blobs, task dirs and traces, and
+    # snapshots under <state_dir>/snapshots
     "state_dir": _Setting(os.path.expanduser("~/.modal_tpu_state")),
-    "compilation_cache_dir": _Setting(os.path.expanduser("~/.modal_tpu_state/jit_cache")),
+    # a worker's placement labels (matched against SchedulerPlacement)
+    "worker_region": _Setting(""),
+    "worker_zone": _Setting(""),
+    "worker_spot": _Setting(False, _to_boolean),
+    "worker_instance_type": _Setting(""),
+    # per-module import tracing in containers (<task_dir>/imports.jsonl)
+    "import_trace": _Setting(False, _to_boolean),
 }
 
 
@@ -92,8 +101,27 @@ class Config:
             return s.transform(section[key])
         return s.default
 
+    def override_locally(self, key: str, value: str) -> None:
+        """Point a setting elsewhere for this process and its children (a
+        container adopts its task id this way)."""
+        os.environ["MODAL_TPU_" + key.upper()] = value
+
 
 config = Config()
+
+
+# the interpreter's thread switch interval in the processes that hand every
+# input between threads, where CPython's default 5 ms would stall each handoff
+SWITCH_INTERVAL_S = 0.001
+
+
+def tune_switch_interval() -> None:
+    """Set SWITCH_INTERVAL_S in a process that hands every input between
+    threads (the supervisor: caller and loop thread; a container: serving
+    loop and main-thread executor)."""
+    import sys
+
+    sys.setswitchinterval(SWITCH_INTERVAL_S)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

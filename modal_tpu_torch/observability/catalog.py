@@ -214,3 +214,69 @@ def observe_peak_rss() -> float:
     rss *= 1 if sys.platform == "darwin" else 1024  # linux reports KiB
     PEAK_RSS_BYTES.set(rss)
     return float(rss)
+
+
+# -- control plane, scheduler, worker and blob store (server/) ------------------
+
+RPC_LATENCY = REGISTRY.histogram(
+    "modal_tpu_rpc_latency_seconds",
+    "Server-side RPC handler latency (unary methods; every gRPC plane).",
+    ("method",),
+)
+RPC_TOTAL = REGISTRY.counter(
+    "modal_tpu_rpc_total",
+    "Server-side RPC calls by method and outcome (ok|error); streams included.",
+    ("method", "code"),
+)
+SCHED_QUEUE_DEPTH = REGISTRY.gauge(
+    "modal_tpu_scheduler_queue_depth",
+    "Pending (unclaimed) inputs across all functions, sampled per tick.",
+)
+SCHED_PLACEMENT_LATENCY = REGISTRY.histogram(
+    "modal_tpu_scheduler_placement_latency_seconds",
+    "Wall time to place one task/gang (worker pick + chip pin + assignment).",
+    ("kind",),
+)
+SCHED_TASKS_LAUNCHED = REGISTRY.counter(
+    "modal_tpu_scheduler_tasks_launched_total",
+    "Tasks handed to workers, by kind (task|gang_member|sandbox).",
+    ("kind",),
+)
+SCHED_TASKS_REAPED = REGISTRY.counter(
+    "modal_tpu_scheduler_tasks_reaped_total",
+    "Dead/stuck tasks force-reaped, by reason.",
+    ("reason",),
+)
+INPUT_QUEUE_WAIT = REGISTRY.histogram(
+    "modal_tpu_input_queue_wait_seconds",
+    "Enqueue-to-claim wait per input (the queue segment of E2E latency).",
+)
+WORKER_HEARTBEATS = REGISTRY.counter(
+    "modal_tpu_worker_heartbeats_total",
+    "Worker heartbeats received by the control plane.",
+)
+TASK_RESULTS = REGISTRY.counter(
+    "modal_tpu_task_results_total",
+    "Container final results, by GenericResult status name.",
+    ("status",),
+)
+BLOB_BYTES = REGISTRY.counter(
+    "modal_tpu_blob_bytes_total",
+    "Blob HTTP payload bytes by direction (in=uploads, out=downloads).",
+    ("direction",),
+)
+BLOB_REQUESTS = REGISTRY.counter(
+    "modal_tpu_blob_requests_total",
+    "Blob HTTP requests by route and status class.",
+    ("route", "code"),
+)
+BLOB_SPILLS = REGISTRY.counter(
+    "modal_tpu_blob_spills_total",
+    "Blob downloads spilled to disk and returned as mmap-backed views instead of bytes.",
+)
+DISPATCH_EXCHANGES = REGISTRY.counter(
+    "modal_tpu_dispatch_exchange_total",
+    "Container turnarounds on the merged FunctionExchange RPC, by payload "
+    "(with_outputs = PutOutputs piggybacked on the claim, claim_only).",
+    ("carried",),
+)

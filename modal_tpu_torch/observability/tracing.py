@@ -1,11 +1,12 @@
-"""Spans for the serving engine's per-request timeline and the SDK client's
-RPCs.
+"""Spans for the serving engine's per-request timeline, the SDK client's
+RPCs, the control plane's handlers and placements, and a container's boot.
 
 The span model is the JAX package's (trace_id/span_id/parent_id, name,
 start/end wall-clock seconds, attrs, timestamped events), and so are the
 gRPC metadata keys that carry a caller's context to the server. Finished
 spans go to ``spans-<pid>.jsonl`` under the directory given to
-`configure(trace_dir)`.
+`configure(trace_dir)`; a supervisor configures `<state_dir>/traces` and
+its workers export it to their containers (`maybe_configure_from_env`).
 Without it, spans still carry ids (so children stitch under their parent)
 but nothing is written. In-process observers registered with
 `add_span_tap` see every finished span, sink or no sink.
@@ -27,6 +28,12 @@ from typing import Any, Iterator, Optional
 # gRPC metadata keys of a propagated span context (the JAX package's)
 TRACE_ID_METADATA_KEY = "x-modal-tpu-trace-id"
 SPAN_ID_METADATA_KEY = "x-modal-tpu-span-id"
+# what a worker exports to its containers: the span sink's directory, the
+# launching input's context ("trace_id:span_id") and the wall-clock time of
+# the spawn decision, where a container's boot span starts
+TRACE_DIR_ENV = "MODAL_TPU_TRACE_DIR"
+TRACE_CONTEXT_ENV = "MODAL_TPU_TRACE_CONTEXT"
+TRACE_T0_ENV = "MODAL_TPU_TRACE_T0"
 
 
 def new_trace_id() -> str:
@@ -78,16 +85,44 @@ class Span:
 
 _sink_lock = threading.Lock()
 _sink_file = None
+_sink_dir: Optional[str] = None
 
 
 def configure(trace_dir: str) -> None:
     """Append finished spans as JSON lines under `trace_dir`."""
-    global _sink_file
+    global _sink_file, _sink_dir
     os.makedirs(trace_dir, exist_ok=True)
     with _sink_lock:
         if _sink_file is not None:
             _sink_file.close()
         _sink_file = open(os.path.join(trace_dir, f"spans-{os.getpid()}.jsonl"), "a", buffering=1)
+        _sink_dir = trace_dir
+
+
+def maybe_configure_from_env() -> None:
+    """Container side: adopt the span sink the worker exported."""
+    if os.environ.get(TRACE_DIR_ENV):
+        configure(os.environ[TRACE_DIR_ENV])
+
+
+def trace_dir() -> Optional[str]:
+    return _sink_dir
+
+
+def read_spans(trace_dir_path: str) -> list[dict]:
+    """Every span written under `trace_dir_path`, across the processes'
+    files; a torn last line (a process killed mid-write) is skipped."""
+    spans: list[dict] = []
+    for name in sorted(os.listdir(trace_dir_path)):
+        if not (name.startswith("spans-") and name.endswith(".jsonl")):
+            continue
+        with open(os.path.join(trace_dir_path, name)) as f:
+            for line in f:
+                try:
+                    spans.append(json.loads(line))
+                except ValueError:
+                    continue
+    return spans
 
 
 _span_taps: list = []
@@ -138,6 +173,34 @@ def context_metadata(ctx: Optional[SpanContext] = None) -> list[tuple[str, str]]
     if ctx is None:
         return []
     return [(TRACE_ID_METADATA_KEY, ctx.trace_id), (SPAN_ID_METADATA_KEY, ctx.span_id)]
+
+
+def extract_metadata(metadata: Any) -> Optional[SpanContext]:
+    """The caller's span context from gRPC invocation metadata, if any."""
+    if not metadata:
+        return None
+    md = dict(metadata)
+    trace_id = md.get(TRACE_ID_METADATA_KEY, "")
+    if not trace_id:
+        return None
+    return SpanContext(str(trace_id), str(md.get(SPAN_ID_METADATA_KEY, "")))
+
+
+def format_context(ctx: Optional[SpanContext]) -> str:
+    """`"trace_id:span_id"`: the one-string form an input carries to its
+    container (FunctionGetInputsItem.trace_context, MODAL_TPU_TRACE_CONTEXT)."""
+    return "" if ctx is None else f"{ctx.trace_id}:{ctx.span_id}"
+
+
+def parse_context(value: Optional[str]) -> Optional[SpanContext]:
+    if not value or ":" not in value:
+        return None
+    trace_id, _, span_id = value.partition(":")
+    return SpanContext(trace_id, span_id) if trace_id else None
+
+
+def context_from_env() -> Optional[SpanContext]:
+    return parse_context(os.environ.get(TRACE_CONTEXT_ENV, ""))
 
 
 def _child(name: str, parent: Optional[SpanContext], start: Optional[float], attrs) -> Span:

@@ -75,6 +75,13 @@ NEW_MESSAGES: dict[str, tuple[str, list[tuple[str, int, int, int, str]], dict[st
 # must read the port's gpu_config as an unknown field, not as a tpu_config
 NEW_FIELDS: list[tuple[str, str, int, int, int, str]] = [
     ("Resources", "gpu_config", 7, F.TYPE_MESSAGE, F.LABEL_OPTIONAL, "GPUConfig"),
+    # a worker's card inventory and the cards pinned to a task: beside the
+    # TPU fields, never in their place, so a JAX control plane reads a port
+    # worker's cards as unknown fields and never as chips
+    ("WorkerRegisterRequest", "gpu_type", 15, F.TYPE_STRING, F.LABEL_OPTIONAL, ""),
+    ("WorkerRegisterRequest", "num_gpus", 16, F.TYPE_UINT32, F.LABEL_OPTIONAL, ""),
+    ("TaskAssignment", "gpu_ids", 7, F.TYPE_UINT32, F.LABEL_REPEATED, ""),
+    ("TaskInfo", "gpu_ids", 13, F.TYPE_UINT32, F.LABEL_REPEATED, ""),
 ]
 
 

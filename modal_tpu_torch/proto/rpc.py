@@ -3,11 +3,11 @@ contract (modal_tpu/proto/rpc.py), over the port's messages.
 
 Names, request and response messages, arity and the method paths are the
 JAX package's, and the paths keep its service name: the path *is* the wire
-contract, so the port's client talks to the JAX control plane (and, once
-the port has one, the JAX client to the port's). The grpc.aio client
-multicallables derive from the registry; the server's generic handler and
-its middleware (tracing, idempotency dedupe, quorum commit) come with the
-port's control plane.
+contract, so the port's client talks to the JAX control plane and the JAX
+client to the port's. The grpc.aio client multicallables derive from the
+registry, and so does the server's generic handler: every RPC the servicer
+implements, wrapped in the JAX server's middleware (tracing and metrics,
+idempotency dedupe, quorum commit); every other RPC answers UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -339,3 +339,108 @@ class ModalTPUStub(_StubBase):
 
 class TaskRouterStub(_StubBase):
     _registry = ROUTER_RPCS
+
+
+def _instrument_unary(name: str, impl: Any) -> Any:
+    """Server-side handler wrapper: opens a server span under the caller's
+    trace context (from the gRPC metadata) when the caller traces, and
+    records the RPC's latency and outcome for every call."""
+    import time as _time
+
+    from ..observability import tracing
+    from ..observability.catalog import RPC_LATENCY, RPC_TOTAL
+
+    async def instrumented(request, context, _impl=impl, _name=name):
+        ctx = tracing.extract_metadata(context.invocation_metadata())
+        t0 = _time.perf_counter()
+        code = "ok"
+        try:
+            if ctx is not None:
+                with tracing.span(f"rpc.server.{_name}", parent=ctx):
+                    return await _impl(request, context)
+            return await _impl(request, context)
+        except BaseException:
+            code = "error"
+            raise
+        finally:
+            RPC_LATENCY.observe(
+                _time.perf_counter() - t0, method=_name, exemplar=ctx.trace_id if ctx is not None else None
+            )
+            RPC_TOTAL.inc(method=_name, code=code)
+
+    return instrumented
+
+
+def _instrument_stream(name: str, impl: Any) -> Any:
+    """Streams (log tails, worker polls) are long-lived: count calls, but
+    keep no latency histogram (a poll's duration measures patience)."""
+    from ..observability.catalog import RPC_TOTAL
+
+    async def instrumented(request, context, _impl=impl, _name=name):
+        code = "ok"
+        try:
+            async for item in _impl(request, context):
+                yield item
+        except BaseException:
+            code = "error"
+            raise
+        finally:
+            RPC_TOTAL.inc(method=_name, code=code)
+
+    return instrumented
+
+
+def _maybe_dedupe(servicer: Any, method: RPCMethod, impl: Any) -> Any:
+    """Exactly-once layer for mutating RPCs: with a journal-backed
+    idempotency cache on the servicer, a request whose `x-idempotency-key`
+    was already answered replays the cached response. The port's control
+    plane keeps its state in memory, so the cache is None and this returns
+    `impl` as it is, as the JAX layer does with its journal off; the cache
+    comes with the journal (ROADMAP Queue A 4b')."""
+    if getattr(servicer, "idempotency", None) is None:
+        return impl
+    raise NotImplementedError("the idempotency cache comes with the journal (ROADMAP Queue A 4b')")
+
+
+def _maybe_quorum(servicer: Any, method: RPCMethod, impl: Any) -> Any:
+    """Quorum-commit layer for journaled RPCs: holds a response until a
+    quorum of followers has the journal's records. Without a replicator on
+    the servicer (no journal) this returns `impl` as it is, the JAX layer's
+    degraded path; replication comes with the journal (ROADMAP Queue A 4b')."""
+    if getattr(servicer, "replicator", None) is None:
+        return impl
+    raise NotImplementedError("journal replication comes with the journal (ROADMAP Queue A 4b')")
+
+
+def _build_handler(servicer: Any, registry: dict[str, RPCMethod], service_name: str) -> "grpc.GenericRpcHandler":
+    import grpc
+
+    handlers = {}
+    for method in registry.values():
+        impl = getattr(servicer, method.name, None)
+        if impl is None:
+            continue  # grpc answers UNIMPLEMENTED for a method with no handler
+        kwargs = dict(
+            request_deserializer=method.request_type.FromString,
+            response_serializer=method.response_type.SerializeToString,
+        )
+        if method.arity == Arity.UNARY_UNARY:
+            handlers[method.name] = grpc.unary_unary_rpc_method_handler(
+                _instrument_unary(method.name, _maybe_quorum(servicer, method, _maybe_dedupe(servicer, method, impl))),
+                **kwargs,
+            )
+        elif method.arity == Arity.UNARY_STREAM:
+            handlers[method.name] = grpc.unary_stream_rpc_method_handler(
+                _instrument_stream(method.name, impl), **kwargs
+            )
+        elif method.arity == Arity.STREAM_UNARY:
+            handlers[method.name] = grpc.stream_unary_rpc_method_handler(impl, **kwargs)
+        else:
+            handlers[method.name] = grpc.stream_stream_rpc_method_handler(impl, **kwargs)
+    return grpc.method_handlers_generic_handler(service_name, handlers)
+
+
+def build_generic_handler(servicer: Any) -> "grpc.GenericRpcHandler":
+    """Route every registered control-plane RPC to a same-named async method
+    of `servicer`; RPCs it does not implement answer UNIMPLEMENTED."""
+    return _build_handler(servicer, RPCS, SERVICE_NAME)

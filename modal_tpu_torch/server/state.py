@@ -1,0 +1,217 @@
+"""Control-plane state: the in-memory data model (port of
+modal_tpu/server/state.py).
+
+The function path's part of the JAX package's model: apps, functions, their
+input queues and calls, tasks and workers, plus the on-disk blob store and
+the fleet compile cache. A worker holds GPUs: a type (the card's full name),
+a count, and which cards are pinned to which task.
+
+The state lives in memory only, as the JAX control plane's does with
+`MODAL_TPU_JOURNAL=0`: `journal`, `idempotency` and `replicator` stay None
+until the port has the journal (ROADMAP Queue A 4b'). Gangs, volumes,
+secrets, dicts, queues, images and sandboxes come with their sub-slices.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import itertools
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from ..proto import api_pb2
+from .compile_cache import CompileCacheStore
+
+_id_counters: dict[str, itertools.count] = {}
+
+
+def make_id(prefix: str) -> str:
+    """`<prefix>-NNNNNNNN`, the JAX control plane's ids of its first shard."""
+    counter = _id_counters.setdefault(prefix, itertools.count(1))
+    return f"{prefix}-{next(counter):08d}"
+
+
+@dataclass
+class AppState:
+    app_id: str
+    description: str = ""
+    name: str = ""
+    state: int = api_pb2.APP_STATE_INITIALIZING
+    environment_name: str = ""
+    created_at: float = field(default_factory=time.time)
+    stopped_at: float = 0.0
+    last_heartbeat: float = field(default_factory=time.time)
+    function_ids: dict[str, str] = field(default_factory=dict)
+    class_ids: dict[str, str] = field(default_factory=dict)
+    deployment_history: list[api_pb2.AppDeploymentHistory] = field(default_factory=list)
+    version: int = 0
+    log_entries: list[api_pb2.TaskLogs] = field(default_factory=list)
+    log_condition: asyncio.Condition = field(default_factory=asyncio.Condition)
+    done: bool = False
+
+
+@dataclass
+class InputState:
+    input_id: str
+    function_call_id: str
+    idx: int
+    input: api_pb2.FunctionInput
+    status: str = "pending"  # pending | claimed | done | cancelled
+    retry_count: int = 0
+    claimed_by: str = ""  # task_id
+    claimed_at: float = 0.0
+    created_at: float = field(default_factory=time.time)
+    # checkpoint recorded by a preempted attempt (ContainerCheckpoint):
+    # redelivered with the input so the retry resumes instead of restarting
+    resume_token: str = ""
+    # "trace_id:span_id" of the submitting RPC, redelivered with the input
+    trace_context: str = ""
+
+
+@dataclass
+class FunctionCallState:
+    function_call_id: str
+    function_id: str
+    call_type: int = api_pb2.FUNCTION_CALL_TYPE_UNARY
+    invocation_type: int = api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC
+    created_at: float = field(default_factory=time.time)
+    input_ids: list[str] = field(default_factory=list)
+    outputs: list[api_pb2.FunctionGetOutputsItem] = field(default_factory=list)
+    outputs_consumed: int = 0
+    output_condition: asyncio.Condition = field(default_factory=asyncio.Condition)
+    data_chunks: list[api_pb2.DataChunk] = field(default_factory=list)
+    data_condition: asyncio.Condition = field(default_factory=asyncio.Condition)
+    num_inputs: int = 0
+    num_done: int = 0
+    cancelled: bool = False
+    return_exceptions: bool = False
+    first_output_at: float = 0.0
+    # ("input_id:retry_count") of every delivered output: a requeued input
+    # whose dead attempt already reported cannot deliver twice
+    output_keys: set = field(default_factory=set)
+
+
+@dataclass
+class FunctionState:
+    function_id: str
+    app_id: str
+    tag: str
+    definition: api_pb2.Function
+    created_at: float = field(default_factory=time.time)
+    # queue of pending input_ids awaiting a container
+    pending: list[str] = field(default_factory=list)
+    input_condition: asyncio.Condition = field(default_factory=asyncio.Condition)
+    task_ids: set[str] = field(default_factory=set)
+    init_failures: int = 0  # consecutive container INIT_FAILUREs
+    placement_unsat_since: float = 0.0  # when placement first looked unsatisfiable
+    bound_parent: Optional[str] = None  # parametrized variant parent id
+    serialized_params: bytes = b""
+    autoscaler_override: Optional[api_pb2.AutoscalerSettings] = None
+    # EWMA of per-call wall time reported by containers on FunctionGetInputs:
+    # shapes the autoscaler's drain-time estimate
+    reported_call_time: float = 0.0
+
+    @property
+    def autoscaler(self) -> api_pb2.AutoscalerSettings:
+        return self.autoscaler_override or self.definition.autoscaler_settings
+
+
+@dataclass
+class TaskState_:
+    task_id: str
+    function_id: str
+    app_id: str
+    state: int = api_pb2.TASK_STATE_QUEUED
+    worker_id: str = ""
+    created_at: float = field(default_factory=time.time)
+    started_at: float = 0.0
+    first_input_at: float = 0.0
+    first_output_at: float = 0.0
+    finished_at: float = 0.0
+    last_heartbeat: float = 0.0
+    cancelled_input_ids: list[str] = field(default_factory=list)
+    terminate: bool = False
+    preempted: bool = False
+    result: Optional[api_pb2.GenericResult] = None
+    gpu_ids: list[int] = field(default_factory=list)
+    # trace context of the input whose backlog caused this launch: the
+    # container's boot spans parent there
+    trace_context: str = ""
+    # the container's previous telemetry push (raw JSON): merges are
+    # delta'd against it (observability/device_telemetry.py)
+    telemetry_prev_json: str = ""
+
+
+@dataclass
+class WorkerState:
+    worker_id: str
+    hostname: str = ""
+    gpu_type: str = ""  # the card's full name, e.g. "NVIDIA H100 80GB HBM3"
+    num_gpus: int = 0
+    milli_cpu: int = 0
+    memory_mb: int = 0
+    container_address: str = ""
+    region: str = ""  # placement labels (SchedulerPlacement matching)
+    zone: str = ""
+    spot: bool = False
+    instance_type: str = ""
+    last_heartbeat: float = field(default_factory=time.time)
+    # assignment channel consumed by the worker's WorkerPoll stream
+    events: asyncio.Queue = field(default_factory=asyncio.Queue)
+    active_tasks: set[str] = field(default_factory=set)
+    gpus_in_use: dict[int, str] = field(default_factory=dict)  # card index -> task_id
+    # preemption drain: no new placements land here; tasks still running
+    # past drain_deadline are force-reaped (their inputs requeue for free)
+    draining: bool = False
+    drain_deadline: float = 0.0
+
+    def free_gpus(self) -> list[int]:
+        return [g for g in range(self.num_gpus) if g not in self.gpus_in_use]
+
+
+class ServerState:
+    """All control-plane state + the on-disk stores."""
+
+    def __init__(self, state_dir: str):
+        self.state_dir = state_dir
+        self.blob_dir = os.path.join(state_dir, "blobs")
+        os.makedirs(self.blob_dir, exist_ok=True)
+        # the fleet compile cache beside the blob store (server/compile_cache.py)
+        self.compile_cache = CompileCacheStore(os.path.join(state_dir, "compile_cache"))
+
+        self.apps: dict[str, AppState] = {}
+        self.deployed_apps: dict[tuple[str, str], str] = {}  # (env, name) -> app_id
+        self.functions: dict[str, FunctionState] = {}
+        self.deployed_functions: dict[tuple[str, str, str], str] = {}  # (env, app_name, tag) -> fn_id
+        self.inputs: dict[str, InputState] = {}
+        self.function_calls: dict[str, FunctionCallState] = {}
+        self.tasks: dict[str, TaskState_] = {}
+        self.workers: dict[str, WorkerState] = {}
+        self.blob_url_base: str = ""  # set by the blob server once it is up
+        # input-plane JWTs (AuthTokenGet): HS256 secret of this control plane
+        self.auth_secret: bytes = os.urandom(32)
+
+        # scheduling wakeup
+        self.schedule_event = asyncio.Event()
+
+        # the durable control plane's hooks (the JAX package's
+        # server/journal.py and server/replication.py), read by proto/rpc.py's
+        # _maybe_dedupe and _maybe_quorum: None while the state is in memory
+        # only (ROADMAP Queue A 4b')
+        self.journal = None
+        self.idempotency = None
+        self.replicator = None
+
+    def make_id(self, prefix: str) -> str:
+        return make_id(prefix)
+
+    def blob_path(self, blob_id: str) -> str:
+        return os.path.join(self.blob_dir, blob_id)
+
+    async def notify_logs(self, app_id: str) -> None:
+        app = self.apps.get(app_id)
+        if app is not None:
+            async with app.log_condition:
+                app.log_condition.notify_all()

@@ -30,7 +30,6 @@ from modal_tpu_torch import config as tconfig
 from modal_tpu_torch import object as tobject
 from modal_tpu_torch._utils import async_utils as tasync
 from modal_tpu_torch._utils import grpc_utils as tgrpc
-from modal_tpu_torch.exception import ConnectionError as TConnectionError
 from modal_tpu_torch.exception import NotFoundError
 from modal_tpu_torch.proto import api_pb2
 from modal_tpu_torch.serialization import deserialize, serialize
@@ -227,23 +226,42 @@ def test_resolver_dedups_concurrent_loads(supervisor, port_client):
     assert {o.object_id for o in resolver.objects} == {a.object_id, b.object_id}
 
 
-def test_a_refused_default_url_raises_connection_error(monkeypatch):
-    """Where the JAX client would boot a LocalSupervisor, the port raises;
-    with auto_local_server off it connects lazily, as the JAX client does."""
+def test_a_refused_default_url_raises_connection_error(monkeypatch, tmp_path):
+    """Where the JAX client boots a LocalSupervisor (the default URL, nothing
+    listening, auto_local_server on, not in a container), the port's client
+    boots the port's on that port and talks to it; with auto_local_server
+    off it connects lazily, as the JAX client does, and the refused
+    connection surfaces on the first RPC."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     url = f"grpc://127.0.0.1:{port}"  # nothing listens there
     monkeypatch.setitem(tconfig._SETTINGS, "server_url", tconfig._Setting(url))
     monkeypatch.delenv("MODAL_TPU_SERVER_URL", raising=False)
+    monkeypatch.delenv("MODAL_TPU_TASK_ID", raising=False)
+    monkeypatch.setenv("MODAL_TPU_STATE_DIR", str(tmp_path / "state"))
+    monkeypatch.setenv("MODAL_TPU_WORKER_GPU_TYPE", "local-sim")
     monkeypatch.setenv("MODAL_TPU_AUTO_LOCAL_SERVER", "1")
     tclient._Client.set_env_client(None)
-    with pytest.raises(TConnectionError, match="no control plane listening"):
-        tclient.Client.from_env()
+    client = tclient.Client.from_env()
+    sup = tclient._Client._local_supervisor
+    try:
+        assert type(sup).__module__ == "modal_tpu_torch.server.supervisor" and sup.server_url == url
+        assert client.server_url == url and client.image_builder_version == "2026.07"  # hello() answered
+        workers = _run(tgrpc.retry_transient_errors(client.stub.AppList, api_pb2.AppListRequest()))
+        assert list(workers.apps) == [] and len(sup.state.workers) == 1
+    finally:
+        client._close()
+        tclient._Client.set_env_client(None)
+        tclient._Client._local_supervisor = None
+        _run(sup.stop())
     monkeypatch.setenv("MODAL_TPU_AUTO_LOCAL_SERVER", "0")
     client = tclient.Client.from_env()
     try:
         assert client.server_url == url and client.image_builder_version is None
+        assert tclient._Client._local_supervisor is None
+        with pytest.raises(Exception, match="UNAVAILABLE|failed to connect|Connection refused"):
+            _run(tgrpc.retry_transient_errors(client.stub.AppList, api_pb2.AppListRequest(), max_retries=0))
     finally:
         client._close()  # blocking: synchronize_api wrapped the client's coroutines
         tclient._Client.set_env_client(None)

@@ -210,6 +210,80 @@ def test_port_serves_with_jax_and_modal_tpu_unimportable(tmp_path):
     assert "snapshot saved and restored" in proc.stdout
 
 
+def test_the_control_plane_serves_a_container_with_jax_and_modal_tpu_unimportable(tmp_path):
+    """The port's supervisor, worker and a container answer an input with
+    jax, optax and the JAX package unimportable in the parent and in the
+    container alike (a `sitecustomize` on PYTHONPATH blocks them in every
+    interpreter the worker spawns)."""
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'modal_tpu', 'optax', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None  # any import of them raises ImportError\n"
+    )
+    code = textwrap.dedent(
+        """
+        import sys, time
+        from modal_tpu_torch._utils.async_utils import synchronizer
+        from modal_tpu_torch._utils.grpc_utils import retry_transient_errors
+        from modal_tpu_torch.client import _Client
+        from modal_tpu_torch.proto import api_pb2
+        from modal_tpu_torch.serialization import deserialize, serialize
+        from modal_tpu_torch.server.supervisor import LocalSupervisor
+
+        def probe(x):
+            import sys as _sys
+            import modal_tpu_torch.runtime.container_entrypoint  # noqa: F401 — already loaded
+            try:
+                import jax  # noqa: F401
+                blocked = False
+            except ImportError:
+                blocked = True
+            leaked = sorted(m for m in _sys.modules if m.split(".")[0] in ("jax", "modal_tpu")
+                            and _sys.modules[m] is not None)
+            return {"x": x + 1, "blocked": blocked, "leaked": leaked}
+
+        sup = LocalSupervisor(num_workers=1, state_dir=sys.argv[1], worker_gpus=1, worker_gpu_type="local-sim")
+        synchronizer.run(sup.start())
+        client = _Client(sup.server_url)
+        client._open()
+
+        def call(name, req):
+            return synchronizer.run(retry_transient_errors(getattr(client.stub, name), req))
+
+        try:
+            app = call("AppCreate", api_pb2.AppCreateRequest())
+            fdef = api_pb2.Function(function_name="probe", definition_type="serialized",
+                                    function_serialized=serialize(probe))
+            fn = call("FunctionCreate", api_pb2.FunctionCreateRequest(app_id=app.app_id, function=fdef))
+            item = api_pb2.FunctionPutInputsItem(idx=0, input=api_pb2.FunctionInput(args=serialize(((41,), {}))))
+            fc = call("FunctionMap", api_pb2.FunctionMapRequest(function_id=fn.function_id, pipelined_inputs=[item]))
+            for _ in range(12):
+                out = call("FunctionGetOutputs", api_pb2.FunctionGetOutputsRequest(
+                    function_call_id=fc.function_call_id, timeout=10, clear_on_success=True)).outputs
+                if out:
+                    break
+            result = out[0].result
+            assert result.status == api_pb2.GENERIC_STATUS_SUCCESS, result.traceback
+            print("container", deserialize(result.data))
+        finally:
+            client._close()
+            synchronizer.run(sup.stop())
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "modal_tpu") and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("parent clean")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = os.pathsep.join([str(block), REPO])
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "state")], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "container {'x': 42, 'blocked': True, 'leaked': []}" in proc.stdout
+    assert "parent clean" in proc.stdout
+
+
 def test_every_module_of_the_port_is_scanned():
     """The modules of each slice, this one's included, are among the sources
     the import scan reads (a new module cannot slip past it)."""
@@ -223,7 +297,11 @@ def test_every_module_of_the_port_is_scanned():
                 "gpu_config.py", "retries.py", "client.py", "object.py", "serialization.py", "_logs.py",
                 "_output.py", "proto/rpc.py", "proto/regen.py", "proto/api_pb2.py", "_utils/async_utils.py",
                 "_utils/grpc_utils.py", "_utils/hash_utils.py", "_utils/cbor.py", "_utils/jwt_utils.py",
-                "_utils/auth_token_manager.py", "_utils/traceback_utils.py"):
+                "_utils/auth_token_manager.py", "_utils/traceback_utils.py", "_utils/blob_utils.py",
+                "partial_function.py", "server/state.py", "server/scheduler.py", "server/services.py",
+                "server/blob_server.py", "server/worker.py", "server/supervisor.py", "server/__main__.py",
+                "runtime/execution_context.py", "runtime/main_thread_exec.py", "runtime/io_manager.py",
+                "runtime/user_code.py", "runtime/container_entrypoint.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
