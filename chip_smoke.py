@@ -61,7 +61,22 @@ result line):
               K4 exactly n_layers per decode step, streams equal to serve's;
               each call's boot split from the control plane's span sink;
               then gpu="H100:2" refused as unsatisfiable after the grace
-              window, no task launched. Then the llama3-8b replica booted
+              window, no task launched. The control plane journals (its
+              default): a FunctionMap of two inputs, sent under one
+              idempotency key, runs in the warm container until the first
+              output is in and the second input is claimed; then
+              `crash_restart` kills the plane and its containers and
+              rebuilds it from the journal on the same ports and socket
+              (the recovery report printed); the same FunctionMap re-sent
+              across the restart must answer the same call and create none;
+              the second input must run again in a new container and each
+              idx deliver exactly one output, with the logits' sha256 of
+              the earlier inputs. Its 4.1 MB result is fetched by path and
+              over HTTP, 5 rounds each in turns, bytes equal; the
+              containers' own uploads of their results and the rung of
+              each of a container's RPCs come from their spans; the journal's
+              appends, bytes and append time are read over the phase.
+              Then the llama3-8b replica booted
               twice as containers of a second control plane (its own fleet
               store and snapshot dir): a serialized class whose
               `@enter(snap=True)` builds the state (init_params, seed 0,
@@ -2304,11 +2319,15 @@ def _worker_serving_fn(cfg_name: str, seed: int, prompts: list):
 
         import torch
 
+        from modal_tpu_torch.runtime import telemetry
+
         torch.cuda.reset_peak_memory_stats()
         out = serve()
         out.update(pid=os.getpid(), cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
                    peak_device_bytes=torch.cuda.max_memory_allocated(),
-                   logits_sha256=hashlib.sha256(out["logits"].cpu().numpy().tobytes()).hexdigest())
+                   logits_sha256=hashlib.sha256(out["logits"].cpu().numpy().tobytes()).hexdigest(),
+                   imports_top=[{"module": e["module"], "s": e["duration_s"]}
+                                for e in telemetry.summarize(os.environ["MODAL_TPU_TELEMETRY_PATH"], top=5)])
         return out
 
     return serve_in_container
@@ -2525,13 +2544,15 @@ def _spans_of(sup, trace_id: str) -> dict:
     return {s["name"]: s for s in tracing.read_spans(tracing.trace_dir()) if s["trace_id"] == trace_id}
 
 
-BOOT_PARTS = ("container.imports", "container.snapshot_state", "container.enter_hooks", "container.aot_lower")
+BOOT_PARTS = ("container.import_torch", "container.imports", "container.snapshot_state", "container.enter_hooks",
+              "container.aot_lower")
 
 
 def _boot_split(sup, task, call: dict) -> dict:
     """A container's boot from the worker's spawn decision, by part: the
-    interpreter up to ContainerHello (python, `import torch`, the runtime,
-    the client), the user's code, the snapshot state (restore, or enter and
+    interpreter up to ContainerHello (python, the runtime, the client), then
+    `import torch` on the main thread (a function that asks for a card), the
+    user's code, the snapshot state (restore, or enter and
     save), the other enter hooks, the AOT warm-up, then to the first output
     (the first input's execution). FunctionMap → first output on the
     client's clock beside it. Every part must have its span, and the AOT
@@ -2545,16 +2566,20 @@ def _boot_split(sup, task, call: dict) -> dict:
     errors = spans["container.aot_lower"]["attrs"].get("errors")
     if errors:
         raise AssertionError(f"worker: the container's AOT warm-up failed: {errors}")
+    if spans["container.import_torch"]["attrs"]["thread"] != "MainThread":
+        raise AssertionError(f"worker: torch loaded on {spans['container.import_torch']['attrs']['thread']}")
     t0, ready = spans["container.boot"]["start"], spans["container.boot"]["end"]
     part = {name: spans[name]["end"] - spans[name]["start"] for name in BOOT_PARTS}
     return {
         "spawn_to_hello_s": task.started_at - t0,
+        "import_torch_s": part["container.import_torch"],
         "user_import_s": part["container.imports"],
         "snapshot_state_s": part["container.snapshot_state"],
         "enter_s": part["container.enter_hooks"],
         "aot_s": part["container.aot_lower"],
         "spawn_to_ready_s": ready - t0,
         "spawn_to_first_output_s": task.first_output_at - t0,
+        "hello_to_first_output_s": task.first_output_at - task.started_at,
         "map_to_output_s": call["t_output"] - call["t_map"],
         "spawn_at": t0,
     }
@@ -2562,7 +2587,8 @@ def _boot_split(sup, task, call: dict) -> dict:
 
 def _split_line(b: dict) -> str:
     return (f"FunctionMap → output {b['map_to_output_s']:.2f}s; from the spawn: ContainerHello "
-            f"{b['spawn_to_hello_s']:.2f}s, user import {b['user_import_s']:.3f}s, snapshot state "
+            f"{b['spawn_to_hello_s']:.2f}s, import torch {b['import_torch_s']:.2f}s, user import "
+            f"{b['user_import_s']:.3f}s, snapshot state "
             f"{b['snapshot_state_s']:.2f}s, enter {b['enter_s']:.3f}s, AOT {b['aot_s']:.2f}s, ready "
             f"{b['spawn_to_ready_s']:.2f}s, first output {b['spawn_to_first_output_s']:.2f}s")
 
@@ -2571,25 +2597,26 @@ def _boot_line(b: dict) -> str:
     """A coldstart boot from the spawn to its first token (this script's
     checksums left out), part by part; "other" is what no part covers."""
     gb = b["state_bytes"] / 1e9
-    snap = b["split"]["snapshot_state_s"]
+    sp = b["split"]
+    snap = sp["snapshot_state_s"]
     if b["restored"]:
         state = f"restore {snap:.2f}s ({gb / snap:.2f} GB/s)"
     else:
         save = snap - b["init_s"]
         state = f"init {b['init_s']:.2f}s + save {save:.2f}s ({gb / save:.2f} GB/s)"
-    sp = b["split"]
-    parts = (sp["spawn_to_hello_s"] + sp["user_import_s"] + snap + sp["enter_s"] + sp["aot_s"] + b["capture_s"]
-             + b["submit_to_first_token_s"])
+    parts = (sp["spawn_to_hello_s"] + sp["import_torch_s"] + sp["user_import_s"] + snap + sp["enter_s"] + sp["aot_s"]
+             + b["capture_s"] + b["submit_to_first_token_s"])
     top = ", ".join(f"{e['module']} {e['s']:.2f}s" for e in b["imports_top"])
     return (f"spawn → first token {b['first_token_s']:.2f}s = spawn → ContainerHello {sp['spawn_to_hello_s']:.2f}s "
-            f"({top}) + user import {sp['user_import_s']:.3f}s + {state} (CUDA init inside) + kernels "
+            f"+ import torch {sp['import_torch_s']:.2f}s + user import {sp['user_import_s']:.3f}s + {state} (CUDA "
+            f"init inside) + kernels "
             f"{sp['aot_s']:.2f}s ({b['nvcc_runs']} nvcc runs, {b['fleet_hits']} fleet hits, {b['fleet_puts']} "
             f"puts) + graph capture {b['capture_s']:.2f}s + submit → first token {b['submit_to_first_token_s']:.2f}s "
             f"+ other {b['first_token_s'] - parts:.2f}s (checksums, {b['checks_s']:.2f}s, left out); first-request "
             f"TTFT {b['ttft_first_request_s']:.3f}s; peak RSS "
             + (f"{b['peak_rss_bytes'] / 1e9:.2f} GB (sampled every 10 ms from the class's instantiation on)"
                if b["peak_rss_bytes"] else "not measured")
-            + f", peak device {b['peak_device_bytes'] / 1e9:.2f} GB")
+            + f", peak device {b['peak_device_bytes'] / 1e9:.2f} GB; the boot's slowest imports: {top}")
 
 
 def _worker_env(root: str) -> dict:
@@ -2710,7 +2737,9 @@ def _serve_through_worker(torch, ctx: dict, sup, smi: str) -> None:
             raise AssertionError("worker: a task was launched for the unsatisfiable ask")
         log(f"[worker] gpu={WORKER_UNSAT_GPU!r} on this one-card host: refused after {waited:.2f}s "
             f"(grace {PLACEMENT_UNSAT_GRACE_S}s): {refused['exception']!r}")
+        crash = _crash_restart_through_worker(torch, ctx, sup, plane, fn_id, cfg, first["logits_sha256"], smi)
         plane.stop_app()
+        _fastpath_lines(sup, crash, smi)
     finally:
         plane.close()
     ctx["worker"] = {
@@ -2720,8 +2749,179 @@ def _serve_through_worker(torch, ctx: dict, sup, smi: str) -> None:
         "results": [{k: v for k, v in r.items() if k not in ("logits", "streams")} for r in results],
         "result_bytes": nbytes, "blob_upload_s": up_s, "blob_download_s": down_s,
         "unsat": {"waited_s": waited, "exception": refused["exception"]}, "nvidia_smi": smi,
+        "crash": crash,
     }
 
+
+def _map_outputs(plane, call_id: str, n: int, timeout: float) -> list:
+    """n outputs of one call, taken with clear_on_success."""
+    from modal_tpu_torch.proto import api_pb2
+
+    outs, deadline = [], time.monotonic() + timeout
+    while len(outs) < n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"worker: {len(outs)}/{n} outputs of {call_id} in {timeout}s\n{plane.task_logs()}")
+        outs += plane.call("FunctionGetOutputs", api_pb2.FunctionGetOutputsRequest(
+            function_call_id=call_id, timeout=30, clear_on_success=True)).outputs
+    return list(outs)
+
+
+def _spans_named(name: str) -> list:
+    from modal_tpu_torch.observability import tracing
+
+    return [s for s in tracing.read_spans(tracing.trace_dir()) if s["name"] == name]
+
+
+def _crash_restart_through_worker(torch, ctx: dict, sup, plane, fn_id: str, cfg, want_sha: str, smi: str) -> dict:
+    """Steps 7-9: a FunctionMap of two inputs under one idempotency key into
+    the warm container; once the first output is in and the second input is
+    claimed, the control plane crash-restarts from its journal. The map
+    re-sent across the restart answers the same call; the second input runs
+    again in a new container; each idx delivers one output. Then the second
+    result's blob fetched by path and over HTTP in turns."""
+    from modal_tpu_torch._utils.blob_utils import blob_download
+    from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.serialization import deserialize, serialize
+
+    inp = api_pb2.FunctionInput(args=serialize(((), {})), data_format=api_pb2.DATA_FORMAT_PICKLE)
+    req = api_pb2.FunctionMapRequest(function_id=fn_id, function_call_type=api_pb2.FUNCTION_CALL_TYPE_MAP,
+                                     pipelined_inputs=[api_pb2.FunctionPutInputsItem(idx=i, input=inp) for i in range(2)])
+    key = [("x-idempotency-key", "chip_smoke-crash-map")]
+    t_map = time.time()
+    call_id = plane.run(plane.client.stub.FunctionMap(req, metadata=key, timeout=60)).function_call_id
+    (before,) = _map_outputs(plane, call_id, 1, timeout=300)
+    t_first = time.time()
+    other = [i for i in sup.state.inputs.values() if i.function_call_id == call_id and i.idx != before.idx]
+    deadline = time.monotonic() + 60
+    while other[0].status != "claimed":
+        if time.monotonic() > deadline:
+            raise AssertionError(f"worker: the second input stayed {other[0].status!r} for 60 s")
+        time.sleep(0.005)
+    killed_task = other[0].claimed_by
+    proc = sup.workers[0]._procs.get(killed_task)
+    killed_pid = proc.pid if proc is not None else None
+    claimed_s = time.time() - other[0].claimed_at
+    n_calls = len(sup.state.function_calls)
+    t0 = time.perf_counter()
+    report = plane.run(sup.crash_restart())
+    restart_s = time.perf_counter() - t0
+    if report is None or report["inputs_requeued"] != 1 or report["records_skipped"] != 0:
+        raise AssertionError(f"worker: the recovery report {report}")
+    if len(sup.state.function_calls) != n_calls:
+        raise AssertionError(f"worker: {n_calls} calls before the crash, {len(sup.state.function_calls)} recovered")
+    again = plane.run(plane.client.stub.FunctionMap(req, metadata=key, timeout=60))
+    if again.function_call_id != call_id or len(sup.state.function_calls) != n_calls:
+        raise AssertionError(f"worker: the retried FunctionMap answered {again.function_call_id} (first {call_id}), "
+                             f"{len(sup.state.function_calls)} calls (before {n_calls})")
+    if sup.state.function_calls[call_id].num_inputs != 2:
+        raise AssertionError(f"worker: the call holds {sup.state.function_calls[call_id].num_inputs} inputs after the retry")
+    (after,) = _map_outputs(plane, call_id, 1, timeout=600)
+    t_second = time.time()
+    extra = plane.call("FunctionGetOutputs", api_pb2.FunctionGetOutputsRequest(
+        function_call_id=call_id, timeout=2, clear_on_success=True)).outputs
+    outs = [before, after, *extra]
+    if sorted(o.idx for o in outs) != [0, 1]:
+        raise AssertionError(f"worker: outputs by idx {sorted(o.idx for o in outs)} across the restart, want [0, 1]")
+    got = {}
+    for o in outs:
+        if o.result.status != api_pb2.GENERIC_STATUS_SUCCESS:
+            raise AssertionError(f"worker: idx {o.idx} failed across the restart: {o.result.exception}\n"
+                                 f"{o.result.traceback[-3000:]}\n{plane.task_logs()}")
+        got[o.idx] = deserialize(plane.run(_blob_download(o.result.data_blob_id, plane.client.stub)))
+    for idx, r in got.items():
+        if r["logits_sha256"] != want_sha:
+            raise AssertionError(f"worker: idx {idx}'s logits sha256 {r['logits_sha256']} across the restart, {want_sha} before")
+        if r["paged_decode_launches"] != cfg.n_layers * r["decode_steps"]:
+            raise AssertionError(f"worker: idx {idx}: paged_decode {r['paged_decode_launches']} over {r['decode_steps']} steps")
+        _check_streams("worker crash", r["streams"], cfg.vocab_size)
+        _add_launches(ctx, "paged_decode", r["paged_decode_launches"])
+    late = got[after.idx]
+    (new_task,) = [t for t in sup.state.tasks.values() if t.function_id == fn_id]
+    if late["pid"] == killed_pid or late["pid"] == got[before.idx]["pid"]:
+        raise AssertionError(f"worker: idx {after.idx} came from pid {late['pid']}, the killed attempt's was {killed_pid}")
+    log(f"[worker:crash] FunctionMap of 2 inputs (one idempotency key); idx {before.idx} out after "
+        f"{t_first - t_map:.2f}s; idx {after.idx} claimed by {killed_task} (pid {killed_pid}) {claimed_s:.3f}s before "
+        f"crash_restart ({restart_s * 1e3:.1f} ms): records replayed {report['records_applied']}, inputs requeued "
+        f"{report['inputs_requeued']}, skipped by type {report['skipped_by_type'] or 'none'}, replay "
+        f"{report['seconds'] * 1e3:.2f} ms, open calls {report['open_calls']}, workers awaiting re-adoption "
+        f"{report['workers_pending_adoption']} | {smi}")
+    log(f"[worker:crash] idx {after.idx} ran again: delivered by {new_task.task_id} (pid {late['pid']}, a new container, "
+        f"attempt retry_count {after.retry_count}) {t_second - t_first:.2f}s after the first output; one output per idx; "
+        f"logits sha256 {want_sha[:16]}… on both; the retried FunctionMap answered the same call {call_id} and the "
+        f"plane holds {n_calls} calls, as before")
+    # the blob handoff on and off, in turns
+    plane.client.hello()  # learns the plane's blob dir (and socket) from ClientHello
+    stub, blob_id = plane.client.stub, after.result.data_blob_id
+    ref = bytes(plane.run(_blob_download(blob_id, stub)))
+    saved = os.environ.get("MODAL_TPU_FASTPATH_BLOB")
+    times: dict = {"path": [], "http": []}
+    rungs0 = stub.rungs["BlobDownload:blob_local"]
+    try:
+        for r in range(TIMING_ROUNDS):
+            for mode in (("path", "http") if r % 2 == 0 else ("http", "path")):
+                os.environ["MODAL_TPU_FASTPATH_BLOB"] = "1" if mode == "path" else "0"
+                t0 = time.perf_counter()
+                data = plane.run(blob_download(blob_id, stub))
+                times[mode].append(time.perf_counter() - t0)
+                if bytes(data) != ref:
+                    raise AssertionError(f"worker: the result fetched by {mode} differs")
+    finally:
+        os.environ.pop("MODAL_TPU_FASTPATH_BLOB", None)
+        if saved is not None:
+            os.environ["MODAL_TPU_FASTPATH_BLOB"] = saved
+    if stub.rungs["BlobDownload:blob_local"] - rungs0 != TIMING_ROUNDS:
+        raise AssertionError(f"worker: {stub.rungs['BlobDownload:blob_local'] - rungs0} fetches took the path")
+    med = {m: statistics.median(v) for m, v in times.items()}
+    log(f"[worker:blob] the {len(ref)}-byte result of idx {after.idx}, median of {TIMING_ROUNDS} in turns [min, max]: "
+        f"by path {med['path'] * 1e3:.3f} ms [{min(times['path']) * 1e3:.3f}, {max(times['path']) * 1e3:.3f}] "
+        f"({len(ref) / med['path'] / 1e9:.2f} GB/s), over HTTP {med['http'] * 1e3:.3f} ms "
+        f"[{min(times['http']) * 1e3:.3f}, {max(times['http']) * 1e3:.3f}] ({len(ref) / med['http'] / 1e9:.2f} GB/s); "
+        f"bytes equal | {smi}")
+    return {"call_id": call_id, "report": report, "restart_s": restart_s, "killed_task": killed_task,
+            "killed_pid": killed_pid, "claimed_before_crash_s": claimed_s, "new_task": new_task.task_id,
+            "new_pid": late["pid"], "retry_count": after.retry_count, "first_output_s": t_first - t_map,
+            "second_output_after_first_s": t_second - t_first, "result_bytes": len(ref),
+            "fetch_path_s": times["path"], "fetch_http_s": times["http"],
+            "new_split": _task_split(new_task),
+            "new_imports_top": late["imports_top"]}
+
+
+def _task_split(task) -> dict:
+    """A task's spawn → ContainerHello, its `import torch` and ContainerHello
+    → first output, from its container's spans (found by task id: a task
+    launched for a recovered input carries no trace context)."""
+    (boot,) = [s for s in _spans_named("container.boot") if s["attrs"].get("task_id") == task.task_id]
+    (imp,) = [s for s in _spans_named("container.import_torch") if s["attrs"].get("task_id") == task.task_id]
+    if imp["attrs"]["thread"] != "MainThread":
+        raise AssertionError(f"worker: {task.task_id} loaded torch on {imp['attrs']['thread']}")
+    return {"spawn_to_hello_s": task.started_at - boot["start"], "import_torch_s": imp["end"] - imp["start"],
+            "hello_to_first_output_s": task.first_output_at - task.started_at}
+
+
+def _fastpath_lines(sup, crash: dict, smi: str) -> None:
+    """The containers' own result uploads and the rung each container RPC
+    took, from their spans (a container writes its rung tally at exit: the
+    one killed by the crash has none)."""
+    uploads = _spans_named("container.blob_upload")
+    if not uploads:
+        raise AssertionError("worker: no container.blob_upload span in the plane's trace dir")
+    for s in uploads:
+        a = s["attrs"]
+        log(f"[worker:blob] container {a['task_id']} uploaded its {a['bytes']}-byte result by {a['rung']} in "
+            f"{(s['end'] - s['start']) * 1e3:.2f} ms ({a['bytes'] / max(s['end'] - s['start'], 1e-9) / 1e9:.2f} GB/s)")
+    crash["uploads"] = [{"task_id": s["attrs"]["task_id"], "bytes": s["attrs"]["bytes"], "rung": s["attrs"]["rung"],
+                         "s": s["end"] - s["start"]} for s in uploads]
+    tallies = {s["attrs"]["task_id"]: s["attrs"] for s in _spans_named("container.fastpath")}
+    if crash["new_task"] not in tallies:
+        raise AssertionError(f"worker: the container {crash['new_task']} wrote no container.fastpath span")
+    for task_id, a in sorted(tallies.items()):
+        rungs = a["rungs"]
+        off = {k: n for k, n in rungs.items() if not k.endswith((":uds", ":blob_local"))}
+        if off:
+            raise AssertionError(f"worker: container {task_id} left the local rungs: {off}")
+        log(f"[worker:rungs] container {task_id} (socket {a['uds']}): " + ", ".join(
+            f"{k} {n}" for k, n in sorted(rungs.items())))
+    crash["rungs"] = {task_id: a["rungs"] for task_id, a in tallies.items()}
 
 async def _blob_upload(data, stub) -> str:
     from modal_tpu_torch._utils.blob_utils import blob_upload
@@ -2824,6 +3024,8 @@ def phase_worker(torch, ctx: dict) -> None:
     from modal_tpu_torch._utils.async_utils import synchronizer
     from modal_tpu_torch.models.llama import get_config, init_params_abstract
     from modal_tpu_torch.models.quant import quantized_bytes
+    from modal_tpu_torch.observability.catalog import JOURNAL_APPEND_SECONDS, JOURNAL_APPENDS, JOURNAL_BYTES
+    from modal_tpu_torch.server.journal import Journal
     from modal_tpu_torch.server.supervisor import LocalSupervisor
 
     for key in ("params", "cfg"):  # the containers build their own 16 GB beside this process's context
@@ -2843,6 +3045,11 @@ def phase_worker(torch, ctx: dict) -> None:
         saved[key] = os.environ.pop(key, None)
         if value is not None:
             os.environ[key] = value
+    # the journal's cost over the phase: every append timed (the plane
+    # samples 1 in 32 otherwise)
+    appends0, bytes0, every = JOURNAL_APPENDS.total(), JOURNAL_BYTES.value(), Journal._METRIC_SAMPLE_EVERY
+    JOURNAL_APPEND_SECONDS.clear()
+    Journal._METRIC_SAMPLE_EVERY = 1
     try:
         for root, step in zip(roots, ("serve", "coldstart")):
             # each step has its own control plane: the coldstart's fresh boot
@@ -2864,12 +3071,32 @@ def phase_worker(torch, ctx: dict) -> None:
             finally:
                 synchronizer.run(sup.stop())
     finally:
+        Journal._METRIC_SAMPLE_EVERY = every
         for key, value in saved.items():
             os.environ.pop(key, None)
             if value is not None:
                 os.environ[key] = value
         for root in roots:
             shutil.rmtree(root, ignore_errors=True)
+    w = ctx["worker"]
+    appended, nbytes_j = JOURNAL_APPENDS.total() - appends0, JOURNAL_BYTES.value() - bytes0
+    p50, p99 = JOURNAL_APPEND_SECONDS.quantile(0.5), JOURNAL_APPEND_SECONDS.quantile(0.99)
+    if not appended or p50 is None:
+        raise AssertionError("worker: the control planes journaled nothing")
+    w["journal"] = {"records": appended, "bytes": nbytes_j, "append_p50_s": p50, "append_p99_s": p99,
+                    "append_mean_s": JOURNAL_APPEND_SECONDS.totals()[0] / JOURNAL_APPEND_SECONDS.count_total()}
+    log(f"[worker:journal] the phase's two planes appended {appended:.0f} records, {nbytes_j:.0f} bytes; append time "
+        f"p50 ≤ {p50 * 1e6:.0f} µs, p99 ≤ {p99 * 1e6:.0f} µs (histogram bucket bounds), mean "
+        f"{w['journal']['append_mean_s'] * 1e6:.1f} µs over {JOURNAL_APPEND_SECONDS.count_total()} appends | {smi}")
+    boots = [("serve, cold", w["split_cold"], w["results"][0]["imports_top"]),
+             ("serve, after the restart", w["crash"]["new_split"], w["crash"]["new_imports_top"])]
+    boots += [(f"coldstart, {b['role']}", b["split"], b["imports_top"])
+              for b in (ctx["coldstart"]["fresh"], ctx["coldstart"]["warm"])]
+    for label, split, top in boots:
+        log(f"[worker:hello] {label}: spawn → ContainerHello {split['spawn_to_hello_s']:.2f}s, then import torch "
+            f"{split['import_torch_s']:.2f}s on the main thread; ContainerHello → first output "
+            f"{split['hello_to_first_output_s']:.2f}s (hello with torch loaded before it: 5.95–8.86 s); imports_top: "
+            + ", ".join(f"{e['module']} {e['s']:.2f}s" for e in top) + f" | {smi}")
     ctx["worker"]["parent_peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[worker] this process's peak device memory during the phase "
         f"{ctx['worker']['parent_peak_device_bytes'] / 1e9:.2f} GB | {smi}")

@@ -21,16 +21,18 @@ each module's counterpart is easy to find:
   under the kernel builds (`compile_client.py`), import tracing
   (`telemetry.py`) and the env-gated warm-up of the entry points (`aot.py`);
 - `server/`: the control plane of the function path on one host: state,
-  scheduler (GPU placement), RPC handlers, blob server, worker and
-  `LocalSupervisor` (`python -m modal_tpu_torch.server`), and the fleet
-  compile-cache store (`compile_cache.py`);
+  its write-ahead journal and crash recovery (`journal.py`), scheduler (GPU
+  placement), RPC handlers, blob server, worker and `LocalSupervisor`
+  (`python -m modal_tpu_torch.server`), and the fleet compile-cache store
+  (`compile_cache.py`);
 - `observability/`: serving, device, compile and client metrics, spans,
   and the heartbeat report;
 - the SDK core, imported on demand: the wire contract (`proto/`), the
   client (`client.py`), object handles (`object.py`), payloads
   (`serialization.py`), `gpu=` (`gpu_config.py`), method and lifecycle
   decorators (`partial_function.py`), `config.py`'s settings,
-  `exception.py`, `retries.py`, `_logs.py`, `_output.py` and `_utils/`.
+  `exception.py`, `retries.py`, `_logs.py`, `_output.py` and `_utils/`
+  (the local fast path, `local_transport.py`, among them).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 

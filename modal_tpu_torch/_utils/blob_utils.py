@@ -14,9 +14,12 @@ parallel HTTP Range part-GETs (bounded by the shared ``_ByteBudget``) and
 return an mmap-backed memoryview instead of ``bytes`` — the container-side
 args fetch deserializes tensors straight out of the page cache.
 
-The JAX client's co-located path handoff (writing into and reading from the
-server's store directory in place, `blob_local_enabled`) comes with the
-port's local transport (ROADMAP Queue A 4b'); every blob goes over HTTP.
+Handoff by path: a client beside the blob store (its stub carries the
+`blob_local_dir` the server advertised, stat-checked by the client) writes
+a payload straight into the store (tmp file, then rename) and reads one in
+place, an mmap over the store's file for a large payload: no HTTP hop.
+`MODAL_TPU_FASTPATH_BLOB=0` (or `MODAL_TPU_FASTPATH=0`) sends every blob over
+HTTP. Both ways land in the same file, so a blob id resolves either way.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import random
 import tempfile
 from typing import AsyncIterator, BinaryIO, Optional, Union
 
+from ..config import logger
 from ..exception import ExecutionError
 from ..proto import api_pb2
 from .grpc_utils import retry_transient_errors
@@ -247,13 +251,61 @@ async def _get_range(url: str, start: int, stop: int) -> bytes:
     raise ExecutionError("unreachable")
 
 
+def _blob_local_dir(stub) -> str:
+    """The co-located blob store the stub carries (the server's ClientHello
+    advertisement, or a container's env), when this process can see it and
+    the handoff by path is on; "" otherwise."""
+    from .local_transport import blob_local_enabled
+
+    if not blob_local_enabled():
+        return ""
+    path = getattr(stub, "_blob_local_dir", "")
+    return path if path and os.path.isdir(path) else ""
+
+
+async def _blob_local_write(local_dir: str, blob_id: str, source) -> None:
+    """Handoff by path: the payload's segments land straight in the
+    server's store (tmp file, then rename: the server only ever sees
+    complete blobs). `source` is a segment list or a seekable file object."""
+    path = os.path.join(local_dir, blob_id)
+    tmp = f"{path}.tmp-{os.getpid()}-{id(source):x}"
+
+    def _write() -> None:
+        with open(tmp, "wb") as f:
+            if isinstance(source, list):
+                for seg in source:
+                    f.write(seg)
+            else:
+                import shutil
+
+                source.seek(0)
+                shutil.copyfileobj(source, f, 8 * 1024 * 1024)
+        os.replace(tmp, path)
+
+    try:
+        await asyncio.to_thread(_write)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _note_blob_rung(stub, name: str) -> None:
+    from .local_transport import note_rung
+
+    note_rung(stub, name, "blob_local")
+
+
 async def blob_upload(payload: Union[bytes, bytearray, memoryview, BinaryIO, "object"], stub) -> str:
     """Upload a payload, returning its blob_id (reference blob_utils.py:364).
 
     Accepts bytes, a seekable file object, or anything with a ``.segments``
     list (serialization.Payload). Segment payloads hash and stream without
     ever being joined; file objects stream part-by-part under the same
-    budget."""
+    budget. A client beside the store writes the file into it instead of
+    PUTting it over HTTP."""
     def _as_byte_seg(seg):
         # memoryviews may carry a multi-byte format (e.g. a float32 array
         # view) where len() counts ELEMENTS; cast to "B" so hashing,
@@ -273,6 +325,17 @@ async def blob_upload(payload: Union[bytes, bytearray, memoryview, BinaryIO, "ob
         content_sha256_base64=hashes.sha256_base64, content_length=hashes.content_length
     )
     resp = await retry_transient_errors(stub.BlobCreate, req)
+    local_dir = _blob_local_dir(stub)
+    if local_dir:
+        try:
+            await _blob_local_write(local_dir, resp.blob_id, segments if segments is not None else payload)
+            _note_blob_rung(stub, "BlobUpload")
+            return resp.blob_id
+        except OSError as exc:
+            # the store is not writable from here after all (permissions, a
+            # stale advertisement): HTTP from now on
+            logger.warning(f"local blob write failed ({exc}); using HTTP upload")
+            stub._blob_local_dir = ""
     which = resp.WhichOneof("upload_type_oneof")
     if which == "multipart":
         await _multipart_upload(payload if segments is None else segments, resp.multipart)
@@ -393,7 +456,26 @@ async def blob_download(blob_id: str, stub) -> Union[bytes, memoryview]:
     """Download a blob. Payloads at/above the spill threshold stream to disk
     via parallel Range GETs and come back as an mmap-backed memoryview (the
     deserializer reads tensors straight out of it, zero-copy); smaller ones
-    return plain bytes as before — in a single request."""
+    return plain bytes as before — in a single request. A client beside the
+    store opens the blob's file in place instead, a large one as an mmap
+    over the store's own file (a page-cache read, no HTTP bytes)."""
+    local_dir = _blob_local_dir(stub)
+    if local_dir:
+        path = os.path.join(local_dir, blob_id)
+        try:
+            size = os.path.getsize(path)
+
+            def _read():
+                with open(path, "rb") as f:
+                    if size >= DOWNLOAD_SPILL_BYTES:
+                        return memoryview(mmap.mmap(f.fileno(), size, access=mmap.ACCESS_READ))
+                    return f.read()
+
+            data = await asyncio.to_thread(_read)
+            _note_blob_rung(stub, "BlobDownload")
+            return data
+        except OSError:
+            pass  # not there or unreadable: the HTTP path below is the truth
     resp = await retry_transient_errors(stub.BlobGet, api_pb2.BlobGetRequest(blob_id=blob_id))
     url = resp.download_url
     got = await _get_url_or_size(url, DOWNLOAD_SPILL_BYTES)

@@ -11,14 +11,16 @@ Where the JAX client would (the default URL, nothing listening,
 `auto_local_server` on, not in a container), this client boots the port's
 in-process LocalSupervisor: control plane, blob server and one worker.
 
-Two parts of the JAX client rest on modules the port does not have yet.
-Each degrades the way the JAX client does when that module is off:
+Stubs take the local fast-path ladder (_utils/local_transport.py): in
+process when the URL is a plane of this process, else the plane's Unix
+socket, else TCP. A container learns the socket and the blob store
+directory from its env (`MODAL_TPU_SERVER_UDS`, `MODAL_TPU_BLOB_LOCAL_DIR`);
+any other client from ClientHello. A path this process cannot stat keeps
+the stub on TCP and HTTP.
 
-- the local fast-path ladder (in-process, then Unix socket, then TCP):
-  every stub stays on TCP, as in the JAX client with the fast path off
-  (ROADMAP Queue A 4b');
-- the shard router: a sharded control plane's director is used for every
-  call, as the JAX client does with a one-owner shard map (4e).
+The shard router waits for the shard fleet (ROADMAP Queue A 4e): a sharded
+control plane's director is used for every call, as the JAX client does
+with a one-owner shard map.
 """
 
 from __future__ import annotations
@@ -63,6 +65,9 @@ class _Client:
         self.image_builder_version: Optional[str] = None
         self.input_plane_url: Optional[str] = None
         self._auth_token_manager: Optional[Any] = None
+        # the TCP stub under the fast-path ladder: hello() re-wraps it once
+        # the server advertises its local coordinates
+        self._stub_tcp: Optional[ModalTPUStub] = None
 
     def _metadata(self) -> dict[str, str]:
         md = {
@@ -77,9 +82,34 @@ class _Client:
             md["x-modal-tpu-task-id"] = config["task_id"]
         return md
 
+    def _wrap_fastpath(
+        self, server_url: str, tcp_stub: ModalTPUStub, uds_path: str = "", blob_local_dir: str = ""
+    ) -> Any:
+        """The TCP stub on the local fast-path ladder when a local rung is
+        usable (`local_transport.wrap_stub`); the socket's channel joins
+        this client's cache."""
+        from ._utils import local_transport
+
+        return local_transport.wrap_stub(
+            server_url,
+            tcp_stub,
+            uds_path,
+            blob_local_dir,
+            channels=self._channel_cache,
+            metadata=self._metadata(),
+        )
+
     async def _open(self) -> None:
         self._channel = create_channel(self.server_url, metadata=self._metadata())
-        self._stub = ModalTPUStub(self._channel)
+        # a container learns its local coordinates from the worker's env (it
+        # never calls hello()); other clients upgrade at hello()
+        self._stub_tcp = ModalTPUStub(self._channel)
+        self._stub = self._wrap_fastpath(
+            self.server_url,
+            self._stub_tcp,
+            uds_path=os.environ.get("MODAL_TPU_SERVER_UDS", ""),
+            blob_local_dir=os.environ.get("MODAL_TPU_BLOB_LOCAL_DIR", ""),
+        )
 
     async def _close(self) -> None:
         self._closed = True
@@ -99,11 +129,12 @@ class _Client:
 
     async def get_stub(self, server_url: str) -> ModalTPUStub:
         """Stub for an alternate server URL (input plane, worker data plane),
-        cached per URL (reference client.py:135)."""
+        cached per URL (reference client.py:135); in process when the URL is
+        a plane of this process."""
         if server_url not in self._stub_cache:
             channel = create_channel(server_url, metadata=self._metadata())
             self._channel_cache[server_url] = channel
-            self._stub_cache[server_url] = ModalTPUStub(channel)
+            self._stub_cache[server_url] = self._wrap_fastpath(server_url, ModalTPUStub(channel))
         return self._stub_cache[server_url]
 
     async def get_input_plane_metadata(self) -> list[tuple[str, str]]:
@@ -118,9 +149,9 @@ class _Client:
 
     async def hello(self) -> None:
         """Learn the server's capabilities. The local coordinates it
-        advertises (uds_path, blob_local_dir) and a shard map are read by
-        the fast path and the shard router, which the port has not taken
-        yet: the stub stays on TCP to this URL."""
+        advertises re-point the stub at the fast-path ladder when this
+        process can stat them; the input plane's socket and a shard map wait
+        for the input plane and the shard router (ROADMAP Queue A 4e)."""
         resp = await retry_transient_errors(
             self.stub.ClientHello,
             api_pb2.ClientHelloRequest(client_version=CLIENT_VERSION, client_type=self.client_type),
@@ -129,6 +160,10 @@ class _Client:
             logger.warning(resp.warning)
         self.image_builder_version = resp.image_builder_version or None
         self.input_plane_url = resp.input_plane_url or None
+        if self._stub_tcp is not None and (resp.uds_path or resp.blob_local_dir):
+            self._stub = self._wrap_fastpath(
+                self.server_url, self._stub_tcp, uds_path=resp.uds_path, blob_local_dir=resp.blob_local_dir
+            )
 
     async def __aenter__(self) -> "_Client":
         await self._open()

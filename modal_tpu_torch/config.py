@@ -2,6 +2,11 @@
 runtime, the device rule every entry point follows, and the host-to-device
 copy that does not wait for the stream.
 
+Importing this module loads no torch: the client, the control plane, the
+worker and a container's entrypoint all import it, and a container sends
+its hello before torch is loaded. The two device functions import torch
+when they are called.
+
 Settings are the JAX package's (modal_tpu/config.py), under the same names
 and defaults. Each is resolved at every read: the environment variable
 ``MODAL_TPU_<KEY>``, else the active profile's section of the TOML file
@@ -15,9 +20,10 @@ from __future__ import annotations
 import logging
 import os
 import tomllib
-from typing import Any, Callable, NamedTuple, Optional, Union
+from typing import TYPE_CHECKING, Any, Callable, NamedTuple, Optional, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 logger = logging.getLogger("modal_tpu_torch")
 if not logger.handlers:
@@ -124,9 +130,22 @@ def tune_switch_interval() -> None:
     sys.setswitchinterval(SWITCH_INTERVAL_S)
 
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+def torch_imported() -> bool:
+    """Has this process finished importing torch? A module another thread
+    is still importing is in `sys.modules` already, half built: code that
+    only attaches to torch (telemetry, the fleet tier) must wait for the
+    import to finish, not block on it or call into it."""
+    import sys
+
+    mod = sys.modules.get("torch")
+    return mod is not None and not getattr(getattr(mod, "__spec__", None), "_initializing", False)
+
+
+def resolve_device(device: Optional[Union[str, "torch.device"]] = None) -> "torch.device":
     """`None` means CUDA. A CUDA request without a usable card raises; the
     CPU is used only when the caller names it (the CPU tests do)."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -140,11 +159,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
-def host_to_device(values, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def host_to_device(values, device: "torch.device", dtype: Optional["torch.dtype"] = None) -> "torch.Tensor":
     """A host array (numpy, list or CPU tensor) as a tensor on `device`. On
     CUDA the copy goes through pinned memory with `non_blocking=True`: a
     copy from pageable memory waits for every launch queued before it, which
     would put a host sync into code that must only queue work."""
+    import torch
+
     t = torch.as_tensor(values, dtype=dtype)
     if device.type != "cuda":
         return t.to(device)

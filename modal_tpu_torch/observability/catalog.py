@@ -1,7 +1,8 @@
 """The metric families the port emits: serving (the engine and its ASGI
 app), device telemetry (step times, device memory), compile telemetry
-(kernel builds, CUDA-graph captures, the fleet compile cache) and the SDK
-core (client RPCs, payload bytes).
+(kernel builds, CUDA-graph captures, the fleet compile cache), the SDK
+core (client RPCs, payload bytes), the control plane, and its journal and
+local fast path.
 
 Names and help texts are those of the JAX package's catalog, so a scrape of
 either implementation reads the same way. Importing this module registers
@@ -279,4 +280,65 @@ DISPATCH_EXCHANGES = REGISTRY.counter(
     "Container turnarounds on the merged FunctionExchange RPC, by payload "
     "(with_outputs = PutOutputs piggybacked on the claim, claim_only).",
     ("carried",),
+)
+
+
+# -- the durable control plane (server/journal.py) and the local fast path -----
+# (_utils/local_transport.py, _utils/blob_utils.py)
+
+JOURNAL_APPENDS = REGISTRY.counter(
+    "modal_tpu_journal_appends_total",
+    "Write-ahead journal records appended, by record type.",
+    ("type",),
+)
+JOURNAL_APPEND_SECONDS = REGISTRY.histogram(
+    "modal_tpu_journal_append_seconds",
+    "Wall time of one journal append (serialize + buffered write + flush); sampled 1-in-32.",
+    buckets=(0.000005, 0.00001, 0.000025, 0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.005, 0.025),
+)
+JOURNAL_BYTES = REGISTRY.counter(
+    "modal_tpu_journal_bytes_total",
+    "Bytes appended to the write-ahead journal.",
+)
+JOURNAL_COMPACTIONS = REGISTRY.counter(
+    "modal_tpu_journal_compactions_total",
+    "Journal compactions (snapshot written, covered segments pruned).",
+)
+RECOVERIES = REGISTRY.counter(
+    "modal_tpu_recoveries_total",
+    "Control-plane recoveries from the journal, by outcome.",
+    ("outcome",),
+)
+RECOVERY_SECONDS = REGISTRY.gauge(
+    "modal_tpu_recovery_seconds",
+    "Duration of the most recent journal replay (snapshot + tail).",
+)
+RECOVERY_REPLAYED = REGISTRY.counter(
+    "modal_tpu_recovery_replayed_records_total",
+    "Journal records applied during recovery, by record type.",
+    ("type",),
+)
+RECOVERY_REQUEUED_INPUTS = REGISTRY.counter(
+    "modal_tpu_recovery_requeued_inputs_total",
+    "Orphaned (claimed-at-crash) inputs requeued for free during recovery.",
+)
+WORKERS_READOPTED = REGISTRY.counter(
+    "modal_tpu_workers_readopted_total",
+    "Journal-recovered workers re-adopted via their first post-restart heartbeat.",
+)
+IDEMPOTENT_REPLAYS = REGISTRY.counter(
+    "modal_tpu_idempotent_replays_total",
+    "Mutating RPCs answered from the journal-backed idempotency seen-set.",
+    ("method",),
+)
+FASTPATH_CALLS = REGISTRY.counter(
+    "modal_tpu_fastpath_calls_total",
+    "RPCs by the transport rung that served them (inproc | uds | tcp).",
+    ("transport",),
+)
+FASTPATH_FALLBACKS = REGISTRY.counter(
+    "modal_tpu_fastpath_fallbacks_total",
+    "Fast-path rungs abandoned mid-flight, by rung and reason "
+    "(e.g. uds/socket_gone, stream/reset, batch/unimplemented).",
+    ("rung", "reason"),
 )

@@ -73,7 +73,9 @@ def install_compile_hooks() -> bool:
     with _install_lock:
         if _installed:
             return True
-        if "torch" not in sys.modules:
+        from ..config import torch_imported
+
+        if not torch_imported():
             return False
         from ..ops import _build
 
@@ -110,7 +112,9 @@ def sample_device_memory(min_interval_s: float = 0.0) -> int:
     _last_sample_t = now
     from .catalog import DEVICE_MEMORY_BYTES
 
-    torch = sys.modules.get("torch")
+    from ..config import torch_imported
+
+    torch = sys.modules.get("torch") if torch_imported() else None
     if torch is not None and torch.cuda.is_available() and torch.cuda.is_initialized():
         n = torch.cuda.device_count()
         for i in range(n):

@@ -391,25 +391,54 @@ def _instrument_stream(name: str, impl: Any) -> Any:
 
 
 def _maybe_dedupe(servicer: Any, method: RPCMethod, impl: Any) -> Any:
-    """Exactly-once layer for mutating RPCs: with a journal-backed
-    idempotency cache on the servicer, a request whose `x-idempotency-key`
-    was already answered replays the cached response. The port's control
-    plane keeps its state in memory, so the cache is None and this returns
-    `impl` as it is, as the JAX layer does with its journal off; the cache
-    comes with the journal (ROADMAP Queue A 4b')."""
-    if getattr(servicer, "idempotency", None) is None:
+    """Exactly-once layer for mutating RPCs (server/journal.py): when the
+    servicer carries a journal-backed IdempotencyCache and the method is in
+    IDEMPOTENT_RPCS, a request whose `x-idempotency-key` was already
+    answered replays the cached response instead of re-executing, so a
+    `retry_transient_errors` re-send after a lost response or a restart of
+    the plane cannot apply its effect twice.
+
+    Known window (the JAX package's): the dedupe record is appended after
+    the handler's effect records, so a crash exactly between them makes the
+    retry re-execute. For the map plane that is harmless (duplicate inputs
+    share an idx and the client drops the duplicate output)."""
+    from ..server.journal import IDEMPOTENT_RPCS  # lazy: proto must not pull server at import
+
+    cache = getattr(servicer, "idempotency", None)
+    if cache is None or method.name not in IDEMPOTENT_RPCS:
         return impl
-    raise NotImplementedError("the idempotency cache comes with the journal (ROADMAP Queue A 4b')")
+
+    async def deduped(request, context, _impl=impl, _name=method.name, _resp=method.response_type):
+        key = ""
+        for md_key, md_value in context.invocation_metadata() or ():
+            if md_key == "x-idempotency-key":
+                key = md_value if isinstance(md_value, str) else md_value.decode("utf-8", "replace")
+                break
+        if key:
+            hit = cache.get(key, _name)
+            if hit is not None:
+                from ..observability.catalog import IDEMPOTENT_REPLAYS
+
+                IDEMPOTENT_REPLAYS.inc(method=_name)
+                return _resp.FromString(hit)
+        response = await _impl(request, context)
+        if key:
+            cache.put(key, _name, response.SerializeToString())
+        return response
+
+    return deduped
 
 
 def _maybe_quorum(servicer: Any, method: RPCMethod, impl: Any) -> Any:
     """Quorum-commit layer for journaled RPCs: holds a response until a
-    quorum of followers has the journal's records. Without a replicator on
-    the servicer (no journal) this returns `impl` as it is, the JAX layer's
-    degraded path; replication comes with the journal (ROADMAP Queue A 4b')."""
+    quorum of follower shards has the journal's records. It wraps outside
+    `_maybe_dedupe`, as in the JAX package, so the dedupe record is covered
+    too. A standalone plane has no replicator and this returns `impl` as it
+    is, the JAX layer's path without one; replication and its shard fleet
+    come with ROADMAP Queue A 4e."""
     if getattr(servicer, "replicator", None) is None:
         return impl
-    raise NotImplementedError("journal replication comes with the journal (ROADMAP Queue A 4b')")
+    raise NotImplementedError("journal quorum replication comes with replication and shards (ROADMAP Queue A 4e)")
 
 
 def _build_handler(servicer: Any, registry: dict[str, RPCMethod], service_name: str) -> "grpc.GenericRpcHandler":
@@ -444,3 +473,22 @@ def build_generic_handler(servicer: Any) -> "grpc.GenericRpcHandler":
     """Route every registered control-plane RPC to a same-named async method
     of `servicer`; RPCs it does not implement answer UNIMPLEMENTED."""
     return _build_handler(servicer, RPCS, SERVICE_NAME)
+
+
+def build_local_handlers(servicer: Any) -> dict[str, tuple[RPCMethod, Any]]:
+    """The in-process rung's handler table (_utils/local_transport.py): the
+    same wrappers the gRPC server gets (idempotency dedupe, metrics), minus
+    the wire. Stream-request methods are not served in process."""
+    handlers: dict[str, tuple[RPCMethod, Any]] = {}
+    for method in RPCS.values():
+        impl = getattr(servicer, method.name, None)
+        if impl is None:
+            continue
+        if method.arity == Arity.UNARY_UNARY:
+            handlers[method.name] = (
+                method,
+                _instrument_unary(method.name, _maybe_quorum(servicer, method, _maybe_dedupe(servicer, method, impl))),
+            )
+        elif method.arity == Arity.UNARY_STREAM:
+            handlers[method.name] = (method, _instrument_stream(method.name, impl))
+    return handlers

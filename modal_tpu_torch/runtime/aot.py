@@ -29,9 +29,11 @@ every entry; else a csv of entry names, with ``cfg=<name>``/``slots=<n>``/...
 option tokens in the same csv (``MODAL_TPU_AOT_LOWER=prefill,decode,cfg=tiny``).
 A failing entry is logged and listed under ``"errors"`` in the result; the
 rest still run, because a container's ``@enter`` calls `maybe_aot_lower`.
-`maybe_aot_lower` puts the fleet compile-cache tier under the builds first
-(`compile_client.install_fleet_cache`), so what it builds is published to
-the fleet store and what the store holds is fetched, not built.
+`maybe_aot_lower` imports torch, then puts the fleet compile-cache tier
+under the builds (`compile_client.install_fleet_cache`) and attaches the
+compile telemetry, as the JAX hook imports jax first: what it builds is
+published to the fleet store and counted, and what the store holds is
+fetched, not built.
 """
 
 from __future__ import annotations
@@ -146,9 +148,16 @@ def maybe_aot_lower() -> Optional[dict]:
     if spec is None:
         return None
     entries, options = spec
+    # torch first (a container of a CPU function has not loaded it), so the
+    # fleet tier and the compile telemetry attach before the builds: what
+    # the warm-up builds is published and counted
+    import torch  # noqa: F401
+
+    from ..observability.device_telemetry import install_compile_hooks
     from .compile_client import install_fleet_cache
 
     install_fleet_cache()
+    install_compile_hooks()
     try:
         t0 = time.monotonic()
         results = run_aot_lowering(entries, options)

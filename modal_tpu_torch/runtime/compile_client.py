@@ -34,7 +34,6 @@ build.
 from __future__ import annotations
 
 import os
-import sys
 import threading
 import time
 from typing import Optional
@@ -293,8 +292,10 @@ def install_fleet_cache() -> bool:
     import bill (a no-op container's heartbeat calls it). Called from the
     container's boot (`device_telemetry.maybe_install_fleet_cache`), the
     heartbeat report and the AOT warm-up (`runtime/aot.py`)."""
+    from ..config import torch_imported
+
     fleet = FleetCompileCache.from_env()
-    if fleet is None or "torch" not in sys.modules:
+    if fleet is None or not torch_imported():
         return False
     from ..ops import _build
 

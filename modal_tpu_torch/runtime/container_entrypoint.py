@@ -8,7 +8,10 @@ MODAL_CONTAINER_ARGUMENTS_PATH (:475-490).
     python -m modal_tpu_torch.runtime.container_entrypoint
 
 A boot runs in the JAX entrypoint's order: import tracing first; the
-client, ContainerHello and the heartbeat; the user's function or class;
+client (on the local fast path: the plane's Unix socket and its blob store
+by path, from the worker's env), ContainerHello and the heartbeat, with no
+torch loaded yet; for a function that asks for a card, torch, on the main
+thread (`container.import_torch`); the user's function or class;
 the compile hooks and the fleet compile cache under the kernel builds
 (the port's counterpart of the persistent XLA cache); `restore_snapshot`,
 or else the `@enter(snap=True)` hooks and `save_snapshot`, then
@@ -28,9 +31,11 @@ too.
 from __future__ import annotations
 
 import asyncio
+import importlib
 import inspect
 import os
 import sys
+import threading
 import time
 import traceback
 from typing import Any, Optional
@@ -265,6 +270,19 @@ async def run_input_loop(service: Service, io: ContainerIOManager) -> None:
         raise
 
 
+def _import_module(name: str) -> str:
+    importlib.import_module(name)
+    return threading.current_thread().name
+
+
+async def _import_on_main_thread(name: str) -> str:
+    """Import `name` on the main-thread executor (idle while the container
+    boots); returns the name of the thread that imported it."""
+    from .main_thread_exec import get_executor
+
+    return await asyncio.wrap_future(get_executor().submit(_import_module, name).future)
+
+
 async def _boot_service(
     container_args: api_pb2.ContainerArguments, client: _Client, boot_span: tracing.Span
 ) -> Service:
@@ -277,6 +295,15 @@ async def _boot_service(
     waiting = waiting_branch(container_args)
     if waiting:
         raise ExecutionError(waiting)
+    if function_def.resources.gpu_config.gpu_type:
+        # a function that asks for a card loads torch now, after the hello
+        # and on the main thread: the AOT warm-up, the enter hooks and the
+        # restore run in pool threads, where the import took ~1.4 s longer
+        # on an H100 host (tools/import_cost.py)
+        t_torch = time.time()
+        thread = await _import_on_main_thread("torch")
+        tracing.record_span("container.import_torch", start=t_torch, end=time.time(), parent=boot_span.context,
+                            attrs={"task_id": task_id, "thread": thread})
     bound_params = None
     if os.environ.get("MODAL_TPU_BOUND_PARAMS"):
         bound_params = deserialize(bytes.fromhex(os.environ["MODAL_TPU_BOUND_PARAMS"]), client)
@@ -388,6 +415,13 @@ async def main_async() -> int:
                 await run_lifecycle_hooks(service.exit_hooks, "exit")
             except Exception:  # noqa: BLE001 — the result must still be reported
                 traceback.print_exc()
+        # which rung of the local fast path each of this container's RPCs
+        # took (calls by "<method>:<rung>"), under the boot's trace; written
+        # before TaskResult, which the worker's stop waits for
+        rungs = getattr(client.stub, "rungs", None)
+        tracing.record_span("container.fastpath", start=time.time(), end=time.time(), parent=boot_span.context,
+                            attrs={"task_id": task_id, "rungs": dict(rungs or {}),
+                                   "uds": getattr(client.stub, "uds_path", "")})
         try:
             await retry_transient_errors(
                 client.stub.TaskResult,

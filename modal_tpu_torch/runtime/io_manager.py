@@ -29,6 +29,7 @@ from .._utils.grpc_utils import retry_transient_errors
 from ..client import _Client
 from ..config import config, logger
 from ..exception import InputCancellation
+from ..observability import tracing
 from ..proto import api_pb2
 from ..serialization import deserialize, serialize_exception, serialize_payload_data_format
 
@@ -454,7 +455,16 @@ class ContainerIOManager:
         payload = serialize_payload_data_format(value, data_format)
         result = api_pb2.GenericResult(status=api_pb2.GENERIC_STATUS_SUCCESS, data_format=data_format)
         if payload.nbytes > MAX_OBJECT_SIZE_BYTES:
+            # the upload of the result, by the rung it took (the handoff by
+            # path beside the store, else HTTP), as a span of the input
+            rungs = getattr(self.stub, "rungs", None)
+            before = rungs["BlobUpload:blob_local"] if rungs is not None else 0
+            t0 = time.time()
             result.data_blob_id = await blob_upload(payload, self.stub)
+            local = rungs is not None and rungs["BlobUpload:blob_local"] > before
+            tracing.record_span("container.blob_upload", start=t0, end=time.time(),
+                                attrs={"task_id": self.task_id, "bytes": payload.nbytes,
+                                       "rung": "blob_local" if local else "http"})
         else:
             result.data = payload.join()
         return result

@@ -56,6 +56,9 @@ host the recorded mesh (fewer ranks, or no group), the restore raises
 that can. A save from a group of more than one rank is abandoned with a
 warning: the JAX package's single-controller save has no one-process
 counterpart before the port has a gang runtime.
+
+torch and numpy load when a function here runs, not at import: the
+container entrypoint reaches this module before its hello.
 """
 
 from __future__ import annotations
@@ -67,12 +70,13 @@ import math
 import os
 import shutil
 import sys
-from typing import Any, Callable, Iterator, Optional
-
-import numpy as np
-import torch
+from typing import TYPE_CHECKING, Any, Callable, Iterator, Optional
 
 from ..config import config, logger
+
+if TYPE_CHECKING:
+    import numpy as np
+    import torch
 
 # the most bytes of each of the two pinned staging buffers (a smaller tensor
 # gets buffers of its own size)
@@ -157,12 +161,17 @@ def _dtensor_type():
 
 
 def _world_size() -> int:
+    import torch
+
     dist = torch.distributed
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _leaf_device(leaf: Any) -> Optional[str]:
     """"cuda", "cpu" or "numpy" for an array leaf; None for a pickled one."""
+    import numpy as np
+    import torch
+
     if isinstance(leaf, torch.Tensor):
         dev = leaf.device.type
         if dev not in ("cuda", "cpu"):
@@ -175,6 +184,9 @@ def _leaf_device(leaf: Any) -> Optional[str]:
 
 def _dtype_str(dtype) -> str:
     """JAX's dtype string (numpy's name; bf16 is "bfloat16")."""
+    import numpy as np
+    import torch
+
     if isinstance(dtype, torch.dtype):
         return str(dtype).removeprefix("torch.")
     return "bfloat16" if dtype == np.dtype("V2") else str(dtype)
@@ -203,6 +215,7 @@ def _sharding_meta(dt) -> dict:
 def _restore_mesh(meta: dict, meshes: dict):
     """The DeviceMesh and placements a recorded sharding needs, or
     _ShardingUnavailable when the process group cannot host it."""
+    import torch
     from torch.distributed.tensor import Replicate, Shard
 
     shape = tuple(meta["mesh_shape"])
@@ -256,6 +269,8 @@ class Staging:
         self.events: list = [None, None]
 
     def _buffers(self, nbytes: int):
+        import torch
+
         size = min(self.chunk, nbytes)
         if not self.bufs or self.bufs[0].numel() < size:
             self.drain()
@@ -266,6 +281,8 @@ class Staging:
     def to_host(self, flat: torch.Tensor, sink: Callable[[int, np.ndarray], None]) -> None:
         """Pass a CUDA uint8 tensor to `sink(offset, chunk)` in order: chunk
         j's copy to the host runs while `sink` takes chunk j - 1."""
+        import torch
+
         bufs, pending = self._buffers(flat.numel()), None
         with torch.cuda.device(flat.device):
             for j, off in enumerate(range(0, flat.numel(), self.chunk)):
@@ -284,6 +301,8 @@ class Staging:
     def from_file(self, f, flat: torch.Tensor) -> None:
         """Fill a CUDA uint8 tensor: chunk j is read while chunk j - 1 copies
         to the card; a buffer is refilled only after its copy finished."""
+        import torch
+
         bufs = self._buffers(flat.numel())
         with torch.cuda.device(flat.device):
             for j, off in enumerate(range(0, flat.numel(), self.chunk)):
@@ -309,6 +328,9 @@ def _flush_file(f) -> None:
 
 
 def _write_leaf(leaf: Any, path: str, staging: Staging) -> dict:
+    import numpy as np
+    import torch
+
     meta: dict = {}
     if isinstance(leaf, torch.Tensor):
         dtensor = _dtensor_type()
@@ -334,6 +356,8 @@ def _write_leaf(leaf: Any, path: str, staging: Staging) -> dict:
 
 
 def _torch_dtype(name: str) -> torch.dtype:
+    import torch
+
     dtype = getattr(torch, name, None)
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
@@ -341,6 +365,9 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def _read_leaf(path: str, meta: dict, device: Optional[str], staging: Staging, meshes: dict) -> Any:
+    import numpy as np
+    import torch
+
     sharding = meta.get("sharding")
     placed = _restore_mesh(sharding, meshes) if sharding else None
     shape = tuple(meta["shape"])

@@ -15,7 +15,13 @@ modal_tpu/server/scheduler.py).
 
 Gang placement (`group_size > 1`) comes with the port's gang runtime
 (ROADMAP Queue A 4d; FunctionCreate refuses a gang until then), and so does
-the SLO autoscaler of serving functions.
+the SLO autoscaler of serving functions (FunctionCreate and
+FunctionUpdateSchedulingParams refuse its targets until then).
+
+After a restart of the plane, journal-recovered workers take no placement
+until their next heartbeat re-adopts them, and are deregistered when none
+comes within `WORKER_READOPT_GRACE_S`; the reap tick also compacts the
+journal (`ModalTPUServicer.maybe_compact`).
 """
 
 from __future__ import annotations
@@ -49,6 +55,10 @@ TASK_LAUNCH_TIMEOUT = 60.0
 # margin past a draining worker's grace window before its unreported tasks
 # are force-reaped (covers a worker that died mid-drain)
 DRAIN_REAP_MARGIN = 10.0
+# journal-recovered workers that do not heartbeat within this window after a
+# restart of the plane are deregistered (they died with, or before, the
+# plane); until then they take no placements (adoption_pending)
+WORKER_READOPT_GRACE_S = 30.0
 # a worker registered with this type simulates its cards (tests): any card
 # type matches it, and its containers see no card
 LOCAL_SIM = "local-sim"
@@ -102,6 +112,8 @@ class Scheduler:
                 if time.time() - self._last_reap > 10.0:
                     self._last_reap = time.time()
                     await self.reap_dead_tasks()
+                    if self.servicer is not None:
+                        await self.servicer.maybe_compact()
             except Exception:
                 logger.exception("scheduler iteration failed")
             try:
@@ -219,6 +231,9 @@ class Scheduler:
         best_load = 0
         for worker in self.s.workers.values():
             if time.time() - worker.last_heartbeat > 60.0 or worker.draining:
+                continue
+            if worker.adoption_pending:
+                # journal-recovered and not yet heard from: it may be gone
                 continue
             if not self._placement_ok(worker, placement) or not worker_holds(worker, spec):
                 continue
@@ -364,11 +379,22 @@ class Scheduler:
                 and now - task.created_at > TASK_LAUNCH_TIMEOUT
             ):
                 await self._reap_task(task, "worker lost before container start", free_requeue=False)
-        # a fully drained worker with nothing left running leaves the registry
+        # a fully drained worker with nothing left running leaves the
+        # registry, and so does a journal-recovered one that never heartbeat
+        # within the re-adoption window
         for worker_id, worker in list(self.s.workers.items()):
             if worker.draining and worker.drain_deadline and now > worker.drain_deadline and not worker.active_tasks:
                 logger.info(f"drained worker {worker_id} deregistered")
                 del self.s.workers[worker_id]
+                self._journal_worker_gone(worker_id)
+            elif worker.adoption_pending and worker.recovered_at and now - worker.recovered_at > WORKER_READOPT_GRACE_S:
+                logger.warning(f"recovered worker {worker_id} never re-adopted; deregistered")
+                del self.s.workers[worker_id]
+                self._journal_worker_gone(worker_id)
+
+    def _journal_worker_gone(self, worker_id: str) -> None:
+        if self.s.journal is not None:
+            self.s.journal.append("worker_gone", worker_id=worker_id)
 
     async def _reap_task(self, task: TaskState_, reason: str, free_requeue: bool) -> None:
         """Tear down one dead or stuck task. `free_requeue` (preemption): its

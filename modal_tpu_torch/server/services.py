@@ -7,12 +7,15 @@ control plane's semantics: apps, blobs, function definition and invocation
 the container data plane (hello, heartbeats, input claims, outputs, logs,
 results) and the worker plane (register, poll, heartbeat).
 
-The state is in memory only (ROADMAP Queue A 4b' brings the journal). Every
-RPC of the wire contract this servicer has no handler for answers gRPC
-UNIMPLEMENTED (proto/rpc.py): the task cluster rendezvous, volumes and
-cluster listing (4d); sandboxes, tunnels, images, mounts, secrets, proxies,
-dicts, queues, environments, tokens, workspaces, profiles and the input
-plane (4e); shard and journal administration and metrics history (4b', 4d).
+Every mutating handler appends the effect it applied to the write-ahead
+journal (server/journal.py) under the JAX handler's record type, so a
+restarted plane replays its apps, calls and queued inputs; claims, tasks,
+heartbeats and logs are transient by design. Every RPC of the wire contract
+this servicer has no handler for answers gRPC UNIMPLEMENTED (proto/rpc.py):
+the task cluster rendezvous, volumes, cluster listing and metrics history
+(ROADMAP Queue A 4d); sandboxes, tunnels, images, mounts, secrets, proxies,
+dicts, queues, environments, tokens, workspaces, profiles, the input plane,
+and shard and journal administration (4e).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import grpc
 
 from ..config import logger
 from ..observability import tracing
-from ..observability.catalog import INPUT_QUEUE_WAIT, TASK_RESULTS, WORKER_HEARTBEATS
+from ..observability.catalog import INPUT_QUEUE_WAIT, TASK_RESULTS, WORKER_HEARTBEATS, WORKERS_READOPTED
 from ..proto import api_pb2
+from .journal import _b64 as _jb64
 from .state import AppState, FunctionCallState, FunctionState, InputState, ServerState, TaskState_, WorkerState
 
 CREATE_IF_MISSING = api_pb2.OBJECT_CREATION_TYPE_CREATE_IF_MISSING
@@ -56,7 +60,18 @@ def waiting_feature(definition: api_pb2.Function) -> str:
         return "web endpoints wait for the port's App and web runtime (ROADMAP Queue A 4c)"
     if definition.schedule.WhichOneof("schedule_oneof") is not None:
         return "scheduled functions wait for the port's App (ROADMAP Queue A 4c)"
-    return ""
+    return slo_targets_waiting(definition.autoscaler_settings)
+
+
+def slo_targets_waiting(settings: api_pb2.AutoscalerSettings) -> str:
+    """The SLO targets of an autoscaler, which the port's scheduler does not
+    read yet: a reason naming the sub-slice that brings the SLO autoscaler,
+    or "" when neither is set."""
+    named = [name for name in ("target_ttft_ms", "target_tokens_per_replica") if getattr(settings, name)]
+    if not named:
+        return ""
+    return (f"autoscaler SLO targets ({', '.join(named)}) wait for the port's SLO autoscaler "
+            f"(ROADMAP Queue A 4d)")
 
 
 class ModalTPUServicer:
@@ -69,7 +84,8 @@ class ModalTPUServicer:
         self.rate_limit_sleep_duration = 0.0
 
     # the durable control plane's hooks, read by proto/rpc.py at handler-build
-    # time: None while the state is in memory only (ROADMAP Queue A 4b')
+    # time: the journal-backed idempotency cache (None with the journal off),
+    # and the quorum replicator (None on a standalone plane)
     @property
     def idempotency(self):
         return self.s.idempotency
@@ -78,11 +94,27 @@ class ModalTPUServicer:
     def replicator(self):
         return self.s.replicator
 
+    def _j(self, t: str, **payload) -> None:
+        """Append one typed record to the write-ahead journal (a no-op with
+        the journal off). Every mutating handler calls this with the effect
+        it just applied: replay does not depend on the handlers."""
+        j = self.s.journal
+        if j is not None:
+            j.append(t, **payload)
+
+    def _journal_group(self):
+        """Group-commit scope of a handler that appends many records: one
+        flush, committed before the RPC returns."""
+        import contextlib
+
+        j = self.s.journal
+        return j.group() if j is not None else contextlib.nullcontext()
+
     def _append_output(self, call: FunctionCallState, item: api_pb2.FunctionGetOutputsItem) -> bool:
         """The one funnel every delivered output goes through: dedupe by
         (input_id, retry_count) so a requeued input whose dead attempt
-        already reported cannot deliver twice, then append. Returns False
-        for a duplicate."""
+        already reported cannot deliver twice, then append and journal.
+        Returns False for a duplicate."""
         key = f"{item.input_id}:{item.retry_count}"
         if item.input_id and key in call.output_keys:
             return False
@@ -91,14 +123,35 @@ class ModalTPUServicer:
         call.outputs.append(item)
         call.num_done += 1
         call.first_output_at = call.first_output_at or time.time()
+        if self.s.journal is not None:  # no serialize and base64 with the journal off
+            self._j("output", function_call_id=call.function_call_id, item=_jb64(item.SerializeToString()))
         return True
+
+    async def maybe_compact(self) -> None:
+        """Periodic compaction (the scheduler's reap tick): snapshot the
+        state and prune covered segments once enough records pile up. The
+        records are synthesized on the loop; the write runs in a thread."""
+        from .journal import COMPACT_EVERY_RECORDS, synthesize_records
+
+        j = self.s.journal
+        if j is not None and j.records_since_snapshot() >= COMPACT_EVERY_RECORDS:
+            await j.compact_async(synthesize_records(self.s))
+            logger.info(f"journal compacted at seq {j.seq}")
 
     # ------------------------------------------------------------------
     # Misc
     # ------------------------------------------------------------------
 
     async def ClientHello(self, request: api_pb2.ClientHelloRequest, context) -> api_pb2.ClientHelloResponse:
-        return api_pb2.ClientHelloResponse(server_version="0.1.0", image_builder_version="2026.07")
+        return api_pb2.ClientHelloResponse(
+            server_version="0.1.0",
+            image_builder_version="2026.07",
+            # local fast-path coordinates: a client that can stat these paths
+            # is co-located and upgrades its transport; others ignore them
+            uds_path=self.s.uds_path,
+            input_plane_uds_path=self.s.input_plane_uds,
+            blob_local_dir=self.s.blob_local_dir,
+        )
 
     async def AuthTokenGet(self, request: api_pb2.AuthTokenGetRequest, context) -> api_pb2.AuthTokenGetResponse:
         """An input-plane JWT, valid for AUTH_TOKEN_TTL_S."""
@@ -114,12 +167,14 @@ class ModalTPUServicer:
 
     async def AppCreate(self, request: api_pb2.AppCreateRequest, context) -> api_pb2.AppCreateResponse:
         app_id = self.s.make_id("ap")
-        self.s.apps[app_id] = AppState(
+        app = self.s.apps[app_id] = AppState(
             app_id=app_id,
             description=request.description,
             state=request.app_state or api_pb2.APP_STATE_INITIALIZING,
             environment_name=request.environment_name,
         )
+        self._j("app", app_id=app_id, description=app.description, state=app.state,
+                environment_name=app.environment_name)
         return api_pb2.AppCreateResponse(app_id=app_id, app_page_url=f"http://local/apps/{app_id}")
 
     async def AppGetOrCreate(self, request: api_pb2.AppGetOrCreateRequest, context) -> api_pb2.AppGetOrCreateResponse:
@@ -137,6 +192,8 @@ class ModalTPUServicer:
                 environment_name=key[0],
             )
             self.s.deployed_apps[key] = app_id
+            self._j("app", app_id=app_id, name=request.app_name, description=request.app_name,
+                    state=api_pb2.APP_STATE_DEPLOYED, environment_name=key[0], deploy_name=request.app_name)
         elif request.object_creation_type == FAIL_IF_EXISTS:
             await context.abort(grpc.StatusCode.ALREADY_EXISTS, f"app {request.app_name!r} exists")
         return api_pb2.AppGetOrCreateResponse(app_id=app_id)
@@ -173,6 +230,15 @@ class ModalTPUServicer:
                     commit_info=request.commit_info,
                 )
             )
+        self._j(
+            "app_state",
+            app_id=app.app_id,
+            state=app.state,
+            function_ids=dict(request.function_ids),
+            class_ids=dict(request.class_ids),
+            name=request.name or "",
+            publish=True,  # replay re-keys deployed_functions (AppDeploy does not)
+        )
         self.s.schedule_event.set()
         return api_pb2.AppPublishResponse(url=f"http://local/apps/{app.app_id}")
 
@@ -192,6 +258,7 @@ class ModalTPUServicer:
         app.state = api_pb2.APP_STATE_STOPPED
         app.stopped_at = time.time()
         app.done = True
+        self._j("app_state", app_id=app.app_id, state=app.state, done=True, stopped_at=app.stopped_at)
         for task in list(self.s.tasks.values()):
             if task.app_id == app.app_id and task.state not in _FINISHED_TASK_STATES:
                 task.terminate = True
@@ -247,6 +314,7 @@ class ModalTPUServicer:
             await context.abort(grpc.StatusCode.NOT_FOUND, "app not found")
         app.state = api_pb2.APP_STATE_DEPLOYED
         self.s.deployed_apps[(app.environment_name, request.name)] = app.app_id
+        self._j("app_state", app_id=app.app_id, state=app.state, name=request.name)
         return api_pb2.AppDeployResponse(url=f"http://local/apps/{app.app_id}")
 
     async def AppGetByDeploymentName(self, request, context) -> api_pb2.AppGetByDeploymentNameResponse:
@@ -344,9 +412,12 @@ class ModalTPUServicer:
             definition=request.function,
         )
         self.s.functions[function_id] = fn
+        self._j("function", function_id=function_id, app_id=request.app_id, tag=fn.tag,
+                definition=_jb64(request.function.SerializeToString()))
         app = self.s.apps.get(request.app_id)
         if app is not None:
             app.function_ids[fn.tag] = function_id
+            self._j("app_state", app_id=app.app_id, state=app.state, function_ids={fn.tag: function_id})
         self.s.schedule_event.set()
         return api_pb2.FunctionCreateResponse(function_id=function_id, handle_metadata=self._function_metadata(fn))
 
@@ -385,6 +456,9 @@ class ModalTPUServicer:
             serialized_params=request.serialized_params,
         )
         self.s.functions[bound.function_id] = bound
+        self._j("function", function_id=bound.function_id, app_id=parent.app_id, tag=parent.tag,
+                definition=_jb64(bound_def.SerializeToString()), bound_parent=parent.function_id,
+                serialized_params=_jb64(request.serialized_params))
         return api_pb2.FunctionBindParamsResponse(
             bound_function_id=bound.function_id, handle_metadata=self._function_metadata(bound)
         )
@@ -393,7 +467,11 @@ class ModalTPUServicer:
         fn = self.s.functions.get(request.function_id)
         if fn is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, "function not found")
+        waiting = slo_targets_waiting(request.settings)
+        if waiting:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"InvalidError: {waiting}")
         fn.autoscaler_override = request.settings
+        self._j("fn_sched", function_id=request.function_id, settings=_jb64(request.settings.SerializeToString()))
         self.s.schedule_event.set()
         return api_pb2.FunctionUpdateSchedulingParamsResponse()
 
@@ -422,6 +500,10 @@ class ModalTPUServicer:
         call.input_ids.append(inp.input_id)
         call.num_inputs += 1
         fn.pending.append(inp.input_id)
+        if self.s.journal is not None:  # no serialize and base64 with the journal off
+            self._j("input", input_id=inp.input_id, function_call_id=call.function_call_id,
+                    function_id=fn.function_id, idx=item.idx, input=_jb64(item.input.SerializeToString()),
+                    retry_count=0)
         return inp
 
     async def FunctionMap(self, request: api_pb2.FunctionMapRequest, context) -> api_pb2.FunctionMapResponse:
@@ -439,9 +521,16 @@ class ModalTPUServicer:
         resp = api_pb2.FunctionMapResponse(
             function_call_id=call.function_call_id, function_call_jwt=call.function_call_id, max_inputs_outstanding=1000
         )
-        for item in request.pipelined_inputs:
-            inp = self._enqueue_input(fn, call, item)
-            resp.pipelined_inputs.append(api_pb2.FunctionPutInputsResponseItem(idx=item.idx, input_id=inp.input_id))
+        with self._journal_group():
+            # the call before its inputs (replay order): an input record
+            # naming an unjournaled call would recover orphaned
+            self._j("call", function_call_id=call.function_call_id, function_id=request.function_id,
+                    call_type=call.call_type, invocation_type=call.invocation_type,
+                    return_exceptions=call.return_exceptions)
+            for item in request.pipelined_inputs:
+                inp = self._enqueue_input(fn, call, item)
+                resp.pipelined_inputs.append(
+                    api_pb2.FunctionPutInputsResponseItem(idx=item.idx, input_id=inp.input_id))
         async with fn.input_condition:
             fn.input_condition.notify_all()
         self.s.schedule_event.set()
@@ -453,9 +542,10 @@ class ModalTPUServicer:
         if fn is None or call is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, "function or call not found")
         resp = api_pb2.FunctionPutInputsResponse()
-        for item in request.inputs:
-            inp = self._enqueue_input(fn, call, item)
-            resp.inputs.append(api_pb2.FunctionPutInputsResponseItem(idx=item.idx, input_id=inp.input_id))
+        with self._journal_group():
+            for item in request.inputs:
+                inp = self._enqueue_input(fn, call, item)
+                resp.inputs.append(api_pb2.FunctionPutInputsResponseItem(idx=item.idx, input_id=inp.input_id))
         async with fn.input_condition:
             fn.input_condition.notify_all()
         self.s.schedule_event.set()
@@ -475,6 +565,16 @@ class ModalTPUServicer:
             old.retry_count = item.retry_count
             if item.input.WhichOneof("args_oneof"):  # payload resend optional
                 old.input.CopyFrom(item.input)
+                # re-journal the payload, so a replay retries the new bytes
+                # (the resume token rides along: the replacing record must
+                # not drop a checkpoint)
+                if self.s.journal is not None:
+                    self._j("input", input_id=old.input_id, function_call_id=old.function_call_id,
+                            function_id=call.function_id, idx=old.idx,
+                            input=_jb64(old.input.SerializeToString()), retry_count=old.retry_count,
+                            resume_token=old.resume_token)
+            else:
+                self._j("input_retry", input_id=old.input_id, retry_count=old.retry_count)
             old.claimed_by = ""
             old.claimed_at = 0.0
             if old.input_id not in fn.pending:
@@ -497,8 +597,11 @@ class ModalTPUServicer:
     def _take_outputs(self, call: FunctionCallState, request, start: int) -> api_pb2.FunctionGetOutputsResponse:
         available = call.outputs[start:]
         n = len(available) if request.max_values <= 0 else min(len(available), request.max_values)
-        if request.clear_on_success:
+        if request.clear_on_success and n:
             call.outputs_consumed += n
+            # the consumption pointer survives a restart: a recovered call
+            # must not re-deliver outputs this client already took
+            self._j("consumed", function_call_id=call.function_call_id, n=call.outputs_consumed)
         return api_pb2.FunctionGetOutputsResponse(
             outputs=available[:n], last_entry_id=str(start + n), num_unfinished_inputs=call.num_inputs - call.num_done
         )
@@ -600,6 +703,7 @@ class ModalTPUServicer:
         if call is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, "call not found")
         call.cancelled = True
+        self._j("call_cancel", function_call_id=call.function_call_id)
         fn = self.s.functions[call.function_id]
         # drop pending inputs; running ones are cancelled through the
         # container's heartbeat
@@ -763,7 +867,10 @@ class ModalTPUServicer:
                     pass
 
     async def FunctionPutOutputs(self, request: api_pb2.FunctionPutOutputsRequest, context) -> api_pb2.FunctionPutOutputsResponse:
-        return await self._put_outputs(request)
+        # the group spans _put_outputs' awaits by design: its records commit
+        # with one flush before this RPC returns
+        with self._journal_group():
+            return await self._put_outputs(request)
 
     async def FunctionExchange(self, request: api_pb2.FunctionExchangeRequest, context) -> api_pb2.FunctionGetInputsResponse:
         """One container turnaround in one RPC: apply the finished inputs'
@@ -774,7 +881,8 @@ class ModalTPUServicer:
 
         if request.HasField("put") and request.put.outputs:
             DISPATCH_EXCHANGES.inc(carried="with_outputs")
-            await self._put_outputs(request.put)
+            with self._journal_group():
+                await self._put_outputs(request.put)
         else:
             DISPATCH_EXCHANGES.inc(carried="claim_only")
         return await self.FunctionGetInputs(request.get, context)
@@ -827,6 +935,8 @@ class ModalTPUServicer:
                 inp.claimed_by == request.task_id or (not inp.claimed_by and not inp.resume_token)
             ):
                 inp.resume_token = request.resume_token
+                # the checkpoint survives a crash of the plane too
+                self._j("input_token", input_id=request.input_id, resume_token=request.resume_token)
         return api_pb2.ContainerCheckpointResponse()
 
     async def ContainerStop(self, request, context):
@@ -1001,6 +1111,7 @@ class ModalTPUServicer:
             if inp.retry_count < fn.definition.retry_policy.retries:
                 inp.retry_count += 1
                 inp.status = "pending"
+                self._j("input_retry", input_id=inp.input_id, retry_count=inp.retry_count)
                 inp.claimed_by = ""
                 inp.claimed_at = 0.0
                 if inp.input_id not in fn.pending:
@@ -1035,6 +1146,9 @@ class ModalTPUServicer:
             inp.claimed_at = 0.0
             if inp.input_id not in fn.pending:
                 fn.pending.append(inp.input_id)
+            # a free requeue, journaled: a crash after the preemption
+            # replays the input as pending
+            self._j("input_retry", input_id=inp.input_id, retry_count=inp.retry_count)
             requeued += 1
         if requeued:
             logger.warning(f"requeued {requeued} input(s) from preempted task {task.task_id} (no retry consumed)")
@@ -1085,6 +1199,10 @@ class ModalTPUServicer:
             spot=request.spot,
             instance_type=request.instance_type,
         )
+        self._j("worker", worker_id=worker_id, hostname=request.hostname, gpu_type=request.gpu_type,
+                num_gpus=request.num_gpus, milli_cpu=request.milli_cpu, memory_mb=request.memory_mb,
+                container_address=request.container_address, region=request.region, zone=request.zone,
+                spot=request.spot, instance_type=request.instance_type)
         self.s.schedule_event.set()
         return api_pb2.WorkerRegisterResponse(worker_id=worker_id)
 
@@ -1109,6 +1227,14 @@ class ModalTPUServicer:
             # unknown id (this control plane restarted, or deregistered the
             # worker): tell the worker to re-announce under its id
             return api_pb2.WorkerHeartbeatResponse(reannounce=True)
+        if worker.adoption_pending:
+            # a journal-recovered worker proved it outlived the crash:
+            # placements may land on it again
+            worker.adoption_pending = False
+            worker.recovered_at = 0.0
+            WORKERS_READOPTED.inc()
+            logger.info(f"worker {request.worker_id} re-adopted after recovery")
+            self.s.schedule_event.set()
         WORKER_HEARTBEATS.inc()
         worker.last_heartbeat = time.time()
         if request.draining and not worker.draining and self.scheduler is not None:

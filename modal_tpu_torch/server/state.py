@@ -6,10 +6,12 @@ input queues and calls, tasks and workers, plus the on-disk blob store and
 the fleet compile cache. A worker holds GPUs: a type (the card's full name),
 a count, and which cards are pinned to which task.
 
-The state lives in memory only, as the JAX control plane's does with
-`MODAL_TPU_JOURNAL=0`: `journal`, `idempotency` and `replicator` stay None
-until the port has the journal (ROADMAP Queue A 4b'). Gangs, volumes,
-secrets, dicts, queues, images and sandboxes come with their sub-slices.
+The state is volatile dataclasses made durable by the write-ahead journal
+(server/journal.py): the supervisor attaches `journal` and `idempotency`,
+and a restarted plane replays them into a fresh ServerState. `replicator`
+stays None: quorum replication comes with the shard fleet (ROADMAP Queue A
+4e). Gangs, volumes, secrets, dicts, queues, images and sandboxes come with
+their sub-slices.
 """
 
 from __future__ import annotations
@@ -31,6 +33,18 @@ def make_id(prefix: str) -> str:
     """`<prefix>-NNNNNNNN`, the JAX control plane's ids of its first shard."""
     counter = _id_counters.setdefault(prefix, itertools.count(1))
     return f"{prefix}-{next(counter):08d}"
+
+
+def bump_id_counter(existing_id: str) -> None:
+    """Advance the prefix's counter past an id recovered from the journal,
+    so a fresh make_id never re-issues it. Counters only move forward: safe
+    with several planes in one process."""
+    prefix, _, num = existing_id.rpartition("-")
+    if not prefix or not num.isdigit():
+        return
+    counter = _id_counters.setdefault(prefix, itertools.count(1))
+    # itertools.count has no peek: draw once, then keep the further one
+    _id_counters[prefix] = itertools.count(max(next(counter), int(num) + 1))
 
 
 @dataclass
@@ -166,6 +180,10 @@ class WorkerState:
     # past drain_deadline are force-reaped (their inputs requeue for free)
     draining: bool = False
     drain_deadline: float = 0.0
+    # journal-recovered and not yet heard from: no placements until its next
+    # heartbeat re-adopts it (scheduler.WORKER_READOPT_GRACE_S)
+    adoption_pending: bool = False
+    recovered_at: float = 0.0
 
     def free_gpus(self) -> list[int]:
         return [g for g in range(self.num_gpus) if g not in self.gpus_in_use]
@@ -190,16 +208,24 @@ class ServerState:
         self.tasks: dict[str, TaskState_] = {}
         self.workers: dict[str, WorkerState] = {}
         self.blob_url_base: str = ""  # set by the blob server once it is up
+        # local fast-path coordinates advertised at ClientHello (set when
+        # the supervisor binds): the plane's Unix socket, the input plane's
+        # (empty until the input plane, ROADMAP Queue A 4e), and the blob
+        # store directory co-located clients read and write in place
+        self.uds_path: str = ""
+        self.input_plane_uds: str = ""
+        self.blob_local_dir: str = ""
         # input-plane JWTs (AuthTokenGet): HS256 secret of this control plane
         self.auth_secret: bytes = os.urandom(32)
 
         # scheduling wakeup
         self.schedule_event = asyncio.Event()
 
-        # the durable control plane's hooks (the JAX package's
-        # server/journal.py and server/replication.py), read by proto/rpc.py's
-        # _maybe_dedupe and _maybe_quorum: None while the state is in memory
-        # only (ROADMAP Queue A 4b')
+        # the durable control plane's hooks, read by proto/rpc.py's
+        # _maybe_dedupe and _maybe_quorum: the journal and its idempotency
+        # cache (server/journal.py, attached by the supervisor; None with
+        # MODAL_TPU_JOURNAL=0), and the quorum replicator, None on a
+        # standalone plane (replication comes with ROADMAP Queue A 4e)
         self.journal = None
         self.idempotency = None
         self.replicator = None

@@ -11,9 +11,17 @@ host, gets `CUDA_VISIBLE_DEVICES=""`: a container never sees a card it was
 not given. The inventory comes from `nvidia-smi`; the worker never
 initializes CUDA in its own process.
 
+A worker beside its plane takes the local fast path (in process, or the
+plane's Unix socket; _utils/local_transport.py) and hands its containers
+the socket and the blob store directory (`MODAL_TPU_SERVER_UDS`,
+`MODAL_TPU_BLOB_LOCAL_DIR`). After a restart of the plane a poll answered
+NOT_FOUND, or a heartbeat answered `reannounce`, re-announces the worker
+under the same id.
+
 Waiting for later sub-slices (ROADMAP Queue A): sandboxes and their command
-router and sidecars, the warm pool and the image builder (4e), the fs
-snapshot of sandboxes (4e) and the local fast-path transport (4b').
+router and sidecars, the warm pool and the image builder, the fs snapshot
+of sandboxes, and the re-homing of a worker onto a shard that took over its
+plane (4e).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import signal
 import subprocess
 import sys
 import time
-from typing import Optional
+from typing import Any, Optional
 
 from .._utils.grpc_utils import create_channel, retry_transient_errors
 from ..config import config, logger
@@ -103,8 +111,14 @@ class WorkerAgent:
         instance_type: Optional[str] = None,
         compile_cache_url: str = "",
         compile_cache_dir: str = "",
+        server_uds: str = "",  # the co-located plane's Unix socket
+        blob_local_dir: str = "",  # the co-located blob store (handoff by path)
     ):
         self.server_url = server_url
+        # the local fast-path coordinates: from an in-process supervisor, else
+        # the env of a standalone worker beside its plane
+        self.server_uds = server_uds or os.environ.get("MODAL_TPU_SERVER_UDS", "")
+        self.blob_local_dir = blob_local_dir or os.environ.get("MODAL_TPU_BLOB_LOCAL_DIR", "")
         self.worker_id = worker_id or ""
         self._override_gpus = num_gpus
         self._override_type = gpu_type
@@ -126,6 +140,7 @@ class WorkerAgent:
         # stopped at registration instead of booting on released cards
         self._early_stops: dict[str, None] = {}  # insertion-ordered set
         self._channel = None
+        self._uds_channels: dict[str, Any] = {}  # the plane's socket (local_transport.wrap_stub)
         self._stub: Optional[ModalTPUStub] = None
         self._tasks: list[asyncio.Task] = []
         self._children: set[asyncio.Task] = set()  # strong refs to per-task coroutines
@@ -139,6 +154,13 @@ class WorkerAgent:
         os.makedirs(os.path.join(self.state_dir, "tasks"), exist_ok=True)
         self._channel = create_channel(self.server_url)
         self._stub = ModalTPUStub(self._channel)
+        # fast path: an in-process supervisor is reached directly, a
+        # co-located one over its Unix socket
+        from .._utils import local_transport
+
+        self._stub = local_transport.wrap_stub(
+            self.server_url, self._stub, self.server_uds, channels=self._uds_channels
+        )
         if self._override_gpus is not None or self._override_type is not None:
             self.gpu_type = self._override_type or ""
             self.card_indices = list(range(self._override_gpus or 0))
@@ -180,8 +202,19 @@ class WorkerAgent:
             await self._kill_proc(proc)
         if self._children:
             await asyncio.gather(*self._children, return_exceptions=True)
-        if self._channel is not None:
-            await self._channel.close()
+        for channel in (self._channel, *self._uds_channels.values()):
+            if channel is not None:
+                await channel.close()
+
+    def kill_containers(self) -> None:
+        """SIGKILL every container of this host, with no grace: what a crash
+        of the process that runs this agent does to them."""
+        for proc in list(self._procs.values()):
+            if proc.returncode is None:
+                try:
+                    proc.kill()
+                except ProcessLookupError:
+                    pass
 
     async def _kill_proc(self, proc: asyncio.subprocess.Process) -> None:
         if proc.returncode is None:
@@ -364,6 +397,12 @@ class WorkerAgent:
         if tracing.trace_dir():
             env[tracing.TRACE_DIR_ENV] = tracing.trace_dir()
         env["MODAL_TPU_SERVER_URL"] = self.server_url
+        # a container never calls ClientHello: it inherits the worker's
+        # fast-path coordinates and stats them before use
+        if self.server_uds:
+            env["MODAL_TPU_SERVER_UDS"] = self.server_uds
+        if self.blob_local_dir:
+            env["MODAL_TPU_BLOB_LOCAL_DIR"] = self.blob_local_dir
         for key, value in self._compile_cache_env(task_dir).items():
             env.setdefault(key, value)
         env["MODAL_TPU_TASK_ID"] = assignment.task_id

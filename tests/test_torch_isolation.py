@@ -290,6 +290,7 @@ def test_every_module_of_the_port_is_scanned():
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     for rel in ("models/weights.py", "models/quant.py", "models/sampling.py", "runtime/aot.py",
                 "runtime/__init__.py", "serving/api.py", "ops/_build.py", "tools/profile_serving.py",
+                "tools/import_cost.py",
                 "parallel/mesh.py", "parallel/sharding.py", "parallel/spmd.py", "parallel/moe.py",
                 "parallel/pipeline.py", "parallel/ring_attention.py", "runtime/snapshot.py",
                 "runtime/compile_client.py", "runtime/telemetry.py", "server/compile_cache.py",
@@ -301,8 +302,24 @@ def test_every_module_of_the_port_is_scanned():
                 "partial_function.py", "server/state.py", "server/scheduler.py", "server/services.py",
                 "server/blob_server.py", "server/worker.py", "server/supervisor.py", "server/__main__.py",
                 "runtime/execution_context.py", "runtime/main_thread_exec.py", "runtime/io_manager.py",
-                "runtime/user_code.py", "runtime/container_entrypoint.py"):
+                "runtime/user_code.py", "runtime/container_entrypoint.py", "server/journal.py",
+                "_utils/local_transport.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
+
+
+@pytest.mark.parametrize("module", ["modal_tpu_torch.client", "modal_tpu_torch.server.supervisor",
+                                    "modal_tpu_torch.server.worker",
+                                    "modal_tpu_torch.runtime.container_entrypoint"])
+def test_the_function_path_loads_no_torch_at_import(module):
+    """The client, the control plane, the worker and a container's
+    entrypoint import no torch: a container sends its hello before torch
+    loads (a `gpu=` function's container loads it after the hello)."""
+    code = f"import sys, {module}\nassert 'torch' not in sys.modules, 'torch loaded'\nprint('clean')\n"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr[-3000:]
 
 
 def test_importing_the_package_and_its_pickler_loads_no_grpc_or_protobuf():

@@ -172,13 +172,47 @@ def test_backlog_fails_after_the_grace_window(tmp_path, monkeypatch):
     assert not pair.t.tasks  # never launched without its cards
 
 
+class _AbortCtx:
+    """The slice of a servicer context a refusing handler uses."""
+
+    async def abort(self, code, details):
+        raise RuntimeError(f"{code.name}: {details}")
+
+
 def test_gangs_and_waiting_features_are_refused_at_create(tmp_path):
+    slo_ttft = tapi.Function(autoscaler_settings=tapi.AutoscalerSettings(target_ttft_ms=250.0))
+    slo_tps = tapi.Function(autoscaler_settings=tapi.AutoscalerSettings(target_tokens_per_replica=900.0))
     for d, item in ((tapi.Function(group_size=2), "4d"),
-                    (tapi.Function(webhook_type=tapi.WEB_ENDPOINT_TYPE_ASGI_APP), "4c")):
+                    (tapi.Function(webhook_type=tapi.WEB_ENDPOINT_TYPE_ASGI_APP), "4c"),
+                    (slo_ttft, "4d"), (slo_tps, "4d")):
         assert f"ROADMAP Queue A {item}" in tservices.waiting_feature(d)
+    assert "target_ttft_ms" in tservices.waiting_feature(slo_ttft)
+    assert "target_tokens_per_replica" in tservices.waiting_feature(slo_tps)
     tpu = tapi.Function(resources=tapi.Resources(tpu_config=tapi.TPUConfig(tpu_type="v5e-4")))
     assert "tpu_config ('v5e-4') asks for TPU chips" in tservices.waiting_feature(tpu)
     assert tservices.waiting_feature(tapi.Function(function_name="f")) == ""
+    # FunctionCreate answers such a definition with InvalidError and keeps nothing
+    svc = tservices.ModalTPUServicer(tstate.ServerState(str(tmp_path)))
+    for d in (slo_ttft, slo_tps):
+        with pytest.raises(RuntimeError, match=r"INVALID_ARGUMENT: InvalidError: .*ROADMAP Queue A 4d"):
+            asyncio.run(svc.FunctionCreate(tapi.FunctionCreateRequest(function=d), _AbortCtx()))
+    assert svc.s.functions == {}
+
+
+def test_slo_targets_are_refused_at_update(tmp_path):
+    svc = tservices.ModalTPUServicer(tstate.ServerState(str(tmp_path)))
+    fn = asyncio.run(svc.FunctionCreate(tapi.FunctionCreateRequest(function=tapi.Function(function_name="f")),
+                                        _AbortCtx()))
+    for field, value in (("target_ttft_ms", 250.0), ("target_tokens_per_replica", 900.0)):
+        req = tapi.FunctionUpdateSchedulingParamsRequest(function_id=fn.function_id)
+        setattr(req.settings, field, value)
+        with pytest.raises(RuntimeError, match=rf"INVALID_ARGUMENT: InvalidError: .*{field}.*ROADMAP Queue A 4d"):
+            asyncio.run(svc.FunctionUpdateSchedulingParams(req, _AbortCtx()))
+    assert svc.s.functions[fn.function_id].autoscaler_override is None
+    ok = tapi.FunctionUpdateSchedulingParamsRequest(
+        function_id=fn.function_id, settings=tapi.AutoscalerSettings(min_containers=1))
+    asyncio.run(svc.FunctionUpdateSchedulingParams(ok, _AbortCtx()))
+    assert svc.s.functions[fn.function_id].autoscaler.min_containers == 1
 
 
 def _claimed(pkg_state, pkg_api, pkg_services, pkg_sched, tmp_path, retries, chips_field):

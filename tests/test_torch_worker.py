@@ -18,10 +18,18 @@
   `enable_memory_snapshot=True` (as tests/test_snapshot.py:8 for the JAX
   package): the first container runs the hook and saves, the second
   restores, skips the hook and answers the same.
+- A container of a function that asks for a card loads torch after its
+  hello, on the main thread; a CPU function's container loads none.
+- `tools/import_cost.py`, one round: torch imported bare and in a CPU
+  container's body at two switch intervals, each container's import in a
+  `container.import_torch` span.
 """
 
+import json
 import os
 import stat
+import subprocess
+import sys
 import time
 
 import jax
@@ -47,6 +55,7 @@ from modal_tpu_torch.serialization import deserialize, serialize
 from modal_tpu_torch.server import worker as tworker
 from modal_tpu_torch.server.supervisor import LocalSupervisor
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H100 = "NVIDIA H100 80GB HBM3"
 ONE_H100 = "0, NVIDIA H100 80GB HBM3, 81559 MiB\n"
 EIGHT_MIXED = "".join(
@@ -399,3 +408,62 @@ def test_a_preempted_input_resumes_on_another_worker(tmp_path):
     assert deserialize(out.result.data) == starts[1]
     tasks = sorted(sup.state.tasks.values(), key=lambda t: t.created_at)
     assert tasks[0].state == tapi.TASK_STATE_PREEMPTED and tasks[1].worker_id != tasks[0].worker_id
+
+
+def _torch_probe():
+    def probe() -> dict:
+        import sys as _sys
+
+        return {"torch_loaded": "torch" in _sys.modules}
+
+    return probe
+
+
+def test_a_card_function_loads_torch_on_the_main_thread_after_its_hello(port_plane):
+    """A function that asks for a card finds torch loaded when its body
+    runs: the entrypoint imported it after the hello, on the main thread,
+    under a `container.import_torch` span. A CPU function's container
+    loads none."""
+    from modal_tpu_torch.observability import tracing
+
+    rpc = _Driver(port_plane.server_url)
+    try:
+        card = tapi.Function(function_name="probe", definition_type="serialized",
+                             function_serialized=serialize(_torch_probe()))
+        card.resources.gpu_config.CopyFrom(tapi.GPUConfig(gpu_type="H100", count=1))  # a local-sim card
+        cpu = tapi.Function(function_name="probe_cpu", definition_type="serialized",
+                            function_serialized=serialize(_torch_probe()))
+        card_id, cpu_id = rpc.create(card, "probe"), rpc.create(cpu, "probe_cpu")
+        on_card, on_cpu = rpc.remote(card_id), rpc.remote(cpu_id)
+    finally:
+        rpc.close()
+    assert on_card == {"torch_loaded": True} and on_cpu == {"torch_loaded": False}
+    tasks = {t.function_id: t for t in port_plane.state.tasks.values()}
+    # the span sink is per process: the worker handed the current one to the containers
+    spans = {s["attrs"]["task_id"]: s for s in tracing.read_spans(tracing.trace_dir())
+             if s["name"] == "container.import_torch"}
+    span = spans[tasks[card_id].task_id]
+    assert span["attrs"]["thread"] == "MainThread"
+    assert tasks[card_id].started_at <= span["start"] < span["end"]
+    assert tasks[cpu_id].task_id not in spans
+
+
+def test_the_import_cost_tool_measures_each_place(tmp_path):
+    """One round of the tool in its own interpreter: the import timed in
+    each place, every container's import under its span (the tool fails
+    without one), with the switch interval, thread and import trace it
+    names."""
+    out = tmp_path / "import_cost.json"
+    proc = subprocess.run([sys.executable, "-m", "modal_tpu_torch.tools.import_cost", "--rounds", "1",
+                           "--out", str(out)], cwd=REPO, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    runs = json.loads(out.read_text())
+    assert sorted(runs) == ["bare", "container", "container_5ms", "container_thread", "container_traced"]
+    for place, (run,) in runs.items():
+        assert 0 < run["import_s"] < 120, (place, run)
+        if place != "bare":
+            assert run["spawn_to_hello_s"] > 0 and run["map_to_output_s"] > run["import_s"]
+            assert run["thread"] == ("import-torch" if place == "container_thread" else "MainThread")
+            assert run["import_trace"] == (place == "container_traced")
+            assert run["switch_interval"] == pytest.approx(0.005 if place == "container_5ms" else 0.001)
+    assert proc.stdout.count("[import_cost]") == 5
