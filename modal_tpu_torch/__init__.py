@@ -27,6 +27,11 @@ each module's counterpart is easy to find:
   (`compile_cache.py`);
 - `observability/`: serving, device, compile and client metrics, spans,
   and the heartbeat report;
+- the App layer: `App` (`app.py`) with `@app.function(gpu=...)` and
+  `@app.cls(gpu=...)`, `Function`/`FunctionCall` (`functions.py`), `.map`
+  and its siblings (`parallel_map.py`), `Cls`/`Obj`/`parameter` (`cls.py`),
+  `Image`, `Mount`, `Secret`, `Cron`/`Period`, and `app.run()` /
+  `app.deploy()` (`runner.py`);
 - the SDK core, imported on demand: the wire contract (`proto/`), the
   client (`client.py`), object handles (`object.py`), payloads
   (`serialization.py`), `gpu=` (`gpu_config.py`), method and lifecycle
@@ -38,15 +43,43 @@ Entry points run on CUDA unless the caller passes `device="cpu"`.
 
 Importing the package imports nothing else (not torch, grpc or protobuf):
 a boot traces its imports with `runtime.telemetry` before anything heavy
-loads.
+loads. Each public name below loads its module on first access.
 """
 
-__all__ = ["logger", "resolve_device"]
+# public name -> the module that defines it
+_EXPORTS = {
+    "logger": "config",
+    "resolve_device": "config",
+    "App": "app",
+    "Function": "functions",
+    "FunctionCall": "functions",
+    "Cls": "cls",
+    "Obj": "cls",
+    "parameter": "cls",
+    "Image": "image",
+    "Mount": "mount",
+    "Secret": "secret",
+    "Retries": "retries",
+    "Cron": "schedule",
+    "Period": "schedule",
+    "SchedulerPlacement": "schedule",
+    "enable_output": "_output",
+    "method": "partial_function",
+    "enter": "partial_function",
+    "exit": "partial_function",
+    "current_function_call_id": "runtime.execution_context",
+    "current_input_id": "runtime.execution_context",
+    "is_local": "runtime.execution_context",
+    "resume_token": "runtime.execution_context",
+    "set_resume_token": "runtime.execution_context",
+}
+
+__all__ = list(_EXPORTS)
 
 
 def __getattr__(name: str):
-    if name in __all__:
-        from . import config
+    if name in _EXPORTS:
+        import importlib
 
-        return getattr(config, name)
+        return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -55,6 +55,7 @@ RANGE_CONCURRENCY = 8
 
 # Inflight memory budget for map pumping / uploads (reference
 # blob_utils.py:57-59: min 256 MiB, max 2 GiB, <=50% of RAM).
+DEFAULT_BYTE_BUDGET = 256 * 1024 * 1024
 MULTIPART_INFLIGHT_BYTES_MIN = 256 * 1024 * 1024
 MULTIPART_INFLIGHT_BYTES_MAX = 2 * 1024**3
 MULTIPART_INFLIGHT_MEMORY_FRACTION = 0.5
@@ -78,18 +79,25 @@ def multipart_byte_budget() -> int:
 class _ByteBudget:
     """Async byte-count backpressure (reference _ByteBudget,
     blob_utils.py:66): acquire(n) blocks while the inflight total would
-    exceed the budget; release(n) frees it. A single item larger than the
-    whole budget is admitted alone rather than deadlocking."""
+    exceed the budget (or, with max_items, the inflight count reach it);
+    release(n) frees it. A single item larger than the whole budget is
+    admitted alone rather than deadlocking."""
 
-    def __init__(self, budget: int):
+    def __init__(self, budget: int = DEFAULT_BYTE_BUDGET, max_items: int = 0):
         self._budget = budget
+        self._max_items = max_items  # 0 = unlimited
         self._inflight_bytes = 0
         self._inflight_items = 0
         self._condition = asyncio.Condition()
 
+    def would_block(self, nbytes: int) -> bool:
+        return (self._inflight_bytes + nbytes > self._budget and self._inflight_items > 0) or bool(
+            self._max_items and self._inflight_items >= self._max_items
+        )
+
     async def acquire(self, nbytes: int) -> None:
         async with self._condition:
-            while self._inflight_bytes + nbytes > self._budget and self._inflight_items > 0:
+            while self.would_block(nbytes):
                 await self._condition.wait()
             self._inflight_bytes += nbytes
             self._inflight_items += 1

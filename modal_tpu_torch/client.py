@@ -40,6 +40,8 @@ from .exception import ClientClosed
 from .proto import api_pb2
 from .proto.rpc import ModalTPUStub
 
+# an app run heartbeats its app every HEARTBEAT_INTERVAL seconds (runner.py)
+HEARTBEAT_INTERVAL: float = config["heartbeat_interval"]
 CLIENT_VERSION = "0.1.0"
 
 

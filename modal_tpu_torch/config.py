@@ -65,9 +65,9 @@ def _to_boolean(x: Any) -> bool:
 
 
 # the JAX package's settings (modal_tpu/config.py:89-160) that a module of
-# the port reads: the client, the control plane, the worker, the container
-# runtime and the cold-start runtime; the others come with the module that
-# reads them
+# the port reads: the client, the App layer, the control plane, the worker,
+# the container runtime and the cold-start runtime; the others come with the
+# module that reads them
 _SETTINGS: dict[str, _Setting] = {
     "server_url": _Setting("grpc://127.0.0.1:9900"),
     # when the server_url is the default and nothing listens there, the
@@ -78,9 +78,18 @@ _SETTINGS: dict[str, _Setting] = {
     "task_id": _Setting(),
     # a container heartbeats every heartbeat_interval / 3 seconds (io_manager)
     "heartbeat_interval": _Setting(15.0, float),
-    # local state: the control plane's blobs, task dirs and traces, and
-    # snapshots under <state_dir>/snapshots
-    "state_dir": _Setting(os.path.expanduser("~/.modal_tpu_state")),
+    # the App layer: the environment apps and objects are created in, the
+    # grace `app.run()` gives its heartbeat loop at exit, and the image
+    # builder version and force-build flag an Image definition carries
+    "environment": _Setting(""),
+    "logs_timeout": _Setting(10.0, float),
+    "image_builder_version": _Setting("2026.07"),
+    "force_build": _Setting(False, _to_boolean),
+    # local state: the control plane's journal, blobs, task dirs and traces,
+    # and snapshots under <state_dir>/snapshots. Not the JAX package's
+    # ~/.modal_tpu_state: a plane that `app.run()` boots recovers the
+    # journal it finds there, and must not replay the other package's apps
+    "state_dir": _Setting(os.path.expanduser("~/.modal_tpu_torch_state")),
     # a worker's placement labels (matched against SchedulerPlacement)
     "worker_region": _Setting(""),
     "worker_zone": _Setting(""),

@@ -1,8 +1,8 @@
 """The metric families the port emits: serving (the engine and its ASGI
 app), device telemetry (step times, device memory), compile telemetry
 (kernel builds, CUDA-graph captures, the fleet compile cache), the SDK
-core (client RPCs, payload bytes), the control plane, and its journal and
-local fast path.
+core (client RPCs, payload bytes), the App layer's dispatch, the control
+plane, and its journal and local fast path.
 
 Names and help texts are those of the JAX package's catalog, so a scrape of
 either implementation reads the same way. Importing this module registers
@@ -341,4 +341,19 @@ FASTPATH_FALLBACKS = REGISTRY.counter(
     "Fast-path rungs abandoned mid-flight, by rung and reason "
     "(e.g. uds/socket_gone, stream/reset, batch/unimplemented).",
     ("rung", "reason"),
+)
+
+# -- the App layer's dispatch (functions.py, parallel_map.py) ------------------
+
+OUTPUT_STREAM_EVENTS = REGISTRY.counter(
+    "modal_tpu_output_stream_events_total",
+    "Push-streamed output delivery lifecycle (open | batch | keepalive | "
+    "reconnect | reset | fallback).",
+    ("event",),
+)
+DISPATCH_LATENCY = REGISTRY.histogram(
+    "modal_tpu_dispatch_latency_seconds",
+    "Client-observed end-to-end `.remote()` wall time (the function.call root span); "
+    "observations carry the trace_id as an OpenMetrics exemplar, so a p99 bucket "
+    "links to `modal_tpu app trace <trace_id>`.",
 )

@@ -10,9 +10,8 @@ A `PartialFunction` wraps a user function inside a class body and records
 *how* it should run: as a callable method or a lifecycle hook. The
 container runtime reads these flags off a serialized class
 (runtime/user_code.py). `@batched` and `@concurrent`, whose parameters the
-App writes into the function definition, come with the port's App (ROADMAP
-Queue A 4c), as do the web decorators; `@clustered` comes with its gang
-runtime (4d).
+App writes into the function definition, come with ROADMAP Queue A 4c-ii,
+as do the web decorators; `@clustered` comes with its gang runtime (4d).
 """
 
 from __future__ import annotations

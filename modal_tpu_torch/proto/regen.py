@@ -82,6 +82,10 @@ NEW_FIELDS: list[tuple[str, str, int, int, int, str]] = [
     ("WorkerRegisterRequest", "num_gpus", 16, F.TYPE_UINT32, F.LABEL_OPTIONAL, ""),
     ("TaskAssignment", "gpu_ids", 7, F.TYPE_UINT32, F.LABEL_REPEATED, ""),
     ("TaskInfo", "gpu_ids", 13, F.TYPE_UINT32, F.LABEL_REPEATED, ""),
+    # a with_options variant's card ask, merged by FunctionBindParams as the
+    # TPU pair (tpu_config 6, has_tpu 7) is: past JAX's last number (12)
+    ("FunctionOptions", "gpu_config", 13, F.TYPE_MESSAGE, F.LABEL_OPTIONAL, "GPUConfig"),
+    ("FunctionOptions", "has_gpu", 14, F.TYPE_BOOL, F.LABEL_OPTIONAL, ""),
 ]
 
 

@@ -24,7 +24,7 @@ and SIGUSR2 (preemption) flushes the in-flight inputs' resume tokens first.
 A definition that asks for what the port's runtime does not run yet is
 refused before any user code runs, naming the ROADMAP Queue A sub-slice
 that brings it: gangs, cloud bucket mounts and volumes (4d), web endpoints
-(4c). The runtime debug profile (4d) and the warm-pool parking (4e) wait
+(4c-ii). The runtime debug profile (4d) and the warm-pool parking (4e) wait
 too.
 """
 
@@ -81,7 +81,7 @@ def waiting_branch(container_args: api_pb2.ContainerArguments) -> str:
     if function_def.volume_mounts:
         return "volume mounts wait for the port's Volumes (ROADMAP Queue A 4d)"
     if function_def.webhook_type != api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED:
-        return "web endpoints wait for the port's web runtime (ROADMAP Queue A 4c)"
+        return "web endpoints wait for the port's web runtime (ROADMAP Queue A 4c-ii)"
     if function_def.experimental_options.get("runtime_debug"):
         return "the runtime debug profile waits for the port's profiler (ROADMAP Queue A 4d)"
     return ""

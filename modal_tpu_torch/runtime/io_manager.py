@@ -12,7 +12,7 @@ Outputs go through the port's `serialize_payload`: a CUDA tensor leaves the
 card out of band through pinned staging, and a payload over 2 MiB goes to
 the blob store. The heartbeat pushes the container's device and compile
 telemetry. The JAX manager's claim and output coalescing (ROADMAP Queue A
-4c) and its profiler commands (4d) wait: each claim asks for one input (a
+4c-ii) and its profiler commands (4d) wait: each claim asks for one input (a
 @batched function's batch), and each output batch is one RPC.
 """
 

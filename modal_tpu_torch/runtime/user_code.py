@@ -7,10 +7,11 @@ Reference: py/modal/_runtime/user_code_imports.py — `Service`
 collection.
 
 A container gets a serialized function or class (the port's cloudpickle
-payload in `function_serialized` / `class_serialized`), or a plain function
-or class by module and name. The JAX package also unwraps its `Function`
-and `Cls` handles found at that name; the port's come with its App slice
-(ROADMAP Queue A 4c).
+payload in `function_serialized` / `class_serialized`), or a function or
+class by module and name: a module-level `Function` handle is unwrapped to
+its raw function and a `Cls` to its user class, as in the JAX package.
+Importing the user's file runs its `App(...)` and decorators, which contact
+nothing (app.py).
 """
 
 from __future__ import annotations
@@ -76,17 +77,19 @@ def _resolve_attr(module: Any, qualname: str) -> Any:
     return obj
 
 
-def _plain_object(obj: Any, name: str) -> Any:
-    """A module attribute the port can run: a plain function or class (or a
-    partial function's raw function). The JAX package's Function and Cls
-    handles come with the port's App slice."""
+def _plain_object(obj: Any) -> Any:
+    """The raw function or user class behind a module attribute: a
+    `Function` handle's function, a `Cls` handle's class, a partial
+    function's raw function, or the attribute itself."""
+    from ..cls import _Cls
+    from ..functions import _Function
+
+    if isinstance(obj, _Function):
+        return obj.get_raw_f()
+    if isinstance(obj, _Cls):
+        return obj._user_cls
     if isinstance(obj, _PartialFunction):
         return obj.raw_f
-    if not (inspect.isfunction(obj) or inspect.isclass(obj)):
-        raise ExecutionError(
-            f"{name} is a {type(obj).__name__}: a container of the port runs plain functions and classes, "
-            "or serialized ones; Function and Cls handles come with its App slice (ROADMAP Queue A 4c)"
-        )
     return obj
 
 
@@ -102,7 +105,7 @@ def import_function(function_def: api_pb2.Function, client: Any) -> Callable:
         module = _import_module_from_path("__modal_tpu_main__", main_path)
     else:
         module = importlib.import_module(module_name)
-    return _plain_object(_resolve_attr(module, function_def.function_name), function_def.function_name)
+    return _plain_object(_resolve_attr(module, function_def.function_name))
 
 
 def import_single_function_service(function_def: api_pb2.Function, client: Any) -> Service:
@@ -120,8 +123,7 @@ def import_class_service(function_def: api_pb2.Function, client: Any, bound_para
         user_cls = deserialize(function_def.class_serialized, client)
     else:
         module = importlib.import_module(function_def.module_name)
-        attr = function_def.function_name.split(".")[0]
-        user_cls = _plain_object(_resolve_attr(module, attr), attr)
+        user_cls = _plain_object(_resolve_attr(module, function_def.function_name.split(".")[0]))
 
     args, kwargs = bound_params if bound_params else ((), {})
     user_instance = user_cls(*args, **kwargs)

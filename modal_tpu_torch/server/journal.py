@@ -26,10 +26,11 @@ outputs, worker registrations and the idempotency seen-set) is replayable:
   (``IdempotencyCache``), so a retry storm after a restart replays cached
   responses instead of re-executing.
 
-The port's plane has the function path's tables only. A journal written by
-the JAX package's plane may hold records of tables the port does not have yet
-(volumes, secrets, dicts and queues, proxies, images, environments,
-workspace settings, tokens, input-plane attempts, SLO alerts): recovery
+The port's plane has the function path's tables and the App layer's images
+and secrets. A journal written by the JAX package's plane may hold records of
+tables the port does not have yet (volumes, dicts and queues, proxies,
+environments, workspace settings, tokens, input-plane attempts, SLO alerts):
+recovery
 counts them by type in its report and logs one warning per type naming the
 ROADMAP Queue A sub-slice that brings the table; it never drops them
 silently.
@@ -67,7 +68,7 @@ IDEMPOTENCY_MAX_ENTRIES = 8192
 # Mutating RPCs of the port's plane whose responses are deduped by the
 # client's idempotency key: a retry after a lost response or a restart
 # replays the cached response instead of re-executing. FunctionMapBatch
-# joins with the coalesced dispatch of the App layer (ROADMAP Queue A 4c).
+# joins with the coalesced dispatch (ROADMAP Queue A 4c-ii).
 IDEMPOTENT_RPCS = frozenset(
     {
         "FunctionMap",
@@ -86,10 +87,8 @@ IDEMPOTENT_RPCS = frozenset(
 WAITING_RECORD_TYPES: dict[str, str] = {
     **dict.fromkeys(("volume", "volume_files", "volume_rm", "volume_meta", "volume_del"), "4d (Volumes)"),
     "alert": "4d (SLO alerts)",
-    **dict.fromkeys(("secret", "secret_del"), "4e (secrets)"),
     **dict.fromkeys(("dictq", "dictq_del"), "4e (dicts and queues)"),
     **dict.fromkeys(("proxy", "proxy_del"), "4e (proxies)"),
-    **dict.fromkeys(("image", "image_del"), "4e (images)"),
     **dict.fromkeys(("environment", "environment_del", "environment_update"), "4e (environments)"),
     "ws_setting": "4e (workspace settings)",
     "token": "4e (tokens)",
@@ -676,6 +675,44 @@ def _apply_worker_gone(s, r):
     s.workers.pop(r["worker_id"], None)
 
 
+def _apply_secret(s, r):
+    from .state import SecretState
+
+    sec = s.secrets.get(r["secret_id"]) or SecretState(secret_id=r["secret_id"])
+    sec.name = r.get("name", "")
+    sec.env_dict = dict(r.get("env", {}))
+    s.secrets[r["secret_id"]] = sec
+    if r.get("deploy_key"):
+        s.deployed_secrets[tuple(r["deploy_key"])] = sec.secret_id
+
+
+def _apply_secret_del(s, r):
+    s.secrets.pop(r["secret_id"], None)
+    for key, sid in list(s.deployed_secrets.items()):
+        if sid == r["secret_id"]:
+            del s.deployed_secrets[key]
+
+
+def _apply_image(s, r):
+    from .state import ImageState
+
+    s.images[r["image_id"]] = ImageState(
+        image_id=r["image_id"],
+        definition=_proto(api_pb2.Image, r.get("definition", "")),
+        metadata=_proto(api_pb2.ImageMetadata, r.get("metadata", "")),
+        built=bool(r.get("built", True)),
+    )
+    if r.get("hash_key"):
+        s.images_by_hash[r["hash_key"]] = r["image_id"]
+
+
+def _apply_image_del(s, r):
+    s.images.pop(r["image_id"], None)
+    for key, image_id in list(s.images_by_hash.items()):
+        if image_id == r["image_id"]:
+            del s.images_by_hash[key]
+
+
 def _apply_rpc_dedupe(s, r):
     if s.idempotency is not None:
         s.idempotency.put(r["key"], r.get("method", ""), _unb64(r.get("resp", "")), journal=False)
@@ -695,6 +732,10 @@ _APPLIERS: dict[str, Callable] = {
     "call_cancel": _apply_call_cancel,
     "worker": _apply_worker,
     "worker_gone": _apply_worker_gone,
+    "secret": _apply_secret,
+    "secret_del": _apply_secret_del,
+    "image": _apply_image,
+    "image_del": _apply_image_del,
     "rpc_dedupe": _apply_rpc_dedupe,
 }
 
@@ -708,6 +749,30 @@ def synthesize_records(s) -> list[dict]:
     """Records that, applied in order to a fresh ServerState, reproduce the
     journaled projection of ``s``. Claims and tasks are absent by design."""
     out: list[dict] = []
+    hash_by_image = {v: k for k, v in s.images_by_hash.items()}
+    for img in s.images.values():
+        out.append(
+            {
+                "t": "image",
+                "image_id": img.image_id,
+                "definition": _b64(img.definition.SerializeToString()),
+                "metadata": _b64(img.metadata.SerializeToString()),
+                "built": img.built,
+                "hash_key": hash_by_image.get(img.image_id, ""),
+            }
+        )
+    deployed_by_secret = {v: k for k, v in s.deployed_secrets.items()}
+    for sec in s.secrets.values():
+        deploy_key = deployed_by_secret.get(sec.secret_id)
+        out.append(
+            {
+                "t": "secret",
+                "secret_id": sec.secret_id,
+                "name": sec.name,
+                "env": dict(sec.env_dict),
+                "deploy_key": list(deploy_key) if deploy_key else None,
+            }
+        )
     deployed_by_app = {v: k[1] for k, v in s.deployed_apps.items()}
     for app in s.apps.values():
         out.append(
@@ -856,7 +921,8 @@ def recover_state(state, journal: Journal) -> dict:
         where = f"its table comes with ROADMAP Queue A {waits}" if waits else "no table of the port holds it"
         logger.warning(f"journal recovery skipped {n} {t!r} record(s): {where}")
     # post-pass 1: id counters past every recovered id
-    for pool in (state.apps, state.functions, state.function_calls, state.inputs, state.workers):
+    for pool in (state.apps, state.functions, state.function_calls, state.inputs, state.workers, state.secrets,
+                 state.images):
         for obj_id in pool:
             bump_id_counter(obj_id)
     # post-pass 2: every unfinished input is pending, once in its queue

@@ -304,6 +304,12 @@ class Scheduler:
             function_def=fn.definition,
             environment_name=app.environment_name if app else "",
         )
+        # secrets resolve to env at assignment time
+        for secret_id in fn.definition.secret_ids:
+            secret = self.s.secrets.get(secret_id)
+            if secret is not None:
+                for k, v in secret.env_dict.items():
+                    args.env[k] = v
         if fn.serialized_params:
             args.env["MODAL_TPU_BOUND_PARAMS"] = fn.serialized_params.hex()
         if task.trace_context:

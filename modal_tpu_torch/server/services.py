@@ -1,10 +1,12 @@
 """Control-plane RPC handlers of the function path (port of
 modal_tpu/server/services.py).
 
-The handlers a serialized function or class call goes through, with the JAX
-control plane's semantics: apps, blobs, function definition and invocation
-(FunctionMap / FunctionGetOutputs long polls, generators, cancellation),
-the container data plane (hello, heartbeats, input claims, outputs, logs,
+The handlers a function or class call of the App layer goes through, with
+the JAX control plane's semantics: apps, blobs, function definition and
+invocation (FunctionMap / FunctionGetOutputs long polls, generators,
+cancellation), images (registered as built), mounts (content-addressed
+blocks), secrets (resolved into a container's env at placement), the
+container data plane (hello, heartbeats, input claims, outputs, logs,
 results) and the worker plane (register, poll, heartbeat).
 
 Every mutating handler appends the effect it applied to the write-ahead
@@ -12,16 +14,18 @@ journal (server/journal.py) under the JAX handler's record type, so a
 restarted plane replays its apps, calls and queued inputs; claims, tasks,
 heartbeats and logs are transient by design. Every RPC of the wire contract
 this servicer has no handler for answers gRPC UNIMPLEMENTED (proto/rpc.py):
-the task cluster rendezvous, volumes, cluster listing and metrics history
-(ROADMAP Queue A 4d); sandboxes, tunnels, images, mounts, secrets, proxies,
-dicts, queues, environments, tokens, workspaces, profiles, the input plane,
-and shard and journal administration (4e).
+web URLs and the coalesced FunctionMapBatch (ROADMAP Queue A 4c-ii); the
+task cluster rendezvous, volumes, cluster listing and metrics history (4d);
+sandboxes, tunnels, image listing and deletion, proxies, dicts, queues,
+environments, tokens, workspaces, profiles, the input plane, and shard and
+journal administration (4e).
 """
 
 from __future__ import annotations
 
 import asyncio
 import hashlib
+import json
 import time
 
 import grpc
@@ -31,10 +35,22 @@ from ..observability import tracing
 from ..observability.catalog import INPUT_QUEUE_WAIT, TASK_RESULTS, WORKER_HEARTBEATS, WORKERS_READOPTED
 from ..proto import api_pb2
 from .journal import _b64 as _jb64
-from .state import AppState, FunctionCallState, FunctionState, InputState, ServerState, TaskState_, WorkerState
+from .state import (
+    AppState,
+    FunctionCallState,
+    FunctionState,
+    ImageState,
+    InputState,
+    SecretState,
+    ServerState,
+    TaskState_,
+    WorkerState,
+)
 
 CREATE_IF_MISSING = api_pb2.OBJECT_CREATION_TYPE_CREATE_IF_MISSING
 FAIL_IF_EXISTS = api_pb2.OBJECT_CREATION_TYPE_CREATE_FAIL_IF_EXISTS
+EPHEMERAL = api_pb2.OBJECT_CREATION_TYPE_EPHEMERAL
+ANONYMOUS = api_pb2.OBJECT_CREATION_TYPE_ANONYMOUS_OWNED_BY_APP
 AUTH_TOKEN_TTL_S = 1200.0
 # a draining worker that promised its containers no grace gets this one
 PREEMPT_GRACE_S = 10.0
@@ -57,9 +73,9 @@ def waiting_feature(definition: api_pb2.Function) -> str:
     if (definition.group_size or 0) > 1:
         return "gang functions (group_size > 1) wait for the port's gang runtime (ROADMAP Queue A 4d)"
     if definition.webhook_type != api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED:
-        return "web endpoints wait for the port's App and web runtime (ROADMAP Queue A 4c)"
+        return "web endpoints wait for the port's web runtime (ROADMAP Queue A 4c-ii)"
     if definition.schedule.WhichOneof("schedule_oneof") is not None:
-        return "scheduled functions wait for the port's App (ROADMAP Queue A 4c)"
+        return "scheduled functions wait for the port's cron loop (ROADMAP Queue A 4c-ii)"
     return slo_targets_waiting(definition.autoscaler_settings)
 
 
@@ -443,10 +459,20 @@ class ModalTPUServicer:
                 setattr(bound_def.autoscaler_settings, name, getattr(opts, name))
         if opts.HasField("timeout_secs"):
             bound_def.timeout_secs = opts.timeout_secs
+        if opts.has_tpu:
+            bound_def.resources.tpu_config.CopyFrom(opts.tpu_config)  # refused below, as FunctionCreate refuses it
+        if opts.has_gpu:
+            bound_def.resources.gpu_config.CopyFrom(opts.gpu_config)  # the card ask ONLY
         if opts.has_retry_policy:
             bound_def.retry_policy.CopyFrom(opts.retry_policy)
         if opts.HasField("max_concurrent_inputs"):
             bound_def.max_concurrent_inputs = opts.max_concurrent_inputs
+        if opts.replace_secrets:
+            del bound_def.secret_ids[:]
+            bound_def.secret_ids.extend(opts.secret_ids)
+        waiting = waiting_feature(bound_def)
+        if waiting:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"InvalidError: {waiting}")
         bound = FunctionState(
             function_id=self.s.make_id("fu"),
             app_id=parent.app_id,
@@ -1247,3 +1273,117 @@ class ModalTPUServicer:
     async def TaskReady(self, request: api_pb2.TaskReadyRequest, context) -> api_pb2.TaskReadyResponse:
         # readiness of a sandbox task; sandboxes come with ROADMAP Queue A 4e
         return api_pb2.TaskReadyResponse()
+
+    # ------------------------------------------------------------------
+    # Images: registered as built (the image builder comes with ROADMAP
+    # Queue A 4e); a container runs in its worker's environment
+    # ------------------------------------------------------------------
+
+    async def ImageGetOrCreate(self, request: api_pb2.ImageGetOrCreateRequest, context) -> api_pb2.ImageGetOrCreateResponse:
+        key = hashlib.sha256(request.image.SerializeToString(deterministic=True)).hexdigest()[:16]
+        image_id = self.s.images_by_hash.get(key)
+        if image_id is None:
+            image_id = self.s.make_id("im")
+            metadata = api_pb2.ImageMetadata(
+                image_builder_version=request.builder_version or "2026.07", python_version="local"
+            )
+            self.s.images[image_id] = ImageState(image_id=image_id, definition=request.image, metadata=metadata,
+                                                 built=True)
+            self.s.images_by_hash[key] = image_id
+            self._j("image", image_id=image_id, definition=_jb64(request.image.SerializeToString()),
+                    metadata=_jb64(metadata.SerializeToString()), built=True, hash_key=key)
+        return api_pb2.ImageGetOrCreateResponse(image_id=image_id, metadata=self.s.images[image_id].metadata)
+
+    async def ImageJoinStreaming(self, request, context) -> api_pb2.ImageJoinStreamingResponse:
+        image = self.s.images.get(request.image_id)
+        if image is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "image not found")
+        return api_pb2.ImageJoinStreamingResponse(
+            result=api_pb2.GenericResult(status=api_pb2.GENERIC_STATUS_SUCCESS), eof=True, metadata=image.metadata
+        )
+
+    async def ImageFromId(self, request, context) -> api_pb2.ImageFromIdResponse:
+        image = self.s.images.get(request.image_id)
+        if image is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "image not found")
+        return api_pb2.ImageFromIdResponse(image_id=request.image_id, metadata=image.metadata,
+                                           definition=image.definition)
+
+    # ------------------------------------------------------------------
+    # Mounts: file contents by sha256 in the block store, a manifest per
+    # mount (the worker shares the client's filesystem: nothing is copied
+    # into a container)
+    # ------------------------------------------------------------------
+
+    async def MountPutFile(self, request: api_pb2.MountPutFileRequest, context) -> api_pb2.MountPutFileResponse:
+        if request.WhichOneof("data_oneof") is None:
+            return api_pb2.MountPutFileResponse(exists=self.s.has_block(request.sha256_hex))
+        data = request.data
+        if request.data_blob_id:
+            with open(self.s.blob_path(request.data_blob_id), "rb") as f:
+                data = f.read()
+        self.s.put_block(request.sha256_hex, data)
+        return api_pb2.MountPutFileResponse(exists=True)
+
+    async def MountGetOrCreate(self, request: api_pb2.MountGetOrCreateRequest, context) -> api_pb2.MountGetOrCreateResponse:
+        missing = [f.sha256_hex for f in request.files if not self.s.has_block(f.sha256_hex)]
+        if missing:
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION, f"missing file content: {missing[:3]}")
+        mount_id = self.s.make_id("mo")
+        manifest = json.dumps(
+            [{"filename": f.filename, "sha256_hex": f.sha256_hex, "mode": f.mode, "size": f.size}
+             for f in request.files]
+        ).encode()
+        self.s.put_block("mount-" + mount_id, manifest)
+        return api_pb2.MountGetOrCreateResponse(
+            mount_id=mount_id,
+            handle_metadata=api_pb2.MountHandleMetadata(content_checksum_sha256_hex=hashlib.sha256(manifest).hexdigest()),
+        )
+
+    # ------------------------------------------------------------------
+    # Secrets: env dicts, resolved into a container's env at placement
+    # (scheduler._container_arguments). The port has no workspace settings
+    # (ROADMAP Queue A 4e): an empty environment name stays "".
+    # ------------------------------------------------------------------
+
+    async def SecretGetOrCreate(self, request: api_pb2.SecretGetOrCreateRequest, context) -> api_pb2.SecretGetOrCreateResponse:
+        if request.object_creation_type in (ANONYMOUS, EPHEMERAL) or (not request.deployment_name and request.env_dict):
+            secret_id = self.s.make_id("st")
+            self.s.secrets[secret_id] = SecretState(secret_id=secret_id, env_dict=dict(request.env_dict))
+            self._j("secret", secret_id=secret_id, env=dict(request.env_dict))
+            return api_pb2.SecretGetOrCreateResponse(secret_id=secret_id)
+        key = (request.environment_name, request.deployment_name)
+        secret_id = self.s.deployed_secrets.get(key)
+        if secret_id is None:
+            if request.object_creation_type not in (CREATE_IF_MISSING, FAIL_IF_EXISTS) and not request.env_dict:
+                await context.abort(grpc.StatusCode.NOT_FOUND, f"secret {request.deployment_name!r} not found")
+            secret_id = self.s.make_id("st")
+            self.s.secrets[secret_id] = SecretState(secret_id=secret_id, name=request.deployment_name,
+                                                    env_dict=dict(request.env_dict))
+            self.s.deployed_secrets[key] = secret_id
+            self._j("secret", secret_id=secret_id, name=request.deployment_name, env=dict(request.env_dict),
+                    deploy_key=list(key))
+        elif request.object_creation_type == FAIL_IF_EXISTS:
+            await context.abort(grpc.StatusCode.ALREADY_EXISTS, "secret exists")
+        elif request.env_dict:
+            self.s.secrets[secret_id].env_dict = dict(request.env_dict)
+            self._j("secret", secret_id=secret_id, name=self.s.secrets[secret_id].name, env=dict(request.env_dict),
+                    deploy_key=list(key))
+        self.s.secrets[secret_id].last_used_at = time.time()
+        return api_pb2.SecretGetOrCreateResponse(secret_id=secret_id)
+
+    async def SecretList(self, request, context) -> api_pb2.SecretListResponse:
+        return api_pb2.SecretListResponse(items=[
+            api_pb2.SecretListItem(label=s.name, created_at=s.created_at, last_used_at=s.last_used_at,
+                                   secret_id=s.secret_id)
+            for s in self.s.secrets.values() if s.name
+        ])
+
+    async def SecretDelete(self, request, context) -> api_pb2.SecretDeleteResponse:
+        secret = self.s.secrets.pop(request.secret_id, None)
+        if secret is not None:
+            for key, sid in list(self.s.deployed_secrets.items()):
+                if sid == request.secret_id:
+                    del self.s.deployed_secrets[key]
+            self._j("secret_del", secret_id=request.secret_id)
+        return api_pb2.SecretDeleteResponse()

@@ -2,16 +2,17 @@
 modal_tpu/server/state.py).
 
 The function path's part of the JAX package's model: apps, functions, their
-input queues and calls, tasks and workers, plus the on-disk blob store and
-the fleet compile cache. A worker holds GPUs: a type (the card's full name),
+input queues and calls, tasks and workers, the App layer's images and
+secrets, plus the on-disk blob store, the content-addressed block store of
+mounts and the fleet compile cache. A worker holds GPUs: a type (the card's full name),
 a count, and which cards are pinned to which task.
 
 The state is volatile dataclasses made durable by the write-ahead journal
 (server/journal.py): the supervisor attaches `journal` and `idempotency`,
 and a restarted plane replays them into a fresh ServerState. `replicator`
 stays None: quorum replication comes with the shard fleet (ROADMAP Queue A
-4e). Gangs, volumes, secrets, dicts, queues, images and sandboxes come with
-their sub-slices.
+4e). Gangs, volumes, dicts, queues and sandboxes come with their
+sub-slices.
 """
 
 from __future__ import annotations
@@ -159,6 +160,28 @@ class TaskState_:
 
 
 @dataclass
+class SecretState:
+    secret_id: str
+    name: str = ""
+    env_dict: dict[str, str] = field(default_factory=dict)
+    created_at: float = field(default_factory=time.time)
+    last_used_at: float = 0.0
+
+
+@dataclass
+class ImageState:
+    """An image definition, registered as built (the image builder comes
+    with ROADMAP Queue A 4e): a container runs in the worker's own
+    environment whatever the image says."""
+
+    image_id: str
+    definition: api_pb2.Image
+    metadata: api_pb2.ImageMetadata = field(default_factory=api_pb2.ImageMetadata)
+    built: bool = False
+    created_at: float = field(default_factory=time.time)
+
+
+@dataclass
 class WorkerState:
     worker_id: str
     hostname: str = ""
@@ -196,6 +219,10 @@ class ServerState:
         self.state_dir = state_dir
         self.blob_dir = os.path.join(state_dir, "blobs")
         os.makedirs(self.blob_dir, exist_ok=True)
+        # mount file contents by sha256 (MountPutFile), in the JAX plane's
+        # block dir beside the blobs
+        self.block_dir = os.path.join(state_dir, "volume_blocks")
+        os.makedirs(self.block_dir, exist_ok=True)
         # the fleet compile cache beside the blob store (server/compile_cache.py)
         self.compile_cache = CompileCacheStore(os.path.join(state_dir, "compile_cache"))
 
@@ -207,6 +234,10 @@ class ServerState:
         self.function_calls: dict[str, FunctionCallState] = {}
         self.tasks: dict[str, TaskState_] = {}
         self.workers: dict[str, WorkerState] = {}
+        self.secrets: dict[str, SecretState] = {}
+        self.deployed_secrets: dict[tuple[str, str], str] = {}  # (env, name) -> secret_id
+        self.images: dict[str, ImageState] = {}
+        self.images_by_hash: dict[str, str] = {}  # definition hash -> image_id
         self.blob_url_base: str = ""  # set by the blob server once it is up
         # local fast-path coordinates advertised at ClientHello (set when
         # the supervisor binds): the plane's Unix socket, the input plane's
@@ -235,6 +266,25 @@ class ServerState:
 
     def blob_path(self, blob_id: str) -> str:
         return os.path.join(self.blob_dir, blob_id)
+
+    def block_path(self, sha256_hex: str) -> str:
+        return os.path.join(self.block_dir, sha256_hex)
+
+    def put_block(self, sha256_hex: str, data: bytes) -> None:
+        path = self.block_path(sha256_hex)
+        if not os.path.exists(path):
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, path)
+
+    def has_block(self, sha256_hex: str) -> bool:
+        return os.path.exists(self.block_path(sha256_hex))
+
+    def get_block(self, sha256_hex: str, offset: int = 0, length: int = 0) -> bytes:
+        with open(self.block_path(sha256_hex), "rb") as f:
+            f.seek(offset)
+            return f.read(length) if length else f.read()
 
     async def notify_logs(self, app_id: str) -> None:
         app = self.apps.get(app_id)

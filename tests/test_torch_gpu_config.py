@@ -95,7 +95,7 @@ def test_both_contracts_load_into_one_process_under_their_own_names():
         jfields = {f.name: (f.number, f.type, f.is_repeated) for f in jmsg.fields}
         extra = set(tfields) - set(jfields)
         assert {k: tfields[k] for k in jfields} == jfields and extra <= {"gpu_config", "gpu_type", "num_gpus",
-                                                                         "gpu_ids"}, name
+                                                                         "gpu_ids", "has_gpu"}, name
     for name, jenum in japi.DESCRIPTOR.enum_types_by_name.items():
         tenum = tapi.DESCRIPTOR.enum_types_by_name[name]
         assert {v.name: v.number for v in tenum.values} == {v.name: v.number for v in jenum.values}
@@ -168,7 +168,8 @@ def test_regen_is_idempotent_on_the_committed_descriptor(tmp_path, monkeypatch):
     assert regen.regenerate(os.path.join(os.path.dirname(jpkg.__file__), "api_pb2.py"))[1:] == [
         "file modal_tpu_torch/proto/api.proto, package modal.gpu.api", "+message GPUConfig",
         "+message GPUSliceInfo", "+field Resources.gpu_config = 7", "+field WorkerRegisterRequest.gpu_type = 15",
-        "+field WorkerRegisterRequest.num_gpus = 16", "+field TaskAssignment.gpu_ids = 7", "+field TaskInfo.gpu_ids = 13"]
+        "+field WorkerRegisterRequest.num_gpus = 16", "+field TaskAssignment.gpu_ids = 7", "+field TaskInfo.gpu_ids = 13",
+        "+field FunctionOptions.gpu_config = 13", "+field FunctionOptions.has_gpu = 14"]
     assert target.read_text() == committed
     fd = descriptor_pb2.FileDescriptorProto.FromString(tapi.DESCRIPTOR.serialized_pb)
     assert not [f.type_name for m in fd.message_type for f in m.field if "modal.tpu.api" in f.type_name]

@@ -214,7 +214,8 @@ def test_the_control_plane_serves_a_container_with_jax_and_modal_tpu_unimportabl
     """The port's supervisor, worker and a container answer an input with
     jax, optax and the JAX package unimportable in the parent and in the
     container alike (a `sitecustomize` on PYTHONPATH blocks them in every
-    interpreter the worker spawns)."""
+    interpreter the worker spawns): once over raw RPCs, once through
+    `App.run()` and `.remote()`."""
     block = tmp_path / "block"
     block.mkdir()
     (block / "sitecustomize.py").write_text(
@@ -267,6 +268,12 @@ def test_the_control_plane_serves_a_container_with_jax_and_modal_tpu_unimportabl
             result = out[0].result
             assert result.status == api_pb2.GENERIC_STATUS_SUCCESS, result.traceback
             print("container", deserialize(result.data))
+            import modal_tpu_torch
+
+            app = modal_tpu_torch.App("isolated")
+            f = app.function(serialized=True)(probe)
+            with app.run(client=client):
+                print("app", f.remote(1))
         finally:
             client._close()
             synchronizer.run(sup.stop())
@@ -281,6 +288,7 @@ def test_the_control_plane_serves_a_container_with_jax_and_modal_tpu_unimportabl
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "container {'x': 42, 'blocked': True, 'leaked': []}" in proc.stdout
+    assert "app {'x': 2, 'blocked': True, 'leaked': []}" in proc.stdout
     assert "parent clean" in proc.stdout
 
 
@@ -303,17 +311,22 @@ def test_every_module_of_the_port_is_scanned():
                 "server/blob_server.py", "server/worker.py", "server/supervisor.py", "server/__main__.py",
                 "runtime/execution_context.py", "runtime/main_thread_exec.py", "runtime/io_manager.py",
                 "runtime/user_code.py", "runtime/container_entrypoint.py", "server/journal.py",
-                "_utils/local_transport.py"):
+                "_utils/local_transport.py", "app.py", "functions.py", "cls.py", "runner.py", "parallel_map.py",
+                "running_app.py", "image.py", "mount.py", "secret.py", "schedule.py", "file_pattern_matcher.py",
+                "_utils/function_utils.py", "_utils/type_manager.py", "server/cron.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
 @pytest.mark.parametrize("module", ["modal_tpu_torch.client", "modal_tpu_torch.server.supervisor",
                                     "modal_tpu_torch.server.worker",
-                                    "modal_tpu_torch.runtime.container_entrypoint"])
+                                    "modal_tpu_torch.runtime.container_entrypoint", "modal_tpu_torch.app",
+                                    "modal_tpu_torch.functions", "modal_tpu_torch.cls", "modal_tpu_torch.runner",
+                                    "modal_tpu_torch.parallel_map"])
 def test_the_function_path_loads_no_torch_at_import(module):
-    """The client, the control plane, the worker and a container's
-    entrypoint import no torch: a container sends its hello before torch
-    loads (a `gpu=` function's container loads it after the hello)."""
+    """The client, the App layer, the control plane, the worker and a
+    container's entrypoint import no torch: a container sends its hello
+    before torch loads (a `gpu=` function's container loads it after the
+    hello), and a user's file that builds an App loads none."""
     code = f"import sys, {module}\nassert 'torch' not in sys.modules, 'torch loaded'\nprint('clean')\n"
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
     env["PYTHONPATH"] = REPO

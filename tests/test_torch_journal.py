@@ -351,17 +351,21 @@ async def test_the_function_path_journals_what_jax_journals(tmp_path):
 
 
 async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
-    """A journal the JAX plane wrote (the function path, plus records of
-    tables the port has not taken: an environment, a secret, a volume)
-    replays through the port's recover_state into the same apps, functions,
-    calls and pending inputs as JAX's own recovery; the JAX-only records are
-    counted by type and each type is named in a warning."""
+    """A journal the JAX plane wrote (the function path, an image and a
+    secret, plus records of tables the port has not taken: an environment
+    and a volume) replays through the port's recover_state into the same
+    apps, functions, calls, pending inputs, images and secrets as JAX's own
+    recovery; the JAX-only records are counted by type and each type is
+    named in a warning."""
     jdir = str(tmp_path / "jax")
     servicer, ctx, fn_id, call_id = await _function_path(japi, jstate, jservices, JJ, jdir)
     await servicer.EnvironmentCreate(japi.EnvironmentCreateRequest(name="staging"), ctx)
     await servicer.SecretGetOrCreate(japi.SecretGetOrCreateRequest(
         deployment_name="s", env_dict={"K": "v"},
         object_creation_type=japi.OBJECT_CREATION_TYPE_CREATE_IF_MISSING), ctx)
+    await servicer.ImageGetOrCreate(japi.ImageGetOrCreateRequest(
+        image=japi.Image(dockerfile_commands=["FROM python:3.12-slim-bookworm"], version="2026.07"),
+        builder_version="2026.07"), ctx)
     await servicer.VolumeGetOrCreate(japi.VolumeGetOrCreateRequest(
         deployment_name="v", object_creation_type=japi.OBJECT_CREATION_TYPE_CREATE_IF_MISSING), ctx)
     await servicer.WorkerRegister(japi.WorkerRegisterRequest(hostname="h", tpu_type="local-sim", num_chips=4), ctx)
@@ -392,15 +396,21 @@ async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
             "inputs": {i.input_id: (i.idx, i.status, i.resume_token, i.input.args) for i in s.inputs.values()},
             "pending": {f.function_id: list(f.pending) for f in s.functions.values()},
             "workers": sorted(s.workers),
+            "secrets": {k: (v.name, dict(v.env_dict)) for k, v in s.secrets.items()},
+            "deployed_secrets": dict(s.deployed_secrets),
+            "images": {k: (v.definition.SerializeToString(), v.metadata.SerializeToString(), v.built)
+                       for k, v in s.images.items()},
+            "images_by_hash": dict(s.images_by_hash),
         }
 
     assert view(port_state) == view(jax_state)
+    assert len(port_state.secrets) == 1 and len(port_state.images) == 1
     assert len(port_state.apps) == 1 and len(port_state.functions) == 2 and len(port_state.function_calls) == 2
     assert len(port_state.functions[fn_id].pending) == 3
-    assert report["skipped_by_type"] == {"environment": 1, "secret": 1, "volume": 1}
-    assert report["records_skipped"] == 3 and report["inputs_requeued"] == 3
+    assert report["skipped_by_type"] == {"environment": 1, "volume": 1}
+    assert report["records_skipped"] == 2 and report["inputs_requeued"] == 3
     warned = " ".join(r.getMessage() for r in caplog.records)
-    for t, waits in (("environment", "4e"), ("secret", "4e"), ("volume", "4d")):
+    for t, waits in (("environment", "4e"), ("volume", "4d")):
         assert f"skipped 1 {t!r} record(s): its table comes with ROADMAP Queue A {waits}" in warned, warned
     assert port_state.workers[next(iter(port_state.workers))].num_gpus == 0  # chips are not cards
 
