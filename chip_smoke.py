@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases device,build,sdk
     python3 chip_smoke.py --phases device,build,serve,sdk,worker
     python3 chip_smoke.py --phases device,build,worker,app
+    python3 chip_smoke.py --phases device,build,serve,web,disagg,disagg_http
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -143,14 +144,38 @@ result line):
               land bit-equal to the shipment, the decode engine's kernel
               launches exactly n_layers per step, and token streams equal to the
               serve phase's (an all-in-one engine's when serve did not run).
-13. parity  — one greedy request's first decode step through the kernel,
+13. web      — llama3-8b served over HTTP by an `llm_service` replica:
+              `app.run()` boots the port's plane (a fresh state dir); the
+              service (gpu="H100", 8 slots, 2048 pages) builds the params
+              (seed 0) and the graphed engine in `@enter(snap=True)` in a
+              container pinned to card 0, and its `@asgi_app` serves the
+              serve phase's 8 requests concurrently over HTTP (4 as SSE
+              streams): 64 tokens each, streams equal to serve's (a greedy
+              one may differ at a near-tie), /v1/stats requests_completed
+              ≥ 8 and cuda_graphs true, K4 exactly n_layers per decode step
+              inside the container (its heartbeat's launch counts); the
+              cold `get_web_url` by part, TTFT and tokens/s beside serve's,
+              the container's and the card's peak memory; a Period(2 s) CPU
+              function must fire twice within 10 s.
+14. disagg_http — the prefill and decode roles as two processes on card 0,
+              each llama3-8b at full width behind AsgiHttpServer, shipping
+              PUT → GET through a LocalSupervisor's blob server
+              (MODAL_TPU_KV_SHIP_URL, no shared file); a ServingRouter with
+              HTTP transports routes the 8 requests through /v1/prefill →
+              /v1/prefilled with no prefill fallback; streams as in web, K4
+              exact in the decode process; tokens/s, TTFT, the prefill leg,
+              MB per shipment and export ms beside the in-process disagg
+              phase's, each process's peak memory, and the same pages'
+              export through a plain .cpu(), the chunked pinned Staging and
+              export_pages.
+15. parity  — one greedy request's first decode step through the kernel,
               through attn_impl="gather" and through fp32 attention, on the
               same engine state, at depths 1 to 32.
-14. forward — cache-less `llama.forward` on [1, 2048] tokens: the flash
+16. forward — cache-less `llama.forward` on [1, 2048] tokens: the flash
               kernel launches once per layer; its logits are compared with a
               forward through the plain einsum attention and one through fp32
               attention.
-15. train   — the serving state is released first. Gradient parity: the
+17. train   — the serving state is released first. Gradient parity: the
               grads of `loss_fn` on llama3-8b at full width and 2 layers
               ([1, 2048] tokens) through the kernels, through the einsum
               attention and through fp32 attention; the kernel path must be
@@ -162,7 +187,7 @@ result line):
               backward) and 32 launches of each backward kernel; the second
               step's optimizer update (clip + AdamW) runs under
               torch.cuda.set_sync_debug_mode("error"): no host sync.
-16. moe     — llama3-8x7b-proxy at full width (8 experts, seeded random
+18. moe     — llama3-8x7b-proxy at full width (8 experts, seeded random
               weights): the cache-less forward on [1, 2048] at full depth
               (32 layers, 64.9 GB of bf16 params), K1 exactly once per
               layer, the kernel path at least as close to fp32 attention
@@ -172,7 +197,7 @@ result line):
               the train phase's checks (launches per step 2 x 6 K1, 6 K2, 6
               K3; the second update under sync debug mode "error"), step
               time, tokens/s, peak memory and MFU over the active params.
-17. mesh    — a one-rank NCCL group, build_mesh({}), and
+19. mesh    — a one-rank NCCL group, build_mesh({}), and
               create_sharded_state's DTensor step on llama3-8b at full
               width with 2 layers, 2 steps, against the one-device step on
               the same params and tokens: first-step loss within 1e-3
@@ -206,7 +231,7 @@ from modal_tpu_torch import App  # the App layer loads no torch (a container imp
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "graphs", "weights", "int8", "spec", "disagg",
-          "parity", "forward", "train", "moe", "mesh")
+          "web", "disagg_http", "parity", "forward", "train", "moe", "mesh")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -1663,6 +1688,526 @@ def phase_disagg(torch, ctx: dict) -> None:
         f"{ship_mb:.1f} MB, imported bit-equal), export {d['export_ms_mean']:.2f} ms mean over 8 "
         f"(KV_SHIP_SECONDS), TTFT decode leg p50 {dec_ttft[0]:.4f}s p95 {dec_ttft[1]:.4f}s, prefill leg "
         f"p50 {pre_ttft[0]:.3f}s p95 {pre_ttft[1]:.3f}s; all 8 streams equal the all-in-one engine's")
+
+
+# -- web and disagg_http: serving over HTTP from other processes --------------
+
+
+def _free_parent(torch, ctx: dict, label: str) -> None:
+    """Drop the parent's copy of the 8B weights (a later phase loads them
+    again from the seed) and its cached blocks, before other processes on
+    the card build their own."""
+    import gc
+
+    ctx.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{label}] this process now holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card")
+
+
+class _CardMemory:
+    """The card's used memory (every process on it, `nvidia-smi`), sampled
+    every 0.5 s in a thread until `stop()`; `peak` in bytes."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits", "-i", "0"],
+                                 capture_output=True, text=True, timeout=30)
+            if out.returncode == 0 and out.stdout.strip():
+                self.peak = max(self.peak, int(out.stdout.split()[0]) * (1 << 20))
+            self._stop.wait(0.5)
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(timeout=30)
+        return self.peak
+
+
+def _http_json(url: str, body=None, timeout: float = 600.0) -> dict:
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST",
+                                 headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _http_stream(url: str, body: dict, t0: float, timeout: float = 600.0) -> dict:
+    """POST a `"stream": true` generate; the `done` event's payload, with
+    the client's clock of the first token event (s after `t0`)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps({**body, "stream": True}).encode(), method="POST",
+                                 headers={"content-type": "application/json"})
+    first, tokens, done, event = None, [], None, ""
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if not resp.headers.get("content-type", "").startswith("text/event-stream"):
+            raise AssertionError(f"web: a streamed generate answered {resp.headers.get('content-type')!r}")
+        for raw in resp:
+            line = raw.decode().rstrip("\r\n")
+            if line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: ") and event == "token":
+                if first is None:
+                    first = time.perf_counter() - t0
+                tokens.append(json.loads(line[6:])["token"])
+            elif line.startswith("data: ") and event == "done":
+                done = json.loads(line[6:])
+    if done is None or done["tokens"] != tokens:
+        raise AssertionError(f"web: a stream ended without a done event equal to its token events ({done})")
+    return {**done, "client_first_token_s": first}
+
+
+def _report_of(task) -> dict:
+    """The container's last heartbeat report (export_families JSON)."""
+    return json.loads(task.telemetry_prev_json) if task.telemetry_prev_json else {}
+
+
+def _k4_and_steps(report: dict) -> tuple:
+    """(paged_decode launches, decode steps) in one heartbeat report: the
+    kernel's launch count and the count of the engine's batch-occupancy
+    histogram, observed once per decode step."""
+    launches = (report.get("modal_tpu_kernel_launches") or {}).get("series", {}).get("paged_decode")
+    occupancy = (report.get("modal_tpu_serving_batch_occupancy") or {}).get("series", {})
+    steps = sum(s["count"] for s in occupancy.values())
+    return (None if launches is None else int(launches)), int(steps)
+
+
+def _wait_report(task, want, timeout: float = 20.0) -> dict:
+    """The first heartbeat report of `task` for which `want(report)` holds."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        report = _report_of(task)
+        if report and want(report):
+            return report
+        time.sleep(0.2)
+    raise AssertionError(f"web: no heartbeat report of {task.task_id} met the condition within {timeout}s "
+                         f"(last: {_k4_and_steps(_report_of(task))})")
+
+
+# the cron function of the web phase: a CPU function that fires every 2 s
+WEB_PERIOD_S = 2
+WEB_CRON_WINDOW_S = 10.0
+# the web phase's streamed requests: two greedy, the two sampled
+WEB_STREAMED = (1, 3, 5, 7)
+
+
+def phase_web(torch, ctx: dict) -> None:
+    """llama3-8b served over HTTP by an `llm_service` replica: `app.run()`
+    boots the port's plane in this process (a fresh state dir), the
+    service's container (gpu="H100") builds the params and the graphed
+    engine in `@enter(snap=True)` and serves `/v1/generate` from its
+    `@asgi_app` method; the 8 requests go concurrently over HTTP (4 as SSE
+    streams), K4's launches per decode step are read from the container's
+    heartbeat telemetry, and a `Period` function fires from the cron loop."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch import Period
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.client import _Client
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.observability import tracing
+    from modal_tpu_torch.serving import llm_service
+
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    cfg = get_config("llama3-8b")
+    prompts = _prompts(cfg, 8, seed=1)
+    _free_parent(torch, ctx, "web")
+    saved = {k: os.environ.pop(k, None) for k in ("MODAL_TPU_SERVER_URL", "MODAL_TPU_STATE_DIR",
+                                                 "MODAL_TPU_AUTO_LOCAL_SERVER", "MODAL_TPU_HEARTBEAT_INTERVAL")}
+    state_dir = os.environ["MODAL_TPU_STATE_DIR"] = tempfile.mkdtemp(prefix="web-")
+    os.environ["MODAL_TPU_HEARTBEAT_INTERVAL"] = "1"  # the containers' telemetry push
+    web_app = App("chip_smoke web")
+    Service = llm_service(web_app, model="llama3-8b", gpu="H100", max_slots=8, num_pages=2048, page_size=16,
+                          prefill_chunk=128, name="Llama8B", scaledown_window=600, timeout=900)
+
+    def tick() -> float:
+        return time.time()
+
+    ticker = web_app.function(serialized=True, schedule=Period(seconds=WEB_PERIOD_S))(tick)
+    card = _CardMemory()
+    out: dict = {"nvidia_smi": smi}
+    try:
+        t_run = time.time()
+        with web_app.run():
+            t_published = time.time()
+            sup = _Client._local_supervisor
+            if sup is None:
+                raise AssertionError("web: app.run() did not boot the port's LocalSupervisor")
+            t0 = time.time()
+            url = Service.get_web_url(timeout=60)
+            t_url = time.time()
+            tasks = [t for t in sup.state.tasks.values() if t.function_id == Service._service_function.object_id]
+            if len(tasks) != 1 or tasks[0].gpu_ids != [0]:
+                raise AssertionError(f"web: the service's tasks {[(t.task_id, t.gpu_ids) for t in tasks]}")
+            task = tasks[0]
+            boot = next(s for s in tracing.read_spans(tracing.trace_dir())
+                        if s["name"] == "container.boot" and s["attrs"].get("task_id") == task.task_id)
+            spans = _spans_of(sup, boot["trace_id"])
+            part = {n: spans[n]["end"] - spans[n]["start"] for n in ("container.import_torch", "container.imports",
+                                                                   "container.snapshot_state")}
+            cold = {"app_run_to_published_s": t_published - t_run, "get_web_url_s": t_url - t0,
+                    "run_to_url_s": t_url - t_run, "spawn_to_hello_s": task.started_at - boot["start"],
+                    "import_torch_s": part["container.import_torch"], "user_import_s": part["container.imports"],
+                    "enter_s": part["container.snapshot_state"], "ready_to_url_s": t_url - boot["end"],
+                    "spawn_to_url_s": t_url - boot["start"]}
+            out["cold"] = cold
+            log(f"[web] llm_service replica: app.run() published in {cold['app_run_to_published_s']:.2f}s; cold "
+                f"get_web_url {cold['get_web_url_s']:.2f}s ({url}): spawn → ContainerHello "
+                f"{cold['spawn_to_hello_s']:.2f}s, import torch {cold['import_torch_s']:.2f}s, user import "
+                f"{cold['user_import_s']:.3f}s, @enter(snap=True) {cold['enter_s']:.2f}s (params + engine + graph "
+                f"capture), ready → URL {cold['ready_to_url_s']:.2f}s; spawn → URL {cold['spawn_to_url_s']:.2f}s "
+                f"| {smi}")
+            # the baseline: a report sent after the URL, so after @enter's
+            # graph warm-up (its eager steps launch K4 too)
+            t_base = time.time()
+            while task.last_heartbeat < t_base + 0.5:
+                if time.time() > t_base + 20:
+                    raise AssertionError("web: the replica's container stopped heartbeating")
+                time.sleep(0.1)
+            time.sleep(0.1)  # the heartbeat's report is merged right after its time is set
+            k4_0, steps_0 = _k4_and_steps(_report_of(task))
+            if k4_0 is None:
+                raise AssertionError("web: the replica's heartbeat carries no kernel launch counts")
+            stats_0 = _http_json(url + "/v1/stats")
+
+            def one(i: int) -> dict:
+                body = {"prompt": prompts[i], "max_new_tokens": NEW_TOKENS, **_traffic(i)}
+                if i in WEB_STREAMED:
+                    return _http_stream(url + "/v1/generate", body, t_send)
+                r = _http_json(url + "/v1/generate", body)
+                r["client_done_s"] = time.perf_counter() - t_send
+                return r
+
+            t_send = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                answers = list(pool.map(one, range(8)))
+            wall = time.perf_counter() - t_send
+            stats = _http_json(url + "/v1/stats")
+            d_steps = stats["steps"] - stats_0["steps"]
+            report = _wait_report(task, lambda r: _k4_and_steps(r)[1] - steps_0 == d_steps)
+            k4, steps = _k4_and_steps(report)
+            k4, steps = k4 - k4_0, steps - steps_0
+            peak_series = (report.get("modal_tpu_device_memory_bytes") or {}).get("series", {})
+            container_peak = max((v for k, v in peak_series.items() if "peak" in k), default=0.0)
+            streams = [a["tokens"] for a in answers]
+            _check_streams("web", streams, cfg.vocab_size)
+            if steps == 0 or k4 != cfg.n_layers * steps:
+                raise AssertionError(f"web: paged_decode launched {k4} times in the replica's container over "
+                                     f"{steps} decode steps ({cfg.n_layers} layers)")
+            if stats["requests_completed"] - stats_0["requests_completed"] < 8 or stats["cuda_graphs"] is not True:
+                raise AssertionError(f"web: /v1/stats {stats}")
+            if "serve_streams" in ctx:
+                diverged = _first_divergence(ctx["serve_streams"], streams, ctx.get("serve_logits", {}), {})
+                bad = [d for d in diverged if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
+                if bad:
+                    raise AssertionError(f"web: streams differ from serve's beyond a near-tie: {bad}")
+                out["diverged"] = diverged
+            deadline = t_published + WEB_CRON_WINDOW_S
+            while time.time() < deadline:
+                time.sleep(0.2)
+            fires = [c for c in sup.state.function_calls.values()
+                     if c.function_id == ticker.object_id and c.server_originated]
+            in_window = [c for c in fires if c.created_at <= t_published + WEB_CRON_WINDOW_S]
+            done_deadline = time.time() + 30
+            while sum(1 for c in in_window if c.num_done >= 1) < 2 and time.time() < done_deadline:
+                time.sleep(0.2)
+            if len(in_window) < 2 or sum(1 for c in in_window if c.num_done >= 1) < 2:
+                raise AssertionError(f"web: the Period({WEB_PERIOD_S} s) function fired {len(in_window)} times in "
+                                     f"{WEB_CRON_WINDOW_S:.0f}s ({sum(1 for c in in_window if c.num_done)} done)")
+            run_id = web_app.app_id
+        _wait_app_tasks(sup, run_id)
+    finally:
+        card_peak = card.stop()
+        if _Client._local_supervisor is not None:
+            if _Client._client_from_env is not None:
+                _Client._client_from_env._close()
+            synchronizer.run(_Client._local_supervisor.stop())
+            _Client._local_supervisor = None
+            _Client.set_env_client(None)
+        shutil.rmtree(state_dir, ignore_errors=True)
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+    ttft = _pcts([a["ttft_s"] for a in answers])
+    client_first = _pcts([a["client_first_token_s"] for a in answers if "client_first_token_s" in a])
+    # per streamed request: its first token event on the client's clock less
+    # the engine's TTFT (HTTP, the ASGI hop to submit, the SSE write)
+    over = statistics.median((a["client_first_token_s"] - a["ttft_s"]) * 1e3 for a in answers
+                             if "client_first_token_s" in a)
+    serve = ctx.get("serve", {})
+    _add_launches(ctx, "paged_decode", k4)
+    out.update({
+        "wall_s": wall, "tokens_per_s": 8 * NEW_TOKENS / wall, "decode_steps": steps, "paged_decode_launches": k4,
+        "ttft_p50_s": ttft[0], "ttft_p95_s": ttft[1], "stream_first_token_p50_s": client_first[0],
+        "stream_first_token_p95_s": client_first[1], "stream_over_engine_ttft_ms": over,
+        "streamed": list(WEB_STREAMED),
+        "container_peak_device_bytes": container_peak, "card_peak_used_bytes": card_peak,
+        "cron_fires_in_window": len(in_window), "stats": {k: stats[k] for k in ("steps", "requests_completed",
+                                                                                "cuda_graphs", "preemptions")},
+    })
+    ctx["web"] = out
+    log(f"[web] 8 requests x {NEW_TOKENS} tokens over HTTP, concurrently ({len(WEB_STREAMED)} as SSE streams) in "
+        f"{wall:.2f}s: {out['tokens_per_s']:.1f} tokens/s (serve in process "
+        f"{serve.get('tokens_per_s', float('nan')):.1f}); engine TTFT p50 {ttft[0]:.3f}s p95 {ttft[1]:.3f}s (serve "
+        f"{serve.get('ttft_p50_s', float('nan')):.3f}s / {serve.get('ttft_p95_s', float('nan')):.3f}s); the streams' "
+        f"first token on the client's clock p50 {client_first[0]:.3f}s p95 {client_first[1]:.3f}s, {over:.1f} ms after "
+        f"its engine TTFT (median of the streamed); paged_decode "
+        f"{k4} launches in the replica's container over {steps} decode steps (= {cfg.n_layers} x steps, from its "
+        f"heartbeat telemetry); /v1/stats requests_completed {stats['requests_completed']}, cuda_graphs "
+        f"{stats['cuda_graphs']}; streams "
+        + ("equal serve's" + (f" but {len(out['diverged'])} greedy near-ties" if out.get("diverged") else "")
+           if "serve_streams" in ctx else "not compared (serve did not run)")
+        + f"; peak device memory: the container {container_peak / 1e9:.2f} GB, the card (nvidia-smi, every "
+        f"process) {card_peak / 1e9:.2f} GB; Period({WEB_PERIOD_S} s) fired {len(in_window)} times in "
+        f"{WEB_CRON_WINDOW_S:.0f}s | {smi}")
+
+
+def _wait_app_tasks(sup, app_id: str, timeout: float = 60.0) -> None:
+    """Wait until every task of `app_id` has finished (its containers
+    stopped after the run)."""
+    deadline = time.time() + timeout
+    while any(not t.finished_at for t in list(sup.state.tasks.values()) if t.app_id == app_id):
+        if time.time() > deadline:
+            raise AssertionError(f"the tasks of {app_id} did not stop within {timeout}s")
+        time.sleep(0.2)
+
+
+DISAGG_CHILD = """
+import json, os, signal, sys, threading, time
+sys.path.insert(0, sys.argv[2])
+role = sys.argv[1]
+import torch
+from modal_tpu_torch.models.llama import get_config, init_params
+from modal_tpu_torch.ops import _build
+from modal_tpu_torch.runtime.asgi import AsgiHttpServer
+from modal_tpu_torch.serving import ServingEngine, serving_asgi_app
+import asyncio
+cfg = get_config("llama3-8b")
+t0 = time.perf_counter()
+params = init_params(cfg, seed=0, device="cuda")
+engine = ServingEngine(params, cfg, max_slots=8, page_size=16, prefill_chunk=128, role=role, device="cuda").start()
+torch.cuda.synchronize()
+boot_s = time.perf_counter() - t0
+_build.reset_launches()
+loop = asyncio.new_event_loop()
+server = AsgiHttpServer(serving_asgi_app(engine))
+loop.run_until_complete(server.start())
+print(json.dumps({"url": server.url, "boot_s": boot_s, "pid": os.getpid()}), flush=True)
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: stop.set())
+threading.Thread(target=lambda: (sys.stdin.read(), stop.set()), daemon=True).start()
+while not stop.is_set():
+    loop.run_until_complete(asyncio.sleep(0.1))
+loop.run_until_complete(server.stop())
+engine.stop()
+out = {"launches": dict(_build.LAUNCHES), "stats": engine.stats(), "peak_bytes": torch.cuda.max_memory_allocated()}
+if role == "prefill":
+    from modal_tpu_torch.models import paged_kv
+    from modal_tpu_torch.observability.catalog import KV_SHIP_SECONDS
+    s, n = KV_SHIP_SECONDS.totals()
+    out["export_ms_mean"] = s / n * 1e3 if n else None
+    out["exports"] = n
+    # the same pages (one 600-token request's worth) three ways, in turns: a
+    # plain .cpu() (before this slice), the snapshot's chunked pinned
+    # Staging into fresh pageable memory, and export_pages (pinned memory
+    # from the caching host allocator)
+    from modal_tpu_torch.runtime.snapshot import Staging
+    idx = torch.arange(1, 1 + -(-600 // 16), device="cuda")
+    staging = Staging(chunk=8 << 20)
+    def plain():
+        return {n: p.index_select(1, idx).cpu() for n, p in (("k", engine.cache.k_pages), ("v", engine.cache.v_pages))}
+    def chunked():
+        res = {}
+        for n, p in (("k", engine.cache.k_pages), ("v", engine.cache.v_pages)):
+            src = p.index_select(1, idx)
+            res[n] = torch.empty(src.shape, dtype=src.dtype)
+            dst = res[n].view(-1).view(torch.uint8).numpy()
+            staging.to_host(src.view(-1).view(torch.uint8), lambda off, c: dst.__setitem__(slice(off, off + c.size), c))
+        return res
+    def pinned():
+        return paged_kv.export_pages(engine.cache, idx.tolist())
+    times = {"plain": [], "chunked": [], "pinned": []}
+    for _ in range(5):
+        for name, fn in (("plain", plain), ("chunked", chunked), ("pinned", pinned), ("pinned", pinned),
+                         ("chunked", chunked), ("plain", plain)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = fn()
+            times[name].append((time.perf_counter() - t) * 1e3)
+            del got
+    a, b, c = plain(), chunked(), pinned()
+    for name, ms in times.items():
+        out[f"export_{name}_ms"] = sorted(ms)[len(ms) // 2]
+    out["export_equal"] = all(torch.equal(a[n], x[n]) for x in (b, c) for n in ("k", "v"))
+    out["export_mb"] = (a["k"].numel() + a["v"].numel()) * a["k"].element_size() / 1e6
+print(json.dumps(out, default=str), flush=True)
+"""
+
+
+def _child_hello(proc, role: str, timeout: float = 300.0) -> dict:
+    """The process's first JSON line: its URL, once it serves."""
+    import select
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"disagg_http: the {role} process exited rc={proc.returncode} before serving")
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if ready:
+            line = proc.stdout.readline()
+            if line.startswith("{"):
+                return json.loads(line)
+    raise AssertionError(f"disagg_http: the {role} process did not come up within {timeout}s")
+
+
+def _child_result(proc, role: str, timeout: float = 120.0) -> dict:
+    """Close the process's stdin (it stops serving) and read its last line:
+    launches, engine stats, peak device memory (and the prefill's exports)."""
+    proc.stdin.close()
+    out = proc.stdout.read()
+    proc.wait(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"disagg_http: the {role} process exited rc={proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_disagg_http(torch, ctx: dict) -> None:
+    """The prefill and decode roles as two processes on card 0, each a
+    ServingEngine at llama3-8b's full width behind the port's
+    AsgiHttpServer; shipments go PUT → GET through one LocalSupervisor's
+    blob server (MODAL_TPU_KV_SHIP_URL, no shared file); a ServingRouter
+    with HTTP transports routes the 8 requests through /v1/prefill →
+    /v1/prefilled."""
+    import concurrent.futures
+    import tempfile
+    import urllib.error
+
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.server.supervisor import LocalSupervisor
+    from modal_tpu_torch.serving.router import ServingRouter
+
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    cfg = get_config("llama3-8b")
+    prompts = _prompts(cfg, 8, seed=1)
+    _free_parent(torch, ctx, "disagg_http")
+    sup = LocalSupervisor(num_workers=0, state_dir=tempfile.mkdtemp(prefix="blob-"))
+    synchronizer.run(sup.start())
+    card = _CardMemory()
+    procs: dict = {}
+    try:
+        ship_url = sup.state.blob_url_base
+        env = {k: v for k, v in os.environ.items() if k not in ("MODAL_TPU_BLOB_LOCAL_DIR", "CUDA_VISIBLE_DEVICES")}
+        env.update({"MODAL_TPU_KV_SHIP_URL": ship_url, "CUDA_VISIBLE_DEVICES": "0"})
+        t_boot = time.perf_counter()
+        procs = {role: subprocess.Popen([sys.executable, "-c", DISAGG_CHILD, role, REPO], stdin=subprocess.PIPE,
+                                        stdout=subprocess.PIPE, text=True, env=env)
+                 for role in ("prefill", "decode")}
+        hellos = {role: _child_hello(p, role) for role, p in procs.items()}
+        boot_wall = time.perf_counter() - t_boot
+        urls = {role: h["url"] for role, h in hellos.items()}
+        kv_refs, legs = [], {}
+
+        def transport(role: str):
+            def call(path: str, body: dict) -> dict:
+                t = time.perf_counter()
+                try:
+                    answer = _http_json(urls[role] + path, body)
+                except urllib.error.URLError as exc:
+                    raise ConnectionError(str(exc)) from exc
+                if path == "/v1/prefill":
+                    kv_refs.append(answer["kv_ref"])
+                    legs[tuple(body["prompt"][:16])] = (t - t_send, time.perf_counter() - t)
+                return answer
+            return call
+
+        router = ServingRouter({role: transport(role) for role in urls}, page_size=16, prefill_replicas=("prefill",))
+
+        def one(i: int) -> dict:
+            return router.route({"prompt": prompts[i], "max_new_tokens": NEW_TOKENS, **_traffic(i)},
+                                split_prefill=True)
+
+        t_send = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(one, range(8)))
+        wall = time.perf_counter() - t_send
+        rstats = router.stats()
+        results = {role: _child_result(p, role) for role, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        card_peak = card.stop()
+        synchronizer.run(sup.stop())
+    pre, dec = results["prefill"], results["decode"]
+    streams = [a["tokens"] for a in answers]
+    _check_streams("disagg_http", streams, cfg.vocab_size)
+    if rstats["prefill_fallbacks"] != 0 or rstats["reroutes"] != 0:
+        raise AssertionError(f"disagg_http: router stats {rstats}")
+    if len(kv_refs) != 8 or not all(r.startswith(f"{ship_url}/blob/") for r in kv_refs):
+        raise AssertionError(f"disagg_http: kv_refs {kv_refs} (want 8 under {ship_url}/blob/)")
+    dst, pst = dec["stats"], pre["stats"]
+    if (dst["remote_prefills"], dst["kv_ship_drops"], pre["exports"]) != (8, 0, 8):
+        raise AssertionError(f"disagg_http: remote prefills {dst['remote_prefills']}, drops {dst['kv_ship_drops']}, "
+                             f"exports {pre['exports']} (want 8, 0, 8)")
+    k4 = dec["launches"]["paged_decode"]
+    if dst["steps"] == 0 or k4 != cfg.n_layers * dst["steps"] or pst["steps"] != 0 or pre["launches"]["paged_decode"]:
+        raise AssertionError(f"disagg_http: paged_decode {k4} launches over the decode process's {dst['steps']} steps; "
+                             f"the prefill process {pre['launches']['paged_decode']} over {pst['steps']}")
+    if not pre["export_equal"]:
+        raise AssertionError("disagg_http: a staged export differs from the plain .cpu() of the same pages")
+    if "serve_streams" in ctx:
+        diverged = _first_divergence(ctx["serve_streams"], streams, ctx.get("serve_logits", {}), {})
+        bad = [d for d in diverged if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
+        if bad:
+            raise AssertionError(f"disagg_http: streams differ from serve's beyond a near-tie: {bad}")
+    ttft = _pcts([legs[tuple(p[:16])][0] + legs[tuple(p[:16])][1] for p in prompts])
+    pre_leg = _pcts([legs[tuple(p[:16])][1] for p in prompts])
+    dec_ttft = _pcts([a["ttft_s"] for a in answers])
+    pages = sum(-(-len(p) // 16) for p in prompts)
+    mb_per_page = pre["export_mb"] / -(-600 // 16)
+    _add_launches(ctx, "paged_decode", k4)
+    ctx["disagg_http"] = {
+        "wall_s": wall, "tokens_per_s": 8 * NEW_TOKENS / wall, "boot_wall_s": boot_wall,
+        "decode_steps": dst["steps"], "paged_decode_launches": k4, "router": rstats,
+        "ttft_p50_s": ttft[0], "ttft_p95_s": ttft[1], "prefill_leg_p50_s": pre_leg[0], "prefill_leg_p95_s": pre_leg[1],
+        "decode_leg_ttft_p50_s": dec_ttft[0], "shipment_mb_total": pages * mb_per_page,
+        "shipment_mb_mean": pages * mb_per_page / 8, "export_ms_mean": pre["export_ms_mean"],
+        "export_plain_ms": pre["export_plain_ms"], "export_chunked_ms": pre["export_chunked_ms"],
+        "export_pinned_ms": pre["export_pinned_ms"],
+        "export_bench_mb": pre["export_mb"], "peak_bytes": {"prefill": pre["peak_bytes"], "decode": dec["peak_bytes"]},
+        "card_peak_used_bytes": card_peak,
+    }
+    d, ind = ctx["disagg_http"], ctx.get("disagg", {})
+    log(f"[disagg_http] two processes on card 0 (booted in {boot_wall:.1f}s, in parallel), 8 requests x {NEW_TOKENS} "
+        f"tokens routed /v1/prefill → /v1/prefilled over HTTP in {wall:.2f}s: {d['tokens_per_s']:.1f} tokens/s "
+        f"(in process {ind.get('tokens_per_s', float('nan')):.1f}); TTFT (route → the prefill leg's answer carrying "
+        f"the first token) p50 {ttft[0]:.3f}s p95 {ttft[1]:.3f}s; prefill leg (POST → answer) p50 {pre_leg[0]:.3f}s "
+        f"(in process {ind.get('prefill_leg_ttft_p50_s', float('nan')):.3f}s); decode leg TTFT p50 {dec_ttft[0]:.4f}s; "
+        f"router {rstats['routed']}, prefill_fallbacks 0; 8 shipments PUT → GET through {ship_url} "
+        f"({d['shipment_mb_total']:.1f} MB, {d['shipment_mb_mean']:.1f} MB mean); export {pre['export_ms_mean']:.2f} ms "
+        f"mean over 8 (export_pages, KV_SHIP_SECONDS; the in-process phase's {ind.get('export_ms_mean', float('nan')):.2f}); "
+        f"the same {pre['export_mb']:.1f} MB of pages: plain .cpu() {pre['export_plain_ms']:.2f} ms, chunked pinned "
+        f"Staging {pre['export_chunked_ms']:.2f} ms, export_pages (pinned) {pre['export_pinned_ms']:.2f} ms (median "
+        f"of 10 each, in turns, bit-equal); paged_decode {k4} launches in "
+        f"the decode process over {dst['steps']} steps (= {cfg.n_layers} x steps); peak device memory: prefill "
+        f"{pre['peak_bytes'] / 1e9:.2f} GB, decode {dec['peak_bytes'] / 1e9:.2f} GB, the card (nvidia-smi) "
+        f"{card_peak / 1e9:.2f} GB | {smi}")
 
 
 def _fp32_decode_attention(q, k_pages, v_pages, page_table, mask, positions=None, attn_impl="gather"):
@@ -3514,7 +4059,8 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "graphs", "weights", "int8", "spec", "disagg"),
+PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "graphs", "weights", "int8", "spec", "disagg", "web",
+                          "disagg_http"),
          "flash_fwd": ("app", "weights", "forward", "train", "moe", "mesh"), "flash_bwd_dq": ("train", "moe", "mesh"),
          "flash_bwd_dkv": ("train", "moe", "mesh")}
 

@@ -12,7 +12,9 @@ each module's counterpart is easy to find:
 - `ops/`: the hand-written CUDA kernels' Python wrappers, each beside its
   plain PyTorch version (`paged_attention.py`, `attention.py`), and the
   kernel builder (`_build.py`); sources live in `csrc/`;
-- `serving/`: the continuous-batching engine and its ASGI surface;
+- `serving/`: the continuous-batching engine and its ASGI surface,
+  `llm_service` (a deployable `@app.cls` web endpoint), the fleet router
+  and the hot reload (`serve_app`);
 - `parallel/`: the train step on one card or over a named mesh (FSDP, TP,
   expert-parallel MoE, GPipe, ring attention) of gloo or NCCL ranks;
 - `runtime/`: the container runtime: the entrypoint a worker spawns, its
@@ -35,7 +37,8 @@ each module's counterpart is easy to find:
 - the SDK core, imported on demand: the wire contract (`proto/`), the
   client (`client.py`), object handles (`object.py`), payloads
   (`serialization.py`), `gpu=` (`gpu_config.py`), method and lifecycle
-  decorators (`partial_function.py`), `config.py`'s settings,
+  decorators, `@batched`, `@concurrent` and the web decorators
+  (`partial_function.py`), `config.py`'s settings,
   `exception.py`, `retries.py`, `_logs.py`, `_output.py` and `_utils/`
   (the local fast path, `local_transport.py`, among them).
 
@@ -67,6 +70,13 @@ _EXPORTS = {
     "method": "partial_function",
     "enter": "partial_function",
     "exit": "partial_function",
+    "batched": "partial_function",
+    "concurrent": "partial_function",
+    "web_endpoint": "partial_function",
+    "fastapi_endpoint": "partial_function",
+    "web_server": "partial_function",
+    "asgi_app": "partial_function",
+    "wsgi_app": "partial_function",
     "current_function_call_id": "runtime.execution_context",
     "current_input_id": "runtime.execution_context",
     "is_local": "runtime.execution_context",
@@ -74,12 +84,18 @@ _EXPORTS = {
     "set_resume_token": "runtime.execution_context",
 }
 
-__all__ = list(_EXPORTS)
+__all__ = [*_EXPORTS, "serving"]
 
 
 def __getattr__(name: str):
-    if name in _EXPORTS:
-        import importlib
+    import importlib
 
+    if name in _EXPORTS:
         return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)
+    if name == "serving":
+        # the serving tier: modal_tpu_torch.serving.llm_service /
+        # ServingEngine / serving_asgi_app (torch loads lazily inside).
+        # importlib, not `from . import`: the fromlist path re-enters this
+        # __getattr__ before sys.modules is populated and recurses
+        return importlib.import_module(".serving", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

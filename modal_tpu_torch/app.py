@@ -9,11 +9,12 @@ py/modal/runner.py for run/deploy (runner.py:364,585).
 `gpu="H100"` (or "H100:8", with `mesh=` hints over the cards) replaces the
 JAX package's `tpu=`. Decorating registers a function on the app and
 contacts nothing: a container that imports the user's file runs its
-`App(...)` and decorators, and `app.run()` creates the objects. What waits
-for a later sub-slice of ROADMAP Queue A is refused at decoration with
-InvalidError naming it: volumes and bucket mounts (4d), `i6pn=` and
-`runtime_debug=` (4d), `proxy=` and `cloud=` (4e); a schedule is refused by
-the control plane until its cron loop (4c-ii).
+`App(...)` and decorators, and `app.run()` creates the objects. A
+function's `@batched`, `@concurrent` and web decorator parameters go into
+its definition, and `schedule=` fires it from the control plane's cron loop.
+What waits for a later sub-slice of ROADMAP Queue A is refused at
+decoration with InvalidError naming it: volumes and bucket mounts (4d),
+`i6pn=` and `runtime_debug=` (4d), `proxy=` and `cloud=` (4e).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from .functions import _Function, _FunctionSpec
 from .gpu_config import parse_gpu_config
 from .image import _Image
 from .partial_function import _PartialFunction, _PartialFunctionParams
+from .proto import api_pb2
 from .retries import Retries
 from .schedule import Schedule, SchedulerPlacement
 from .secret import _Secret
@@ -238,6 +240,10 @@ class _App:
                 scaledown_window=scaledown_window,
                 target_ttft_ms=target_ttft_ms,
                 target_tokens_per_replica=target_tokens_per_replica,
+                max_concurrent_inputs=params.max_concurrent_inputs or 0,
+                target_concurrent_inputs=params.target_concurrent_inputs or 0,
+                batch_max_size=params.batch_max_size or 0,
+                batch_wait_ms=params.batch_wait_ms or 0,
                 schedule=schedule,
                 scheduler_placement=placement,
                 enable_memory_snapshot=enable_memory_snapshot,
@@ -247,7 +253,20 @@ class _App:
             )
             if is_generator is None:
                 is_generator = params.is_generator
-            function = _Function.from_local(info, self, spec, is_generator=is_generator)
+            function = _Function.from_local(
+                info,
+                self,
+                spec,
+                is_generator=is_generator,
+                webhook_type=params.webhook_type or api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED,
+            )
+            if params.web_method:
+                spec.experimental_options["web_method"] = params.web_method
+            if params.web_server_port:
+                spec.experimental_options["web_server_port"] = str(params.web_server_port)
+                spec.experimental_options["web_server_startup_timeout"] = str(
+                    params.web_server_startup_timeout or 60.0
+                )
             self._add_function(function)
             return function
 

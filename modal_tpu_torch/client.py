@@ -70,6 +70,12 @@ class _Client:
         # the TCP stub under the fast-path ladder: hello() re-wraps it once
         # the server advertises its local coordinates
         self._stub_tcp: Optional[ModalTPUStub] = None
+        # coalesced dispatch (_utils/coalescer.py): a micro-batcher per
+        # plane (FunctionMap), per event loop
+        from ._utils.coalescer import BatcherRegistry
+
+        self._batchers = BatcherRegistry()
+        self._map_batch_unsupported = False
 
     def _metadata(self) -> dict[str, str]:
         md = {

@@ -10,13 +10,16 @@ A class compiles to ONE service function (is_class=True) carrying the
 serialized class; each `@method` is invoked by setting `method_name` on the
 input. Instances with constructor parameters bind via FunctionBindParams so
 parameterized warm pools keep separate containers (and separate warm state
-on the card — weights stay resident per parameterization). A method that
-carries `@batched`, `@concurrent` or a web decorator waits for the port's
-4c-ii (ROADMAP Queue A), which brings those decorators.
+on the card — weights stay resident per parameterization). A method's
+`@batched` or `@concurrent` settings go to the service function, and so do
+the webhook parameters of the one method that may carry a web decorator:
+its container then serves HTTP (with the `@enter`-loaded state) instead of
+polling the input queue, and `get_web_url` long-polls for its URL.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import typing
 from typing import Any, Callable, Optional, Sequence
@@ -28,7 +31,12 @@ from .client import _Client
 from .exception import ExecutionError, InvalidError
 from .functions import _Function, _Invocation
 from .object import LoadContext, Resolver, _Object
-from .partial_function import _PartialFunction, _PartialFunctionFlags, find_partial_methods_for_user_cls
+from .partial_function import (
+    _PartialFunction,
+    _PartialFunctionFlags,
+    _PartialFunctionParams,
+    find_partial_methods_for_user_cls,
+)
 from .proto import api_pb2
 from .serialization import serialize
 
@@ -265,14 +273,47 @@ class _Cls(_Object, type_prefix="cs"):
         # lifecycle partials get marked too so __del__ doesn't warn
         for pf in find_partial_methods_for_user_cls(user_cls, _PartialFunctionFlags.all()).values():
             pf.wrapped = True
+        # ONE method may carry @asgi_app/@wsgi_app/@web_endpoint/@web_server:
+        # the class's service function adopts its webhook params, so the
+        # container serves HTTP (with @enter-loaded state) instead of
+        # polling the input queue
+        web_partials = find_partial_methods_for_user_cls(user_cls, _PartialFunctionFlags.WEB_ENDPOINT)
+        if len(web_partials) > 1:
+            raise InvalidError(
+                f"class {user_cls.__name__} has multiple web-endpoint methods "
+                f"({sorted(web_partials)}); a class serves at most one"
+            )
+        web_method_name, web_pf = next(iter(web_partials.items()), (None, None))
+        # batched/concurrent settings of the methods go to the one service
+        # function
+        merged = _PartialFunctionParams()
+        for pf in method_partials.values():
+            merged.update(pf.params)
         info = FunctionInfo(None, serialized=True, user_cls=user_cls)
         # the service function goes through the app.function machinery to
         # share its parameter validation; classes always serialize
         function_kwargs.pop("serialized", None)
         function_kwargs.pop("name", None)
-        service_function = app.function(
-            serialized=True, name=user_cls.__name__, **function_kwargs
-        )(_class_service_stub(user_cls))
+        service_stub: Any = _class_service_stub(user_cls)
+        if web_pf is not None:
+            # the web method's webhook params reach app.function through the
+            # partial-function vehicle it already reads
+            service_stub = _PartialFunction(
+                service_stub,
+                _PartialFunctionFlags.FUNCTION | _PartialFunctionFlags.WEB_ENDPOINT,
+                dataclasses.replace(web_pf.params),
+            )
+        service_function = app.function(serialized=True, name=user_cls.__name__, **function_kwargs)(service_stub)
+        spec = service_function.spec
+        if web_method_name is not None:
+            spec.experimental_options["web_method_name"] = web_method_name
+            # the web method rides the method table, so the container can
+            # resolve its bound callable (runtime/user_code.py)
+            method_partials = {**method_partials, web_method_name: web_pf}
+        spec.batch_max_size = merged.batch_max_size or 0
+        spec.batch_wait_ms = merged.batch_wait_ms or 0
+        spec.max_concurrent_inputs = merged.max_concurrent_inputs or 0
+        spec.target_concurrent_inputs = merged.target_concurrent_inputs or 0
 
         # Patch the loader inputs: mark as class + attach serialized class.
         service_function._info = info
@@ -352,7 +393,11 @@ class _Cls(_Object, type_prefix="cs"):
         return _Obj(self, args, kwargs)
 
     async def get_web_url(self, timeout: float = 60.0) -> str:
-        raise InvalidError("web endpoints wait for the port's web runtime (ROADMAP Queue A 4c-ii)")
+        """URL of the class's web-endpoint method (the service function's
+        web URL: one per class)."""
+        if self._service_function is None:
+            raise ExecutionError("class has no service function (not hydrated?)")
+        return await self._service_function.get_web_url(timeout)
 
 
 def _class_service_stub(user_cls: type) -> Callable:

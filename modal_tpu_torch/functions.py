@@ -12,12 +12,13 @@ Resources carry a `GPUConfig` (`gpu="H100"`, `"H100:8"`, parsed by
 
 What waits for a later sub-slice of ROADMAP Queue A, refused with
 InvalidError when a function asks for it: volumes and cloud bucket mounts
-(4d), `proxy=` and `cloud=` (4e), `i6pn=` and `runtime_debug=` (4d), web
-URLs (4c-ii). Every call goes through the control plane: the region-local
-input plane (`_InputPlaneInvocation`, the Attempt* RPCs) comes with 4e, and
-FunctionMap is sent directly, as the JAX client sends it under
-MODAL_TPU_DISPATCH_COALESCE=0 (the coalescing window, FunctionMapBatch,
-comes with 4c-ii).
+(4d), `proxy=` and `cloud=` (4e), `i6pn=` and `runtime_debug=` (4d). Every
+call goes through the control plane (the region-local input plane,
+`_InputPlaneInvocation` and the Attempt* RPCs, comes with 4e); concurrent
+FunctionMaps coalesce into one FunctionMapBatch through the client's
+micro-batcher (`_utils/coalescer.py`), as the JAX client's do. A web
+function's URL comes from `get_web_url`, long-polled while its container
+boots.
 """
 
 from __future__ import annotations
@@ -192,6 +193,7 @@ class _Function(_Object, type_prefix="fu"):
         is_class: bool = False,
         class_serialized: Optional[bytes] = None,
         tag: Optional[str] = None,
+        webhook_type: int = api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED,
     ) -> "_Function":
         """Build the unhydrated Function whose loader issues FunctionCreate
         (reference from_local, _functions.py:657-1173). Nothing reaches the
@@ -230,6 +232,7 @@ class _Function(_Object, type_prefix="fu"):
                 restrict_output=spec.restrict_output,
                 app_name=app.name or "",
                 function_schema=info.get_schema(),
+                webhook_type=webhook_type,
             )
             f_def.autoscaler_settings.CopyFrom(
                 api_pb2.AutoscalerSettings(
@@ -506,8 +509,18 @@ class _Function(_Object, type_prefix="fu"):
 
         return await _spawn_map_async(self, *input_iterators, kwargs=kwargs)
 
+    @live_method
     async def get_web_url(self, timeout: float = 60.0) -> str:
-        raise InvalidError("web endpoints wait for the port's web runtime (ROADMAP Queue A 4c-ii)")
+        """URL of this function's web endpoint, long-polling while the
+        serving container boots (reference web_url on function handles)."""
+        resp = await retry_transient_errors(
+            self.client.stub.FunctionGetWebUrl,
+            api_pb2.FunctionGetWebUrlRequest(function_id=self.object_id, timeout=timeout),
+            attempt_timeout=timeout + 5.0,
+        )
+        if not resp.web_url:
+            raise ExecutionError("web endpoint did not come up (is webhook_type set?)")
+        return resp.web_url
 
     @live_method
     async def get_current_stats(self) -> api_pb2.FunctionStats:
@@ -547,12 +560,54 @@ class _Function(_Object, type_prefix="fu"):
 # ---------------------------------------------------------------------------
 
 
+async def _flush_function_maps(client: _Client, requests: list) -> list:
+    """One coalesced FunctionMap flush: one FunctionMapBatch for the window;
+    per-item FunctionMaps ONLY on errors that guarantee the batch executed
+    nothing: UNIMPLEMENTED (an older server, remembered client-wide) and
+    NOT_FOUND (the server validates every sub-request before executing
+    any). Anything else (transport loss after the retry budget, INTERNAL)
+    may have committed server-side, so it propagates to every waiter
+    instead of silently re-dispatching the window. A per-item not-found
+    arrives as an EMPTY sub-response (the server never aborts after a
+    partial execution) and is raised on that waiter alone."""
+    from .observability.catalog import FASTPATH_FALLBACKS
+
+    stub = client.stub
+    if len(requests) > 1 and not client._map_batch_unsupported:
+        try:
+            resp = await retry_transient_errors(stub.FunctionMapBatch, api_pb2.FunctionMapBatchRequest(requests=requests))
+            return [
+                r if r.function_call_id else NotFoundError("function not found (removed mid-dispatch)")
+                for r in resp.responses
+            ]
+        except grpc.aio.AioRpcError as exc:
+            if exc.code() != grpc.StatusCode.UNIMPLEMENTED:
+                raise
+            client._map_batch_unsupported = True
+            FASTPATH_FALLBACKS.inc(rung="batch", reason="unimplemented")
+        except NotFoundError:
+            # retry_transient_errors converts NOT_FOUND: the server's upfront
+            # validation aborted BEFORE executing anything, so a per-item
+            # resend is safe and isolates the stale caller
+            FASTPATH_FALLBACKS.inc(rung="batch", reason="validation")
+    # per-item sends with per-item outcomes: one bad sub-request fails ITS
+    # caller only (the MicroBatcher raises a returned exception on the
+    # matching waiter)
+    return await asyncio.gather(*(retry_transient_errors(stub.FunctionMap, r) for r in requests),
+                                return_exceptions=True)
+
+
 async def _submit_function_map(client: _Client, request: api_pb2.FunctionMapRequest) -> api_pb2.FunctionMapResponse:
-    """Submit one FunctionMap. Sent directly: the JAX client's path under
-    MODAL_TPU_DISPATCH_COALESCE=0 (its coalescing window, which batches
-    concurrent submits into FunctionMapBatch, comes with ROADMAP Queue A
-    4c-ii)."""
-    return await retry_transient_errors(client.stub.FunctionMap, request)
+    """Submit one FunctionMap through the client's coalescing window (the
+    concurrent submits of one event-loop tick, or of one in-flight flush,
+    share one FunctionMapBatch), or directly when coalescing is disabled
+    (MODAL_TPU_DISPATCH_COALESCE=0)."""
+    from ._utils.coalescer import coalescing_enabled
+
+    if not coalescing_enabled():
+        return await retry_transient_errors(client.stub.FunctionMap, request)
+    batcher = client._batchers.get("FunctionMap", lambda reqs: _flush_function_maps(client, reqs))
+    return await batcher.submit(request)
 
 
 async def _create_input(

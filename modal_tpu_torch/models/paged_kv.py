@@ -221,16 +221,33 @@ def set_seq_lens(cache: PagedKVCache, new_lens, update) -> PagedKVCache:
 # -- KV-page shipment (prefill/decode disaggregation) --------------------------
 
 
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of `t`. A CUDA tensor lands in pinned memory from
+    PyTorch's caching host allocator: one DMA at the card's copy rate, and
+    a block freed by an earlier shipment is reused, so a steady stream of
+    exports neither allocates pinned memory nor first-touches fresh
+    pageable pages (what a plain `.cpu()` pays for)."""
+    if t.device.type != "cuda":
+        return t.cpu()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return out
+
+
 def export_pages(cache: PagedKVCache, page_ids: list[int]) -> dict:
     """The named pages as CPU tensors {"k", "v"}, each [n_layers,
-    len(page_ids), page_size, n_kv, hd] in the pool dtype. Whole pages
-    travel: positions past the holder's length are garbage that stays
-    unattended on the importer too. Read-only, so exporting pages shared
-    with the prefix cache is safe."""
+    len(page_ids), page_size, n_kv, hd] in the pool dtype, copied off a
+    card into pinned memory (`_to_host`). Whole pages travel: positions
+    past the holder's length are garbage that stays unattended on the
+    importer too. Read-only, so exporting pages shared with the prefix
+    cache is safe."""
     idx = _ids(page_ids, cache.device).long()
     return {
-        "k": cache.k_pages.index_select(1, idx).cpu(),
-        "v": cache.v_pages.index_select(1, idx).cpu(),
+        "k": _to_host(cache.k_pages.index_select(1, idx)),
+        "v": _to_host(cache.v_pages.index_select(1, idx)),
     }
 
 

@@ -93,6 +93,13 @@ SERVING_ROLE = REGISTRY.gauge(
     "2 = decode — engine.ROLE_GAUGE_VALUES); rides the heartbeat so "
     "`modal_tpu top` and the autoscaler can tell fleet tiers apart.",
 )
+SERVING_ROUTER_ROUTED = REGISTRY.counter(
+    "modal_tpu_serving_router_routed_total",
+    "Requests the fleet router dispatched, by reason (prefix = prefix-map "
+    "hit, affinity = pinned session, cold = consistent-hash fallback, "
+    "random = router disabled).",
+    ("reason",),
+)
 KV_PAGES_SHIPPED = REGISTRY.counter(
     "modal_tpu_kv_pages_shipped_total",
     "KV pages exported off-device for prefill→decode shipment (blob-plane "
@@ -107,6 +114,12 @@ KV_SHIP_SECONDS = REGISTRY.histogram(
 
 # -- device telemetry (observability/device_telemetry.py) ----------------------
 
+KERNEL_LAUNCHES = REGISTRY.gauge(
+    "modal_tpu_kernel_launches",
+    "Launches of each hand-written CUDA kernel in this process so far "
+    "(ops/_build.LAUNCHES, graph replays counted), read at each heartbeat push.",
+    ("kernel",),
+)
 DEVICE_MEMORY_BYTES = REGISTRY.gauge(
     "modal_tpu_device_memory_bytes",
     "Live per-device memory from torch.cuda.memory_stats() (bytes_in_use | "
@@ -345,6 +358,12 @@ FASTPATH_FALLBACKS = REGISTRY.counter(
 
 # -- the App layer's dispatch (functions.py, parallel_map.py) ------------------
 
+DISPATCH_BATCH_OCCUPANCY = REGISTRY.histogram(
+    "modal_tpu_dispatch_batch_occupancy",
+    "Items per coalesced scheduling RPC flush (submit/claim/publish planes).",
+    ("rpc",),
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+)
 OUTPUT_STREAM_EVENTS = REGISTRY.counter(
     "modal_tpu_output_stream_events_total",
     "Push-streamed output delivery lifecycle (open | batch | keepalive | "

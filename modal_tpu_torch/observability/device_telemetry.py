@@ -23,7 +23,9 @@ no torch import for its heartbeat.
   kernel build (`runtime/compile_client.py`).
 - `container_report()` / `merge_container_report()`: the heartbeat push, in
   the JAX package's JSON schema (`metrics.export_families`), so either
-  package's worker merges either package's report; `pushed_gauge` reads one
+  package's worker merges either package's report; the port's report also
+  carries `modal_tpu_kernel_launches{kernel}`, the process's
+  `ops/_build.LAUNCHES` at the push; `pushed_gauge` reads one
   gauge out of a report, `telemetry_summary` rolls the compile counters up.
 """
 
@@ -168,8 +170,10 @@ class StepTimer:
 
 # the families a container pushes over its heartbeat: the JAX package's list
 # (device_telemetry.PUSH_FAMILIES), so one worker reads both packages'
-# reports the same way; families the port does not register are skipped
+# reports the same way (families the port does not register are skipped),
+# and the port's own kernel launch counts
 PUSH_FAMILIES = (
+    "modal_tpu_kernel_launches",
     "modal_tpu_device_memory_bytes",
     "modal_tpu_compile_events_total",
     "modal_tpu_compile_seconds",
@@ -225,7 +229,12 @@ def container_report() -> str:
     install_compile_hooks()
     maybe_install_fleet_cache()
     sample_device_memory(min_interval_s=5.0)
-    from .catalog import DEVICE_MEMORY_BYTES  # noqa: F401 — registers the families
+    from .catalog import KERNEL_LAUNCHES
+
+    build = sys.modules.get("modal_tpu_torch.ops._build")
+    if build is not None:  # the kernels' launch counts, once a kernel module loaded
+        for name, n in build.LAUNCHES.items():
+            KERNEL_LAUNCHES.set(float(n), kernel=name)
     from .metrics import export_families
 
     report = export_families(PUSH_FAMILIES)

@@ -22,10 +22,11 @@ Failure story (reference parallel_map.py:241,793 + blob_utils.py:66):
   DEFAULT_BYTE_BUDGET inflight serialized bytes / MAX_INPUTS_OUTSTANDING
   items; finished outputs release their input's budget.
 
-The pump puts inputs in batches of MAP_INPUT_BATCH_SIZE, the JAX client's
-path under MODAL_TPU_DISPATCH_COALESCE=0; its coalescing window (a
-per-map MicroBatcher) comes with ROADMAP Queue A 4c-ii, and the input
-plane's map transport (MapStartOrContinue / MapAwait) with 4e. Outputs
+Every input rides a per-map MicroBatcher (a ~1 ms linger, at most
+MAP_INPUT_BATCH_SIZE a flush), as the JAX pump's do, so submission
+pipelines with the generator; MODAL_TPU_DISPATCH_COALESCE=0 puts them in
+batches of MAP_INPUT_BATCH_SIZE instead. The input plane's map transport
+(MapStartOrContinue / MapAwait) comes with ROADMAP Queue A 4e. Outputs
 arrive on one FunctionStreamOutputs stream, in process or over the plane's
 Unix socket when the plane is local (_utils/local_transport.py).
 """
@@ -234,13 +235,36 @@ async def _map_invocation(
         await transport.put_batch(function_call_id, batch)
 
     async def pump_inputs() -> None:
-        """Submit side: inputs go out in batches of MAP_INPUT_BATCH_SIZE
-        (a flush also happens before the byte budget would block, so
-        inflight inputs can produce outputs and release it)."""
+        """Submit side: every input rides a per-map MicroBatcher (a ~1 ms
+        linger, at most MAP_INPUT_BATCH_SIZE a flush), so a 1k-input map
+        sends a bounded number of PutInputs however the producer trickles.
+        With MODAL_TPU_DISPATCH_COALESCE=0 inputs go out in batches of
+        MAP_INPUT_BATCH_SIZE (a flush also happens before the byte budget
+        would block, so inflight inputs can produce outputs and release
+        it)."""
         nonlocal inputs_sent
+        from ._utils.coalescer import MicroBatcher, coalescing_enabled
         from .functions import _create_input
 
+        async def _flush_items(items: list[api_pb2.FunctionPutInputsItem]) -> list:
+            nonlocal inputs_sent
+            await _put_batch(items)
+            inputs_sent += len(items)
+            return [None] * len(items)
+
+        batcher = (
+            MicroBatcher(_flush_items, max_batch=MAP_INPUT_BATCH_SIZE, window_s=0.001, label="FunctionPutInputs")
+            if coalescing_enabled()
+            else None
+        )
         batch: list[api_pb2.FunctionPutInputsItem] = []
+        # in-flight coalesced submits, awaited in windows: a flush error
+        # surfaces promptly, and a huge map never holds a future per input
+        submits: list[asyncio.Task] = []
+
+        async def _reap_submits(limit: int) -> None:
+            while len(submits) > limit:
+                await submits.pop(0)
 
         async def _flush() -> None:
             nonlocal batch, inputs_sent
@@ -264,17 +288,27 @@ async def _map_invocation(
                     )
                     nbytes = len(item.input.args) if item.input.WhichOneof("args_oneof") == "args" else 64
                     if budget is not None:
-                        if batch and budget.would_block(nbytes):
+                        if batcher is None and batch and budget.would_block(nbytes):
                             # an unflushed local batch can't drain: flush
                             # first so inflight inputs can release budget
+                            # (the batcher's drainer flushes on its own)
                             await _flush()
                         await budget.acquire(nbytes)
                         unfinished[idx] = (item, nbytes)
-                    batch.append(item)
-                    if len(batch) >= MAP_INPUT_BATCH_SIZE:
-                        await _flush()
+                    if batcher is not None:
+                        submits.append(asyncio.ensure_future(batcher.submit(item)))
+                        await _reap_submits(4 * MAP_INPUT_BATCH_SIZE)
+                    else:
+                        batch.append(item)
+                        if len(batch) >= MAP_INPUT_BATCH_SIZE:
+                            await _flush()
                     idx += 1
             await _flush()
+            await _reap_submits(0)
+        except BaseException:
+            for t in submits:
+                t.cancel()
+            raise
         finally:
             # always unblock the poll loop: on a pump failure it drains what
             # was sent, then `await pump_task` surfaces the error instead of

@@ -17,15 +17,15 @@ the compile hooks and the fleet compile cache under the kernel builds
 or else the `@enter(snap=True)` hooks and `save_snapshot`, then
 ContainerCheckpoint; the other enter hooks; the AOT warm-up of the kernels
 (`MODAL_TPU_AOT_LOWER`); then the input loop until the kill switch or the
-scaledown window. Sync user code runs on the main thread, where a cancel
+scaledown window, or, for a web function, an HTTP server on a local port
+whose URL goes to the control plane (FunctionSetWebUrl; runtime/asgi.py). Sync user code runs on the main thread, where a cancel
 (SIGUSR1) raises InputCancellation inside it; SIGTERM drains gracefully
 and SIGUSR2 (preemption) flushes the in-flight inputs' resume tokens first.
 
 A definition that asks for what the port's runtime does not run yet is
 refused before any user code runs, naming the ROADMAP Queue A sub-slice
-that brings it: gangs, cloud bucket mounts and volumes (4d), web endpoints
-(4c-ii). The runtime debug profile (4d) and the warm-pool parking (4e) wait
-too.
+that brings it: gangs, cloud bucket mounts and volumes (4d). The runtime
+debug profile (4d) and the warm-pool parking (4e) wait too.
 """
 
 from __future__ import annotations
@@ -80,8 +80,6 @@ def waiting_branch(container_args: api_pb2.ContainerArguments) -> str:
         return "cloud bucket mounts wait for the port's storage slice (ROADMAP Queue A 4d)"
     if function_def.volume_mounts:
         return "volume mounts wait for the port's Volumes (ROADMAP Queue A 4d)"
-    if function_def.webhook_type != api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED:
-        return "web endpoints wait for the port's web runtime (ROADMAP Queue A 4c-ii)"
     if function_def.experimental_options.get("runtime_debug"):
         return "the runtime debug profile waits for the port's profiler (ROADMAP Queue A 4d)"
     return ""
@@ -361,6 +359,60 @@ async def _boot_service(
     return service
 
 
+async def run_web_endpoint(
+    service: Service, io: ContainerIOManager, client: _Client, container_args: api_pb2.ContainerArguments
+) -> None:
+    """Serve the function as HTTP instead of polling the input queue
+    (reference run_server/asgi flow, _container_entrypoint.py:394 and
+    _runtime/asgi.py): build the ASGI app, bind a local port, register the
+    URL with the control plane, serve until drained."""
+    from .asgi import AsgiHttpServer, function_to_asgi, proxy_to_port, wait_for_port, wsgi_to_asgi
+
+    function_def = container_args.function_def
+    webhook_type = function_def.webhook_type
+    # a class names its web method (cls.py from_local); a plain function
+    # serves its single callable
+    callable_ = service.get_callable(function_def.experimental_options.get("web_method_name", ""))
+    if webhook_type == api_pb2.WEB_ENDPOINT_TYPE_ASGI_APP:
+        asgi = callable_()  # the user's factory returns the ASGI app
+    elif webhook_type == api_pb2.WEB_ENDPOINT_TYPE_WSGI_APP:
+        asgi = wsgi_to_asgi(callable_())
+    elif webhook_type == api_pb2.WEB_ENDPOINT_TYPE_FUNCTION:
+        asgi = function_to_asgi(callable_, method=function_def.experimental_options.get("web_method", "POST"))
+    elif webhook_type == api_pb2.WEB_ENDPOINT_TYPE_WEB_SERVER:
+        # @web_server: the user's function STARTS a server on the declared
+        # port (a thread or a subprocess) and returns; wait for the port,
+        # then reverse-proxy the URL to it
+        port = int(function_def.experimental_options.get("web_server_port", "0"))
+        startup_timeout = float(function_def.experimental_options.get("web_server_startup_timeout", "60"))
+        if not port:
+            raise ExecutionError("@web_server function def carries no port")
+        if inspect.iscoroutinefunction(callable_):
+            await callable_()
+        else:
+            await asyncio.to_thread(callable_)
+        await wait_for_port(port, startup_timeout)
+        asgi = proxy_to_port(port)
+    else:
+        raise ExecutionError(f"unsupported webhook type {webhook_type}")
+
+    server = AsgiHttpServer(asgi)
+    await server.start()
+    try:
+        await retry_transient_errors(
+            client.stub.FunctionSetWebUrl,
+            api_pb2.FunctionSetWebUrlRequest(
+                function_id=container_args.function_id, task_id=container_args.task_id, web_url=server.url
+            ),
+            max_retries=3,
+        )
+        logger.debug(f"web endpoint registered: {server.url}")
+        while not io.terminate:
+            await asyncio.sleep(0.3)
+    finally:
+        await server.stop()
+
+
 async def main_async() -> int:
     container_args = load_container_arguments()
     task_id = container_args.task_id
@@ -395,7 +447,10 @@ async def main_async() -> int:
     try:
         service = await _boot_service(container_args, client, boot_span)
         tracing.close_span(boot_span)
-        await run_input_loop(service, io)
+        if function_def.webhook_type != api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED:
+            await run_web_endpoint(service, io, client, container_args)
+        else:
+            await run_input_loop(service, io)
     except BaseException as exc:
         if not boot_span.end:
             tracing.close_span(boot_span, status="error")

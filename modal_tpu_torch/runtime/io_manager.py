@@ -11,9 +11,12 @@ batching ≤20/RPC (container_io_manager.py:870-885).
 Outputs go through the port's `serialize_payload`: a CUDA tensor leaves the
 card out of band through pinned staging, and a payload over 2 MiB goes to
 the blob store. The heartbeat pushes the container's device and compile
-telemetry. The JAX manager's claim and output coalescing (ROADMAP Queue A
-4c-ii) and its profiler commands (4d) wait: each claim asks for one input (a
-@batched function's batch), and each output batch is one RPC.
+telemetry. Claims and outputs coalesce as the JAX manager's do: a container
+with N free concurrency slots asks for up to N inputs in one long-poll, and
+outputs of concurrent inputs finishing within one window share one
+FunctionPutOutputs (`_utils/coalescer.py`; off with
+MODAL_TPU_DISPATCH_COALESCE=0). The profiler commands wait for ROADMAP
+Queue A 4d.
 """
 
 from __future__ import annotations
@@ -117,6 +120,7 @@ class ContainerIOManager:
         self._pending_exchange: list[api_pb2.FunctionPutOutputsItem] = []
         self._poll_in_flight = False
         self._executed_an_input = False  # the first input is the cold call
+        self._out_batcher = None  # the coalesced FunctionPutOutputs plane
         ContainerIOManager._singleton = self
 
     @classmethod
@@ -241,7 +245,14 @@ class ContainerIOManager:
         """The hot loop: acquire a slot → FunctionExchange (long-poll) →
         assemble IOContext (reference _generate_inputs,
         container_io_manager.py:788-843). Exits on kill_switch or after
-        scaledown_window idle."""
+        scaledown_window idle.
+
+        Coalesced claim: with N free concurrency slots, ONE long-poll asks
+        for up to N inputs and splits the response into per-input
+        IOContexts. @batched functions keep their batch assembly (one ctx
+        per fetch)."""
+        from .._utils.coalescer import coalescing_enabled
+
         scaledown = self.function_def.autoscaler_settings.scaledown_window or 60
         batch_max = self.function_def.batch_max_size or 1
         is_batched = (self.function_def.batch_max_size or 0) > 1
@@ -250,6 +261,11 @@ class ContainerIOManager:
             await self.input_slots.acquire()
             slots_held = 1
             try:
+                if not is_batched and coalescing_enabled():
+                    # soak up every currently free slot, so the server can
+                    # hand over a whole group in one response
+                    while slots_held < self.input_slots.value and self.input_slots.try_acquire():
+                        slots_held += 1
                 request = api_pb2.FunctionGetInputsRequest(
                     function_id="",  # filled below; def carries no id — use env
                     task_id=self.task_id,
@@ -374,7 +390,17 @@ class ContainerIOManager:
 
     # -- outputs ------------------------------------------------------------
 
+    async def _flush_output_batch(self, items: list[api_pb2.FunctionPutOutputsItem]) -> list:
+        """One coalesced FunctionPutOutputs flush (at most
+        MAX_OUTPUT_BATCH_SIZE items by construction). The server dedupes by
+        (input_id, retry_count) and group-commits the batch's journal
+        records, so regrouping outputs across inputs cannot deliver twice."""
+        await self._put_outputs_direct(items)
+        return [None] * len(items)
+
     async def push_outputs(self, ctx: IOContext, results: list[api_pb2.GenericResult]) -> None:
+        from .._utils.coalescer import coalescing_enabled
+
         items = []
         for i, result in enumerate(results):
             items.append(
@@ -403,6 +429,17 @@ class ContainerIOManager:
             # its own round trip. Mid-poll finishes fall through to the
             # direct paths (delivery must not wait out a 10s claim window).
             self._pending_exchange.extend(items)
+        elif coalescing_enabled():
+            # coalesced publication: concurrent inputs finishing within one
+            # window share one RPC; the submit still completes before the
+            # slot is released, so delivery stays on the critical path
+            if self._out_batcher is None:
+                from .._utils.coalescer import MicroBatcher
+
+                self._out_batcher = MicroBatcher(
+                    self._flush_output_batch, max_batch=MAX_OUTPUT_BATCH_SIZE, label="FunctionPutOutputs"
+                )
+            await asyncio.gather(*(self._out_batcher.submit(item) for item in items))
         else:
             await self._put_outputs_direct(items)
         self.current_input_ids -= set(ctx.input_ids)

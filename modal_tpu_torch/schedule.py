@@ -1,8 +1,8 @@
 """Cron/Period schedules and placement constraints (port of
 modal_tpu/schedule.py; reference py/modal/schedule.py:12).
 
-A `Cron` is validated when it is built. The port's control plane refuses a
-scheduled function until its cron loop comes (ROADMAP Queue A 4c-ii).
+A `Cron` is validated when it is built; the control plane's cron loop
+fires a scheduled function (`server/scheduler.py`, `server/cron.py`).
 """
 
 from __future__ import annotations

@@ -67,11 +67,11 @@ IDEMPOTENCY_MAX_ENTRIES = 8192
 
 # Mutating RPCs of the port's plane whose responses are deduped by the
 # client's idempotency key: a retry after a lost response or a restart
-# replays the cached response instead of re-executing. FunctionMapBatch
-# joins with the coalesced dispatch (ROADMAP Queue A 4c-ii).
+# replays the cached response instead of re-executing.
 IDEMPOTENT_RPCS = frozenset(
     {
         "FunctionMap",
+        "FunctionMapBatch",
         "FunctionPutInputs",
         "FunctionRetryInputs",
         "FunctionPutOutputs",
@@ -551,6 +551,7 @@ def _apply_call(s, r):
         call_type=r.get("call_type", api_pb2.FUNCTION_CALL_TYPE_UNARY),
         invocation_type=r.get("invocation_type", api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC),
         return_exceptions=bool(r.get("return_exceptions")),
+        server_originated=bool(r.get("server_originated")),
     )
 
 
@@ -845,6 +846,7 @@ def synthesize_records(s) -> list[dict]:
                 "call_type": call.call_type,
                 "invocation_type": call.invocation_type,
                 "return_exceptions": call.return_exceptions,
+                "server_originated": call.server_originated,
             }
         )
     for inp in s.inputs.values():

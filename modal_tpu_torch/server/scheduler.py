@@ -12,6 +12,10 @@ modal_tpu/server/scheduler.py).
 - **Loud refusal**: a backlog whose placement no registered worker could
   ever hold (labels, or the card type and count) fails with the
   unsatisfiable-placement reason after `PLACEMENT_UNSAT_GRACE_S`.
+- **Schedules**: a function with a Cron or Period schedule gets one
+  zero-argument input at every due tick (`_evaluate_schedule`, times from
+  `cron.next_fire`); the reap tick drops finished fires
+  (`_gc_scheduled_calls`).
 
 Gang placement (`group_size > 1`) comes with the port's gang runtime
 (ROADMAP Queue A 4d; FunctionCreate refuses a gang until then), and so does
@@ -112,6 +116,7 @@ class Scheduler:
                 if time.time() - self._last_reap > 10.0:
                     self._last_reap = time.time()
                     await self.reap_dead_tasks()
+                    self._gc_scheduled_calls()
                     if self.servicer is not None:
                         await self.servicer.maybe_compact()
             except Exception:
@@ -134,6 +139,13 @@ class Scheduler:
             app = self.s.apps.get(fn.app_id)
             if app is not None and app.done:
                 continue
+            try:
+                await self._evaluate_schedule(fn)
+            except Exception as exc:  # noqa: BLE001 — one bad schedule must
+                # not halt scheduling for every other function
+                if fn.next_fire_at != -1.0:
+                    logger.warning(f"disabling schedule for {fn.tag}: {exc}")
+                    fn.next_fire_at = -1.0
             backlog = sum(1 for iid in fn.pending if self.s.inputs[iid].status == "pending")
             unsat_reason = self.placement_unsatisfiable_reason(
                 fn.definition.scheduler_placement, subject=fn.tag, spec=gpu_spec(fn.definition.resources)
@@ -173,6 +185,61 @@ class Scheduler:
             for _ in range(max(0, desired - len(live))):
                 if not await self._launch_task(fn):
                     break  # no capacity right now
+
+    async def _evaluate_schedule(self, fn: FunctionState) -> None:
+        """Fire Cron/Period schedules: enqueue one zero-argument input per
+        due tick."""
+        sched = fn.definition.schedule
+        if sched.WhichOneof("schedule_oneof") is None or fn.bound_parent:
+            return
+        if fn.next_fire_at == -1.0:
+            return  # disabled after an evaluation error
+        from .cron import next_fire
+
+        now = time.time()
+        if fn.next_fire_at == 0.0:
+            fn.next_fire_at = next_fire(sched, now)
+            return
+        if now < fn.next_fire_at:
+            return
+        from ..serialization import serialize
+        from .state import FunctionCallState
+
+        call_id = self.s.make_id("fc")
+        call = FunctionCallState(
+            function_id=fn.function_id,
+            function_call_id=call_id,
+            call_type=api_pb2.FUNCTION_CALL_TYPE_UNARY,
+            invocation_type=api_pb2.FUNCTION_CALL_INVOCATION_TYPE_ASYNC,
+            server_originated=True,  # GC'd after completion; no client reads it
+        )
+        self.s.function_calls[call_id] = call
+        item = api_pb2.FunctionPutInputsItem(
+            idx=0, input=api_pb2.FunctionInput(args=serialize(((), {})), data_format=api_pb2.DATA_FORMAT_PICKLE)
+        )
+        if self.servicer is not None:
+            # the call before its input (replay order): an input record
+            # naming an unjournaled call would recover orphaned
+            self.servicer._j("call", function_call_id=call_id, function_id=fn.function_id,
+                             call_type=call.call_type, invocation_type=call.invocation_type, server_originated=True)
+            self.servicer._enqueue_input(fn, call, item)
+        async with fn.input_condition:
+            fn.input_condition.notify_all()
+        logger.debug(f"schedule fired for {fn.tag} (call {call_id})")
+        fn.next_fire_at = next_fire(sched, now)
+
+    def _gc_scheduled_calls(self) -> None:
+        """Drop completed server-originated (scheduled-fire) calls and their
+        inputs: no client will ever read them, and a Period(minutes=1) app
+        would otherwise accumulate state forever."""
+        now = time.time()
+        for call_id, call in list(self.s.function_calls.items()):
+            if not call.server_originated:
+                continue
+            if call.num_done >= call.num_inputs and now - call.created_at > 60.0:
+                for input_id in call.input_ids:
+                    self.s.inputs.pop(input_id, None)
+                del self.s.function_calls[call_id]
 
     # ------------------------------------------------------------------
 

@@ -3,8 +3,9 @@ modal_tpu/server/services.py).
 
 The handlers a function or class call of the App layer goes through, with
 the JAX control plane's semantics: apps, blobs, function definition and
-invocation (FunctionMap / FunctionGetOutputs long polls, generators,
-cancellation), images (registered as built), mounts (content-addressed
+invocation (FunctionMap and the coalesced FunctionMapBatch, FunctionGetOutputs
+long polls, generators, cancellation), web endpoints (a container sets its
+URL, a client long-polls for it), images (registered as built), mounts (content-addressed
 blocks), secrets (resolved into a container's env at placement), the
 container data plane (hello, heartbeats, input claims, outputs, logs,
 results) and the worker plane (register, poll, heartbeat).
@@ -14,8 +15,7 @@ journal (server/journal.py) under the JAX handler's record type, so a
 restarted plane replays its apps, calls and queued inputs; claims, tasks,
 heartbeats and logs are transient by design. Every RPC of the wire contract
 this servicer has no handler for answers gRPC UNIMPLEMENTED (proto/rpc.py):
-web URLs and the coalesced FunctionMapBatch (ROADMAP Queue A 4c-ii); the
-task cluster rendezvous, volumes, cluster listing and metrics history (4d);
+the task cluster rendezvous, volumes, cluster listing and metrics history (4d);
 sandboxes, tunnels, image listing and deletion, proxies, dicts, queues,
 environments, tokens, workspaces, profiles, the input plane, and shard and
 journal administration (4e).
@@ -72,10 +72,6 @@ def waiting_feature(definition: api_pb2.Function) -> str:
                 f"plane does not place: ask for cards with gpu= (resources.gpu_config)")
     if (definition.group_size or 0) > 1:
         return "gang functions (group_size > 1) wait for the port's gang runtime (ROADMAP Queue A 4d)"
-    if definition.webhook_type != api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED:
-        return "web endpoints wait for the port's web runtime (ROADMAP Queue A 4c-ii)"
-    if definition.schedule.WhichOneof("schedule_oneof") is not None:
-        return "scheduled functions wait for the port's cron loop (ROADMAP Queue A 4c-ii)"
     return slo_targets_waiting(definition.autoscaler_settings)
 
 
@@ -407,6 +403,7 @@ class ModalTPUServicer:
             function_name=d.function_name,
             function_type=d.function_type,
             is_generator=d.function_type == api_pb2.FUNCTION_TYPE_GENERATOR,
+            web_url=fn.web_url,
             definition_id=fn.function_id,
             input_concurrency=d.max_concurrent_inputs,
             batch_max_size=d.batch_max_size,
@@ -421,6 +418,11 @@ class ModalTPUServicer:
         if waiting:
             await context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"InvalidError: {waiting}")
         function_id = request.existing_function_id or self.s.make_id("fu")
+        if request.function.webhook_type != api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED:
+            # a web function serves HTTP, not a queue: at least one warm
+            # container must exist for the endpoint to answer
+            settings = request.function.autoscaler_settings
+            settings.min_containers = max(1, settings.min_containers)
         fn = FunctionState(
             function_id=function_id,
             app_id=request.app_id,
@@ -488,6 +490,36 @@ class ModalTPUServicer:
         return api_pb2.FunctionBindParamsResponse(
             bound_function_id=bound.function_id, handle_metadata=self._function_metadata(bound)
         )
+
+    async def FunctionSetWebUrl(self, request: api_pb2.FunctionSetWebUrlRequest, context) -> api_pb2.FunctionSetWebUrlResponse:
+        fn = self.s.functions.get(request.function_id)
+        if fn is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "function not found")
+        fn.web_url = request.web_url
+        async with fn.input_condition:
+            fn.input_condition.notify_all()
+        return api_pb2.FunctionSetWebUrlResponse()
+
+    async def FunctionGetWebUrl(self, request: api_pb2.FunctionGetWebUrlRequest, context) -> api_pb2.FunctionGetWebUrlResponse:
+        fn = self.s.functions.get(request.function_id)
+        if fn is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "function not found")
+        if fn.definition.webhook_type == api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED:
+            # fast-fail: a non-web function never grows a URL, so the client
+            # must not wait out the long-poll window
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, "function has no web endpoint (webhook_type unset)")
+        deadline = time.monotonic() + min(max(request.timeout, 0.0), 60.0)
+        while time.monotonic() < deadline:
+            async with fn.input_condition:
+                # re-check UNDER the lock: a SetWebUrl notify between an
+                # unlocked check and wait() would otherwise be lost
+                if fn.web_url:
+                    break
+                try:
+                    await asyncio.wait_for(fn.input_condition.wait(), timeout=max(0.05, deadline - time.monotonic()))
+                except asyncio.TimeoutError:
+                    break
+        return api_pb2.FunctionGetWebUrlResponse(web_url=fn.web_url)
 
     async def FunctionUpdateSchedulingParams(self, request, context):
         fn = self.s.functions.get(request.function_id)
@@ -560,6 +592,31 @@ class ModalTPUServicer:
         async with fn.input_condition:
             fn.input_condition.notify_all()
         self.s.schedule_event.set()
+        return resp
+
+    async def FunctionMapBatch(self, request: api_pb2.FunctionMapBatchRequest, context) -> api_pb2.FunctionMapBatchResponse:
+        """Coalesced dispatch (_utils/coalescer.py): N `.remote()`s submitted
+        within one client-side window arrive as one RPC. Each sub-request
+        runs the FunctionMap path (its own call id, its own journal
+        records); the journal group-commits the batch: one flush."""
+        # validate EVERY sub-request before executing ANY: an abort must mean
+        # "nothing happened", or the client's per-item resend would run the
+        # successful prefix twice
+        for sub in request.requests:
+            if sub.function_id not in self.s.functions:
+                await context.abort(grpc.StatusCode.NOT_FOUND, f"function {sub.function_id} not found")
+        resp = api_pb2.FunctionMapBatchResponse()
+        # one group commit across the sub-handlers' awaits: journal.group()
+        # is task-scoped, so interleaved handlers keep their own flushes
+        with self._journal_group():
+            for sub in request.requests:
+                if sub.function_id not in self.s.functions:
+                    # gone BETWEEN validation and execution (an app stop
+                    # racing an await): answer THIS item empty (no call id =
+                    # not found), never abort after a partial execution
+                    resp.responses.append(api_pb2.FunctionMapResponse())
+                    continue
+                resp.responses.append(await self.FunctionMap(sub, context))
         return resp
 
     async def FunctionPutInputs(self, request, context) -> api_pb2.FunctionPutInputsResponse:

@@ -106,6 +106,7 @@ class FunctionCallState:
     # ("input_id:retry_count") of every delivered output: a requeued input
     # whose dead attempt already reported cannot deliver twice
     output_keys: set = field(default_factory=set)
+    server_originated: bool = False  # a schedule's fire: GC'd after completion
 
 
 @dataclass
@@ -127,6 +128,11 @@ class FunctionState:
     # EWMA of per-call wall time reported by containers on FunctionGetInputs:
     # shapes the autoscaler's drain-time estimate
     reported_call_time: float = 0.0
+    # the web endpoint's URL, set by its container (FunctionSetWebUrl)
+    web_url: str = ""
+    # the next schedule fire (server/cron.py): 0 = not evaluated yet, -1 =
+    # disabled after an evaluation error
+    next_fire_at: float = 0.0
 
     @property
     def autoscaler(self) -> api_pb2.AutoscalerSettings:

@@ -157,8 +157,6 @@ def test_what_waits_is_refused_naming_its_sub_slice(tmp_path, planes):  # noqa: 
         app.function(tpu="v5e-4")
     with pytest.raises(modal_tpu_torch.exception.InvalidError, match="4e"):
         app.function(proxy=object())
-    with pytest.raises(modal_tpu_torch.exception.InvalidError, match="4c-ii"):
-        app.function(serialized=True)(lambda: 1).get_web_url()
     # a Cron is validated as the JAX package validates it
     for bad in ("* * *", "61 * * * *", "*/0 * * * *"):
         with pytest.raises(modal_tpu.exception.InvalidError):
@@ -167,12 +165,16 @@ def test_what_waits_is_refused_naming_its_sub_slice(tmp_path, planes):  # noqa: 
             modal_tpu_torch.Cron(bad)
     good = "5 4 * * 1-5"
     assert modal_tpu_torch.Cron(good).to_proto().SerializeToString() == modal_tpu.Cron(good).to_proto().SerializeToString()
-    # the port's plane refuses a schedule until its cron loop
+    # since the cron loop (4c-ii) the port's plane takes a schedule, and a
+    # plain function's web URL is refused as no web endpoint
+    import grpc
+
     sched = modal_tpu_torch.App("scheduled")
-    sched.function(serialized=True, schedule=modal_tpu_torch.Period(hours=1))(lambda: 1)
-    with pytest.raises(Exception, match="4c-ii"):
-        with sched.run(client=planes.tclient):
-            pass
+    fn = sched.function(serialized=True, schedule=modal_tpu_torch.Period(hours=1))(lambda: 1)
+    with sched.run(client=planes.tclient):
+        assert planes.tsup.state.functions[fn.object_id].definition.schedule.period.hours == 1
+        with pytest.raises(grpc.aio.AioRpcError, match="no web endpoint"):
+            fn.get_web_url(timeout=1)
 
 
 # ---------------------------------------------------------------------------

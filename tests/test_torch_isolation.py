@@ -313,7 +313,9 @@ def test_every_module_of_the_port_is_scanned():
                 "runtime/user_code.py", "runtime/container_entrypoint.py", "server/journal.py",
                 "_utils/local_transport.py", "app.py", "functions.py", "cls.py", "runner.py", "parallel_map.py",
                 "running_app.py", "image.py", "mount.py", "secret.py", "schedule.py", "file_pattern_matcher.py",
-                "_utils/function_utils.py", "_utils/type_manager.py", "server/cron.py"):
+                "_utils/function_utils.py", "_utils/type_manager.py", "server/cron.py",
+                "_utils/coalescer.py", "runtime/asgi.py", "serving/service.py", "serving/router.py",
+                "serving/reload.py", "cli/__init__.py", "cli/import_refs.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
@@ -321,7 +323,9 @@ def test_every_module_of_the_port_is_scanned():
                                     "modal_tpu_torch.server.worker",
                                     "modal_tpu_torch.runtime.container_entrypoint", "modal_tpu_torch.app",
                                     "modal_tpu_torch.functions", "modal_tpu_torch.cls", "modal_tpu_torch.runner",
-                                    "modal_tpu_torch.parallel_map"])
+                                    "modal_tpu_torch.parallel_map", "modal_tpu_torch.serving",
+                                    "modal_tpu_torch.serving.service", "modal_tpu_torch.serving.router",
+                                    "modal_tpu_torch.runtime.asgi", "modal_tpu_torch.cli.import_refs"])
 def test_the_function_path_loads_no_torch_at_import(module):
     """The client, the App layer, the control plane, the worker and a
     container's entrypoint import no torch: a container sends its hello

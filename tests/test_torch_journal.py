@@ -420,4 +420,4 @@ def test_every_jax_record_type_is_applied_or_named():
     port's or named with the sub-slice that brings its table."""
     assert set(JJ._APPLIERS) == set(J._APPLIERS) | set(J.WAITING_RECORD_TYPES)
     assert not set(J._APPLIERS) & set(J.WAITING_RECORD_TYPES)
-    assert set(J.IDEMPOTENT_RPCS) == set(JJ.IDEMPOTENT_RPCS) - {"FunctionMapBatch"}
+    assert set(J.IDEMPOTENT_RPCS) == set(JJ.IDEMPOTENT_RPCS)

@@ -182,11 +182,11 @@ class _AbortCtx:
 def test_gangs_and_waiting_features_are_refused_at_create(tmp_path):
     slo_ttft = tapi.Function(autoscaler_settings=tapi.AutoscalerSettings(target_ttft_ms=250.0))
     slo_tps = tapi.Function(autoscaler_settings=tapi.AutoscalerSettings(target_tokens_per_replica=900.0))
-    for d, item in ((tapi.Function(group_size=2), "4d"),
-                    (tapi.Function(webhook_type=tapi.WEB_ENDPOINT_TYPE_ASGI_APP), "4c-ii"),
-                    (tapi.Function(schedule=tapi.Schedule(period=tapi.Schedule.Period(hours=1))), "4c-ii"),
-                    (slo_ttft, "4d"), (slo_tps, "4d")):
+    for d, item in ((tapi.Function(group_size=2), "4d"), (slo_ttft, "4d"), (slo_tps, "4d")):
         assert f"ROADMAP Queue A {item}" in tservices.waiting_feature(d)
+    # web endpoints and schedules are served since 4c-ii
+    assert tservices.waiting_feature(tapi.Function(webhook_type=tapi.WEB_ENDPOINT_TYPE_ASGI_APP)) == ""
+    assert tservices.waiting_feature(tapi.Function(schedule=tapi.Schedule(period=tapi.Schedule.Period(hours=1)))) == ""
     assert "target_ttft_ms" in tservices.waiting_feature(slo_ttft)
     assert "target_tokens_per_replica" in tservices.waiting_feature(slo_tps)
     tpu = tapi.Function(resources=tapi.Resources(tpu_config=tapi.TPUConfig(tpu_type="v5e-4")))
