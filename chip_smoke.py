@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,serve,sdk,worker
     python3 chip_smoke.py --phases device,build,worker,app
     python3 chip_smoke.py --phases device,build,serve,web,disagg,disagg_http
+    python3 chip_smoke.py --phases device,build,pool,sandbox
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -113,6 +114,36 @@ result line):
               App layer's own cost). Then the module-level, non-serialized
               `app_file_function` (gpu="H100") runs in a container that
               imported this script by path, pinned to the card.
+7b. pool    — the warm pool of the port's worker: the worker phase's
+              llama3-8b function (gpu="H100") through a LocalSupervisor with
+              MODAL_TPU_WARM_POOL=1 and =0 in turns (on, off, off, on), each
+              run a control plane of its own. A pooled call must be a warm
+              hit (`warm_pool_hit` on its task) served by the parked pid,
+              its `import torch` span shorter than every unpooled one's,
+              its logits bit-equal to the unpooled calls', K4 exactly
+              n_layers per decode step in the container and the same count
+              in its heartbeat; every parked interpreter holds no CUDA
+              context (its park span; not among nvidia-smi's compute apps)
+              and, after a placement that made one, exits while a fresh one
+              parks (ROADMAP Queue C 28). Then a min_containers=1 function
+              with the baseline off: the PoolDirective pre-forks an
+              interpreter beside the cold first container, that container
+              is stopped, and its replacement's call is a warm hit pinned
+              to card 0. Printed: each boot by part (spawn or adoption →
+              hello, import torch, AOT, ready, first output), the pids.
+7c. sandbox — `Sandbox.create("sleep", "infinity", gpu="H100", app=...)`
+              through `app.run()`, pinned to card 0; an exec'd
+              `python -m modal_tpu_torch.tools.sandbox_forward` builds
+              llama3-8b from the seed and runs the cache-less forward on 4
+              prompts of 128-512 tokens, twice each (K1 exactly n_layers a call, the
+              kernel path at least as close to fp32 attention as the plain
+              path), its JSON line read through TaskExecStdioRead; a 1 MiB
+              file through TaskFsOp; 1 MiB through an exec'd `cat`'s stdin;
+              an HTTP server inside the sandbox reached through its tunnel;
+              snapshot_filesystem restored into a CPU sandbox; terminate.
+              Printed: create → running, exec → first byte, the forward's
+              ms a call (device, and host until the call returned), the round trips, the snapshot's bytes and seconds,
+              the exec'd process's peak device memory.
 8. graphs   — the same traffic through an engine with cuda_graphs=False: the
               8 streams must equal the serve phase's (a differing token must be
               a near-tie, SELF_DRAFT_TIE, of the two modes' logits), K4 exact
@@ -174,7 +205,8 @@ result line):
 16. forward — cache-less `llama.forward` on [1, 2048] tokens: the flash
               kernel launches once per layer; its logits are compared with a
               forward through the plain einsum attention and one through fp32
-              attention.
+              attention. Then the sandbox phase's calls (128-512 tokens, the
+              same weights and tokens) in this process, timed the same way.
 17. train   — the serving state is released first. Gradient parity: the
               grads of `loss_fn` on llama3-8b at full width and 2 layers
               ([1, 2048] tokens) through the kernels, through the einsum
@@ -230,8 +262,8 @@ import time
 from modal_tpu_torch import App  # the App layer loads no torch (a container imports this script)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "graphs", "weights", "int8", "spec", "disagg",
-          "web", "disagg_http", "parity", "forward", "train", "moe", "mesh")
+PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "sandbox", "graphs", "weights", "int8",
+          "spec", "disagg", "web", "disagg_http", "parity", "forward", "train", "moe", "mesh")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -2377,9 +2409,21 @@ def phase_forward(torch, ctx: dict) -> None:
     out["fp32"] = forward(params, cfg, tokens, attn_impl=fp32_attention)[0][0]
     torch.cuda.synchronize()
     g = _gaps(torch, out)
-    _add_launches(ctx, "flash_fwd", launches)
-    ctx["forward"] = {**g, "wall_s": wall, "launches": launches}
+    del out
+    # the sandbox phase's exec'd calls, made here in this process on the same
+    # weights and tokens: the same forward without the sandbox around it
+    from modal_tpu_torch.tools.sandbox_forward import measure
+
+    lengths = [int(x) for x in SANDBOX_LENGTHS.split(",")]
+    short = measure(params, cfg, lengths, seed=0, device="cuda", gaps=False)
+    short_launches = short["launches_per_call"] + short["launches_per_call_again"]
+    if short_launches != [cfg.n_layers] * 2 * len(lengths):
+        raise AssertionError(f"forward: K1 launches {short_launches} at {lengths} tokens, want {cfg.n_layers} a call")
+    _add_launches(ctx, "flash_fwd", launches + sum(short_launches))
+    ctx["forward"] = {**g, "wall_s": wall, "launches": launches, "in_process_short": short}
     log(f"[forward] llama3-8b [1, 2048] cache-less: {wall:.2f}s, flash_fwd launches {launches}")
+    log(f"[forward] in process at {lengths} tokens (the sandbox phase's calls), twice each: {_ms_pairs(short)} ms "
+        f"a call, device (host until the call returned) | {ctx.get('nvidia_smi') or _nvidia_smi()}")
     _check_faithful("forward", g, 5e-2)
 
 
@@ -4052,6 +4096,407 @@ def phase_app(torch, ctx: dict) -> None:
     ctx["app"] = out
 
 
+# -- pool: the warm pool of the port's worker on the card ----------------------
+
+POOL_ROUNDS = 2  # pool on and off, in turns: on, off, off, on
+
+
+def _compute_pids() -> set:
+    """The pids holding a CUDA context on the card, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise AssertionError(f"nvidia-smi --query-compute-apps failed: {out.stderr.strip()}")
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def _pool_spans(sup, name: str) -> list:
+    from modal_tpu_torch.observability import tracing
+
+    return [s["attrs"] for s in tracing.read_spans(os.path.join(sup.state_dir, "traces")) if s["name"] == name]
+
+
+def _parked_entry(sup, timeout: float = 180.0):
+    """The worker's parked interpreter, once it parked; checked for a CUDA
+    context: its park span (torch imported, no context, no pinning
+    variables; whether the driver library is mapped is printed) and
+    nvidia-smi's compute apps (not listed)."""
+    from modal_tpu_torch._utils.async_utils import synchronizer
+
+    pool = sup.workers[0].pool
+    t0 = time.perf_counter()
+    if not synchronizer.run(pool.wait_parked(1, timeout)):
+        raise AssertionError(f"pool: no interpreter parked within {timeout}s")
+    park_s = time.perf_counter() - t0
+    entry = next(e for e in pool.entries.values() if e.state == "parked")
+    span = next((a for a in reversed(_pool_spans(sup, "coldstart.park")) if a["pid"] == entry.proc.pid), None)
+    if span is None or not span["torch_imported"] or span["cuda_initialized"] or span["pinning_env"]:
+        raise AssertionError(f"pool: the parked interpreter {entry.proc.pid} is not clean: {span}")
+    if entry.proc.pid in _compute_pids():
+        raise AssertionError(f"pool: nvidia-smi lists the parked interpreter {entry.proc.pid} as a compute app")
+    log(f"[pool] parked pid {entry.proc.pid}: torch imported, CUDA context {span['cuda_initialized']}, CUDA driver "
+        f"library mapped {span['libcuda_mapped']}, pinning variables {span['pinning_env']}, not among nvidia-smi's "
+        f"compute apps")
+    return entry, park_s
+
+
+def _pool_run(torch, ctx: dict, root: str, label: str, pooled: bool, smi: str) -> dict:
+    """One control plane with the pool on or off: the worker phase's
+    llama3-8b serving function (gpu="H100") called once, its boot split, K4
+    counted in the container and in its heartbeat; then the app stopped and
+    the re-park rule checked (an interpreter whose placement made a CUDA
+    context exits, a fresh one parks)."""
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.serialization import deserialize, serialize
+    from modal_tpu_torch.server.supervisor import LocalSupervisor
+
+    cfg = get_config("llama3-8b")
+    os.environ["MODAL_TPU_WARM_POOL"] = "1" if pooled else "0"
+    sup = LocalSupervisor(num_workers=1, state_dir=os.path.join(root, label))
+    synchronizer.run(sup.start())
+    plane = None
+    try:
+        parked, park_s = _parked_entry(sup) if pooled else (None, 0.0)
+        plane = _Plane(sup)
+        plane.new_app(f"chip_smoke pool {label}")
+        fn_id = plane.create("serve", "H100",
+                             function_serialized=serialize(_worker_serving_fn("llama3-8b", 0, _prompts(cfg, 8, seed=1))))
+        call = plane.remote(fn_id)
+        if call["status"] != api_pb2.GENERIC_STATUS_SUCCESS:
+            raise AssertionError(f"pool {label}: the call failed: {call['exception']}\n{call['traceback'][-4000:]}"
+                                 f"\n{plane.task_logs()}")
+        r = deserialize(call["data"])
+        (task,) = [t for t in sup.state.tasks.values() if t.app_id == plane.app_id]
+        if task.warm_pool_hit != pooled or (pooled and r["pid"] != parked.proc.pid):
+            raise AssertionError(f"pool {label}: warm_pool_hit {task.warm_pool_hit}, served by pid {r['pid']}, "
+                                 f"parked pid {parked.proc.pid if parked else None}")
+        steps, k4 = r["decode_steps"], r["paged_decode_launches"]
+        if steps == 0 or k4 != cfg.n_layers * steps or r["cuda_visible_devices"] != "0":
+            raise AssertionError(f"pool {label}: K4 {k4} over {steps} steps, CUDA_VISIBLE_DEVICES "
+                                 f"{r['cuda_visible_devices']!r}")
+        report = _wait_report(task, lambda rep: _k4_and_steps(rep)[0] == k4)
+        _check_streams(f"pool {label}", r["streams"], cfg.vocab_size)
+        split = _boot_split(sup, task, call)
+        plane.stop_app()
+        out = {"label": label, "pooled": pooled, "warm_pool_hit": task.warm_pool_hit, "served_pid": r["pid"],
+               "logits_sha256": r["logits_sha256"], "decode_steps": steps, "paged_decode_launches": k4,
+               "heartbeat_k4": _k4_and_steps(report)[0], "split": split, "wall_s": r["wall_s"],
+               "peak_device_bytes": r["peak_device_bytes"], "imports_top": r["imports_top"]}
+        if pooled:
+            pool = sup.workers[0].pool
+            # the re-park rule: the placement made a CUDA context, so its
+            # interpreter exits, and the pool parks a fresh one
+            deadline = time.monotonic() + 60
+            while parked.proc.returncode is None or any(e.proc.pid == parked.proc.pid for e in pool.entries.values()):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"pool {label}: the interpreter {parked.proc.pid} did not exit after a "
+                                         f"placement that made a CUDA context")
+                time.sleep(0.2)
+            exits = [a for a in _pool_spans(sup, "coldstart.exit_after_cuda") if a["pid"] == parked.proc.pid]
+            if not exits:
+                raise AssertionError(f"pool {label}: the interpreter {parked.proc.pid} exited without its exit span")
+            fresh, _ = _parked_entry(sup)
+            out.update(parked_pid=parked.proc.pid, park_s=park_s, exit_rc=parked.proc.returncode,
+                       fresh_pid=fresh.proc.pid)
+        _add_launches(ctx, "paged_decode", k4)
+        log(f"[pool] {label}: pool {'on' if pooled else 'off'}, warm_pool_hit {task.warm_pool_hit}, served by pid "
+            f"{r['pid']}" + (f" (parked pid {parked.proc.pid}, parked {park_s:.2f}s after the plane's start; after "
+                             f"the placement it exited rc {out['exit_rc']} and pid {out['fresh_pid']} parked)"
+                             if pooled else "") + f"; {_split_line(split)}; K4 {k4} = {cfg.n_layers} x {steps} in the "
+            f"container, {out['heartbeat_k4']} in its heartbeat; logits sha256 {r['logits_sha256'][:16]}…; serve "
+            f"{r['wall_s']:.2f}s; peak device {r['peak_device_bytes'] / 1e9:.2f} GB | {smi}")
+        return out
+    finally:
+        if plane is not None:
+            plane.close()
+        synchronizer.run(sup.stop())
+
+
+def _pool_min_containers(torch, root: str, smi: str) -> dict:
+    """A min_containers=1 function with the baseline pool off: the
+    scheduler's PoolDirective pre-forks an interpreter while the first
+    container (a cold spawn: nothing was parked yet) holds the card; that
+    container is stopped, and its replacement, which keeps min_containers,
+    adopts the pre-forked interpreter: the call is a warm hit."""
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.serialization import deserialize, serialize
+    from modal_tpu_torch.server.supervisor import LocalSupervisor
+
+    def where() -> dict:
+        import os as _os
+
+        import torch as _torch
+
+        before = _torch.cuda.is_initialized()
+        x = _torch.ones(1024, 1024, device="cuda")
+        return {"pid": _os.getpid(), "cuda_visible_devices": _os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": _torch.cuda.get_device_name(0), "cuda_initialized_before": before,
+                "sum": float((x @ x).sum())}
+
+    os.environ["MODAL_TPU_WARM_POOL"] = "0"
+    sup = LocalSupervisor(num_workers=1, state_dir=os.path.join(root, "min"))
+    synchronizer.run(sup.start())
+    plane = None
+    try:
+        plane = _Plane(sup)
+        plane.new_app("chip_smoke pool min_containers")
+        fn_id = plane.create("where", "H100", function_serialized=serialize(where),
+                             autoscaler_settings=api_pb2.AutoscalerSettings(min_containers=1, max_containers=1))
+        entry, park_s = _parked_entry(sup)
+        first = [t for t in sup.state.tasks.values() if t.function_id == fn_id]
+        if len(first) != 1 or first[0].warm_pool_hit:
+            raise AssertionError(f"pool min_containers: the first container {[(t.task_id, t.warm_pool_hit) for t in first]}")
+        plane.call("ContainerStop", api_pb2.ContainerStopRequest(task_id=first[0].task_id))
+        call = plane.remote(fn_id)
+        if call["status"] != api_pb2.GENERIC_STATUS_SUCCESS:
+            raise AssertionError(f"pool min_containers: {call['exception']}\n{plane.task_logs()}")
+        r = deserialize(call["data"])
+        task = next(t for t in sup.state.tasks.values() if t.function_id == fn_id and t.task_id != first[0].task_id
+                    and t.started_at)
+        if not task.warm_pool_hit or r["pid"] != entry.proc.pid or r["cuda_initialized_before"] \
+                or r["cuda_visible_devices"] != "0" or r["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"pool min_containers: the call ran in {r} (warm_pool_hit {task.warm_pool_hit}, "
+                                 f"parked pid {entry.proc.pid})")
+        directives = dict(sup.workers[0].pool.directives)
+        plane.stop_app()
+        out = {"parked_pid": entry.proc.pid, "park_s": park_s, "served": r, "directives": directives,
+               "map_to_output_s": call["t_output"] - call["t_map"], "warm_pool_hit": task.warm_pool_hit}
+        log(f"[pool] min_containers=1 (baseline pool off): directive {directives}, pid {entry.proc.pid} parked "
+            f"{park_s:.2f}s after the function's creation beside the cold first container; that container stopped, "
+            f"its replacement adopted pid {r['pid']} (warm_pool_hit {task.warm_pool_hit}, CUDA_VISIBLE_DEVICES="
+            f"{r['cuda_visible_devices']!r}, {r['device']!r}, no CUDA context before the call); FunctionMap → output "
+            f"{out['map_to_output_s']:.2f}s | {smi}")
+        return out
+    finally:
+        if plane is not None:
+            plane.close()
+        synchronizer.run(sup.stop())
+
+
+def phase_pool(torch, ctx: dict) -> None:
+    """The warm pool on the card: the worker phase's llama3-8b function
+    served through the port's LocalSupervisor with the pool on and off, in
+    turns (on, off, off, on): a pooled call is a warm hit served by the
+    parked pid, its `import torch` term ~0, its logits equal to the unpooled
+    calls', K4 launched in the adopted container (its heartbeat's count), no
+    CUDA context in any parked interpreter, and after each pooled placement
+    the interpreter exits (it made a CUDA context) and a fresh one parks.
+    Then a min_containers=1 function's interpreter pre-forked by a
+    PoolDirective serves its call as a warm hit."""
+    import gc
+    import shutil
+    import tempfile
+
+    for key in ("params", "cfg"):  # the containers build their own 16 GB
+        ctx.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    root = tempfile.mkdtemp(prefix="pool-")
+    env = {**_worker_env(root), "MODAL_TPU_WARM_POOL_PREIMPORT": "torch", "MODAL_TPU_HEARTBEAT_INTERVAL": "3",
+           "MODAL_TPU_WARM_POOL": None}
+    saved = {}
+    for key, value in env.items():
+        saved[key] = os.environ.pop(key, None)
+        if value is not None:
+            os.environ[key] = value
+    runs = []
+    try:
+        order = [True, False, False, True] * (POOL_ROUNDS // 2)
+        for i, pooled in enumerate(order):
+            runs.append(_pool_run(torch, ctx, root, f"{'on' if pooled else 'off'}-{i}", pooled, smi))
+        shas = {r["logits_sha256"] for r in runs}
+        if len(shas) != 1:
+            raise AssertionError(f"pool: the pooled and unpooled calls' logits differ: {[(r['label'], r['logits_sha256'][:16]) for r in runs]}")
+        min_run = _pool_min_containers(torch, root, smi)
+    finally:
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+        shutil.rmtree(root, ignore_errors=True)
+    on = [r["split"] for r in runs if r["pooled"]]
+    off = [r["split"] for r in runs if not r["pooled"]]
+
+    def mean(xs, k):
+        return sum(x[k] for x in xs) / len(xs)
+
+    for k in ("spawn_to_hello_s", "import_torch_s", "spawn_to_ready_s", "spawn_to_first_output_s"):
+        log(f"[pool] {k}: pool on {', '.join(f'{x[k]:.2f}' for x in on)} s (mean {mean(on, k):.2f}); pool off "
+            f"{', '.join(f'{x[k]:.2f}' for x in off)} s (mean {mean(off, k):.2f}) | {smi}")
+    if max(x["import_torch_s"] for x in on) >= min(x["import_torch_s"] for x in off):
+        raise AssertionError("pool: a pooled placement's import torch was not shorter than every unpooled one's")
+    ctx["pool"] = {"runs": runs, "min_containers": min_run, "nvidia_smi": smi}
+
+
+# -- sandbox: a gpu="H100" sandbox on the card ---------------------------------
+
+
+def _ms_pairs(m: dict) -> str:
+    """Each length's two calls as device ms (host ms until the call returned)."""
+    return "; ".join(f"{a:.2f} ({ha:.2f}), {b:.2f} ({hb:.2f})" for a, ha, b, hb in zip(
+        m["ms_per_call"], m["host_ms_per_call"], m["ms_per_call_again"], m["host_ms_per_call_again"]))
+
+
+SANDBOX_LENGTHS = "128,256,384,512"
+SANDBOX_TUNNEL_ROUNDS = 20
+
+
+def phase_sandbox(torch, ctx: dict) -> None:
+    """A `gpu="H100"` sandbox through `app.run()` (the port's plane booted in
+    this process): `sleep infinity` pinned to card 0, then an exec'd
+    `python -m modal_tpu_torch.tools.sandbox_forward` builds llama3-8b from
+    the seed and runs the cache-less forward through K1 on 4 prompts of
+    128-512 tokens (K1 exactly n_layers per call, the kernel path at least
+    as close to fp32 attention as the plain path), its JSON line read
+    through TaskExecStdioRead; a file written and read back through
+    TaskFsOp; stdin streamed to an exec'd `cat`; a tunnel to a loopback
+    HTTP server inside the sandbox; snapshot_filesystem restored into a
+    second (CPU) sandbox; terminate."""
+    import gc
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from modal_tpu_torch import Sandbox
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.client import _Client
+    from modal_tpu_torch.models.llama import get_config
+
+    for key in ("params", "cfg"):
+        ctx.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    cfg = get_config("llama3-8b")
+    saved = {k: os.environ.pop(k, None) for k in ("MODAL_TPU_SERVER_URL", "MODAL_TPU_STATE_DIR",
+                                                 "MODAL_TPU_AUTO_LOCAL_SERVER", "TORCH_EXTENSIONS_DIR",
+                                                 "MODAL_TPU_COMPILE_CACHE_DIR", "MODAL_TPU_COMPILE_CACHE_URL")}
+    state_dir = os.environ["MODAL_TPU_STATE_DIR"] = tempfile.mkdtemp(prefix="sandbox-")
+    app = App("chip_smoke sandbox")
+    port = 8000 + os.getpid() % 1000
+    out: dict = {"nvidia_smi": smi}
+    try:
+        with app.run():
+            sup = _Client._local_supervisor
+            t0 = time.perf_counter()
+            sb = Sandbox.create("sleep", "infinity", gpu="H100", app=app, unencrypted_ports=[port], timeout=900)
+            sb.wait_until_ready()
+            out["create_to_running_s"] = time.perf_counter() - t0
+            task = sup.state.tasks[sup.state.sandboxes[sb.object_id].task_id]
+            if list(task.gpu_ids) != [0]:
+                raise AssertionError(f"sandbox: pinned to {list(task.gpu_ids)}")
+            # the forward through K1, exec'd into the sandbox
+            t0 = time.perf_counter()
+            p = sb.exec(sys.executable, "-m", "modal_tpu_torch.tools.sandbox_forward", "--config", "llama3-8b",
+                        "--seed", "0", "--lengths", SANDBOX_LENGTHS)
+            first_byte, text = None, ""
+            for chunk in p.stdout:
+                first_byte = first_byte or time.perf_counter() - t0
+                text += chunk
+            rc = p.wait()
+            exec_s = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"sandbox: the forward exited {rc}: {text[-2000:]}\n{p.stderr.read()[-4000:]}")
+            fwd = json.loads([line for line in text.splitlines() if line.startswith("{")][-1])
+            n_calls = len(fwd["lengths"])
+            launches = fwd["launches_per_call"] + fwd["launches_per_call_again"]
+            if launches != [cfg.n_layers] * 2 * n_calls or fwd["device"] != kind \
+                    or fwd["cuda_visible_devices"] != "0":
+                raise AssertionError(f"sandbox: K1 launches {launches} (want {cfg.n_layers} a call), "
+                                     f"device {fwd['device']!r}, CUDA_VISIBLE_DEVICES {fwd['cuda_visible_devices']!r}")
+            _check_faithful("sandbox", fwd["gaps"], 5e-2, tokens=False)
+            _add_launches(ctx, "flash_fwd", sum(launches))
+            out.update(exec_to_first_byte_s=first_byte, exec_s=exec_s, forward=fwd)
+            # a file through TaskFsOp
+            payload = os.urandom(1 << 20)
+            t0 = time.perf_counter()
+            sb.fs.write_file("probe.bin", payload)
+            back = sb.fs.read_file("probe.bin")
+            out["fs_round_trip_s"] = time.perf_counter() - t0
+            if back != payload:
+                raise AssertionError("sandbox: the file read back through TaskFsOp differs")
+            sb.fs.write_file("note.txt", "from the card's sandbox\n")
+            # stdin streamed to an exec'd cat
+            data = os.urandom(1 << 20)
+            t0 = time.perf_counter()
+            cat = sb.exec("cat", text=False)
+            cat.stdin.write(data)
+            cat.stdin.write_eof()
+            cat.stdin.drain()
+            echoed = cat.stdout.read()
+            if cat.wait() != 0 or echoed != data:
+                raise AssertionError(f"sandbox: cat echoed {len(echoed)} of {len(data)} bytes")
+            out["stdin_round_trip_s"] = time.perf_counter() - t0
+            # a tunnel to a loopback HTTP server inside the sandbox
+            sb.exec(sys.executable, "-m", "http.server", str(port), "--bind", "127.0.0.1")
+            tun = sb.tunnels()[port]
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    with urllib.request.urlopen(f"{tun.url}/note.txt", timeout=5) as resp:
+                        body = resp.read()
+                    break
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.2)
+            if body != b"from the card's sandbox\n":
+                raise AssertionError(f"sandbox: the tunnel answered {body!r}")
+            trips = []
+            for _ in range(SANDBOX_TUNNEL_ROUNDS):
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(f"{tun.url}/note.txt", timeout=5) as resp:
+                    resp.read()
+                trips.append(time.perf_counter() - t0)
+            out["tunnel_round_trip_ms"] = {"median": statistics.median(trips) * 1e3, "min": min(trips) * 1e3,
+                                           "max": max(trips) * 1e3}
+            # snapshot_filesystem, restored into a second (CPU) sandbox
+            t0 = time.perf_counter()
+            image = sb.snapshot_filesystem()
+            out["snapshot_s"] = time.perf_counter() - t0
+            blob_id = sup.state.images[image.object_id].definition.fs_snapshot_blob_id
+            out["snapshot_bytes"] = os.path.getsize(sup.state.blob_path(blob_id))
+            sb2 = Sandbox.create("cat", "note.txt", image=image, app=app)
+            if sb2.wait() != 0 or sb2.stdout.read() != "from the card's sandbox\n":
+                raise AssertionError("sandbox: the restored sandbox did not see the snapshot's file")
+            task2 = sup.state.tasks[sup.state.sandboxes[sb2.object_id].task_id]
+            if list(task2.gpu_ids):
+                raise AssertionError(f"sandbox: the CPU sandbox was pinned to {list(task2.gpu_ids)}")
+            sb.terminate()
+            if sb.wait(raise_on_termination=False) == 0:
+                raise AssertionError("sandbox: terminate did not end the sandbox")
+    finally:
+        if _Client._local_supervisor is not None:
+            if _Client._client_from_env is not None:
+                _Client._client_from_env._close()
+            synchronizer.run(_Client._local_supervisor.stop())
+            _Client._local_supervisor = None
+            _Client.set_env_client(None)
+        shutil.rmtree(state_dir, ignore_errors=True)
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+    g = fwd["gaps"]
+    log(f"[sandbox] create → running {out['create_to_running_s']:.2f}s; exec → first byte "
+        f"{out['exec_to_first_byte_s']:.2f}s, exec → exit {out['exec_s']:.2f}s; llama3-8b cache-less forward at "
+        f"{fwd['lengths']} tokens, twice each: {_ms_pairs(fwd)} ms a call, K1 "
+        f"{fwd['launches_per_call']} launches; vs fp32 attention kernel max {g['kernel_vs_fp32']['max']:.3e} mean "
+        f"{g['kernel_vs_fp32']['mean']:.3e}, plain max {g['plain_vs_fp32']['max']:.3e} mean "
+        f"{g['plain_vs_fp32']['mean']:.3e}; peak device {fwd['peak_device_bytes'] / 1e9:.2f} GB | {smi}")
+    log(f"[sandbox] TaskFsOp 1 MiB write + read {out['fs_round_trip_s'] * 1e3:.1f} ms; 1 MiB through an exec'd "
+        f"cat {out['stdin_round_trip_s'] * 1e3:.1f} ms; tunnel HTTP round trip median "
+        f"{out['tunnel_round_trip_ms']['median']:.2f} ms (min {out['tunnel_round_trip_ms']['min']:.2f}, max "
+        f"{out['tunnel_round_trip_ms']['max']:.2f}, {SANDBOX_TUNNEL_ROUNDS} requests); snapshot_filesystem "
+        f"{out['snapshot_bytes']} bytes in {out['snapshot_s']:.2f}s, restored into a CPU sandbox | {smi}")
+    ctx["sandbox"] = out
+
+
 KERNELS = {
     "paged_decode": ("modal_tpu_torch/csrc/paged_decode.cu", "modal_tpu/ops/paged_attention.py:42"),
     "flash_fwd": ("modal_tpu_torch/csrc/flash_fwd.cu", "modal_tpu/ops/attention.py:50"),
@@ -4059,9 +4504,10 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "graphs", "weights", "int8", "spec", "disagg", "web",
+PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "graphs", "weights", "int8", "spec", "disagg", "web",
                           "disagg_http"),
-         "flash_fwd": ("app", "weights", "forward", "train", "moe", "mesh"), "flash_bwd_dq": ("train", "moe", "mesh"),
+         "flash_fwd": ("app", "sandbox", "weights", "forward", "train", "moe", "mesh"),
+         "flash_bwd_dq": ("train", "moe", "mesh"),
          "flash_bwd_dkv": ("train", "moe", "mesh")}
 
 

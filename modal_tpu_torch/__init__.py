@@ -34,6 +34,9 @@ each module's counterpart is easy to find:
   and its siblings (`parallel_map.py`), `Cls`/`Obj`/`parameter` (`cls.py`),
   `Image`, `Mount`, `Secret`, `Cron`/`Period`, and `app.run()` /
   `app.deploy()` (`runner.py`);
+- sandboxes: `Sandbox.create(..., gpu=...)`, `exec` into one
+  (`ContainerProcess`), its files (`SandboxFS`), tunnels (`Tunnel`,
+  `forward`), snapshots (`SandboxSnapshot`) and readiness `Probe`s;
 - the SDK core, imported on demand: the wire contract (`proto/`), the
   client (`client.py`), object handles (`object.py`), payloads
   (`serialization.py`), `gpu=` (`gpu_config.py`), method and lifecycle
@@ -82,6 +85,13 @@ _EXPORTS = {
     "is_local": "runtime.execution_context",
     "resume_token": "runtime.execution_context",
     "set_resume_token": "runtime.execution_context",
+    "Sandbox": "sandbox",
+    "Probe": "sandbox",
+    "Tunnel": "sandbox",
+    "SandboxSnapshot": "snapshot",
+    "ContainerProcess": "container_process",
+    "SandboxFS": "sandbox_fs",
+    "forward": "tunnel",
 }
 
 __all__ = [*_EXPORTS, "serving"]

@@ -22,6 +22,9 @@ import grpc.aio
 from ..config import logger
 from ..exception import AuthError, ConnectionError as ModalConnectionError
 
+# the error a failed call raises, for callers that hold no grpc import of their own
+AioRpcError = grpc.aio.AioRpcError
+
 RETRYABLE_GRPC_STATUS_CODES = [
     grpc.StatusCode.DEADLINE_EXCEEDED,
     grpc.StatusCode.UNAVAILABLE,

@@ -97,6 +97,18 @@ _SETTINGS: dict[str, _Setting] = {
     "worker_instance_type": _Setting(""),
     # per-module import tracing in containers (<task_dir>/imports.jsonl)
     "import_trace": _Setting(False, _to_boolean),
+    # the warm pool (server/warm_pool.py): parked interpreters per worker for
+    # the host-venv image (0 = off; the scheduler adds per-image pools from
+    # min_containers / buffer_containers), the modules a parked interpreter
+    # imports (comma-separated; JAX's default is "jax"), "1" to also prime
+    # torch's CPU side while parked (warm_pool_preinit; never CUDA, whose
+    # context would fix the cards before adoption pins them), and how long
+    # an adoption waits for the interpreter's ack before the worker spawns
+    # fresh
+    "warm_pool": _Setting(0, int),
+    "warm_pool_preimport": _Setting("torch"),
+    "warm_pool_preinit": _Setting(False, _to_boolean),
+    "warm_pool_ack_timeout": _Setting(10.0, float),
 }
 
 

@@ -256,6 +256,28 @@ SCHED_TASKS_LAUNCHED = REGISTRY.counter(
     "Tasks handed to workers, by kind (task|gang_member|sandbox).",
     ("kind",),
 )
+# -- the warm pool (server/warm_pool.py) --------------------------------------
+
+WARM_POOL_SIZE = REGISTRY.gauge(
+    "modal_tpu_warm_pool_size",
+    "Pre-forked pool interpreters in this worker process, by state (booting|parked|serving).",
+    ("state",),
+)
+WARM_POOL_PLACEMENTS = REGISTRY.counter(
+    "modal_tpu_warm_pool_placements_total",
+    "Task placements by warm-pool outcome (hit | miss_empty | miss_key | handoff_failed).",
+    ("outcome",),
+)
+WARM_POOL_EVICTIONS = REGISTRY.counter(
+    "modal_tpu_warm_pool_evictions_total",
+    "Parked interpreters evicted, by reason (image_change | target_shrunk | drain | died).",
+    ("reason",),
+)
+WARM_POOL_HANDOFF_SECONDS = REGISTRY.histogram(
+    "modal_tpu_warm_pool_handoff_seconds",
+    "Adoption latency: handoff enqueued to interpreter ack (the warm 'boot').",
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10),
+)
 SCHED_TASKS_REAPED = REGISTRY.counter(
     "modal_tpu_scheduler_tasks_reaped_total",
     "Dead/stuck tasks force-reaped, by reason.",

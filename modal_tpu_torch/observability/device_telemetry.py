@@ -117,7 +117,9 @@ def sample_device_memory(min_interval_s: float = 0.0) -> int:
     from ..config import torch_imported
 
     torch = sys.modules.get("torch") if torch_imported() else None
-    if torch is not None and torch.cuda.is_available() and torch.cuda.is_initialized():
+    # is_initialized alone: is_available() runs cuInit, which fixes the
+    # process's visible cards (a warm-pool interpreter's are set later)
+    if torch is not None and torch.cuda.is_initialized():
         n = torch.cuda.device_count()
         for i in range(n):
             stats = torch.cuda.memory_stats(i)

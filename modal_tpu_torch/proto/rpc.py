@@ -475,6 +475,11 @@ def build_generic_handler(servicer: Any) -> "grpc.GenericRpcHandler":
     return _build_handler(servicer, RPCS, SERVICE_NAME)
 
 
+def build_router_handler(servicer: Any) -> "grpc.GenericRpcHandler":
+    """The same, for the worker-served task command router."""
+    return _build_handler(servicer, ROUTER_RPCS, ROUTER_SERVICE_NAME)
+
+
 def build_local_handlers(servicer: Any) -> dict[str, tuple[RPCMethod, Any]]:
     """The in-process rung's handler table (_utils/local_transport.py): the
     same wrappers the gRPC server gets (idempotency dedupe, metrics), minus

@@ -25,7 +25,14 @@ and SIGUSR2 (preemption) flushes the in-flight inputs' resume tokens first.
 A definition that asks for what the port's runtime does not run yet is
 refused before any user code runs, naming the ROADMAP Queue A sub-slice
 that brings it: gangs, cloud bucket mounts and volumes (4d). The runtime
-debug profile (4d) and the warm-pool parking (4e) wait too.
+debug profile (4d) waits too.
+
+With `MODAL_TPU_POOL_ID` set the process is a warm-pool interpreter
+(server/warm_pool.py, `pool_main`): it imports torch on the main thread
+with no CUDA context and parks on the worker's task router; each handoff
+applies the placement's environment (its card pinning and kernel build dir
+among it) and runs `main_async`, then the process re-parks, or exits when
+the placement initialized CUDA (ROADMAP Queue C 28).
 """
 
 from __future__ import annotations
@@ -57,9 +64,14 @@ from ..config import config, logger, tune_switch_interval  # noqa: E402
 from ..exception import ExecutionError  # noqa: E402
 from ..proto import api_pb2  # noqa: E402
 from ..serialization import deserialize  # noqa: E402
+from ..server.warm_pool import SPAWN_ENV_DROP  # noqa: E402
 from . import execution_context  # noqa: E402
 from .io_manager import ContainerIOManager, IOContext  # noqa: E402
 from .user_code import Service, import_class_service, import_single_function_service  # noqa: E402
+
+# True while this process serves a placement it took as a warm-pool
+# interpreter (stamped on its ContainerHello)
+_WARM_POOL_SERVE = False
 
 
 def load_container_arguments() -> api_pb2.ContainerArguments:
@@ -426,7 +438,8 @@ async def main_async() -> int:
     await client._open()
     _Client.set_env_client(client)
     await retry_transient_errors(
-        client.stub.ContainerHello, api_pb2.ContainerHelloRequest(task_id=task_id), max_retries=5
+        client.stub.ContainerHello, api_pb2.ContainerHelloRequest(task_id=task_id, warm_pool_hit=_WARM_POOL_SERVE),
+        max_retries=5,
     )
     io = ContainerIOManager(client, task_id, function_def)
     io._function_id = container_args.function_id
@@ -537,6 +550,276 @@ def _install_preempt_handler(loop, handle_term) -> None:
     signal.signal(signal.SIGUSR2, _handle_preempt)
 
 
+# ---------------------------------------------------------------------------
+# Warm-pool mode (server/warm_pool.py): this process was pre-forked by the
+# worker to park with its imports done, then serve placements by handoff
+# over the task router, with no re-exec between them.
+# ---------------------------------------------------------------------------
+
+# what parking removes from the environment: per-task state, a process
+# group's rendezvous, and what the worker's pool never spawns an interpreter
+# with (the card pinning, the kernels' build dir and fleet-cache coordinates:
+# each comes with the adoption's env delta)
+_CLUSTER_ENV_SCRUB = (
+    "MODAL_TPU_BOUND_PARAMS",
+    "MODAL_TPU_TASK_ID",
+    "MODAL_TPU_TASK_DIR",
+    "MODAL_TPU_CONTAINER_ARGS_PATH",
+    "MODAL_TPU_TELEMETRY_PATH",
+    "MASTER_ADDR",
+    "MASTER_PORT",
+    "RANK",
+    "LOCAL_RANK",
+    "WORLD_SIZE",
+) + SPAWN_ENV_DROP
+
+
+def libcuda_mapped() -> bool:
+    """Is the CUDA driver library loaded in this process? Its `cuInit`
+    reads `CUDA_VISIBLE_DEVICES` once for the process's life."""
+    try:
+        with open("/proc/self/maps") as f:
+            return "libcuda.so" in f.read()
+    except OSError:
+        return False
+
+
+def cuda_touched(driver_at_park: bool) -> bool:
+    """Did the placement that just ended initialize CUDA here: torch's
+    context, or the driver loaded since the interpreter parked?"""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        return True
+    return libcuda_mapped() and not driver_at_park
+
+
+def park_state() -> dict:
+    """What a parked interpreter holds that a placement could inherit: a
+    CUDA context, the driver, and the pinning variables."""
+    torch = sys.modules.get("torch")
+    return {
+        "pid": os.getpid(),
+        "torch_imported": torch is not None,
+        "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized()),
+        "libcuda_mapped": libcuda_mapped(),
+        "pinning_env": sorted(k for k in ("CUDA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER") if k in os.environ),
+    }
+
+
+def _pool_span(name: str, start: float, attrs: dict) -> None:
+    """A root span of the warm pool's own (no placement's trace holds it)."""
+    tracing.close_span(tracing.open_span(name, start=start, attrs=attrs))
+
+
+def _pool_preimport() -> None:
+    """Pay the import bill while parked, on the main thread (ROADMAP Queue C
+    24): torch (or what `MODAL_TPU_WARM_POOL_PREIMPORT` names) is imported
+    and nothing initializes CUDA, so the pinning set at adoption applies.
+    `MODAL_TPU_WARM_POOL_PREINIT=1` also primes torch's CPU side while
+    parked (its op dispatch, allocator and math libraries), as JAX's pre-init
+    is for the CPU simulation only: a CUDA context made while parked would
+    fix the cards this interpreter sees before adoption pins them."""
+    for key in _CLUSTER_ENV_SCRUB:
+        os.environ.pop(key, None)
+    for mod in filter(None, (m.strip() for m in str(config["warm_pool_preimport"]).split(","))):
+        t0 = time.time()
+        try:
+            importlib.import_module(mod)
+            _pool_span("coldstart.preimport", t0, {"module": mod, "thread": threading.current_thread().name})
+        except Exception as exc:  # noqa: BLE001 — a missing module must not kill the pool
+            logger.warning(f"warm pool pre-import of {mod!r} failed: {exc}")
+    if config["warm_pool_preinit"]:
+        t0 = time.time()
+        try:
+            import torch
+
+            x = torch.randn(64, 64, generator=torch.Generator().manual_seed(0))
+            _pool_span("coldstart.preinit", t0, {"device": "cpu", "checksum": float((x @ x).sum())})
+        except Exception as exc:  # noqa: BLE001
+            logger.warning(f"warm pool pre-init failed: {exc}")
+
+
+def _reset_process_state(base_env: dict, base_cwd: str, added_paths: list) -> None:
+    """The restore contract between placements: env and cwd go back to the
+    park-time snapshot, the SDK singletons are cleared, and the synchronizer
+    loop and the imported library modules (torch) carry over. User modules
+    loaded from the placement's own sys.path entries (globals_path, its
+    PYTHONPATH delta) are purged with those entries: app B's `import utils`
+    must never resolve to app A's module."""
+    os.environ.clear()
+    os.environ.update(base_env)
+    try:
+        os.chdir(base_cwd)
+    except OSError:
+        pass
+    if added_paths:
+        roots = tuple(os.path.abspath(p) + os.sep for p in added_paths)
+        for name, mod in list(sys.modules.items()):
+            mod_file = getattr(mod, "__file__", None) or ""
+            if mod_file and os.path.abspath(mod_file).startswith(roots):
+                del sys.modules[name]
+        for p in added_paths:
+            try:
+                sys.path.remove(p)
+            except ValueError:
+                pass
+    _Client.set_env_client(None)
+    ContainerIOManager._singleton = None
+    build = sys.modules.get("modal_tpu_torch.ops._build")
+    if build is not None:
+        build.reset_launches()  # a heartbeat reports this placement's launches only
+
+
+async def _pool_runner(state: dict) -> int:
+    """Park → await a handoff → serve → re-park, on the synchronizer loop."""
+    import json
+
+    from .._utils.grpc_utils import AioRpcError, create_channel
+    from ..proto.rpc import TaskRouterStub
+
+    global _WARM_POOL_SERVE
+    pool_id = os.environ["MODAL_TPU_POOL_ID"]
+    token = os.environ.get("MODAL_TPU_POOL_TOKEN", "")
+    channel = create_channel(f"grpc://{os.environ['MODAL_TPU_POOL_ROUTER']}")
+    stub = TaskRouterStub(channel)
+    base_env = dict(os.environ)
+    base_cwd = os.getcwd()
+    driver_at_park = libcuda_mapped()
+    generation = 0
+    rc = 0
+    try:
+        while not state["evict"]:
+            _pool_span("coldstart.park", time.time(), {"pool_id": pool_id, "generation": generation, **park_state()})
+            poll = asyncio.ensure_future(stub.PoolAwaitArguments(api_pb2.PoolAwaitRequest(
+                pool_id=pool_id, token=token, generation=generation, pid=os.getpid(), timeout=50.0)))
+            state["poll"] = poll
+            try:
+                resp = await poll
+            except asyncio.CancelledError:
+                break  # SIGTERM while parked
+            except AioRpcError as exc:
+                # the worker owns this process: a router that stopped
+                # answering means the worker is gone; exit, do not spin
+                logger.warning(f"warm pool poll failed ({exc.code()}); exiting")
+                break
+            finally:
+                state["poll"] = None
+            if resp.evict:
+                logger.debug("warm pool interpreter evicted")
+                break
+            if not resp.has_task:
+                continue  # the poll window lapsed; park again
+            # adopt: apply the env delta in process, ack, serve
+            for key in resp.env_unset:
+                os.environ.pop(key, None)
+            env_set = json.loads(resp.env_set_json or "{}")
+            cwd = env_set.pop("MODAL_TPU_POOL_CWD", "")
+            os.environ.update(env_set)
+            os.environ["MODAL_TPU_CONTAINER_ARGS_PATH"] = resp.args_path
+            if os.environ.get("MODAL_TPU_TELEMETRY_PATH"):
+                # the placement's imports go to its own task's trace
+                from .telemetry import retarget_imports
+
+                retarget_imports(os.environ["MODAL_TPU_TELEMETRY_PATH"])
+            # a PYTHONPATH change does not reach sys.path: prepend the task's
+            # entries, tracked so the re-park removes them and purges the
+            # user modules they loaded
+            added_paths = []
+            for entry in reversed(os.environ.get("PYTHONPATH", "").split(os.pathsep)):
+                if entry and entry not in sys.path:
+                    sys.path.insert(0, entry)
+                    added_paths.append(entry)
+            if cwd:
+                try:
+                    os.chdir(cwd)
+                except OSError as exc:
+                    logger.warning(f"warm pool chdir({cwd!r}) failed: {exc}")
+                else:
+                    # a fresh spawn runs `python -m` in its cwd, which puts
+                    # that dir first on sys.path: mirror it
+                    if cwd not in sys.path:
+                        sys.path.insert(0, cwd)
+                        added_paths.append(cwd)
+            try:
+                await stub.PoolAdoptAck(api_pb2.PoolAdoptAckRequest(
+                    pool_id=pool_id, token=token, handoff_id=resp.handoff_id, task_id=resp.task_id))
+            except AioRpcError as exc:
+                # the worker withdrew the handoff (or died): never run a task
+                # the worker does not believe this process owns
+                logger.warning(f"warm pool adopt-ack rejected ({exc.code()}); exiting")
+                rc = 1
+                break
+            _WARM_POOL_SERVE = True
+            task = asyncio.ensure_future(main_async())
+            state["task"] = task
+            try:
+                rc = await task
+            except asyncio.CancelledError:
+                rc = 0  # graceful termination, already reported through TaskResult
+            except BaseException:  # noqa: BLE001 — a crashed serve poisons the pool
+                traceback.print_exc()
+                rc = 1
+            finally:
+                state["task"] = None
+                _WARM_POOL_SERVE = False
+            generation += 1
+            touched = cuda_touched(driver_at_park)
+            _reset_process_state(base_env, base_cwd, added_paths)
+            if rc != 0:
+                break  # a crashed serve leaves suspect state: exit, the pool respawns fresh
+            if touched:
+                # a CUDA context, its pinned card and cached blocks stay with
+                # the process: exit instead of re-parking (Queue C 28)
+                logger.debug("warm pool interpreter initialized CUDA in its placement; exiting")
+                _pool_span("coldstart.exit_after_cuda", time.time(),
+                           {"pool_id": pool_id, "generation": generation, "pid": os.getpid()})
+                break
+    finally:
+        try:
+            await channel.close()
+        except Exception:  # noqa: BLE001
+            pass
+    return rc
+
+
+def pool_main() -> None:
+    """Entry of a `MODAL_TPU_POOL_ID` process: main()'s signal semantics,
+    but the body loops placements instead of exiting after one."""
+    import signal
+
+    from .._utils.async_utils import synchronizer
+    from .main_thread_exec import MainThreadExecutor, set_executor
+
+    _pool_preimport()
+    loop = synchronizer._ensure_loop()
+    state: dict = {"task": None, "poll": None, "evict": False}
+
+    def _handle_term(signum, frame):
+        state["evict"] = True
+        task = state.get("task")
+        poll = state.get("poll")
+        if task is not None:
+            loop.call_soon_threadsafe(task.cancel)
+        elif poll is not None:
+            loop.call_soon_threadsafe(poll.cancel)
+
+    signal.signal(signal.SIGTERM, _handle_term)
+    _install_preempt_handler(loop, _handle_term)
+    executor = MainThreadExecutor()
+    executor.install_signal_handler()
+    set_executor(executor)
+    cf = asyncio.run_coroutine_threadsafe(_pool_runner(state), loop)
+    try:
+        executor.run_until(cf)
+    except KeyboardInterrupt:
+        cf.cancel()
+        raise
+    finally:
+        set_executor(None)
+        check_thread_leaks()
+    sys.exit(cf.result())
+
+
 def main() -> None:
     """Run `main_async` on the synchronizer loop (the SDK's coroutines are
     pinned to it); the main thread hosts sync user code. SIGTERM cancels
@@ -586,4 +869,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if os.environ.get("MODAL_TPU_POOL_ID"):
+        pool_main()
+    else:
+        main()

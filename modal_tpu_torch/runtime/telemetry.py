@@ -115,11 +115,12 @@ def instrument_imports(output_path: str) -> None:
     global _installed, _telemetry_file
     if _installed is not None:
         return
-    f = _telemetry_file = open(output_path, "a", buffering=1)
+    _telemetry_file = open(output_path, "a", buffering=1)
     atexit.register(_close_telemetry_file)
 
     def emit(event: dict) -> None:
-        if _telemetry_file is None:
+        f = _telemetry_file
+        if f is None:
             return  # sink already closed at exit; drop late events
         try:
             f.write(json.dumps(event) + "\n")
@@ -128,6 +129,18 @@ def instrument_imports(output_path: str) -> None:
 
     _installed = ImportInterceptor(emit)
     sys.meta_path.insert(0, _installed)
+
+
+def retarget_imports(output_path: str) -> None:
+    """Send the import trace to `output_path` from now on (a warm-pool
+    interpreter's placement writes into its own task's file), installing
+    the interceptor on first use."""
+    global _telemetry_file
+    if _installed is None:
+        instrument_imports(output_path)
+        return
+    _close_telemetry_file()
+    _telemetry_file = open(output_path, "a", buffering=1)
 
 
 def maybe_instrument_from_env() -> None:

@@ -96,6 +96,27 @@ WAITING_RECORD_TYPES: dict[str, str] = {
 }
 
 
+# Mutating RPCs of the port's plane deliberately not journaled, with the
+# reason (the JAX package's table, for the RPCs the port serves): a sandbox's
+# processes and tunnel listeners live on the plane's host and cannot outlive
+# it, so their registry is not replayed.
+EXEMPT_RPCS: dict[str, str] = {
+    "SandboxCreate": "sandbox processes are supervisor-host-bound",
+    "SandboxTerminate": "sandbox processes are supervisor-host-bound",
+    "SandboxStdinWrite": "sandbox processes are supervisor-host-bound",
+    "SandboxSnapshotFs": "snapshot blob lands on disk; record is re-creatable",
+    "SandboxSnapshot": "snapshot blob lands on disk; record is re-creatable",
+    "SandboxRestore": "sandbox processes are supervisor-host-bound",
+    "SandboxSidecarCreate": "sandbox processes are supervisor-host-bound",
+    "SandboxSidecarStop": "sandbox processes are supervisor-host-bound",
+    "SandboxSidecarExit": "sandbox processes are supervisor-host-bound",
+    "TaskTunnelsUpdate": "tunnel listeners die with the supervisor process",
+    "TaskReady": "sandbox readiness is process-bound",
+    "TunnelStart": "tunnel listeners die with the supervisor process",
+    "TunnelStop": "tunnel listeners die with the supervisor process",
+}
+
+
 def _b64(data: bytes) -> str:
     return base64.b64encode(bytes(data)).decode("ascii")
 
@@ -665,6 +686,7 @@ def _apply_worker(s, r):
         milli_cpu=r.get("milli_cpu", 0),
         memory_mb=r.get("memory_mb", 0),
         container_address=r.get("container_address", ""),
+        router_address=r.get("router_address", ""),
         region=r.get("region", ""),
         zone=r.get("zone", ""),
         spot=bool(r.get("spot")),
@@ -831,6 +853,7 @@ def synthesize_records(s) -> list[dict]:
                 "milli_cpu": worker.milli_cpu,
                 "memory_mb": worker.memory_mb,
                 "container_address": worker.container_address,
+                "router_address": worker.router_address,
                 "region": worker.region,
                 "zone": worker.zone,
                 "spot": worker.spot,

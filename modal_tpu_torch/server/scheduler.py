@@ -12,6 +12,13 @@ modal_tpu/server/scheduler.py).
 - **Loud refusal**: a backlog whose placement no registered worker could
   ever hold (labels, or the card type and count) fails with the
   unsatisfiable-placement reason after `PLACEMENT_UNSAT_GRACE_S`.
+- **Warm pools**: `min_containers` / `buffer_containers` also keep booted
+  interpreters parked on the workers (at most 4 per image), sent as
+  `PoolDirective` diffs on the poll stream and split across workers; a
+  stopped app's image gets target 0. Among equally loaded workers, one with
+  a parked interpreter wins the placement.
+- **Sandboxes**: `launch_sandbox` places a sandbox's task like a function's,
+  its cards from `resources.gpu_config`.
 - **Schedules**: a function with a Cron or Period schedule gets one
   zero-argument input at every due tick (`_evaluate_schedule`, times from
   `cron.next_fire`); the reap tick drops finished fires
@@ -135,6 +142,9 @@ class Scheduler:
                 if inp is not None and inp.status == "pending":
                     depth += 1
         SCHED_QUEUE_DEPTH.set(depth)
+        # warm-pool sizing: booted interpreters parked for each image that
+        # a live function keeps min/buffer containers of
+        desired_pools: dict[str, int] = {}
         for fn in list(self.s.functions.values()):
             app = self.s.apps.get(fn.app_id)
             if app is not None and app.done:
@@ -167,6 +177,13 @@ class Scheduler:
                 continue
             fn.placement_unsat_since = 0.0  # satisfiable again
             settings = fn.autoscaler
+            if (fn.definition.group_size or 0) <= 1:
+                # gangs are excluded: a process group's state must never
+                # pass to a parked interpreter
+                pool_target = min(4, max(settings.min_containers, settings.buffer_containers))
+                if pool_target > 0:
+                    image_key = fn.definition.image_id or ""
+                    desired_pools[image_key] = max(desired_pools.get(image_key, 0), pool_target)
             live = [tid for tid in fn.task_ids if self.s.tasks[tid].state in _LIVE_TASK_STATES]
             max_containers = settings.max_containers or 8
             # a container drains max_concurrent_inputs at once: 100 pending
@@ -185,6 +202,34 @@ class Scheduler:
             for _ in range(max(0, desired - len(live))):
                 if not await self._launch_task(fn):
                     break  # no capacity right now
+        await self._sync_pool_directives(desired_pools)
+
+    async def _sync_pool_directives(self, desired: dict[str, int]) -> None:
+        """Send warm-pool sizing diffs to the workers (PoolDirective on the
+        poll stream). A target is cluster-wide (min/buffer_containers) and
+        split evenly across eligible workers, the remainder on the first;
+        a removal rides as target 0 (the worker evicts that image's parked
+        interpreters: the app stopped, or the image changed)."""
+        eligible = sorted((w for w in self.s.workers.values() if not w.draining and not w.adoption_pending),
+                          key=lambda w: w.worker_id)
+        n = len(eligible)
+        for i, worker in enumerate(eligible):
+            sent = worker.pool_directives
+            for image_id, target in desired.items():
+                share = (target + n - 1 - i) // n
+                prev = sent.get(image_id)
+                if share > 0 and prev != share:
+                    await worker.events.put(api_pb2.WorkerPollResponse(
+                        pool_directive=api_pb2.PoolDirective(image_id=image_id, target=share)))
+                    sent[image_id] = share
+                elif share == 0 and prev is not None:
+                    await worker.events.put(api_pb2.WorkerPollResponse(
+                        pool_directive=api_pb2.PoolDirective(image_id=image_id, target=0)))
+                    del sent[image_id]
+            for image_id in [k for k in sent if k not in desired]:
+                await worker.events.put(api_pb2.WorkerPollResponse(
+                    pool_directive=api_pb2.PoolDirective(image_id=image_id, target=0)))
+                del sent[image_id]
 
     async def _evaluate_schedule(self, fn: FunctionState) -> None:
         """Fire Cron/Period schedules: enqueue one zero-argument input per
@@ -293,9 +338,10 @@ class Scheduler:
 
     def _pick_worker(self, spec: Optional[GPUSpec], placement=None) -> Optional[WorkerState]:
         """Least-loaded live worker with enough free matching cards that
-        satisfies the placement constraints."""
+        satisfies the placement constraints; among equals, one with a parked
+        warm-pool interpreter (it serves without a fresh process boot)."""
         best: Optional[WorkerState] = None
-        best_load = 0
+        best_load = (0, 0)
         for worker in self.s.workers.values():
             if time.time() - worker.last_heartbeat > 60.0 or worker.draining:
                 continue
@@ -306,7 +352,7 @@ class Scheduler:
                 continue
             if spec is not None and len(worker.free_gpus()) < spec.count:
                 continue
-            load = len(worker.active_tasks)
+            load = (len(worker.active_tasks), 0 if worker.warm_pool_ready > 0 else 1)
             if best is None or load < best_load:
                 best, best_load = worker, load
         return best
@@ -320,35 +366,37 @@ class Scheduler:
                 return inp.trace_context
         return ""
 
-    async def _launch_task(self, fn: FunctionState) -> Optional[TaskState_]:
-        t_place0 = time.time()
-        spec = gpu_spec(fn.definition.resources)
-        worker = self._pick_worker(spec, placement=self._placement_or_none(fn.definition.scheduler_placement))
+    def _claim(self, resources: api_pb2.Resources, placement_proto, **fields) -> Optional[TaskState_]:
+        """A new task on the least-loaded worker that can take it, its cards
+        pinned, or None when no worker has room now."""
+        spec = gpu_spec(resources)
+        worker = self._pick_worker(spec, placement=self._placement_or_none(placement_proto))
         if worker is None:
             return None
         task_id = self.s.make_id("ta")
         gpu_ids = worker.free_gpus()[: spec.count] if spec is not None else []
         for g in gpu_ids:
             worker.gpus_in_use[g] = task_id
-        task = TaskState_(
-            task_id=task_id,
-            function_id=fn.function_id,
-            app_id=fn.app_id,
-            state=api_pb2.TASK_STATE_WORKER_ASSIGNED,
-            worker_id=worker.worker_id,
-            gpu_ids=gpu_ids,
-            trace_context=self._launch_trace_context(fn),
-        )
+        task = TaskState_(task_id=task_id, state=api_pb2.TASK_STATE_WORKER_ASSIGNED, worker_id=worker.worker_id,
+                          gpu_ids=gpu_ids, router_token=secrets.token_urlsafe(24), **fields)
         self.s.tasks[task_id] = task
-        fn.task_ids.add(task_id)
         worker.active_tasks.add(task_id)
-        assignment = api_pb2.TaskAssignment(
-            task_id=task_id,
-            container_arguments=self._container_arguments(fn, task),
-            gpu_ids=gpu_ids,
-            router_token=secrets.token_urlsafe(24),
-        )
-        await worker.events.put(api_pb2.WorkerPollResponse(assignment=assignment))
+        return task
+
+    async def _assign(self, task: TaskState_, assignment: api_pb2.TaskAssignment) -> None:
+        assignment.task_id = task.task_id
+        assignment.gpu_ids.extend(task.gpu_ids)
+        assignment.router_token = task.router_token
+        await self.s.workers[task.worker_id].events.put(api_pb2.WorkerPollResponse(assignment=assignment))
+
+    async def _launch_task(self, fn: FunctionState) -> Optional[TaskState_]:
+        t_place0 = time.time()
+        task = self._claim(fn.definition.resources, fn.definition.scheduler_placement, function_id=fn.function_id,
+                           app_id=fn.app_id, trace_context=self._launch_trace_context(fn))
+        if task is None:
+            return None
+        fn.task_ids.add(task.task_id)
+        await self._assign(task, api_pb2.TaskAssignment(container_arguments=self._container_arguments(fn, task)))
         SCHED_TASKS_LAUNCHED.inc(kind="task")
         SCHED_PLACEMENT_LATENCY.observe(time.time() - t_place0, kind="task")
         tracing.record_span(
@@ -356,10 +404,32 @@ class Scheduler:
             start=t_place0,
             end=time.time(),
             parent=tracing.parse_context(task.trace_context),
-            attrs={"task_id": task_id, "worker_id": worker.worker_id, "function_id": fn.function_id,
-                   "gpus": len(gpu_ids)},
+            attrs={"task_id": task.task_id, "worker_id": task.worker_id, "function_id": fn.function_id,
+                   "gpus": len(task.gpu_ids)},
         )
-        logger.debug(f"scheduled task {task_id} for {fn.tag} on {worker.worker_id} gpus={gpu_ids}")
+        logger.debug(f"scheduled task {task.task_id} for {fn.tag} on {task.worker_id} gpus={task.gpu_ids}")
+        return task
+
+    async def launch_sandbox(self, sandbox) -> Optional[TaskState_]:
+        """Place a sandbox's task (reference: sandboxes are on-demand
+        containers; here a worker subprocess running the command), pinned to
+        the cards its `gpu_config` asks for, under the same rules as a
+        function's task."""
+        t_place0 = time.time()
+        d = sandbox.definition
+        task = self._claim(d.resources, d.scheduler_placement, function_id="", app_id=sandbox.app_id)
+        if task is None:
+            return None
+        sandbox.task_id = task.task_id
+        assignment = api_pb2.TaskAssignment(sandbox_def=d, sandbox_id=sandbox.sandbox_id)
+        # secrets resolve into the env on the plane's side, as a function's do
+        for secret_id in d.secret_ids:
+            secret = self.s.secrets.get(secret_id)
+            if secret is not None:
+                assignment.container_arguments.env.update(secret.env_dict)
+        await self._assign(task, assignment)
+        SCHED_TASKS_LAUNCHED.inc(kind="sandbox")
+        SCHED_PLACEMENT_LATENCY.observe(time.time() - t_place0, kind="sandbox")
         return task
 
     def _container_arguments(self, fn: FunctionState, task: TaskState_) -> api_pb2.ContainerArguments:

@@ -1,5 +1,4 @@
-"""Control-plane RPC handlers of the function path (port of
-modal_tpu/server/services.py).
+"""Control-plane RPC handlers (port of modal_tpu/server/services.py).
 
 The handlers a function or class call of the App layer goes through, with
 the JAX control plane's semantics: apps, blobs, function definition and
@@ -8,17 +7,25 @@ long polls, generators, cancellation), web endpoints (a container sets its
 URL, a client long-polls for it), images (registered as built), mounts (content-addressed
 blocks), secrets (resolved into a container's env at placement), the
 container data plane (hello, heartbeats, input claims, outputs, logs,
-results) and the worker plane (register, poll, heartbeat).
+results) and the worker plane (register, poll, heartbeat). Beside them, the
+sandboxes: create, wait, terminate, stdin and logs, sidecars, the worker
+router's address and token (SandboxGetCommandRouterAccess), filesystem and
+full snapshots and restore, tunnels (SandboxGetTunnels, TaskTunnelsUpdate,
+TunnelStart, TunnelStop) and readiness (TaskReady). A sandbox asks for
+cards with `gpu_config`; a `tpu_config` ask is refused.
 
 Every mutating handler appends the effect it applied to the write-ahead
 journal (server/journal.py) under the JAX handler's record type, so a
 restarted plane replays its apps, calls and queued inputs; claims, tasks,
-heartbeats and logs are transient by design. Every RPC of the wire contract
-this servicer has no handler for answers gRPC UNIMPLEMENTED (proto/rpc.py):
-the task cluster rendezvous, volumes, cluster listing and metrics history (4d);
-sandboxes, tunnels, image listing and deletion, proxies, dicts, queues,
-environments, tokens, workspaces, profiles, the input plane, and shard and
-journal administration (4e).
+heartbeats and logs are transient by design, and so are sandboxes and
+tunnels (journal.EXEMPT_RPCS). This servicer serves 81 of the wire
+contract's 148 RPCs; the others answer gRPC UNIMPLEMENTED (proto/rpc.py):
+the task cluster rendezvous, volumes, cluster listing, the timeline,
+profiles and metrics history (4d); image listing and deletion, proxies,
+dicts, queues, environments, tokens, workspaces, ContainerExec*, the input
+plane, and shard and journal administration (4e). Exec and the filesystem
+of a sandbox, and the warm pool's handoff, are served by each worker's
+task command router (server/task_router.py).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import json
+import os
 import time
 
 import grpc
@@ -825,9 +833,17 @@ class ModalTPUServicer:
         task.state = api_pb2.TASK_STATE_ACTIVE
         task.started_at = task.started_at or time.time()
         task.last_heartbeat = time.time()
+        if request.warm_pool_hit:
+            task.warm_pool_hit = True  # served by a pre-forked warm-pool interpreter
         fn = self.s.functions.get(task.function_id)
         if fn is not None:
             fn.init_failures = 0  # a container came up: init is healthy
+        if request.sandbox_workdir:
+            # the cwd the worker chose: a fs snapshot tars this, not a guess
+            for sb in self.s.sandboxes.values():
+                if sb.task_id == request.task_id:
+                    sb.workdir = request.sandbox_workdir
+                    break
         return api_pb2.ContainerHelloResponse()
 
     async def ContainerHeartbeat(self, request, context) -> api_pb2.ContainerHeartbeatResponse:
@@ -1246,6 +1262,14 @@ class ModalTPUServicer:
             for gpu, tid in list(worker.gpus_in_use.items()):
                 if tid == task.task_id:
                     del worker.gpus_in_use[gpu]
+        # forward() tunnels the container left open (a crash, or no exit)
+        for key in [k for k in self.s.tunnels if k[0] == task.task_id]:
+            entry = self.s.tunnels.pop(key)
+            if isinstance(entry, asyncio.Future):
+                if not entry.done():
+                    entry.set_result(None)
+            elif entry[0] is not None:
+                entry[0].close()
         # the task's pushed device-memory series go with it
         from ..observability.device_telemetry import drop_task_device_series
 
@@ -1277,6 +1301,7 @@ class ModalTPUServicer:
             milli_cpu=request.milli_cpu,
             memory_mb=request.memory_mb,
             container_address=request.container_address,
+            router_address=request.router_address,
             region=request.region,
             zone=request.zone,
             spot=request.spot,
@@ -1284,8 +1309,8 @@ class ModalTPUServicer:
         )
         self._j("worker", worker_id=worker_id, hostname=request.hostname, gpu_type=request.gpu_type,
                 num_gpus=request.num_gpus, milli_cpu=request.milli_cpu, memory_mb=request.memory_mb,
-                container_address=request.container_address, region=request.region, zone=request.zone,
-                spot=request.spot, instance_type=request.instance_type)
+                container_address=request.container_address, router_address=request.router_address,
+                region=request.region, zone=request.zone, spot=request.spot, instance_type=request.instance_type)
         self.s.schedule_event.set()
         return api_pb2.WorkerRegisterResponse(worker_id=worker_id)
 
@@ -1320,6 +1345,7 @@ class ModalTPUServicer:
             self.s.schedule_event.set()
         WORKER_HEARTBEATS.inc()
         worker.last_heartbeat = time.time()
+        worker.warm_pool_ready = request.warm_pool_ready
         if request.draining and not worker.draining and self.scheduler is not None:
             # the worker announces its preemption and signals its own
             # containers; honor the grace it promised them
@@ -1327,9 +1353,6 @@ class ModalTPUServicer:
             await self.scheduler.drain_worker(request.worker_id, grace_s=grace, notify_worker=False)
         return api_pb2.WorkerHeartbeatResponse()
 
-    async def TaskReady(self, request: api_pb2.TaskReadyRequest, context) -> api_pb2.TaskReadyResponse:
-        # readiness of a sandbox task; sandboxes come with ROADMAP Queue A 4e
-        return api_pb2.TaskReadyResponse()
 
     # ------------------------------------------------------------------
     # Images: registered as built (the image builder comes with ROADMAP
@@ -1444,3 +1467,443 @@ class ModalTPUServicer:
                     del self.s.deployed_secrets[key]
             self._j("secret_del", secret_id=request.secret_id)
         return api_pb2.SecretDeleteResponse()
+
+    # ------------------------------------------------------------------
+    # Sandboxes (reference sandbox.py: on-demand containers; here a
+    # supervised subprocess of a worker), their sidecars, snapshots and
+    # tunnels. Not journaled (server/journal.py EXEMPT_RPCS).
+    # ------------------------------------------------------------------
+
+    async def SandboxCreate(self, request: api_pb2.SandboxCreateRequest, context) -> api_pb2.SandboxCreateResponse:
+        from .scheduler import PLACEMENT_UNSAT_GRACE_S, gpu_spec
+        from .state import SandboxState_
+
+        if self.scheduler is None:
+            await context.abort(grpc.StatusCode.UNIMPLEMENTED, "no scheduler attached")
+        resources = request.definition.resources
+        if resources.tpu_config.tpu_type:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"tpu_config ({resources.tpu_config.tpu_type!r}) asks for TPU chips, which this control plane "
+                "does not place: ask for cards with gpu= (resources.gpu_config)")
+        try:
+            spec = gpu_spec(resources)
+        except Exception as exc:  # noqa: BLE001 — a malformed gpu ask
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"sandbox gpu: {exc}")
+        app_id = request.app_id
+        if not app_id:
+            # a sandbox may be app-less: it gets an implicit ephemeral app
+            resp = await self.AppCreate(
+                api_pb2.AppCreateRequest(description="sandbox", app_state=api_pb2.APP_STATE_EPHEMERAL), context)
+            app_id = resp.app_id
+        sandbox_id = self.s.make_id("sb")
+        sb = SandboxState_(sandbox_id=sandbox_id, app_id=app_id, definition=request.definition,
+                           name=request.definition.name)
+        placement = request.definition.scheduler_placement
+        task = await self.scheduler.launch_sandbox(sb)
+        unsat = None
+        if task is None:
+            # a placement no worker could ever take fails loudly, after a
+            # bounded grace (a matching worker may not have registered yet)
+            unsat = self.scheduler.placement_unsatisfiable_reason(placement, spec=spec)
+            if unsat is not None:
+                deadline = time.time() + PLACEMENT_UNSAT_GRACE_S
+                while time.time() < deadline:
+                    await asyncio.sleep(0.25)
+                    unsat = self.scheduler.placement_unsatisfiable_reason(placement, spec=spec)
+                    if unsat is None:
+                        task = await self.scheduler.launch_sandbox(sb)
+                        break
+        if task is None:
+            # no ghost state: neither the sandbox nor its implicit app
+            if not request.app_id:
+                implicit_app = self.s.apps.get(app_id)
+                if implicit_app is not None:
+                    await self._stop_app(implicit_app)
+                    del self.s.apps[app_id]
+            if unsat is not None:
+                await context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"sandbox {unsat}")
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, "no worker capacity for sandbox")
+        self.s.sandboxes[sandbox_id] = sb
+        sb.state = api_pb2.SANDBOX_STATE_RUNNING
+        return api_pb2.SandboxCreateResponse(sandbox_id=sandbox_id)
+
+    async def SandboxGetTaskId(self, request, context) -> api_pb2.SandboxGetTaskIdResponse:
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        if request.wait_until_ready:
+            # block until the readiness probe passes, or the sandbox exits
+            # first (its result goes back so the client raises)
+            deadline = time.monotonic() + min(max(request.timeout, 0.0) or 55.0, 60.0)
+            while not sb.ready and sb.result is None and time.monotonic() < deadline:
+                task = self.s.tasks.get(sb.task_id)
+                if task is not None and task.result is not None:
+                    sb.result = task.result
+                    break
+                await asyncio.sleep(0.05)
+            if not sb.ready and sb.result is not None:
+                return api_pb2.SandboxGetTaskIdResponse(
+                    task_id=sb.task_id,
+                    task_result_json=json.dumps({"status": int(sb.result.status), "exception": sb.result.exception}),
+                )
+        return api_pb2.SandboxGetTaskIdResponse(task_id=sb.task_id, ready=sb.ready)
+
+    async def SandboxWait(self, request: api_pb2.SandboxWaitRequest, context) -> api_pb2.SandboxWaitResponse:
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        # timeout=0 polls once
+        deadline = time.monotonic() + min(max(request.timeout, 0.0), 60.0)
+        while True:
+            task = self.s.tasks.get(sb.task_id)
+            if task is not None and task.result is not None:
+                sb.result = task.result
+                sb.state = (api_pb2.SANDBOX_STATE_TIMEOUT if task.result.status == api_pb2.GENERIC_STATUS_TIMEOUT
+                            else api_pb2.SANDBOX_STATE_TERMINATED)
+                return api_pb2.SandboxWaitResponse(result=task.result)
+            if time.monotonic() >= deadline:
+                return api_pb2.SandboxWaitResponse()
+            await asyncio.sleep(0.1)
+
+    async def SandboxTerminate(self, request, context) -> api_pb2.SandboxTerminateResponse:
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        task = self.s.tasks.get(sb.task_id)
+        if task is not None and task.result is None:
+            task.terminate = True
+            worker = self.s.workers.get(task.worker_id)
+            if worker is not None:
+                await worker.events.put(api_pb2.WorkerPollResponse(stop=api_pb2.TaskStopEvent(task_id=task.task_id)))
+        sb.state = api_pb2.SANDBOX_STATE_TERMINATED
+        return api_pb2.SandboxTerminateResponse()
+
+    async def SandboxSidecarCreate(self, request: api_pb2.SandboxSidecarCreateRequest, context):
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        sc = request.sidecar
+        if not sc.name or sc.name == "main":
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, "sidecar name required ('main' is reserved)")
+        if sc.name in sb.sidecars and sb.sidecars[sc.name].running:
+            await context.abort(grpc.StatusCode.ALREADY_EXISTS, f"sidecar {sc.name!r} is running")
+        if not sc.entrypoint_args:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, "sidecar command required")
+        task = self.s.tasks.get(sb.task_id)
+        worker = self.s.workers.get(task.worker_id) if task is not None else None
+        if task is None or task.result is not None or worker is None:
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION, "sandbox is not running — cannot attach a sidecar")
+        rec = api_pb2.SandboxSidecar()
+        rec.CopyFrom(sc)
+        rec.running = True
+        sb.sidecars[sc.name] = rec
+        await worker.events.put(api_pb2.WorkerPollResponse(
+            sidecar=api_pb2.SidecarLaunchEvent(task_id=task.task_id, sandbox_id=sb.sandbox_id, sidecar=rec)))
+        return api_pb2.SandboxSidecarCreateResponse(name=sc.name)
+
+    async def SandboxSidecarList(self, request, context) -> api_pb2.SandboxSidecarListResponse:
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        return api_pb2.SandboxSidecarListResponse(sidecars=list(sb.sidecars.values()))
+
+    async def SandboxSidecarStop(self, request, context) -> api_pb2.SandboxSidecarStopResponse:
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        if request.name not in sb.sidecars:
+            await context.abort(grpc.StatusCode.NOT_FOUND, f"no sidecar {request.name!r}")
+        task = self.s.tasks.get(sb.task_id)
+        worker = self.s.workers.get(task.worker_id) if task is not None else None
+        if worker is not None:
+            await worker.events.put(api_pb2.WorkerPollResponse(
+                stop=api_pb2.TaskStopEvent(task_id=sb.task_id, force=True, sidecar_name=request.name)))
+        return api_pb2.SandboxSidecarStopResponse()
+
+    async def SandboxSidecarExit(self, request, context) -> api_pb2.SandboxSidecarExitResponse:
+        for sb in self.s.sandboxes.values():
+            if sb.task_id == request.task_id and request.name in sb.sidecars:
+                sb.sidecars[request.name].running = False
+                sb.sidecars[request.name].returncode = request.returncode
+                break
+        return api_pb2.SandboxSidecarExitResponse()
+
+    async def SandboxList(self, request, context) -> api_pb2.SandboxListResponse:
+        out = []
+        for sb in self.s.sandboxes.values():
+            if request.app_id and sb.app_id != request.app_id:
+                continue
+            info = api_pb2.SandboxInfo(sandbox_id=sb.sandbox_id, created_at=sb.created_at, state=sb.state,
+                                       name=sb.name)
+            if sb.result is not None:
+                info.result.CopyFrom(sb.result)
+            out.append(info)
+        return api_pb2.SandboxListResponse(sandboxes=out)
+
+    async def SandboxGetFromName(self, request, context) -> api_pb2.SandboxGetFromNameResponse:
+        for sb in self.s.sandboxes.values():
+            if sb.name == request.name:
+                return api_pb2.SandboxGetFromNameResponse(sandbox_id=sb.sandbox_id)
+        await context.abort(grpc.StatusCode.NOT_FOUND, f"sandbox {request.name!r} not found")
+
+    async def SandboxStdinWrite(self, request: api_pb2.SandboxStdinWriteRequest, context):
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        # idempotent on the client's increasing index: a retried write (its
+        # response lost) must not duplicate stdin bytes
+        if request.index and request.index <= sb.stdin_last_index:
+            return api_pb2.SandboxStdinWriteResponse()
+        if request.index:
+            sb.stdin_last_index = request.index
+        if request.input:
+            sb.stdin_chunks.append(bytes(request.input))
+        if request.eof:
+            sb.stdin_eof = True
+        async with sb.condition:
+            sb.condition.notify_all()
+        return api_pb2.SandboxStdinWriteResponse()
+
+    async def SandboxGetStdin(self, request: api_pb2.SandboxGetStdinRequest, context):
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        deadline = time.monotonic() + min(request.timeout or 5.0, 30.0)
+        # the predicate is re-checked under the condition's lock: a notify
+        # between the check and the wait cannot be lost
+        async with sb.condition:
+            while True:
+                chunks = sb.stdin_chunks[request.offset:]
+                if chunks or sb.stdin_eof:
+                    return api_pb2.SandboxGetStdinResponse(chunks=chunks, eof=sb.stdin_eof,
+                                                           next_offset=len(sb.stdin_chunks))
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return api_pb2.SandboxGetStdinResponse(next_offset=request.offset)
+                try:
+                    await asyncio.wait_for(sb.condition.wait(), timeout=remaining)
+                except asyncio.TimeoutError:
+                    pass
+
+    async def SandboxGetLogs(self, request: api_pb2.SandboxGetLogsRequest, context):
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        app = self.s.apps.get(sb.app_id)
+        if app is None:
+            return
+        pos = int(request.last_entry_id) if request.last_entry_id else 0
+        deadline = time.monotonic() + (request.timeout or 30.0)
+        while time.monotonic() < deadline:
+            entries = [e for e in app.log_entries[pos:] if e.task_id == sb.task_id
+                       and (not request.file_descriptor or e.file_descriptor == request.file_descriptor)]
+            new_pos = len(app.log_entries)
+            if entries:
+                batch = api_pb2.TaskLogsBatch(entry_id=str(new_pos))
+                batch.items.extend(entries)
+                yield batch
+            pos = new_pos
+            task = self.s.tasks.get(sb.task_id)
+            if task is not None and task.result is not None:
+                yield api_pb2.TaskLogsBatch(entry_id=str(pos), eof_task_id=sb.task_id)
+                return
+            async with app.log_condition:
+                try:
+                    await asyncio.wait_for(app.log_condition.wait(), timeout=0.5)
+                except asyncio.TimeoutError:
+                    pass
+
+    async def SandboxGetCommandRouterAccess(self, request, context) -> api_pb2.SandboxGetCommandRouterAccessResponse:
+        """The worker's direct data plane for this sandbox (reference
+        SandboxGetCommandRouterAccess, task_command_router_client.py)."""
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        # still scheduling: UNAVAILABLE keeps the client's bounded connect loop polling
+        task = self.s.tasks.get(sb.task_id) if sb.task_id else None
+        if task is None:
+            await context.abort(grpc.StatusCode.UNAVAILABLE, "sandbox not yet scheduled")
+        worker = self.s.workers.get(task.worker_id)
+        if worker is None or not worker.router_address:
+            await context.abort(grpc.StatusCode.UNAVAILABLE, "worker router unavailable")
+        return api_pb2.SandboxGetCommandRouterAccessResponse(
+            router_address=worker.router_address, task_id=task.task_id, router_token=task.router_token)
+
+    async def _snapshot_sandbox_fs(self, sb) -> str:
+        """Tar the sandbox's workdir into the blob store; returns the blob id."""
+        from .fs_snapshot import sandbox_workdir, tar_dir
+
+        # the cwd the worker reported at ContainerHello, else the default
+        workdir = sb.workdir or sandbox_workdir(self.s.state_dir, sb.task_id, sb.definition.workdir)
+        if not os.path.isdir(workdir):
+            raise FileNotFoundError(f"sandbox workdir {workdir} not found on this host")
+        data = await tar_dir(workdir)
+        blob_id = self.s.make_id("bl")
+        path = self.s.blob_path(blob_id)
+        with open(path + ".tmp", "wb") as f:
+            f.write(data)
+        os.replace(path + ".tmp", path)
+        return blob_id
+
+    def _snapshot_image(self, blob_id: str) -> str:
+        image_id = self.s.make_id("im")
+        self.s.images[image_id] = ImageState(image_id=image_id, definition=api_pb2.Image(fs_snapshot_blob_id=blob_id),
+                                             built=True)
+        return image_id
+
+    async def SandboxSnapshotFs(self, request, context) -> api_pb2.SandboxSnapshotFsRequestResponse:
+        """A filesystem snapshot as an image new sandboxes start from
+        (reference sandbox.py `snapshot_filesystem`)."""
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        try:
+            blob_id = await self._snapshot_sandbox_fs(sb)
+        except Exception as exc:  # noqa: BLE001 — a result, as in the reference
+            return api_pb2.SandboxSnapshotFsRequestResponse(result=api_pb2.GenericResult(
+                status=api_pb2.GENERIC_STATUS_FAILURE, exception=f"fs snapshot failed: {exc}"))
+        return api_pb2.SandboxSnapshotFsRequestResponse(
+            image_id=self._snapshot_image(blob_id), result=api_pb2.GenericResult(status=api_pb2.GENERIC_STATUS_SUCCESS))
+
+    async def SandboxSnapshot(self, request, context) -> api_pb2.SandboxSnapshotResponse:
+        from .state import SandboxSnapshotState
+
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        try:
+            blob_id = await self._snapshot_sandbox_fs(sb)
+        except (OSError, ValueError) as exc:
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION, f"snapshot failed: {exc}")
+        snapshot_id = self.s.make_id("sn")
+        definition = api_pb2.Sandbox()
+        definition.CopyFrom(sb.definition)
+        self.s.sandbox_snapshots[snapshot_id] = SandboxSnapshotState(snapshot_id=snapshot_id, definition=definition,
+                                                                     fs_blob_id=blob_id)
+        return api_pb2.SandboxSnapshotResponse(snapshot_id=snapshot_id)
+
+    async def SandboxSnapshotGet(self, request, context) -> api_pb2.SandboxSnapshotGetResponse:
+        snap = self.s.sandbox_snapshots.get(request.snapshot_id)
+        if snap is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "snapshot not found")
+        return api_pb2.SandboxSnapshotGetResponse(snapshot_id=snap.snapshot_id, created_at=snap.created_at)
+
+    async def SandboxRestore(self, request, context) -> api_pb2.SandboxRestoreResponse:
+        """A new sandbox from a snapshot: the same definition, its workdir
+        seeded from the snapshot's tarball (through a snapshot image)."""
+        snap = self.s.sandbox_snapshots.get(request.snapshot_id)
+        if snap is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "snapshot not found")
+        definition = api_pb2.Sandbox()
+        definition.CopyFrom(snap.definition)
+        if snap.fs_blob_id:
+            definition.image_id = self._snapshot_image(snap.fs_blob_id)
+            definition.workdir = ""  # a seeded copy, not the old sandbox's dir
+        if request.name:
+            definition.name = request.name
+        resp = await self.SandboxCreate(api_pb2.SandboxCreateRequest(definition=definition), context)
+        return api_pb2.SandboxRestoreResponse(sandbox_id=resp.sandbox_id)
+
+    async def SandboxGetTunnels(self, request, context) -> api_pb2.SandboxGetTunnelsResponse:
+        sb = self.s.sandboxes.get(request.sandbox_id)
+        if sb is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "sandbox not found")
+        if not sb.definition.open_ports:
+            return api_pb2.SandboxGetTunnelsResponse(result=api_pb2.GenericResult(
+                status=api_pb2.GENERIC_STATUS_FAILURE,
+                exception="sandbox has no open ports — pass unencrypted_ports/encrypted_ports to create()"))
+        deadline = time.monotonic() + min(max(request.timeout, 0.0), 60.0)
+        while not sb.tunnels_reported and time.monotonic() < deadline:
+            task = self.s.tasks.get(sb.task_id)
+            if sb.result is not None or (task is not None and task.result is not None):
+                break  # the sandbox already exited
+            await asyncio.sleep(0.05)
+        if not sb.tunnels_reported:
+            # an empty list must not read as success: callers index by port
+            task = self.s.tasks.get(sb.task_id)
+            result = sb.result or (task.result if task is not None else None)
+            reason = (f"sandbox exited before tunnels came up: {result.exception or 'exit'}" if result is not None
+                      else f"tunnels not reported within {request.timeout:.0f}s")
+            return api_pb2.SandboxGetTunnelsResponse(result=api_pb2.GenericResult(
+                status=api_pb2.GENERIC_STATUS_FAILURE, exception=reason))
+        return api_pb2.SandboxGetTunnelsResponse(tunnels=list(sb.tunnels),
+                                                 result=api_pb2.GenericResult(status=api_pb2.GENERIC_STATUS_SUCCESS))
+
+    async def TaskTunnelsUpdate(self, request, context) -> api_pb2.TaskTunnelsUpdateResponse:
+        for sb in self.s.sandboxes.values():
+            if sb.task_id == request.task_id:
+                sb.tunnels = list(request.tunnels)
+                sb.tunnels_reported = True
+                break
+        return api_pb2.TaskTunnelsUpdateResponse()
+
+    async def TaskReady(self, request: api_pb2.TaskReadyRequest, context) -> api_pb2.TaskReadyResponse:
+        for sb in self.s.sandboxes.values():
+            if sb.task_id == request.task_id:
+                sb.ready = True
+                break
+        return api_pb2.TaskReadyResponse()
+
+    async def TunnelStart(self, request: api_pb2.TunnelStartRequest, context) -> api_pb2.TunnelStartResponse:
+        """In-container `forward(port)` (reference _tunnel.py): the plane
+        serves a TCP proxy to the container's port on this host."""
+        from .worker import tcp_proxy
+
+        task = self.s.tasks.get(request.task_id)
+        if task is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "task not found")
+        key = (request.task_id, request.port)
+        scheme = "tcp" if request.unencrypted else "tls"
+        # a start in flight holds a Future under the key: a late arrival
+        # awaits it instead of binding a second listener
+        for _ in range(3):
+            existing = self.s.tunnels.get(key)
+            if existing is None:
+                break
+            if isinstance(existing, asyncio.Future):
+                try:
+                    await asyncio.wait_for(asyncio.shield(existing), timeout=15.0)
+                except asyncio.TimeoutError:
+                    pass
+                continue  # re-read: a listener now, or stopped
+            return api_pb2.TunnelStartResponse(host="127.0.0.1", port=existing[1],
+                                               url=f"{scheme}://127.0.0.1:{existing[1]}")
+        else:
+            await context.abort(grpc.StatusCode.UNAVAILABLE, "tunnel start contended; retry")
+        # the task may have finished while this waited (and _release_task
+        # closed its tunnels): a listener bound now would leak
+        task = self.s.tasks.get(request.task_id)
+        if task is None or task.finished_at:
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION, "task finished")
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self.s.tunnels[key] = fut
+        try:
+            server = await asyncio.start_server(tcp_proxy(request.port), "127.0.0.1", 0)
+            port = server.sockets[0].getsockname()[1]
+            if self.s.tunnels.get(key) is fut:
+                self.s.tunnels[key] = (server, port)
+            else:
+                # a TunnelStop raced the start: close the listener, hand out no port
+                server.close()
+                await context.abort(grpc.StatusCode.UNAVAILABLE, "tunnel stopped during start")
+        finally:
+            # any exit releases a reservation still held and wakes waiters
+            if self.s.tunnels.get(key) is fut:
+                del self.s.tunnels[key]
+            if not fut.done():
+                fut.set_result(None)
+        return api_pb2.TunnelStartResponse(host="127.0.0.1", port=port, url=f"{scheme}://127.0.0.1:{port}")
+
+    async def TunnelStop(self, request: api_pb2.TunnelStopRequest, context) -> api_pb2.TunnelStopResponse:
+        entry = self.s.tunnels.pop((request.task_id, request.port), None)
+        if entry is None:
+            return api_pb2.TunnelStopResponse(exists=False)
+        if isinstance(entry, asyncio.Future):
+            # a start in flight sees its reservation gone and closes its own
+            # listener; wake its waiters now
+            if not entry.done():
+                entry.set_result(None)
+        elif entry[0] is not None:
+            entry[0].close()
+        return api_pb2.TunnelStopResponse(exists=True)

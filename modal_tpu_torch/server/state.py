@@ -11,8 +11,9 @@ The state is volatile dataclasses made durable by the write-ahead journal
 (server/journal.py): the supervisor attaches `journal` and `idempotency`,
 and a restarted plane replays them into a fresh ServerState. `replicator`
 stays None: quorum replication comes with the shard fleet (ROADMAP Queue A
-4e). Gangs, volumes, dicts, queues and sandboxes come with their
-sub-slices.
+4e). Sandboxes and their snapshots and tunnels are not journaled, as in the
+JAX package: their processes live on the plane's host. Gangs, volumes,
+dicts and queues come with their sub-slices.
 """
 
 from __future__ import annotations
@@ -163,6 +164,10 @@ class TaskState_:
     # the container's previous telemetry push (raw JSON): merges are
     # delta'd against it (observability/device_telemetry.py)
     telemetry_prev_json: str = ""
+    # the bearer token of the task's router RPCs (x-task-token)
+    router_token: str = ""
+    # served by a pre-forked warm-pool interpreter (its ContainerHello said so)
+    warm_pool_hit: bool = False
 
 
 @dataclass
@@ -213,9 +218,48 @@ class WorkerState:
     # heartbeat re-adopts it (scheduler.WORKER_READOPT_GRACE_S)
     adoption_pending: bool = False
     recovered_at: float = 0.0
+    # the worker's task command router (server/task_router.py)
+    router_address: str = ""
+    # parked warm-pool interpreters, from the last heartbeat (placement
+    # tie-break), and the pool directives last sent (image_id -> target;
+    # the scheduler sends a change only)
+    warm_pool_ready: int = 0
+    pool_directives: dict[str, int] = field(default_factory=dict)
 
     def free_gpus(self) -> list[int]:
         return [g for g in range(self.num_gpus) if g not in self.gpus_in_use]
+
+
+@dataclass
+class SandboxState_:
+    sandbox_id: str
+    app_id: str
+    definition: api_pb2.Sandbox
+    state: int = api_pb2.SANDBOX_STATE_PENDING
+    task_id: str = ""
+    created_at: float = field(default_factory=time.time)
+    result: Optional[api_pb2.GenericResult] = None
+    condition: asyncio.Condition = field(default_factory=asyncio.Condition)
+    stdin_chunks: list[bytes] = field(default_factory=list)
+    stdin_eof: bool = False
+    stdin_last_index: int = 0  # dedupes retried SandboxStdinWrite calls
+    name: str = ""
+    tunnels: list = field(default_factory=list)  # TunnelData, reported by the worker
+    tunnels_reported: bool = False
+    ready: bool = False  # the readiness probe passed (or none was configured)
+    workdir: str = ""  # the cwd the worker reported (a fs snapshot tars this)
+    # name -> SandboxSidecar; running and returncode set by SandboxSidecarExit
+    sidecars: dict[str, api_pb2.SandboxSidecar] = field(default_factory=dict)
+
+
+@dataclass
+class SandboxSnapshotState:
+    """A full sandbox snapshot: its definition and its workdir's tarball."""
+
+    snapshot_id: str
+    definition: api_pb2.Sandbox
+    fs_blob_id: str
+    created_at: float = field(default_factory=time.time)
 
 
 class ServerState:
@@ -244,6 +288,11 @@ class ServerState:
         self.deployed_secrets: dict[tuple[str, str], str] = {}  # (env, name) -> secret_id
         self.images: dict[str, ImageState] = {}
         self.images_by_hash: dict[str, str] = {}  # definition hash -> image_id
+        self.sandboxes: dict[str, SandboxState_] = {}
+        self.sandbox_snapshots: dict[str, SandboxSnapshotState] = {}
+        # (task_id, port) -> (asyncio server, port) of a TunnelStart, or a
+        # Future while its start is in flight
+        self.tunnels: dict[tuple[str, int], object] = {}
         self.blob_url_base: str = ""  # set by the blob server once it is up
         # local fast-path coordinates advertised at ClientHello (set when
         # the supervisor binds): the plane's Unix socket, the input plane's

@@ -299,7 +299,7 @@ def test_cancel_interrupts_a_running_sync_input(planes):
 @pytest.mark.parametrize("rpc,request_msg", [
     ("DictGetOrCreate", api_pb2.DictGetOrCreateRequest(
         deployment_name="d", object_creation_type=api_pb2.OBJECT_CREATION_TYPE_CREATE_IF_MISSING)),
-    ("SandboxList", api_pb2.SandboxListRequest()),
+    ("ContainerExec", api_pb2.ContainerExecRequest(task_id="ta-1", command=["true"])),
     ("TaskClusterHello", api_pb2.TaskClusterHelloRequest(task_id="ta-1")),
     ("VolumeList", api_pb2.VolumeListRequest()),
 ])

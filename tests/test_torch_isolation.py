@@ -315,7 +315,9 @@ def test_every_module_of_the_port_is_scanned():
                 "running_app.py", "image.py", "mount.py", "secret.py", "schedule.py", "file_pattern_matcher.py",
                 "_utils/function_utils.py", "_utils/type_manager.py", "server/cron.py",
                 "_utils/coalescer.py", "runtime/asgi.py", "serving/service.py", "serving/router.py",
-                "serving/reload.py", "cli/__init__.py", "cli/import_refs.py"):
+                "serving/reload.py", "cli/__init__.py", "cli/import_refs.py", "server/task_router.py",
+                "server/warm_pool.py", "server/fs_snapshot.py", "_utils/router_client.py", "_utils/pty_shell.py",
+                "sandbox.py", "sandbox_fs.py", "container_process.py", "snapshot.py", "tunnel.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
@@ -325,12 +327,16 @@ def test_every_module_of_the_port_is_scanned():
                                     "modal_tpu_torch.functions", "modal_tpu_torch.cls", "modal_tpu_torch.runner",
                                     "modal_tpu_torch.parallel_map", "modal_tpu_torch.serving",
                                     "modal_tpu_torch.serving.service", "modal_tpu_torch.serving.router",
-                                    "modal_tpu_torch.runtime.asgi", "modal_tpu_torch.cli.import_refs"])
+                                    "modal_tpu_torch.runtime.asgi", "modal_tpu_torch.cli.import_refs",
+                                    "modal_tpu_torch.server.task_router", "modal_tpu_torch.server.warm_pool",
+                                    "modal_tpu_torch.sandbox", "modal_tpu_torch.container_process",
+                                    "modal_tpu_torch.sandbox_fs", "modal_tpu_torch.tunnel"])
 def test_the_function_path_loads_no_torch_at_import(module):
-    """The client, the App layer, the control plane, the worker and a
-    container's entrypoint import no torch: a container sends its hello
-    before torch loads (a `gpu=` function's container loads it after the
-    hello), and a user's file that builds an App loads none."""
+    """The client, the App layer, the control plane, the worker, its router
+    and warm pool, the sandbox client and a container's entrypoint import no
+    torch: a container sends its hello before torch loads (a `gpu=`
+    function's container loads it after the hello, a warm-pool interpreter
+    while parked), and a user's file that builds an App loads none."""
     code = f"import sys, {module}\nassert 'torch' not in sys.modules, 'torch loaded'\nprint('clean')\n"
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
     env["PYTHONPATH"] = REPO
