@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,kernels,train
     python3 chip_smoke.py --phases device,build,serve,spec,disagg
     python3 chip_smoke.py --phases device,build,serve,graphs,weights,int8
+    python3 chip_smoke.py --phases device,build,serve,weights,volume
     python3 chip_smoke.py --phases device,build,moe,mesh
     python3 chip_smoke.py --phases device,build,sdk
     python3 chip_smoke.py --phases device,build,serve,sdk,worker
@@ -156,6 +157,25 @@ result line):
               reloaded params launches the flash kernel once per layer and
               equals the original's; a serve run on them gives the serve
               phase's streams. The reloaded params replace the originals.
+9b. volume  — llama3-8b's weights in a Volume of the port's plane (booted by
+              `app.run()` in a fresh state dir, free space checked first):
+              `export_checkpoint(params, cfg, (vol, "llama3-8b"))`, upload
+              GB/s; then an `@app.function(gpu="H100", volumes={"/weights":
+              vol})` container pinned to card 0 loads them with
+              `load_params((vol, "llama3-8b"), cfg, device="cuda")` (its
+              reads land in the tensors' host buffers; load GB/s beside the
+              weights phase's), runs the weights phase's cache-less forward
+              (flash_fwd exactly n_layers, logits checksum equal to the
+              weights phase's) and serves the 8 requests (streams equal to
+              serve's, paged_decode exactly n_layers per decode step).
+              Then, with the weights' blocks dropped from the store, a
+              train state at llama3-8b's full width and 8 layers (bf16
+              params and AdamW's two moments, ~17 GB) takes two steps,
+              is saved with `VolumeCheckpointer` (`parallel.train.state_tree`),
+              restored into fresh tensors on the card (every tensor
+              bit-equal) and steps once more from the restored and from the
+              live state: equal loss and grad norm (their gaps printed);
+              K1-K3 exact per step; save and restore GB/s.
 10. int8    — `init_params_quantized(llama3-8b, fast_host_init=True)` on the
               card (bytes, peak memory), the serving traffic through a
               graphed engine on it (64 tokens each, K4 exact), and its decode
@@ -262,7 +282,8 @@ import time
 from modal_tpu_torch import App  # the App layer loads no torch (a container imports this script)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "sandbox", "graphs", "weights", "int8",
+PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "sandbox", "graphs", "weights", "volume",
+          "int8",
           "spec", "disagg", "web", "disagg_http", "parity", "forward", "train", "moe", "mesh")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
@@ -1274,6 +1295,7 @@ def phase_weights(torch, ctx: dict) -> None:
                              f"(want {cfg.n_layers}) or gave non-finite logits")
     same_fwd = torch.equal(logits, forward(params, cfg, tokens)[0])
     _build.reset_launches()  # the comparison forward does not count toward the path
+    ctx["weights_logits_checksum"] = _checksum(torch, logits)  # the volume phase's reference
     del logits
     if not same_fwd:
         raise AssertionError("weights: the forward on the reloaded params differs from the original's")
@@ -1301,6 +1323,240 @@ def phase_weights(torch, ctx: dict) -> None:
     log(f"[weights] every reloaded tensor bit-equal; forward on them: flash_fwd launches {k1}, logits equal "
         f"the original's; serve on them: 8/8 streams equal the serve phase's, {8 * NEW_TOKENS / wall:.1f} "
         f"tokens/s, paged_decode launches {k4} (= {cfg.n_layers} x {st['steps']})")
+
+
+VOLUME_TRAIN_LAYERS = 8  # the train state's depth: 32 layers would be ~48 GB of bf16 params and moments
+VOLUME_NAME = "llama3-8b-weights"
+
+
+def _volume_serving_fn(cfg_name: str, volume_name: str, prefix: str, prompts: list):
+    """The volume phase's function, run in a container of the port's worker
+    with the Volume mounted: the params from the Volume, the weights phase's
+    cache-less forward, the serving traffic. Cloudpickle takes it by value,
+    with the helpers it calls."""
+
+    def serve_from_volume() -> dict:
+        import torch
+
+        from modal_tpu_torch import Volume
+        from modal_tpu_torch.models.llama import forward, get_config
+        from modal_tpu_torch.models.weights import load_params
+        from modal_tpu_torch.ops import _build
+
+        cfg = get_config(cfg_name)
+        vol = Volume.from_name(volume_name)
+        vol.hydrate()
+        t0 = time.perf_counter()
+        params = load_params((vol, prefix), cfg, device="cuda")
+        load_s = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for _p, t in _tree_leaves(params))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+        _build.reset_launches()
+        logits = forward(params, cfg, tokens)[0]
+        torch.cuda.synchronize()
+        k1 = _build.LAUNCHES["flash_fwd"]
+        checksum, finite = _checksum(torch, logits), bool(torch.isfinite(logits).all())
+        del logits
+        engine = _engine_8b(params, cfg)  # its warm-up launches come before the count
+        _build.reset_launches()
+        streams, _reqs, wall, stats = _run_traffic(engine, prompts, cfg.vocab_size, "volume container")
+        return {"load_s": load_s, "bytes": nbytes, "flash_fwd_launches": k1, "logits_checksum": checksum,
+                "logits_finite": finite, "streams": streams, "paged_decode_launches": _build.LAUNCHES["paged_decode"],
+                "decode_steps": stats["steps"], "n_layers": cfg.n_layers, "serve_wall_s": wall,
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": torch.cuda.get_device_name(0)}
+
+    return serve_from_volume
+
+
+def _volume_train_state(torch, ckpt, ctx: dict) -> dict:
+    """Two steps of a full-width llama3-8b train state of VOLUME_TRAIN_LAYERS
+    layers, saved to the Volume, restored into fresh tensors, and a third
+    step from each. Returns the measurements; raises on a difference."""
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.parallel.train import TrainConfig, create_state, state_from_tree, state_tree
+
+    cfg = get_config("llama3-8b", n_layers=VOLUME_TRAIN_LAYERS)
+    tc = TrainConfig(warmup_steps=10, total_steps=100)  # train_demo's
+    state, step_fn = create_state(cfg, tc, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    _build.reset_launches()
+    for _ in range(2):
+        state, _m = step_fn(state, tokens)
+    torch.cuda.synchronize()
+    live = state_tree(state)
+    leaves = _tree_leaves(live)
+    nbytes = sum(t.numel() * t.element_size() for _p, t in leaves)
+    t0 = time.perf_counter()
+    ckpt.save("train/step2", live)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.restore("train/step2", device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = dict(_tree_leaves(back))
+    differ = [p for p, t in leaves if not (p in got and got[p].dtype == t.dtype and torch.equal(got[p].to(t.device), t))]
+    if differ or len(got) != len(leaves):
+        raise AssertionError(f"volume: {len(differ)} of {len(leaves)} restored tensors differ ({differ[:4]})")
+    restored = state_from_tree(back, tc)
+    _live_next, m_live = step_fn(state, tokens)
+    _back_next, m_back = step_fn(restored, tokens)
+    torch.cuda.synchronize()
+    launches = {n: _build.LAUNCHES[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    want = {"flash_fwd": 4 * 2 * cfg.n_layers, "flash_bwd_dq": 4 * cfg.n_layers, "flash_bwd_dkv": 4 * cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"volume: the four train steps launched {launches}, want {want}")
+    loss = (float(m_live["loss"]), float(m_back["loss"]))
+    norm = (float(m_live["grad_norm"]), float(m_back["grad_norm"]))
+    if not all(math.isfinite(x) for x in (*loss, *norm)):
+        raise AssertionError(f"volume: step 3 loss {loss}, grad norm {norm}")
+    return {"layers": cfg.n_layers, "state_bytes": nbytes, "leaves": len(leaves), "save_s": save_s,
+            "save_gb_per_s": nbytes / save_s / 1e9, "restore_s": restore_s,
+            "restore_gb_per_s": nbytes / restore_s / 1e9, "step3_loss": loss, "step3_grad_norm": norm,
+            "loss_bit_equal": bool(torch.equal(m_live["loss"], m_back["loss"])),
+            "grad_norm_bit_equal": bool(torch.equal(m_live["grad_norm"], m_back["grad_norm"])),
+            "loss_abs_diff": abs(loss[0] - loss[1]), "grad_norm_abs_diff": abs(norm[0] - norm[1]),
+            "launches": launches}
+
+
+def phase_volume(torch, ctx: dict) -> None:
+    """Weights in a Volume served by a gpu="H100" function, and a train
+    state checkpointed to a Volume and resumed (the docstring's 9b)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch import Volume
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.checkpoint import VolumeCheckpointer
+    from modal_tpu_torch.client import _Client
+    from modal_tpu_torch.models.llama import forward
+    from modal_tpu_torch.models.quant import quantized_bytes
+    from modal_tpu_torch.models.weights import DEFAULT_SHARD_BYTES, export_checkpoint
+    from modal_tpu_torch.ops import _build
+
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    params, cfg = _load_8b(torch, ctx)
+    prompts = _prompts(cfg, 8, seed=1)
+    want = ctx.get("serve_streams")
+    if want is None:
+        want, *_ = _run_traffic(_engine_8b(params, cfg), prompts, cfg.vocab_size, "volume reference")
+        log("[volume] the serve phase did not run: reference streams from the params in this process")
+    want_checksum = ctx.get("weights_logits_checksum")
+    if want_checksum is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+        want_checksum = _checksum(torch, forward(params, cfg, tokens)[0])
+        _build.reset_launches()  # a reference forward, not the path
+        log("[volume] the weights phase did not run: reference logits from the params in this process")
+    nbytes = quantized_bytes(params)
+    saved = {k: os.environ.pop(k, None) for k in ("MODAL_TPU_SERVER_URL", "MODAL_TPU_STATE_DIR",
+                                                 "MODAL_TPU_AUTO_LOCAL_SERVER")}
+    state_dir = os.environ["MODAL_TPU_STATE_DIR"] = tempfile.mkdtemp(prefix="volume-")
+    free = _free_bytes(state_dir)
+    train_bytes = 3 * nbytes * VOLUME_TRAIN_LAYERS // cfg.n_layers  # an upper bound: params and two moments
+    need = max(nbytes + DEFAULT_SHARD_BYTES, train_bytes) * 1.1 + (2 << 30)
+    log(f"[volume] {nbytes / 1e9:.2f} GB of params; {free / 1e9:.1f} GB free under {state_dir}, "
+        f"{need / 1e9:.1f} GB needed | {smi}")
+    if free < need:
+        shutil.rmtree(state_dir, ignore_errors=True)
+        raise AssertionError(f"volume: {free / 1e9:.1f} GB free under {state_dir}, the phase needs {need / 1e9:.1f}")
+    out: dict = {"nvidia_smi": smi}
+    app = App("chip_smoke volume")
+    vol = Volume.from_name(VOLUME_NAME, create_if_missing=True)
+    fn = app.function(serialized=True, gpu="H100", volumes={"/weights": vol}, scaledown_window=2, timeout=1800)(
+        _volume_serving_fn("llama3-8b", VOLUME_NAME, "llama3-8b", prompts))
+    try:
+        with app.run():
+            sup = _Client._local_supervisor
+            if sup is None or sup.workers[0].gpu_type != kind:
+                raise AssertionError("volume: app.run() did not boot the port's plane on this card")
+            t0 = time.perf_counter()
+            index = export_checkpoint(params, cfg, (vol, "llama3-8b"))
+            upload_s = time.perf_counter() - t0
+            total = index["metadata"]["total_size"]
+            out["upload"] = {"bytes": total, "shards": len(set(index["weight_map"].values())), "s": upload_s,
+                             "gb_per_s": total / upload_s / 1e9}
+            log(f"[volume] export_checkpoint to the Volume: {total / 1e9:.2f} GB in {out['upload']['shards']} "
+                f"shards in {upload_s:.2f}s ({total / upload_s / 1e9:.2f} GB/s; the weights phase's local "
+                f"export: {ctx.get('weights', {}).get('export_gb_per_s', float('nan')):.2f} GB/s) | {smi}")
+            t0 = time.perf_counter()
+            r = fn.remote()
+            call_s = time.perf_counter() - t0
+            task = next(t for t in sup.state.tasks.values() if t.function_id == fn.object_id)
+            _wait_app_tasks(sup, app.app_id)
+            k1, k4 = r["flash_fwd_launches"], r["paged_decode_launches"]
+            if r["device"] != kind or r["cuda_visible_devices"] != "0" or list(task.gpu_ids) != [0]:
+                raise AssertionError(f"volume: the function ran on {r['device']!r} "
+                                     f"(CUDA_VISIBLE_DEVICES={r['cuda_visible_devices']!r}, task cards {task.gpu_ids})")
+            if k1 != cfg.n_layers or not r["logits_finite"] or r["logits_checksum"] != want_checksum:
+                raise AssertionError(f"volume: the forward in the container launched flash_fwd {k1} times (want "
+                                     f"{cfg.n_layers}), logits checksum {r['logits_checksum']} vs the weights "
+                                     f"phase's {want_checksum}, finite {r['logits_finite']}")
+            if k4 != cfg.n_layers * r["decode_steps"]:
+                raise AssertionError(f"volume: paged_decode launched {k4} times over {r['decode_steps']} steps")
+            differ = [i for i, (a, b) in enumerate(zip(r["streams"], want)) if a != b]
+            if differ:
+                raise AssertionError(f"volume: streams {differ} served from the Volume differ from the serve phase's")
+            _add_launches(ctx, "flash_fwd", k1)
+            _add_launches(ctx, "paged_decode", k4)
+            load_gbps = r["bytes"] / r["load_s"] / 1e9
+            out["serve"] = {k: v for k, v in r.items() if k != "streams"}
+            out["serve"].update(call_s=call_s, load_gb_per_s=load_gbps)
+            log(f"[volume] gpu=\"H100\" function with the Volume at /weights (task {task.task_id}, card {task.gpu_ids}): "
+                f"load_params from the Volume {r['bytes'] / 1e9:.2f} GB in {r['load_s']:.2f}s ({load_gbps:.2f} GB/s; "
+                f"the weights phase's local-directory load: "
+                f"{ctx.get('weights', {}).get('load_gb_per_s', float('nan')):.2f} GB/s); forward flash_fwd {k1}, "
+                f"logits checksum equal to the weights phase's; 8/8 streams equal serve's, paged_decode {k4} "
+                f"(= {cfg.n_layers} x {r['decode_steps']}); cold call {call_s:.2f}s | {smi}")
+            # the weights' blocks leave the store: the train state needs the disk
+            for f in vol.listdir("llama3-8b"):
+                for sha in sup.state.volumes[vol.object_id].files[f.path].block_sha256_hex:
+                    try:
+                        os.unlink(sup.state.block_path(sha))
+                    except FileNotFoundError:
+                        pass
+            Volume.delete(VOLUME_NAME)
+            gc.collect()
+            torch.cuda.empty_cache()
+            tvol = Volume.from_name("llama3-8b-train", create_if_missing=True)
+            tvol.hydrate()
+            tr = _volume_train_state(torch, VolumeCheckpointer(tvol), ctx)
+            for n, c in tr["launches"].items():
+                _add_launches(ctx, n, c)
+            out["train_state"] = tr
+            log(f"[volume] train state, llama3-8b full width at {tr['layers']} layers: {tr['leaves']} tensors, "
+                f"{tr['state_bytes'] / 1e9:.2f} GB; saved to a Volume in {tr['save_s']:.2f}s "
+                f"({tr['save_gb_per_s']:.2f} GB/s), restored into fresh tensors on the card in {tr['restore_s']:.2f}s "
+                f"({tr['restore_gb_per_s']:.2f} GB/s), every tensor bit-equal; step 3 live vs restored: loss "
+                f"{tr['step3_loss']} (bit-equal {tr['loss_bit_equal']}, |diff| {tr['loss_abs_diff']:.3e}), grad norm "
+                f"{tr['step3_grad_norm']} (bit-equal {tr['grad_norm_bit_equal']}, |diff| "
+                f"{tr['grad_norm_abs_diff']:.3e}); launches over the 4 steps {tr['launches']} | {smi}")
+            if not tr["loss_bit_equal"]:
+                raise AssertionError(f"volume: step 3's loss from the restored state {tr['step3_loss'][1]} differs "
+                                     f"from the live state's {tr['step3_loss'][0]}")
+    finally:
+        if _Client._local_supervisor is not None:
+            if _Client._client_from_env is not None:
+                _Client._client_from_env._close()
+            synchronizer.run(_Client._local_supervisor.stop())
+            _Client._local_supervisor = None
+            _Client.set_env_client(None)
+        shutil.rmtree(state_dir, ignore_errors=True)
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+        gc.collect()
+        torch.cuda.empty_cache()
+    ctx["volume"] = out
 
 
 def phase_int8(torch, ctx: dict) -> None:
@@ -2909,9 +3165,12 @@ WORKER_UNSAT_GPU = "H100:2"
 
 
 def _tree_leaves(tree, prefix: str = "") -> list:
-    """(path, tensor) for every tensor of a nested dict, in sorted key order."""
+    """(path, tensor) for every tensor of a nested dict (sorted key order)
+    and list tree."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, v in enumerate(tree) for leaf in _tree_leaves(v, f"{prefix}/{i}")]
     return [(prefix, tree)]
 
 
@@ -4504,11 +4763,11 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "graphs", "weights", "int8", "spec", "disagg", "web",
-                          "disagg_http"),
-         "flash_fwd": ("app", "sandbox", "weights", "forward", "train", "moe", "mesh"),
-         "flash_bwd_dq": ("train", "moe", "mesh"),
-         "flash_bwd_dkv": ("train", "moe", "mesh")}
+PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "graphs", "weights", "volume", "int8", "spec",
+                          "disagg", "web", "disagg_http"),
+         "flash_fwd": ("app", "sandbox", "weights", "volume", "forward", "train", "moe", "mesh"),
+         "flash_bwd_dq": ("volume", "train", "moe", "mesh"),
+         "flash_bwd_dkv": ("volume", "train", "moe", "mesh")}
 
 
 def main() -> int:

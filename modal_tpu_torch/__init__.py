@@ -34,6 +34,9 @@ each module's counterpart is easy to find:
   and its siblings (`parallel_map.py`), `Cls`/`Obj`/`parameter` (`cls.py`),
   `Image`, `Mount`, `Secret`, `Cron`/`Period`, and `app.run()` /
   `app.deploy()` (`runner.py`);
+- storage and gangs: `Volume` (`volume.py`), the Volume checkpointer
+  (`checkpoint.py`), `NetworkFileSystem`, `CloudBucketMount`, and
+  `@clustered` with `get_cluster_info` (`runtime/clustered.py`);
 - sandboxes: `Sandbox.create(..., gpu=...)`, `exec` into one
   (`ContainerProcess`), its files (`SandboxFS`), tunnels (`Tunnel`,
   `forward`), snapshots (`SandboxSnapshot`) and readiness `Probe`s;
@@ -92,6 +95,13 @@ _EXPORTS = {
     "ContainerProcess": "container_process",
     "SandboxFS": "sandbox_fs",
     "forward": "tunnel",
+    "Volume": "volume",
+    "NetworkFileSystem": "network_file_system",
+    "CloudBucketMount": "cloud_bucket_mount",
+    "clustered": "partial_function",
+    "ClusterInfo": "runtime.clustered",
+    "get_cluster_info": "runtime.clustered",
+    "get_fabric_peers": "runtime.clustered",
 }
 
 __all__ = [*_EXPORTS, "serving"]

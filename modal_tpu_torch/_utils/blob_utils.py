@@ -234,6 +234,76 @@ async def _get_url(url: str) -> bytes:
     raise ExecutionError("unreachable")
 
 
+async def _get_range_into(url: str, start: int, stop: int, dest: "memoryview") -> None:
+    """Ranged GET that lands the body DIRECTLY in `dest` (writable
+    memoryview of len stop-start) via ``sock_recv_into`` — no HTTP parser
+    allocations, no intermediate chunk bytes; the kernel copies straight
+    into the caller's tensor/file buffer. Retries like _get_range."""
+    import socket
+    from urllib.parse import urlsplit
+
+    u = urlsplit(url)
+    port = u.port or (443 if u.scheme == "https" else 80)
+    if u.scheme != "http":
+        raise ExecutionError(f"raw ranged GET supports http:// only, got {url}")
+    loop = asyncio.get_running_loop()
+    want = stop - start
+    req = (
+        f"GET {u.path or '/'} HTTP/1.1\r\nHost: {u.hostname}:{port}\r\n"
+        f"Range: bytes={start}-{stop - 1}\r\nConnection: close\r\n\r\n"
+    ).encode()
+    for attempt in range(4):
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setblocking(False)
+        try:
+            await loop.sock_connect(sock, (u.hostname, port))
+            await loop.sock_sendall(sock, req)
+            # read until end of headers; the tail after CRLFCRLF is body
+            head = bytearray()
+            while b"\r\n\r\n" not in head:
+                chunk = await loop.sock_recv(sock, 65536)
+                if not chunk:
+                    # retryable (ConnectionError is in the transient set):
+                    # a dropped keep-alive must not look like a missing route
+                    raise ConnectionError("connection closed before headers")
+                head += chunk
+                if len(head) > 65536:
+                    raise ExecutionError("oversized response headers")
+            header_blob, _, tail = bytes(head).partition(b"\r\n\r\n")
+            lines = header_blob.split(b"\r\n")
+            status = int(lines[0].split(b" ", 2)[1])
+            headers = {
+                k.strip().lower(): v.strip()
+                for k, v in (ln.split(b":", 1) for ln in lines[1:] if b":" in ln)
+            }
+            if status in RETRYABLE_HTTP_STATUSES and attempt < 3:
+                sock.close()
+                await _retry_sleep(attempt)
+                continue
+            if status not in (200, 206):
+                raise ExecutionError(f"blob ranged GET failed: HTTP {status}")
+            clen = int(headers.get(b"content-length", b"-1"))
+            if clen != want:
+                raise ExecutionError(f"ranged GET returned {clen} bytes for [{start},{stop})")
+            got = min(len(tail), want)
+            dest[:got] = tail[:got]
+            while got < want:
+                n = await loop.sock_recv_into(sock, dest[got:want])
+                if n == 0:
+                    # mid-body disconnect: retryable, the next attempt
+                    # rewrites dest from the start of the range
+                    raise ConnectionError(f"connection closed at {got}/{want} bytes")
+                got += n
+            return
+        except _transient_http_errors() as exc:
+            if attempt == 3:
+                raise ExecutionError(f"blob ranged GET failed after retries: {exc}") from exc
+            await _retry_sleep(attempt)
+        finally:
+            sock.close()
+    raise ExecutionError("unreachable")
+
+
 async def _get_range(url: str, start: int, stop: int) -> bytes:
     """GET bytes [start, stop) via an HTTP Range request (expects 206)."""
     session = _get_http_session()

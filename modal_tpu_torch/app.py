@@ -12,9 +12,11 @@ contacts nothing: a container that imports the user's file runs its
 `App(...)` and decorators, and `app.run()` creates the objects. A
 function's `@batched`, `@concurrent` and web decorator parameters go into
 its definition, and `schedule=` fires it from the control plane's cron loop.
-What waits for a later sub-slice of ROADMAP Queue A is refused at
-decoration with InvalidError naming it: volumes and bucket mounts (4d),
-`i6pn=` and `runtime_debug=` (4d), `proxy=` and `cloud=` (4e).
+`volumes=` (on the App, or a function, whose entries win) maps container
+paths to Volumes and CloudBucketMounts, and `@clustered` makes a function a
+gang. What waits for a later sub-slice of ROADMAP Queue A is refused at
+decoration with InvalidError naming it: `runtime_debug=` (4d-ii), `proxy=`
+and `cloud=` (4e).
 """
 
 from __future__ import annotations
@@ -54,9 +56,7 @@ def _refuse_waiting(**asked: Any) -> None:
     """InvalidError for the first decorator argument whose feature waits for
     a later sub-slice of ROADMAP Queue A."""
     waits = {
-        "volumes": "volumes and cloud bucket mounts wait for the port's Volume (ROADMAP Queue A 4d)",
-        "i6pn": "i6pn= waits for the port's gang runtime (ROADMAP Queue A 4d)",
-        "runtime_debug": "runtime_debug= waits for the port's profiler (ROADMAP Queue A 4d)",
+        "runtime_debug": "runtime_debug= waits for the port's profiler (ROADMAP Queue A 4d-ii)",
         "proxy": "proxy= waits for the port's Proxy (ROADMAP Queue A 4e)",
         "cloud": "cloud= waits for the port's multi-cloud placement (ROADMAP Queue A 4e)",
         "tpu": "tpu= asks for TPU chips, which the port does not place: ask for cards with gpu=",
@@ -97,11 +97,11 @@ class _App:
     ):
         if name is not None and not isinstance(name, str):
             raise InvalidError("app name must be a string")
-        _refuse_waiting(volumes=volumes)
         self._name = name
         self._description = name
         self._image = image
         self._secrets = list(secrets)
+        self._volumes = dict(volumes or {})
 
         self._functions: dict[str, _Function] = {}
         self._classes: dict[str, "_Cls"] = {}
@@ -207,7 +207,7 @@ class _App:
             raise InvalidError("Did you forget parentheses? Use @app.function().")
         if payload_format not in ("pickle", "cbor"):
             raise InvalidError(f"payload_format must be 'pickle' or 'cbor', got {payload_format!r}")
-        _refuse_waiting(volumes=volumes, i6pn=i6pn, runtime_debug=runtime_debug, proxy=proxy, cloud=cloud, tpu=tpu)
+        _refuse_waiting(runtime_debug=runtime_debug, proxy=proxy, cloud=cloud, tpu=tpu)
         gpu_spec = parse_gpu_config(gpu, mesh)
 
         def wrapper(f: Union[Callable, _PartialFunction]) -> _Function:
@@ -226,6 +226,7 @@ class _App:
             spec = _FunctionSpec(
                 image=image or self._image or _get_default_image(),
                 secrets=[*self._secrets, *secrets],
+                volumes={**self._volumes, **(volumes or {})},
                 mounts=list(mounts),
                 gpu=gpu_spec,
                 cpu=cpu,
@@ -250,6 +251,10 @@ class _App:
                 restrict_output=restrict_output,
                 payload_format=payload_format,
                 experimental_options=dict(experimental_options or {}),
+                cluster_size=params.cluster_size or 0,
+                broadcast_inputs=params.broadcast_inputs,
+                fabric_size=params.fabric_size or 0,
+                i6pn=i6pn,
             )
             if is_generator is None:
                 is_generator = params.is_generator

@@ -10,9 +10,11 @@ py/modal/parallel_map.py for `.map()`.
 Resources carry a `GPUConfig` (`gpu="H100"`, `"H100:8"`, parsed by
 `gpu_config.parse_gpu_config`) where the JAX package carries a `TPUConfig`.
 
-What waits for a later sub-slice of ROADMAP Queue A, refused with
-InvalidError when a function asks for it: volumes and cloud bucket mounts
-(4d), `proxy=` and `cloud=` (4e), `i6pn=` and `runtime_debug=` (4d). Every
+`volumes=` maps container paths to Volumes (`volume_mounts`) and to
+CloudBucketMounts (`cloud_bucket_mounts`); a `@clustered` function is a gang
+(`group_size`, `broadcast_inputs`, `fabric_size`). What waits for a later
+sub-slice of ROADMAP Queue A, refused with InvalidError when a function
+asks for it: `runtime_debug=` (4d-ii), `proxy=` and `cloud=` (4e). Every
 call goes through the control plane (the region-local input plane,
 `_InputPlaneInvocation` and the Attempt* RPCs, comes with 4e); concurrent
 FunctionMaps coalesce into one FunctionMapBatch through the client's
@@ -107,6 +109,8 @@ class _FunctionSpec:
 
     image: Optional["_Image"] = None
     secrets: Sequence["_Secret"] = field(default_factory=list)
+    # container path -> a Volume or a CloudBucketMount
+    volumes: dict[str, Any] = field(default_factory=dict)
     mounts: Sequence[Any] = field(default_factory=list)
     gpu: Optional[GPUSpec] = None
     cpu: Optional[float] = None
@@ -120,7 +124,7 @@ class _FunctionSpec:
     buffer_containers: int = 0
     scaledown_window: int = 60
     # serving-tier SLO targets: the port's plane refuses them until its SLO
-    # autoscaler (ROADMAP Queue A 4d)
+    # autoscaler (ROADMAP Queue A 4d-ii)
     target_ttft_ms: float = 0.0
     target_tokens_per_replica: float = 0.0
     max_concurrent_inputs: int = 0
@@ -136,6 +140,12 @@ class _FunctionSpec:
     # results by the container
     payload_format: str = "pickle"
     experimental_options: dict[str, str] = field(default_factory=dict)
+    # a gang (@clustered): ranks per call, each input to every rank, and the
+    # ranks that must share one fabric
+    cluster_size: int = 0
+    broadcast_inputs: bool = True
+    fabric_size: int = 0
+    i6pn: bool = False
 
     def resources_proto(self) -> api_pb2.Resources:
         res = api_pb2.Resources(
@@ -208,6 +218,7 @@ class _Function(_Object, type_prefix="fu"):
             if spec.image is not None:
                 deps.append(spec.image)
             deps.extend(spec.secrets)
+            deps.extend(v for v in spec.volumes.values() if isinstance(v, _Object))
             deps.extend(m for m in spec.mounts if isinstance(m, _Object))
             return deps
 
@@ -226,7 +237,10 @@ class _Function(_Object, type_prefix="fu"):
                 target_concurrent_inputs=spec.target_concurrent_inputs,
                 batch_max_size=spec.batch_max_size,
                 batch_linger_ms=spec.batch_wait_ms,
-                broadcast_inputs=True,
+                group_size=spec.cluster_size,
+                broadcast_inputs=spec.broadcast_inputs,
+                fabric_size=spec.fabric_size,
+                i6pn_enabled=spec.i6pn,
                 is_class=is_class,
                 enable_memory_snapshot=spec.enable_memory_snapshot,
                 restrict_output=spec.restrict_output,
@@ -272,6 +286,13 @@ class _Function(_Object, type_prefix="fu"):
                 f_def.image_id = spec.image.object_id
             f_def.secret_ids.extend([s.object_id for s in spec.secrets])
             f_def.mount_ids.extend([m.object_id for m in spec.mounts if isinstance(m, _Object)])
+            from .cloud_bucket_mount import CloudBucketMount
+
+            for path, vol in spec.volumes.items():
+                if isinstance(vol, CloudBucketMount):
+                    f_def.cloud_bucket_mounts[path] = vol.serialize()
+                else:
+                    f_def.volume_mounts[path] = vol.object_id
 
             req = api_pb2.FunctionCreateRequest(
                 app_id=context.app_id or "",
@@ -396,6 +417,11 @@ class _Function(_Object, type_prefix="fu"):
     @property
     def is_generator(self) -> bool:
         return bool(self._is_generator)
+
+    @property
+    def cluster_size(self) -> int:
+        """Ranks per call: a gang's size, 1 otherwise."""
+        return (self._spec.cluster_size if self._spec is not None else 0) or 1
 
     def get_raw_f(self) -> Callable:
         assert self._info is not None and self._info.raw_f is not None

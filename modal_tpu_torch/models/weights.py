@@ -20,8 +20,11 @@ streamed to the device (port of modal_tpu/models/weights.py).
 MoE configs write each expert's matrices as their own tensors
 (`model.layers.N.block_sparse_moe.experts.E.w_in.weight`), as the JAX
 exporter does, and load them stacked per layer. Sources: a local directory
-(`LocalSource`). `VolumeSource` waits for the port's `modal.Volume`
-(ROADMAP.md Queue A 4); `shardings=` places the loaded params on a mesh.
+(`LocalSource`) or a prefix of a Volume (`VolumeSource`, `(volume,
+prefix)`): a ranged read moves only the content blocks a tensor overlaps,
+and lands them in the tensor's host buffer (`read_file_range_into`; a
+client beside the store preads the block files in place). `export_checkpoint`
+writes to either. `shardings=` places the loaded params on a mesh.
 """
 
 from __future__ import annotations
@@ -171,14 +174,45 @@ class LocalSource:
 
 
 class VolumeSource:
-    """Ranged reads against a Volume path prefix: they need the port's
-    `modal.Volume` client, which waits for ROADMAP.md Queue A 4."""
+    """Ranged reads against a Volume path prefix: only the content blocks
+    overlapping the requested range travel. Blocking, like LocalSource (the
+    loader's pool threads call it; the Volume's methods run on the SDK's
+    loop)."""
 
     def __init__(self, volume: Any, prefix: str = ""):
-        raise NotImplementedError(
-            "VolumeSource needs modal.Volume, which modal_tpu_torch does not have yet "
-            "(ROADMAP.md Queue A 4); load from a local directory"
-        )
+        self.volume = volume
+        self.prefix = prefix.strip("/")
+
+    def _path(self, file: str) -> str:
+        return f"{self.prefix}/{file}" if self.prefix else file
+
+    def read(self, file: str, offset: int, length: int) -> bytes:
+        return self.volume.read_file_range(self._path(file), offset, length)
+
+    def read_into(self, file: str, offset: int, length: int, buf) -> int:
+        """The blocks land concurrently at their final positions inside
+        `buf` (`read_file_range_into`): no intermediate bytes, no join.
+        `length` is in bytes."""
+        return self.volume.read_file_range_into(self._path(file), offset, length, memoryview(buf).cast("B"))
+
+    def read_all(self, file: str) -> bytes:
+        import io
+
+        buf = io.BytesIO()
+        self.volume.read_file_into(self._path(file), buf)
+        return buf.getvalue()
+
+    def exists(self, file: str) -> bool:
+        from ..exception import NotFoundError
+
+        try:
+            self.read(file, 0, 0)  # a length-0 read stats the file, fetching nothing
+            return True
+        except NotFoundError:
+            return False
+
+    def __repr__(self) -> str:
+        return f"VolumeSource({self.volume.object_id!r}, {self.prefix!r})"
 
 
 def _as_source(source: Any) -> Any:
@@ -263,14 +297,20 @@ def _is_checkpoint_file(name: str) -> bool:
     )
 
 
-def _remove_stale_checkpoint(dest: str) -> None:
+def _remove_stale_checkpoint(dest: Union[str, tuple]) -> None:
     """A prior export at the same destination may have left an index/shard
     layout the new one won't overwrite (sharded -> single-file); the loader
     prefers INDEX_FILE, so stale files would win. Remove every checkpoint
     file before writing."""
-    for name in os.listdir(dest):
-        if _is_checkpoint_file(name):
-            os.unlink(os.path.join(dest, name))
+    if isinstance(dest, str):
+        for name in os.listdir(dest):
+            if _is_checkpoint_file(name):
+                os.unlink(os.path.join(dest, name))
+        return
+    volume, prefix = dest
+    for entry in volume.listdir(prefix.strip("/"), recursive=False):
+        if _is_checkpoint_file(entry.path.rsplit("/", 1)[-1]):
+            volume.remove_file(entry.path)
 
 
 def _host_copy(t: torch.Tensor, transpose: bool) -> torch.Tensor:
@@ -287,11 +327,11 @@ def export_checkpoint(
     max_shard_bytes: int = DEFAULT_SHARD_BYTES,
 ) -> dict:
     """Write `params` (the stacked tree) as an HF-convention sharded
-    safetensors checkpoint in the local directory `dest`: the JAX package's
-    files, shard names, index JSON and metadata. Host memory holds at most
-    one tensor at a time. Returns the index dict."""
-    if not isinstance(dest, str):
-        VolumeSource(*dest)  # raises: Volumes wait for Queue A 4
+    safetensors checkpoint in the local directory `dest`, or under a prefix
+    of a Volume (`dest = (volume, prefix)`, committed at the end): the JAX
+    package's files, shard names, index JSON and metadata. Host memory holds
+    at most one tensor at a time; a shard bound for a Volume is staged in a
+    temporary file first. Returns the index dict."""
     if any(is_quantized(v) for v in [params["embed"], params["lm_head"], *params["layers"].values()]):
         raise ValueError("export_checkpoint takes bf16/fp32 params; quantize after loading")
     lmap = layer_map(cfg)
@@ -319,7 +359,8 @@ def export_checkpoint(
                      _nbytes(shape, leaf.dtype))
                 )
 
-    os.makedirs(dest, exist_ok=True)
+    if isinstance(dest, str):
+        os.makedirs(dest, exist_ok=True)
     _remove_stale_checkpoint(dest)
     shard_members: list[list] = [[]]
     current_bytes = total_bytes = 0
@@ -336,18 +377,41 @@ def export_checkpoint(
     n_shards = len(shard_members)
     for si, members in enumerate(shard_members):
         shard_name = SINGLE_FILE if n_shards == 1 else f"model-{si + 1:05d}-of-{n_shards:05d}.safetensors"
-        build_safetensors_streaming(
-            [(name, shape, dt, fetch) for name, shape, dt, fetch, _ in members],
-            os.path.join(dest, shard_name), {"format": "modal_tpu"},
-        )
+        _write_shard(dest, shard_name, [(name, shape, dt, fetch) for name, shape, dt, fetch, _ in members])
         for member in members:
             weight_map[member[0]] = shard_name
 
     index = {"metadata": {"total_size": total_bytes}, "weight_map": weight_map}
     if n_shards > 1:
-        with open(os.path.join(dest, INDEX_FILE), "wb") as f:
-            f.write(json.dumps(index, indent=0).encode())
+        blob = json.dumps(index, indent=0).encode()
+        if isinstance(dest, str):
+            with open(os.path.join(dest, INDEX_FILE), "wb") as f:
+                f.write(blob)
+        else:
+            with dest[0].batch_upload(force=True) as batch:
+                batch.put_data(blob, f"{dest[1].strip('/')}/{INDEX_FILE}")
+    if not isinstance(dest, str):
+        dest[0].commit()
     return index
+
+
+def _write_shard(dest: Union[str, tuple], shard_name: str, entries: list) -> None:
+    """One shard file, streamed one tensor at a time: into the directory,
+    or through a temporary file onto the Volume."""
+    if isinstance(dest, str):
+        build_safetensors_streaming(entries, os.path.join(dest, shard_name), {"format": "modal_tpu"})
+        return
+    import tempfile
+
+    volume, prefix = dest
+    fd, tmp = tempfile.mkstemp(suffix=".safetensors")
+    os.close(fd)
+    try:
+        build_safetensors_streaming(entries, tmp, {"format": "modal_tpu"})
+        with volume.batch_upload(force=True) as batch:
+            batch.put_file(tmp, f"{prefix.strip('/')}/{shard_name}")
+    finally:
+        os.unlink(tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -508,15 +572,15 @@ def load_params(
     """Stream an HF-convention Llama checkpoint into the port's param tree
     on `device` (CUDA unless the caller names the CPU).
 
-    `source`: a local directory path (or a source object with `read`,
-    `read_into`, `read_all`, `exists`). `layout`: "stacked" (`{key:
+    `source`: a local directory path, a `(volume, prefix)` pair, or a
+    source object with `read`, `read_into`, `read_all` and `exists`. `layout`: "stacked" (`{key:
     [n_layers, ...]}`, what serving and `forward` take) or "per_layer" (the
     training layout, a list of per-layer dicts, as `convert.unstack_layers`
     gives, made without a stacked copy). `shardings` (a placement tree of
     the stacked layout, as `parallel.sharding.param_shardings` gives, with
     its DeviceMesh as `mesh`) returns every leaf as a DTensor holding this
-    rank's piece: the whole tensor is loaded, then cut (no regridding of a
-    sharded checkpoint; that waits for ROADMAP.md Queue A 4's Volume).
+    rank's piece: the whole tensor is loaded, then cut (a sharded train
+    state regrids through `checkpoint.VolumeCheckpointer`).
     `dtype` casts (default `cfg.dtype`). Returns when every tensor is on the
     device."""
     if shardings is not None and (mesh is None or layout != "stacked"):

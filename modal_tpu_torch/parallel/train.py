@@ -300,6 +300,40 @@ def sharded_moments(state: TrainState) -> dict:
     return {"exp_avg": wrap(state.params, "exp_avg"), "exp_avg_sq": wrap(state.params, "exp_avg_sq")}
 
 
+def state_tree(state: TrainState) -> dict:
+    """The train state as a tree of tensors, what `checkpoint.VolumeCheckpointer`
+    saves: the params, AdamW's moments in the params' tree (DTensors on a
+    mesh, as `sharded_moments` gives) and its step count, and the step, in
+    the layout of JAX's TrainState (params, opt_state, step) with optax's
+    names (`mu`, `nu`, `count`)."""
+    opt = state.opt_state
+    if not opt.state:
+        _init_moments(opt)
+    moments = sharded_moments(state)
+    first = _local(tree_leaves(state.params)[0])
+    return {"params": state.params,
+            "opt_state": {"mu": moments["exp_avg"], "nu": moments["exp_avg_sq"], "count": opt.state[first]["step"]},
+            "step": torch.tensor(state.step, dtype=torch.int32)}
+
+
+def state_from_tree(tree: dict, tc: TrainConfig) -> TrainState:
+    """A TrainState from `state_tree`'s tree (a restored one): a fresh AdamW
+    bound to its params, holding its moments and step count."""
+    params = tree["params"]
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    opt = make_optimizer(tc).init(params)
+    count = tree["opt_state"]["count"]
+    moments = zip(tree_leaves(params), tree_leaves(tree["opt_state"]["mu"]), tree_leaves(tree["opt_state"]["nu"]))
+    for group in opt.param_groups:
+        on_device = group["fused"] or group["capturable"]
+        for p, mu, nu in moments:
+            local = _local(p)
+            opt.state[local] = {"step": count.to(local.device if on_device else "cpu", copy=True),
+                                "exp_avg": _local(mu), "exp_avg_sq": _local(nu)}
+    return TrainState(params=params, opt_state=opt, step=int(tree["step"]))
+
+
 def train_state_shardings(state: TrainState) -> dict:
     """The placements a sharded train state carries: its params' and its
     AdamW moments' (in the params' tree), as `mirror_opt_shardings` gives."""

@@ -12,8 +12,10 @@ function for `@batched`, `@concurrent` and the web decorators) and records
 with input concurrency, or as a web endpoint. The App writes the batching,
 concurrency and webhook parameters into the function definition; the
 container runtime reads the flags off a serialized class
-(runtime/user_code.py). `@clustered` is refused until the port's gang
-runtime (ROADMAP Queue A 4d).
+(runtime/user_code.py). `@clustered(size)` makes a function a gang: `size`
+containers per call, each rank on its own cards, meeting in a
+torch.distributed process group before the user's code runs
+(runtime/clustered.py).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ class _PartialFunctionFlags(enum.IntFlag):
     EXIT = 8
     BATCHED = 16
     CONCURRENT = 32
+    CLUSTERED = 64
     WEB_ENDPOINT = 128
 
     @staticmethod
@@ -52,6 +55,11 @@ class _PartialFunctionParams:
     # @web_server: the in-container port the user's server binds
     web_server_port: Optional[int] = None
     web_server_startup_timeout: Optional[float] = None
+    # @clustered: the gang's size, whether each input reaches every rank,
+    # and the ranks that must share one fabric
+    cluster_size: Optional[int] = None
+    broadcast_inputs: bool = True
+    fabric_size: Optional[int] = None
 
     def update(self, other: "_PartialFunctionParams") -> None:
         for f in self.__dataclass_fields__:
@@ -217,10 +225,37 @@ def concurrent(
     return wrapper
 
 
-def clustered(size: int, broadcast_inputs: bool = True, **_unused: Any) -> Callable:
-    """Gang scheduling of `size` containers per input: refused until the
-    port's gang runtime (ROADMAP Queue A 4d)."""
-    raise InvalidError("@clustered waits for the port's gang runtime (ROADMAP Queue A 4d)")
+def clustered(
+    size: int,
+    broadcast_inputs: bool = True,
+    tpu_slice: Optional[str] = None,
+    fabric_size: Optional[int] = None,
+    require_single_slice: bool = False,
+) -> Callable:
+    """Gang-schedule `size` containers per call (reference
+    `@modal.experimental.clustered(size, broadcast, rdma, fabric_size)`,
+    _partial_function.py:780-827). The plane places every rank before any
+    starts, each on the cards its `gpu=` asks for, and hands out ranks and a
+    coordinator at TaskClusterHello; the container joins a torch.distributed
+    process group there before the user's code runs. With
+    `broadcast_inputs` every rank receives each input and rank 0's result is
+    the call's. `tpu_slice=` and `require_single_slice=` place TPU pod
+    slices, which the port does not: ask for cards with gpu=."""
+    if size < 1:
+        raise InvalidError("cluster size must be >= 1")
+    if tpu_slice or require_single_slice:
+        raise InvalidError("tpu_slice= and require_single_slice= place TPU pod slices, which the port does not: "
+                           "ask for cards with gpu=")
+
+    def wrapper(raw_f: Callable):
+        params = _PartialFunctionParams(cluster_size=size, broadcast_inputs=broadcast_inputs, fabric_size=fabric_size)
+        if isinstance(raw_f, _PartialFunction):
+            if not (raw_f.flags & _PartialFunctionFlags.FUNCTION):
+                raise InvalidError("@clustered must wrap a function or @method")
+            return raw_f.add_flags(_PartialFunctionFlags.CLUSTERED, params)
+        return _PartialFunction(raw_f, _PartialFunctionFlags.FUNCTION | _PartialFunctionFlags.CLUSTERED, params)
+
+    return wrapper
 
 
 def find_partial_methods_for_user_cls(user_cls: type, flags: int) -> dict[str, _PartialFunction]:

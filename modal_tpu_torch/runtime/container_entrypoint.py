@@ -22,10 +22,13 @@ whose URL goes to the control plane (FunctionSetWebUrl; runtime/asgi.py). Sync u
 (SIGUSR1) raises InputCancellation inside it; SIGTERM drains gracefully
 and SIGUSR2 (preemption) flushes the in-flight inputs' resume tokens first.
 
-A definition that asks for what the port's runtime does not run yet is
-refused before any user code runs, naming the ROADMAP Queue A sub-slice
-that brings it: gangs, cloud bucket mounts and volumes (4d). The runtime
-debug profile (4d) waits too.
+A gang member meets its peers before the user's code is imported
+(`runtime/clustered.py`: TaskClusterHello, then a torch.distributed process
+group over NCCL or gloo); cloud bucket mounts are synced into their paths
+then too, and written back at exit, and each mounted Volume is committed at
+exit. A definition that asks for what the port's runtime does not run yet
+is refused before any user code runs, naming the ROADMAP Queue A sub-slice
+that brings it: the runtime debug profile (4d-ii).
 
 With `MODAL_TPU_POOL_ID` set the process is a warm-pool interpreter
 (server/warm_pool.py, `pool_main`): it imports torch on the main thread
@@ -85,16 +88,13 @@ def load_container_arguments() -> api_pb2.ContainerArguments:
 def waiting_branch(container_args: api_pb2.ContainerArguments) -> str:
     """What of this container's definition the port's runtime cannot run
     yet, naming the ROADMAP Queue A sub-slice that brings it; "" if none."""
-    function_def = container_args.function_def
-    if function_def.group_size > 1 or container_args.world_size > 1:
-        return "a gang container (group_size > 1) waits for the port's gang runtime (ROADMAP Queue A 4d)"
-    if function_def.cloud_bucket_mounts:
-        return "cloud bucket mounts wait for the port's storage slice (ROADMAP Queue A 4d)"
-    if function_def.volume_mounts:
-        return "volume mounts wait for the port's Volumes (ROADMAP Queue A 4d)"
-    if function_def.experimental_options.get("runtime_debug"):
-        return "the runtime debug profile waits for the port's profiler (ROADMAP Queue A 4d)"
+    if container_args.function_def.experimental_options.get("runtime_debug"):
+        return "the runtime debug profile waits for the port's profiler (ROADMAP Queue A 4d-ii)"
     return ""
+
+
+def is_gang_member(container_args: api_pb2.ContainerArguments) -> bool:
+    return container_args.function_def.group_size > 1 or container_args.world_size > 1
 
 
 async def run_lifecycle_hooks(hooks: list, name: str) -> None:
@@ -314,6 +314,16 @@ async def _boot_service(
         thread = await _import_on_main_thread("torch")
         tracing.record_span("container.import_torch", start=t_torch, end=time.time(), parent=boot_span.context,
                             attrs={"task_id": task_id, "thread": thread})
+    if is_gang_member(container_args):
+        # the rendezvous and the process group before the user's code
+        # (reference hook point: _container_entrypoint.py:451-457)
+        from .clustered import init_cluster
+
+        t_gang = time.time()
+        info = await init_cluster(container_args, client)
+        tracing.record_span("container.cluster_init", start=t_gang, end=time.time(), parent=boot_span.context,
+                            attrs={"task_id": task_id, "rank": info.rank, "world_size": info.world_size,
+                                   "backend": info.backend})
     bound_params = None
     if os.environ.get("MODAL_TPU_BOUND_PARAMS"):
         bound_params = deserialize(bytes.fromhex(os.environ["MODAL_TPU_BOUND_PARAMS"]), client)
@@ -457,7 +467,13 @@ async def main_async() -> int:
     exit_status = api_pb2.GENERIC_STATUS_SUCCESS
     exit_exception = ""
     service: Optional[Service] = None
+    bucket_states: list = []
     try:
+        if function_def.cloud_bucket_mounts:
+            # synced before the user's code, which may load weights from them
+            from .bucket_mounts import sync_bucket_mounts
+
+            bucket_states = await sync_bucket_mounts(dict(function_def.cloud_bucket_mounts))
         service = await _boot_service(container_args, client, boot_span)
         tracing.close_span(boot_span)
         if function_def.webhook_type != api_pb2.WEB_ENDPOINT_TYPE_UNSPECIFIED:
@@ -483,6 +499,27 @@ async def main_async() -> int:
                 await run_lifecycle_hooks(service.exit_hooks, "exit")
             except Exception:  # noqa: BLE001 — the result must still be reported
                 traceback.print_exc()
+        if bucket_states:
+            # blocking on purpose: awaits in a cancelled task's finally were
+            # seen hanging until the worker's SIGKILL
+            from .bucket_mounts import writeback_bucket_mounts_sync
+
+            try:
+                writeback_bucket_mounts_sync(bucket_states)
+            except Exception:  # noqa: BLE001
+                traceback.print_exc()
+        # each mounted volume is committed at exit (reference
+        # task_lifecycle_manager.py:117)
+        for volume_id in function_def.volume_mounts.values():
+            try:
+                await retry_transient_errors(client.stub.VolumeCommit, api_pb2.VolumeCommitRequest(volume_id=volume_id),
+                                             max_retries=1)
+            except Exception:  # noqa: BLE001 — the result must still be reported
+                traceback.print_exc()
+        if is_gang_member(container_args):
+            from .clustered import shutdown_cluster
+
+            shutdown_cluster()
         # which rung of the local fast path each of this container's RPCs
         # took (calls by "<method>:<rung>"), under the boot's trace; written
         # before TaskResult, which the worker's stop waits for

@@ -16,7 +16,7 @@ with N free concurrency slots asks for up to N inputs in one long-poll, and
 outputs of concurrent inputs finishing within one window share one
 FunctionPutOutputs (`_utils/coalescer.py`; off with
 MODAL_TPU_DISPATCH_COALESCE=0). The profiler commands wait for ROADMAP
-Queue A 4d.
+Queue A 4d-ii.
 """
 
 from __future__ import annotations

@@ -3,10 +3,11 @@
 rides the same plane.
 
 Routes: blob PUT and GET (HTTP Range, sendfile), multipart part PUTs and
-their completion, and the compile cache's entries (`/compile/<key>`). The
-volume-block and volume-file routes come with Volumes (ROADMAP Queue A 4d),
-the token-flow page with tokens (4e), and `/metrics` and its history with
-the port's metrics plane (4d).
+their completion, the compile cache's entries (`/compile/<key>`), a volume's
+content blocks (`/block/<sha256>`, sendfile with Range) and whole volume
+files (`/volfile/<volume_id>/<path>`, the blocks stitched on the server,
+with Range). The token-flow page comes with tokens (ROADMAP Queue A 4e),
+and `/metrics` and its history with the port's metrics plane (4d-ii).
 """
 
 from __future__ import annotations
@@ -89,6 +90,11 @@ class BlobServer:
         app.router.add_get("/compile/{key}", self._compile_get)
         app.router.add_delete("/compile/{key}", self._compile_delete)
         app.router.add_get("/compile", self._compile_keys)
+        # volume content blocks, and whole volume files stitched from their
+        # blocks: the striped Volume reads (volume.py) use these instead of
+        # a gRPC proto copy per 8 MiB block
+        app.router.add_get("/block/{sha256_hex}", self._get_block)
+        app.router.add_get("/volfile/{volume_id}/{path:.*}", self._get_volume_file)
         self._runner = web.AppRunner(app, access_log=None)
         await self._runner.setup()
         site = web.TCPSite(self._runner, self.host, self.port)
@@ -144,6 +150,89 @@ class BlobServer:
             BLOB_REQUESTS.inc(route="get", code="404")
             return web.Response(status=404, text="not found")
         return self._serve_sendfile(request, path, "get")
+
+    async def _get_block(self, request: web.Request) -> web.StreamResponse:
+        """One volume content block, with the Range semantics of a blob."""
+        path = self.state.block_path(request.match_info["sha256_hex"])
+        if not os.path.exists(path):
+            BLOB_REQUESTS.inc(route="block_get", code="404")
+            return web.Response(status=404, text="not found")
+        return self._serve_sendfile(request, path, "block_get")
+
+    async def _get_volume_file(self, request: web.Request) -> web.StreamResponse:
+        """A whole volume file with Range: the server stitches its blocks,
+        so a client stripes a multi-GiB file with a few large ranged GETs."""
+        from .._utils.hash_utils import BLOCK_SIZE
+
+        vol = self.state.volumes.get(request.match_info["volume_id"])
+        f = vol.files.get(request.match_info["path"].lstrip("/")) if vol is not None else None
+        if f is None:
+            BLOB_REQUESTS.inc(route="volfile", code="404")
+            return web.Response(status=404, text="not found")
+
+        def read_block_range(i: int, lo: int, hi: int) -> list[bytes]:
+            pieces: list[bytes] = []
+            with open(self.state.block_path(f.block_sha256_hex[i]), "rb") as bf:
+                bf.seek(lo)
+                remaining = hi - lo
+                while remaining > 0:
+                    piece = bf.read(min(CHUNK, remaining))
+                    if not piece:
+                        break
+                    remaining -= len(piece)
+                    pieces.append(piece)
+            return pieces
+
+        async def chunks(start: int, stop: int):
+            # the disk reads run in threads: a cold multi-GiB stream never
+            # stalls the plane's loop
+            for i in range(start // BLOCK_SIZE, len(f.block_sha256_hex)):
+                block_lo = i * BLOCK_SIZE
+                if block_lo >= stop:
+                    break
+                for piece in await asyncio.to_thread(
+                        read_block_range, i, max(start - block_lo, 0), min(stop - block_lo, BLOCK_SIZE)):
+                    yield piece
+
+        return await self._serve_ranged(request, "volfile", f.size, chunks)
+
+    async def _serve_ranged(self, request: web.Request, route: str, size: int, chunks) -> web.StreamResponse:
+        """Range negotiation and chunked streaming for a file made of several
+        on-disk pieces; `chunks(start, stop)` yields the range's bytes."""
+        headers = {"Accept-Ranges": "bytes"}
+        if request.method == "HEAD":
+            BLOB_REQUESTS.inc(route=route, code="200")
+            return web.Response(status=200, headers={**headers, "Content-Length": str(size)})
+        try:
+            rng = request.http_range  # slice(start, stop_exclusive)
+        except ValueError:
+            BLOB_REQUESTS.inc(route=route, code="416")
+            return web.Response(status=416, headers={"Content-Range": f"bytes */{size}"}, text="bad range")
+        start, stop = rng.start, rng.stop
+        if start is None and stop is None:
+            start, stop, status = 0, size, 200
+        else:
+            if start is None:  # a suffix range: bytes=-N
+                start = max(size + (stop if stop is not None and stop < 0 else 0), 0)
+            if start < 0:
+                start = max(size + start, 0)
+            stop = size if stop is None or stop < 0 or stop > size else stop
+            if start >= size or start >= stop:
+                BLOB_REQUESTS.inc(route=route, code="416")
+                return web.Response(status=416, headers={"Content-Range": f"bytes */{size}"},
+                                    text="unsatisfiable range")
+            status = 206
+            headers["Content-Range"] = f"bytes {start}-{stop - 1}/{size}"
+        resp = web.StreamResponse(status=status, headers={**headers, "Content-Length": str(stop - start)})
+        await resp.prepare(request)
+        sent = 0
+        async for chunk in chunks(start, stop):
+            await resp.write(chunk)
+            sent += len(chunk)
+        await resp.write_eof()
+        BLOB_BYTES.inc(sent, direction="out")
+        BLOB_REQUESTS.inc(route=route, code=str(status))
+        return resp
 
     def _serve_sendfile(self, request: web.Request, path: str, route: str) -> web.StreamResponse:
         """One file through aiohttp's FileResponse (kernel sendfile, native

@@ -26,11 +26,11 @@ outputs, worker registrations and the idempotency seen-set) is replayable:
   (``IdempotencyCache``), so a retry storm after a restart replays cached
   responses instead of re-executing.
 
-The port's plane has the function path's tables and the App layer's images
-and secrets. A journal written by the JAX package's plane may hold records of
-tables the port does not have yet (volumes, dicts and queues, proxies,
-environments, workspace settings, tokens, input-plane attempts, SLO alerts):
-recovery
+The port's plane has the function path's tables, the App layer's images
+and secrets, and volumes. A journal written by the JAX package's plane may
+hold records of tables the port does not have yet (dicts and queues,
+proxies, environments, workspace settings, tokens, input-plane attempts, SLO
+alerts): recovery
 counts them by type in its report and logs one warning per type naming the
 ROADMAP Queue A sub-slice that brings the table; it never drops them
 silently.
@@ -85,8 +85,7 @@ IDEMPOTENT_RPCS = frozenset(
 # Record types of the JAX package's journal that the port's plane has no
 # table for yet, by the ROADMAP Queue A sub-slice that brings the table.
 WAITING_RECORD_TYPES: dict[str, str] = {
-    **dict.fromkeys(("volume", "volume_files", "volume_rm", "volume_meta", "volume_del"), "4d (Volumes)"),
-    "alert": "4d (SLO alerts)",
+    "alert": "4d-ii (SLO alerts)",
     **dict.fromkeys(("dictq", "dictq_del"), "4e (dicts and queues)"),
     **dict.fromkeys(("proxy", "proxy_del"), "4e (proxies)"),
     **dict.fromkeys(("environment", "environment_del", "environment_update"), "4e (environments)"),
@@ -114,6 +113,9 @@ EXEMPT_RPCS: dict[str, str] = {
     "TaskReady": "sandbox readiness is process-bound",
     "TunnelStart": "tunnel listeners die with the supervisor process",
     "TunnelStop": "tunnel listeners die with the supervisor process",
+    "EphemeralObjectHeartbeat": "liveness timestamp for ephemeral objects",
+    "TaskClusterHello": "gang rendezvous state; gangs relaunch from the backlog",
+    "VolumeBlockPut": "content-addressed block store on disk is already durable",
 }
 
 
@@ -741,6 +743,61 @@ def _apply_rpc_dedupe(s, r):
         s.idempotency.put(r["key"], r.get("method", ""), _unb64(r.get("resp", "")), journal=False)
 
 
+def _apply_volume(s, r):
+    from .state import VolumeState
+
+    vol = s.volumes.get(r["volume_id"]) or VolumeState(volume_id=r["volume_id"])
+    vol.name = r.get("name", "")
+    vol.version = r.get("version", vol.version)
+    vol.ephemeral = bool(r.get("ephemeral"))
+    vol.last_heartbeat = time.time() if vol.ephemeral else 0.0
+    s.volumes[r["volume_id"]] = vol
+    if r.get("deploy_key"):
+        s.deployed_volumes[tuple(r["deploy_key"])] = vol.volume_id
+
+
+def _apply_volume_files(s, r):
+    vol = s.volumes.get(r["volume_id"])
+    if vol is None:
+        return
+    for fb64 in r.get("files", []):
+        f = _proto(api_pb2.VolumeFile, fb64)
+        vol.files[f.path] = f
+
+
+def _apply_volume_rm(s, r):
+    vol = s.volumes.get(r["volume_id"])
+    if vol is None:
+        return
+    path = r.get("path", "")
+    if r.get("recursive"):
+        for p in [p for p in vol.files if p == path or p.startswith(path + "/")]:
+            del vol.files[p]
+    else:
+        vol.files.pop(path, None)
+
+
+def _apply_volume_meta(s, r):
+    vol = s.volumes.get(r["volume_id"])
+    if vol is None:
+        return
+    if "name" in r:
+        for key, vid in list(s.deployed_volumes.items()):
+            if vid == vol.volume_id:
+                del s.deployed_volumes[key]
+                s.deployed_volumes[(key[0], r["name"])] = vid
+        vol.name = r["name"]
+    if "committed_version" in r:
+        vol.committed_version = r["committed_version"]
+
+
+def _apply_volume_del(s, r):
+    s.volumes.pop(r["volume_id"], None)
+    for key, vid in list(s.deployed_volumes.items()):
+        if vid == r["volume_id"]:
+            del s.deployed_volumes[key]
+
+
 _APPLIERS: dict[str, Callable] = {
     "app": _apply_app,
     "app_state": _apply_app_state,
@@ -759,6 +816,11 @@ _APPLIERS: dict[str, Callable] = {
     "secret_del": _apply_secret_del,
     "image": _apply_image,
     "image_del": _apply_image_del,
+    "volume": _apply_volume,
+    "volume_files": _apply_volume_files,
+    "volume_rm": _apply_volume_rm,
+    "volume_meta": _apply_volume_meta,
+    "volume_del": _apply_volume_del,
     "rpc_dedupe": _apply_rpc_dedupe,
 }
 
@@ -784,6 +846,24 @@ def synthesize_records(s) -> list[dict]:
                 "hash_key": hash_by_image.get(img.image_id, ""),
             }
         )
+    deployed_by_volume = {v: k for k, v in s.deployed_volumes.items()}
+    for vol in s.volumes.values():
+        deploy_key = deployed_by_volume.get(vol.volume_id)
+        out.append(
+            {
+                "t": "volume",
+                "volume_id": vol.volume_id,
+                "name": vol.name,
+                "version": vol.version,
+                "ephemeral": vol.ephemeral,
+                "deploy_key": list(deploy_key) if deploy_key else None,
+            }
+        )
+        if vol.files:
+            out.append({"t": "volume_files", "volume_id": vol.volume_id,
+                        "files": [_b64(f.SerializeToString()) for f in vol.files.values()]})
+        if vol.committed_version:
+            out.append({"t": "volume_meta", "volume_id": vol.volume_id, "committed_version": vol.committed_version})
     deployed_by_secret = {v: k for k, v in s.deployed_secrets.items()}
     for sec in s.secrets.values():
         deploy_key = deployed_by_secret.get(sec.secret_id)
@@ -947,7 +1027,7 @@ def recover_state(state, journal: Journal) -> dict:
         logger.warning(f"journal recovery skipped {n} {t!r} record(s): {where}")
     # post-pass 1: id counters past every recovered id
     for pool in (state.apps, state.functions, state.function_calls, state.inputs, state.workers, state.secrets,
-                 state.images):
+                 state.images, state.volumes):
         for obj_id in pool:
             bump_id_counter(obj_id)
     # post-pass 2: every unfinished input is pending, once in its queue

@@ -24,10 +24,18 @@ modal_tpu/server/scheduler.py).
   `cron.next_fire`); the reap tick drops finished fires
   (`_gc_scheduled_calls`).
 
-Gang placement (`group_size > 1`) comes with the port's gang runtime
-(ROADMAP Queue A 4d; FunctionCreate refuses a gang until then), and so does
-the SLO autoscaler of serving functions (FunctionCreate and
-FunctionUpdateSchedulingParams refuse its targets until then).
+- **Gangs** (`group_size > 1`): all ranks are reserved before any launches
+  (`_launch_gang`), each on its own cards of a worker (a worker takes
+  several ranks when it has the cards; the least-loaded worker first), and
+  a failed launch rolls the gang back. Desired gangs are the busy ones plus
+  the unclaimed backlog, capped by `max_containers` in gang units. A gang
+  whose ranks the registered workers could never hold together is refused
+  like any unsatisfiable card ask. Gangs never take a warm-pool
+  interpreter.
+
+The SLO autoscaler of serving functions comes with ROADMAP Queue A 4d-ii
+(FunctionCreate and FunctionUpdateSchedulingParams refuse its targets until
+then).
 
 After a restart of the plane, journal-recovered workers take no placement
 until their next heartbeat re-adopts them, and are deregistered when none
@@ -52,7 +60,7 @@ from ..observability.catalog import (
     SCHED_TASKS_REAPED,
 )
 from ..proto import api_pb2
-from .state import FunctionState, ServerState, TaskState_, WorkerState
+from .state import ClusterState, FunctionState, ServerState, TaskState_, WorkerState
 
 SCHEDULE_INTERVAL = 0.05
 # how long a placement may look unsatisfiable before its backlog is failed
@@ -125,6 +133,7 @@ class Scheduler:
                     await self.reap_dead_tasks()
                     self._gc_scheduled_calls()
                     if self.servicer is not None:
+                        self.servicer.reap_stale_ephemerals()
                         await self.servicer.maybe_compact()
             except Exception:
                 logger.exception("scheduler iteration failed")
@@ -157,8 +166,10 @@ class Scheduler:
                     logger.warning(f"disabling schedule for {fn.tag}: {exc}")
                     fn.next_fire_at = -1.0
             backlog = sum(1 for iid in fn.pending if self.s.inputs[iid].status == "pending")
+            group_size = fn.definition.group_size or 0
             unsat_reason = self.placement_unsatisfiable_reason(
-                fn.definition.scheduler_placement, subject=fn.tag, spec=gpu_spec(fn.definition.resources)
+                fn.definition.scheduler_placement, subject=fn.tag, spec=gpu_spec(fn.definition.resources),
+                ranks=max(1, group_size),
             )
             if backlog > 0 and unsat_reason is not None:
                 # no registered worker could EVER hold this: fail the backlog
@@ -185,6 +196,24 @@ class Scheduler:
                     image_key = fn.definition.image_id or ""
                     desired_pools[image_key] = max(desired_pools.get(image_key, 0), pool_target)
             live = [tid for tid in fn.task_ids if self.s.tasks[tid].state in _LIVE_TASK_STATES]
+            if group_size > 1:
+                # one gang serves one call at a time: desired gangs are the
+                # busy ones plus the unclaimed backlog (so a call that comes
+                # while a gang works gets a gang of its own), capped by
+                # max_containers in gang units
+                live_clusters = {self.s.tasks[tid].cluster_id for tid in live if self.s.tasks[tid].cluster_id}
+                busy_clusters = {
+                    self.s.tasks[inp.claimed_by].cluster_id
+                    for inp in self.s.inputs.values()
+                    if inp.status == "claimed" and inp.claimed_by in self.s.tasks
+                    and self.s.tasks[inp.claimed_by].function_id == fn.function_id
+                    and self.s.tasks[inp.claimed_by].cluster_id
+                }
+                max_gangs = max(1, (settings.max_containers or 8) // group_size)
+                for _ in range(max(0, min(backlog + len(busy_clusters), max_gangs) - len(live_clusters))):
+                    if not await self._launch_gang(fn, group_size):
+                        break  # short of cards now; the next tick retries
+                continue
             max_containers = settings.max_containers or 8
             # a container drains max_concurrent_inputs at once: 100 pending
             # inputs at concurrency 50 need 2 containers, not 8
@@ -307,16 +336,20 @@ class Scheduler:
         return True
 
     def placement_unsatisfiable_reason(
-        self, placement_proto, subject: str = "", spec: Optional[GPUSpec] = None
+        self, placement_proto, subject: str = "", spec: Optional[GPUSpec] = None, ranks: int = 1
     ) -> Optional[str]:
-        """A non-None reason means no registered worker could EVER take the
-        placement: its labels match no worker, or no worker they match has
-        `spec`'s card type and count. Callers own the grace window."""
+        """A non-None reason means the registered workers could never take
+        the placement: its labels match no worker, or the workers they match
+        do not hold `spec`'s card type and count for each of `ranks` ranks
+        together (each rank's cards on one worker). Callers own the grace
+        window."""
         placement = self._placement_or_none(placement_proto)
         if placement is None and spec is None:
             return None
         workers = [w for w in self.s.workers.values() if self._placement_ok(w, placement)]
-        if workers and any(worker_holds(w, spec) for w in workers):
+        holders = [w for w in workers if worker_holds(w, spec)]
+        if holders and (spec is None or spec.count == 0
+                        or sum(w.num_gpus // spec.count for w in holders) >= ranks):
             return None
         reason = "unsatisfiable placement" + (f" for {subject}" if subject else "")
         if not workers and placement is not None:
@@ -327,6 +360,8 @@ class Scheduler:
                 + (f" instance_types={list(placement.instance_types)}" if placement.instance_types else "")
                 + " matches no registered worker"
             )
+        if ranks > 1:
+            return reason + f": gpu={spec} for each of {ranks} ranks matches no registered worker"
         return reason + f": gpu={spec} matches no registered worker"
 
     @staticmethod
@@ -336,10 +371,14 @@ class Scheduler:
             return None
         return p
 
-    def _pick_worker(self, spec: Optional[GPUSpec], placement=None) -> Optional[WorkerState]:
+    def _pick_worker(self, spec: Optional[GPUSpec], placement=None, reserved: Optional[dict] = None,
+                     rank_load: Optional[dict] = None) -> Optional[WorkerState]:
         """Least-loaded live worker with enough free matching cards that
         satisfies the placement constraints; among equals, one with a parked
-        warm-pool interpreter (it serves without a fresh process boot)."""
+        warm-pool interpreter (it serves without a fresh process boot).
+        `reserved` (worker_id -> cards) and `rank_load` (worker_id -> ranks)
+        count what a gang being placed has taken already."""
+        reserved, rank_load = reserved or {}, rank_load or {}
         best: Optional[WorkerState] = None
         best_load = (0, 0)
         for worker in self.s.workers.values():
@@ -350,9 +389,10 @@ class Scheduler:
                 continue
             if not self._placement_ok(worker, placement) or not worker_holds(worker, spec):
                 continue
-            if spec is not None and len(worker.free_gpus()) < spec.count:
+            if spec is not None and len(worker.free_gpus()) - reserved.get(worker.worker_id, 0) < spec.count:
                 continue
-            load = (len(worker.active_tasks), 0 if worker.warm_pool_ready > 0 else 1)
+            load = (len(worker.active_tasks) + rank_load.get(worker.worker_id, 0),
+                    0 if worker.warm_pool_ready > 0 else 1)
             if best is None or load < best_load:
                 best, best_load = worker, load
         return best
@@ -366,15 +406,19 @@ class Scheduler:
                 return inp.trace_context
         return ""
 
-    def _claim(self, resources: api_pb2.Resources, placement_proto, **fields) -> Optional[TaskState_]:
-        """A new task on the least-loaded worker that can take it, its cards
-        pinned, or None when no worker has room now."""
+    def _claim(self, resources: api_pb2.Resources, placement_proto, worker: Optional[WorkerState] = None,
+               **fields) -> Optional[TaskState_]:
+        """A new task on `worker`, or else the least-loaded worker that can
+        take it, its cards pinned; None when no worker has room now."""
         spec = gpu_spec(resources)
-        worker = self._pick_worker(spec, placement=self._placement_or_none(placement_proto))
+        if worker is None:
+            worker = self._pick_worker(spec, placement=self._placement_or_none(placement_proto))
         if worker is None:
             return None
         task_id = self.s.make_id("ta")
         gpu_ids = worker.free_gpus()[: spec.count] if spec is not None else []
+        if spec is not None and len(gpu_ids) < spec.count:
+            return None  # never launch short of cards
         for g in gpu_ids:
             worker.gpus_in_use[g] = task_id
         task = TaskState_(task_id=task_id, state=api_pb2.TASK_STATE_WORKER_ASSIGNED, worker_id=worker.worker_id,
@@ -389,16 +433,23 @@ class Scheduler:
         assignment.router_token = task.router_token
         await self.s.workers[task.worker_id].events.put(api_pb2.WorkerPollResponse(assignment=assignment))
 
-    async def _launch_task(self, fn: FunctionState) -> Optional[TaskState_]:
+    async def _launch_task(self, fn: FunctionState, cluster: Optional[ClusterState] = None, rank: int = 0,
+                           worker: Optional[WorkerState] = None) -> Optional[TaskState_]:
         t_place0 = time.time()
-        task = self._claim(fn.definition.resources, fn.definition.scheduler_placement, function_id=fn.function_id,
-                           app_id=fn.app_id, trace_context=self._launch_trace_context(fn))
+        task = self._claim(fn.definition.resources, fn.definition.scheduler_placement, worker=worker,
+                           function_id=fn.function_id, app_id=fn.app_id, trace_context=self._launch_trace_context(fn),
+                           rank=rank, cluster_id=cluster.cluster_id if cluster is not None else "")
         if task is None:
             return None
         fn.task_ids.add(task.task_id)
-        await self._assign(task, api_pb2.TaskAssignment(container_arguments=self._container_arguments(fn, task)))
-        SCHED_TASKS_LAUNCHED.inc(kind="task")
-        SCHED_PLACEMENT_LATENCY.observe(time.time() - t_place0, kind="task")
+        args = self._container_arguments(fn, task)
+        if cluster is not None:
+            args.rank = rank
+            args.world_size = cluster.size
+        await self._assign(task, api_pb2.TaskAssignment(container_arguments=args))
+        kind = "gang_member" if cluster is not None else "task"
+        SCHED_TASKS_LAUNCHED.inc(kind=kind)
+        SCHED_PLACEMENT_LATENCY.observe(time.time() - t_place0, kind=kind)
         tracing.record_span(
             "scheduler.place",
             start=t_place0,
@@ -409,6 +460,57 @@ class Scheduler:
         )
         logger.debug(f"scheduled task {task.task_id} for {fn.tag} on {task.worker_id} gpus={task.gpu_ids}")
         return task
+
+    def _pick_gang_workers(self, fn: FunctionState, group_size: int) -> Optional[list[WorkerState]]:
+        """A worker for each rank, or None when the cards are short now. A
+        worker takes several ranks when it holds their cards (many ranks on
+        one host in local runs); ranks spread over the least-loaded hosts
+        first."""
+        spec = gpu_spec(fn.definition.resources)
+        placement = self._placement_or_none(fn.definition.scheduler_placement)
+        chosen: list[WorkerState] = []
+        reserved: dict[str, int] = {}
+        rank_load: dict[str, int] = {}
+        for _rank in range(group_size):
+            w = self._pick_worker(spec, placement=placement, reserved=reserved, rank_load=rank_load)
+            if w is None:
+                return None
+            reserved[w.worker_id] = reserved.get(w.worker_id, 0) + (spec.count if spec is not None else 0)
+            rank_load[w.worker_id] = rank_load.get(w.worker_id, 0) + 1
+            chosen.append(w)
+        return chosen
+
+    async def _launch_gang(self, fn: FunctionState, group_size: int) -> bool:
+        """Place a gang atomically: every rank's worker is reserved before
+        any launches, and a launch that fails rolls the gang back (its
+        launched ranks stopped and their cards freed at once, not after the
+        rendezvous times out). False when the cards are short now."""
+        from .._utils.grpc_utils import find_free_port
+
+        chosen = self._pick_gang_workers(fn, group_size)
+        if chosen is None:
+            return False
+        cluster = ClusterState(cluster_id=self.s.make_id("cl"), function_id=fn.function_id, size=group_size,
+                               coordinator_port=find_free_port())
+        self.s.clusters[cluster.cluster_id] = cluster
+        for rank, worker in enumerate(chosen):
+            task = await self._launch_task(fn, cluster=cluster, rank=rank, worker=worker)
+            if task is None:
+                for tid in cluster.task_ids:
+                    t = self.s.tasks[tid]
+                    t.terminate = True
+                    t.state = api_pb2.TASK_STATE_FAILED
+                    t.finished_at = time.time()
+                    w = self.s.workers.get(t.worker_id)
+                    if w is not None:
+                        await w.events.put(api_pb2.WorkerPollResponse(stop=api_pb2.TaskStopEvent(task_id=tid, force=True)))
+                    if self.servicer is not None:
+                        self.servicer._release_task(t)
+                del self.s.clusters[cluster.cluster_id]
+                logger.warning(f"gang allocation failed for {fn.tag}; rolled back")
+                return False
+            cluster.task_ids.append(task.task_id)
+        return True
 
     async def launch_sandbox(self, sandbox) -> Optional[TaskState_]:
         """Place a sandbox's task (reference: sandboxes are on-demand
@@ -488,6 +590,15 @@ class Scheduler:
                 continue
             task.preempted = True
             task.terminate = True
+            # a gang drains as a unit: its peers on other hosts stop too, and
+            # the replacement gang is placed whole from the backlog
+            cluster = self.s.clusters.get(task.cluster_id) if task.cluster_id else None
+            for peer_id in cluster.task_ids if cluster is not None else ():
+                peer = self.s.tasks.get(peer_id)
+                if peer is not None and peer_id != task_id and not peer.preempted:
+                    peer.preempted = True
+                    peer.terminate = True
+                    await self._send_stop(peer, grace_s, True)
             if notify_worker:
                 await self._send_stop(task, grace_s, True)
         self.s.schedule_event.set()

@@ -18,14 +18,18 @@ Every mutating handler appends the effect it applied to the write-ahead
 journal (server/journal.py) under the JAX handler's record type, so a
 restarted plane replays its apps, calls and queued inputs; claims, tasks,
 heartbeats and logs are transient by design, and so are sandboxes and
-tunnels (journal.EXEMPT_RPCS). This servicer serves 81 of the wire
-contract's 148 RPCs; the others answer gRPC UNIMPLEMENTED (proto/rpc.py):
-the task cluster rendezvous, volumes, cluster listing, the timeline,
-profiles and metrics history (4d); image listing and deletion, proxies,
-dicts, queues, environments, tokens, workspaces, ContainerExec*, the input
-plane, and shard and journal administration (4e). Exec and the filesystem
-of a sandbox, and the warm pool's handoff, are served by each worker's
-task command router (server/task_router.py).
+tunnels (journal.EXEMPT_RPCS). Volumes (the 13 Volume* RPCs and the
+ephemeral heartbeat) keep files as block lists over the content-addressed
+block store, and gangs meet at TaskClusterHello (ClusterList lists them): a
+broadcast input reaches every rank, rank 0's result is the output, and a
+dead rank fails its gang's inputs and preempts its peers. This servicer
+serves 97 of the wire contract's 148 RPCs; the others answer gRPC
+UNIMPLEMENTED (proto/rpc.py): the timeline, profiles and metrics history
+(4d-ii); image listing and deletion, proxies, dicts, queues, environments,
+tokens, workspaces, ContainerExec*, the input plane, and shard and journal
+administration (4e). Exec and the filesystem of a sandbox, and the warm
+pool's handoff, are served by each worker's task command router
+(server/task_router.py).
 """
 
 from __future__ import annotations
@@ -78,8 +82,6 @@ def waiting_feature(definition: api_pb2.Function) -> str:
     if definition.resources.tpu_config.tpu_type:
         return (f"tpu_config ({definition.resources.tpu_config.tpu_type!r}) asks for TPU chips, which this control "
                 f"plane does not place: ask for cards with gpu= (resources.gpu_config)")
-    if (definition.group_size or 0) > 1:
-        return "gang functions (group_size > 1) wait for the port's gang runtime (ROADMAP Queue A 4d)"
     return slo_targets_waiting(definition.autoscaler_settings)
 
 
@@ -91,7 +93,7 @@ def slo_targets_waiting(settings: api_pb2.AutoscalerSettings) -> str:
     if not named:
         return ""
     return (f"autoscaler SLO targets ({', '.join(named)}) wait for the port's SLO autoscaler "
-            f"(ROADMAP Queue A 4d)")
+            f"(ROADMAP Queue A 4d-ii)")
 
 
 class ModalTPUServicer:
@@ -666,6 +668,7 @@ class ModalTPUServicer:
                             resume_token=old.resume_token)
             else:
                 self._j("input_retry", input_id=old.input_id, retry_count=old.retry_count)
+            old.delivered_to.clear()
             old.claimed_by = ""
             old.claimed_at = 0.0
             if old.input_id not in fn.pending:
@@ -898,6 +901,20 @@ class ModalTPUServicer:
             attrs={"input_id": inp.input_id, "function_call_id": inp.function_call_id, "function_id": fn.function_id},
         )
 
+    @staticmethod
+    def _input_item(task: TaskState_, inp: InputState) -> api_pb2.FunctionGetInputsItem:
+        task.first_input_at = task.first_input_at or time.time()
+        return api_pb2.FunctionGetInputsItem(
+            input_id=inp.input_id,
+            input=inp.input,
+            function_call_id=inp.function_call_id,
+            idx=inp.idx,
+            retry_count=inp.retry_count,
+            resume_token=inp.resume_token,
+            trace_context=inp.trace_context,
+            claimed_at=inp.claimed_at,
+        )
+
     async def FunctionGetInputs(self, request: api_pb2.FunctionGetInputsRequest, context) -> api_pb2.FunctionGetInputsResponse:
         fn = self.s.functions.get(request.function_id)
         task = self.s.tasks.get(request.task_id)
@@ -914,10 +931,34 @@ class ModalTPUServicer:
                 return api_pb2.FunctionGetInputsResponse(inputs=[api_pb2.FunctionGetInputsItem(kill_switch=True)])
             batch_size = max(1, request.max_values or 1)
             items = []
+            cluster = self.s.clusters.get(task.cluster_id) if task.cluster_id else None
             # batching linger: once the first input of a batch is seen, wait
             # up to batch_linger_ms for the batch to fill
             linger_deadline = None
             while True:
+                if cluster is not None and fn.definition.broadcast_inputs:
+                    # gang broadcast: every rank gets each input, which leaves
+                    # the queue once all have it; the first claiming rank's
+                    # gang owns it. Rank 0's SUCCESS is the output, a FAILURE
+                    # from any rank fails it (_put_outputs)
+                    for input_id in list(fn.pending):
+                        if len(items) >= batch_size:
+                            break
+                        inp = self.s.inputs[input_id]
+                        if inp.status != "pending" or task.task_id in inp.delivered_to:
+                            continue
+                        claimer = self.s.tasks.get(inp.claimed_by) if inp.claimed_by else None
+                        if claimer is not None and claimer.cluster_id != task.cluster_id:
+                            continue
+                        inp.delivered_to.add(task.task_id)
+                        inp.claimed_by = inp.claimed_by or task.task_id
+                        inp.claimed_at = inp.claimed_at or time.time()
+                        if len(inp.delivered_to) >= cluster.size:
+                            inp.status = "claimed"
+                            fn.pending.remove(input_id)
+                            self._note_input_claimed(fn, inp)
+                        items.append(self._input_item(task, inp))
+                    break
                 while fn.pending and len(items) < batch_size:
                     inp = self.s.inputs[fn.pending.pop(0)]
                     if inp.status != "pending":
@@ -926,19 +967,7 @@ class ModalTPUServicer:
                     inp.claimed_by = task.task_id
                     inp.claimed_at = time.time()
                     self._note_input_claimed(fn, inp)
-                    task.first_input_at = task.first_input_at or time.time()
-                    items.append(
-                        api_pb2.FunctionGetInputsItem(
-                            input_id=inp.input_id,
-                            input=inp.input,
-                            function_call_id=inp.function_call_id,
-                            idx=inp.idx,
-                            retry_count=inp.retry_count,
-                            resume_token=inp.resume_token,
-                            trace_context=inp.trace_context,
-                            claimed_at=inp.claimed_at,
-                        )
-                    )
+                    items.append(self._input_item(task, inp))
                 if not items or len(items) >= batch_size or not request.batch_linger_ms:
                     break
                 if linger_deadline is None:
@@ -1002,7 +1031,10 @@ class ModalTPUServicer:
             inp = self.s.inputs.get(item.input_id)
             if inp is not None:
                 if inp.status == "done":
-                    continue  # duplicate
+                    continue  # duplicate (a gang peer's, say)
+                if (pushing_task is not None and pushing_task.cluster_id and pushing_task.rank != 0
+                        and inp.delivered_to and item.result.status == api_pb2.GENERIC_STATUS_SUCCESS):
+                    continue  # a broadcast gang's output is rank 0's
                 inp.status = "done"
             appended = self._append_output(
                 call,
@@ -1031,7 +1063,9 @@ class ModalTPUServicer:
             # newer attempt recorded: accept only from the current holder, or
             # a first-ever token for an input nobody holds
             if inp is not None and (
-                inp.claimed_by == request.task_id or (not inp.claimed_by and not inp.resume_token)
+                inp.claimed_by == request.task_id
+                or request.task_id in inp.delivered_to
+                or (not inp.claimed_by and not inp.resume_token)
             ):
                 inp.resume_token = request.resume_token
                 # the checkpoint survives a crash of the plane too
@@ -1068,6 +1102,8 @@ class ModalTPUServicer:
                     created_at=task.created_at,
                     started_at=task.started_at,
                     finished_at=task.finished_at,
+                    cluster_id=task.cluster_id,
+                    rank=task.rank,
                     gpu_ids=list(task.gpu_ids),
                 )
             )
@@ -1197,12 +1233,32 @@ class ModalTPUServicer:
             async with call.output_condition:
                 call.output_condition.notify_all()
 
+    def _gang_of(self, task: TaskState_) -> set:
+        cluster = self.s.clusters.get(task.cluster_id) if task.cluster_id else None
+        return set(cluster.task_ids) if cluster is not None else set()
+
     async def _fail_claimed_inputs(self, task: TaskState_, result: api_pb2.GenericResult) -> None:
         """Inputs claimed by a dead container retry under the function's
-        policy, or fail once it is spent."""
+        policy, or fail once it is spent. A gang fails as a unit: a dead
+        rank preempts its live peers, and every input delivered to the gang
+        (a broadcast input may be claimed by any rank, or be partly
+        delivered) retries or fails, each consuming a retry."""
+        gang = self._gang_of(task)
+        for peer_id in gang - {task.task_id}:
+            peer = self.s.tasks.get(peer_id)
+            if peer is not None and not peer.terminate:
+                peer.terminate = True
+                peer.preempted = True  # surfaces as TASK_STATE_PREEMPTED
+                worker = self.s.workers.get(peer.worker_id)
+                if worker is not None:
+                    await worker.events.put(api_pb2.WorkerPollResponse(stop=api_pb2.TaskStopEvent(task_id=peer_id)))
+        dead = gang | {task.task_id}
         fn = self.s.functions.get(task.function_id)
         for inp in self.s.inputs.values():
-            if inp.status != "claimed" or inp.claimed_by != task.task_id:
+            touched_pending = inp.status == "pending" and bool(inp.delivered_to & dead or inp.claimed_by in dead)
+            claimed = inp.status == "claimed" and (
+                inp.claimed_by == task.task_id or bool(gang and (inp.claimed_by in gang or task.task_id in inp.delivered_to)))
+            if not (touched_pending or claimed):
                 continue
             call = self.s.function_calls.get(inp.function_call_id)
             if call is None or fn is None:
@@ -1211,6 +1267,7 @@ class ModalTPUServicer:
                 inp.retry_count += 1
                 inp.status = "pending"
                 self._j("input_retry", input_id=inp.input_id, retry_count=inp.retry_count)
+                inp.delivered_to -= dead
                 inp.claimed_by = ""
                 inp.claimed_at = 0.0
                 if inp.input_id not in fn.pending:
@@ -1220,6 +1277,8 @@ class ModalTPUServicer:
                 self.s.schedule_event.set()
             else:
                 inp.status = "done"
+                if inp.input_id in fn.pending:  # a partly delivered broadcast input
+                    fn.pending.remove(inp.input_id)
                 self._append_output(
                     call,
                     api_pb2.FunctionGetOutputsItem(
@@ -1232,15 +1291,19 @@ class ModalTPUServicer:
     async def _requeue_claimed_inputs(self, task: TaskState_) -> None:
         """Preemption: inputs claimed by a preempted task return to pending
         without consuming the retry budget; a recorded resume token rides
-        the next attempt. Idempotent."""
+        the next attempt. A gang's inputs requeue as a unit. Idempotent: the
+        gang's ranks reporting one after another requeue each input once."""
+        dead = self._gang_of(task) | {task.task_id}
         fn = self.s.functions.get(task.function_id)
         if fn is None:
             return
         requeued = 0
         for inp in self.s.inputs.values():
-            if inp.claimed_by != task.task_id or inp.status not in ("pending", "claimed"):
+            touched = bool(inp.delivered_to & dead or inp.claimed_by in dead)
+            if not touched or inp.status not in ("pending", "claimed"):
                 continue
             inp.status = "pending"
+            inp.delivered_to -= dead
             inp.claimed_by = ""
             inp.claimed_at = 0.0
             if inp.input_id not in fn.pending:
@@ -1467,6 +1530,251 @@ class ModalTPUServicer:
                     del self.s.deployed_secrets[key]
             self._j("secret_del", secret_id=request.secret_id)
         return api_pb2.SecretDeleteResponse()
+
+    # ------------------------------------------------------------------
+    # Volumes: files are block lists over the content-addressed block
+    # store; the blocks travel by VolumeBlockPut/Get or the blob server's
+    # /block and /volfile routes, or are read in place by a co-located
+    # client (VolumeGetFile2 advertises the block dir)
+    # ------------------------------------------------------------------
+
+    async def VolumeGetOrCreate(self, request: api_pb2.VolumeGetOrCreateRequest, context) -> api_pb2.VolumeGetOrCreateResponse:
+        from .state import VolumeState
+
+        if request.object_creation_type == EPHEMERAL or not request.deployment_name:
+            volume_id = self.s.make_id("vo")
+            ephemeral = request.object_creation_type == EPHEMERAL
+            self.s.volumes[volume_id] = VolumeState(volume_id=volume_id, version=request.version, ephemeral=ephemeral,
+                                                    last_heartbeat=time.time())
+            self._j("volume", volume_id=volume_id, version=request.version, ephemeral=ephemeral)
+            return api_pb2.VolumeGetOrCreateResponse(volume_id=volume_id,
+                                                     metadata=api_pb2.VolumeMetadata(version=request.version))
+        key = (request.environment_name, request.deployment_name)
+        volume_id = self.s.deployed_volumes.get(key)
+        if volume_id is None:
+            if request.object_creation_type not in (CREATE_IF_MISSING, FAIL_IF_EXISTS):
+                await context.abort(grpc.StatusCode.NOT_FOUND, f"volume {request.deployment_name!r} not found")
+            volume_id = self.s.make_id("vo")
+            self.s.volumes[volume_id] = VolumeState(volume_id=volume_id, name=request.deployment_name,
+                                                    version=request.version)
+            self.s.deployed_volumes[key] = volume_id
+            self._j("volume", volume_id=volume_id, name=request.deployment_name, version=request.version,
+                    deploy_key=list(key))
+        vol = self.s.volumes[volume_id]
+        return api_pb2.VolumeGetOrCreateResponse(volume_id=volume_id,
+                                                 metadata=api_pb2.VolumeMetadata(version=vol.version, name=vol.name))
+
+    async def _volume(self, volume_id: str, context):
+        vol = self.s.volumes.get(volume_id)
+        if vol is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "volume not found")
+        return vol
+
+    async def VolumePutFiles2(self, request: api_pb2.VolumePutFiles2Request, context) -> api_pb2.VolumePutFiles2Response:
+        """Register files by their block lists; answers the blocks the store
+        lacks instead (the client uploads those, then puts again)."""
+        vol = await self._volume(request.volume_id, context)
+        missing = sorted({sha for f in request.files for sha in f.block_sha256_hex if not self.s.has_block(sha)})
+        if missing:
+            return api_pb2.VolumePutFiles2Response(missing_blocks=missing)
+        stored = []
+        for f in request.files:
+            path = f.path.lstrip("/")
+            if request.disallow_overwrite_existing_files and path in vol.files:
+                await context.abort(grpc.StatusCode.ALREADY_EXISTS, f"file {path!r} already exists")
+            new = api_pb2.VolumeFile()
+            new.CopyFrom(f)
+            new.path = path
+            new.mtime = time.time()
+            vol.files[path] = new
+            stored.append(new)
+        if stored:
+            self._j("volume_files", volume_id=request.volume_id, files=[_jb64(f.SerializeToString()) for f in stored])
+        return api_pb2.VolumePutFiles2Response()
+
+    async def VolumeBlockPut(self, request, context) -> api_pb2.VolumeBlockPutResponse:
+        # the hash and the write run in a thread (both release the GIL): the
+        # loop serves a batch's other block puts meanwhile
+        if not await asyncio.to_thread(self._put_verified_block, request.sha256_hex, request.data):
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, "block hash mismatch")
+        return api_pb2.VolumeBlockPutResponse()
+
+    def _put_verified_block(self, sha256_hex: str, data: bytes) -> bool:
+        if hashlib.sha256(data).hexdigest() != sha256_hex:
+            return False
+        self.s.put_block(sha256_hex, data)
+        return True
+
+    async def VolumeBlockGet(self, request, context) -> api_pb2.VolumeBlockGetResponse:
+        if not self.s.has_block(request.sha256_hex):
+            await context.abort(grpc.StatusCode.NOT_FOUND, "block not found")
+        data = await asyncio.to_thread(self.s.get_block, request.sha256_hex, request.offset, request.length)
+        return api_pb2.VolumeBlockGetResponse(data=data)
+
+    async def VolumeGetFile2(self, request, context) -> api_pb2.VolumeGetFile2Response:
+        from .._utils.hash_utils import BLOCK_SIZE
+
+        vol = await self._volume(request.volume_id, context)
+        f = vol.files.get(request.path.lstrip("/"))
+        if f is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, f"file {request.path!r} not found")
+        # the HTTP block plane (Range-capable GET /block/{sha}) and the block
+        # dir: a co-located client preads from the page cache
+        return api_pb2.VolumeGetFile2Response(file=f, block_size=BLOCK_SIZE, block_url_base=self.s.blob_url_base or "",
+                                              block_local_dir=self.s.block_dir)
+
+    async def VolumeListFiles(self, request, context) -> api_pb2.VolumeListFilesResponse:
+        vol = await self._volume(request.volume_id, context)
+        prefix = request.path.lstrip("/").rstrip("/")
+        files = []
+        for path, f in sorted(vol.files.items()):
+            if prefix and not (path == prefix or path.startswith(prefix + "/")):
+                continue
+            rel = path[len(prefix):].lstrip("/") if prefix else path
+            if not request.recursive and "/" in rel:
+                continue
+            files.append(f)
+        return api_pb2.VolumeListFilesResponse(files=files)
+
+    async def VolumeRemoveFile(self, request, context) -> api_pb2.VolumeRemoveFileResponse:
+        vol = await self._volume(request.volume_id, context)
+        path = request.path.lstrip("/")
+        if request.recursive:
+            for p in [p for p in vol.files if p == path or p.startswith(path + "/")]:
+                del vol.files[p]
+        elif path in vol.files:
+            del vol.files[path]
+        else:
+            await context.abort(grpc.StatusCode.NOT_FOUND, f"file {path!r} not found")
+        self._j("volume_rm", volume_id=request.volume_id, path=path, recursive=request.recursive)
+        return api_pb2.VolumeRemoveFileResponse()
+
+    async def VolumeCopyFiles(self, request, context) -> api_pb2.VolumeCopyFilesResponse:
+        vol = await self._volume(request.volume_id, context)
+        dst = request.dst_path.lstrip("/")
+        into_dir = dst.endswith("/") or len(request.src_paths) > 1
+        copied = []
+        for src in request.src_paths:
+            src = src.lstrip("/")
+            f = vol.files.get(src)
+            if f is None:
+                await context.abort(grpc.StatusCode.NOT_FOUND, f"file {src!r} not found")
+            new = api_pb2.VolumeFile()
+            new.CopyFrom(f)
+            new.path = dst.rstrip("/") + "/" + src.rsplit("/", 1)[-1] if into_dir else dst
+            vol.files[new.path] = new
+            copied.append(new)
+        if copied:
+            self._j("volume_files", volume_id=request.volume_id, files=[_jb64(f.SerializeToString()) for f in copied])
+        return api_pb2.VolumeCopyFilesResponse()
+
+    async def VolumeCommit(self, request, context) -> api_pb2.VolumeCommitResponse:
+        vol = await self._volume(request.volume_id, context)
+        vol.committed_version += 1
+        self._j("volume_meta", volume_id=request.volume_id, committed_version=vol.committed_version)
+        return api_pb2.VolumeCommitResponse(skip_reload=False)
+
+    async def VolumeReload(self, request, context) -> api_pb2.VolumeReloadResponse:
+        await self._volume(request.volume_id, context)
+        return api_pb2.VolumeReloadResponse()
+
+    async def VolumeRename(self, request, context) -> api_pb2.VolumeRenameResponse:
+        vol = await self._volume(request.volume_id, context)
+        for key, vid in list(self.s.deployed_volumes.items()):
+            if vid == vol.volume_id:
+                del self.s.deployed_volumes[key]
+                self.s.deployed_volumes[(key[0], request.name)] = vid
+        vol.name = request.name
+        self._j("volume_meta", volume_id=request.volume_id, name=request.name)
+        return api_pb2.VolumeRenameResponse()
+
+    async def VolumeDelete(self, request, context) -> api_pb2.VolumeDeleteResponse:
+        if self.s.volumes.pop(request.volume_id, None) is not None:
+            for key, vid in list(self.s.deployed_volumes.items()):
+                if vid == request.volume_id:
+                    del self.s.deployed_volumes[key]
+            self._j("volume_del", volume_id=request.volume_id)
+        return api_pb2.VolumeDeleteResponse()
+
+    async def VolumeList(self, request, context) -> api_pb2.VolumeListResponse:
+        return api_pb2.VolumeListResponse(items=[
+            api_pb2.VolumeListItem(volume_id=v.volume_id, name=v.name, created_at=v.created_at, version=v.version)
+            for v in self.s.volumes.values() if v.name
+        ])
+
+    async def EphemeralObjectHeartbeat(self, request, context) -> api_pb2.EphemeralObjectHeartbeatResponse:
+        """Liveness of an ephemeral volume (the port's one ephemeral object
+        until dicts and queues, ROADMAP Queue A 4e)."""
+        vol = self.s.volumes.get(request.object_id)
+        if vol is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, f"no such object {request.object_id}")
+        vol.last_heartbeat = time.time()
+        return api_pb2.EphemeralObjectHeartbeatResponse(ttl_seconds=self.ephemeral_ttl_seconds())
+
+    @staticmethod
+    def ephemeral_ttl_seconds() -> float:
+        """How long an ephemeral object outlives its last heartbeat; the
+        client heartbeats at a third of it (object.py)."""
+        return float(os.environ.get("MODAL_TPU_EPHEMERAL_TTL", "900"))
+
+    def reap_stale_ephemerals(self) -> int:
+        """Drop ephemeral volumes whose client stopped heartbeating (the
+        scheduler's reap tick). Returns how many went."""
+        cutoff = time.time() - self.ephemeral_ttl_seconds()
+        stale = [vid for vid, v in self.s.volumes.items() if v.ephemeral and v.last_heartbeat and v.last_heartbeat < cutoff]
+        for vid in stale:
+            logger.debug(f"reaping stale ephemeral volume {vid}")
+            del self.s.volumes[vid]
+        return len(stale)
+
+    # ------------------------------------------------------------------
+    # Gangs: the rendezvous and the listing
+    # ------------------------------------------------------------------
+
+    async def TaskClusterHello(self, request: api_pb2.TaskClusterHelloRequest, context) -> api_pb2.TaskClusterHelloResponse:
+        """Gang rendezvous: block until every rank has reported, then answer
+        this rank, the world size and the coordinator (rank 0's host, the
+        gang's port), where the container's process group meets."""
+        task = self.s.tasks.get(request.task_id)
+        if task is None or not task.cluster_id:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "task has no cluster")
+        cluster = self.s.clusters.get(task.cluster_id)
+        if cluster is None:  # the gang was rolled back while this container booted
+            await context.abort(grpc.StatusCode.NOT_FOUND, "cluster torn down")
+        task.container_address = request.container_address
+        async with cluster.condition:
+            cluster.reported[request.task_id] = request.container_address
+            cluster.condition.notify_all()
+            deadline = time.monotonic() + 120.0
+            while len(cluster.reported) < cluster.size:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    await asyncio.wait_for(cluster.condition.wait(), timeout=remaining)
+                except asyncio.TimeoutError:
+                    pass
+        if len(cluster.reported) < cluster.size:
+            # outside the lock: the abort's send must not stall the others' reports
+            await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED, "gang rendezvous timeout")
+        rank0 = cluster.reported[cluster.task_ids[0]]
+        host = rank0.rsplit(":", 1)[0] if ":" in rank0 else rank0
+        return api_pb2.TaskClusterHelloResponse(
+            rank=cluster.task_ids.index(request.task_id),
+            world_size=cluster.size,
+            coordinator_address=f"{host}:{cluster.coordinator_port}",
+            peer_addresses=[cluster.reported[tid] for tid in cluster.task_ids],
+            cluster_id=cluster.cluster_id,
+        )
+
+    async def ClusterList(self, request, context) -> api_pb2.ClusterListResponse:
+        out = []
+        for cluster in self.s.clusters.values():
+            fn = self.s.functions.get(cluster.function_id)
+            out.append(api_pb2.ClusterInfo(cluster_id=cluster.cluster_id, function_tag=fn.tag if fn else "",
+                                           size=cluster.size, task_ids=list(cluster.task_ids),
+                                           ranks_reported=len(cluster.reported)))
+        return api_pb2.ClusterListResponse(clusters=out)
 
     # ------------------------------------------------------------------
     # Sandboxes (reference sandbox.py: on-demand containers; here a

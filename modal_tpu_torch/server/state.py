@@ -11,9 +11,11 @@ The state is volatile dataclasses made durable by the write-ahead journal
 (server/journal.py): the supervisor attaches `journal` and `idempotency`,
 and a restarted plane replays them into a fresh ServerState. `replicator`
 stays None: quorum replication comes with the shard fleet (ROADMAP Queue A
-4e). Sandboxes and their snapshots and tunnels are not journaled, as in the
-JAX package: their processes live on the plane's host. Gangs, volumes,
-dicts and queues come with their sub-slices.
+4e). Volumes (their files' block lists; the blocks live in `block_dir`) are
+journaled; sandboxes and their snapshots and tunnels are not, as in the JAX
+package: their processes live on the plane's host, and neither are gangs
+(`ClusterState`), whose tasks recover as gone. Dicts and queues come with
+their sub-slice.
 """
 
 from __future__ import annotations
@@ -84,6 +86,8 @@ class InputState:
     resume_token: str = ""
     # "trace_id:span_id" of the submitting RPC, redelivered with the input
     trace_context: str = ""
+    # gang broadcast: the ranks that have received this input
+    delivered_to: set = field(default_factory=set)
 
 
 @dataclass
@@ -168,6 +172,39 @@ class TaskState_:
     router_token: str = ""
     # served by a pre-forked warm-pool interpreter (its ContainerHello said so)
     warm_pool_hit: bool = False
+    # a gang member: its rank and gang, and the address it reported at the
+    # rendezvous (TaskClusterHello)
+    rank: int = 0
+    cluster_id: str = ""
+    container_address: str = ""
+
+
+@dataclass
+class ClusterState:
+    """A gang: `size` tasks of one function placed together, each rank on
+    its own cards (JAX: the hosts of one pod slice)."""
+
+    cluster_id: str
+    function_id: str
+    size: int
+    task_ids: list[str] = field(default_factory=list)  # rank order
+    reported: dict[str, str] = field(default_factory=dict)  # task_id -> container address
+    coordinator_port: int = 0
+    condition: asyncio.Condition = field(default_factory=asyncio.Condition)
+
+
+@dataclass
+class VolumeState:
+    volume_id: str
+    name: str = ""
+    version: int = api_pb2.VOLUME_FS_VERSION_V2
+    created_at: float = field(default_factory=time.time)
+    files: dict[str, api_pb2.VolumeFile] = field(default_factory=dict)
+    committed_version: int = 0
+    # an ephemeral volume lives while its client heartbeats (0.0: not
+    # ephemeral)
+    ephemeral: bool = False
+    last_heartbeat: float = 0.0
 
 
 @dataclass
@@ -269,8 +306,8 @@ class ServerState:
         self.state_dir = state_dir
         self.blob_dir = os.path.join(state_dir, "blobs")
         os.makedirs(self.blob_dir, exist_ok=True)
-        # mount file contents by sha256 (MountPutFile), in the JAX plane's
-        # block dir beside the blobs
+        # mount file contents and volume blocks by sha256 (MountPutFile,
+        # VolumeBlockPut), in the JAX plane's block dir beside the blobs
         self.block_dir = os.path.join(state_dir, "volume_blocks")
         os.makedirs(self.block_dir, exist_ok=True)
         # the fleet compile cache beside the blob store (server/compile_cache.py)
@@ -283,7 +320,10 @@ class ServerState:
         self.inputs: dict[str, InputState] = {}
         self.function_calls: dict[str, FunctionCallState] = {}
         self.tasks: dict[str, TaskState_] = {}
+        self.clusters: dict[str, ClusterState] = {}
         self.workers: dict[str, WorkerState] = {}
+        self.volumes: dict[str, VolumeState] = {}
+        self.deployed_volumes: dict[tuple[str, str], str] = {}  # (env, name) -> volume_id
         self.secrets: dict[str, SecretState] = {}
         self.deployed_secrets: dict[tuple[str, str], str] = {}  # (env, name) -> secret_id
         self.images: dict[str, ImageState] = {}

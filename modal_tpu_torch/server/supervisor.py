@@ -15,7 +15,7 @@ dir and registers its servicer for the in-process rung of the local fast
 path (_utils/local_transport.py).
 
 Replication and shards, the input plane and chaos (ROADMAP Queue A 4e), and
-the SLO, time-series and profiler loops (4d) wait for their sub-slices.
+the SLO, time-series and profiler loops (4d-ii) wait for their sub-slices.
 """
 
 from __future__ import annotations

@@ -557,10 +557,12 @@ class WorkerAgent:
         # a parked interpreter takes the placement first, in process: no
         # exec, no imports; its env delta carries the card pinning and the
         # build dir, which nothing in it has read yet. Any failure falls
-        # back to the fresh spawn below.
+        # back to the fresh spawn below. Gangs are excluded: a process
+        # group's state must never pass between placements.
         pool_entry = None
         out_offset = err_offset = 0
-        if self.pool is not None and not self.draining:
+        if (self.pool is not None and not self.draining and args.world_size <= 1
+                and (args.function_def.group_size or 0) <= 1):
             pool_entry = await self.pool.adopt(env, task_id, args_path, cwd=globals_path or "")
         if pool_entry is not None:
             proc = pool_entry.proc

@@ -19,7 +19,7 @@ params come from `checkpoint` (`weights.load_params`) or from the port's
 the caller names the CPU) and `dtype` overrides the config's. The SLO
 targets (`target_ttft_ms`, `target_tokens_per_replica`) reach the control
 plane, which refuses them until the port's SLO autoscaler (ROADMAP Queue A
-4d).
+4d-ii).
 """
 
 from __future__ import annotations

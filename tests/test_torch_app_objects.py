@@ -149,10 +149,10 @@ def test_both_clients_send_the_same_requests_for_the_same_decorator(tmp_path):
 
 def test_what_waits_is_refused_naming_its_sub_slice(tmp_path, planes):  # noqa: F811
     app = modal_tpu_torch.App("refused")
-    with pytest.raises(modal_tpu_torch.exception.InvalidError, match="4d"):
-        app.function(volumes={"/data": object()})
-    with pytest.raises(modal_tpu_torch.exception.InvalidError, match="4d"):
-        modal_tpu_torch.App("refused-volumes", volumes={"/data": object()})
+    with pytest.raises(modal_tpu_torch.exception.InvalidError, match="4d-ii"):
+        app.function(runtime_debug=True)
+    # volumes= is accepted since the storage slice (4d-i), on the App too
+    modal_tpu_torch.App("with-volumes", volumes={"/data": object()})
     with pytest.raises(modal_tpu_torch.exception.InvalidError, match="gpu="):
         app.function(tpu="v5e-4")
     with pytest.raises(modal_tpu_torch.exception.InvalidError, match="4e"):

@@ -300,8 +300,8 @@ def test_cancel_interrupts_a_running_sync_input(planes):
     ("DictGetOrCreate", api_pb2.DictGetOrCreateRequest(
         deployment_name="d", object_creation_type=api_pb2.OBJECT_CREATION_TYPE_CREATE_IF_MISSING)),
     ("ContainerExec", api_pb2.ContainerExecRequest(task_id="ta-1", command=["true"])),
-    ("TaskClusterHello", api_pb2.TaskClusterHelloRequest(task_id="ta-1")),
-    ("VolumeList", api_pb2.VolumeListRequest()),
+    ("MetricsHistory", api_pb2.MetricsHistoryRequest()),
+    ("TaskGetTimeline", api_pb2.TaskGetTimelineRequest(task_id="ta-1")),
 ])
 def test_an_rpc_the_port_has_not_taken_answers_unimplemented(planes, rpc, request_msg):
     """The JAX plane answers; the port's says UNIMPLEMENTED (never a made-up

@@ -317,7 +317,9 @@ def test_every_module_of_the_port_is_scanned():
                 "_utils/coalescer.py", "runtime/asgi.py", "serving/service.py", "serving/router.py",
                 "serving/reload.py", "cli/__init__.py", "cli/import_refs.py", "server/task_router.py",
                 "server/warm_pool.py", "server/fs_snapshot.py", "_utils/router_client.py", "_utils/pty_shell.py",
-                "sandbox.py", "sandbox_fs.py", "container_process.py", "snapshot.py", "tunnel.py"):
+                "sandbox.py", "sandbox_fs.py", "container_process.py", "snapshot.py", "tunnel.py",
+                "volume.py", "checkpoint.py", "network_file_system.py", "cloud_bucket_mount.py", "_utils/s3.py",
+                "runtime/bucket_mounts.py", "runtime/clustered.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
@@ -330,10 +332,14 @@ def test_every_module_of_the_port_is_scanned():
                                     "modal_tpu_torch.runtime.asgi", "modal_tpu_torch.cli.import_refs",
                                     "modal_tpu_torch.server.task_router", "modal_tpu_torch.server.warm_pool",
                                     "modal_tpu_torch.sandbox", "modal_tpu_torch.container_process",
-                                    "modal_tpu_torch.sandbox_fs", "modal_tpu_torch.tunnel"])
+                                    "modal_tpu_torch.sandbox_fs", "modal_tpu_torch.tunnel",
+                                    "modal_tpu_torch.volume", "modal_tpu_torch.checkpoint",
+                                    "modal_tpu_torch.runtime.clustered", "modal_tpu_torch.network_file_system",
+                                    "modal_tpu_torch.cloud_bucket_mount", "modal_tpu_torch.runtime.bucket_mounts"])
 def test_the_function_path_loads_no_torch_at_import(module):
     """The client, the App layer, the control plane, the worker, its router
-    and warm pool, the sandbox client and a container's entrypoint import no
+    and warm pool, the sandbox client, Volumes and their checkpointer, the
+    storage mounts, the gang runtime and a container's entrypoint import no
     torch: a container sends its hello before torch loads (a `gpu=`
     function's container loads it after the hello, a warm-pool interpreter
     while parked), and a user's file that builds an App loads none."""

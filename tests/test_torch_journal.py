@@ -351,12 +351,12 @@ async def test_the_function_path_journals_what_jax_journals(tmp_path):
 
 
 async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
-    """A journal the JAX plane wrote (the function path, an image and a
-    secret, plus records of tables the port has not taken: an environment
-    and a volume) replays through the port's recover_state into the same
-    apps, functions, calls, pending inputs, images and secrets as JAX's own
-    recovery; the JAX-only records are counted by type and each type is
-    named in a warning."""
+    """A journal the JAX plane wrote (the function path, an image, a secret
+    and a volume with a file, plus records of a table the port has not
+    taken: an environment) replays through the port's recover_state into
+    the same apps, functions, calls, pending inputs, images, secrets and
+    volumes as JAX's own recovery; the JAX-only records are counted by type
+    and each type is named in a warning."""
     jdir = str(tmp_path / "jax")
     servicer, ctx, fn_id, call_id = await _function_path(japi, jstate, jservices, JJ, jdir)
     await servicer.EnvironmentCreate(japi.EnvironmentCreateRequest(name="staging"), ctx)
@@ -366,8 +366,12 @@ async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
     await servicer.ImageGetOrCreate(japi.ImageGetOrCreateRequest(
         image=japi.Image(dockerfile_commands=["FROM python:3.12-slim-bookworm"], version="2026.07"),
         builder_version="2026.07"), ctx)
-    await servicer.VolumeGetOrCreate(japi.VolumeGetOrCreateRequest(
+    vol = await servicer.VolumeGetOrCreate(japi.VolumeGetOrCreateRequest(
         deployment_name="v", object_creation_type=japi.OBJECT_CREATION_TYPE_CREATE_IF_MISSING), ctx)
+    servicer.s.put_block("ab" * 32, b"x")
+    await servicer.VolumePutFiles2(japi.VolumePutFiles2Request(
+        volume_id=vol.volume_id, files=[japi.VolumeFile(path="d/f.bin", size=1, block_sha256_hex=["ab" * 32])]), ctx)
+    await servicer.VolumeCommit(japi.VolumeCommitRequest(volume_id=vol.volume_id), ctx)
     await servicer.WorkerRegister(japi.WorkerRegisterRequest(hostname="h", tpu_type="local-sim", num_chips=4), ctx)
     servicer.s.journal.close()
 
@@ -401,16 +405,20 @@ async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
             "images": {k: (v.definition.SerializeToString(), v.metadata.SerializeToString(), v.built)
                        for k, v in s.images.items()},
             "images_by_hash": dict(s.images_by_hash),
+            "volumes": {k: (v.name, v.version, v.committed_version, v.ephemeral,
+                            {p: f.SerializeToString() for p, f in v.files.items()}) for k, v in s.volumes.items()},
+            "deployed_volumes": dict(s.deployed_volumes),
         }
 
     assert view(port_state) == view(jax_state)
-    assert len(port_state.secrets) == 1 and len(port_state.images) == 1
+    assert len(port_state.secrets) == 1 and len(port_state.images) == 1 and len(port_state.volumes) == 1
+    assert list(port_state.volumes[vol.volume_id].files) == ["d/f.bin"]
     assert len(port_state.apps) == 1 and len(port_state.functions) == 2 and len(port_state.function_calls) == 2
     assert len(port_state.functions[fn_id].pending) == 3
-    assert report["skipped_by_type"] == {"environment": 1, "volume": 1}
-    assert report["records_skipped"] == 2 and report["inputs_requeued"] == 3
+    assert report["skipped_by_type"] == {"environment": 1}
+    assert report["records_skipped"] == 1 and report["inputs_requeued"] == 3
     warned = " ".join(r.getMessage() for r in caplog.records)
-    for t, waits in (("environment", "4e"), ("volume", "4d")):
+    for t, waits in (("environment", "4e"),):
         assert f"skipped 1 {t!r} record(s): its table comes with ROADMAP Queue A {waits}" in warned, warned
     assert port_state.workers[next(iter(port_state.workers))].num_gpus == 0  # chips are not cards
 

@@ -182,8 +182,10 @@ class _AbortCtx:
 def test_gangs_and_waiting_features_are_refused_at_create(tmp_path):
     slo_ttft = tapi.Function(autoscaler_settings=tapi.AutoscalerSettings(target_ttft_ms=250.0))
     slo_tps = tapi.Function(autoscaler_settings=tapi.AutoscalerSettings(target_tokens_per_replica=900.0))
-    for d, item in ((tapi.Function(group_size=2), "4d"), (slo_ttft, "4d"), (slo_tps, "4d")):
+    for d, item in ((slo_ttft, "4d-ii"), (slo_tps, "4d-ii")):
         assert f"ROADMAP Queue A {item}" in tservices.waiting_feature(d)
+    # gangs are placed since the gang runtime (4d-i)
+    assert tservices.waiting_feature(tapi.Function(group_size=2)) == ""
     # web endpoints and schedules are served since 4c-ii
     assert tservices.waiting_feature(tapi.Function(webhook_type=tapi.WEB_ENDPOINT_TYPE_ASGI_APP)) == ""
     assert tservices.waiting_feature(tapi.Function(schedule=tapi.Schedule(period=tapi.Schedule.Period(hours=1)))) == ""

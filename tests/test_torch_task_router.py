@@ -256,15 +256,19 @@ def test_the_heartbeat_device_sample_never_asks_the_driver(monkeypatch):
 
 
 def test_the_served_rpc_counts():
-    """The port's plane serves 81 of the wire contract's 148 RPCs (the 19
-    Sandbox*, TaskTunnelsUpdate, TunnelStart and TunnelStop since this
-    slice); a worker's router serves all 8 of its own."""
+    """The port's plane serves 97 of the wire contract's 148 RPCs (the 19
+    Sandbox*, TaskTunnelsUpdate, TunnelStart and TunnelStop since the
+    second data plane; the 13 Volume*, EphemeralObjectHeartbeat,
+    TaskClusterHello and ClusterList since storage and gangs); a worker's
+    router serves all 8 of its own."""
     from modal_tpu_torch.proto.rpc import ROUTER_RPCS, RPCS
     from modal_tpu_torch.server.services import ModalTPUServicer
 
     assert sorted(n for n in ROUTER_RPCS if hasattr(trouter.TaskRouterServicer, n)) == sorted(ROUTER_RPCS)
     assert len(ROUTER_RPCS) == 8
     served = [n for n in RPCS if hasattr(ModalTPUServicer, n)]
-    assert (len(RPCS), len(served)) == (148, 81)
+    assert (len(RPCS), len(served)) == (148, 97)
+    assert len([n for n in served if n.startswith("Volume")]) == 13
+    assert {"EphemeralObjectHeartbeat", "TaskClusterHello", "ClusterList"} <= set(served)
     assert len([n for n in served if n.startswith("Sandbox")]) == 19
     assert {"TaskTunnelsUpdate", "TunnelStart", "TunnelStop"} <= set(served)

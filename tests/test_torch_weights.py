@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import modal_tpu_torch.exception
 from modal_tpu.models import llama as jllama
 from modal_tpu.models import weights as jweights
 from modal_tpu_torch.models import llama as tllama
@@ -191,7 +192,7 @@ def test_tied_lm_head_and_dtype_cast(tmp_path):
 
 
 def test_load_refuses_what_it_cannot_do(tmp_path):
-    """Volumes wait for a later queue item; shardings without their mesh
+    """A Volume prefix holding no checkpoint, shardings without their mesh
     (or into the per-layer layout), a missing checkpoint and a config whose
     shapes differ raise."""
     _jc, _jp, tcfg, tparams = _models("fp32")
@@ -200,8 +201,14 @@ def test_load_refuses_what_it_cannot_do(tmp_path):
     tweights.export_checkpoint(tparams, tcfg, str(tmp_path))
     with pytest.raises(ValueError, match="mesh"):
         tweights.load_params(str(tmp_path), tcfg, device="cpu", shardings={})
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
-        tweights.load_params((object(), "ckpt"), tcfg, device="cpu")
+    class _EmptyVolume:
+        object_id = "vo-empty"
+
+        def read_file_range(self, path, offset, length):
+            raise modal_tpu_torch.exception.NotFoundError(path)
+
+    with pytest.raises(FileNotFoundError, match="VolumeSource"):
+        tweights.load_params((_EmptyVolume(), "ckpt"), tcfg, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         tweights.load_params(str(tmp_path), tllama.get_config("tiny", dim=64, dtype=torch.float32), device="cpu")
     with pytest.raises(ValueError, match="layout"):
