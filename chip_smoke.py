@@ -12,14 +12,17 @@
     python3 chip_smoke.py --phases device,build,serve,sdk,worker
     python3 chip_smoke.py --phases device,build,worker,app
     python3 chip_smoke.py --phases device,build,serve,web,disagg,disagg_http
+    python3 chip_smoke.py --phases device,build,observe
     python3 chip_smoke.py --phases device,build,pool,sandbox
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
 
-1. device   — the card's name and power limit (nvidia-smi), TF32 off; one
-              log line saying whether grpc, google.protobuf, cloudpickle
-              and aiohttp are importable here (a probe, never a failure).
+1. device   — the card's name and power limit (nvidia-smi), TF32 off; the
+              host's CPU model, logical CPU count and 1-minute load
+              average; one log line saying whether grpc, google.protobuf,
+              cloudpickle and aiohttp are importable here (a probe, never a
+              failure).
 2. build    — compile every CUDA kernel of the port from `modal_tpu_torch/csrc`
               (one nvcc per source, all started together), then the AOT
               warm-up of every entry point (`MODAL_TPU_AOT_LOWER=all`), which
@@ -169,8 +172,8 @@ result line):
               weights phase's) and serves the 8 requests (streams equal to
               serve's, paged_decode exactly n_layers per decode step).
               Then, with the weights' blocks dropped from the store, a
-              train state at llama3-8b's full width and 8 layers (bf16
-              params and AdamW's two moments, ~17 GB) takes two steps,
+              train state at llama3-8b's full width and 4 layers (bf16
+              params and AdamW's two moments, ~11.5 GB) takes two steps,
               is saved with `VolumeCheckpointer` (`parallel.train.state_tree`),
               restored into fresh tensors on the card (every tensor
               bit-equal) and steps once more from the restored and from the
@@ -180,7 +183,9 @@ result line):
               card (bytes, peak memory), the serving traffic through a
               graphed engine on it (64 tokens each, K4 exact), and its decode
               step's device ms beside the bf16 step's.
-11. spec     — the same traffic through speculative decoding (spec_k 3, the
+11. spec     — the same traffic through speculative decoding with the
+              target at llama3-8b's width and SPEC_TARGET_LAYERS (16) of its
+              32 layers (spec_k 3, the
               two slot groups of a round queued before either is read back;
               a host sync inside a dispatch raises): (a) a llama3-1b-proxy
               draft at full width, whose decode steps run the paged decode
@@ -208,6 +213,29 @@ result line):
               cold `get_web_url` by part, TTFT and tokens/s beside serve's,
               the container's and the card's peak memory; a Period(2 s) CPU
               function must fire twice within 10 s.
+13b. observe — the metrics plane on an SLO-targeted llm_service replica of
+              llama3-8b (gpu="H100", max_containers 2, target_ttft_ms a
+              quarter of the web phase's TTFT p50, at most 250 ms; its
+              prefix cache off): the plane's sampler every
+              OBSERVE_TS_INTERVAL_S and the TTFT burn-rate rule at the same
+              objective. 8 concurrent HTTP requests (the same 8 in every
+              round); then `/metrics` in both formats (OpenMetrics ends in
+              `# EOF`; K4's launches +n_layers per decode step and the TTFT
+              histogram's count +8 between two scrapes), MetricsHistory's
+              p95 over the fast window equal to the bucket p95 of this
+              round's own 8 TTFTs, `serving_ttft_p95` firing and its
+              transition in the journal, the SLO autoscaler asking for 2
+              replicas while the second waits for the card (one replica
+              task; nvidia-smi's compute apps: this process and the
+              replica), TaskGetTimeline of the replica; 6 more rounds with
+              the sampler off and on, then ProfileControl on and off, in
+              turns (tokens/s and TTFT p50 each), the folded stacks' top
+              frames of the replica and of the plane's process; then a
+              `runtime_debug=True` class (gpu="H100") runs the cache-less
+              forward of llama3-8b on [1, 512] twice: AppListProfiles lists
+              2 traces, each naming flash_fwd_kernel n_layers times, and the
+              same class without runtime_debug gives the unprofiled call.
+              The host line is logged again at its start.
 14. disagg_http — the prefill and decode roles as two processes on card 0,
               each llama3-8b at full width behind AsgiHttpServer, shipping
               PUT → GET through a LocalSupervisor's blob server
@@ -284,7 +312,7 @@ from modal_tpu_torch import App  # the App layer loads no torch (a container imp
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "sandbox", "graphs", "weights", "volume",
           "int8",
-          "spec", "disagg", "web", "disagg_http", "parity", "forward", "train", "moe", "mesh")
+          "spec", "disagg", "web", "observe", "disagg_http", "parity", "forward", "train", "moe", "mesh")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -390,6 +418,8 @@ def phase_device(torch, ctx: dict) -> None:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[device] {ctx['kind']} | nvidia-smi: {ctx['nvidia_smi']} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+    ctx["host"] = _host_line()
+    log(f"[device] {ctx['host']}")
     ctx["sdk_packages"] = {name: _importable(name) for name in SDK_PACKAGES}
     log("[device] SDK packages importable here: "
         + ", ".join(f"{name} {'yes' if ok else 'no'}" for name, ok in ctx["sdk_packages"].items()))
@@ -1325,7 +1355,10 @@ def phase_weights(torch, ctx: dict) -> None:
         f"tokens/s, paged_decode launches {k4} (= {cfg.n_layers} x {st['steps']})")
 
 
-VOLUME_TRAIN_LAYERS = 8  # the train state's depth: 32 layers would be ~48 GB of bf16 params and moments
+# the train state's depth: 32 layers would be ~48 GB of bf16 params and
+# moments; 4 (8 until the observe phase came) keeps the whole run under
+# ~1000 s of its 1200 s limit
+VOLUME_TRAIN_LAYERS = 4
 VOLUME_NAME = "llama3-8b-weights"
 
 
@@ -1682,6 +1715,13 @@ def _walk_rounds(torch, records: list, verifies: list, drafts: list, k: int) -> 
     return {"accepted": accepted, "rejections": rejections}
 
 
+# the spec phase's target depth: llama3-8b's width at the first 16 of the
+# serve params' 32 layers (views), cut (with the volume phase's train state)
+# to keep the whole run under ~1000 s of its 1200 s limit; the breakdown
+# still times the full-depth target
+SPEC_TARGET_LAYERS = 16
+
+
 def phase_spec(torch, ctx: dict) -> None:
     import gc
 
@@ -1689,7 +1729,9 @@ def phase_spec(torch, ctx: dict) -> None:
     from modal_tpu_torch.ops import _build
     from modal_tpu_torch.serving import engine as engine_mod
 
-    params, cfg = _load_8b(torch, ctx)
+    full_params, full_cfg = _load_8b(torch, ctx)
+    cfg = get_config("llama3-8b", n_layers=SPEC_TARGET_LAYERS)
+    params = {**full_params, "layers": {n: w[:SPEC_TARGET_LAYERS] for n, w in full_params["layers"].items()}}
     prompts = _prompts(cfg, 8, seed=1)
     k = 3
     serve_tps = ctx.get("serve", {}).get("tokens_per_s")
@@ -1748,7 +1790,8 @@ def phase_spec(torch, ctx: dict) -> None:
             "peak_memory_bytes": peak,
         }
         _add_launches(ctx, "paged_decode", launches)
-        log(f"[spec] {name} ({draft[1].name}, spec_k {k}, overlap on): {8 * NEW_TOKENS} tokens in "
+        log(f"[spec] {name} ({draft[1].name} at {draft[1].n_layers} layers, target at {cfg.n_layers}, spec_k {k}, "
+            f"overlap on): {8 * NEW_TOKENS} tokens in "
             f"{wall:.2f}s, {out[name]['tokens_per_s']:.1f} tokens/s (serve phase: "
             f"{f'{serve_tps:.1f}' if serve_tps else 'not run'}), TTFT p50 {p50:.3f}s p95 {p95:.3f}s, "
             f"rounds {st['spec_rounds']}, dispatches {st['spec_dispatches']} (no host sync inside one), "
@@ -1783,7 +1826,7 @@ def phase_spec(torch, ctx: dict) -> None:
         del engine, records, verifies, samples, draft
         gc.collect()
         torch.cuda.empty_cache()
-    out["breakdown"] = _spec_breakdown(torch, params, cfg, *runs[0][1], k)
+    out["breakdown"] = _spec_breakdown(torch, full_params, full_cfg, *runs[0][1], k)
     del runs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2262,6 +2305,507 @@ def phase_web(torch, ctx: dict) -> None:
         + f"; peak device memory: the container {container_peak / 1e9:.2f} GB, the card (nvidia-smi, every "
         f"process) {card_peak / 1e9:.2f} GB; Period({WEB_PERIOD_S} s) fired {len(in_window)} times in "
         f"{WEB_CRON_WINDOW_S:.0f}s | {smi}")
+
+
+def _cpu_busy(seconds: float = 0.5) -> float:
+    """The share of the CPUs' time spent busy over `seconds` (/proc/stat)."""
+
+    def times() -> list:
+        with open("/proc/stat") as f:
+            return [int(x) for x in f.readline().split()[1:]]
+
+    a = times()
+    time.sleep(seconds)
+    b = times()
+    d = [y - x for x, y in zip(a, b)]
+    idle = d[3] + (d[4] if len(d) > 4 else 0)  # idle + iowait
+    return 1.0 - idle / max(1, sum(d))
+
+
+def _host_line() -> str:
+    """The host this run shares: CPU model, logical CPUs, the 1-minute load
+    average and the CPUs' busy share right now (a slow host and a slow port
+    read alike otherwise)."""
+    import platform
+
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = next((fields[k] for k in ("model name", "Model", "cpu model", "Hardware") if fields.get(k)),
+                 fields.get("vendor_id") or "CPU model not in /proc/cpuinfo")
+    try:
+        busy = f"{100 * _cpu_busy():.1f}%"
+    except (OSError, ValueError, IndexError):
+        busy = "not readable"
+    return (f"host: {model} ({platform.machine()}), {os.cpu_count()} logical CPUs, load average (1 min) "
+            f"{os.getloadavg()[0]:.2f}, CPUs busy over 0.5 s {busy}")
+
+
+# the observe phase: the sampler's cadence and the burn-rate windows, short
+# enough for one phase; the cache-less forward's length in the debug call
+OBSERVE_TS_INTERVAL_S = 1.0
+OBSERVE_FAST_WINDOW_S = 20.0
+OBSERVE_SLOW_WINDOW_S = 60.0
+OBSERVE_DEBUG_LENGTH = 512
+# the load rounds, each the same 8 concurrent requests over HTTP to a
+# replica with its prefix cache off (so rounds differ by the condition, not
+# by their prompts' lengths or cache hits), as (sampler on, profiler on):
+# round 0 is the observed round; rounds 1-8 take the sampler on and off in
+# turns (on, off, off, on, twice), rounds 9-16 the profiler
+_TURNS = (True, False, False, True) * 2
+OBSERVE_ROUNDS = ((True, False), *((on, False) for on in _TURNS), *((True, on) for on in _TURNS))
+# calls of the debug class and of its unprofiled twin: the first boots the
+# container, the others are warm
+OBSERVE_DEBUG_CALLS = 3
+
+
+def _debug_forward_class(app, cfg_name: str, profiled: bool, name: str):
+    """A `gpu="H100"` class whose `@enter` builds `cfg_name`'s weights from
+    seed 0 on the card and runs one untimed cache-less forward (K1 loaded,
+    the libraries warm), and whose `forward(length)` runs `llama.forward`
+    cache-less on `length` seeded tokens: the call `runtime_debug=True`
+    profiles (`profiled`), or the same call unprofiled."""
+    import modal_tpu_torch
+
+    class _DebugForward:
+        @modal_tpu_torch.enter()
+        def load(self):
+            import torch
+
+            from modal_tpu_torch.models.llama import forward, get_config, init_params
+
+            self.cfg = get_config(cfg_name)
+            self.params = init_params(self.cfg, seed=0, device="cuda")
+            forward(self.params, self.cfg, torch.zeros(1, 128, dtype=torch.long, device="cuda"))
+            torch.cuda.synchronize()
+
+        @modal_tpu_torch.method()
+        def forward(self, length: int) -> dict:
+            import torch
+
+            from modal_tpu_torch.models.llama import forward
+            from modal_tpu_torch.ops import _build
+
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(length)
+            tokens = torch.randint(0, self.cfg.vocab_size, (1, length), generator=gen, device="cuda")
+            before = _build.LAUNCHES.get("flash_fwd", 0)
+            t0 = time.perf_counter()
+            logits, _ = forward(self.params, self.cfg, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return {"launches": _build.LAUNCHES.get("flash_fwd", 0) - before, "forward_s": wall,
+                    "shape": list(logits.shape), "finite": bool(torch.isfinite(logits).all()),
+                    "checksum": float(logits.float().sum())}
+
+    _DebugForward.__name__ = _DebugForward.__qualname__ = name
+    return app.cls(serialized=True, gpu="H100", runtime_debug=profiled, scaledown_window=2, timeout=600)(
+        _DebugForward)
+
+
+def _scrape(url: str, openmetrics: bool = False) -> tuple:
+    """(text, ms) of one GET of the plane's `/metrics`."""
+    import urllib.request
+
+    req = urllib.request.Request(url, headers={"Accept": "application/openmetrics-text"} if openmetrics else {})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        text = resp.read().decode()
+    return text, (time.perf_counter() - t0) * 1e3
+
+
+def _sample_value(text: str, name: str, labels: str = "") -> float:
+    """One sample's value in an exposition (`name{labels} value`), 0 when absent."""
+    key = f"{name}{{{labels}}}" if labels else name
+    for line in text.splitlines():
+        if line.startswith(key + " "):
+            return float(line.split(" ")[1])
+    return 0.0
+
+
+def _history(client, query: str, **kw) -> dict:
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.proto import api_pb2
+
+    resp = synchronizer.run(client.stub.MetricsHistory(api_pb2.MetricsHistoryRequest(query=query, **kw)))
+    return json.loads(resp.payload_json)
+
+
+def _profile_control(client, action: str):
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.proto import api_pb2
+
+    return synchronizer.run(client.stub.ProfileControl(api_pb2.ProfileControlRequest(action=action)))
+
+
+def _journal_alerts(sup) -> list:
+    """The `alert` records in the plane's journal, as a replay reads them."""
+    snap, tail = sup.state.journal.replay()
+    return [r for r in snap + tail if r.get("t") == "alert"]
+
+
+def phase_observe(torch, ctx: dict) -> None:
+    """The metrics plane on an SLO-targeted llama3-8b `llm_service` replica:
+    `app.run()` boots the port's plane (a fresh state dir) with its sampler
+    every OBSERVE_TS_INTERVAL_S and the TTFT objective below the TTFT the
+    web phase measured; 8 concurrent requests over HTTP violate it. Checked:
+    `/metrics` in both formats (K4's launches and the TTFT histogram's count
+    rising by the round's), MetricsHistory's windowed p95 equal to this
+    replica's own, `serving_ttft_p95` firing and journaled, the SLO
+    autoscaler asking for 2 replicas while the second waits for the card
+    (one task, one replica context), TaskGetTimeline, ProfileControl around
+    a round (folded stacks of the plane and the container), then a
+    `runtime_debug=True` class whose cache-less forward's torch.profiler
+    trace AppListProfiles lists and names K1 once per layer. Measured: the
+    sampler's and the profiler's cost on tokens/s and TTFT (rounds in
+    turns), `/metrics` scrape ms, and the debug call against the same call
+    unprofiled."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.client import _Client
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.observability import profiler
+    from modal_tpu_torch.observability.catalog import SERVING_TTFT
+    from modal_tpu_torch.observability.quantile import bucket_quantile
+    from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.serving import llm_service
+
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    log(f"[observe] {_host_line()}")
+    cfg = get_config("llama3-8b")
+    web = ctx.get("web", {})
+    # the objective: a quarter of the TTFT p50 the web phase measured (250
+    # ms without it), so the round violates it; the throughput target twice
+    # one replica's rate, so the fleet never reads as idle
+    if "ttft_p50_s" in web:
+        target_ttft_ms = min(250.0, web["ttft_p50_s"] * 1e3 / 4)
+        target_tps = 2.0 * web["tokens_per_s"]
+        why = (f"a quarter of the web phase's TTFT p50 {web['ttft_p50_s']:.3f}s, at most 250 ms; twice its "
+               f"{web['tokens_per_s']:.1f} tokens/s")
+    else:
+        target_ttft_ms, target_tps = 250.0, 1000.0
+        why = "the web phase did not run: 250 ms, 1000 tokens/s"
+    log(f"[observe] targets: target_ttft_ms {target_ttft_ms:.1f}, target_tokens_per_replica {target_tps:.1f} ({why});"
+        f" max_containers 2 on one card, so the objective is violated and a second replica cannot fit")
+    _free_parent(torch, ctx, "observe")
+    env = {"MODAL_TPU_HEARTBEAT_INTERVAL": "1", "MODAL_TPU_TS_INTERVAL": str(OBSERVE_TS_INTERVAL_S),
+           "MODAL_TPU_SLO_TTFT_P95_S": str(target_ttft_ms / 1e3),
+           "MODAL_TPU_SLO_FAST_WINDOW_S": str(OBSERVE_FAST_WINDOW_S),
+           "MODAL_TPU_SLO_SLOW_WINDOW_S": str(OBSERVE_SLOW_WINDOW_S)}
+    saved = {k: os.environ.pop(k, None) for k in ("MODAL_TPU_SERVER_URL", "MODAL_TPU_STATE_DIR",
+                                                 "MODAL_TPU_AUTO_LOCAL_SERVER", "MODAL_TPU_PROFILE", *env)}
+    state_dir = os.environ["MODAL_TPU_STATE_DIR"] = tempfile.mkdtemp(prefix="observe-")
+    os.environ.update(env)
+    app = App("chip_smoke observe")
+    Service = llm_service(app, model="llama3-8b", gpu="H100", max_slots=8, num_pages=2048, page_size=16,
+                          prefill_chunk=128, name="Llama8BSLO", scaledown_window=600, timeout=900,
+                          prefix_cache=False,
+                          min_containers=1, max_containers=2, target_ttft_ms=target_ttft_ms,
+                          target_tokens_per_replica=target_tps)
+    out: dict = {"nvidia_smi": smi, "host": _host_line(), "target_ttft_ms": target_ttft_ms,
+                 "target_tokens_per_replica": target_tps}
+    decisions: list = []
+    k4_total = 0
+    try:
+        with app.run():
+            sup = _Client._local_supervisor
+            client = _Client._client_from_env
+            if sup is None or client is None:
+                raise AssertionError("observe: app.run() did not boot the port's LocalSupervisor")
+            fn_id = Service._service_function.object_id
+            real_desired = sup.scheduler._slo_desired
+
+            def recording(fn, live):
+                desired = real_desired(fn, live)
+                if fn.function_id == fn_id:
+                    decisions.append((time.time(), len(live), desired))
+                return desired
+
+            sup.scheduler._slo_desired = recording
+            t0 = time.time()
+            url = Service.get_web_url(timeout=120)
+            log(f"[observe] replica up: get_web_url {time.time() - t0:.2f}s ({url})")
+            (task,) = [t for t in sup.state.tasks.values() if t.function_id == fn_id]
+            metrics_url = sup.state.blob_url_base + "/metrics"
+            with open(os.path.join(state_dir, "observability", "metrics_url")) as f:
+                if f.read().strip() != metrics_url:
+                    raise AssertionError("observe: the metrics_url discovery file names another URL")
+
+            def settled() -> dict:
+                """The replica's report once a heartbeat after now merged."""
+                t_base = time.time()
+                while task.last_heartbeat < t_base + 0.5:
+                    if time.time() > t_base + 20:
+                        raise AssertionError("observe: the replica's container stopped heartbeating")
+                    time.sleep(0.1)
+                time.sleep(0.1)
+                return _report_of(task)
+
+            prompts = _prompts(cfg, 8, seed=100)
+
+            def load_round() -> dict:
+                stats_0 = _http_json(url + "/v1/stats")
+
+                def one(i: int) -> dict:
+                    return _http_json(url + "/v1/generate",
+                                      {"prompt": prompts[i], "max_new_tokens": NEW_TOKENS, **_traffic(i)})
+
+                t_send = time.perf_counter()
+                with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                    answers = list(pool.map(one, range(8)))
+                wall = time.perf_counter() - t_send
+                stats = _http_json(url + "/v1/stats")
+                _check_streams("observe", [a["tokens"] for a in answers], cfg.vocab_size)
+                return {"wall_s": wall, "tokens_per_s": 8 * NEW_TOKENS / wall,
+                        "ttft": [a["ttft_s"] for a in answers], "steps": stats["steps"] - stats_0["steps"]}
+
+            # -- the observed round: /metrics, history, the alert, the decision
+            k4_0, steps_0 = _k4_and_steps(settled())
+            card_0 = (_compute_apps(), _card_used_bytes())
+            before = {fmt: _scrape(metrics_url, fmt)[0] for fmt in (False, True)}
+            rounds = [load_round()]
+            d_steps = rounds[0]["steps"]
+            report = _wait_report(task, lambda r: _k4_and_steps(r)[1] - steps_0 == d_steps)
+            k4 = _k4_and_steps(report)[0] - k4_0
+            if d_steps == 0 or k4 != cfg.n_layers * d_steps:
+                raise AssertionError(f"observe: paged_decode launched {k4} times over {d_steps} decode steps")
+            k4_total += k4
+            prom, prom_ms = _scrape(metrics_url)
+            om, om_ms = _scrape(metrics_url, openmetrics=True)
+            if not om.endswith("# EOF\n") or prom.endswith("# EOF\n"):
+                raise AssertionError("observe: /metrics formats (OpenMetrics must end in '# EOF')")
+            for text, was in ((prom, before[False]), (om, before[True])):
+                d_k4 = (_sample_value(text, "modal_tpu_kernel_launches", 'kernel="paged_decode"')
+                        - _sample_value(was, "modal_tpu_kernel_launches", 'kernel="paged_decode"'))
+                d_ttft = (_sample_value(text, "modal_tpu_serving_ttft_seconds_count")
+                          - _sample_value(was, "modal_tpu_serving_ttft_seconds_count"))
+                if d_k4 != cfg.n_layers * d_steps or d_ttft != 8:
+                    raise AssertionError(f"observe: /metrics moved paged_decode by {d_k4} (want "
+                                         f"{cfg.n_layers * d_steps}) and the TTFT count by {d_ttft} (want 8)")
+            scrape_ms = sorted(_scrape(metrics_url, fmt)[1] for fmt in (False, True) * 5)
+            log(f"[observe] /metrics: {len(prom)} bytes Prometheus ({prom_ms:.1f} ms), {len(om)} bytes OpenMetrics "
+                f"({om_ms:.1f} ms, ends '# EOF'); paged_decode +{cfg.n_layers * d_steps} launches "
+                f"({cfg.n_layers} x {d_steps} decode steps), modal_tpu_serving_ttft_seconds_count +8; scrape p50 "
+                f"{scrape_ms[len(scrape_ms) // 2]:.1f} ms over 10 | {smi}")
+            # the windowed p95 is this replica's own: the store's first sample
+            # was the baseline of every earlier phase's observations
+            counts = [0] * len(SERVING_TTFT.buckets)
+            for v in rounds[0]["ttft"]:
+                idx = next((i for i, b in enumerate(SERVING_TTFT.buckets) if v <= b), None)
+                if idx is not None:
+                    counts[idx] += 1
+            want_p95 = bucket_quantile(SERVING_TTFT.buckets, counts, 0.95, total=8)
+            deadline = time.time() + 30
+            while True:
+                series = _history(client, "series", family="modal_tpu_serving_ttft_seconds",
+                                  window_s=OBSERVE_FAST_WINDOW_S)
+                n_window = sum(p[3] for pts in series.get("series", {}).values() for p in pts)
+                if n_window == 8:
+                    break
+                if time.time() > deadline:
+                    raise AssertionError(f"observe: the store's fast window holds {n_window} TTFT observations")
+                time.sleep(0.2)
+            q = _history(client, "quantile", family="modal_tpu_serving_ttft_seconds",
+                         window_s=OBSERVE_FAST_WINDOW_S, q=0.95)
+            if q["value"] != want_p95:
+                raise AssertionError(f"observe: MetricsHistory p95 {q['value']} is not this replica's {want_p95}")
+            deadline = time.time() + 30
+            while sup.state.alerts.get("serving_ttft_p95", {}).get("state") != "firing":
+                if time.time() > deadline:
+                    raise AssertionError(f"observe: serving_ttft_p95 did not fire: {_history(client, 'alerts')}")
+                time.sleep(0.2)
+            alerts = _history(client, "alerts")
+            rule = next(r for r in alerts["rules"] if r["rule"] == "serving_ttft_p95")
+            journaled = [a for a in _journal_alerts(sup) if a["rule"] == "serving_ttft_p95"]
+            if not journaled or journaled[-1]["state"] != "firing":
+                raise AssertionError(f"observe: the alert's transition is not in the journal: {journaled}")
+            deadline = time.time() + 30
+            while not any(live == 1 and d == 2 for _t, live, d in decisions):
+                if time.time() > deadline:
+                    raise AssertionError(f"observe: the SLO autoscaler never asked for 2 replicas: {decisions[-5:]}")
+                time.sleep(0.2)
+            burn = alerts["alerts"]["serving_ttft_p95"]["burn_rate"]
+            log(f"[observe] MetricsHistory quantile p95 over {OBSERVE_FAST_WINDOW_S:.0f}s: {q['value']}s (this "
+                f"replica's 8 TTFTs: {want_p95}s); serving_ttft_p95 firing, burn {burn}x fast "
+                f"{rule['fast_burn']} slow {rule['slow_burn']} (threshold {rule['threshold']}s), journaled "
+                f"({len(journaled)} record); SLO autoscaler: desired 2 with 1 live (moves "
+                f"{[(live, d) for _t, live, d in decisions if d != live][:3]}) | {smi}")
+            tl = synchronizer.run(client.stub.TaskGetTimeline(api_pb2.TaskGetTimelineRequest(task_id=task.task_id)))
+            (line,) = tl.tasks
+            if not 0 < line.created_at <= line.started_at:
+                raise AssertionError(f"observe: the replica's timeline {line}")
+            log(f"[observe] TaskGetTimeline of the replica: created → started "
+                f"{line.started_at - line.created_at:.2f}s (a web replica serves HTTP, not inputs: first input "
+                f"{line.first_input_at}, first output {line.first_output_at})")
+            out.update({"scrape_prom_ms": prom_ms, "scrape_openmetrics_ms": om_ms,
+                        "scrape_p50_ms": scrape_ms[len(scrape_ms) // 2], "history_p95_s": q["value"],
+                        "alert_burn": burn})
+
+            # -- the cost rounds: the sampler off and on, the profiler on and off
+            async def start_sampler():
+                sup._start_sampler()  # on the plane's loop
+
+            for sampler_on, profiler_on in OBSERVE_ROUNDS[1:]:
+                if (sup._sampler_task is not None) != sampler_on:
+                    synchronizer.run(start_sampler() if sampler_on else sup._stop_sampler())
+                if profiler_on:
+                    if not _profile_control(client, "start").running:
+                        raise AssertionError("observe: ProfileControl(start) left the profiler stopped")
+                    settled()  # the container applied the command on a beat
+                    settled()
+                steps_r = _k4_and_steps(settled())
+                k4_r0 = steps_r[0]
+                rounds.append(load_round())
+                report = _wait_report(task, lambda rep: _k4_and_steps(rep)[1] - steps_r[1] == rounds[-1]["steps"])
+                k4_total += _k4_and_steps(report)[0] - k4_r0
+                if profiler_on:
+                    stopped = _profile_control(client, "stop")
+                    if stopped.running or not stopped.n_samples:
+                        raise AssertionError(f"observe: ProfileControl(stop): {stopped}")
+                    settled()  # the container stopped on a beat and wrote its file
+                    settled()
+            synchronizer.run(start_sampler())
+            profiled_paths = list(_profile_control(client, "status").profile_paths)
+            # the second replica waited for the card through every decision
+            # of 2 since the first: one task, and no CUDA context more on the
+            # card than when the replica came up (its memory is printed: the
+            # replica's own grows under load)
+            moves = [(t, live, d) for t, live, d in decisions if live == 1 and d == 2]
+            svc_tasks = [t for t in sup.state.tasks.values() if t.function_id == fn_id]
+            card_1 = (_compute_apps(), _card_used_bytes())
+            if len(svc_tasks) != 1 or card_1[0] != card_0[0]:
+                raise AssertionError(f"observe: {len(svc_tasks)} replica tasks; nvidia-smi compute apps "
+                                     f"{card_0[0]} → {card_1[0]}, memory used {card_0[1] / 1e9:.2f} → "
+                                     f"{card_1[1] / 1e9:.2f} GB")
+            log(f"[observe] the second replica waited for the card through {len(moves)} SLO decisions of 2 over "
+                f"{moves[-1][0] - moves[0][0]:.1f}s: {len(svc_tasks)} replica task; nvidia-smi's compute apps "
+                f"{card_0[0]} and the card's memory used {card_0[1] / 1e9:.2f} GB when the replica came up, "
+                f"{card_1[0]} and {card_1[1] / 1e9:.2f} GB now | {smi}")
+            out.update({"slo_moves_to_2": len(moves), "compute_apps": card_1[0], "card_used_bytes": card_1[1]})
+            mine = [p for p in profiled_paths if p.endswith("-supervisor.folded")]
+            theirs = [p for p in profiled_paths if p.endswith(f"-{task.task_id}.folded")]
+            if not mine or not theirs:
+                raise AssertionError(f"observe: folded files {profiled_paths}")
+            top = profiler.top_table(profiler.merge_folded(theirs), 5)
+            top_plane = profiler.top_table(profiler.merge_folded(mine), 5)
+            log(f"[observe] ProfileControl: folded files {[os.path.basename(p) for p in profiled_paths]}; "
+                f"the replica's top 5 frames (self %): "
+                + "; ".join(f"{row['frame']} {row['self_pct']:.1f}%" for row in top)
+                + " | the plane's process: "
+                + "; ".join(f"{row['frame']} {row['self_pct']:.1f}%" for row in top_plane))
+
+            def summary(picked: list) -> dict:
+                tps = [rounds[i]["tokens_per_s"] for i in picked]
+                ttft = sorted(v for i in picked for v in rounds[i]["ttft"])
+                return {"rounds": picked, "tokens_per_s": tps, "tokens_per_s_mean": statistics.mean(tps),
+                        "ttft_p50_s": ttft[len(ttft) // 2]}
+
+            cost = {"sampler_off": summary([r for r in range(1, 9) if not OBSERVE_ROUNDS[r][0]]),
+                    "sampler_on": summary([r for r in range(1, 9) if OBSERVE_ROUNDS[r][0]]),
+                    "profiler_off": summary([r for r in range(9, 17) if not OBSERVE_ROUNDS[r][1]]),
+                    "profiler_on": summary([r for r in range(9, 17) if OBSERVE_ROUNDS[r][1]])}
+            out.update({"rounds": rounds, "cost": cost, "folded": [os.path.basename(p) for p in profiled_paths],
+                        "top_frames": top, "top_frames_plane": top_plane})
+            for label, c in cost.items():
+                log(f"[observe] {label}: rounds {c['rounds']}, tokens/s {[round(x, 1) for x in c['tokens_per_s']]} "
+                    f"(mean {c['tokens_per_s_mean']:.1f}), TTFT p50 {c['ttft_p50_s']:.3f}s "
+                    f"({8 * len(c['rounds'])} requests) "
+                    f"| {smi}")
+            run_id = app.app_id
+        _wait_app_tasks(sup, run_id)
+
+        # -- the debug profile: the cache-less forward, profiled and not
+        debug_app = App("chip_smoke observe debug")
+        profiled_cls = _debug_forward_class(debug_app, "llama3-8b", True, "DebugForward")
+        plain_cls = _debug_forward_class(debug_app, "llama3-8b", False, "PlainForward")
+        calls = {}
+        with debug_app.run():
+            for label, cls in (("profiled", profiled_cls), ("unprofiled", plain_cls)):
+                obj = cls()
+                rows = []
+                for _ in range(OBSERVE_DEBUG_CALLS):
+                    t_call = time.perf_counter()
+                    res = obj.forward.remote(OBSERVE_DEBUG_LENGTH)
+                    res["call_s"] = time.perf_counter() - t_call
+                    if (res["launches"] != cfg.n_layers or not res["finite"]
+                            or res["shape"] != [1, OBSERVE_DEBUG_LENGTH, cfg.vocab_size]):
+                        raise AssertionError(f"observe: the {label} debug forward {res}")
+                    rows.append(res)
+                calls[label] = rows
+                _add_launches(ctx, "flash_fwd", sum(r["launches"] for r in rows))
+                if label == "profiled":
+                    listed = synchronizer.run(_Client._client_from_env.stub.AppListProfiles(
+                        api_pb2.AppListProfilesRequest(app_id=debug_app.app_id))).profiles
+                    fn_debug = profiled_cls._service_function.object_id
+                    (entry,) = [p for p in listed if sup.state.tasks[p.task_id].function_id == fn_debug]
+                    traces = sorted(n for n in os.listdir(entry.path) if n.endswith(".pt.trace.json"))
+                    if entry.num_traces != OBSERVE_DEBUG_CALLS or len(traces) != OBSERVE_DEBUG_CALLS:
+                        raise AssertionError(f"observe: AppListProfiles lists {entry}")
+                    k1_named = []
+                    for name in traces:
+                        with open(os.path.join(entry.path, name)) as fh:
+                            events = json.load(fh)["traceEvents"]
+                        k1_named.append(sum(1 for e in events if e.get("cat") == "kernel"
+                                            and "flash_fwd_kernel" in str(e.get("name", ""))))
+                        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+                    if k1_named != [cfg.n_layers] * OBSERVE_DEBUG_CALLS:
+                        raise AssertionError(f"observe: the traces name K1 {k1_named} times, want {cfg.n_layers}")
+                    dtask = sup.state.tasks[entry.task_id]
+                    tl = synchronizer.run(_Client._client_from_env.stub.TaskGetTimeline(
+                        api_pb2.TaskGetTimelineRequest(task_id=dtask.task_id))).tasks[0]
+                    if not 0 < tl.created_at <= tl.started_at <= tl.first_input_at <= tl.first_output_at:
+                        raise AssertionError(f"observe: the debug task's timeline {tl}")
+                    out["debug_trace"] = {"path": entry.path, "num_traces": entry.num_traces,
+                                          "size_bytes": entry.size_bytes, "k1_named": k1_named,
+                                          "kernel_events_last": kernels}
+                    log(f"[observe] AppListProfiles: {entry.num_traces} traces, {entry.size_bytes / 1e6:.1f} MB in "
+                        f"{entry.path}; each names flash_fwd_kernel {k1_named} times ({kernels} kernel events in "
+                        f"the last); TaskGetTimeline of the debug task: created → started "
+                        f"{tl.started_at - tl.created_at:.2f}s → first input {tl.first_input_at - tl.started_at:.2f}s"
+                        f" → first output {tl.first_output_at - tl.first_input_at:.2f}s")
+            debug_run = debug_app.app_id
+        _wait_app_tasks(sup, debug_run)
+        out["debug_calls"] = calls
+        for label, rows in calls.items():
+            call_s = ", ".join("%.3f" % r["call_s"] for r in rows)
+            forward_ms = ", ".join("%.1f" % (r["forward_s"] * 1e3) for r in rows)
+            log(f"[observe] debug forward [1, {OBSERVE_DEBUG_LENGTH}] {label}: call {call_s} s, the forward in "
+                f"the container {forward_ms} ms, flash_fwd {[r['launches'] for r in rows]} a call | {smi}")
+        warm = {label: {"call_s": statistics.mean(r["call_s"] for r in rows[1:]),
+                        "forward_ms": statistics.mean(r["forward_s"] * 1e3 for r in rows[1:])}
+                for label, rows in calls.items()}
+        out["debug_warm"] = warm
+        log(f"[observe] the warm debug call (the first boots its container): "
+            f"{warm['profiled']['call_s']:.3f} s profiled against {warm['unprofiled']['call_s']:.3f} s unprofiled, "
+            f"the forward in the container {warm['profiled']['forward_ms']:.1f} ms against "
+            f"{warm['unprofiled']['forward_ms']:.1f} ms | {smi}")
+        same = calls["profiled"][0]["checksum"] == calls["unprofiled"][0]["checksum"]
+        log(f"[observe] the profiled and the unprofiled forward's logits sum "
+            f"{calls['profiled'][0]['checksum']!r} and {calls['unprofiled'][0]['checksum']!r}"
+            + (" (equal)" if same else " (they differ)"))
+    finally:
+        profiler.stop()
+        if _Client._local_supervisor is not None:
+            if _Client._client_from_env is not None:
+                _Client._client_from_env._close()
+            synchronizer.run(_Client._local_supervisor.stop())
+            _Client._local_supervisor = None
+            _Client.set_env_client(None)
+        shutil.rmtree(state_dir, ignore_errors=True)
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+    _add_launches(ctx, "paged_decode", k4_total)
+    ctx["observe"] = out
 
 
 def _wait_app_tasks(sup, app_id: str, timeout: float = 60.0) -> None:
@@ -4360,6 +4904,24 @@ def phase_app(torch, ctx: dict) -> None:
 POOL_ROUNDS = 2  # pool on and off, in turns: on, off, off, on
 
 
+def _compute_apps() -> int:
+    """How many CUDA contexts nvidia-smi lists on the card (its lines: a
+    sandbox may show every process under one pid)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise AssertionError(f"nvidia-smi --query-compute-apps failed: {out.stderr.strip()}")
+    return len([line for line in out.stdout.splitlines() if line.strip()])
+
+
+def _card_used_bytes() -> int:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise AssertionError(f"nvidia-smi --query-gpu=memory.used failed: {out.stderr.strip()}")
+    return int(out.stdout.split()[0]) * (1 << 20)
+
+
 def _compute_pids() -> set:
     """The pids holding a CUDA context on the card, from nvidia-smi."""
     out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
@@ -4764,8 +5326,8 @@ KERNELS = {
 }
 # the phases whose run each kernel's launch count is read from
 PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "graphs", "weights", "volume", "int8", "spec",
-                          "disagg", "web", "disagg_http"),
-         "flash_fwd": ("app", "sandbox", "weights", "volume", "forward", "train", "moe", "mesh"),
+                          "disagg", "web", "observe", "disagg_http"),
+         "flash_fwd": ("app", "sandbox", "weights", "volume", "observe", "forward", "train", "moe", "mesh"),
          "flash_bwd_dq": ("volume", "train", "moe", "mesh"),
          "flash_bwd_dkv": ("volume", "train", "moe", "mesh")}
 

@@ -14,9 +14,10 @@ function's `@batched`, `@concurrent` and web decorator parameters go into
 its definition, and `schedule=` fires it from the control plane's cron loop.
 `volumes=` (on the App, or a function, whose entries win) maps container
 paths to Volumes and CloudBucketMounts, and `@clustered` makes a function a
-gang. What waits for a later sub-slice of ROADMAP Queue A is refused at
-decoration with InvalidError naming it: `runtime_debug=` (4d-ii), `proxy=`
-and `cloud=` (4e).
+gang. `runtime_debug=True` profiles each input with torch.profiler in the
+container (runtime/container_entrypoint.py). What waits for a later
+sub-slice of ROADMAP Queue A is refused at decoration with InvalidError
+naming it: `proxy=` and `cloud=` (4e).
 """
 
 from __future__ import annotations
@@ -56,7 +57,6 @@ def _refuse_waiting(**asked: Any) -> None:
     """InvalidError for the first decorator argument whose feature waits for
     a later sub-slice of ROADMAP Queue A."""
     waits = {
-        "runtime_debug": "runtime_debug= waits for the port's profiler (ROADMAP Queue A 4d-ii)",
         "proxy": "proxy= waits for the port's Proxy (ROADMAP Queue A 4e)",
         "cloud": "cloud= waits for the port's multi-cloud placement (ROADMAP Queue A 4e)",
         "tpu": "tpu= asks for TPU chips, which the port does not place: ask for cards with gpu=",
@@ -207,7 +207,7 @@ class _App:
             raise InvalidError("Did you forget parentheses? Use @app.function().")
         if payload_format not in ("pickle", "cbor"):
             raise InvalidError(f"payload_format must be 'pickle' or 'cbor', got {payload_format!r}")
-        _refuse_waiting(runtime_debug=runtime_debug, proxy=proxy, cloud=cloud, tpu=tpu)
+        _refuse_waiting(proxy=proxy, cloud=cloud, tpu=tpu)
         gpu_spec = parse_gpu_config(gpu, mesh)
 
         def wrapper(f: Union[Callable, _PartialFunction]) -> _Function:
@@ -250,7 +250,14 @@ class _App:
                 enable_memory_snapshot=enable_memory_snapshot,
                 restrict_output=restrict_output,
                 payload_format=payload_format,
-                experimental_options=dict(experimental_options or {}),
+                experimental_options={
+                    # runtime_debug rides experimental_options like the
+                    # reference's perf knobs (api.proto:1863,1944): each
+                    # input runs under torch.profiler and its trace lands in
+                    # the task's dir (AppListProfiles)
+                    **({"runtime_debug": "1"} if runtime_debug else {}),
+                    **dict(experimental_options or {}),
+                },
                 cluster_size=params.cluster_size or 0,
                 broadcast_inputs=params.broadcast_inputs,
                 fabric_size=params.fabric_size or 0,

@@ -12,9 +12,10 @@ Resources carry a `GPUConfig` (`gpu="H100"`, `"H100:8"`, parsed by
 
 `volumes=` maps container paths to Volumes (`volume_mounts`) and to
 CloudBucketMounts (`cloud_bucket_mounts`); a `@clustered` function is a gang
-(`group_size`, `broadcast_inputs`, `fabric_size`). What waits for a later
-sub-slice of ROADMAP Queue A, refused with InvalidError when a function
-asks for it: `runtime_debug=` (4d-ii), `proxy=` and `cloud=` (4e). Every
+(`group_size`, `broadcast_inputs`, `fabric_size`); `target_ttft_ms` and
+`target_tokens_per_replica` feed the plane's SLO autoscaler. What waits
+for a later sub-slice of ROADMAP Queue A, refused with InvalidError when a
+function asks for it: `proxy=` and `cloud=` (4e). Every
 call goes through the control plane (the region-local input plane,
 `_InputPlaneInvocation` and the Attempt* RPCs, comes with 4e); concurrent
 FunctionMaps coalesce into one FunctionMapBatch through the client's
@@ -123,8 +124,8 @@ class _FunctionSpec:
     max_containers: int = 0
     buffer_containers: int = 0
     scaledown_window: int = 60
-    # serving-tier SLO targets: the port's plane refuses them until its SLO
-    # autoscaler (ROADMAP Queue A 4d-ii)
+    # serving-tier SLO targets, read by the plane's SLO autoscaler
+    # (server/scheduler.py `_slo_desired`)
     target_ttft_ms: float = 0.0
     target_tokens_per_replica: float = 0.0
     max_concurrent_inputs: int = 0
@@ -982,6 +983,14 @@ class _FunctionCall(_Object, type_prefix="fc"):
             self.client.stub.FunctionCallGetInfo, api_pb2.FunctionCallGetInfoRequest(function_call_id=self.object_id)
         )
         return [resp.info]
+
+    @live_method
+    async def get_timeline(self) -> api_pb2.TaskGetTimelineResponse:
+        """The plane's boot and serve stamps of the tasks that served this
+        call (assignment → ContainerHello → first input → first output)."""
+        return await retry_transient_errors(
+            self.client.stub.TaskGetTimeline, api_pb2.TaskGetTimelineRequest(function_call_id=self.object_id)
+        )
 
     @live_method
     async def cancel(self, terminate_containers: bool = False) -> None:

@@ -2,7 +2,8 @@
 app), device telemetry (step times, device memory), compile telemetry
 (kernel builds, CUDA-graph captures, the fleet compile cache), the SDK
 core (client RPCs, payload bytes), the App layer's dispatch, the control
-plane, and its journal and local fast path.
+plane, its journal and local fast path, and the metrics plane (the
+time-series store, SLO alerts, the sampling profiler).
 
 Names and help texts are those of the JAX package's catalog, so a scrape of
 either implementation reads the same way. Importing this module registers
@@ -397,4 +398,49 @@ DISPATCH_LATENCY = REGISTRY.histogram(
     "Client-observed end-to-end `.remote()` wall time (the function.call root span); "
     "observations carry the trace_id as an OpenMetrics exemplar, so a p99 bucket "
     "links to `modal_tpu app trace <trace_id>`.",
+)
+
+# -- the metrics plane: the time-series store, SLO alerts and the sampling
+# profiler (observability/timeseries.py, slo.py, profiler.py) ----------------
+
+PROFILER_SAMPLES = REGISTRY.counter(
+    "modal_tpu_profiler_samples_total",
+    "Stack samples taken by the in-process sampling profiler.",
+)
+PROFILER_RUNNING = REGISTRY.gauge(
+    "modal_tpu_profiler_running",
+    "1 while the process's sampling profiler is active.",
+)
+TIMESERIES_SAMPLES = REGISTRY.counter(
+    "modal_tpu_timeseries_samples_total",
+    "Samples taken by the supervisor-resident time-series store.",
+)
+TIMESERIES_POINTS = REGISTRY.gauge(
+    "modal_tpu_timeseries_points",
+    "Points currently held per rollup tier of the time-series store "
+    "(bounded by construction: tiers × series cap × ring length).",
+    ("tier",),
+)
+TIMESERIES_SAMPLE_SECONDS = REGISTRY.histogram(
+    "modal_tpu_timeseries_sample_seconds",
+    "Wall time of one full store sample (every tracked family snapshotted, "
+    "deltas computed, rollups folded).",
+    buckets=(0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.05, 0.25),
+)
+SLO_BURN_RATE = REGISTRY.gauge(
+    "modal_tpu_slo_burn_rate",
+    "Current burn rate per SLO rule and window (fast|slow): observed/objective, "
+    "1.0 = exactly on budget (observability/slo.py).",
+    ("rule", "window"),
+)
+SLO_ALERTS_FIRING = REGISTRY.gauge(
+    "modal_tpu_slo_alerts_firing",
+    "1 while the named SLO rule's burn-rate alert is firing.",
+    ("rule",),
+)
+SLO_ALERT_TRANSITIONS = REGISTRY.counter(
+    "modal_tpu_slo_alert_transitions_total",
+    "SLO alert state transitions (firing | resolved); each is also a "
+    "journaled event, so firing alerts survive a supervisor crash_restart.",
+    ("rule", "transition"),
 )

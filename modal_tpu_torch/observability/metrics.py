@@ -4,6 +4,11 @@ Dependency-free. Every metric declares its label names up front and the
 number of label-value combinations per metric is capped (MAX_SERIES): past
 the cap, samples collapse into one ``__overflow__`` series.
 
+`render_prometheus` / `render_openmetrics` are the text expositions the
+plane's blob server answers ``GET /metrics`` with (histogram buckets carry
+their latest trace-id exemplar in the OpenMetrics flavor); both are
+byte-equal to the JAX package's for the same families and observations.
+
 `export_families` / `merge_families` are the cross-process push of the JAX
 package's metrics.py (:405-458), in its JSON shape: a container exports the
 families it pushes, the control plane merges them (gauges latest-wins,
@@ -49,6 +54,27 @@ class _Metric:
         with self._lock:
             self._series.clear()
 
+    def _fmt_labels(self, key: tuple[str, ...], extra: str = "") -> str:
+        parts = [f'{n}="{_escape(v)}"' for n, v in zip(self.labelnames, key)]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    def render(self) -> list[str]:
+        raise NotImplementedError
+
+    def snapshot(self) -> dict:
+        raise NotImplementedError
+
+
+def _escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _escape_help(v: str) -> str:
+    # HELP text escapes backslash and newline only (quotes are legal there)
+    return v.replace("\\", "\\\\").replace("\n", "\\n")
+
 
 class Counter(_Metric):
     kind = "counter"
@@ -70,6 +96,13 @@ class Counter(_Metric):
         with self._lock:
             return {",".join(k) if k else "": v for k, v in self._series.items()}
 
+    def render(self) -> list[str]:
+        with self._lock:
+            return [
+                f"{self.name}{self._fmt_labels(key)} {value}"
+                for key, value in sorted(self._series.items())
+            ]
+
 
 class Gauge(_Metric):
     kind = "gauge"
@@ -79,12 +112,18 @@ class Gauge(_Metric):
         with self._lock:
             self._series[key] = float(value)
 
+    def inc(self, value: float = 1.0, **labels: str) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._series[key] = self._series.get(key, 0.0) + value
+
     def value(self, **labels: str) -> float:
         with self._lock:
             return float(self._series.get(tuple(str(labels[n]) for n in self.labelnames), 0.0))
 
     total = Counter.total
     snapshot = Counter.snapshot
+    render = Counter.render
 
 
 class _HistSeries:
@@ -140,23 +179,45 @@ class Histogram(_Metric):
             return sum(s.count for s in self._series.values())
 
     def quantile(self, q: float) -> Optional[float]:
-        """Bucket quantile across all series: the upper bound of the bucket
-        the q-th observation lands in (the last finite bound past it), None
-        when empty; modal_tpu/observability/quantile.py's contract."""
+        """Bucket quantile across all series (quantile.bucket_quantile)."""
+        from .quantile import bucket_quantile
+
         with self._lock:
             total = sum(s.count for s in self._series.values())
             merged = [0] * len(self.buckets)
             for s in self._series.values():
                 for i, c in enumerate(s.counts):
                     merged[i] += c
-        if total <= 0:
-            return None
-        seen = 0
-        for i, c in enumerate(merged):
-            seen += c
-            if seen >= q * total:
-                return self.buckets[i]
-        return self.buckets[-1]
+        return bucket_quantile(self.buckets, merged, q, total=total)
+
+    def render(self, exemplars: bool = False) -> list[str]:
+        """Exposition lines; with ``exemplars=True`` bucket samples carry the
+        OpenMetrics exemplar suffix (`... # {trace_id="…"} value timestamp`)."""
+        lines = []
+        with self._lock:
+            for key, series in sorted(self._series.items()):
+                cumulative = 0
+                for i, (bound, c) in enumerate(zip(self.buckets, series.counts)):
+                    cumulative += c
+                    le = 'le="%s"' % bound
+                    line = f"{self.name}_bucket{self._fmt_labels(key, le)} {cumulative}"
+                    lines.append(line + self._exemplar_suffix(series, i, exemplars))
+                inf = 'le="+Inf"'
+                line = f"{self.name}_bucket{self._fmt_labels(key, inf)} {series.count}"
+                lines.append(line + self._exemplar_suffix(series, len(self.buckets), exemplars))
+                lines.append(f"{self.name}_sum{self._fmt_labels(key)} {round(series.sum, 6)}")
+                lines.append(f"{self.name}_count{self._fmt_labels(key)} {series.count}")
+        return lines
+
+    @staticmethod
+    def _exemplar_suffix(series: _HistSeries, idx: int, enabled: bool) -> str:
+        if not enabled:
+            return ""
+        ex = series.exemplars.get(idx)
+        if ex is None:
+            return ""
+        trace_id, value, ts = ex
+        return f' # {{trace_id="{_escape(trace_id)}"}} {round(value, 9)} {round(ts, 3)}'
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -198,6 +259,7 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: dict[str, _Metric] = {}
+        self.started_at = time.time()
 
     def _define(self, cls, name: str, help: str, labelnames: tuple[str, ...], **kw):
         with self._lock:
@@ -228,6 +290,96 @@ class MetricsRegistry:
     def get(self, name: str) -> Optional[_Metric]:
         with self._lock:
             return self._metrics.get(name)
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
+    def reset(self) -> None:
+        """Zero every series (tests); families stay registered."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            m.clear()
+
+    def render_prometheus(self) -> str:
+        """The Prometheus text exposition: every registered family renders
+        its HELP/TYPE header even before its first sample."""
+        with self._lock:
+            metrics = [self._metrics[name] for name in sorted(self._metrics)]
+        out: list[str] = []
+        for m in metrics:
+            out.append(f"# HELP {m.name} {_escape_help(m.help)}")
+            out.append(f"# TYPE {m.name} {m.kind}")
+            out.extend(m.render())
+        return "\n".join(out) + "\n"
+
+    def render_openmetrics(self) -> str:
+        """The OpenMetrics exposition: the same families, histogram buckets
+        with their exemplars, counter families named without `_total` (their
+        samples keep it, as a strict OpenMetrics parser requires), and the
+        body closed by `# EOF`."""
+        with self._lock:
+            metrics = [self._metrics[name] for name in sorted(self._metrics)]
+        out: list[str] = []
+        for m in metrics:
+            family = m.name
+            if m.kind == "counter" and family.endswith("_total"):
+                family = family[: -len("_total")]
+            out.append(f"# HELP {family} {_escape_help(m.help)}")
+            out.append(f"# TYPE {family} {m.kind}")
+            if isinstance(m, Histogram):
+                out.extend(m.render(exemplars=True))
+            else:
+                out.extend(m.render())
+        out.append("# EOF")
+        return "\n".join(out) + "\n"
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            metrics = dict(self._metrics)
+        return {
+            name: {"type": m.kind, "help": m.help, "series": m.snapshot()}
+            for name, m in sorted(metrics.items())
+        }
+
+    def bench_summary(self) -> dict:
+        """Compact roll-up of the registry for a bench's one-line result."""
+        summary: dict = {}
+
+        def _tot(name: str, key: str) -> None:
+            m = self.get(name)
+            if isinstance(m, (Counter, Gauge)) and m.total():
+                summary[key] = round(m.total(), 2)
+
+        lat = self.get("modal_tpu_rpc_latency_seconds")
+        if isinstance(lat, Histogram) and lat.count_total():
+            summary["rpc_count"] = lat.count_total()
+            summary["rpc_latency_p50_s"] = lat.quantile(0.5)
+            summary["rpc_latency_p99_s"] = lat.quantile(0.99)
+        disp = self.get("modal_tpu_dispatch_latency_seconds")
+        if isinstance(disp, Histogram) and disp.count_total():
+            summary["dispatch_count"] = disp.count_total()
+            summary["dispatch_latency_p50_s"] = disp.quantile(0.5)
+        steps = self.get("modal_tpu_step_seconds")
+        if isinstance(steps, Histogram) and steps.count_total():
+            summary["step_p50_s"] = steps.quantile(0.5)
+        _tot("modal_tpu_compile_events_total", "compile_events")
+        _tot("modal_tpu_scheduler_tasks_launched_total", "tasks_launched")
+        _tot("modal_tpu_blob_bytes_total", "blob_bytes")
+        _tot("modal_tpu_client_rpc_retries_total", "client_rpc_retries")
+        _tot("modal_tpu_chaos_injections_total", "chaos_injections")
+        _tot("modal_tpu_worker_preemptions_total", "worker_preemptions")
+        _tot("modal_tpu_serialized_bytes_total", "serialized_bytes")
+        _tot("modal_tpu_dataplane_copy_bytes_total", "dataplane_copy_bytes")
+        _tot("modal_tpu_blob_spills_total", "blob_spills")
+        _tot("modal_tpu_weights_loaded_bytes_total", "weights_loaded_bytes")
+        gbps = self.get("modal_tpu_weights_load_gbps")
+        if isinstance(gbps, Gauge):
+            v = gbps.value()
+            if v:
+                summary["weights_load_gbps"] = round(v, 3)
+        return summary
 
 
 REGISTRY = MetricsRegistry()

@@ -66,6 +66,9 @@ class Span:
     def context(self) -> SpanContext:
         return SpanContext(self.trace_id, self.span_id)
 
+    def set_attr(self, key: str, value: Any) -> None:
+        self.attrs[key] = value
+
     def add_event(self, name: str, **attrs: Any) -> None:
         self.events.append({"name": name, "t": time.time(), **attrs})
 
@@ -109,20 +112,126 @@ def trace_dir() -> Optional[str]:
     return _sink_dir
 
 
+# retention of the span store: `gc_trace_dir` (the supervisor's boot) drops
+# files older than the age bound, then the oldest until the store is under
+# the size bound; a live file written within the grace may be another
+# process's open sink and is never removed
+DEFAULT_STORE_MAX_BYTES = 256 * 1024 * 1024
+DEFAULT_STORE_MAX_AGE_S = 7 * 24 * 3600.0
+LIVE_SINK_GRACE_S = 300.0
+
+
+def _is_span_file(fname: str) -> bool:
+    # rotated generations (.jsonl.1, the JAX package's sink rotation) read
+    # the same as live files
+    return fname.startswith("spans-") and (fname.endswith(".jsonl") or fname.endswith(".jsonl.1"))
+
+
+def span_dirs(trace_dir_path: str) -> list[str]:
+    """The given trace dir plus any sibling per-shard span sinks
+    (``<root>/shard-<i>/traces``), which readers merge."""
+    dirs = [trace_dir_path]
+    root = os.path.dirname(os.path.abspath(trace_dir_path))
+    try:
+        for name in sorted(os.listdir(root)):
+            if name.startswith("shard-"):
+                cand = os.path.join(root, name, "traces")
+                if cand != os.path.abspath(trace_dir_path) and os.path.isdir(cand):
+                    dirs.append(cand)
+    except OSError:
+        pass
+    return dirs
+
+
 def read_spans(trace_dir_path: str) -> list[dict]:
-    """Every span written under `trace_dir_path`, across the processes'
-    files; a torn last line (a process killed mid-write) is skipped."""
+    """Every span written under `trace_dir_path` (and its sibling shard
+    sinks), across the processes' files; a torn line (a process killed
+    mid-write) is skipped."""
     spans: list[dict] = []
-    for name in sorted(os.listdir(trace_dir_path)):
-        if not (name.startswith("spans-") and name.endswith(".jsonl")):
-            continue
-        with open(os.path.join(trace_dir_path, name)) as f:
-            for line in f:
-                try:
-                    spans.append(json.loads(line))
-                except ValueError:
-                    continue
+    for d in span_dirs(trace_dir_path):
+        spans.extend(_read_spans_one(d))
     return spans
+
+
+def _read_spans_one(trace_dir_path: str) -> list[dict]:
+    spans: list[dict] = []
+    try:
+        names = sorted(os.listdir(trace_dir_path))
+    except OSError:
+        return spans
+    for fname in names:
+        if not _is_span_file(fname):
+            continue
+        try:
+            with open(os.path.join(trace_dir_path, fname)) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue
+                    if isinstance(rec, dict) and rec.get("trace_id"):
+                        spans.append(rec)
+        except OSError:
+            continue
+    return spans
+
+
+def gc_trace_dir(
+    trace_dir_path: str,
+    max_total_bytes: int = DEFAULT_STORE_MAX_BYTES,
+    max_age_s: float = DEFAULT_STORE_MAX_AGE_S,
+) -> dict:
+    """Prune the span store: drop files older than `max_age_s`, then the
+    oldest (rotated generations first) until the store is under
+    `max_total_bytes`. This process's own sink and any live file written
+    within LIVE_SINK_GRACE_S are never removed."""
+    report = {"removed": 0, "removed_bytes": 0, "kept": 0, "kept_bytes": 0}
+    try:
+        names = os.listdir(trace_dir_path)
+    except OSError:
+        return report
+    own = f"spans-{os.getpid()}.jsonl"
+    now = time.time()
+    entries = []  # (mtime, is_rotated, path, size, fname)
+    for fname in names:
+        if not _is_span_file(fname):
+            continue
+        path = os.path.join(trace_dir_path, fname)
+        try:
+            st = os.stat(path)
+        except OSError:
+            continue
+        entries.append((st.st_mtime, fname.endswith(".1"), path, st.st_size, fname))
+
+    def _remove(path: str, size: int) -> None:
+        try:
+            os.unlink(path)
+            report["removed"] += 1
+            report["removed_bytes"] += size
+        except OSError:
+            pass
+
+    def _protected(is_rotated: bool, mtime: float, fname: str) -> bool:
+        return fname == own or (not is_rotated and now - mtime < LIVE_SINK_GRACE_S)
+
+    keep = []
+    for mtime, is_rotated, path, size, fname in entries:
+        if not _protected(is_rotated, mtime, fname) and now - mtime > max_age_s:
+            _remove(path, size)
+        else:
+            keep.append((mtime, is_rotated, path, size, fname))
+    keep.sort(key=lambda e: (not e[1], e[0]))  # rotated first, oldest first
+    total = sum(e[3] for e in keep)
+    kept = []
+    for e in keep:
+        if total > max_total_bytes and not _protected(e[1], e[0], e[4]):
+            _remove(e[2], e[3])
+            total -= e[3]
+        else:
+            kept.append(e)
+    report["kept"] = len(kept)
+    report["kept_bytes"] = sum(e[3] for e in kept)
+    return report
 
 
 _span_taps: list = []
@@ -151,11 +260,41 @@ def _write(span: Span) -> None:
 
 
 _current_span: ContextVar[Optional[Span]] = ContextVar("modal_tpu_torch_span", default=None)
+# a context taken from the wire (server side) with no local span open yet
+_remote_context: ContextVar[Optional[SpanContext]] = ContextVar(
+    "modal_tpu_torch_remote_span_ctx", default=None
+)
+
+
+def current_span() -> Optional[Span]:
+    return _current_span.get()
 
 
 def current_context() -> Optional[SpanContext]:
     span = _current_span.get()
-    return span.context if span is not None else None
+    if span is not None:
+        return span.context
+    return _remote_context.get()
+
+
+def set_attr(key: str, value: Any) -> None:
+    span = _current_span.get()
+    if span is not None:
+        span.set_attr(key, value)
+
+
+@contextmanager
+def remote_context(ctx: Optional[SpanContext]) -> Iterator[None]:
+    """Server side: make a context taken from the wire the ambient parent
+    for the duration of a handler that opens no span of its own."""
+    if ctx is None:
+        yield
+        return
+    token = _remote_context.set(ctx)
+    try:
+        yield
+    finally:
+        _remote_context.reset(token)
 
 
 def add_event(name: str, **attrs: Any) -> None:

@@ -26,9 +26,15 @@ A gang member meets its peers before the user's code is imported
 (`runtime/clustered.py`: TaskClusterHello, then a torch.distributed process
 group over NCCL or gloo); cloud bucket mounts are synced into their paths
 then too, and written back at exit, and each mounted Volume is committed at
-exit. A definition that asks for what the port's runtime does not run yet
-is refused before any user code runs, naming the ROADMAP Queue A sub-slice
-that brings it: the runtime debug profile (4d-ii).
+exit.
+
+A function with `runtime_debug=True` runs each input under torch.profiler
+(`_maybe_profile`) and exports a Chrome trace (`*.pt.trace.json`) into
+`<task_dir>/profile`, which AppListProfiles lists; the profiler traces the
+card (CUDA activity) when the function asked for one, and the CPU only when
+it asked for none. `MODAL_TPU_PROFILE` starts the sampling profiler at boot
+(observability/profiler.py), and the heartbeat applies the plane's
+ProfileControl commands to it.
 
 With `MODAL_TPU_POOL_ID` set the process is a warm-pool interpreter
 (server/warm_pool.py, `pool_main`): it imports torch on the main thread
@@ -41,6 +47,7 @@ the placement initialized CUDA (ROADMAP Queue C 28).
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import importlib
 import inspect
 import os
@@ -85,12 +92,17 @@ def load_container_arguments() -> api_pb2.ContainerArguments:
         return api_pb2.ContainerArguments.FromString(f.read())
 
 
-def waiting_branch(container_args: api_pb2.ContainerArguments) -> str:
-    """What of this container's definition the port's runtime cannot run
-    yet, naming the ROADMAP Queue A sub-slice that brings it; "" if none."""
-    if container_args.function_def.experimental_options.get("runtime_debug"):
-        return "the runtime debug profile waits for the port's profiler (ROADMAP Queue A 4d-ii)"
-    return ""
+async def _run_to_end(fut: "asyncio.Future") -> bool:
+    """Await `fut` to its end through cancels of the awaiting task; True if
+    one came (the caller re-raises it once the work is done)."""
+    cancelled = False
+    while not fut.done():
+        try:
+            await asyncio.shield(fut)
+        except asyncio.CancelledError:
+            cancelled = True
+    fut.result()
+    return cancelled
 
 
 def is_gang_member(container_args: api_pb2.ContainerArguments) -> bool:
@@ -108,6 +120,58 @@ async def run_lifecycle_hooks(hooks: list, name: str) -> None:
         res = await asyncio.to_thread(hook)
         if inspect.isawaitable(res):
             await res
+
+
+# set by main_async for a runtime_debug function: each input runs under
+# torch.profiler and its Chrome trace lands here; PROFILE_CUDA adds the CUDA
+# activity (the function asked for a card; never decided by asking the
+# driver, ROADMAP Queue C 28)
+PROFILE_DIR: Optional[str] = None
+PROFILE_CUDA = False
+# torch.profiler is not reentrant: concurrent inputs take turns at the one
+# trace, and an input that finds it taken runs unprofiled
+_profile_lock = threading.Lock()
+_profile_seq = 0
+
+
+@contextlib.contextmanager
+def _maybe_profile():
+    """Profile the enclosed input with torch.profiler when PROFILE_DIR is
+    set. The trace names `<pid>-<n>.pt.trace.json`. A card's profile needs
+    CUPTI: when torch cannot trace CUDA, this raises, and never falls back
+    to a CPU-only trace."""
+    global _profile_seq
+    if PROFILE_DIR is None or not _profile_lock.acquire(blocking=False):
+        yield
+        return
+    try:
+        import torch.profiler as tprof
+
+        activities = [tprof.ProfilerActivity.CPU]
+        if PROFILE_CUDA:
+            if tprof.ProfilerActivity.CUDA not in tprof.supported_activities():
+                raise ExecutionError("runtime_debug: torch.profiler cannot trace CUDA here (no CUPTI)")
+            activities.append(tprof.ProfilerActivity.CUDA)
+        with tprof.profile(activities=activities) as prof:
+            yield
+        _profile_seq += 1
+        os.makedirs(PROFILE_DIR, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(PROFILE_DIR, f"{os.getpid()}-{_profile_seq}.pt.trace.json"))
+    finally:
+        _profile_lock.release()
+
+
+def _profiled(callable_: Any) -> Any:
+    """`callable_` entering `_maybe_profile` on the thread that runs it:
+    torch.profiler records the CPU ops of the thread that started it."""
+    if PROFILE_DIR is None:
+        return callable_
+
+    def run(*args: Any, **kwargs: Any) -> Any:
+        with _maybe_profile():
+            return callable_(*args, **kwargs)
+
+    return run
 
 
 async def _call_sync(callable_: Any, args: tuple, kwargs: dict, ctx: IOContext, io: ContainerIOManager) -> Any:
@@ -159,9 +223,10 @@ async def call_user_code(service: Service, ctx: IOContext, io: ContainerIOManage
                 )
             ]
         if inspect.iscoroutinefunction(callable_):
-            value = await callable_(*args, **kwargs)
+            with _maybe_profile():
+                value = await callable_(*args, **kwargs)
         else:
-            value = await _call_sync(callable_, args, kwargs, ctx, io)
+            value = await _call_sync(_profiled(callable_), args, kwargs, ctx, io)
         io.note_call_time(time.monotonic() - t0)
         fmt = ctx.data_format or api_pb2.DATA_FORMAT_PICKLE
         if ctx.is_batch:
@@ -302,9 +367,6 @@ async def _boot_service(
 
     function_def = container_args.function_def
     task_id = container_args.task_id
-    waiting = waiting_branch(container_args)
-    if waiting:
-        raise ExecutionError(waiting)
     if function_def.resources.gpu_config.gpu_type:
         # a function that asks for a card loads torch now, after the hello
         # and on the main thread: the AOT warm-up, the enter hooks and the
@@ -451,9 +513,19 @@ async def main_async() -> int:
         client.stub.ContainerHello, api_pb2.ContainerHelloRequest(task_id=task_id, warm_pool_hit=_WARM_POOL_SERVE),
         max_retries=5,
     )
+    if function_def.experimental_options.get("runtime_debug"):
+        global PROFILE_DIR, PROFILE_CUDA
+        PROFILE_DIR = os.path.join(os.environ.get("MODAL_TPU_TASK_DIR", "") or ".", "profile")
+        PROFILE_CUDA = bool(function_def.resources.gpu_config.gpu_type)
+        os.makedirs(PROFILE_DIR, exist_ok=True)
     io = ContainerIOManager(client, task_id, function_def)
     io._function_id = container_args.function_id
     heartbeat_task = asyncio.create_task(io.heartbeat_loop(), name="heartbeat")
+    # the sampling profiler: the env switch starts it at boot, the heartbeat
+    # applies the plane's start and stop commands
+    from ..observability import profiler as obs_profiler
+
+    obs_profiler.maybe_start_from_env(os.environ.get(obs_profiler.PROFILE_DIR_ENV, ""), tag=task_id)
 
     # the boot span starts at the worker's spawn decision (MODAL_TPU_TRACE_T0)
     # and ends when the container is ready for inputs
@@ -494,55 +566,67 @@ async def main_async() -> int:
             traceback.print_exc()
     finally:
         io.terminate = True
-        if service is not None:
-            try:
-                await run_lifecycle_hooks(service.exit_hooks, "exit")
-            except Exception:  # noqa: BLE001 — the result must still be reported
-                traceback.print_exc()
-        if bucket_states:
-            # blocking on purpose: awaits in a cancelled task's finally were
-            # seen hanging until the worker's SIGKILL
-            from .bucket_mounts import writeback_bucket_mounts_sync
 
-            try:
-                writeback_bucket_mounts_sync(bucket_states)
-            except Exception:  # noqa: BLE001
-                traceback.print_exc()
-        # each mounted volume is committed at exit (reference
-        # task_lifecycle_manager.py:117)
-        for volume_id in function_def.volume_mounts.values():
-            try:
-                await retry_transient_errors(client.stub.VolumeCommit, api_pb2.VolumeCommitRequest(volume_id=volume_id),
-                                             max_retries=1)
-            except Exception:  # noqa: BLE001 — the result must still be reported
-                traceback.print_exc()
-        if is_gang_member(container_args):
-            from .clustered import shutdown_cluster
+        async def _exit_work() -> None:
+            if service is not None:
+                try:
+                    await run_lifecycle_hooks(service.exit_hooks, "exit")
+                except Exception:  # noqa: BLE001 — the result must still be reported
+                    traceback.print_exc()
+            if bucket_states:
+                # blocking on purpose: awaits in a cancelled task's finally were
+                # seen hanging until the worker's SIGKILL
+                from .bucket_mounts import writeback_bucket_mounts_sync
 
-            shutdown_cluster()
-        # which rung of the local fast path each of this container's RPCs
-        # took (calls by "<method>:<rung>"), under the boot's trace; written
-        # before TaskResult, which the worker's stop waits for
-        rungs = getattr(client.stub, "rungs", None)
-        tracing.record_span("container.fastpath", start=time.time(), end=time.time(), parent=boot_span.context,
-                            attrs={"task_id": task_id, "rungs": dict(rungs or {}),
-                                   "uds": getattr(client.stub, "uds_path", "")})
-        try:
-            await retry_transient_errors(
-                client.stub.TaskResult,
-                api_pb2.TaskResultRequest(
-                    task_id=task_id, result=api_pb2.GenericResult(status=exit_status, exception=exit_exception)
-                ),
-                max_retries=2,
-            )
-        except Exception:  # noqa: BLE001 — the worker's exit-code report is the backstop
-            traceback.print_exc()
-        heartbeat_task.cancel()
-        try:
-            await heartbeat_task
-        except asyncio.CancelledError:
-            pass
-        await client._close()
+                try:
+                    writeback_bucket_mounts_sync(bucket_states)
+                except Exception:  # noqa: BLE001
+                    traceback.print_exc()
+            # each mounted volume is committed at exit (reference
+            # task_lifecycle_manager.py:117)
+            for volume_id in function_def.volume_mounts.values():
+                try:
+                    await retry_transient_errors(
+                        client.stub.VolumeCommit, api_pb2.VolumeCommitRequest(volume_id=volume_id), max_retries=1
+                    )
+                except Exception:  # noqa: BLE001 — the result must still be reported
+                    traceback.print_exc()
+            if is_gang_member(container_args):
+                from .clustered import shutdown_cluster
+
+                shutdown_cluster()
+            # which rung of the local fast path each of this container's RPCs
+            # took (calls by "<method>:<rung>"), under the boot's trace; written
+            # before TaskResult, which the worker's stop waits for
+            rungs = getattr(client.stub, "rungs", None)
+            tracing.record_span("container.fastpath", start=time.time(), end=time.time(), parent=boot_span.context,
+                                attrs={"task_id": task_id, "rungs": dict(rungs or {}),
+                                       "uds": getattr(client.stub, "uds_path", "")})
+            try:
+                await retry_transient_errors(
+                    client.stub.TaskResult,
+                    api_pb2.TaskResultRequest(
+                        task_id=task_id, result=api_pb2.GenericResult(status=exit_status, exception=exit_exception)
+                    ),
+                    max_retries=2,
+                )
+            except Exception:  # noqa: BLE001 — the worker's exit-code report is the backstop
+                traceback.print_exc()
+            heartbeat_task.cancel()
+            try:
+                await heartbeat_task
+            except asyncio.CancelledError:
+                pass
+            await client._close()
+
+        # an app stop reaches the container twice, as the kill switch (the
+        # input loop returns and this block starts) and as the worker's
+        # SIGTERM, which cancels this task: the exit work runs to its end
+        # through that cancel (a cancelled `to_thread` exit hook that had not
+        # started would never run, and TaskResult would be skipped); the
+        # worker's SIGKILL escalation still bounds it
+        if await _run_to_end(asyncio.ensure_future(_exit_work())):
+            raise asyncio.CancelledError
     # a graceful drain (TERMINATED) is an expected shutdown: exit 0
     return 0 if exit_status in (api_pb2.GENERIC_STATUS_SUCCESS, api_pb2.GENERIC_STATUS_TERMINATED) else 1
 
@@ -700,8 +784,10 @@ def _reset_process_state(base_env: dict, base_cwd: str, added_paths: list) -> No
                 sys.path.remove(p)
             except ValueError:
                 pass
+    global PROFILE_DIR, PROFILE_CUDA
     _Client.set_env_client(None)
     ContainerIOManager._singleton = None
+    PROFILE_DIR, PROFILE_CUDA = None, False
     build = sys.modules.get("modal_tpu_torch.ops._build")
     if build is not None:
         build.reset_launches()  # a heartbeat reports this placement's launches only

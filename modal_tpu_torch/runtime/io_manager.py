@@ -15,13 +15,15 @@ telemetry. Claims and outputs coalesce as the JAX manager's do: a container
 with N free concurrency slots asks for up to N inputs in one long-poll, and
 outputs of concurrent inputs finishing within one window share one
 FunctionPutOutputs (`_utils/coalescer.py`; off with
-MODAL_TPU_DISPATCH_COALESCE=0). The profiler commands wait for ROADMAP
-Queue A 4d-ii.
+MODAL_TPU_DISPATCH_COALESCE=0). The heartbeat's answer carries the plane's
+profiling command (ProfileControl), which the container applies to its own
+sampling profiler (observability/profiler.py).
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, AsyncGenerator, Optional
@@ -131,10 +133,11 @@ class ContainerIOManager:
 
     async def heartbeat_loop(self) -> None:
         """Heartbeat doubles as the cancellation channel (reference
-        container_io_manager.py:577-643) — and as the telemetry
-        plane: each beat pushes the container's device/compile metric
-        families up (ContainerHeartbeatRequest.telemetry_json)."""
-        from ..observability import device_telemetry
+        container_io_manager.py:577-643) — and as the telemetry and
+        profiling plane: each beat pushes the container's device/compile
+        metric families up (ContainerHeartbeatRequest.telemetry_json) and
+        applies the plane's profiling command coming back down."""
+        from ..observability import device_telemetry, profiler
 
         interval = float(config["heartbeat_interval"]) / 3
         while not self.terminate:
@@ -149,6 +152,10 @@ class ContainerIOManager:
                     attempt_timeout=10.0,
                     max_retries=2,
                 )
+                if resp.profile_command:
+                    profiler.apply_command(
+                        resp.profile_command, os.environ.get(profiler.PROFILE_DIR_ENV, ""), tag=self.task_id
+                    )
                 if resp.HasField("cancel_input_event"):
                     event = resp.cancel_input_event
                     if event.terminate_containers:

@@ -6,8 +6,12 @@ Routes: blob PUT and GET (HTTP Range, sendfile), multipart part PUTs and
 their completion, the compile cache's entries (`/compile/<key>`), a volume's
 content blocks (`/block/<sha256>`, sendfile with Range) and whole volume
 files (`/volfile/<volume_id>/<path>`, the blocks stitched on the server,
-with Range). The token-flow page comes with tokens (ROADMAP Queue A 4e),
-and `/metrics` and its history with the port's metrics plane (4d-ii).
+with Range), and the metrics plane: `/metrics` (the process registry as
+Prometheus text, or OpenMetrics with exemplars by `Accept` or
+`?format=openmetrics`) and `/metrics/history` (server/history.py's queries,
+as the MetricsHistory RPC answers them). At boot the server writes the
+scrape URL to `<state_dir>/observability/metrics_url`. The token-flow page
+comes with tokens (ROADMAP Queue A 4e).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from aiohttp import web
 
 from ..config import logger
 from ..observability.catalog import BLOB_BYTES, BLOB_REQUESTS
+from ..observability.metrics import REGISTRY
 from .state import ServerState
 
 # streamed chunk size: large enough to amortize syscalls and loop hops, small
@@ -95,6 +100,10 @@ class BlobServer:
         # a gRPC proto copy per 8 MiB block
         app.router.add_get("/block/{sha256_hex}", self._get_block)
         app.router.add_get("/volfile/{volume_id}/{path:.*}", self._get_volume_file)
+        # the metrics plane rides the one HTTP listener the plane runs: the
+        # process registry, and the time-series store's history and alerts
+        app.router.add_get("/metrics", self._metrics)
+        app.router.add_get("/metrics/history", self._metrics_history)
         self._runner = web.AppRunner(app, access_log=None)
         await self._runner.setup()
         site = web.TCPSite(self._runner, self.host, self.port)
@@ -102,12 +111,61 @@ class BlobServer:
         self.port = site._server.sockets[0].getsockname()[1]
         url = f"http://{self.host}:{self.port}"
         self.state.blob_url_base = url
+        # where another process finds this plane's scrape URL
+        try:
+            obs_dir = os.path.join(self.state.state_dir, "observability")
+            os.makedirs(obs_dir, exist_ok=True)
+            with open(os.path.join(obs_dir, "metrics_url"), "w") as f:
+                f.write(f"{url}/metrics\n")
+        except OSError:
+            pass
         logger.debug(f"blob server at {url}")
         return url
+
+    async def _metrics(self, request: web.Request) -> web.Response:
+        """Prometheus text by default; OpenMetrics (exemplars, `# EOF`) when
+        the scraper asks for it (`Accept: application/openmetrics-text` or
+        `?format=openmetrics`)."""
+        accept = request.headers.get("Accept", "")
+        if "openmetrics" in accept or request.query.get("format") == "openmetrics":
+            return web.Response(
+                text=REGISTRY.render_openmetrics(),
+                content_type="application/openmetrics-text",
+                charset="utf-8",
+            )
+        return web.Response(text=REGISTRY.render_prometheus(), content_type="text/plain", charset="utf-8")
+
+    async def _metrics_history(self, request: web.Request) -> web.Response:
+        """History queries (server/history.py): ?query=describe|series|
+        quantile|alerts|top|snapshot [&family=...&window_s=...&q=...] → JSON."""
+        from .history import history_payload
+
+        try:
+            window_s = float(request.query.get("window_s", 0) or 0)
+            q = float(request.query.get("q", 0) or 0)
+        except ValueError:
+            return web.json_response({"error": "window_s/q must be numeric"}, status=400)
+        payload = history_payload(
+            self.state,
+            query=request.query.get("query", "describe"),
+            family=request.query.get("family", ""),
+            window_s=window_s,
+            q=q,
+        )
+        return web.json_response(payload)
 
     async def stop(self) -> None:
         if self._runner is not None:
             await self._runner.cleanup()
+        # a clean shutdown drops the discovery file if it still names this
+        # server (a crash leaves it behind; a newer plane's is kept)
+        crumb = os.path.join(self.state.state_dir, "observability", "metrics_url")
+        try:
+            with open(crumb) as f:
+                if f.read().strip() == f"http://{self.host}:{self.port}/metrics":
+                    os.unlink(crumb)
+        except OSError:
+            pass
 
     async def _put(self, request: web.Request) -> web.Response:
         path = self.state.blob_path(request.match_info["blob_id"])

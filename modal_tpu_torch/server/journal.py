@@ -85,7 +85,6 @@ IDEMPOTENT_RPCS = frozenset(
 # Record types of the JAX package's journal that the port's plane has no
 # table for yet, by the ROADMAP Queue A sub-slice that brings the table.
 WAITING_RECORD_TYPES: dict[str, str] = {
-    "alert": "4d-ii (SLO alerts)",
     **dict.fromkeys(("dictq", "dictq_del"), "4e (dicts and queues)"),
     **dict.fromkeys(("proxy", "proxy_del"), "4e (proxies)"),
     **dict.fromkeys(("environment", "environment_del", "environment_update"), "4e (environments)"),
@@ -116,6 +115,9 @@ EXEMPT_RPCS: dict[str, str] = {
     "EphemeralObjectHeartbeat": "liveness timestamp for ephemeral objects",
     "TaskClusterHello": "gang rendezvous state; gangs relaunch from the backlog",
     "VolumeBlockPut": "content-addressed block store on disk is already durable",
+    "ProfileControl": "profiling toggle is runtime-transient; an operator re-issues it after a restart",
+    "MetricsHistory": "read-only history query; rollups are runtime-transient, rebuilt by sampling "
+    "(alert transitions are journaled by the SLO evaluator, record type 'alert')",
 }
 
 
@@ -743,6 +745,21 @@ def _apply_rpc_dedupe(s, r):
         s.idempotency.put(r["key"], r.get("method", ""), _unb64(r.get("resp", "")), journal=False)
 
 
+def _apply_alert(s, r):
+    """SLO alert transition (observability/slo.py): replay keeps the last
+    state per rule, so a firing alert survives crash_restart; the rebuilt
+    evaluator adopts state.alerts and resolves it only from post-restart
+    samples."""
+    s.alerts[r["rule"]] = {
+        k: r[k]
+        for k in (
+            "rule", "state", "since", "value", "burn_rate", "threshold",
+            "description", "fast_window_s", "slow_window_s",
+        )
+        if k in r
+    }
+
+
 def _apply_volume(s, r):
     from .state import VolumeState
 
@@ -822,6 +839,7 @@ _APPLIERS: dict[str, Callable] = {
     "volume_meta": _apply_volume_meta,
     "volume_del": _apply_volume_del,
     "rpc_dedupe": _apply_rpc_dedupe,
+    "alert": _apply_alert,
 }
 
 
@@ -834,6 +852,8 @@ def synthesize_records(s) -> list[dict]:
     """Records that, applied in order to a fresh ServerState, reproduce the
     journaled projection of ``s``. Claims and tasks are absent by design."""
     out: list[dict] = []
+    for alert in s.alerts.values():
+        out.append({"t": "alert", **alert})
     hash_by_image = {v: k for k, v in s.images_by_hash.items()}
     for img in s.images.values():
         out.append(

@@ -33,9 +33,15 @@ modal_tpu/server/scheduler.py).
   like any unsatisfiable card ask. Gangs never take a warm-pool
   interpreter.
 
-The SLO autoscaler of serving functions comes with ROADMAP Queue A 4d-ii
-(FunctionCreate and FunctionUpdateSchedulingParams refuse its targets until
-then).
+- **SLO autoscaling** (`_slo_desired`): a function that declares
+  `target_ttft_ms` or `target_tokens_per_replica` (an `llm_service`
+  replica has no input backlog) is sized on serving telemetry instead.
+  When the time-series store has TTFT observations in the fast window, the
+  burn rate (windowed p95 / target) decides and sizes the step up; without
+  them, each replica's last pushed report does. Down only when TTFT is well
+  under target and tokens/s per replica under `SLO_SCALEDOWN_UTIL` of its
+  target; one move per `SLO_SCALE_COOLDOWN_S`. A replica the cards cannot
+  hold yet waits for capacity like any launch.
 
 After a restart of the plane, journal-recovered workers take no placement
 until their next heartbeat re-adopts them, and are deregistered when none
@@ -46,6 +52,8 @@ journal (`ModalTPUServicer.maybe_compact`).
 from __future__ import annotations
 
 import asyncio
+import json
+import os
 import secrets
 import time
 from typing import Optional
@@ -219,6 +227,12 @@ class Scheduler:
             # inputs at concurrency 50 need 2 containers, not 8
             max_conc = max(1, fn.definition.max_concurrent_inputs or 1)
             desired = -(-backlog // max_conc)  # ceil
+            # serving functions have no input backlog: their replicas are
+            # sized on the telemetry their containers push, against the
+            # declared TTFT and throughput targets
+            slo_desired = self._slo_desired(fn, live)
+            if slo_desired is not None:
+                desired = slo_desired
             # drain-time shaping from the container-reported call-time EWMA:
             # when the live fleet clears the backlog faster than a cold start
             # could help, adding containers only adds cold starts
@@ -232,6 +246,160 @@ class Scheduler:
                 if not await self._launch_task(fn):
                     break  # no capacity right now
         await self._sync_pool_directives(desired_pools)
+
+    # -- the SLO autoscaler of serving functions ----------------------------
+
+    SLO_SCALE_COOLDOWN_S = float(os.environ.get("MODAL_TPU_SLO_SCALE_COOLDOWN", "10"))
+    # scale down only when both: p95 TTFT under half its target and the
+    # fleet below this fraction of per-replica token capacity
+    SLO_SCALEDOWN_UTIL = 0.3
+
+    @staticmethod
+    def _serving_report(task: TaskState_) -> Optional[dict]:
+        """One task's last pushed serving telemetry (the raw heartbeat JSON,
+        per replica, unlike the merged registry gauges), read with the
+        shared `pushed_gauge` that history's replica rows use."""
+        from ..observability.device_telemetry import pushed_gauge
+
+        raw = getattr(task, "telemetry_prev_json", "")
+        if not raw:
+            return None
+        try:
+            report = json.loads(raw)
+        except ValueError:
+            return None
+        ttft_p95 = pushed_gauge(report, "modal_tpu_serving_ttft_p95_seconds")
+        tokens_per_s = pushed_gauge(report, "modal_tpu_serving_tokens_per_second")
+        queue_depth = pushed_gauge(report, "modal_tpu_serving_queue_depth")
+        if ttft_p95 is None and tokens_per_s is None and queue_depth is None:
+            return None
+        # the disaggregation role rides the push as a numeric gauge (the
+        # engine's ROLE_GAUGE_VALUES, inlined: the plane never imports the
+        # serving tier)
+        role_code = pushed_gauge(report, "modal_tpu_serving_role")
+        role = None
+        if role_code is not None:
+            role = {0: "both", 1: "prefill", 2: "decode"}.get(int(role_code))
+        return {
+            "ttft_p95_s": ttft_p95 or 0.0,
+            "tokens_per_s": tokens_per_s or 0.0,
+            "queue_depth": queue_depth or 0.0,
+            "role": role,
+        }
+
+    def _sole_serving_function(self, fn: FunctionState) -> bool:
+        """Is `fn` the only function with live serving replicas? The fleet
+        TTFT histogram is unlabeled (every replica's pushes merge into it),
+        so its windowed p95 belongs to one function's objective only when no
+        other function has a live task pushing serving telemetry."""
+        for other in self.s.functions.values():
+            if other.function_id == fn.function_id:
+                continue
+            for tid in other.task_ids:
+                task = self.s.tasks.get(tid)
+                if (
+                    task is not None
+                    and task.state in _LIVE_TASK_STATES
+                    and self._serving_report(task) is not None
+                ):
+                    return False
+        return True
+
+    def _ttft_burn_rate(self, fn: FunctionState, ttft_slo_s: float) -> Optional[float]:
+        """The TTFT objective's burn over the store's fast window: windowed
+        p95 / target. None without a store, without observations in the
+        window (window membership is the staleness gate), or when another
+        function serves too (the raw-report path decides then)."""
+        store = getattr(self.s, "timeseries", None)
+        if store is None or ttft_slo_s <= 0 or not self._sole_serving_function(fn):
+            return None
+        from ..observability.slo import _env_f
+
+        fast_window = _env_f("MODAL_TPU_SLO_FAST_WINDOW_S", 60.0)
+        p95 = store.hist_quantile("modal_tpu_serving_ttft_seconds", 0.95, fast_window)
+        if p95 is None:
+            return None
+        return p95 / ttft_slo_s
+
+    @staticmethod
+    def _burn_step(burn: Optional[float]) -> int:
+        """Scale-up step from the burn rate: a 10× burn adds replicas faster
+        than a 1.1× one (one move per cooldown, sized by severity)."""
+        if burn is None or burn < 2.0:
+            return 1
+        if burn < 8.0:
+            return 2
+        return 3
+
+    def _slo_desired(self, fn: FunctionState, live: list[str]) -> Optional[int]:
+        """Desired replica count from serving telemetry, or None when the
+        function declares no SLO target (backlog autoscaling applies).
+
+        Up when the TTFT objective burns (burn > 1, or a replica's pushed p95
+        over target while traffic flows) or replicas report a queue; the
+        step grows with the burn. Down when TTFT sits under half its target
+        and mean tokens/s per decode replica is under SLO_SCALEDOWN_UTIL ×
+        target_tokens_per_replica. One move per cooldown window."""
+        settings = fn.autoscaler
+        ttft_slo_s = (settings.target_ttft_ms or 0.0) / 1000.0
+        tps_target = settings.target_tokens_per_replica or 0.0
+        if ttft_slo_s <= 0 and tps_target <= 0:
+            return None
+        reports = []
+        for tid in live:
+            task = self.s.tasks.get(tid)
+            if task is None:
+                continue
+            report = self._serving_report(task)
+            if report is not None:
+                reports.append(report)
+        current = len(live)
+        burn = self._ttft_burn_rate(fn, ttft_slo_s)
+        if not reports and burn is None:
+            return max(current, settings.min_containers, 1)
+        worst_ttft = max((r["ttft_p95_s"] for r in reports), default=0.0)
+        queued = sum(r["queue_depth"] for r in reports)
+        total_tps = sum(r["tokens_per_s"] for r in reports)
+        desired = current
+        if burn is not None:
+            violated = queued > 0 or burn > 1.0
+            ttft_ok_for_down = burn < 0.5
+        else:
+            # a pushed p95 is the last window's value and goes stale when
+            # requests stop: it counts only while there is traffic, or a
+            # spike followed by silence would pin the fleet at its maximum
+            active = queued > 0 or total_tps > 0
+            violated = queued > 0 or (ttft_slo_s > 0 and worst_ttft > ttft_slo_s and active)
+            ttft_ok_for_down = ttft_slo_s <= 0 or worst_ttft < 0.5 * ttft_slo_s or not active
+        # prefill replicas stream no decode tokens: the utilisation counts
+        # only decode-capable replicas
+        n_prefill = sum(1 for r in reports if r.get("role") == "prefill")
+        decode_n = max(1, current - n_prefill)
+        idle = (
+            ttft_ok_for_down
+            and queued == 0
+            and tps_target > 0
+            and total_tps / decode_n < self.SLO_SCALEDOWN_UTIL * tps_target
+        )
+        floor = max(settings.min_containers, 1)
+        ceiling = settings.max_containers or 8
+        now = time.time()
+        if now - fn.slo_last_scale_at >= self.SLO_SCALE_COOLDOWN_S:
+            if violated:
+                desired = min(current + self._burn_step(burn), max(ceiling, floor))
+            elif idle:
+                desired = max(current - 1, floor)
+            if desired != current:
+                # the cooldown is stamped only for a move that happens: a
+                # clamped no-op must not delay the next step
+                fn.slo_last_scale_at = now
+                logger.info(
+                    f"SLO autoscale {fn.tag}: {current} -> {desired} "
+                    f"(burn={f'{burn:.2f}x' if burn is not None else 'n/a'} "
+                    f"ttft_p95={worst_ttft * 1000:.0f}ms target={settings.target_ttft_ms:.0f}ms "
+                    f"queue={queued:.0f} tokens/s={total_tps:.0f})"
+                )
+        return max(desired, floor)
 
     async def _sync_pool_directives(self, desired: dict[str, int]) -> None:
         """Send warm-pool sizing diffs to the workers (PoolDirective on the

@@ -22,14 +22,16 @@ tunnels (journal.EXEMPT_RPCS). Volumes (the 13 Volume* RPCs and the
 ephemeral heartbeat) keep files as block lists over the content-addressed
 block store, and gangs meet at TaskClusterHello (ClusterList lists them): a
 broadcast input reaches every rank, rank 0's result is the output, and a
-dead rank fails its gang's inputs and preempts its peers. This servicer
-serves 97 of the wire contract's 148 RPCs; the others answer gRPC
-UNIMPLEMENTED (proto/rpc.py): the timeline, profiles and metrics history
-(4d-ii); image listing and deletion, proxies, dicts, queues, environments,
-tokens, workspaces, ContainerExec*, the input plane, and shard and journal
-administration (4e). Exec and the filesystem of a sandbox, and the warm
-pool's handoff, are served by each worker's task command router
-(server/task_router.py).
+dead rank fails its gang's inputs and preempts its peers. The metrics
+plane answers MetricsHistory (server/history.py), ProfileControl (the
+sampling profiler, fanned out to containers on their heartbeats),
+AppListProfiles (the runtime_debug traces) and TaskGetTimeline. This
+servicer serves 101 of the wire contract's 148 RPCs; the others answer gRPC
+UNIMPLEMENTED (proto/rpc.py): image listing and deletion, proxies, dicts,
+queues, environments, tokens, workspaces, ContainerExec*, the input plane,
+and shard and journal administration (ROADMAP Queue A 4e). Exec and the
+filesystem of a sandbox, and the warm pool's handoff, are served by each
+worker's task command router (server/task_router.py).
 """
 
 from __future__ import annotations
@@ -66,6 +68,10 @@ ANONYMOUS = api_pb2.OBJECT_CREATION_TYPE_ANONYMOUS_OWNED_BY_APP
 AUTH_TOKEN_TTL_S = 1200.0
 # a draining worker that promised its containers no grace gets this one
 PREEMPT_GRACE_S = 10.0
+# how long a ProfileControl "stop" keeps riding the heartbeats: long enough
+# for every live container's next few beats, short enough that a later
+# container's env-enabled profiler is not stopped at boot
+PROFILE_STOP_TTL_S = 60.0
 _FINISHED_TASK_STATES = (
     api_pb2.TASK_STATE_COMPLETED,
     api_pb2.TASK_STATE_FAILED,
@@ -76,24 +82,12 @@ _FINISHED_TASK_STATES = (
 
 def waiting_feature(definition: api_pb2.Function) -> str:
     """What of a function definition the port's control plane cannot run:
-    TPU chips, which it never places (it places cards, `gpu_config`), or a
-    feature that waits, named with the ROADMAP Queue A sub-slice that
-    brings it; "" if none."""
+    TPU chips, which it never places (it places cards, `gpu_config`); ""
+    if nothing."""
     if definition.resources.tpu_config.tpu_type:
         return (f"tpu_config ({definition.resources.tpu_config.tpu_type!r}) asks for TPU chips, which this control "
                 f"plane does not place: ask for cards with gpu= (resources.gpu_config)")
-    return slo_targets_waiting(definition.autoscaler_settings)
-
-
-def slo_targets_waiting(settings: api_pb2.AutoscalerSettings) -> str:
-    """The SLO targets of an autoscaler, which the port's scheduler does not
-    read yet: a reason naming the sub-slice that brings the SLO autoscaler,
-    or "" when neither is set."""
-    named = [name for name in ("target_ttft_ms", "target_tokens_per_replica") if getattr(settings, name)]
-    if not named:
-        return ""
-    return (f"autoscaler SLO targets ({', '.join(named)}) wait for the port's SLO autoscaler "
-            f"(ROADMAP Queue A 4d-ii)")
+    return ""
 
 
 class ModalTPUServicer:
@@ -535,9 +529,6 @@ class ModalTPUServicer:
         fn = self.s.functions.get(request.function_id)
         if fn is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, "function not found")
-        waiting = slo_targets_waiting(request.settings)
-        if waiting:
-            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"InvalidError: {waiting}")
         fn.autoscaler_override = request.settings
         self._j("fn_sched", function_id=request.function_id, settings=_jb64(request.settings.SerializeToString()))
         self.s.schedule_event.set()
@@ -863,11 +854,126 @@ class ModalTPUServicer:
                 request.telemetry_json, task.telemetry_prev_json, task_id=task.task_id
             )
         resp = api_pb2.ContainerHeartbeatResponse()
+        if self.s.profile_command == "stop" and time.time() - self.s.profile_command_set_at > PROFILE_STOP_TTL_S:
+            # every container live at the stop has had many beats to apply
+            # it; broadcast forever it would stop later containers'
+            # env-enabled profilers at their first beat
+            self.s.profile_command = ""
+        if self.s.profile_command:
+            # repeated on every beat; containers apply it idempotently
+            resp.profile_command = self.s.profile_command
         if task.cancelled_input_ids:
             resp.cancel_input_event.input_ids.extend(task.cancelled_input_ids)
             task.cancelled_input_ids = []
         if task.terminate:
             resp.cancel_input_event.terminate_containers = True
+        return resp
+
+    async def ProfileControl(self, request, context) -> api_pb2.ProfileControlResponse:
+        """The sampling profiler's switch (observability/profiler.py): it
+        applies to the plane's process at once and reaches live containers
+        through the heartbeat's profile_command."""
+        from ..observability import profiler
+
+        profiles_dir = os.path.join(self.s.state_dir, "observability", "profiles")
+        action = request.action or "status"
+        if action == "start":
+            hz = request.hz or profiler.DEFAULT_HZ
+            self.s.profile_command = f"start:{hz:g}"
+            self.s.profile_command_set_at = time.time()
+            profiler.start(profiles_dir, tag="supervisor", hz=hz)
+        elif action == "stop":
+            self.s.profile_command = "stop"
+            self.s.profile_command_set_at = time.time()
+            profiler.stop()
+        elif action != "status":
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, f"unknown profile action {action!r}")
+        prof = profiler.current()
+        return api_pb2.ProfileControlResponse(
+            running=profiler.running(),
+            supervisor_profile_path=prof.path if prof is not None else "",
+            n_samples=prof.n_samples if prof is not None else 0,
+            profile_paths=profiler.list_profiles(profiles_dir),
+        )
+
+    async def MetricsHistory(self, request, context) -> api_pb2.MetricsHistoryResponse:
+        """Windowed history and burn-rate alert queries against the
+        time-series store (server/history.py; GET /metrics/history answers
+        the same)."""
+        from .history import history_payload
+
+        payload = history_payload(
+            self.s, query=request.query, family=request.family, window_s=request.window_s, q=request.q
+        )
+        return api_pb2.MetricsHistoryResponse(payload_json=json.dumps(payload))
+
+    async def AppListProfiles(self, request: api_pb2.AppListProfilesRequest, context) -> api_pb2.AppListProfilesResponse:
+        """The torch.profiler traces that runtime_debug tasks of this app
+        wrote (`<task_dir>/profile`, the container entrypoint's
+        `_maybe_profile`); `num_traces` counts the Chrome traces
+        (`*.pt.trace.json`) where the JAX plane counts `.xplane.pb` files
+        (ROADMAP Queue C 33)."""
+        out = []
+        for task in self.s.tasks.values():
+            if request.app_id and task.app_id != request.app_id:
+                continue
+            profile_dir = os.path.join(self.s.state_dir, "tasks", task.task_id, "profile")
+            if not os.path.isdir(profile_dir):
+                continue
+            size = 0
+            traces = 0
+            for root, _dirs, files in os.walk(profile_dir):
+                for f in files:
+                    try:
+                        size += os.path.getsize(os.path.join(root, f))
+                    except OSError:
+                        pass
+                    if f.endswith(".pt.trace.json"):
+                        traces += 1
+            out.append(api_pb2.ProfileEntry(task_id=task.task_id, path=profile_dir, size_bytes=size, num_traces=traces))
+        return api_pb2.AppListProfilesResponse(profiles=out)
+
+    async def TaskGetTimeline(self, request: api_pb2.TaskGetTimelineRequest, context) -> api_pb2.TaskGetTimelineResponse:
+        """A task's boot and serve stamps for cold-start attribution (set by
+        the plane at assignment, ContainerHello, first input and first
+        output); by function call, every task that claimed or delivered one
+        of its inputs."""
+        resp = api_pb2.TaskGetTimelineResponse()
+        task_ids: list[str] = []
+        if request.task_id:
+            if request.task_id not in self.s.tasks:
+                await context.abort(grpc.StatusCode.NOT_FOUND, "task not found")
+            task_ids = [request.task_id]
+        elif request.function_call_id:
+            call = self.s.function_calls.get(request.function_call_id)
+            if call is None:
+                await context.abort(grpc.StatusCode.NOT_FOUND, "call not found")
+            resp.call_created_at = call.created_at
+            resp.call_first_output_at = call.first_output_at
+            seen: set[str] = set()
+            for iid in call.input_ids:
+                inp = self.s.inputs.get(iid)
+                if inp is None:
+                    continue
+                for tid in [inp.claimed_by, *inp.delivered_to]:
+                    if tid and tid not in seen:
+                        seen.add(tid)
+                        task_ids.append(tid)
+        for tid in task_ids:
+            task = self.s.tasks.get(tid)
+            if task is None:
+                continue
+            resp.tasks.append(
+                api_pb2.TaskTimeline(
+                    task_id=task.task_id,
+                    created_at=task.created_at,
+                    started_at=task.started_at,
+                    first_input_at=task.first_input_at,
+                    first_output_at=task.first_output_at,
+                    finished_at=task.finished_at,
+                    warm_pool_hit=task.warm_pool_hit,
+                )
+            )
         return resp
 
     def _scaledown_blocked(self, fn: FunctionState, task: TaskState_) -> bool:

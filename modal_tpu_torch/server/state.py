@@ -138,6 +138,9 @@ class FunctionState:
     # the next schedule fire (server/cron.py): 0 = not evaluated yet, -1 =
     # disabled after an evaluation error
     next_fire_at: float = 0.0
+    # SLO autoscaling cooldown stamp (scheduler._slo_desired): a serving
+    # replica count moves at most one step per window
+    slo_last_scale_at: float = 0.0
 
     @property
     def autoscaler(self) -> api_pb2.AutoscalerSettings:
@@ -334,6 +337,12 @@ class ServerState:
         # Future while its start is in flight
         self.tunnels: dict[tuple[str, int], object] = {}
         self.blob_url_base: str = ""  # set by the blob server once it is up
+        # the active profiling command ("start:<hz>" | "stop" | ""), repeated
+        # on every container heartbeat while set (ProfileControl,
+        # observability/profiler.py); "stop" expires after
+        # services.PROFILE_STOP_TTL_S so it never reaches a later container
+        self.profile_command: str = ""
+        self.profile_command_set_at: float = 0.0
         # local fast-path coordinates advertised at ClientHello (set when
         # the supervisor binds): the plane's Unix socket, the input plane's
         # (empty until the input plane, ROADMAP Queue A 4e), and the blob
@@ -355,6 +364,14 @@ class ServerState:
         self.journal = None
         self.idempotency = None
         self.replicator = None
+
+        # the metrics plane: the time-series store and the SLO evaluator
+        # (set by the supervisor's sampler; None on a bare state and with
+        # MODAL_TPU_TS_INTERVAL=0), and `alerts`, the journaled projection of
+        # SLO alert state (rule name -> last transition), rebuilt by replay
+        self.timeseries = None
+        self.slo = None
+        self.alerts: dict[str, dict] = {}
 
     def make_id(self, prefix: str) -> str:
         return make_id(prefix)

@@ -14,8 +14,17 @@ and socket. Beside its TCP port the plane binds a Unix socket in the state
 dir and registers its servicer for the in-process rung of the local fast
 path (_utils/local_transport.py).
 
-Replication and shards, the input plane and chaos (ROADMAP Queue A 4e), and
-the SLO, time-series and profiler loops (4d-ii) wait for their sub-slices.
+Once the scheduler runs, a sampler task samples the process registry into
+the time-series store on cadence (observability/timeseries.py,
+`MODAL_TPU_TS_INTERVAL`; 0 turns it off) and evaluates the SLO burn-rate
+rules on the same tick (observability/slo.py). Both are built against each
+new state, so after a crash_restart the evaluator adopts the alerts the
+journal replay rebuilt. `MODAL_TPU_PROFILE` starts the sampling profiler
+at boot (observability/profiler.py), and the span store is pruned before
+this run's sink opens (`tracing.gc_trace_dir`).
+
+Replication and shards, the input plane, chaos and the flight recorder
+(ROADMAP Queue A 4e) wait for their sub-slice.
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ class LocalSupervisor:
         self._grpc_server: Optional[grpc.aio.Server] = None
         # two crash_restarts must not interleave their teardown and rebuild
         self._crash_lock = asyncio.Lock()
+        self._sampler_task: Optional[asyncio.Task] = None
 
     @property
     def server_url(self) -> str:
@@ -141,8 +151,18 @@ class LocalSupervisor:
         os.makedirs(self.state_dir, exist_ok=True)
         tune_switch_interval()
         # span sink under the state dir, exported to containers by the
-        # workers (MODAL_TPU_TRACE_DIR)
-        tracing.configure(os.path.join(self.state_dir, "traces"))
+        # workers (MODAL_TPU_TRACE_DIR); dead runs' span files are pruned
+        # (size and age bounds) before this run's sink opens
+        trace_dir = os.path.join(self.state_dir, "traces")
+        tracing.gc_trace_dir(trace_dir)
+        tracing.configure(trace_dir)
+        # MODAL_TPU_PROFILE starts the plane's sampling profiler at boot;
+        # ProfileControl toggles it (and every container's) at run time
+        from ..observability import profiler as obs_profiler
+
+        obs_profiler.maybe_start_from_env(
+            os.path.join(self.state_dir, "observability", "profiles"), tag="supervisor"
+        )
         # journal and recovery before the gRPC server binds: the first
         # client retry after a restart sees the replayed state, and the
         # dedupe wrapper takes state.idempotency at handler-build time
@@ -220,6 +240,58 @@ class LocalSupervisor:
         local_transport.register_local_server(self.server_url, self.servicer)
         self._save_ports()
         self.scheduler.start()
+        # built here (not in start()) so a crash_restart builds the store
+        # and the evaluator against the new state: the evaluator adopts
+        # state.alerts, which the replay just refilled
+        self._start_sampler()
+
+    def _start_sampler(self) -> None:
+        """Start the sampler task (MODAL_TPU_TS_INTERVAL not 0), building
+        this state's time-series store and SLO evaluator on first use; a
+        sampler stopped with `_stop_sampler` resumes on the same store."""
+        from ..observability import timeseries as ts
+        from ..observability.slo import SLOEvaluator
+
+        if not ts.sampling_enabled() or self._sampler_task is not None:
+            return
+        if self.state.timeseries is None:
+            self.state.timeseries = ts.TimeSeriesStore()
+            self.state.slo = SLOEvaluator(self.state.timeseries, alerts=self.state.alerts, journal=self.state.journal)
+        self._sampler_task = asyncio.create_task(self._sampler_loop(), name="ts-sampler")
+
+    async def _sampler_loop(self) -> None:
+        """Sample the registry into the store and evaluate the SLO rules,
+        forever; one loop owns both so alert windows and history agree."""
+        from ..observability.catalog import (
+            TIMESERIES_POINTS,
+            TIMESERIES_SAMPLE_SECONDS,
+            TIMESERIES_SAMPLES,
+        )
+
+        store, evaluator = self.state.timeseries, self.state.slo
+        while True:
+            try:
+                t0 = time.perf_counter()
+                store.sample()
+                TIMESERIES_SAMPLES.inc()
+                TIMESERIES_SAMPLE_SECONDS.observe(time.perf_counter() - t0)
+                for tier, n in store.point_counts().items():
+                    TIMESERIES_POINTS.set(float(n), tier=tier)
+                evaluator.evaluate()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception("time-series sampler iteration failed")
+            await asyncio.sleep(store.interval_s)
+
+    async def _stop_sampler(self) -> None:
+        if self._sampler_task is not None:
+            self._sampler_task.cancel()
+            try:
+                await self._sampler_task
+            except asyncio.CancelledError:
+                pass
+            self._sampler_task = None
 
     async def preempt_worker(self, index: int = 0, grace_s: float = 10.0) -> None:
         """A preemption notice for one worker: drain, graceful container
@@ -255,6 +327,7 @@ class LocalSupervisor:
             await self._grpc_server.stop(grace=None)
             self._grpc_server = None
         await self.scheduler.stop()
+        await self._stop_sampler()  # it holds the abandoned state
         await self.blob_server.stop()
         if self.state.journal is not None:
             self.state.journal.close()
@@ -286,6 +359,7 @@ class LocalSupervisor:
         for worker in self.workers:
             await worker.stop()
         await self.scheduler.stop()
+        await self._stop_sampler()
         await self.blob_server.stop()
         if self._grpc_server is not None:
             await self._grpc_server.stop(grace=0.5)

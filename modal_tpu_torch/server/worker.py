@@ -513,6 +513,9 @@ class WorkerAgent:
         env[tracing.TRACE_T0_ENV] = str(t_launch0)
         if tracing.trace_dir():
             env[tracing.TRACE_DIR_ENV] = tracing.trace_dir()
+        # where the container's sampling profiler writes its folded stacks,
+        # for the MODAL_TPU_PROFILE switch and the heartbeat's commands alike
+        env.setdefault("MODAL_TPU_PROFILE_DIR", os.path.join(self.state_dir, "observability", "profiles"))
         env["MODAL_TPU_SERVER_URL"] = self.server_url
         # a container never calls ClientHello: it inherits the worker's
         # fast-path coordinates and stats them before use

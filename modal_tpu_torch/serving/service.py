@@ -18,8 +18,8 @@ params come from `checkpoint` (`weights.load_params`) or from the port's
 `init_params` with `seed`; `device` is where the replica runs (CUDA unless
 the caller names the CPU) and `dtype` overrides the config's. The SLO
 targets (`target_ttft_ms`, `target_tokens_per_replica`) reach the control
-plane, which refuses them until the port's SLO autoscaler (ROADMAP Queue A
-4d-ii).
+plane, whose SLO autoscaler sizes the replicas on them
+(server/scheduler.py `_slo_desired`).
 """
 
 from __future__ import annotations

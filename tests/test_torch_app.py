@@ -17,6 +17,7 @@ container reuse, generators) and tests/test_cls.py (enter state, exit hook,
 parametrised bind, with_options).
 """
 
+import asyncio
 import concurrent.futures
 import os
 import tempfile
@@ -236,6 +237,50 @@ def test_cls_enter_state_methods_and_exit_hook(planes):
     got = planes.both(scenario)
     assert got["port"] == got["jax"]
     assert got["port"] == {"ys": [60, 6], "same_pid": True, "other": "other:a", "mapped": [6, 12, 18]}
+
+
+def test_the_exit_work_runs_through_a_late_cancel():
+    """ROADMAP Queue C 31: an app stop reaches a container as the kill switch
+    (its input loop returns and the exit work starts) and as the worker's
+    SIGTERM, whose cancel can land in that work. An exit hook run through
+    `asyncio.to_thread` whose thread had not started yet is then dropped
+    with its cancelled future, and TaskResult is skipped; the entrypoint
+    runs its exit work to the end through the cancel (`_run_to_end`)."""
+    import contextlib
+    import threading
+
+    from modal_tpu_torch.runtime.container_entrypoint import _run_to_end
+
+    async def stop(carried: bool) -> bool:
+        ran, gate = threading.Event(), threading.Event()
+        executor = concurrent.futures.ThreadPoolExecutor(1)  # busy: the hook queues behind a job
+        asyncio.get_running_loop().set_default_executor(executor)
+        executor.submit(gate.wait, 10)
+
+        async def exit_work():
+            await asyncio.to_thread(ran.set)
+
+        async def container():
+            try:
+                pass  # the input loop returned on the kill switch
+            finally:
+                if carried:
+                    if await _run_to_end(asyncio.ensure_future(exit_work())):
+                        raise asyncio.CancelledError
+                else:
+                    await exit_work()
+
+        task = asyncio.ensure_future(container())
+        await asyncio.sleep(0)  # the exit work starts; its hook waits for a thread
+        task.cancel()  # the SIGTERM
+        gate.set()
+        with contextlib.suppress(asyncio.CancelledError):
+            await task
+        executor.shutdown(wait=True)
+        return ran.is_set()
+
+    assert asyncio.run(stop(carried=False)) is False
+    assert asyncio.run(stop(carried=True)) is True
 
 
 def test_cls_parametrized_bind_and_parameter_fields(planes):

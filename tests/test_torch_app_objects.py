@@ -149,8 +149,10 @@ def test_both_clients_send_the_same_requests_for_the_same_decorator(tmp_path):
 
 def test_what_waits_is_refused_naming_its_sub_slice(tmp_path, planes):  # noqa: F811
     app = modal_tpu_torch.App("refused")
-    with pytest.raises(modal_tpu_torch.exception.InvalidError, match="4d-ii"):
-        app.function(runtime_debug=True)
+    # runtime_debug= is accepted since the metrics plane (4d-ii): it rides
+    # experimental_options, as in the JAX package
+    debug = app.function(runtime_debug=True, serialized=True)(lambda: 0)
+    assert debug._spec.experimental_options == {"runtime_debug": "1"}
     # volumes= is accepted since the storage slice (4d-i), on the App too
     modal_tpu_torch.App("with-volumes", volumes={"/data": object()})
     with pytest.raises(modal_tpu_torch.exception.InvalidError, match="gpu="):

@@ -305,9 +305,25 @@ def test_cancel_interrupts_a_running_sync_input(planes):
 ])
 def test_an_rpc_the_port_has_not_taken_answers_unimplemented(planes, rpc, request_msg):
     """The JAX plane answers; the port's says UNIMPLEMENTED (never a made-up
-    reply) until the sub-slice that brings the RPC."""
+    reply) until the sub-slice that brings the RPC, and answers as the JAX
+    plane does once it came: MetricsHistory and TaskGetTimeline with the
+    metrics plane (4d-ii)."""
+    import json
+
     import grpc
 
+    if rpc == "MetricsHistory":
+        jax, port = (json.loads(planes[n].call(rpc, request_msg).payload_json) for n in ("jax", "port"))
+        assert set(port) == set(jax) and port["interval_s"] == jax["interval_s"]
+        assert [t["maxlen"] for t in port["tiers"]] == [t["maxlen"] for t in jax["tiers"]]
+        return
+    if rpc == "TaskGetTimeline":
+        from modal_tpu_torch.exception import NotFoundError
+
+        for name in ("jax", "port"):  # an unknown task: NOT_FOUND on both
+            with pytest.raises(NotFoundError, match="task not found"):
+                planes[name].call(rpc, request_msg)
+        return
     if rpc == "DictGetOrCreate":
         assert planes["jax"].call(rpc, request_msg).dict_id
     with pytest.raises(grpc.aio.AioRpcError) as err:

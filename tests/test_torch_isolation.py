@@ -319,7 +319,9 @@ def test_every_module_of_the_port_is_scanned():
                 "server/warm_pool.py", "server/fs_snapshot.py", "_utils/router_client.py", "_utils/pty_shell.py",
                 "sandbox.py", "sandbox_fs.py", "container_process.py", "snapshot.py", "tunnel.py",
                 "volume.py", "checkpoint.py", "network_file_system.py", "cloud_bucket_mount.py", "_utils/s3.py",
-                "runtime/bucket_mounts.py", "runtime/clustered.py"):
+                "runtime/bucket_mounts.py", "runtime/clustered.py", "observability/quantile.py",
+                "observability/timeseries.py", "observability/slo.py", "observability/profiler.py",
+                "server/history.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
@@ -335,12 +337,15 @@ def test_every_module_of_the_port_is_scanned():
                                     "modal_tpu_torch.sandbox_fs", "modal_tpu_torch.tunnel",
                                     "modal_tpu_torch.volume", "modal_tpu_torch.checkpoint",
                                     "modal_tpu_torch.runtime.clustered", "modal_tpu_torch.network_file_system",
-                                    "modal_tpu_torch.cloud_bucket_mount", "modal_tpu_torch.runtime.bucket_mounts"])
+                                    "modal_tpu_torch.cloud_bucket_mount", "modal_tpu_torch.runtime.bucket_mounts",
+                                    "modal_tpu_torch.server.history", "modal_tpu_torch.observability.slo",
+                                    "modal_tpu_torch.observability.timeseries",
+                                    "modal_tpu_torch.observability.profiler"])
 def test_the_function_path_loads_no_torch_at_import(module):
     """The client, the App layer, the control plane, the worker, its router
     and warm pool, the sandbox client, Volumes and their checkpointer, the
-    storage mounts, the gang runtime and a container's entrypoint import no
-    torch: a container sends its hello before torch loads (a `gpu=`
+    storage mounts, the gang runtime, the metrics plane and a container's
+    entrypoint import no torch: a container sends its hello before torch loads (a `gpu=`
     function's container loads it after the hello, a warm-pool interpreter
     while parked), and a user's file that builds an App loads none."""
     code = f"import sys, {module}\nassert 'torch' not in sys.modules, 'torch loaded'\nprint('clean')\n"

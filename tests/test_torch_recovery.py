@@ -16,6 +16,7 @@ import os
 import shutil
 import tempfile
 import time
+from typing import Optional
 
 import pytest
 
@@ -87,8 +88,13 @@ class _Side:
         self.client = _Client(self.sup.server_url)
         self.client._open()  # blocking: synchronize_api wrapped the client's coroutines
 
-    def call(self, method: str, request):
-        return _run(retry_transient_errors(getattr(self.client.stub, method), request))
+    def call(self, method: str, request, total_timeout: Optional[float] = None):
+        """One RPC with the client's transient-error retries: three, or with
+        `total_timeout` as many as fit in it."""
+        if total_timeout is None:
+            return _run(retry_transient_errors(getattr(self.client.stub, method), request))
+        return _run(retry_transient_errors(getattr(self.client.stub, method), request, max_retries=None,
+                                           total_timeout=total_timeout), timeout=total_timeout + 10)
 
     def crash_restart(self) -> dict:
         return self.sync(self.sup.crash_restart())
@@ -102,11 +108,17 @@ class _Side:
                          ).function_id
 
     def take(self, call_id: str, n: int, timeout: float = 120.0) -> list:
+        """`n` outputs of the call within `timeout`. Each poll retries
+        UNAVAILABLE until the deadline: after a crash_restart the client's TCP
+        channel to the plane can sit in its reconnect backoff (connect
+        attempts refused while the plane was down) longer than three quick
+        retries last."""
         got, deadline = [], time.monotonic() + timeout
         while len(got) < n:
-            assert time.monotonic() < deadline, f"{self.name}: {len(got)}/{n} outputs after {timeout}s"
+            left = deadline - time.monotonic()
+            assert left > 0, f"{self.name}: {len(got)}/{n} outputs after {timeout}s"
             got += list(self.call("FunctionGetOutputs", api_pb2.FunctionGetOutputsRequest(
-                function_call_id=call_id, timeout=5, clear_on_success=True)).outputs)
+                function_call_id=call_id, timeout=5, clear_on_success=True), total_timeout=max(1.0, left)).outputs)
         return got
 
     def counts(self) -> dict:

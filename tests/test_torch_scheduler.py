@@ -180,38 +180,58 @@ class _AbortCtx:
 
 
 def test_gangs_and_waiting_features_are_refused_at_create(tmp_path):
-    slo_ttft = tapi.Function(autoscaler_settings=tapi.AutoscalerSettings(target_ttft_ms=250.0))
-    slo_tps = tapi.Function(autoscaler_settings=tapi.AutoscalerSettings(target_tokens_per_replica=900.0))
-    for d, item in ((slo_ttft, "4d-ii"), (slo_tps, "4d-ii")):
-        assert f"ROADMAP Queue A {item}" in tservices.waiting_feature(d)
-    # gangs are placed since the gang runtime (4d-i)
+    """Only a TPU ask is refused at FunctionCreate now: gangs (since 4d-i),
+    web endpoints and schedules (4c-ii) and the SLO targets (the SLO
+    autoscaler, 4d-ii) are kept, the targets as the JAX plane keeps them."""
+    slo_ttft = tapi.Function(function_name="f", autoscaler_settings=tapi.AutoscalerSettings(target_ttft_ms=250.0))
+    slo_tps = tapi.Function(function_name="g",
+                            autoscaler_settings=tapi.AutoscalerSettings(target_tokens_per_replica=900.0))
+    assert tservices.waiting_feature(slo_ttft) == "" and tservices.waiting_feature(slo_tps) == ""
     assert tservices.waiting_feature(tapi.Function(group_size=2)) == ""
-    # web endpoints and schedules are served since 4c-ii
     assert tservices.waiting_feature(tapi.Function(webhook_type=tapi.WEB_ENDPOINT_TYPE_ASGI_APP)) == ""
     assert tservices.waiting_feature(tapi.Function(schedule=tapi.Schedule(period=tapi.Schedule.Period(hours=1)))) == ""
-    assert "target_ttft_ms" in tservices.waiting_feature(slo_ttft)
-    assert "target_tokens_per_replica" in tservices.waiting_feature(slo_tps)
     tpu = tapi.Function(resources=tapi.Resources(tpu_config=tapi.TPUConfig(tpu_type="v5e-4")))
     assert "tpu_config ('v5e-4') asks for TPU chips" in tservices.waiting_feature(tpu)
     assert tservices.waiting_feature(tapi.Function(function_name="f")) == ""
-    # FunctionCreate answers such a definition with InvalidError and keeps nothing
-    svc = tservices.ModalTPUServicer(tstate.ServerState(str(tmp_path)))
+    # FunctionCreate keeps each SLO-targeted definition, its targets as the
+    # JAX plane keeps them; a TPU ask is answered with InvalidError and kept
+    # nowhere
+    svc = tservices.ModalTPUServicer(tstate.ServerState(str(tmp_path / "port")))
+    jsvc = jservices.ModalTPUServicer(jstate.ServerState(str(tmp_path / "jax")))
     for d in (slo_ttft, slo_tps):
-        with pytest.raises(RuntimeError, match=r"INVALID_ARGUMENT: InvalidError: .*ROADMAP Queue A 4d"):
-            asyncio.run(svc.FunctionCreate(tapi.FunctionCreateRequest(function=d), _AbortCtx()))
-    assert svc.s.functions == {}
+        t = asyncio.run(svc.FunctionCreate(tapi.FunctionCreateRequest(function=d), _AbortCtx()))
+        j = asyncio.run(jsvc.FunctionCreate(
+            japi.FunctionCreateRequest(function=japi.Function.FromString(d.SerializeToString())), _AbortCtx()))
+        got = svc.s.functions[t.function_id].autoscaler
+        want = jsvc.s.functions[j.function_id].autoscaler
+        assert (got.target_ttft_ms, got.target_tokens_per_replica) == (want.target_ttft_ms,
+                                                                       want.target_tokens_per_replica)
+        assert got.SerializeToString() == d.autoscaler_settings.SerializeToString()
+    n = len(svc.s.functions)
+    with pytest.raises(RuntimeError, match=r"INVALID_ARGUMENT: InvalidError: tpu_config"):
+        asyncio.run(svc.FunctionCreate(tapi.FunctionCreateRequest(function=tpu), _AbortCtx()))
+    assert len(svc.s.functions) == n == 2
 
 
 def test_slo_targets_are_refused_at_update(tmp_path):
-    svc = tservices.ModalTPUServicer(tstate.ServerState(str(tmp_path)))
+    """FunctionUpdateSchedulingParams keeps the SLO targets on both planes
+    (the name stays from the slices that refused them)."""
+    svc = tservices.ModalTPUServicer(tstate.ServerState(str(tmp_path / "port")))
+    jsvc = jservices.ModalTPUServicer(jstate.ServerState(str(tmp_path / "jax")))
     fn = asyncio.run(svc.FunctionCreate(tapi.FunctionCreateRequest(function=tapi.Function(function_name="f")),
                                         _AbortCtx()))
+    jfn = asyncio.run(jsvc.FunctionCreate(japi.FunctionCreateRequest(function=japi.Function(function_name="f")),
+                                          _AbortCtx()))
     for field, value in (("target_ttft_ms", 250.0), ("target_tokens_per_replica", 900.0)):
         req = tapi.FunctionUpdateSchedulingParamsRequest(function_id=fn.function_id)
         setattr(req.settings, field, value)
-        with pytest.raises(RuntimeError, match=rf"INVALID_ARGUMENT: InvalidError: .*{field}.*ROADMAP Queue A 4d"):
-            asyncio.run(svc.FunctionUpdateSchedulingParams(req, _AbortCtx()))
-    assert svc.s.functions[fn.function_id].autoscaler_override is None
+        asyncio.run(svc.FunctionUpdateSchedulingParams(req, _AbortCtx()))
+        jreq = japi.FunctionUpdateSchedulingParamsRequest(function_id=jfn.function_id)
+        setattr(jreq.settings, field, value)
+        asyncio.run(jsvc.FunctionUpdateSchedulingParams(jreq, _AbortCtx()))
+        assert getattr(svc.s.functions[fn.function_id].autoscaler, field) == value
+        assert (svc.s.functions[fn.function_id].autoscaler.SerializeToString()
+                == jsvc.s.functions[jfn.function_id].autoscaler.SerializeToString())
     ok = tapi.FunctionUpdateSchedulingParamsRequest(
         function_id=fn.function_id, settings=tapi.AutoscalerSettings(min_containers=1))
     asyncio.run(svc.FunctionUpdateSchedulingParams(ok, _AbortCtx()))

@@ -396,10 +396,13 @@ def torch_pool_preinit(tmp_path):
 
 
 def _park_spans(sup, name: str = "coldstart.park") -> list:
+    """The named spans' attrs in the order they started: the span files are
+    per process and read in file-name order, which puts a later pid that
+    sorts first as a string (100005 before 99990) ahead of an earlier one."""
     from modal_tpu_torch.observability import tracing
 
-    return [s["attrs"] for s in tracing.read_spans(os.path.join(sup.state_dir, "traces"))
-            if s["name"] == name]
+    spans = [s for s in tracing.read_spans(os.path.join(sup.state_dir, "traces")) if s["name"] == name]
+    return [s["attrs"] for s in sorted(spans, key=lambda s: s["start"])]
 
 
 def test_a_parked_interpreter_holds_no_cuda_context_and_the_rule_decides_the_re_park(torch_pool):

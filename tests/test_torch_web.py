@@ -308,8 +308,8 @@ def test_llm_service_serves_generate_with_jax_tokens(planes, tiny_checkpoint):
     loads the checkpoint and starts the engine, the `@asgi_app` method
     serves /v1/generate (JSON and SSE) from the container, /v1/stats counts
     the requests; the greedy tokens equal the JAX flow's on the same weights,
-    the sampled stream the port's in-process flow's. SLO targets are
-    refused, naming the sub-slice that brings them."""
+    the sampled stream the port's in-process flow's. An SLO-targeted service
+    deploys with its targets kept."""
     ckpt, greedy_want, sampled_want = tiny_checkpoint
     client = planes.tclient
     app = modal_tpu_torch.App("llm-cpu")
@@ -331,11 +331,15 @@ def test_llm_service_serves_generate_with_jax_tokens(planes, tiny_checkpoint):
     assert streamed == sampled_want == events[-1]["tokens"]
     assert stats["requests_completed"] >= 2 and stats["device"] == "cpu" and stats["cuda_graphs"] is False
 
+    # an SLO-targeted service deploys since the SLO autoscaler (4d-ii): the
+    # plane keeps its targets on the class's function
     slo = modal_tpu_torch.App("llm-slo")
-    modal_tpu_torch.serving.llm_service(slo, model="tiny", device="cpu", target_ttft_ms=500)
-    with pytest.raises(grpc.aio.AioRpcError, match="ROADMAP Queue A 4d"):
-        with slo.run(client=client):
-            pass
+    modal_tpu_torch.serving.llm_service(slo, model="tiny", device="cpu", target_ttft_ms=500,
+                                        target_tokens_per_replica=900)
+    with slo.run(client=client):
+        kept = [fn.autoscaler for fn in list(planes.tsup.state.functions.values())
+                if fn.app_id == slo.app_id]
+    assert [(a.target_ttft_ms, a.target_tokens_per_replica) for a in kept] == [(500.0, 900.0)]
 
 
 def test_serve_app_redeploys_a_changed_file(planes, tmp_path):
