@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases device,build,serve,web,disagg,disagg_http
     python3 chip_smoke.py --phases device,build,observe
     python3 chip_smoke.py --phases device,build,pool,sandbox
+    python3 chip_smoke.py --phases device,build,serve,sdk,image
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -135,6 +136,35 @@ result line):
               is stopped, and its replacement's call is a warm hit pinned
               to card 0. Printed: each boot by part (spawn or adoption →
               hello, import torch, AOT, ready, first output), the pids.
+7b'. image  — images on the card, on a fresh control plane with an empty
+              fleet store: `Image.debian_slim(python_version="3.12")` with
+              an env layer (MODAL_TPU_AOT_LOWER=train,decode), a pip layer
+              (a local package, --no-index) and `.prewarm` (K1-K4 built by
+              nvcc into the image, counted as source=prewarm) is built by
+              the port's worker; llama3-8b at full width (seed 0) runs as a
+              gpu="H100" function on it: the serve phase's 8 requests (K4
+              in the graphed step, n_layers per decode step), one
+              cache-less forward of [1, 512] (K1 n_layers), each decode
+              step's tokens put into an ephemeral Queue that this process
+              drains while the call runs (equal to the return value), each
+              request's text and the last logits (back here on the card)
+              in a named Dict; K1 and K4 counted from the container's
+              heartbeat. The container must run the image's python, import
+              the pip layer (not importable here), see every epoch pin at
+              its installed version, record no cache_miss and no nvcc run
+              and load its libraries from under the image's rootfs; the
+              streams and logits are held to serve's and sdk's. An image
+              whose RUN exits 3 fails its call with INIT_FAILURE and the
+              build log's tail, nothing run; ImageList counts the
+              references and ImageDelete refuses a referenced image. A
+              min_containers=1 pool keyed on the image parks the image's
+              python with the park-time warm-up (no nvcc, no CUDA
+              context), and its adoption serves one request. Then the twin
+              image without `.prewarm` on a second fresh plane: its
+              container runs nvcc four times, its logits equal the
+              prewarmed one's. Printed: the build by part, both cold calls
+              by part, Queue put → get ms per step, Dict get ms, the failed
+              build's time, the pooled adoption → first output.
 7c. sandbox — `Sandbox.create("sleep", "infinity", gpu="H100", app=...)`
               through `app.run()`, pinned to card 0; an exec'd
               `python -m modal_tpu_torch.tools.sandbox_forward` builds
@@ -310,7 +340,8 @@ import time
 from modal_tpu_torch import App  # the App layer loads no torch (a container imports this script)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "sandbox", "graphs", "weights", "volume",
+PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "image", "sandbox", "graphs", "weights",
+          "volume",
           "int8",
           "spec", "disagg", "web", "observe", "disagg_http", "parity", "forward", "train", "moe", "mesh")
 
@@ -1259,6 +1290,22 @@ def phase_graphs(torch, ctx: dict) -> None:
     log(f"[graphs] streams equal between graphed and eager decode: {8 - len(diverged)}/8; decode step "
         f"{steps['eager']['wall_ms']:.2f} -> {steps['graphed']['wall_ms']:.2f} ms wall "
         f"({steps['eager']['wall_ms'] / steps['graphed']['wall_ms']:.2f}x)")
+
+
+def _host_room() -> str:
+    """The host's available memory and the temp dir's free space (what a
+    phase left behind shows here in the next phase's line)."""
+    import tempfile
+
+    avail = "not read"
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    avail = f"{int(line.split()[1]) / 1e6:.1f} GB"
+    except OSError:
+        pass
+    return f"host memory available {avail}, {tempfile.gettempdir()} free {_free_bytes(tempfile.gettempdir()) / 1e9:.1f} GB"
 
 
 def _free_bytes(path: str) -> int:
@@ -5153,6 +5200,571 @@ def phase_pool(torch, ctx: dict) -> None:
     ctx["pool"] = {"runs": runs, "min_containers": min_run, "nvidia_smi": smi}
 
 
+# -- image: a built, prewarmed image on the card, with a Queue and a Dict -------
+
+IMAGE_PKG = "chip_smoke_img_probe"
+# the image's env layer: the AOT spec every container of the image (and a
+# parked interpreter of its pool) warms at boot, and a marker
+IMAGE_ENV = {"MODAL_TPU_AOT_LOWER": "train,decode,cfg=llama3-8b", "CHIP_SMOKE_IMAGE": "1"}
+# the cache-less forward's length in the image function (K1, n_layers launches)
+IMAGE_FORWARD_TOKENS = 512
+
+
+def _image_package(root: str) -> str:
+    """A local package for the image's pip layer (installed with --no-index
+    --no-build-isolation: no network)."""
+    src = os.path.join(root, f"{IMAGE_PKG}-src")
+    os.makedirs(os.path.join(src, IMAGE_PKG))
+    with open(os.path.join(src, IMAGE_PKG, "__init__.py"), "w") as f:
+        f.write("VALUE = 'from the pip layer'\n")
+    with open(os.path.join(src, "setup.py"), "w") as f:
+        f.write(f"from setuptools import setup\nsetup(name={IMAGE_PKG!r}, version='0.1', packages=[{IMAGE_PKG!r}])\n")
+    return src
+
+
+def _image_prewarm():
+    """The image's build function: K1-K4 built into the image (the prewarm's
+    build dir), their build report left under the image root."""
+
+    def prewarm() -> None:
+        import json as _json
+        import os as _os
+
+        from modal_tpu_torch.ops import _build
+        from modal_tpu_torch.runtime.aot import maybe_aot_lower
+
+        _os.environ["MODAL_TPU_AOT_LOWER"] = "train,decode,cfg=llama3-8b"
+        report = maybe_aot_lower()
+        if report is None or report.get("errors"):
+            raise RuntimeError(f"prewarm: the AOT warm-up failed: {report}")
+        with open(_os.path.join(_os.environ["MODAL_TPU_IMAGE_ROOT"], "prewarm_report.json"), "w") as f:
+            _json.dump({"aot": report, "build_dir": _build.build_dir()}, f)
+
+    return prewarm
+
+
+def _image_serving_fn(cfg_name: str, seed: int, prompts: list, fwd_tokens: list):
+    """The image phase's serving function: the serve phase's engine and
+    traffic over llama3-8b, each decode step's tokens put into `queue` (a
+    thread does the puts, so the engine's loop never waits on an RPC), each
+    request's text and the last decode step's logits (a CUDA tensor) written
+    into `texts`, then one cache-less forward. It also returns what the
+    container saw: its python, the pip layer, the epoch's pins against the
+    installed versions, its compile events and where its kernel libraries
+    came from."""
+
+    def serve_image(queue, texts, n_requests: int = 8, forward: bool = True) -> dict:
+        import hashlib
+        import importlib.metadata as md
+        import queue as _queue
+        import sys as _sys
+        import threading as _threading
+
+        import torch
+
+        from modal_tpu_torch import builder
+        from modal_tpu_torch.models.llama import forward as llama_forward
+        from modal_tpu_torch.models.llama import get_config, init_params
+        from modal_tpu_torch.observability.catalog import COMPILE_EVENTS
+        from modal_tpu_torch.ops import _build
+
+        import chip_smoke_img_probe
+
+        pins = builder.load_requirements(builder.known_versions()[-1])
+        installed = {}
+        for name in pins:
+            try:
+                installed[name] = md.version(name)
+            except md.PackageNotFoundError:
+                installed[name] = None
+        t0 = time.time()
+        cfg = get_config(cfg_name)
+        params = init_params(cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        params_s = time.time() - t0
+        t0 = time.time()
+        engine = _engine_8b(params, cfg)
+        if engine.decode_graph is None:
+            raise AssertionError("the engine on CUDA did not capture its decode step")
+        engine_s = time.time() - t0
+        graph, last = engine.decode_graph, {}
+
+        def keep_last(tokens, active):
+            out = graph(tokens, active)
+            last["logits"] = out[0].clone()
+            return out
+
+        engine.decode_graph = keep_last
+        # each decode step's new tokens (the prefill's first token rides the
+        # next step's) go to a local queue; a thread puts them into `queue`
+        pending: list = []
+        local: _queue.Queue = _queue.Queue()
+        decode_step = engine._decode_step
+
+        def step_and_flush():
+            decode_step()
+            if pending:
+                local.put(list(pending))
+                pending.clear()
+
+        engine._decode_step = step_and_flush
+
+        def pump():
+            step = 0
+            while True:
+                item = local.get()
+                if item is None:
+                    queue.put({"end": True, "steps": step, "t_put": time.time()})
+                    return
+                queue.put({"step": step, "tokens": item, "t_put": time.time()})
+                step += 1
+
+        pumper = _threading.Thread(target=pump, name="queue-pump")
+        pumper.start()
+        _build.reset_launches()
+        t0 = time.time()
+        engine.start()
+        try:
+            reqs = []
+            for i, p in enumerate(prompts[:n_requests]):
+                r = engine.submit(p, NEW_TOKENS, **_traffic(i))
+                append = r._append
+
+                def tee(token, i=i, append=append):
+                    append(token)
+                    pending.append((i, token))
+
+                r._append = tee
+                reqs.append(r)
+            streams = [r.result(timeout=600) for r in reqs]
+        finally:
+            engine.stop()
+            if pending:
+                local.put(list(pending))
+            local.put(None)
+        serve_s = time.time() - t0
+        pumper.join(timeout=120)
+        stats = engine.stats()
+        k4 = _build.LAUNCHES["paged_decode"]
+        logits = last["logits"]
+        for i, stream in enumerate(streams):
+            texts[f"request-{i}"] = " ".join(str(t) for t in stream)
+        texts["last_logits"] = logits
+        out = {"streams": streams, "logits": logits.cpu(), "decode_steps": stats["steps"],
+               "paged_decode_launches": k4, "params_s": params_s, "engine_s": engine_s, "serve_s": serve_s}
+        del engine, graph, last
+        if forward:
+            with torch.inference_mode():
+                x = torch.tensor([fwd_tokens], dtype=torch.long, device="cuda")
+                t0 = time.time()
+                f_logits, _ = llama_forward(params, cfg, x)
+                torch.cuda.synchronize()
+                out.update(forward_s=time.time() - t0, forward_argmax=int(f_logits[0, -1].float().argmax()),
+                           flash_fwd_launches=_build.LAUNCHES["flash_fwd"])
+        del params
+        torch.cuda.empty_cache()
+        out.update(
+            python=_sys.executable, prefix=_sys.prefix, pip_layer=chip_smoke_img_probe.VALUE,
+            image_root=os.environ.get("MODAL_TPU_IMAGE_ROOT", ""), build_dir=_build.build_dir(),
+            pins=pins, installed=installed, compile_events=COMPILE_EVENTS.snapshot(),
+            libs={name: lib._name for name, lib in _build._libs.items()}, pid=os.getpid(),
+            logits_sha256=hashlib.sha256(out["logits"].numpy().tobytes()).hexdigest(),
+            cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"), device=torch.cuda.get_device_name(0),
+            torch_cuda=torch.version.cuda, env_mark=os.environ.get("CHIP_SMOKE_IMAGE"),
+        )
+        return out
+
+    return serve_image
+
+
+def _image_split(sup, task, trace_id: str, t_call: float) -> dict:
+    """A container of the image by part, from its trace: the worker's image
+    step, the spawn to ContainerHello, `import torch`, the boot's AOT
+    warm-up (the kernels' libraries), then to the first output (the whole
+    function: params, engine, 8 requests, the forward)."""
+    from modal_tpu_torch.observability import tracing
+
+    spans = _spans_of(sup, trace_id)
+    missing = [n for n in ("image.build", "container.boot", "container.import_torch", "container.aot_lower")
+               if n not in spans]
+    if missing:
+        raise AssertionError(f"image: the call's trace has no {missing} span (it has {sorted(spans)})")
+    build_parts: dict = {}
+    for s in tracing.read_spans(tracing.trace_dir()):
+        if s["trace_id"] == trace_id and s["name"] == "image.build_part":
+            build_parts[s["attrs"]["part"]] = build_parts.get(s["attrs"]["part"], 0.0) + s["end"] - s["start"]
+    # the worker's launch decision, its image step (a build on first use),
+    # then the spawn
+    t0, spawn = spans["container.boot"]["start"], spans["image.build"]["end"]
+    part = {n: spans[n]["end"] - spans[n]["start"] for n in ("image.build", "container.import_torch",
+                                                            "container.aot_lower")}
+    return {"call_to_worker_s": t0 - t_call, "image_step_s": part["image.build"], "build_parts_s": build_parts,
+            "spawn_to_hello_s": task.started_at - spawn, "import_torch_s": part["container.import_torch"],
+            "aot_s": part["container.aot_lower"], "aot_sources": spans["container.aot_lower"]["attrs"].get("sources"),
+            "spawn_to_first_output_s": task.first_output_at - spawn, "call_to_first_output_s": task.first_output_at - t_call}
+
+
+def _image_heartbeat(task, k4: int, k1: int) -> dict:
+    """The container's heartbeat launch counts, once they reach the counts the
+    function saw (K4 over the decode steps, K1 over the forward's layers)."""
+
+    def launches(report: dict) -> dict:
+        return {k: int(v) for k, v in (report.get("modal_tpu_kernel_launches") or {}).get("series", {}).items()}
+
+    report = _wait_report(task, lambda rep: launches(rep).get("paged_decode") == k4
+                          and launches(rep).get("flash_fwd", 0) == k1)
+    return launches(report)
+
+
+def _image_call(torch, ctx: dict, sup, client, app, fn, label: str, cfg, queue, texts) -> dict:
+    """One call of the image function: spawned, its Queue drained while it
+    runs (each step's put → get ms), its result and the Dict checked."""
+    from modal_tpu_torch.observability import tracing
+
+    with tracing.span(f"chip_smoke.image.{label}") as sp:
+        t_call = time.time()
+        call = fn.spawn(queue, texts)
+    drained, lat_ms = [], []
+    deadline = time.time() + 900
+    while True:
+        try:
+            item = queue.get(timeout=2.0)
+        except TimeoutError:
+            if time.time() > deadline:
+                raise AssertionError(f"image {label}: no end of the Queue's stream within 900 s") from None
+            try:
+                call.get(timeout=0)  # a failed call raises its error here instead of a silent wait
+            except TimeoutError:
+                pass
+            continue
+        lat_ms.append((time.time() - item["t_put"]) * 1e3)
+        if item.get("end"):
+            break
+        drained.append(item)
+    r = call.get()
+    (task,) = [t for t in sup.state.tasks.values() if t.function_id == fn.object_id and t.first_output_at]
+    split = _image_split(sup, task, sp.trace_id, t_call)
+    beats = _image_heartbeat(task, r["paged_decode_launches"], r["flash_fwd_launches"])
+    streams = [[] for _ in r["streams"]]
+    for item in drained:
+        for i, tok in item["tokens"]:
+            streams[i].append(tok)
+    if streams != r["streams"]:
+        raise AssertionError(f"image {label}: the tokens drained from the Queue differ from the return value")
+    texts_ok = all(texts[f"request-{i}"] == " ".join(map(str, s)) for i, s in enumerate(r["streams"]))
+    t0 = time.perf_counter()
+    dict_logits = texts.get("last_logits")
+    dict_get_ms = (time.perf_counter() - t0) * 1e3
+    dict_bytes = dict_logits.numel() * dict_logits.element_size()
+    if not texts_ok or dict_logits.device.type != "cuda" or not torch.equal(dict_logits.cpu(), r["logits"]):
+        raise AssertionError(f"image {label}: the Dict's texts {texts_ok}, its logits on {dict_logits.device}")
+    steps, k4, k1 = r["decode_steps"], r["paged_decode_launches"], r["flash_fwd_launches"]
+    if steps == 0 or k4 != cfg.n_layers * steps or k1 != cfg.n_layers or beats != {**beats, "paged_decode": k4,
+                                                                                      "flash_fwd": k1}:
+        raise AssertionError(f"image {label}: K4 {k4} over {steps} steps, K1 {k1}, heartbeat {beats}")
+    if r["cuda_visible_devices"] != "0" or r["device"] != torch.cuda.get_device_name(0) or not r["torch_cuda"]:
+        raise AssertionError(f"image {label}: the container saw {r['cuda_visible_devices']!r}, {r['device']!r}, "
+                             f"torch.version.cuda {r['torch_cuda']!r}")
+    _check_streams(f"image {label}", r["streams"], cfg.vocab_size)
+    if "serve_streams" in ctx:
+        bad = [d for d in _first_divergence(ctx["serve_streams"], r["streams"], ctx.get("serve_logits", {}), {})
+               if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
+        if bad:
+            raise AssertionError(f"image {label}: streams differ from serve's beyond a near-tie: {bad}")
+    want = ctx.get("sdk", {}).get("function", {}).get("logits_sha256")
+    if want is not None and r["logits_sha256"] != want:
+        raise AssertionError(f"image {label}: logits sha256 {r['logits_sha256']}, the sdk phase's {want}")
+    _add_launches(ctx, "paged_decode", beats["paged_decode"])
+    _add_launches(ctx, "flash_fwd", beats["flash_fwd"])
+    p50, p95 = _pcts(lat_ms[:-1])
+    return {"label": label, "result": {k: v for k, v in r.items() if k not in ("streams", "logits")},
+            "split": split, "heartbeat_launches": beats, "queue_items": len(drained),
+            "queue_put_to_get_ms": {"p50": p50, "p95": p95, "n": len(lat_ms) - 1}, "dict_get_logits_ms": dict_get_ms,
+            "dict_logits_bytes": dict_bytes,
+            "task_id": task.task_id}
+
+
+def _sources(by_entry: dict) -> set:
+    """Where an AOT warm-up's libraries came from ("local", "fleet",
+    "nvcc"), over its entries."""
+    return {src for kernels in (by_entry or {}).values() for src in kernels.values()}
+
+
+def _image_checks(label: str, r: dict, prewarmed: bool) -> None:
+    """What the container saw of its image: its own python, the pip layer
+    (not importable here), the epoch's pins equal to the installed versions,
+    and its kernels: loaded from under the image's rootfs with no cache_miss
+    and no nvcc run (prewarmed), or built by four nvcc runs (the twin)."""
+    import importlib.util
+
+    res = r["result"]
+    if not res["python"].endswith("venv/bin/python") or res["pip_layer"] != "from the pip layer" \
+            or res["env_mark"] != "1" or importlib.util.find_spec(IMAGE_PKG) is not None:
+        raise AssertionError(f"image {label}: python {res['python']}, pip layer {res['pip_layer']!r}, env "
+                             f"{res['env_mark']!r}, importable here {importlib.util.find_spec(IMAGE_PKG) is not None}")
+    drift = {n: (pin, res["installed"][n]) for n, pin in res["pins"].items()
+             if pin != f"{n}=={res['installed'][n]}"}
+    if drift:
+        raise AssertionError(f"image {label}: epoch pins differ from the installed versions: {drift}")
+    events = res["compile_events"]
+    nvcc, misses = events.get("compile,runtime", 0), events.get("cache_miss,runtime", 0)
+    kernels = os.path.join(res["image_root"], "cache", "kernels")
+    if prewarmed:
+        if nvcc or misses or res["build_dir"] != kernels or _sources(r["split"]["aot_sources"]) != {"local"} \
+                or not res["libs"] or not all(p.startswith(kernels + os.sep) for p in res["libs"].values()):
+            raise AssertionError(f"image {label}: compile events {events}, build dir {res['build_dir']}, libs "
+                                 f"{res['libs']}, boot sources {r['split']['aot_sources']}")
+    elif nvcc != 4:
+        raise AssertionError(f"image {label}: the twin's container ran nvcc {nvcc} times, not 4 ({events})")
+
+
+def _image_pooled(torch, ctx: dict, sup, client, image, cfg, prompts, fwd) -> dict:
+    """A min_containers=1 function of the prewarmed image: the scheduler's
+    PoolDirective parks an interpreter keyed on the image, running its
+    python, whose park-time warm-up finds the image's libraries (no nvcc)
+    and makes no CUDA context; the cold first container is stopped, and its
+    replacement adopts the parked interpreter and serves one request."""
+    from modal_tpu_torch.proto import api_pb2
+
+    app = App("chip_smoke image pooled")
+    fn = app.function(image=image, gpu="H100", serialized=True, min_containers=1, max_containers=1,
+                      scaledown_window=600, name="serve_one")(_image_serving_fn("llama3-8b", 0, prompts, fwd))
+    from modal_tpu_torch import Dict, Queue
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch._utils.grpc_utils import retry_transient_errors
+
+    queue, texts = Queue.ephemeral(client=client), Dict.ephemeral(client=client)
+    with app.run(client=client):
+        image_id = sup.state.functions[fn.object_id].definition.image_id
+        entry, park_s = _parked_entry(sup)
+        span = next(a for a in reversed(_pool_spans(sup, "coldstart.park")) if a["pid"] == entry.proc.pid)
+        warm = [a for a in _pool_spans(sup, "coldstart.aot_lower") if a["pid"] == entry.proc.pid]
+        if entry.key != image_id or span["python"] != entry.python_bin or not entry.python_bin.endswith(
+                "venv/bin/python") or not warm or warm[-1]["errors"] or warm[-1]["cuda_initialized"] \
+                or _sources(warm[-1]["sources"]) != {"local"} or warm[-1]["load_errors"] \
+                or sorted(warm[-1]["loaded"]) != sorted(KERNELS):
+            raise AssertionError(f"image pooled: entry key {entry.key!r} (image {image_id}), python "
+                                 f"{entry.python_bin} / {span['python']}, park-time warm-up {warm}")
+        first = [t for t in sup.state.tasks.values() if t.function_id == fn.object_id]
+        if len(first) != 1 or first[0].warm_pool_hit:
+            raise AssertionError(f"image pooled: the first container {[(t.task_id, t.warm_pool_hit) for t in first]}")
+        synchronizer.run(retry_transient_errors(client.stub.ContainerStop,
+                                                api_pb2.ContainerStopRequest(task_id=first[0].task_id)))
+        t_call = time.time()
+        call = fn.spawn(queue, texts, n_requests=1, forward=False)
+        r = call.get()
+        t_result = time.time()
+        task = next(t for t in sup.state.tasks.values() if t.function_id == fn.object_id and t.first_output_at)
+        kernels = os.path.join(r["image_root"], "cache", "kernels")
+        if not task.warm_pool_hit or r["pid"] != entry.proc.pid or r["python"] != entry.python_bin \
+                or r["compile_events"].get("compile,runtime") or r["cuda_visible_devices"] != "0" \
+                or sorted(r["libs"]) != sorted(KERNELS) or not all(
+                    p.startswith(kernels + os.sep) for p in r["libs"].values()):
+            raise AssertionError(f"image pooled: served by pid {r['pid']} (parked {entry.proc.pid}), warm_pool_hit "
+                                 f"{task.warm_pool_hit}, python {r['python']}, events {r['compile_events']}")
+        k4 = r["paged_decode_launches"]
+        beats = _image_heartbeat(task, k4, 0)
+        _add_launches(ctx, "paged_decode", beats["paged_decode"])
+    return {"parked_pid": entry.proc.pid, "park_s": park_s, "python": entry.python_bin,
+            "park_warmup": warm[-1], "adoption_to_first_output_s": task.first_output_at - task.started_at,
+            "call_to_result_s": t_result - t_call, "call_to_first_output_s": task.first_output_at - t_call,
+            "served": {k: v for k, v in r.items() if k not in ("streams", "logits", "pins", "installed")},
+            "heartbeat_launches": beats}
+
+
+def phase_image(torch, ctx: dict) -> None:
+    """Images on the card: a debian_slim image with an env layer, a pip
+    layer (a local package) and `.prewarm` (K1-K4 built into the image) is
+    built by the port's worker on a fresh plane with an empty fleet store;
+    llama3-8b at full width runs as a gpu="H100" function on it, serving the
+    serve phase's 8 requests (K4 in the graphed step) and one cache-less
+    forward of [1, 512] (K1), each decode step's tokens through a Queue
+    drained while the call runs, each request's text and the last logits
+    into a named Dict; an image whose RUN fails fails its call with
+    INIT_FAILURE and the build log's tail, nothing run; ImageList counts the
+    references and ImageDelete refuses a referenced image; a
+    min_containers=1 pool keyed on the prewarmed image serves one request by
+    adoption. Then the twin image without `.prewarm`, on a second fresh
+    plane: its container runs nvcc four times."""
+    import gc
+    import shutil
+    import tempfile
+
+    import grpc
+
+    from modal_tpu_torch import Dict, Image, Queue
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch._utils.grpc_utils import retry_transient_errors
+    from modal_tpu_torch.client import _Client
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.observability.catalog import COMPILE_EVENTS
+    from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.server.supervisor import LocalSupervisor
+
+    for key in ("params", "cfg"):  # the containers build their own 16 GB
+        ctx.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    cfg = get_config("llama3-8b")
+    prompts = _prompts(cfg, 8, seed=1)
+    fwd = _forward_prompts(cfg, 4, seed=2)[3]
+    if len(fwd) != IMAGE_FORWARD_TOKENS:
+        raise AssertionError(f"image: the forward prompt has {len(fwd)} tokens")
+    root = tempfile.mkdtemp(prefix="image-")
+    pkg = _image_package(root)
+    env = {"MODAL_TPU_COMPILE_CACHE": "1", "TORCH_EXTENSIONS_DIR": None, "MODAL_TPU_COMPILE_CACHE_DIR": None,
+           "MODAL_TPU_COMPILE_CACHE_URL": None, "MODAL_TPU_AOT_LOWER": None, "MODAL_TPU_WARM_POOL": "0",
+           "MODAL_TPU_WARM_POOL_PREIMPORT": "torch", "MODAL_TPU_HEARTBEAT_INTERVAL": "3",
+           "MODAL_TPU_IMAGE_BUILDER_VERSION": None}
+    saved = {}
+    for key, value in env.items():
+        saved[key] = os.environ.pop(key, None)
+        if value is not None:
+            os.environ[key] = value
+
+    def images(*prewarm):
+        base = Image.debian_slim(python_version="3.12").env(IMAGE_ENV).pip_install(
+            pkg, extra_options="--no-index --no-build-isolation")
+        return base.prewarm(_image_prewarm()) if prewarm else base
+
+    def plane(label: str):
+        sup = LocalSupervisor(num_workers=1, state_dir=os.path.join(root, label))
+        synchronizer.run(sup.start())
+        client = _Client(sup.server_url)
+        client._open()
+        client.hello()
+        if sup.workers[0].gpu_type != torch.cuda.get_device_name(0):
+            raise AssertionError(f"image: the worker's probe found {sup.workers[0].gpu_type!r}")
+        return sup, client
+
+    def rpc(client, name, req):
+        return synchronizer.run(retry_transient_errors(getattr(client.stub, name), req))
+
+    out: dict = {"nvidia_smi": smi}
+    sups = []
+    try:
+        # -- the prewarmed image, on a fresh plane with an empty fleet store
+        sup, client = plane("prewarmed")
+        sups.append((sup, client))
+        image = images(True)
+        app = App("chip_smoke image")
+        fn = app.function(image=image, gpu="H100", serialized=True, scaledown_window=600,
+                          name="serve_image")(_image_serving_fn("llama3-8b", 0, prompts, fwd))
+        marker = os.path.join(root, "failed-image-ran")
+
+        def never(path=marker):
+            open(path, "w").close()
+
+        bad = app.function(image=Image.debian_slim(python_version="3.12").run_commands(
+            "echo a layer that fails && exit 3"), serialized=True, name="never")(never)
+        queue, texts = Queue.ephemeral(client=client), Dict.lookup("chip-smoke-image-texts", client=client,
+                                                                   create_if_missing=True)
+        with app.run(client=client):
+            run = _image_call(torch, ctx, sup, client, app, fn, "prewarmed", cfg, queue, texts)
+            _image_checks("prewarmed", run, prewarmed=True)
+            with open(os.path.join(run["result"]["image_root"], "prewarm_report.json")) as f:
+                baked = json.load(f)
+            parts = run["split"]["build_parts_s"]
+            if set(parts) != {"venv", "run", "prewarm"}:
+                raise AssertionError(f"image: the build's parts {parts}")
+            nvcc_s = max(v["seconds"] for v in (baked["aot"].get("train", {}), baked["aot"].get("decode", {})))
+            out["build"] = {"parts_s": parts, "prewarm_aot": baked["aot"], "prewarm_build_dir": baked["build_dir"],
+                            "image_step_s": run["split"]["image_step_s"]}
+            prewarm_events = {k: v for k, v in COMPILE_EVENTS.snapshot().items() if k.endswith(",prewarm")}
+            if prewarm_events.get("compile,prewarm", 0) < 4:
+                raise AssertionError(f"image: the prewarm's nvcc runs were not merged as source=prewarm: {prewarm_events}")
+            # the failing image: INIT_FAILURE with the log's tail, nothing ran
+            t0 = time.time()
+            try:
+                bad.remote()
+                raise AssertionError("image: the call of a failed image succeeded")
+            except Exception as exc:  # noqa: BLE001 — the call's failure is the point
+                failed_s = time.time() - t0
+                message = str(exc)
+            failed = [t for t in sup.state.tasks.values() if t.function_id == bad.object_id]
+            if "image build failed" not in message or "a layer that fails" not in message or "rc=3" not in message \
+                    or os.path.exists(marker) or not failed or any(
+                        t.result is None or t.result.status != api_pb2.GENERIC_STATUS_INIT_FAILURE for t in failed):
+                raise AssertionError(f"image: the failed build's call said {message[:2000]!r}; tasks "
+                                     f"{[(t.task_id, t.result) for t in failed]}; ran {os.path.exists(marker)}")
+            # ImageList's reference counts, ImageDelete's refusal
+            listed = {i.image_id: i.ref_count for i in rpc(client, "ImageList", api_pb2.ImageListRequest()).images}
+            fn_image = sup.state.functions[fn.object_id].definition.image_id
+            try:
+                rpc(client, "ImageDelete", api_pb2.ImageDeleteRequest(image_id=fn_image))
+                raise AssertionError("image: ImageDelete removed a referenced image")
+            except grpc.RpcError as exc:
+                if exc.code() != grpc.StatusCode.FAILED_PRECONDITION:
+                    raise
+            if listed.get(fn_image, 0) < 1:
+                raise AssertionError(f"image: ImageList {listed} does not count the function's image")
+        _wait_app_tasks(sup, app.app_id, timeout=120.0)
+        after = {i.image_id: i.ref_count for i in rpc(client, "ImageList", api_pb2.ImageListRequest()).images}
+        rpc(client, "ImageDelete", api_pb2.ImageDeleteRequest(image_id=fn_image))
+        gone = fn_image not in {i.image_id for i in rpc(client, "ImageList", api_pb2.ImageListRequest()).images}
+        out.update(prewarmed=run, failed_build_s=failed_s, failed_message_tail=message[-600:], images_listed=listed,
+                   images_after_stop=after, deleted_after_stop=gone)
+        log(f"[image] build of the prewarmed image: {', '.join(f'{k} {v:.2f}s' for k, v in sorted(parts.items()))}"
+            f" (the prewarm's 4 nvcc runs {nvcc_s:.2f}s in parallel, {prewarm_events} merged); the worker's image "
+            f"step in the first call {run['split']['image_step_s']:.2f}s | {smi}")
+        # -- the pool keyed on the prewarmed image (same plane, built image)
+        pooled = _image_pooled(torch, ctx, sup, client, images(True), cfg, prompts, fwd)
+        out["pooled"] = pooled
+        # -- the twin without .prewarm, on a second fresh plane and store
+        sup2, client2 = plane("twin")
+        sups.append((sup2, client2))
+        app2 = App("chip_smoke image twin")
+        fn2 = app2.function(image=images(), gpu="H100", serialized=True, scaledown_window=600,
+                            name="serve_image")(_image_serving_fn("llama3-8b", 0, prompts, fwd))
+        queue2, texts2 = Queue.ephemeral(client=client2), Dict.lookup("chip-smoke-image-texts", client=client2,
+                                                                      create_if_missing=True)
+        with app2.run(client=client2):
+            twin = _image_call(torch, ctx, sup2, client2, app2, fn2, "twin", cfg, queue2, texts2)
+            _image_checks("twin", twin, prewarmed=False)
+        if twin["result"]["logits_sha256"] != run["result"]["logits_sha256"]:
+            raise AssertionError("image: the twin's logits differ from the prewarmed image's")
+        out["twin"] = twin
+    finally:
+        for sup_, client_ in sups:
+            try:
+                client_._close()
+            finally:
+                synchronizer.run(sup_.stop())
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+        shutil.rmtree(root, ignore_errors=True)
+    for r in (run, twin):
+        s, res = r["split"], r["result"]
+        log(f"[image] {r['label']} cold call: call → worker {s['call_to_worker_s']:.2f}s, the worker's image step "
+            f"{s['image_step_s']:.2f}s ({', '.join(f'{k} {v:.2f}s' for k, v in sorted(s['build_parts_s'].items()))}), "
+            f"spawn → ContainerHello {s['spawn_to_hello_s']:.2f}s, import torch "
+            f"{s['import_torch_s']:.2f}s, AOT {s['aot_s']:.2f}s ({s['aot_sources']}), spawn → first output "
+            f"{s['spawn_to_first_output_s']:.2f}s (params {res['params_s']:.2f}s, engine + graph {res['engine_s']:.2f}s,"
+            f" 8 requests {res['serve_s']:.2f}s, forward [1, {IMAGE_FORWARD_TOKENS}] {res['forward_s'] * 1e3:.1f} ms); "
+            f"compile events {res['compile_events']}; K4 {res['paged_decode_launches']} = {cfg.n_layers} x "
+            f"{res['decode_steps']}, K1 {res['flash_fwd_launches']} (heartbeat {r['heartbeat_launches']}); logits "
+            f"sha256 {res['logits_sha256'][:16]}… | {smi}")
+        q = r["queue_put_to_get_ms"]
+        log(f"[image] {r['label']}: Queue put → get per decode step p50 {q['p50']:.2f} ms p95 {q['p95']:.2f} ms "
+            f"({q['n']} items, the streams equal the return value); Dict get of the last logits (back on the card, "
+            f"{r['dict_logits_bytes'] / 1e6:.2f} MB) {r['dict_get_logits_ms']:.2f} ms | {smi}")
+    res = run["result"]
+    log(f"[image] the container ran {res['python']} (torch.version.cuda {res['torch_cuda']}), the pip layer "
+        f"importable there and not here, {len(res['pins'])} epoch pins equal to the installed versions; a failed "
+        f"build reached INIT_FAILURE in {out['failed_build_s']:.2f}s; ImageList refs {sorted(out['images_listed'].values())}"
+        f", ImageDelete refused the referenced image and removed it after the app stopped | {smi}")
+    p = out["pooled"]
+    log(f"[image] pooled (min_containers=1): pid {p['parked_pid']} parked {p['park_s']:.2f}s after the function's "
+        f"creation, running {p['python']}, park-time warm-up {p['park_warmup']['sources']}, "
+        f"{p['park_warmup']['loaded']} loaded, without a CUDA context; "
+        f"adoption → first output {p['adoption_to_first_output_s']:.2f}s (call → result {p['call_to_result_s']:.2f}s, "
+        f"1 request, K4 {p['heartbeat_launches'].get('paged_decode')}) | {smi}")
+    ctx["image"] = out
+
+
 # -- sandbox: a gpu="H100" sandbox on the card ---------------------------------
 
 
@@ -5325,9 +5937,9 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "graphs", "weights", "volume", "int8", "spec",
+PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "image", "graphs", "weights", "volume", "int8", "spec",
                           "disagg", "web", "observe", "disagg_http"),
-         "flash_fwd": ("app", "sandbox", "weights", "volume", "observe", "forward", "train", "moe", "mesh"),
+         "flash_fwd": ("app", "image", "sandbox", "weights", "volume", "observe", "forward", "train", "moe", "mesh"),
          "flash_bwd_dq": ("volume", "train", "moe", "mesh"),
          "flash_bwd_dkv": ("volume", "train", "moe", "mesh")}
 
@@ -5357,7 +5969,7 @@ def main() -> int:
             t0 = time.perf_counter()
             globals()[f"phase_{name}"](torch, ctx)
             log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s, "
-                f"{torch.cuda.memory_allocated() / 1e6:.1f} MB allocated")
+                f"{torch.cuda.memory_allocated() / 1e6:.1f} MB allocated; {_host_room()}")
     for key in ("params", "cfg", "serve_logits"):  # tensors, and logits keyed by (request, token)
         ctx.pop(key, None)
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

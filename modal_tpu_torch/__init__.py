@@ -40,6 +40,9 @@ each module's counterpart is easy to find:
 - sandboxes: `Sandbox.create(..., gpu=...)`, `exec` into one
   (`ContainerProcess`), its files (`SandboxFS`), tunnels (`Tunnel`,
   `forward`), snapshots (`SandboxSnapshot`) and readiness `Probe`s;
+- the SDK's objects: `Dict` (`dict.py`), `Queue` (`queue.py`), `Proxy`
+  (`proxy.py`), `Environment` (`environments.py`) and `Workspace`
+  (`workspace.py`); the image builder's epochs live in `builder/`;
 - the SDK core, imported on demand: the wire contract (`proto/`), the
   client (`client.py`), object handles (`object.py`), payloads
   (`serialization.py`), `gpu=` (`gpu_config.py`), method and lifecycle
@@ -102,6 +105,11 @@ _EXPORTS = {
     "ClusterInfo": "runtime.clustered",
     "get_cluster_info": "runtime.clustered",
     "get_fabric_peers": "runtime.clustered",
+    "Dict": "dict",
+    "Queue": "queue",
+    "Proxy": "proxy",
+    "Environment": "environments",
+    "Workspace": "workspace",
 }
 
 __all__ = [*_EXPORTS, "serving"]

@@ -15,9 +15,9 @@ its definition, and `schedule=` fires it from the control plane's cron loop.
 `volumes=` (on the App, or a function, whose entries win) maps container
 paths to Volumes and CloudBucketMounts, and `@clustered` makes a function a
 gang. `runtime_debug=True` profiles each input with torch.profiler in the
-container (runtime/container_entrypoint.py). What waits for a later
-sub-slice of ROADMAP Queue A is refused at decoration with InvalidError
-naming it: `proxy=` and `cloud=` (4e).
+container (runtime/container_entrypoint.py), and `proxy=` binds a
+static-egress Proxy. What waits for a later sub-slice of ROADMAP Queue A is
+refused at decoration with InvalidError naming it: `cloud=` (4e).
 """
 
 from __future__ import annotations
@@ -57,7 +57,6 @@ def _refuse_waiting(**asked: Any) -> None:
     """InvalidError for the first decorator argument whose feature waits for
     a later sub-slice of ROADMAP Queue A."""
     waits = {
-        "proxy": "proxy= waits for the port's Proxy (ROADMAP Queue A 4e)",
         "cloud": "cloud= waits for the port's multi-cloud placement (ROADMAP Queue A 4e)",
         "tpu": "tpu= asks for TPU chips, which the port does not place: ask for cards with gpu=",
     }
@@ -207,7 +206,7 @@ class _App:
             raise InvalidError("Did you forget parentheses? Use @app.function().")
         if payload_format not in ("pickle", "cbor"):
             raise InvalidError(f"payload_format must be 'pickle' or 'cbor', got {payload_format!r}")
-        _refuse_waiting(proxy=proxy, cloud=cloud, tpu=tpu)
+        _refuse_waiting(cloud=cloud, tpu=tpu)
         gpu_spec = parse_gpu_config(gpu, mesh)
 
         def wrapper(f: Union[Callable, _PartialFunction]) -> _Function:
@@ -228,6 +227,7 @@ class _App:
                 secrets=[*self._secrets, *secrets],
                 volumes={**self._volumes, **(volumes or {})},
                 mounts=list(mounts),
+                proxy=proxy,
                 gpu=gpu_spec,
                 cpu=cpu,
                 memory=memory,

@@ -13,9 +13,10 @@ Resources carry a `GPUConfig` (`gpu="H100"`, `"H100:8"`, parsed by
 `volumes=` maps container paths to Volumes (`volume_mounts`) and to
 CloudBucketMounts (`cloud_bucket_mounts`); a `@clustered` function is a gang
 (`group_size`, `broadcast_inputs`, `fabric_size`); `target_ttft_ms` and
-`target_tokens_per_replica` feed the plane's SLO autoscaler. What waits
+`target_tokens_per_replica` feed the plane's SLO autoscaler; `proxy=` binds
+a static-egress Proxy (its containers see `MODAL_TPU_PROXY_IP`). What waits
 for a later sub-slice of ROADMAP Queue A, refused with InvalidError when a
-function asks for it: `proxy=` and `cloud=` (4e). Every
+function asks for it: `cloud=` (4e). Every
 call goes through the control plane (the region-local input plane,
 `_InputPlaneInvocation` and the Attempt* RPCs, comes with 4e); concurrent
 FunctionMaps coalesce into one FunctionMapBatch through the client's
@@ -113,6 +114,8 @@ class _FunctionSpec:
     # container path -> a Volume or a CloudBucketMount
     volumes: dict[str, Any] = field(default_factory=dict)
     mounts: Sequence[Any] = field(default_factory=list)
+    # static egress (reference proxy.py:1): a _Proxy handle
+    proxy: Optional[Any] = None
     gpu: Optional[GPUSpec] = None
     cpu: Optional[float] = None
     memory: Optional[int] = None
@@ -221,6 +224,8 @@ class _Function(_Object, type_prefix="fu"):
             deps.extend(spec.secrets)
             deps.extend(v for v in spec.volumes.values() if isinstance(v, _Object))
             deps.extend(m for m in spec.mounts if isinstance(m, _Object))
+            if spec.proxy is not None:
+                deps.append(spec.proxy)
             return deps
 
         async def _load(self: "_Function", resolver: Resolver, context: LoadContext, existing_object_id: Optional[str]):
@@ -287,6 +292,8 @@ class _Function(_Object, type_prefix="fu"):
                 f_def.image_id = spec.image.object_id
             f_def.secret_ids.extend([s.object_id for s in spec.secrets])
             f_def.mount_ids.extend([m.object_id for m in spec.mounts if isinstance(m, _Object)])
+            if spec.proxy is not None:
+                f_def.proxy_id = spec.proxy.object_id
             from .cloud_bucket_mount import CloudBucketMount
 
             for path, vol in spec.volumes.items():

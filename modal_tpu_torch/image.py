@@ -11,9 +11,13 @@ Reference: py/modal/_image.py — `_Image._from_args` + `_load` (ImageGetOrCreat
 The JAX package's flagship preset builds libtpu + jax (`Image.tpu_base()`);
 the port's builds the CUDA toolkit + torch (`Image.cuda_base()`): the
 toolkit's `nvcc` builds the port's kernels in the container, and their
-build dir is the image's cache. The port's control plane registers every
-image as built (the image builder comes with ROADMAP Queue A 4e), so a
-container runs in its worker's own environment.
+build dir is the image's cache. The worker builds each layer chain on first
+use into a content-addressed venv (server/image_builder.py): a pip layer is
+importable in the container, a failing RUN fails the call with
+INIT_FAILURE and the build log's tail, and `prewarm` builds the kernels
+into the image. The builder epoch of a layer (`modal_tpu_torch/builder/`)
+is the env override `MODAL_TPU_IMAGE_BUILDER_VERSION`, else the workspace's
+`image_builder_version` advertised at ClientHello, else the config's.
 """
 
 from __future__ import annotations
@@ -26,13 +30,15 @@ from ._utils.grpc_utils import retry_transient_errors
 from .config import config
 from .exception import InvalidError, RemoteError
 from .object import LoadContext, Resolver, _Object
+from .builder import known_versions
 from .proto import api_pb2
 from .secret import _Secret
 
 # Builder version epochs pin the base dependency set (reference
-# py/modal/builder/{2023.12..2025.06}.txt pattern).
+# py/modal/builder/{2023.12..2025.06}.txt pattern): the epoch files of
+# modal_tpu_torch/builder/.
 SUPPORTED_PYTHON_SERIES = ["3.10", "3.11", "3.12", "3.13"]
-_BUILDER_VERSIONS = ["2026.07", "PREVIEW"]
+_BUILDER_VERSIONS = list(known_versions())
 
 
 def _validate_python_version(version: Optional[str]) -> str:
@@ -373,13 +379,15 @@ class _Image(_Object, type_prefix="im"):
         force_build: bool = False,
     ) -> "_Image":
         """Kernel-build prewarm at image-build time: run `raw_f` during the
-        build with the kernel build dir pointed inside the image, so every
-        kernel the function's entry points build (nvcc) is built once at
-        build time and every container cold start loads it. `raw_f` should
-        call the function's entry points on representative shapes (the
-        port's `runtime.aot.maybe_aot_lower` does). Rides on `run_function`'s
-        build machinery, which comes with the image builder (ROADMAP Queue A
-        4e)."""
+        build with the kernel build dir (`TORCH_EXTENSIONS_DIR`) pointed at
+        `<rootfs>/cache/kernels` and recorded as image env, so every kernel
+        the function's entry points build (nvcc) is built once at build time
+        and every container of the image loads it from there; the libraries
+        are also published to the fleet compile store. `raw_f` should build
+        what the function launches: set `MODAL_TPU_AOT_LOWER` (e.g.
+        ``"train,decode"``) and call `runtime.aot.maybe_aot_lower`. Its
+        builds count as COMPILE_EVENTS{source="prewarm"}. Rides on
+        `run_function`'s build machinery (server/image_builder.py)."""
         return _Image._from_args(
             base_images={"base": self},
             dockerfile_commands=["#PREWARM"],

@@ -70,6 +70,14 @@ class LoadContext:
         return ctx
 
 
+# the module defining each handle type, by its id prefix ("vo" is Volume's:
+# a NetworkFileSystem handle reuses its prefix)
+_PREFIX_MODULES = {
+    "cs": "cls", "di": "dict", "fu": "functions", "fc": "functions", "im": "image", "mo": "mount", "pr": "proxy",
+    "qu": "queue", "sb": "sandbox", "st": "secret", "sn": "snapshot", "vo": "volume", "ac": "workspace",
+}
+
+
 class _Object:
     _type_prefix: ClassVar[Optional[str]] = None
     _prefix_to_type: ClassVar[dict[str, type]] = {}
@@ -190,6 +198,13 @@ class _Object:
     def _new_hydrated_from_pickle(cls, object_id: str, client: _Client, metadata_bytes: bytes) -> "_Object":
         prefix = object_id.split("-", 1)[0]
         subcls = cls._prefix_to_type.get(prefix)
+        if subcls is None and prefix in _PREFIX_MODULES:
+            # the package imports lazily: a container given a handle of a
+            # type whose module it has not loaded loads it now
+            import importlib
+
+            importlib.import_module(f"{__package__}.{_PREFIX_MODULES[prefix]}")
+            subcls = cls._prefix_to_type.get(prefix)
         if subcls is None:
             raise ExecutionError(f"unknown object id prefix {prefix!r} in {object_id}")
         metadata = subcls._deserialize_metadata(metadata_bytes) if metadata_bytes else None

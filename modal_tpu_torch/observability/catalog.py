@@ -297,6 +297,11 @@ TASK_RESULTS = REGISTRY.counter(
     "Container final results, by GenericResult status name.",
     ("status",),
 )
+IMAGE_BUILD_SECONDS = REGISTRY.histogram(
+    "modal_tpu_image_build_seconds",
+    "Image materialization wall time on the worker (cache hits are fast).",
+    buckets=(0.01, 0.1, 0.5, 1, 5, 15, 30, 60, 120, 300, 600),
+)
 BLOB_BYTES = REGISTRY.counter(
     "modal_tpu_blob_bytes_total",
     "Blob HTTP payload bytes by direction (in=uploads, out=downloads).",

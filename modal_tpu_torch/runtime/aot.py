@@ -106,8 +106,9 @@ def parse_aot_spec(raw: Optional[str] = None) -> Optional[tuple[list[str], dict]
 
 def run_aot_lowering(entries: Optional[list[str]] = None, options: Optional[dict] = None) -> dict:
     """Build the kernels of the requested entry points. Returns ``{entry:
-    {"executables": kernels built, "kernels", "param_bytes", "seconds"}}``
-    for what succeeded; failed entries land under ``"errors"``."""
+    {"executables": kernels built, "kernels", "param_bytes", "seconds",
+    "sources": {kernel: "local" | "fleet" | "nvcc"}}}`` for what succeeded;
+    failed entries land under ``"errors"``."""
     from ..models.llama import get_config, init_params_abstract
     from ..models.quant import quantized_bytes
     from ..ops import _build
@@ -124,8 +125,7 @@ def run_aot_lowering(entries: Optional[list[str]] = None, options: Optional[dict
         kernels = ENTRY_KERNELS[entry]
         t0 = time.monotonic()
         try:
-            if kernels:
-                _build.build(kernels)
+            built = _build.build(kernels) if kernels else {}
         except Exception as exc:  # noqa: BLE001 — one entry failing must not stop the rest
             logger.warning(f"AOT warm-up of {entry!r} failed: {exc}")
             errors[entry] = str(exc)
@@ -133,6 +133,7 @@ def run_aot_lowering(entries: Optional[list[str]] = None, options: Optional[dict
         results[entry] = {
             "executables": len(kernels), "kernels": list(kernels), "param_bytes": param_bytes,
             "seconds": round(time.monotonic() - t0, 3),
+            "sources": {name: r["source"] for name, r in built.items()},
         }
     if errors:
         results["errors"] = errors

@@ -41,7 +41,12 @@ With `MODAL_TPU_POOL_ID` set the process is a warm-pool interpreter
 with no CUDA context and parks on the worker's task router; each handoff
 applies the placement's environment (its card pinning and kernel build dir
 among it) and runs `main_async`, then the process re-parks, or exits when
-the placement initialized CUDA (ROADMAP Queue C 28).
+the placement initialized CUDA (ROADMAP Queue C 28). With
+`MODAL_TPU_AOT_LOWER` set, a parked interpreter also builds, or fetches
+from the fleet store, its entries' kernel libraries while it waits, into
+the build directory its placements use, and loads them into the process
+(`_park_aot_warmup`, span `coldstart.aot_lower`): loading a kernel library
+makes no CUDA context (ROADMAP Queue C 28).
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ from ..config import config, logger, tune_switch_interval  # noqa: E402
 from ..exception import ExecutionError  # noqa: E402
 from ..proto import api_pb2  # noqa: E402
 from ..serialization import deserialize  # noqa: E402
-from ..server.warm_pool import SPAWN_ENV_DROP  # noqa: E402
+from ..server.warm_pool import POOL_BUILD_ENV, SPAWN_ENV_DROP  # noqa: E402
 from . import execution_context  # noqa: E402
 from .io_manager import ContainerIOManager, IOContext  # noqa: E402
 from .user_code import Service, import_class_service, import_single_function_service  # noqa: E402
@@ -439,7 +444,9 @@ async def _boot_service(
         report = await asyncio.to_thread(maybe_aot_lower)
         if report is not None:
             tracing.record_span("container.aot_lower", start=t_aot, end=time.time(), parent=boot_span.context,
-                                attrs={"task_id": task_id, "errors": report.get("errors", {})})
+                                attrs={"task_id": task_id, "errors": report.get("errors", {}),
+                                       "sources": {k: v.get("sources", {}) for k, v in report.items()
+                                                   if k != "errors"}})
     return service
 
 
@@ -723,6 +730,7 @@ def park_state() -> dict:
         "torch_imported": torch is not None,
         "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized()),
         "libcuda_mapped": libcuda_mapped(),
+        "python": sys.executable,
         "pinning_env": sorted(k for k in ("CUDA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER") if k in os.environ),
     }
 
@@ -758,6 +766,56 @@ def _pool_preimport() -> None:
             _pool_span("coldstart.preinit", t0, {"device": "cpu", "checksum": float((x @ x).sum())})
         except Exception as exc:  # noqa: BLE001
             logger.warning(f"warm pool pre-init failed: {exc}")
+    _park_aot_warmup()
+
+
+def _park_aot_warmup() -> None:
+    """The park-time kernel warm-up (the JAX pool's park-time AOT lowering):
+    with `MODAL_TPU_AOT_LOWER` set, build the entries' kernel libraries, or
+    fetch them from the fleet store, while parked, so a placement's own
+    warm-up finds them in its build directory (an image's) or in the fleet
+    store (the pool's), then load them into this process. The build dir and
+    fleet coordinates of `POOL_BUILD_ENV` apply only while it runs. A
+    library's load initializes no CUDA context and makes no compute app
+    (`tests/test_torch_warm_pool.py::test_loading_a_kernel_library_makes_no_cuda_context`,
+    on the card), so the placement's pinning still takes effect (ROADMAP
+    Queue C 28). A library that does not load is left to the placement,
+    which raises on it."""
+    if not os.environ.get("MODAL_TPU_AOT_LOWER"):
+        return
+    import json
+
+    from .aot import maybe_aot_lower
+
+    build_env = json.loads(os.environ.get(POOL_BUILD_ENV) or "{}")
+    saved = {k: os.environ.get(k) for k in build_env}
+    os.environ.update(build_env)
+    t0 = time.time()
+    loaded: list = []
+    load_errors: dict = {}
+    try:
+        report = maybe_aot_lower()
+        if report is not None:
+            from ..ops import _build
+
+            for name in sorted({k for v in report.values() for k in v.get("sources", {})}):
+                try:
+                    _build.load(name)
+                    loaded.append(name)
+                except Exception as exc:  # noqa: BLE001 — the placement loads it, and raises
+                    load_errors[name] = str(exc)[:300]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if report is not None:
+        _pool_span("coldstart.aot_lower", t0, {
+            "build_dir": build_env.get("TORCH_EXTENSIONS_DIR", ""), "errors": report.get("errors", {}),
+            "sources": {k: v.get("sources", {}) for k, v in report.items() if k != "errors"}, "loaded": loaded,
+            "load_errors": load_errors, **park_state(),
+        })
 
 
 def _reset_process_state(base_env: dict, base_cwd: str, added_paths: list) -> None:

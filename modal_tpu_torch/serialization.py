@@ -21,7 +21,8 @@ copy of the one before), the way the JAX package moves a jax.Array
 host-side with `np.asarray`. The tensor then travels as its raw bytes, a
 flat `uint8` view (any dtype, bf16 included), with its dtype name and
 shape, and comes back as a CPU `torch.Tensor` (an `nn.Parameter` stays
-one) of the same dtype and shape. A read-only buffer (a frame held in
+one) of the same dtype and shape; a Dict's or a Queue's value
+(`keep_device=True`) comes back on the receiver's current card instead. A read-only buffer (a frame held in
 `bytes`) is copied once on the way back, so every rebuilt tensor may be
 written; a writable one (a `bytearray` frame) is used in place.
 
@@ -96,9 +97,10 @@ class Payload:
 
 
 class Pickler(cloudpickle.Pickler):
-    def __init__(self, buf: io.BytesIO, *, buffer_callback):
+    def __init__(self, buf: io.BytesIO, *, buffer_callback, keep_device: bool = False):
         super().__init__(buf, protocol=OOB_PICKLE_PROTOCOL, buffer_callback=buffer_callback)
         self._staging = None  # made at the first CUDA tensor, used by the rest
+        self._keep_device = keep_device
 
     def persistent_id(self, obj: Any) -> Optional[tuple]:
         # no handle exists before the object model is imported, and the
@@ -145,7 +147,10 @@ class Pickler(cloudpickle.Pickler):
         host = self._to_host(torch, t) if t.device.type != "cpu" else t.detach().contiguous()
         raw = host.reshape(-1).view(torch.uint8).numpy()
         dtype = str(t.dtype).removeprefix("torch.")
-        return (_rebuild_tensor, (pickle.PickleBuffer(raw), dtype, tuple(t.shape), t.requires_grad, parameter))
+        args = (pickle.PickleBuffer(raw), dtype, tuple(t.shape), t.requires_grad, parameter)
+        if self._keep_device and t.device.type == "cuda":
+            return (_rebuild_tensor_on, (*args, "cuda"))
+        return (_rebuild_tensor, args)
 
     def _to_host(self, torch: Any, t: Any) -> Any:
         """A device tensor's bytes in pageable host memory, streamed through
@@ -201,6 +206,21 @@ def _rebuild_tensor(buffer: Any, dtype: str, shape: tuple, requires_grad: bool, 
     return t.requires_grad_(requires_grad) if requires_grad else t
 
 
+def _rebuild_tensor_on(buffer: Any, dtype: str, shape: tuple, requires_grad: bool, parameter: bool,
+                       device: str) -> Any:
+    """A tensor that left a card, back on this process's current card (a
+    Dict's or a Queue's value: ROADMAP Queue C 10's rule for snapshots). A
+    process without a card cannot take it and raises."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise DeserializationError("the value holds a CUDA tensor and this process has no CUDA device")
+    t = _rebuild_tensor(buffer, dtype, shape, False, False).to(torch.device(device, torch.cuda.current_device()))
+    if parameter:
+        return torch.nn.Parameter(t, requires_grad=requires_grad)
+    return t.requires_grad_(requires_grad) if requires_grad else t
+
+
 def _rebuild_ndarray(buffer, dtype, shape):
     import numpy as np
 
@@ -221,14 +241,16 @@ class Unpickler(pickle.Unpickler):
         raise DeserializationError(f"unknown persistent id flag {flag!r}")
 
 
-def serialize_payload(obj: Any) -> Payload:
+def serialize_payload(obj: Any, keep_device: bool = False) -> Payload:
     """Serialize to a segment list, keeping large buffers out-of-band.
 
     Pickles at protocol 5 with a buffer callback: contiguous buffers ≥
     ``OOB_MIN_BUFFER_BYTES`` become borrowed memoryview segments in the
     frame's buffer table; smaller ones are folded back into the pickle
     stream. When nothing goes out-of-band the result is a single plain
-    protocol-5 pickle segment: no frame, fully legacy-compatible."""
+    protocol-5 pickle segment: no frame, fully legacy-compatible. With
+    `keep_device` a CUDA tensor comes back on the receiver's current card
+    instead of the CPU (Dict and Queue values)."""
     oob: list[memoryview] = []
 
     def _buffer_cb(pb: pickle.PickleBuffer):
@@ -242,7 +264,7 @@ def serialize_payload(obj: Any) -> Payload:
         return False
 
     buf = io.BytesIO()
-    Pickler(buf, buffer_callback=_buffer_cb).dump(obj)
+    Pickler(buf, buffer_callback=_buffer_cb, keep_device=keep_device).dump(obj)
     stream = buf.getvalue()
     if not oob:
         return Payload([stream])
@@ -265,9 +287,9 @@ def serialize_payload(obj: Any) -> Payload:
     return Payload(segments)
 
 
-def serialize(obj: Any) -> bytes:
+def serialize(obj: Any, keep_device: bool = False) -> bytes:
     """Contiguous-bytes convenience over ``serialize_payload`` (one join)."""
-    return serialize_payload(obj).join()
+    return serialize_payload(obj, keep_device).join()
 
 
 def _parse_oob_frame(view: memoryview) -> tuple[memoryview, list[memoryview]]:

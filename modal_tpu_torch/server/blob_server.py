@@ -10,8 +10,9 @@ with Range), and the metrics plane: `/metrics` (the process registry as
 Prometheus text, or OpenMetrics with exemplars by `Accept` or
 `?format=openmetrics`) and `/metrics/history` (server/history.py's queries,
 as the MetricsHistory RPC answers them). At boot the server writes the
-scrape URL to `<state_dir>/observability/metrics_url`. The token-flow page
-comes with tokens (ROADMAP Queue A 4e).
+scrape URL to `<state_dir>/observability/metrics_url`. The token flow's
+browser leg (`/auth/token-flow/<flow_id>?code=...`) approves a pending
+TokenFlowCreate.
 """
 
 from __future__ import annotations
@@ -102,6 +103,10 @@ class BlobServer:
         app.router.add_get("/volfile/{volume_id}/{path:.*}", self._get_volume_file)
         # the metrics plane rides the one HTTP listener the plane runs: the
         # process registry, and the time-series store's history and alerts
+        # the token flow's browser leg (reference token_flow.py:1): this
+        # plane's "dashboard page"; visiting it with the verification code
+        # approves the pending flow
+        app.router.add_get("/auth/token-flow/{flow_id}", self._token_flow_approve)
         app.router.add_get("/metrics", self._metrics)
         app.router.add_get("/metrics/history", self._metrics_history)
         self._runner = web.AppRunner(app, access_log=None)
@@ -121,6 +126,16 @@ class BlobServer:
             pass
         logger.debug(f"blob server at {url}")
         return url
+
+    async def _token_flow_approve(self, request: web.Request) -> web.Response:
+        flow = self.state.pending_token_flows.get(request.match_info["flow_id"])
+        if flow is None or request.query.get("code") != flow["code"]:
+            return web.Response(status=404, text="unknown or expired token flow")
+        flow["approved"].set()
+        return web.Response(content_type="text/html", text=(
+            "<html><body><h2>modal-tpu: token granted</h2>"
+            "<p>You can close this window and return to the terminal.</p></body></html>"
+        ))
 
     async def _metrics(self, request: web.Request) -> web.Response:
         """Prometheus text by default; OpenMetrics (exemplars, `# EOF`) when

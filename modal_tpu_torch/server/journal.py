@@ -27,13 +27,13 @@ outputs, worker registrations and the idempotency seen-set) is replayable:
   responses instead of re-executing.
 
 The port's plane has the function path's tables, the App layer's images
-and secrets, and volumes. A journal written by the JAX package's plane may
-hold records of tables the port does not have yet (dicts and queues,
-proxies, environments, workspace settings, tokens, input-plane attempts, SLO
-alerts): recovery
-counts them by type in its report and logs one warning per type naming the
-ROADMAP Queue A sub-slice that brings the table; it never drops them
-silently.
+and secrets, volumes, SLO alerts, and the SDK's objects: dicts and queues
+(their registry; their contents are not journaled, as in the JAX package),
+proxies, environments, workspace settings and granted tokens. A journal
+written by the JAX package's plane may hold records of a table the port
+does not have yet (input-plane attempts): recovery counts them by type in
+its report and logs one warning per type naming the ROADMAP Queue A
+sub-slice that brings the table; it never drops them silently.
 
 Durability: appends are flushed to the OS (no fsync by default): a
 ``kill -9`` of the plane loses nothing, since the page cache outlives the
@@ -85,11 +85,6 @@ IDEMPOTENT_RPCS = frozenset(
 # Record types of the JAX package's journal that the port's plane has no
 # table for yet, by the ROADMAP Queue A sub-slice that brings the table.
 WAITING_RECORD_TYPES: dict[str, str] = {
-    **dict.fromkeys(("dictq", "dictq_del"), "4e (dicts and queues)"),
-    **dict.fromkeys(("proxy", "proxy_del"), "4e (proxies)"),
-    **dict.fromkeys(("environment", "environment_del", "environment_update"), "4e (environments)"),
-    "ws_setting": "4e (workspace settings)",
-    "token": "4e (tokens)",
     "attempt": "4e (the input plane)",
 }
 
@@ -97,7 +92,8 @@ WAITING_RECORD_TYPES: dict[str, str] = {
 # Mutating RPCs of the port's plane deliberately not journaled, with the
 # reason (the JAX package's table, for the RPCs the port serves): a sandbox's
 # processes and tunnel listeners live on the plane's host and cannot outlive
-# it, so their registry is not replayed.
+# it, so their registry is not replayed; a dict's or a queue's contents are
+# an ephemeral data-plane payload (their registry is journaled).
 EXEMPT_RPCS: dict[str, str] = {
     "SandboxCreate": "sandbox processes are supervisor-host-bound",
     "SandboxTerminate": "sandbox processes are supervisor-host-bound",
@@ -118,6 +114,13 @@ EXEMPT_RPCS: dict[str, str] = {
     "ProfileControl": "profiling toggle is runtime-transient; an operator re-issues it after a restart",
     "MetricsHistory": "read-only history query; rollups are runtime-transient, rebuilt by sampling "
     "(alert transitions are journaled by the SLO evaluator, record type 'alert')",
+    "DictUpdate": "ephemeral data-plane payload (registry IS journaled)",
+    "DictPop": "ephemeral data-plane payload (registry IS journaled)",
+    "DictClear": "ephemeral data-plane payload (registry IS journaled)",
+    "QueuePut": "ephemeral data-plane payload (registry IS journaled)",
+    "QueueGet": "ephemeral data-plane payload (registry IS journaled)",
+    "QueueClear": "ephemeral data-plane payload (registry IS journaled)",
+    "TokenFlowCreate": "pending browser flows are transient until granted",
 }
 
 
@@ -740,6 +743,84 @@ def _apply_image_del(s, r):
             del s.images_by_hash[key]
 
 
+_DICTQ_POOLS = {
+    "dicts": ("deployed_dicts", "DictState", "dict_id"),
+    "queues": ("deployed_queues", "QueueState", "queue_id"),
+}
+
+
+def _apply_dictq(s, r):
+    from . import state as state_mod
+
+    deployed_name, cls_name, id_field = _DICTQ_POOLS[r["pool"]]
+    pool = getattr(s, r["pool"])
+    obj = pool.get(r["id"]) or getattr(state_mod, cls_name)(**{id_field: r["id"]})
+    obj.name = r.get("name", "")
+    obj.ephemeral = bool(r.get("ephemeral"))
+    obj.last_heartbeat = time.time() if obj.ephemeral else 0.0
+    pool[r["id"]] = obj
+    if r.get("deploy_key"):
+        getattr(s, deployed_name)[tuple(r["deploy_key"])] = r["id"]
+
+
+def _apply_dictq_del(s, r):
+    getattr(s, r["pool"]).pop(r["id"], None)
+    deployed = getattr(s, _DICTQ_POOLS[r["pool"]][0])
+    for key, oid in list(deployed.items()):
+        if oid == r["id"]:
+            del deployed[key]
+
+
+def _apply_proxy(s, r):
+    from .state import ProxyState
+
+    s.proxies[r["proxy_id"]] = ProxyState(
+        proxy_id=r["proxy_id"], name=r.get("name", ""), proxy_ip=r.get("proxy_ip", ""),
+        environment_name=r.get("environment_name", ""),
+    )
+    s.deployed_proxies[(r.get("environment_name", ""), r.get("name", ""))] = r["proxy_id"]
+
+
+def _apply_proxy_del(s, r):
+    proxy = s.proxies.pop(r["proxy_id"], None)
+    if proxy is not None:
+        s.deployed_proxies.pop((proxy.environment_name, proxy.name), None)
+
+
+def _apply_environment(s, r):
+    s.environments[r["name"]] = r.get("web_suffix", "")
+
+
+def _apply_environment_del(s, r):
+    s.environments.pop(r["name"], None)
+
+
+def _apply_environment_update(s, r):
+    current = r["current"]
+    if current not in s.environments:
+        return
+    if "web_suffix" in r:
+        s.environments[current] = r["web_suffix"]
+    if r.get("name") and r["name"] != current:
+        s.environments[r["name"]] = s.environments.pop(current)
+        for (env, app_name), app_id in list(s.deployed_apps.items()):
+            if env == current:
+                del s.deployed_apps[(env, app_name)]
+                s.deployed_apps[(r["name"], app_name)] = app_id
+
+
+def _apply_ws_setting(s, r):
+    if r.get("value"):
+        s.workspace_settings[r["name"]] = r["value"]
+    else:
+        s.workspace_settings.pop(r["name"], None)
+
+
+def _apply_token(s, r):
+    s.tokens[r["token_id"]] = r.get("token_secret", "")
+    s.token_granted_at.setdefault(r["token_id"], r.get("granted_at", time.time()))
+
+
 def _apply_rpc_dedupe(s, r):
     if s.idempotency is not None:
         s.idempotency.put(r["key"], r.get("method", ""), _unb64(r.get("resp", "")), journal=False)
@@ -838,6 +919,15 @@ _APPLIERS: dict[str, Callable] = {
     "volume_rm": _apply_volume_rm,
     "volume_meta": _apply_volume_meta,
     "volume_del": _apply_volume_del,
+    "dictq": _apply_dictq,
+    "dictq_del": _apply_dictq_del,
+    "proxy": _apply_proxy,
+    "proxy_del": _apply_proxy_del,
+    "environment": _apply_environment,
+    "environment_del": _apply_environment_del,
+    "environment_update": _apply_environment_update,
+    "ws_setting": _apply_ws_setting,
+    "token": _apply_token,
     "rpc_dedupe": _apply_rpc_dedupe,
     "alert": _apply_alert,
 }
@@ -852,6 +942,13 @@ def synthesize_records(s) -> list[dict]:
     """Records that, applied in order to a fresh ServerState, reproduce the
     journaled projection of ``s``. Claims and tasks are absent by design."""
     out: list[dict] = []
+    for name, suffix in s.environments.items():
+        out.append({"t": "environment", "name": name, "web_suffix": suffix})
+    for name, value in s.workspace_settings.items():
+        out.append({"t": "ws_setting", "name": name, "value": value})
+    for token_id, secret in s.tokens.items():
+        out.append({"t": "token", "token_id": token_id, "token_secret": secret,
+                    "granted_at": s.token_granted_at.get(token_id, 0.0)})
     for alert in s.alerts.values():
         out.append({"t": "alert", **alert})
     hash_by_image = {v: k for k, v in s.images_by_hash.items()}
@@ -896,6 +993,15 @@ def synthesize_records(s) -> list[dict]:
                 "deploy_key": list(deploy_key) if deploy_key else None,
             }
         )
+    for pool_name in ("dicts", "queues"):
+        deployed_by_obj = {v: k for k, v in getattr(s, _DICTQ_POOLS[pool_name][0]).items()}
+        for obj_id, obj in getattr(s, pool_name).items():
+            deploy_key = deployed_by_obj.get(obj_id)
+            out.append({"t": "dictq", "pool": pool_name, "id": obj_id, "name": obj.name, "ephemeral": obj.ephemeral,
+                        "deploy_key": list(deploy_key) if deploy_key else None})
+    for proxy in s.proxies.values():
+        out.append({"t": "proxy", "proxy_id": proxy.proxy_id, "name": proxy.name, "proxy_ip": proxy.proxy_ip,
+                    "environment_name": proxy.environment_name})
     deployed_by_app = {v: k[1] for k, v in s.deployed_apps.items()}
     for app in s.apps.values():
         out.append(
@@ -1047,7 +1153,7 @@ def recover_state(state, journal: Journal) -> dict:
         logger.warning(f"journal recovery skipped {n} {t!r} record(s): {where}")
     # post-pass 1: id counters past every recovered id
     for pool in (state.apps, state.functions, state.function_calls, state.inputs, state.workers, state.secrets,
-                 state.images, state.volumes):
+                 state.images, state.volumes, state.dicts, state.queues, state.proxies):
         for obj_id in pool:
             bump_id_counter(obj_id)
     # post-pass 2: every unfinished input is pending, once in its queue

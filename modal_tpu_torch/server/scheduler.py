@@ -721,6 +721,13 @@ class Scheduler:
             args.env["MODAL_TPU_BOUND_PARAMS"] = fn.serialized_params.hex()
         if task.trace_context:
             args.env[tracing.TRACE_CONTEXT_ENV] = task.trace_context
+        if fn.definition.proxy_id:
+            proxy = self.s.proxies.get(fn.definition.proxy_id)
+            if proxy is not None:
+                # the container's static egress address (reference ProxyInfo
+                # on the task layout), exported as env here; a production
+                # worker binds SNAT to it
+                args.env["MODAL_TPU_PROXY_IP"] = proxy.proxy_ip
         if app is not None:
             for tag, fn_id in {**app.function_ids, **app.class_ids}.items():
                 args.app_layout.objects[tag] = fn_id

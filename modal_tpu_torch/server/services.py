@@ -4,7 +4,9 @@ The handlers a function or class call of the App layer goes through, with
 the JAX control plane's semantics: apps, blobs, function definition and
 invocation (FunctionMap and the coalesced FunctionMapBatch, FunctionGetOutputs
 long polls, generators, cancellation), web endpoints (a container sets its
-URL, a client long-polls for it), images (registered as built), mounts (content-addressed
+URL, a client long-polls for it), images (each definition registered by its
+content hash, built by the worker on first use, listed with its reference
+count and deleted unless referenced), mounts (content-addressed
 blocks), secrets (resolved into a container's env at placement), the
 container data plane (hello, heartbeats, input claims, outputs, logs,
 results) and the worker plane (register, poll, heartbeat). Beside them, the
@@ -12,26 +14,32 @@ sandboxes: create, wait, terminate, stdin and logs, sidecars, the worker
 router's address and token (SandboxGetCommandRouterAccess), filesystem and
 full snapshots and restore, tunnels (SandboxGetTunnels, TaskTunnelsUpdate,
 TunnelStart, TunnelStop) and readiness (TaskReady). A sandbox asks for
-cards with `gpu_config`; a `tpu_config` ask is refused.
+cards with `gpu_config`; a `tpu_config` ask is refused. The SDK's objects:
+dicts, queues (partitions, blocking gets and long-polled iteration),
+proxies (a static egress IP, exported to a proxied function's containers),
+environments (an empty name resolves to the workspace's default), the token
+flow and the workspace (its settings: `image_builder_version`, which
+ClientHello advertises, and `default_environment`).
 
 Every mutating handler appends the effect it applied to the write-ahead
 journal (server/journal.py) under the JAX handler's record type, so a
 restarted plane replays its apps, calls and queued inputs; claims, tasks,
 heartbeats and logs are transient by design, and so are sandboxes and
-tunnels (journal.EXEMPT_RPCS). Volumes (the 13 Volume* RPCs and the
-ephemeral heartbeat) keep files as block lists over the content-addressed
+tunnels, and the contents of dicts and queues (journal.EXEMPT_RPCS).
+Volumes (the 13 Volume* RPCs and the
+ephemeral heartbeat of volumes, dicts and queues) keep files as block lists over the content-addressed
 block store, and gangs meet at TaskClusterHello (ClusterList lists them): a
 broadcast input reaches every rank, rank 0's result is the output, and a
 dead rank fails its gang's inputs and preempts its peers. The metrics
 plane answers MetricsHistory (server/history.py), ProfileControl (the
 sampling profiler, fanned out to containers on their heartbeats),
 AppListProfiles (the runtime_debug traces) and TaskGetTimeline. This
-servicer serves 101 of the wire contract's 148 RPCs; the others answer gRPC
-UNIMPLEMENTED (proto/rpc.py): image listing and deletion, proxies, dicts,
-queues, environments, tokens, workspaces, ContainerExec*, the input plane,
-and shard and journal administration (ROADMAP Queue A 4e). Exec and the
-filesystem of a sandbox, and the warm pool's handoff, are served by each
-worker's task command router (server/task_router.py).
+servicer serves 135 of the wire contract's 148 RPCs; the others answer gRPC
+UNIMPLEMENTED (proto/rpc.py): ContainerExec* and ContainerFilesystemExec,
+the input plane (Attempt*, MapStartOrContinue, MapAwait), and shard and
+journal administration (ShardControl, JournalReplicate) (ROADMAP Queue A
+4e). Exec and the filesystem of a sandbox, and the warm pool's handoff, are
+served by each worker's task command router (server/task_router.py).
 """
 
 from __future__ import annotations
@@ -51,10 +59,13 @@ from ..proto import api_pb2
 from .journal import _b64 as _jb64
 from .state import (
     AppState,
+    DictState,
     FunctionCallState,
     FunctionState,
     ImageState,
     InputState,
+    ProxyState,
+    QueueState,
     SecretState,
     ServerState,
     TaskState_,
@@ -161,7 +172,9 @@ class ModalTPUServicer:
     async def ClientHello(self, request: api_pb2.ClientHelloRequest, context) -> api_pb2.ClientHelloResponse:
         return api_pb2.ClientHelloResponse(
             server_version="0.1.0",
-            image_builder_version="2026.07",
+            # the workspace-wide setting (WorkspaceSettingsSet) wins over the
+            # build default: a client takes it at its handshake
+            image_builder_version=self.s.workspace_settings.get("image_builder_version", "2026.07"),
             # local fast-path coordinates: a client that can stat these paths
             # is co-located and upgrades its transport; others ignore them
             uds_path=self.s.uds_path,
@@ -177,6 +190,146 @@ class ModalTPUServicer:
             token=encode_jwt({"sub": "input-plane"}, self.s.auth_secret, ttl_s=AUTH_TOKEN_TTL_S)
         )
 
+    def _resolve_environment(self, name: str) -> str:
+        """An empty environment name is the workspace's default environment
+        (WorkspaceSettingsSet default_environment), else "" (the implicit
+        main): the reference's per-workspace default (_workspace.py:420)."""
+        return name or self.s.workspace_settings.get("default_environment", "")
+
+    # ------------------------------------------------------------------
+    # Environments, tokens and the workspace (reference _workspace.py:70;
+    # the billing RPCs are not part of the contract)
+    # ------------------------------------------------------------------
+
+    async def EnvironmentList(self, request, context) -> api_pb2.EnvironmentListResponse:
+        names = set(self.s.environments) | {env for env, _ in self.s.deployed_apps if env}
+        return api_pb2.EnvironmentListResponse(items=[api_pb2.EnvironmentListItem(name=n) for n in sorted(names)])
+
+    async def EnvironmentCreate(self, request, context) -> api_pb2.EnvironmentCreateResponse:
+        if not request.name:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, "environment needs a name")
+        self.s.environments.setdefault(request.name, "")
+        self._j("environment", name=request.name, web_suffix=self.s.environments[request.name])
+        return api_pb2.EnvironmentCreateResponse()
+
+    async def EnvironmentDelete(self, request, context) -> api_pb2.EnvironmentDeleteResponse:
+        if any(env == request.name for env, _ in self.s.deployed_apps):
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                                f"environment {request.name!r} still has deployed apps")
+        self.s.environments.pop(request.name, None)
+        self._j("environment_del", name=request.name)
+        return api_pb2.EnvironmentDeleteResponse()
+
+    async def EnvironmentUpdate(self, request, context) -> api_pb2.EnvironmentUpdateResponse:
+        current = request.current_name
+        if current not in self.s.environments:
+            await context.abort(grpc.StatusCode.NOT_FOUND, f"environment {current!r} not found")
+        if request.HasField("web_suffix"):
+            self.s.environments[current] = request.web_suffix
+        if request.HasField("name") and request.name and request.name != current:
+            if request.name in self.s.environments:
+                await context.abort(grpc.StatusCode.ALREADY_EXISTS, f"environment {request.name!r} already exists")
+            self.s.environments[request.name] = self.s.environments.pop(current)
+            # deployments move with their environment
+            for (env, app_name), app_id in list(self.s.deployed_apps.items()):
+                if env == current:
+                    del self.s.deployed_apps[(env, app_name)]
+                    self.s.deployed_apps[(request.name, app_name)] = app_id
+        rec: dict = {"current": current}
+        if request.HasField("web_suffix"):
+            rec["web_suffix"] = request.web_suffix
+        if request.HasField("name") and request.name:
+            rec["name"] = request.name
+        self._j("environment_update", **rec)
+        return api_pb2.EnvironmentUpdateResponse()
+
+    async def TokenFlowCreate(self, request, context) -> api_pb2.TokenFlowCreateResponse:
+        """Browser-completed token issuance (reference token_flow.py:1): the
+        flow's web_url is a page of this plane's blob server; visiting it
+        with the verification code approves the flow and unblocks
+        TokenFlowWait. A headless caller waits with timeout=0 for an
+        immediate local grant."""
+        import secrets as _secrets
+
+        flow_id = self.s.make_id("tf")
+        flow = self.s.pending_token_flows[flow_id] = {
+            "token_id": "tk-" + _secrets.token_hex(8),
+            "token_secret": "ts-" + _secrets.token_hex(16),
+            "code": _secrets.token_hex(3),
+            "approved": asyncio.Event(),
+            "localhost_port": request.localhost_port,
+        }
+        base = self.s.blob_url_base or ""
+        web_url = f"{base}/auth/token-flow/{flow_id}?code={flow['code']}" if base else "local://token-granted"
+        return api_pb2.TokenFlowCreateResponse(token_flow_id=flow_id, web_url=web_url, code=flow["code"])
+
+    async def TokenFlowWait(self, request, context) -> api_pb2.TokenFlowWaitResponse:
+        flow = self.s.pending_token_flows.get(request.token_flow_id)
+        if flow is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "unknown token flow")
+        if request.timeout > 0:
+            # the browser flow: block until the page approves, or time out
+            # (the CLI polls)
+            try:
+                await asyncio.wait_for(flow["approved"].wait(), request.timeout)
+            except asyncio.TimeoutError:
+                return api_pb2.TokenFlowWaitResponse(timeout=True)
+        # a retried Wait may race another waiter of the same flow: the grant
+        # is idempotent, both get the same credentials
+        self.s.tokens[flow["token_id"]] = flow["token_secret"]
+        self.s.token_granted_at.setdefault(flow["token_id"], time.time())
+        self._j("token", token_id=flow["token_id"], token_secret=flow["token_secret"],
+                granted_at=self.s.token_granted_at[flow["token_id"]])
+        self.s.pending_token_flows.pop(request.token_flow_id, None)
+        return api_pb2.TokenFlowWaitResponse(
+            token_id=flow["token_id"], token_secret=flow["token_secret"], workspace_name="local"
+        )
+
+    # the settings this plane understands: WorkspaceSettingsSet refuses any
+    # other name (the reference's settings manager has a curated set too,
+    # _workspace.py:387)
+    _WORKSPACE_SETTINGS = ("image_builder_version", "default_environment")
+
+    async def WorkspaceNameLookup(self, request, context) -> api_pb2.WorkspaceNameLookupResponse:
+        return api_pb2.WorkspaceNameLookupResponse(workspace_name="local", username="local")
+
+    async def WorkspaceMemberList(self, request, context) -> api_pb2.WorkspaceMemberListResponse:
+        ordered = sorted(self.s.tokens, key=lambda t: self.s.token_granted_at.get(t, 0.0))
+        return api_pb2.WorkspaceMemberListResponse(members=[
+            api_pb2.WorkspaceMemberInfo(username=token_id, role="owner" if i == 0 else "member",
+                                        created_at=self.s.token_granted_at.get(token_id, 0.0))
+            for i, token_id in enumerate(ordered)
+        ])
+
+    async def WorkspaceSettingsList(self, request, context) -> api_pb2.WorkspaceSettingsListResponse:
+        return api_pb2.WorkspaceSettingsListResponse(settings=[
+            api_pb2.WorkspaceSetting(name=k, value=v) for k, v in sorted(self.s.workspace_settings.items())
+        ])
+
+    async def WorkspaceSettingsSet(self, request, context) -> api_pb2.WorkspaceSettingsSetResponse:
+        if request.name not in self._WORKSPACE_SETTINGS:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"unknown workspace setting {request.name!r} (known: {', '.join(self._WORKSPACE_SETTINGS)})",
+            )
+        if not request.value:
+            # an empty value unsets (there is no separate delete RPC)
+            self.s.workspace_settings.pop(request.name, None)
+            self._j("ws_setting", name=request.name, value="")
+            return api_pb2.WorkspaceSettingsSetResponse()
+        if request.name == "image_builder_version":
+            from ..builder import known_versions
+
+            known = known_versions()
+            if known and request.value not in known:
+                await context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                                    f"unknown image builder version {request.value!r} (known: {', '.join(known)})")
+        if request.name == "default_environment" and request.value not in self.s.environments:
+            await context.abort(grpc.StatusCode.NOT_FOUND, f"environment {request.value!r} does not exist")
+        self.s.workspace_settings[request.name] = request.value
+        self._j("ws_setting", name=request.name, value=request.value)
+        return api_pb2.WorkspaceSettingsSetResponse()
+
     # ------------------------------------------------------------------
     # Apps
     # ------------------------------------------------------------------
@@ -187,14 +340,14 @@ class ModalTPUServicer:
             app_id=app_id,
             description=request.description,
             state=request.app_state or api_pb2.APP_STATE_INITIALIZING,
-            environment_name=request.environment_name,
+            environment_name=self._resolve_environment(request.environment_name),
         )
         self._j("app", app_id=app_id, description=app.description, state=app.state,
                 environment_name=app.environment_name)
         return api_pb2.AppCreateResponse(app_id=app_id, app_page_url=f"http://local/apps/{app_id}")
 
     async def AppGetOrCreate(self, request: api_pb2.AppGetOrCreateRequest, context) -> api_pb2.AppGetOrCreateResponse:
-        key = (request.environment_name, request.app_name)
+        key = (self._resolve_environment(request.environment_name), request.app_name)
         app_id = self.s.deployed_apps.get(key)
         if app_id is None:
             if request.object_creation_type not in (CREATE_IF_MISSING, FAIL_IF_EXISTS):
@@ -334,7 +487,7 @@ class ModalTPUServicer:
         return api_pb2.AppDeployResponse(url=f"http://local/apps/{app.app_id}")
 
     async def AppGetByDeploymentName(self, request, context) -> api_pb2.AppGetByDeploymentNameResponse:
-        app_id = self.s.deployed_apps.get((request.environment_name, request.name))
+        app_id = self.s.deployed_apps.get((self._resolve_environment(request.environment_name), request.name))
         if app_id is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, f"deployed app {request.name!r} not found")
         return api_pb2.AppGetByDeploymentNameResponse(app_id=app_id)
@@ -444,7 +597,8 @@ class ModalTPUServicer:
         return api_pb2.FunctionCreateResponse(function_id=function_id, handle_metadata=self._function_metadata(fn))
 
     async def FunctionGet(self, request: api_pb2.FunctionGetRequest, context) -> api_pb2.FunctionGetResponse:
-        fn_id = self.s.deployed_functions.get((request.environment_name, request.app_name, request.object_tag))
+        key = (self._resolve_environment(request.environment_name), request.app_name, request.object_tag)
+        fn_id = self.s.deployed_functions.get(key)
         if fn_id is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, f"function {request.app_name}/{request.object_tag} not found")
         return api_pb2.FunctionGetResponse(
@@ -1524,8 +1678,9 @@ class ModalTPUServicer:
 
 
     # ------------------------------------------------------------------
-    # Images: registered as built (the image builder comes with ROADMAP
-    # Queue A 4e); a container runs in its worker's environment
+    # Images: the plane registers each definition by its content hash; the
+    # worker builds the layer chain on first use (server/image_builder.py)
+    # and a build that fails fails the task with INIT_FAILURE
     # ------------------------------------------------------------------
 
     async def ImageGetOrCreate(self, request: api_pb2.ImageGetOrCreateRequest, context) -> api_pb2.ImageGetOrCreateResponse:
@@ -1557,6 +1712,63 @@ class ModalTPUServicer:
             await context.abort(grpc.StatusCode.NOT_FOUND, "image not found")
         return api_pb2.ImageFromIdResponse(image_id=request.image_id, metadata=image.metadata,
                                            definition=image.definition)
+
+    def _image_refs(self) -> dict[str, int]:
+        """Pin counts for an image prune: an image is pinned while a function
+        or sandbox of a running app names it (a scale-to-zero deployment
+        included: its autoscaler can start a task later), and a FROM chain's
+        base images by their pinned children."""
+        refs: dict[str, int] = {}
+
+        def add_with_parents(image_id: str) -> None:
+            for _ in range(32):  # FROM chains are short; bound anyway
+                if not image_id:
+                    return
+                refs[image_id] = refs.get(image_id, 0) + 1
+                img = self.s.images.get(image_id)
+                if img is None:
+                    return
+                image_id = next((c.strip()[5:].strip() for c in img.definition.dockerfile_commands
+                                 if c.strip().startswith("FROM im-")), "")
+
+        def app_alive(app_id: str) -> bool:
+            app = self.s.apps.get(app_id)
+            return app is not None and not app.done
+
+        for fn in self.s.functions.values():
+            if fn.definition.image_id and app_alive(fn.app_id):
+                add_with_parents(fn.definition.image_id)
+        for sb in self.s.sandboxes.values():
+            if sb.definition.image_id and sb.state != api_pb2.SANDBOX_STATE_TERMINATED:
+                add_with_parents(sb.definition.image_id)
+        return refs
+
+    async def ImageList(self, request, context) -> api_pb2.ImageListResponse:
+        refs = self._image_refs()
+        return api_pb2.ImageListResponse(images=[
+            api_pb2.ImageInfo(image_id=image.image_id, built=image.built,
+                              builder_version=image.metadata.image_builder_version,
+                              python_version=image.metadata.python_version, created_at=image.created_at,
+                              ref_count=refs.get(image.image_id, 0))
+            for image in self.s.images.values()
+        ])
+
+    async def ImageDelete(self, request: api_pb2.ImageDeleteRequest, context) -> api_pb2.ImageDeleteResponse:
+        """Delete an image RECORD (an image prune's building block). A pinned
+        image is refused: a record has no rebuild path from its id, so
+        deleting a referenced one would fail every later cold start. The
+        content-addressed venv on disk is shared and stays."""
+        if request.image_id in self._image_refs():
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                                f"image {request.image_id} is referenced by a live app/sandbox")
+        self.s.images.pop(request.image_id, None)
+        # the content-hash index stays consistent: a later ImageGetOrCreate of
+        # the same definition mints a fresh record, not a dangling id
+        for key, image_id in list(self.s.images_by_hash.items()):
+            if image_id == request.image_id:
+                del self.s.images_by_hash[key]
+        self._j("image_del", image_id=request.image_id)
+        return api_pb2.ImageDeleteResponse()
 
     # ------------------------------------------------------------------
     # Mounts: file contents by sha256 in the block store, a manifest per
@@ -1601,7 +1813,7 @@ class ModalTPUServicer:
             self.s.secrets[secret_id] = SecretState(secret_id=secret_id, env_dict=dict(request.env_dict))
             self._j("secret", secret_id=secret_id, env=dict(request.env_dict))
             return api_pb2.SecretGetOrCreateResponse(secret_id=secret_id)
-        key = (request.environment_name, request.deployment_name)
+        key = (self._resolve_environment(request.environment_name), request.deployment_name)
         secret_id = self.s.deployed_secrets.get(key)
         if secret_id is None:
             if request.object_creation_type not in (CREATE_IF_MISSING, FAIL_IF_EXISTS) and not request.env_dict:
@@ -1655,7 +1867,7 @@ class ModalTPUServicer:
             self._j("volume", volume_id=volume_id, version=request.version, ephemeral=ephemeral)
             return api_pb2.VolumeGetOrCreateResponse(volume_id=volume_id,
                                                      metadata=api_pb2.VolumeMetadata(version=request.version))
-        key = (request.environment_name, request.deployment_name)
+        key = (self._resolve_environment(request.environment_name), request.deployment_name)
         volume_id = self.s.deployed_volumes.get(key)
         if volume_id is None:
             if request.object_creation_type not in (CREATE_IF_MISSING, FAIL_IF_EXISTS):
@@ -1809,12 +2021,14 @@ class ModalTPUServicer:
         ])
 
     async def EphemeralObjectHeartbeat(self, request, context) -> api_pb2.EphemeralObjectHeartbeatResponse:
-        """Liveness of an ephemeral volume (the port's one ephemeral object
-        until dicts and queues, ROADMAP Queue A 4e)."""
-        vol = self.s.volumes.get(request.object_id)
-        if vol is None:
+        """Liveness of an ephemeral dict, queue or volume (reference
+        _object.py:21)."""
+        pools = {"di": self.s.dicts, "qu": self.s.queues, "vo": self.s.volumes}
+        pool = pools.get(request.object_id[:2])
+        obj = pool.get(request.object_id) if pool is not None else None
+        if obj is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, f"no such object {request.object_id}")
-        vol.last_heartbeat = time.time()
+        obj.last_heartbeat = time.time()
         return api_pb2.EphemeralObjectHeartbeatResponse(ttl_seconds=self.ephemeral_ttl_seconds())
 
     @staticmethod
@@ -1824,14 +2038,17 @@ class ModalTPUServicer:
         return float(os.environ.get("MODAL_TPU_EPHEMERAL_TTL", "900"))
 
     def reap_stale_ephemerals(self) -> int:
-        """Drop ephemeral volumes whose client stopped heartbeating (the
-        scheduler's reap tick). Returns how many went."""
+        """Drop the ephemeral dicts, queues and volumes whose client stopped
+        heartbeating (the scheduler's reap tick). Returns how many went."""
         cutoff = time.time() - self.ephemeral_ttl_seconds()
-        stale = [vid for vid, v in self.s.volumes.items() if v.ephemeral and v.last_heartbeat and v.last_heartbeat < cutoff]
-        for vid in stale:
-            logger.debug(f"reaping stale ephemeral volume {vid}")
-            del self.s.volumes[vid]
-        return len(stale)
+        reaped = 0
+        for pool in (self.s.dicts, self.s.queues, self.s.volumes):
+            for obj_id in [oid for oid, obj in pool.items()
+                           if obj.ephemeral and obj.last_heartbeat and obj.last_heartbeat < cutoff]:
+                logger.debug(f"reaping stale ephemeral object {obj_id}")
+                del pool[obj_id]
+                reaped += 1
+        return reaped
 
     # ------------------------------------------------------------------
     # Gangs: the rendezvous and the listing
@@ -2321,3 +2538,231 @@ class ModalTPUServicer:
         elif entry[0] is not None:
             entry[0].close()
         return api_pb2.TunnelStopResponse(exists=True)
+
+    # ------------------------------------------------------------------
+    # Proxies: static egress (reference proxy.py:1)
+    # ------------------------------------------------------------------
+
+    async def ProxyCreate(self, request: api_pb2.ProxyCreateRequest, context) -> api_pb2.ProxyCreateResponse:
+        if not request.name:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, "proxy name required")
+        key = (self._resolve_environment(request.environment_name), request.name)
+        if key in self.s.deployed_proxies:
+            await context.abort(grpc.StatusCode.ALREADY_EXISTS, f"proxy {request.name!r} exists")
+        proxy_id = self.s.make_id("pr")
+        # a static IP from a private range, never one a live proxy holds;
+        # the scheduler exports it to the containers of a proxied function
+        # (locally as env; a production deployment binds SNAT to it)
+        in_use = {p.proxy_ip for p in self.s.proxies.values()}
+        ip = next((f"10.250.{block}.{octet}" for block in range(256) for octet in range(2, 252)
+                   if f"10.250.{block}.{octet}" not in in_use), None)
+        if ip is None:
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, "proxy IP range exhausted")
+        # the resolved environment, so ProxyDelete un-keys what this keyed
+        proxy = ProxyState(proxy_id=proxy_id, name=request.name, proxy_ip=ip, environment_name=key[0])
+        self.s.proxies[proxy_id] = proxy
+        self.s.deployed_proxies[key] = proxy_id
+        self._j("proxy", proxy_id=proxy_id, name=proxy.name, proxy_ip=proxy.proxy_ip,
+                environment_name=proxy.environment_name)
+        return api_pb2.ProxyCreateResponse(proxy=api_pb2.Proxy(proxy_id=proxy_id, name=proxy.name, proxy_ip=ip))
+
+    async def ProxyGet(self, request: api_pb2.ProxyGetRequest, context) -> api_pb2.ProxyGetResponse:
+        proxy_id = self.s.deployed_proxies.get((self._resolve_environment(request.environment_name), request.name))
+        if proxy_id is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND,
+                                f"proxy {request.name!r} not found: provision it with Proxy.create")
+        proxy = self.s.proxies[proxy_id]
+        return api_pb2.ProxyGetResponse(proxy=api_pb2.Proxy(proxy_id=proxy_id, name=proxy.name, proxy_ip=proxy.proxy_ip))
+
+    async def ProxyList(self, request: api_pb2.ProxyListRequest, context) -> api_pb2.ProxyListResponse:
+        return api_pb2.ProxyListResponse(proxies=[
+            api_pb2.Proxy(proxy_id=p.proxy_id, name=p.name, proxy_ip=p.proxy_ip) for p in self.s.proxies.values()
+            if not request.environment_name or p.environment_name == request.environment_name
+        ])
+
+    async def ProxyDelete(self, request: api_pb2.ProxyDeleteRequest, context) -> api_pb2.ProxyDeleteResponse:
+        proxy = self.s.proxies.pop(request.proxy_id, None)
+        if proxy is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "proxy not found")
+        self.s.deployed_proxies.pop((proxy.environment_name, proxy.name), None)
+        self._j("proxy_del", proxy_id=request.proxy_id)
+        return api_pb2.ProxyDeleteResponse()
+
+    # ------------------------------------------------------------------
+    # Dicts: the registry is journaled, the contents are not
+    # ------------------------------------------------------------------
+
+    async def _dict(self, dict_id: str, context) -> DictState:
+        d = self.s.dicts.get(dict_id)
+        if d is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "dict not found")
+        return d
+
+    async def DictGetOrCreate(self, request: api_pb2.DictGetOrCreateRequest, context) -> api_pb2.DictGetOrCreateResponse:
+        if request.object_creation_type == EPHEMERAL or not request.deployment_name:
+            dict_id = self.s.make_id("di")
+            ephemeral = request.object_creation_type == EPHEMERAL
+            self.s.dicts[dict_id] = DictState(dict_id=dict_id, ephemeral=ephemeral, last_heartbeat=time.time())
+            self._j("dictq", pool="dicts", id=dict_id, ephemeral=ephemeral)
+            return api_pb2.DictGetOrCreateResponse(dict_id=dict_id)
+        key = (self._resolve_environment(request.environment_name), request.deployment_name)
+        dict_id = self.s.deployed_dicts.get(key)
+        if dict_id is None:
+            if request.object_creation_type not in (CREATE_IF_MISSING, FAIL_IF_EXISTS):
+                await context.abort(grpc.StatusCode.NOT_FOUND, f"dict {request.deployment_name!r} not found")
+            dict_id = self.s.make_id("di")
+            self.s.dicts[dict_id] = DictState(dict_id=dict_id, name=request.deployment_name)
+            self.s.deployed_dicts[key] = dict_id
+            self._j("dictq", pool="dicts", id=dict_id, name=request.deployment_name, deploy_key=list(key))
+        return api_pb2.DictGetOrCreateResponse(dict_id=dict_id)
+
+    async def DictUpdate(self, request, context) -> api_pb2.DictUpdateResponse:
+        d = await self._dict(request.dict_id, context)
+        if request.if_not_exists and len(request.updates) == 1:
+            entry = request.updates[0]
+            if bytes(entry.key) in d.data:
+                return api_pb2.DictUpdateResponse(created=False)
+            d.data[bytes(entry.key)] = bytes(entry.value)
+            return api_pb2.DictUpdateResponse(created=True)
+        for entry in request.updates:
+            d.data[bytes(entry.key)] = bytes(entry.value)
+        return api_pb2.DictUpdateResponse(created=True)
+
+    async def DictGet(self, request, context) -> api_pb2.DictGetResponse:
+        value = (await self._dict(request.dict_id, context)).data.get(bytes(request.key))
+        return api_pb2.DictGetResponse(found=value is not None, value=value or b"")
+
+    async def DictPop(self, request, context) -> api_pb2.DictPopResponse:
+        value = (await self._dict(request.dict_id, context)).data.pop(bytes(request.key), None)
+        return api_pb2.DictPopResponse(found=value is not None, value=value or b"")
+
+    async def DictContains(self, request, context) -> api_pb2.DictContainsResponse:
+        return api_pb2.DictContainsResponse(found=bytes(request.key) in (await self._dict(request.dict_id, context)).data)
+
+    async def DictLen(self, request, context) -> api_pb2.DictLenResponse:
+        return api_pb2.DictLenResponse(len=len((await self._dict(request.dict_id, context)).data))
+
+    async def DictContents(self, request, context) -> api_pb2.DictContentsResponse:
+        d = await self._dict(request.dict_id, context)
+        return api_pb2.DictContentsResponse(items=[api_pb2.DictEntry(key=k, value=v) for k, v in d.data.items()])
+
+    async def DictClear(self, request, context) -> api_pb2.DictClearResponse:
+        (await self._dict(request.dict_id, context)).data.clear()
+        return api_pb2.DictClearResponse()
+
+    async def DictDelete(self, request, context) -> api_pb2.DictDeleteResponse:
+        if self.s.dicts.pop(request.dict_id, None) is not None:
+            for key, did in list(self.s.deployed_dicts.items()):
+                if did == request.dict_id:
+                    del self.s.deployed_dicts[key]
+            self._j("dictq_del", pool="dicts", id=request.dict_id)
+        return api_pb2.DictDeleteResponse()
+
+    async def DictList(self, request, context) -> api_pb2.DictListResponse:
+        return api_pb2.DictListResponse(items=[
+            api_pb2.DictListItem(name=d.name, created_at=d.created_at, dict_id=d.dict_id)
+            for d in self.s.dicts.values() if d.name
+        ])
+
+    # ------------------------------------------------------------------
+    # Queues: partitions, each with its own condition; the registry is
+    # journaled, the contents are not
+    # ------------------------------------------------------------------
+
+    async def _queue(self, queue_id: str, context) -> QueueState:
+        q = self.s.queues.get(queue_id)
+        if q is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, "queue not found")
+        return q
+
+    async def QueueGetOrCreate(self, request: api_pb2.QueueGetOrCreateRequest, context) -> api_pb2.QueueGetOrCreateResponse:
+        if request.object_creation_type == EPHEMERAL or not request.deployment_name:
+            queue_id = self.s.make_id("qu")
+            ephemeral = request.object_creation_type == EPHEMERAL
+            self.s.queues[queue_id] = QueueState(queue_id=queue_id, ephemeral=ephemeral, last_heartbeat=time.time())
+            self._j("dictq", pool="queues", id=queue_id, ephemeral=ephemeral)
+            return api_pb2.QueueGetOrCreateResponse(queue_id=queue_id)
+        key = (self._resolve_environment(request.environment_name), request.deployment_name)
+        queue_id = self.s.deployed_queues.get(key)
+        if queue_id is None:
+            if request.object_creation_type not in (CREATE_IF_MISSING, FAIL_IF_EXISTS):
+                await context.abort(grpc.StatusCode.NOT_FOUND, f"queue {request.deployment_name!r} not found")
+            queue_id = self.s.make_id("qu")
+            self.s.queues[queue_id] = QueueState(queue_id=queue_id, name=request.deployment_name)
+            self.s.deployed_queues[key] = queue_id
+            self._j("dictq", pool="queues", id=queue_id, name=request.deployment_name, deploy_key=list(key))
+        return api_pb2.QueueGetOrCreateResponse(queue_id=queue_id)
+
+    async def QueuePut(self, request: api_pb2.QueuePutRequest, context) -> api_pb2.QueuePutResponse:
+        part = (await self._queue(request.queue_id, context)).partition(request.partition_key)
+        for v in request.values:
+            part.next_entry += 1
+            part.items.append((str(part.next_entry), bytes(v)))
+        async with part.condition:
+            part.condition.notify_all()
+        return api_pb2.QueuePutResponse()
+
+    async def _wait_items(self, part, deadline: float) -> bool:
+        """Wait on the partition's condition until a put or the deadline;
+        False once the deadline has passed."""
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            return False
+        async with part.condition:
+            try:
+                await asyncio.wait_for(part.condition.wait(), timeout=remaining)
+            except asyncio.TimeoutError:
+                pass
+        return True
+
+    async def QueueGet(self, request: api_pb2.QueueGetRequest, context) -> api_pb2.QueueGetResponse:
+        part = (await self._queue(request.queue_id, context)).partition(request.partition_key)
+        n = max(1, request.n_values)
+        deadline = time.monotonic() + (request.timeout or 0.0)
+        while True:
+            if part.items:
+                taken = part.items[:n]
+                del part.items[:n]
+                return api_pb2.QueueGetResponse(values=[v for _, v in taken])
+            if not await self._wait_items(part, deadline):
+                return api_pb2.QueueGetResponse(values=[])
+
+    async def QueueNextItems(self, request: api_pb2.QueueNextItemsRequest, context) -> api_pb2.QueueNextItemsResponse:
+        part = (await self._queue(request.queue_id, context)).partition(request.partition_key)
+        last = int(request.last_entry_id) if request.last_entry_id else 0
+        deadline = time.monotonic() + (request.item_poll_timeout or 0.0)
+        while True:
+            items = [api_pb2.QueueItem(value=v, entry_id=eid) for eid, v in part.items if int(eid) > last]
+            if items:
+                return api_pb2.QueueNextItemsResponse(items=items)
+            if not await self._wait_items(part, deadline):
+                return api_pb2.QueueNextItemsResponse(items=[])
+
+    async def QueueLen(self, request, context) -> api_pb2.QueueLenResponse:
+        q = await self._queue(request.queue_id, context)
+        if request.total:
+            return api_pb2.QueueLenResponse(len=sum(len(p.items) for p in q.partitions.values()))
+        return api_pb2.QueueLenResponse(len=len(q.partition(request.partition_key).items))
+
+    async def QueueClear(self, request, context) -> api_pb2.QueueClearResponse:
+        q = await self._queue(request.queue_id, context)
+        if request.all_partitions:
+            q.partitions.clear()
+        else:
+            q.partition(request.partition_key).items.clear()
+        return api_pb2.QueueClearResponse()
+
+    async def QueueDelete(self, request, context) -> api_pb2.QueueDeleteResponse:
+        if self.s.queues.pop(request.queue_id, None) is not None:
+            for key, qid in list(self.s.deployed_queues.items()):
+                if qid == request.queue_id:
+                    del self.s.deployed_queues[key]
+            self._j("dictq_del", pool="queues", id=request.queue_id)
+        return api_pb2.QueueDeleteResponse()
+
+    async def QueueList(self, request, context) -> api_pb2.QueueListResponse:
+        return api_pb2.QueueListResponse(items=[
+            api_pb2.QueueListItem(name=q.name, created_at=q.created_at, num_partitions=len(q.partitions),
+                                  total_size=sum(len(p.items) for p in q.partitions.values()), queue_id=q.queue_id)
+            for q in self.s.queues.values() if q.name
+        ])

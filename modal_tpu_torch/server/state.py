@@ -1,10 +1,11 @@
 """Control-plane state: the in-memory data model (port of
 modal_tpu/server/state.py).
 
-The function path's part of the JAX package's model: apps, functions, their
-input queues and calls, tasks and workers, the App layer's images and
-secrets, plus the on-disk blob store, the content-addressed block store of
-mounts and the fleet compile cache. A worker holds GPUs: a type (the card's full name),
+The JAX package's model: apps, functions, their input queues and calls,
+tasks and workers, the App layer's images and secrets, the SDK's dicts,
+queues (partitions, each with its own condition), proxies, environments,
+workspace settings and tokens, plus the on-disk blob store, the
+content-addressed block store of mounts and the fleet compile cache. A worker holds GPUs: a type (the card's full name),
 a count, and which cards are pinned to which task.
 
 The state is volatile dataclasses made durable by the write-ahead journal
@@ -14,8 +15,9 @@ stays None: quorum replication comes with the shard fleet (ROADMAP Queue A
 4e). Volumes (their files' block lists; the blocks live in `block_dir`) are
 journaled; sandboxes and their snapshots and tunnels are not, as in the JAX
 package: their processes live on the plane's host, and neither are gangs
-(`ClusterState`), whose tasks recover as gone. Dicts and queues come with
-their sub-slice.
+(`ClusterState`), whose tasks recover as gone. A dict's or a queue's
+registry (id, name, ephemeral) is journaled and its contents are not, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -220,10 +222,51 @@ class SecretState:
 
 
 @dataclass
+class ProxyState:
+    """A static-egress proxy (reference proxy.py:1): a named, stable
+    outbound IP a function binds with `proxy=`."""
+
+    proxy_id: str
+    name: str = ""
+    proxy_ip: str = ""
+    environment_name: str = ""
+    created_at: float = field(default_factory=time.time)
+
+
+@dataclass
+class DictState:
+    dict_id: str
+    name: str = ""
+    data: dict[bytes, bytes] = field(default_factory=dict)
+    created_at: float = field(default_factory=time.time)
+    ephemeral: bool = False
+    last_heartbeat: float = 0.0
+
+
+@dataclass
+class QueuePartition:
+    items: list[tuple[str, bytes]] = field(default_factory=list)  # (entry_id, value)
+    condition: asyncio.Condition = field(default_factory=asyncio.Condition)
+    next_entry: int = 0
+
+
+@dataclass
+class QueueState:
+    queue_id: str
+    name: str = ""
+    partitions: dict[str, QueuePartition] = field(default_factory=dict)
+    created_at: float = field(default_factory=time.time)
+    ephemeral: bool = False
+    last_heartbeat: float = 0.0
+
+    def partition(self, key: str) -> QueuePartition:
+        return self.partitions.setdefault(key, QueuePartition())
+
+
+@dataclass
 class ImageState:
-    """An image definition, registered as built (the image builder comes
-    with ROADMAP Queue A 4e): a container runs in the worker's own
-    environment whatever the image says."""
+    """An image definition. `built` is the plane's view; the worker builds
+    the chain on first use (server/image_builder.py)."""
 
     image_id: str
     definition: api_pb2.Image
@@ -329,8 +372,25 @@ class ServerState:
         self.deployed_volumes: dict[tuple[str, str], str] = {}  # (env, name) -> volume_id
         self.secrets: dict[str, SecretState] = {}
         self.deployed_secrets: dict[tuple[str, str], str] = {}  # (env, name) -> secret_id
+        self.dicts: dict[str, DictState] = {}
+        self.deployed_dicts: dict[tuple[str, str], str] = {}  # (env, name) -> dict_id
+        self.queues: dict[str, QueueState] = {}
+        self.deployed_queues: dict[tuple[str, str], str] = {}  # (env, name) -> queue_id
+        self.proxies: dict[str, ProxyState] = {}
+        self.deployed_proxies: dict[tuple[str, str], str] = {}  # (env, name) -> proxy_id
         self.images: dict[str, ImageState] = {}
         self.images_by_hash: dict[str, str] = {}  # definition hash -> image_id
+        self.environments: dict[str, str] = {"main": ""}  # name -> web suffix
+        self.tokens: dict[str, str] = {}  # token_id -> token_secret
+        # token_id -> grant time: the local workspace's members are its
+        # issued tokens, the oldest its owner (WorkspaceMemberList)
+        self.token_granted_at: dict[str, float] = {}
+        # workspace-wide settings, validated in WorkspaceSettingsSet
+        self.workspace_settings: dict[str, str] = {}
+        # flow_id -> {token_id, token_secret, code, approved: asyncio.Event,
+        # localhost_port}: browser-completed token issuance (TokenFlowCreate
+        # and the blob server's /auth/token-flow page)
+        self.pending_token_flows: dict[str, dict] = {}
         self.sandboxes: dict[str, SandboxState_] = {}
         self.sandbox_snapshots: dict[str, SandboxSnapshotState] = {}
         # (task_id, port) -> (asyncio server, port) of a TunnelStart, or a

@@ -36,10 +36,20 @@ re-parks under the same pid.
 Sizing: a baseline pool for the host's own environment from
 `MODAL_TPU_WARM_POOL`; the scheduler adds per-image pools (`PoolDirective`
 on the worker's poll stream) from `min_containers` / `buffer_containers`,
-and a target of 0 evicts. The port has no image builder yet (ROADMAP Queue
-A 4e): every image runs in the worker's own environment, so every
-directive lands on that one pool key, as a JAX image chain that
-materializes to the host venv does.
+and a target of 0 evicts. Each image has its own pool key, as in the JAX
+package: its interpreters run the image's python with the image's env
+(server/image_builder.py), and only that image's placements adopt them. A
+trivial chain (the worker's own environment) maps to `HOST_KEY`.
+
+Park-time kernel warm-up: with `MODAL_TPU_AOT_LOWER` set, a parked
+interpreter builds, or fetches from the fleet store, the libraries of its
+entries' kernels (runtime/aot.py) into the build directory its placements
+will use: the image's own (a prewarmed image's `<rootfs>/cache/kernels`)
+or the pool's `<state_dir>/pool/kernels`, whose libraries reach a placement
+through the fleet store, and loads them into the interpreter. The
+coordinates ride `POOL_BUILD_ENV`, applied only while the warm-up runs;
+loading a library makes no CUDA context (runtime/container_entrypoint.py,
+ROADMAP Queue C 28).
 """
 
 from __future__ import annotations
@@ -78,11 +88,13 @@ SPAWN_ENV_DROP = (
 )
 
 _EVICT = object()  # handoff-queue sentinel: exit instead of parking again
-# the key every placement matches: each image runs in the worker's own
-# environment until the port's image builder (ROADMAP Queue A 4e) gives
-# images environments, and so keys, of their own; the card pinning is applied
-# at adoption, since nothing reads it while parked
+# the key of the worker's own environment: a placement without an image, or
+# whose chain is trivial. The card pinning is applied at adoption, since
+# nothing reads it while parked
 HOST_KEY = ""
+# the park-time warm-up's build dir and fleet coordinates (JSON), applied
+# only while it runs: a parked interpreter's environment holds none of them
+POOL_BUILD_ENV = "MODAL_TPU_POOL_BUILD_ENV"
 
 
 @dataclass
@@ -94,6 +106,7 @@ class PoolEntry:
     spawn_env: dict[str, str]
     stdout_path: str
     stderr_path: str
+    python_bin: str = ""  # the interpreter it runs: the image's python, or the worker's
     created_at: float = field(default_factory=time.time)
     state: str = "booting"  # booting -> parked -> adopting -> serving (-> parked ...) -> dead
     generation: int = 0  # placements completed by this interpreter
@@ -129,6 +142,7 @@ class WarmPool:
         self.baseline = int(config["warm_pool"] or 0)
         self.directives: dict[str, int] = {}
         self.targets: dict[str, int] = {}
+        self._image_keys: dict[str, str] = {}  # image_id -> its pool key
         self.entries: dict[str, PoolEntry] = {}
         self._watchers: set[asyncio.Task] = set()
         self._stopped = False
@@ -200,14 +214,31 @@ class WarmPool:
         async with self._ensure_lock:  # lint: disable=lock-across-await
             await self._ensure_locked()
 
+    async def _effective_key(self, image_id: str) -> str:
+        """The pool key of an image's placements: a chain that materializes
+        to the worker's own environment (trivial) collapses onto HOST_KEY.
+        Builds the image on first use (raises ImageBuildError)."""
+        if not image_id:
+            return HOST_KEY
+        if image_id not in self._image_keys:
+            built = await self.worker._materialize_image(image_id)
+            self._image_keys[image_id] = HOST_KEY if built is None else image_id
+        return self._image_keys[image_id]
+
     async def _ensure_locked(self) -> None:
         if self._stopped or self._draining:
             return
         targets: dict[str, int] = {}
         if self.baseline > 0:
             targets[HOST_KEY] = self.baseline
-        for target in dict(self.directives).values():
-            targets[HOST_KEY] = max(targets.get(HOST_KEY, 0), target)
+        for image_id, target in dict(self.directives).items():
+            try:
+                key = await self._effective_key(image_id)
+            except Exception as exc:  # noqa: BLE001 — an unbuildable image gets no pool
+                logger.warning(f"warm pool directive for {image_id!r} dropped: {exc}")
+                self.directives.pop(image_id, None)
+                continue
+            targets[key] = max(targets.get(key, 0), target)
         for key in [k for k in targets if self._boot_strikes.get(k, 0) >= self.MAX_BOOT_STRIKES]:
             del targets[key]
         self.targets = targets
@@ -260,11 +291,20 @@ class WarmPool:
 
         self._track(asyncio.create_task(_escalate()))
 
-    def spawn_env(self, pool_id: str, token: str) -> dict[str, str]:
-        """A parked interpreter's environment: the worker's, without the card
-        pinning and the per-task build and cache variables, plus the pool's
-        coordinates and the repo on the path."""
-        env = {k: v for k, v in os.environ.items() if k not in SPAWN_ENV_DROP}
+    def spawn_env(self, pool_id: str, token: str, built=None) -> dict[str, str]:
+        """A parked interpreter's environment: the worker's and its image's,
+        without the card pinning and the per-task build and cache variables,
+        plus the pool's coordinates, the park-time warm-up's build dir and
+        fleet coordinates (`POOL_BUILD_ENV`) and the repo on the path."""
+        env = dict(os.environ)
+        if built is not None:
+            built.launch_env(env)
+        # <pool_dir>/kernels and the fleet, unless the worker's or the image's
+        # env names them, as a placement's env (WorkerAgent.container_env) does
+        build_env = self.worker._compile_cache_env(self.pool_dir)
+        build_env.update({k: env[k] for k in build_env if env.get(k)})
+        env = {k: v for k, v in env.items() if k not in SPAWN_ENV_DROP}
+        env[POOL_BUILD_ENV] = json.dumps(build_env)
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
         env["MODAL_TPU_SERVER_URL"] = self.worker.server_url
@@ -281,16 +321,20 @@ class WarmPool:
         self._seq += 1
         pool_id = f"pw-{os.getpid()}-{self._seq}"
         token = secrets.token_urlsafe(24)
-        env = self.spawn_env(pool_id, token)
+        # an image's interpreter runs its python (built already: the key
+        # came from _effective_key)
+        built = await self.worker._materialize_image(key) if key != HOST_KEY else None
+        python_bin = built.python_bin if built is not None else sys.executable
+        env = self.spawn_env(pool_id, token, built)
         stdout_path = os.path.join(self.pool_dir, f"{pool_id}.out")
         stderr_path = os.path.join(self.pool_dir, f"{pool_id}.err")
         # fork+exec of a fresh interpreter, never a bare fork of this process
         with open(stdout_path, "wb") as out_f, open(stderr_path, "wb") as err_f:
             proc = await asyncio.create_subprocess_exec(
-                sys.executable, "-u", "-m", "modal_tpu_torch.runtime.container_entrypoint",
+                python_bin, "-u", "-m", "modal_tpu_torch.runtime.container_entrypoint",
                 env=env, stdout=out_f, stderr=err_f,
             )
-        entry = PoolEntry(pool_id=pool_id, key=key, token=token, proc=proc, spawn_env=env,
+        entry = PoolEntry(pool_id=pool_id, key=key, token=token, proc=proc, python_bin=python_bin, spawn_env=env,
                           stdout_path=stdout_path, stderr_path=stderr_path)
         self.entries[pool_id] = entry
         self._track(asyncio.create_task(self._watch(entry), name=f"pool-watch-{pool_id}"))
@@ -349,17 +393,19 @@ class WarmPool:
     # -- adoption --------------------------------------------------------------
 
     async def adopt(
-        self, task_env: dict[str, str], task_id: str, args_path: str, cwd: str = ""
+        self, image_id: str, task_env: dict[str, str], task_id: str, args_path: str, cwd: str = ""
     ) -> Optional[PoolEntry]:
-        """Hand a placement to a parked interpreter. Returns the serving entry
-        once the interpreter acked delivery, or None (the caller spawns
-        fresh). Never raises. `task_env` is the container's whole
-        environment: keys of the spawn's environment it lacks are unset."""
+        """Hand a placement to a parked interpreter of its image (`image_id`,
+        "" for the worker's own environment). Returns the serving entry once
+        the interpreter acked delivery, or None (the caller spawns fresh).
+        Never raises. `task_env` is the container's whole environment: keys
+        of the spawn's environment it lacks are unset."""
         if self._stopped or self._draining:
             return None
+        key = image_id or HOST_KEY
         parked = sorted((e for e in self.entries.values() if e.state == "parked" and e.alive),
                         key=lambda e: e.created_at)
-        candidates = [e for e in parked if e.key == HOST_KEY]
+        candidates = [e for e in parked if e.key == key]
         if not candidates:
             WARM_POOL_PLACEMENTS.inc(outcome="miss_key" if parked else "miss_empty")
             return None

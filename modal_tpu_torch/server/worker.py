@@ -2,9 +2,13 @@
 modal_tpu/server/worker.py).
 
 The worker registers its GPU inventory with the control plane, polls for
-assignments, runs each task as a container subprocess of this host (the
-"image" is the worker's own interpreter), tails its logs into the app's
-logs and reports its exit. A task is pinned to its cards through
+assignments, runs each task as a container subprocess of this host, tails
+its logs into the app's logs and reports its exit. A task's image is built
+on first use into a content-addressed venv (server/image_builder.py): the
+container runs the image's python with the image's env, `PATH` and
+`MODAL_TPU_IMAGE_ROOT`; a trivial chain (a matching python base and nothing
+else) runs in the worker's own interpreter; a build that fails reports
+INIT_FAILURE with the build log's tail, and nothing runs. A task is pinned to its cards through
 `CUDA_VISIBLE_DEVICES` (with `CUDA_DEVICE_ORDER=PCI_BUS_ID`, so nvidia-smi's
 indices are CUDA's); a task without cards, and every task on a `local-sim`
 host, gets `CUDA_VISIBLE_DEVICES=""`: a container never sees a card it was
@@ -29,12 +33,12 @@ falls back to a fresh spawn; a stop for a pooled placement drains in band
 tunnel listener per open port and a readiness probe; sidecars
 (`_run_sidecar`) share a sandbox's workdir and env. A sandbox pinned to a
 card gets `CUDA_VISIBLE_DEVICES` as a function's container does, and so
-does every process exec'd into it.
+does every process exec'd into it. The card pinning always wins over an
+image's env. Sandboxes and sidecars run in their image too; a snapshot
+image seeds a sandbox's workdir.
 
-Waiting for later sub-slices (ROADMAP Queue A 4e): the image builder (an
-image runs in the worker's own environment; a snapshot image seeds a
-sandbox's workdir) and the re-homing of a worker onto a shard that took
-over its plane.
+Waiting for a later sub-slice (ROADMAP Queue A 4e): the re-homing of a
+worker onto a shard that took over its plane.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from typing import Any, Optional
 from .._utils.grpc_utils import create_channel, retry_transient_errors
 from ..config import config, logger
 from ..observability import tracing
+from ..observability.catalog import IMAGE_BUILD_SECONDS
 from ..proto import api_pb2
 from ..proto.rpc import ModalTPUStub
 from .scheduler import LOCAL_SIM
@@ -172,6 +177,7 @@ class WorkerAgent:
         self._tasks: list[asyncio.Task] = []
         self._children: set[asyncio.Task] = set()  # strong refs to per-task coroutines
         self._stopped = False
+        self._image_builder = None  # server/image_builder.py, made at the first image
         # preemption drain: announced on the next heartbeat; assignments
         # that race the notice are preempt-signaled as soon as they spawn
         self.draining = False
@@ -502,10 +508,15 @@ class WorkerAgent:
         except Exception as exc:  # noqa: BLE001 — the reaper is the backstop
             logger.warning(f"failed reporting result of task {task_id}: {exc}")
 
-    def container_env(self, assignment: api_pb2.TaskAssignment, task_dir: str, args_path: str, t_launch0: float) -> dict:
-        """The environment a container process starts with."""
+    def container_env(self, assignment: api_pb2.TaskAssignment, task_dir: str, args_path: str, t_launch0: float,
+                      built=None) -> dict:
+        """The environment a container process starts with: the worker's,
+        its image's (`built`), the task's (secrets, bound params), the
+        plane's coordinates, and its card pinning last."""
         args = assignment.container_arguments
         env = dict(os.environ)
+        if built is not None:
+            built.launch_env(env)
         env.update(dict(args.env))
         env["MODAL_TPU_CONTAINER_ARGS_PATH"] = args_path
         # the container's boot span starts at the spawn decision, in this
@@ -552,11 +563,18 @@ class WorkerAgent:
         args_path = os.path.join(task_dir, "container_arguments.pb")
         with open(args_path, "wb") as f:
             f.write(args.SerializeToString())
-        env = self.container_env(assignment, task_dir, args_path, t_launch0)
+        trace_ctx = args.env.get(tracing.TRACE_CONTEXT_ENV, "")
+        # the function's image, built on first use; a failed build reports
+        # INIT_FAILURE with the log's tail, and the function never runs
+        ok, built = await self._prepare_image(task_id, args.function_def.image_id, trace_ctx)
+        if not ok:
+            return
+        env = self.container_env(assignment, task_dir, args_path, t_launch0, built)
         stdout_path = os.path.join(task_dir, "stdout.log")
         stderr_path = os.path.join(task_dir, "stderr.log")
         globals_path = args.function_def.experimental_options.get("globals_path", "")
-        trace_ctx = args.env.get(tracing.TRACE_CONTEXT_ENV, "")
+        container_python = built.python_bin if built is not None else sys.executable
+        container_cwd = (built.workdir if built is not None else "") or globals_path or None
         # a parked interpreter takes the placement first, in process: no
         # exec, no imports; its env delta carries the card pinning and the
         # build dir, which nothing in it has read yet. Any failure falls
@@ -566,7 +584,9 @@ class WorkerAgent:
         out_offset = err_offset = 0
         if (self.pool is not None and not self.draining and args.world_size <= 1
                 and (args.function_def.group_size or 0) <= 1):
-            pool_entry = await self.pool.adopt(env, task_id, args_path, cwd=globals_path or "")
+            # a trivial chain runs in the worker's environment: the host key
+            pool_entry = await self.pool.adopt(args.function_def.image_id if built is not None else "", env,
+                                               task_id, args_path, cwd=container_cwd or "")
         if pool_entry is not None:
             proc = pool_entry.proc
             stdout_path, stderr_path = pool_entry.stdout_path, pool_entry.stderr_path
@@ -584,8 +604,8 @@ class WorkerAgent:
             # that may hold a CUDA context
             with open(stdout_path, "wb") as out_f, open(stderr_path, "wb") as err_f:
                 proc = await asyncio.create_subprocess_exec(
-                    sys.executable, "-u", "-m", "modal_tpu_torch.runtime.container_entrypoint",
-                    env=env, stdout=out_f, stderr=err_f, cwd=globals_path or None,
+                    container_python, "-u", "-m", "modal_tpu_torch.runtime.container_entrypoint",
+                    env=env, stdout=out_f, stderr=err_f, cwd=container_cwd,
                 )
         self._procs[task_id] = proc
         if pool_entry is not None:
@@ -605,7 +625,7 @@ class WorkerAgent:
         elif self.draining:
             # the assignment raced the preemption notice
             self._signal_preempt(task_id, proc, self._drain_grace_s)
-        self.router.register_task(task_id, env, globals_path or os.getcwd(), token=assignment.router_token)
+        self.router.register_task(task_id, env, container_cwd or os.getcwd(), token=assignment.router_token)
         tail_task = asyncio.create_task(
             self._stream_logs(task_id, stdout_path, stderr_path, proc, out_offset, err_offset))
         if pool_entry is not None:
@@ -689,35 +709,41 @@ class WorkerAgent:
     # Sandboxes and sidecars
     # ------------------------------------------------------------------
 
-    async def _snapshot_seed(self, image_id: str) -> str:
-        """The extracted tree of a snapshot image (SandboxSnapshotFs), to seed
-        a sandbox's workdir from; "" for any other image, which runs in the
-        worker's own environment. Extracted once per blob."""
+    async def _materialize_image(self, image_id: str, parent=None):
+        """Build (or reuse) an image: a BuiltImage, or None for a trivial
+        chain (the worker's own environment). Raises ImageBuildError."""
+        from .image_builder import get_image_builder
+
+        if self._image_builder is None:
+            self._image_builder = get_image_builder(self.state_dir)
+        return await self._image_builder.materialize(self._stub, image_id, parent)
+
+    async def _prepare_image(self, task_id: str, image_id: str, trace_context: str = ""):
+        """(ok, built) for a task's image, shared by the function and sandbox
+        paths: a failed build reports INIT_FAILURE with the build log's tail
+        and gives (False, None)."""
         if not image_id:
-            return ""
-        resp = await retry_transient_errors(self._stub.ImageFromId, api_pb2.ImageFromIdRequest(image_id=image_id))
-        blob_id = resp.definition.fs_snapshot_blob_id
-        if not blob_id:
-            return ""
-        from .._utils.blob_utils import blob_download
-        from .fs_snapshot import untar_dir
+            return True, None
+        t0 = time.time()
+        parent = tracing.parse_context(trace_context)
+        try:
+            built = await self._materialize_image(image_id, parent)
+        except Exception as exc:  # noqa: BLE001 — reported as the task's init failure
+            logger.warning(f"image build failed for task {task_id}: {exc}")
+            await self._init_failure(task_id, f"image build failed: {exc}")
+            return False, None
+        IMAGE_BUILD_SECONDS.observe(time.time() - t0)
+        tracing.record_span("image.build", start=t0, end=time.time(), parent=parent,
+                            attrs={"task_id": task_id, "image_id": image_id, "trivial": built is None})
+        return True, built
 
-        seed_dir = os.path.join(self.state_dir, "images", f"snapshot-{blob_id}")
-        if not os.path.exists(os.path.join(seed_dir, ".complete")):
-            data = await blob_download(blob_id, self._stub)
-            tmp_dir = f"{seed_dir}.tmp{os.getpid()}-{time.monotonic_ns()}"
-            await untar_dir(bytes(data), tmp_dir)
-            open(os.path.join(tmp_dir, ".complete"), "w").close()
-            shutil.rmtree(seed_dir, ignore_errors=True)
-            os.makedirs(os.path.dirname(seed_dir), exist_ok=True)
-            os.replace(tmp_dir, seed_dir)
-        return seed_dir
-
-    def sandbox_env(self, assignment: api_pb2.TaskAssignment, task_dir: str) -> dict:
-        """A sandbox's environment: the worker's, its secrets, the repo on
-        the path (the image is the worker's own environment), a kernel build
-        dir of its own, and its cards pinned as a function container's are."""
+    def sandbox_env(self, assignment: api_pb2.TaskAssignment, task_dir: str, built=None) -> dict:
+        """A sandbox's environment: the worker's, its image's, its secrets,
+        the repo on the path, a kernel build dir of its own (unless the
+        image has one), and its cards pinned as a function container's are."""
         env = dict(os.environ)
+        if built is not None:
+            built.launch_env(env)
         env.update(dict(assignment.container_arguments.env))
         for key, value in self._compile_cache_env(task_dir).items():
             env.setdefault(key, value)
@@ -774,6 +800,19 @@ class WorkerAgent:
             return
         cwd, base_env = runtime
         env = dict(base_env)
+        if sc.image_id:
+            # not _prepare_image: its failure reports INIT_FAILURE for the
+            # whole task, which would kill the sandbox over its sidecar's image
+            try:
+                built = await self._materialize_image(sc.image_id)
+            except Exception as exc:  # noqa: BLE001 — reported as exit -1
+                logger.warning(f"sidecar {sc.name!r} image build failed: {exc}")
+                await self._sidecar_exit(task_id, sc.name, -1)
+                return
+            if built is not None:
+                pinning = {k: env[k] for k in ("CUDA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER") if k in env}
+                built.launch_env(env)
+                env.update(pinning)  # the sandbox's card pinning wins over the image's env
         env.update(dict(sc.env))
         try:
             proc = await asyncio.create_subprocess_exec(
@@ -814,18 +853,21 @@ class WorkerAgent:
         d = assignment.sandbox_def
         task_dir = os.path.join(self.state_dir, "tasks", task_id)
         os.makedirs(task_dir, exist_ok=True)
-        env = self.sandbox_env(assignment, task_dir)
+        ok, built = await self._prepare_image(task_id, d.image_id)
+        if not ok:
+            return
+        env = self.sandbox_env(assignment, task_dir, built)
         from .fs_snapshot import sandbox_workdir
 
-        # a workdir of its own unless one is named: a fs snapshot then
-        # captures exactly this sandbox's files
-        sandbox_cwd = d.workdir or sandbox_workdir(self.state_dir, task_id, "")
+        # a workdir of its own unless one is named (or the image's): a fs
+        # snapshot then captures exactly this sandbox's files
+        sandbox_cwd = d.workdir or (built.workdir if built is not None else "") or sandbox_workdir(
+            self.state_dir, task_id, "")
         try:
             os.makedirs(sandbox_cwd, exist_ok=True)
-            seed_dir = await self._snapshot_seed(d.image_id)
-            if seed_dir:
+            if built is not None and built.fs_seed_dir:
                 # a snapshot image: the sandbox starts on a copy of its tree
-                await asyncio.to_thread(shutil.copytree, seed_dir, sandbox_cwd, dirs_exist_ok=True,
+                await asyncio.to_thread(shutil.copytree, built.fs_seed_dir, sandbox_cwd, dirs_exist_ok=True,
                                         ignore=shutil.ignore_patterns(".complete"))
         except Exception as exc:  # noqa: BLE001 — reported as the task's init failure
             await self._init_failure(task_id, f"snapshot restore failed: {exc}")

@@ -307,7 +307,8 @@ def test_an_rpc_the_port_has_not_taken_answers_unimplemented(planes, rpc, reques
     """The JAX plane answers; the port's says UNIMPLEMENTED (never a made-up
     reply) until the sub-slice that brings the RPC, and answers as the JAX
     plane does once it came: MetricsHistory and TaskGetTimeline with the
-    metrics plane (4d-ii)."""
+    metrics plane (4d-ii), DictGetOrCreate with the SDK's objects
+    (4e-objects)."""
     import json
 
     import grpc
@@ -324,8 +325,10 @@ def test_an_rpc_the_port_has_not_taken_answers_unimplemented(planes, rpc, reques
             with pytest.raises(NotFoundError, match="task not found"):
                 planes[name].call(rpc, request_msg)
         return
-    if rpc == "DictGetOrCreate":
-        assert planes["jax"].call(rpc, request_msg).dict_id
+    if rpc == "DictGetOrCreate":  # served since the SDK's objects (4e-objects)
+        jax, port = (planes[n].call(rpc, request_msg).dict_id for n in ("jax", "port"))
+        assert jax.startswith("di-") and port.startswith("di-")
+        return
     with pytest.raises(grpc.aio.AioRpcError) as err:
         planes["port"].call(rpc, request_msg)
     assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED

@@ -47,6 +47,31 @@ def test_no_source_of_the_port_imports_jax_or_modal_tpu():
     assert not offenders, offenders
 
 
+def _imports_of(source: str, where: str) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(source, where)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("prewarm", [False, True], ids=["run_function", "prewarm"])
+def test_the_image_builders_runner_script_imports_no_jax_or_modal_tpu(prewarm):
+    """The script a build function runs in, under the image's python (the
+    image builder writes it at build time, so the file scan cannot see it),
+    imports the port's serialization and telemetry, never jax or the JAX
+    package."""
+    from modal_tpu_torch.server.image_builder import runner_script
+
+    source = runner_script("/x/build_fn.pkl", REPO, "/x/events.json" if prewarm else "")
+    names = _imports_of(source, "build_fn.py")
+    assert "modal_tpu_torch.serialization" in names
+    assert ("modal_tpu_torch.observability.catalog" in names) == prewarm
+    assert not [n for n in names if _forbidden(n)], names
+
+
 # the network packages of the SDK core, which the cold-start modules do not need
 SDK_PACKAGES = ("grpc", "google.protobuf", "aiohttp")
 COLD_START_MODULES = ("runtime", "observability", os.path.join("server", "compile_cache.py"),
@@ -321,7 +346,8 @@ def test_every_module_of_the_port_is_scanned():
                 "volume.py", "checkpoint.py", "network_file_system.py", "cloud_bucket_mount.py", "_utils/s3.py",
                 "runtime/bucket_mounts.py", "runtime/clustered.py", "observability/quantile.py",
                 "observability/timeseries.py", "observability/slo.py", "observability/profiler.py",
-                "server/history.py"):
+                "server/history.py", "builder/__init__.py", "server/image_builder.py", "global_objects.py",
+                "dict.py", "queue.py", "proxy.py", "environments.py", "workspace.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
@@ -340,7 +366,10 @@ def test_every_module_of_the_port_is_scanned():
                                     "modal_tpu_torch.cloud_bucket_mount", "modal_tpu_torch.runtime.bucket_mounts",
                                     "modal_tpu_torch.server.history", "modal_tpu_torch.observability.slo",
                                     "modal_tpu_torch.observability.timeseries",
-                                    "modal_tpu_torch.observability.profiler"])
+                                    "modal_tpu_torch.observability.profiler",
+                                    "modal_tpu_torch.server.image_builder", "modal_tpu_torch.dict",
+                                    "modal_tpu_torch.queue", "modal_tpu_torch.proxy",
+                                    "modal_tpu_torch.workspace", "modal_tpu_torch.global_objects"])
 def test_the_function_path_loads_no_torch_at_import(module):
     """The client, the App layer, the control plane, the worker, its router
     and warm pool, the sandbox client, Volumes and their checkpointer, the

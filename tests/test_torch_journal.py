@@ -352,14 +352,25 @@ async def test_the_function_path_journals_what_jax_journals(tmp_path):
 
 async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
     """A journal the JAX plane wrote (the function path, an image, a secret
-    and a volume with a file, plus records of a table the port has not
-    taken: an environment) replays through the port's recover_state into
-    the same apps, functions, calls, pending inputs, images, secrets and
-    volumes as JAX's own recovery; the JAX-only records are counted by type
-    and each type is named in a warning."""
+    and a volume with a file, an environment, a workspace setting, a granted
+    token, a proxy, a named dict and queue, plus a record of a table the
+    port has not taken: an input-plane attempt) replays through the port's
+    recover_state into the same apps, functions, calls, pending inputs,
+    images, secrets, volumes and SDK objects as JAX's own recovery; the
+    JAX-only records are counted by type and each type is named in a
+    warning."""
     jdir = str(tmp_path / "jax")
     servicer, ctx, fn_id, call_id = await _function_path(japi, jstate, jservices, JJ, jdir)
     await servicer.EnvironmentCreate(japi.EnvironmentCreateRequest(name="staging"), ctx)
+    await servicer.WorkspaceSettingsSet(japi.WorkspaceSettingsSetRequest(name="default_environment",
+                                                                         value="staging"), ctx)
+    flow = await servicer.TokenFlowCreate(japi.TokenFlowCreateRequest(), ctx)
+    await servicer.TokenFlowWait(japi.TokenFlowWaitRequest(token_flow_id=flow.token_flow_id, timeout=0), ctx)
+    await servicer.ProxyCreate(japi.ProxyCreateRequest(name="egress"), ctx)
+    for rpc, req in (("DictGetOrCreate", japi.DictGetOrCreateRequest), ("QueueGetOrCreate", japi.QueueGetOrCreateRequest)):
+        await getattr(servicer, rpc)(req(deployment_name="named",
+                                         object_creation_type=japi.OBJECT_CREATION_TYPE_CREATE_IF_MISSING), ctx)
+    servicer.s.journal.append("attempt", token="at-00000001", call_id=call_id, input_id="in-x")
     await servicer.SecretGetOrCreate(japi.SecretGetOrCreateRequest(
         deployment_name="s", env_dict={"K": "v"},
         object_creation_type=japi.OBJECT_CREATION_TYPE_CREATE_IF_MISSING), ctx)
@@ -408,6 +419,15 @@ async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
             "volumes": {k: (v.name, v.version, v.committed_version, v.ephemeral,
                             {p: f.SerializeToString() for p, f in v.files.items()}) for k, v in s.volumes.items()},
             "deployed_volumes": dict(s.deployed_volumes),
+            "environments": dict(s.environments),
+            "workspace_settings": dict(s.workspace_settings),
+            "tokens": dict(s.tokens),
+            "proxies": {k: (p.name, p.proxy_ip, p.environment_name) for k, p in s.proxies.items()},
+            "deployed_proxies": dict(s.deployed_proxies),
+            "dicts": {k: (d.name, d.ephemeral) for k, d in s.dicts.items()},
+            "deployed_dicts": dict(s.deployed_dicts),
+            "queues": {k: (q.name, q.ephemeral) for k, q in s.queues.items()},
+            "deployed_queues": dict(s.deployed_queues),
         }
 
     assert view(port_state) == view(jax_state)
@@ -415,10 +435,12 @@ async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
     assert list(port_state.volumes[vol.volume_id].files) == ["d/f.bin"]
     assert len(port_state.apps) == 1 and len(port_state.functions) == 2 and len(port_state.function_calls) == 2
     assert len(port_state.functions[fn_id].pending) == 3
-    assert report["skipped_by_type"] == {"environment": 1}
+    assert port_state.environments == {"main": "", "staging": ""} and len(port_state.tokens) == 1
+    assert port_state.deployed_dicts == {("staging", "named"): next(iter(port_state.dicts))}
+    assert report["skipped_by_type"] == {"attempt": 1}
     assert report["records_skipped"] == 1 and report["inputs_requeued"] == 3
     warned = " ".join(r.getMessage() for r in caplog.records)
-    for t, waits in (("environment", "4e"),):
+    for t, waits in (("attempt", "4e"),):
         assert f"skipped 1 {t!r} record(s): its table comes with ROADMAP Queue A {waits}" in warned, warned
     assert port_state.workers[next(iter(port_state.workers))].num_gpus == 0  # chips are not cards
 
@@ -429,3 +451,8 @@ def test_every_jax_record_type_is_applied_or_named():
     assert set(JJ._APPLIERS) == set(J._APPLIERS) | set(J.WAITING_RECORD_TYPES)
     assert not set(J._APPLIERS) & set(J.WAITING_RECORD_TYPES)
     assert set(J.IDEMPOTENT_RPCS) == set(JJ.IDEMPOTENT_RPCS)
+    # since the SDK's objects (4e-objects) only the input plane's table waits
+    assert set(J.WAITING_RECORD_TYPES) == {"attempt"}
+    # a dict's or a queue's contents are exempt, as in the JAX table
+    for rpc in ("DictUpdate", "DictPop", "DictClear", "QueuePut", "QueueGet", "QueueClear", "TokenFlowCreate"):
+        assert J.EXEMPT_RPCS[rpc] == JJ.EXEMPT_RPCS[rpc], rpc

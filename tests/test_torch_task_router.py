@@ -256,19 +256,29 @@ def test_the_heartbeat_device_sample_never_asks_the_driver(monkeypatch):
 
 
 def test_the_served_rpc_counts():
-    """The port's plane serves 101 of the wire contract's 148 RPCs (the 19
+    """The port's plane serves 135 of the wire contract's 148 RPCs (the 19
     Sandbox*, TaskTunnelsUpdate, TunnelStart and TunnelStop since the
     second data plane; the 13 Volume*, EphemeralObjectHeartbeat,
     TaskClusterHello and ClusterList since storage and gangs;
     MetricsHistory, ProfileControl, AppListProfiles and TaskGetTimeline
-    since the metrics plane); a worker's router serves all 8 of its own."""
+    since the metrics plane; ImageList, ImageDelete and the 32 Environment*,
+    TokenFlow*, Workspace*, Proxy*, Dict* and Queue* since images and the
+    SDK's objects); a worker's router serves all 8 of its own. The 13 left
+    are ContainerExec*, ContainerFilesystemExec, the input plane's six,
+    ShardControl and JournalReplicate."""
     from modal_tpu_torch.proto.rpc import ROUTER_RPCS, RPCS
     from modal_tpu_torch.server.services import ModalTPUServicer
 
     assert sorted(n for n in ROUTER_RPCS if hasattr(trouter.TaskRouterServicer, n)) == sorted(ROUTER_RPCS)
     assert len(ROUTER_RPCS) == 8
     served = [n for n in RPCS if hasattr(ModalTPUServicer, n)]
-    assert (len(RPCS), len(served)) == (148, 101)
+    assert (len(RPCS), len(served)) == (148, 135)
+    assert sorted(set(RPCS) - set(served)) == sorted([
+        "ContainerExec", "ContainerExecGetOutput", "ContainerExecPutInput", "ContainerExecWait",
+        "ContainerFilesystemExec", "AttemptStart", "AttemptStartBatch", "AttemptAwait", "AttemptRetry",
+        "MapStartOrContinue", "MapAwait", "ShardControl", "JournalReplicate"])
+    assert len([n for n in served if n.startswith(("Dict", "Queue"))]) == 18
+    assert {"ImageList", "ImageDelete"} <= set(served)
     assert {"MetricsHistory", "ProfileControl", "AppListProfiles", "TaskGetTimeline"} <= set(served)
     assert len([n for n in served if n.startswith("Volume")]) == 13
     assert {"EphemeralObjectHeartbeat", "TaskClusterHello", "ClusterList"} <= set(served)

@@ -5,7 +5,7 @@ pid and stamped `warm_pool_hit`, growing to a directive's target and back,
 the scheduler's directives for `buffer_containers` and their eviction when
 the app stops, an interpreter killed at adoption falling back to a fresh
 spawn, a snapshot restored without a re-exec, the drain under preemption),
-without `Image.prewarm` (ROADMAP Queue A 4e). Where the JAX tests use the
+and an image's own pool key, whose interpreter runs the image's python. Where the JAX tests use the
 chaos knob `warm_kill_handoff`, these kill the parked process at the
 handoff themselves.
 
@@ -21,6 +21,7 @@ The scheduler's PoolDirective diffs are compared in memory.
 import asyncio
 import concurrent.futures
 import os
+import sys
 import tempfile
 import time
 
@@ -212,6 +213,66 @@ def test_buffer_containers_preforks_and_app_stop_evicts(planes):
     _same(planes, scenario, (True, 3, True))
 
 
+def _exe(pid: int) -> str:
+    """The interpreter path a process was started with."""
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        return f.read().split(b"\0")[0].decode()
+
+
+def test_an_image_has_its_own_pool_key_and_interpreter(planes):
+    """A directive for a built image parks an interpreter keyed on that
+    image, running the image's python with its env; the image's placement
+    adopts it, never the host's baseline interpreter, and the placement of a
+    function without the image never adopts the image's. Withdrawing the
+    directive evicts it."""
+
+    def scenario(m, client, sup, sync):
+        pool = sup.workers[0].pool
+        assert _parked(sup, sync)
+        host_pid = next(e for e in pool.entries.values() if e.state == "parked").proc.pid
+        images_dir = os.path.join(sup.state_dir, "images")
+        app = m.App("pool-image")
+
+        def where(x):
+            import os as _os
+            import sys as _sys
+
+            return _os.getpid(), _sys.executable, _os.environ.get("POOL_IMG"), x
+
+        f = app.function(serialized=True, image=m.Image.debian_slim().env({"POOL_IMG": "1"}))(where)
+        g = _whoami(app)
+        with app.run(client=client):
+            image_id = sup.state.functions[f.object_id].definition.image_id
+
+            async def directive(target):
+                pool.set_directive(image_id, target)
+
+            sync.run(directive(1))
+            assert _parked(sup, sync, 2, 120.0)
+            image_entry = next(e for e in pool.entries.values() if e.proc.pid != host_pid)
+            image_python = _exe(image_entry.proc.pid)
+            keys_differ = image_entry.key != next(e.key for e in pool.entries.values() if e.proc.pid == host_pid)
+            pid, python, mark, x = f.remote(7)
+            hits = _hits(sup, app.app_id)
+            host_still_parked = any(e.proc.pid == host_pid and e.state == "parked" for e in pool.entries.values())
+            gpid, _ = g.remote(1)
+        # the app stopped: the image's interpreter re-parks, and the pool's
+        # next converge evicts it (no directive holds its key any more)
+        sync.run(directive(0))
+        assert _reparked(sup, image_entry.proc.pid)
+        sync.run(pool._ensure())
+        evicted = _wait(lambda: image_entry.proc.returncode is not None, 60.0)
+        return {"image_python": image_python.startswith(images_dir) and image_python.endswith("venv/bin/python"),
+                "keys_differ": keys_differ, "served_by_image_entry": pid == image_entry.proc.pid,
+                "container_python": python == image_python, "env": mark, "value": x, "hits": hits,
+                "host_still_parked": host_still_parked, "host_fn_took_host_entry": gpid == host_pid,
+                "evicted": evicted}
+
+    _same(planes, scenario, {"image_python": True, "keys_differ": True, "served_by_image_entry": True,
+                             "container_python": True, "env": "1", "value": 7, "hits": [True],
+                             "host_still_parked": True, "host_fn_took_host_entry": True, "evicted": True})
+
+
 class _KillAtHandoff(asyncio.Queue):
     """A handoff queue whose first delivery kills the parked process: the
     interpreter dies between the handoff and its ack."""
@@ -395,6 +456,32 @@ def torch_pool_preinit(tmp_path):
     yield from _torch_plane(tmp_path, MODAL_TPU_WARM_POOL_PREINIT="1")
 
 
+STUB_NVCC = """#!/bin/sh
+if [ "$1" = "--version" ]; then echo "nvcc: stub, release 12.8"; exit 0; fi
+echo "$@" >> "{log}"
+while [ $# -gt 0 ]; do if [ "$1" = "-o" ]; then shift; echo "not a shared library" > "$1"; fi; shift; done
+"""
+
+
+@pytest.fixture
+def torch_pool_aot(tmp_path, monkeypatch):
+    """A torch pool whose interpreter parks with MODAL_TPU_AOT_LOWER set and
+    a stub nvcc first on PATH (for the test's whole length: a placement's
+    build asks `nvcc --version` too). Yields (sup, client, builds)."""
+    import stat
+
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    log = tmp_path / "nvcc-builds.log"
+    script = bindir / "nvcc"
+    script.write_text(STUB_NVCC.format(log=log))
+    script.chmod(script.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    builds = lambda: log.read_text().splitlines() if log.exists() else []  # noqa: E731
+    for sup, client in _torch_plane(tmp_path, MODAL_TPU_AOT_LOWER="decode,cfg=tiny", TORCH_EXTENSIONS_DIR=None):
+        yield sup, client, builds
+
+
 def _park_spans(sup, name: str = "coldstart.park") -> list:
     """The named spans' attrs in the order they started: the span files are
     per process and read in file-name order, which puts a later pid that
@@ -417,7 +504,8 @@ def test_a_parked_interpreter_holds_no_cuda_context_and_the_rule_decides_the_re_
     first_pid = next(iter(pool.entries.values())).proc.pid
     (parked,) = _park_spans(sup)
     assert parked == {"pool_id": parked["pool_id"], "generation": 0, "pid": first_pid, "torch_imported": True,
-                      "cuda_initialized": False, "libcuda_mapped": False, "pinning_env": []}
+                      "cuda_initialized": False, "libcuda_mapped": False, "pinning_env": [],
+                      "python": sys.executable}
     app = modal_tpu_torch.App("pool-cuda")
 
     def probe(touch_cuda: bool):
@@ -469,7 +557,8 @@ def test_preinit_primes_the_cpu_only_and_an_exiting_interpreter_ships_its_last_o
     pid = next(iter(pool.entries.values())).proc.pid
     (parked,) = _park_spans(sup)
     assert parked == {"pool_id": parked["pool_id"], "generation": 0, "pid": pid, "torch_imported": True,
-                      "cuda_initialized": False, "libcuda_mapped": False, "pinning_env": []}
+                      "cuda_initialized": False, "libcuda_mapped": False, "pinning_env": [],
+                      "python": sys.executable}
     (preinit,) = _park_spans(sup, "coldstart.preinit")
     assert preinit["device"] == "cpu"
     app = modal_tpu_torch.App("pool-preinit")
@@ -514,3 +603,79 @@ def test_the_pool_drains_under_preemption(planes):
         return exited, worker.pool.ready_count()
 
     _same(planes, scenario, (True, 0))
+
+
+def test_the_park_time_warm_up_builds_into_the_fleet_without_cuda(torch_pool_aot):
+    """With MODAL_TPU_AOT_LOWER set, a parked interpreter builds its entries'
+    kernel libraries (a stub nvcc here) into the pool's build dir and
+    publishes them to the fleet store, with no CUDA context; it tries to
+    load them (a stub's output is no shared library: left to the placement,
+    ROADMAP Queue C 28). The placement it adopts then fetches the library
+    from the fleet instead of building it."""
+    sup, client, builds = torch_pool_aot
+    assert _parked(sup, tsync, 1, 90.0)
+    pid = next(iter(sup.workers[0].pool.entries.values())).proc.pid
+    assert _wait(lambda: _park_spans(sup, "coldstart.aot_lower"), 60.0)
+    (warm,) = _park_spans(sup, "coldstart.aot_lower")
+    assert warm["pid"] == pid and warm["errors"] == {} and warm["sources"] == {"decode": {"paged_decode": "nvcc"}}
+    assert not warm["cuda_initialized"] and not warm["libcuda_mapped"] and warm["pinning_env"] == []
+    assert warm["build_dir"] == os.path.join(sup.state_dir, "pool", "kernels")
+    assert warm["loaded"] == [] and list(warm["load_errors"]) == ["paged_decode"]
+    libs = [n for n in os.listdir(warm["build_dir"]) if n.endswith(".so")]
+    assert len(libs) == 1 and sup.state.compile_cache.has(libs[0][len("paged_decode-"):-len(".so")])
+    assert len(builds()) == 1
+    app = modal_tpu_torch.App("pool-aot")
+
+    def warm_up():
+        import os as _os
+        import sys as _sys
+
+        _os.environ["MODAL_TPU_AOT_LOWER"] = "decode,cfg=tiny"
+        from modal_tpu_torch.runtime.aot import maybe_aot_lower
+
+        return _os.getpid(), maybe_aot_lower()["decode"]["sources"], "modal_tpu_torch.ops._build" in _sys.modules
+
+    f = app.function(serialized=True)(warm_up)
+    with app.run(client=client):
+        served_by, sources, _ = f.remote()
+    assert served_by == pid and sources == {"paged_decode": "fleet"}
+    assert len(builds()) == 1  # built once, while parked
+
+
+@pytest.mark.cuda
+def test_loading_a_kernel_library_makes_no_cuda_context():
+    """On a card: a fresh interpreter that imported torch (as a parked one
+    has) loads K4's library with ctypes; afterwards torch has no CUDA
+    context and nvidia-smi lists no compute app for the process. This is
+    the evidence a park-time load of the libraries would need (ROADMAP
+    Queue C 28); the warm-up itself stops at the files."""
+    import json
+    import subprocess
+
+    if not torch_available_with_cuda():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    code = (
+        "import ctypes, json, os, sys, torch\n"
+        "from modal_tpu_torch.ops import _build\n"
+        "_build.build(['paged_decode'])\n"
+        "ctypes.CDLL(_build.library_path('paged_decode'))\n"
+        "print(json.dumps({'initialized': torch.cuda.is_initialized(), 'pid': os.getpid()}), flush=True)\n"
+        "sys.stdin.read()\n"
+    )
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.dirname(os.path.abspath(__file__)))}
+    child = subprocess.Popen([sys.executable, "-c", code], stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+                             env=env)
+    try:
+        seen = json.loads(child.stdout.readline())
+        apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60).stdout.split()
+    finally:
+        child.communicate("", timeout=60)
+    assert seen["initialized"] is False
+    assert str(seen["pid"]) not in apps, apps
+
+
+def torch_available_with_cuda() -> bool:
+    import torch
+
+    return torch.cuda.is_available()
