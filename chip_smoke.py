@@ -121,7 +121,7 @@ result line):
               imported this script by path, pinned to the card.
 7b. pool    — the warm pool of the port's worker: the worker phase's
               llama3-8b function (gpu="H100") through a LocalSupervisor with
-              MODAL_TPU_WARM_POOL=1 and =0 in turns (on, off, off, on), each
+              MODAL_TPU_WARM_POOL=1 and =0 in turns (on, off), each
               run a control plane of its own. A pooled call must be a warm
               hit (`warm_pool_hit` on its task) served by the parked pid,
               its `import torch` span shorter than every unpooled one's,
@@ -165,6 +165,29 @@ result line):
               prewarmed one's. Printed: the build by part, both cold calls
               by part, Queue put → get ms per step, Dict get ms, the failed
               build's time, the pooled adoption → first output.
+7b''. cli  — the port's command line, one `python -m modal_tpu_torch.cli`
+              subprocess per command, against a plane that `cli server`
+              started (chaos on, a supervisor_crash after CLI_CRASH_AFTER
+              outputs; the flight recorder on; its worker's nvidia-smi probe
+              finds this card). An app file written to a temp dir holds a
+              `@app.cls(gpu="H100")` with llama3-8b at full width (seed 0)
+              and the graphed engine; `cli run file::main` calls serve_all
+              (the serve phase's 8 requests: streams equal to serve's, K4
+              exactly n_layers per decode step, the plane's heartbeat gauge
+              equal to the container's count) and maps forward_last over 3
+              prompts across the crash (each index once, K1 n_layers each,
+              logits sha256 equal to the app phase's), then one more forward
+              whose K1 count is read from the heartbeats. Then, through the
+              CLI: app list, container list (card 0), app logs, app trace
+              --critical-path and app attribute per call (segments and gap
+              sum to the call's wall time, gap at most 10%), metrics --json
+              (the gauge equal to the last container's counts, the
+              supervisor_crash counted), top --once, journal status before
+              and after, debug bundle (one crash_restart postmortem with
+              samples, a journal tail and the chaos event), trace gc --max-mb
+              1, shell --gpu H100 (the card's name from nvidia-smi in a
+              sandbox), deploy and app stop. Printed: each command's wall
+              time, the cold call's critical path, crash → next output.
 7c. sandbox — `Sandbox.create("sleep", "infinity", gpu="H100", app=...)`
               through `app.run()`, pinned to card 0; an exec'd
               `python -m modal_tpu_torch.tools.sandbox_forward` builds
@@ -340,7 +363,8 @@ import time
 from modal_tpu_torch import App  # the App layer loads no torch (a container imports this script)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "image", "sandbox", "graphs", "weights",
+PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "image", "cli", "sandbox", "graphs",
+          "weights",
           "volume",
           "int8",
           "spec", "disagg", "web", "observe", "disagg_http", "parity", "forward", "train", "moe", "mesh")
@@ -429,8 +453,8 @@ def _nvidia_smi() -> str:
 
 
 # the packages the SDK core of the JAX package imports (client, gRPC utils,
-# protobuf messages, serialization, the blob server)
-SDK_PACKAGES = ("grpc", "google.protobuf", "cloudpickle", "aiohttp")
+# protobuf messages, serialization, the blob server), and the command line's
+SDK_PACKAGES = ("grpc", "google.protobuf", "cloudpickle", "aiohttp", "click")
 
 
 def _importable(name: str) -> bool:
@@ -4895,6 +4919,8 @@ def phase_app(torch, ctx: dict) -> None:
                     raise AssertionError(f"app: the raw ping failed: {raw['exception']}\n{raw['traceback']}")
             out["forward_last"] = {"map_s": map_s, "map_per_input_s": map_s / len(fwd_prompts),
                                    "prompt_lens": [len(p) for p in fwd_prompts],
+                                   "logits_sha256": [hashlib.sha256(r["logits"].numpy().tobytes()).hexdigest()
+                                                     for r in mapped],
                                    "argmax": [r["argmax"] for r in mapped], "gaps": gaps}
             out["warm"] = {"app_ms": app_ms, "raw_ms": raw_ms, "app_layer_ms": statistics.median(app_ms)
                            - statistics.median(raw_ms)}
@@ -4948,7 +4974,9 @@ def phase_app(torch, ctx: dict) -> None:
 
 # -- pool: the warm pool of the port's worker on the card ----------------------
 
-POOL_ROUNDS = 2  # pool on and off, in turns: on, off, off, on
+# the pool on and off, one placement each in turns (on, off); cut from two
+# rounds of each (on, off, off, on) to keep the whole run near 1000 s
+POOL_ORDER = (True, False)
 
 
 def _compute_apps() -> int:
@@ -5173,8 +5201,7 @@ def phase_pool(torch, ctx: dict) -> None:
             os.environ[key] = value
     runs = []
     try:
-        order = [True, False, False, True] * (POOL_ROUNDS // 2)
-        for i, pooled in enumerate(order):
+        for i, pooled in enumerate(POOL_ORDER):
             runs.append(_pool_run(torch, ctx, root, f"{'on' if pooled else 'off'}-{i}", pooled, smi))
         shas = {r["logits_sha256"] for r in runs}
         if len(shas) != 1:
@@ -5765,6 +5792,457 @@ def phase_image(torch, ctx: dict) -> None:
     ctx["image"] = out
 
 
+# -- cli: the port's command line driving its own plane on the card -----------
+
+# the app file the cli phase writes into its temp dir and runs, deploys and
+# reads through `python -m modal_tpu_torch.cli`: one `@app.cls(gpu="H100")`
+# holding llama3-8b at full width (init_params, seed 0) and the graphed engine
+# of the serve phase, and a local entrypoint that calls `serve_all.remote()`,
+# waits until the plane's heartbeat gauge of K4 reaches the container's own
+# K4 count, maps `forward_last` over CLI_MAP_PROMPTS prompts (the chaos
+# supervisor_crash fires after the first of them), then times one more
+# forward whose K1 launches it reads back from the heartbeats alone. It
+# writes what it saw as JSON to $CLI_SMOKE_OUT.
+CLI_APP = '''
+import json
+import os
+import sys
+import time
+import urllib.request
+
+sys.path.insert(0, {repo!r})
+import chip_smoke as cs  # noqa: E402
+from modal_tpu_torch import App, enter, method  # noqa: E402
+
+app = App("cli-llama")
+
+
+@app.cls(gpu="H100", scaledown_window=600)
+class Llama:
+    @enter()
+    def load(self):
+        import torch
+
+        from modal_tpu_torch.models.llama import get_config, init_params
+
+        t0 = time.time()
+        self.cfg = get_config("llama3-8b")
+        self.params = init_params(self.cfg, seed=0, device="cuda")
+        self.engine = cs._engine_8b(self.params, self.cfg)
+        if self.engine.decode_graph is None:
+            raise AssertionError("the engine on CUDA did not capture its decode step")
+        torch.cuda.synchronize()
+        print(f"cli-llama: @enter built llama3-8b and its graphed engine in {{time.time() - t0:.2f}}s", flush=True)
+
+    @method()
+    def serve_all(self) -> dict:
+        import torch
+
+        from modal_tpu_torch.ops import _build
+
+        engine = self.engine or cs._engine_8b(self.params, self.cfg)
+        self.engine = None
+        k0 = _build.LAUNCHES["paged_decode"]
+        prompts = cs._prompts(self.cfg, 8, seed=1)
+        streams, _reqs, wall, stats = cs._run_traffic(engine, prompts, self.cfg.vocab_size, "cli serve_all")
+        out = {{"streams": streams, "paged_decode_launches": _build.LAUNCHES["paged_decode"] - k0,
+                "container_paged_decode": _build.LAUNCHES["paged_decode"], "decode_steps": stats["steps"],
+                "n_layers": self.cfg.n_layers, "wall_s": wall, "pid": os.getpid(),
+                "device": torch.cuda.get_device_name(0), "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}}
+        del engine
+        torch.cuda.empty_cache()
+        print(f"cli-llama: serve_all served 8 requests in {{wall:.2f}}s", flush=True)
+        return out
+
+    @method()
+    def forward_last(self, tokens: list, hold_s: float = 0.0) -> dict:
+        import hashlib
+
+        import torch
+
+        from modal_tpu_torch.models.llama import forward
+        from modal_tpu_torch.ops import _build
+
+        with torch.inference_mode():
+            x = torch.tensor([tokens], dtype=torch.long, device="cuda")
+            k0 = _build.LAUNCHES["flash_fwd"]
+            logits, _ = forward(self.params, self.cfg, x)
+            last = logits[0, -1].float().cpu()
+        print(f"cli-llama: forward_last over {{len(tokens)}} tokens", flush=True)
+        time.sleep(hold_s)
+        return {{"tokens": len(tokens), "argmax": int(last.argmax()), "finite": bool(torch.isfinite(last).all()),
+                 "shape": list(last.shape), "flash_fwd_launches": _build.LAUNCHES["flash_fwd"] - k0,
+                 "container_launches": dict(_build.LAUNCHES),
+                 "logits_sha256": hashlib.sha256(last.numpy().tobytes()).hexdigest(), "pid": os.getpid()}}
+
+
+def _launches() -> dict:
+    """The plane's kernel launch gauge: the count the last heartbeat of a
+    container reported (its process's launches so far)."""
+    from modal_tpu_torch.cli.entry_point import _parse_prometheus
+
+    with open(os.path.join(os.environ["MODAL_TPU_STATE_DIR"], "observability", "metrics_url")) as f:
+        url = f.read().strip()
+    out = {{}}
+    for key, value in _parse_prometheus(urllib.request.urlopen(url, timeout=10).read().decode()).items():
+        if key.startswith("modal_tpu_kernel_launches{{"):
+            name = key.split('kernel="', 1)[1].split('"', 1)[0]
+            out[name] = out.get(name, 0) + int(value)
+    return out
+
+
+def _wait_launches(want, timeout: float = 30.0) -> dict:
+    deadline = time.time() + timeout
+    while True:
+        got = _launches()
+        if want(got):
+            return got
+        if time.time() > deadline:
+            raise AssertionError(f"the plane's heartbeat launch counts {{got}} did not reach the expected ones")
+        time.sleep(0.25)
+
+
+def _settled(timeout: float = 60.0) -> dict:
+    """The merged counts once no heartbeat has moved them for 3 s."""
+    deadline = time.time() + timeout
+    last, since = _launches(), time.time()
+    while time.time() - since < 3.0:
+        if time.time() > deadline:
+            raise AssertionError("the plane's heartbeat launch counts did not settle")
+        time.sleep(0.5)
+        now = _launches()
+        if now != last:
+            last, since = now, time.time()
+    return last
+
+
+@app.local_entrypoint()
+def main():
+    llama = Llama()
+    out = {{"t_start": time.time()}}
+    t0 = time.time()
+    serve = llama.serve_all.remote()
+    out["serve_all"] = {{**serve, "t_call": t0, "t_result": time.time()}}
+    beats = _wait_launches(lambda got: got.get("paged_decode", 0) == serve["container_paged_decode"])
+    out["serve_all"]["heartbeat_paged_decode"] = beats.get("paged_decode", 0)
+    prompts = cs._forward_prompts(llama_cfg(), cs.CLI_MAP_PROMPTS, seed=2)
+    out["map"] = []
+    t0 = time.time()
+    for i, r in enumerate(llama.forward_last.map(prompts, kwargs={{"hold_s": cs.CLI_HOLD_S}})):
+        out["map"].append({{**r, "index": i, "t_arrival": time.time()}})
+    out["map_s"] = time.time() - t0
+    base = _settled()
+    t0 = time.time()
+    single = llama.forward_last.remote(prompts[0])
+    single["remote_s"] = time.time() - t0
+    after = _wait_launches(lambda got: got.get("flash_fwd", 0) >= base.get("flash_fwd", 0) + single["flash_fwd_launches"])
+    single["heartbeat_flash_fwd"] = after.get("flash_fwd", 0) - base.get("flash_fwd", 0)
+    out["single"] = single
+    out["function_id"] = llama._get_bound_function().object_id
+    with open(os.environ["CLI_SMOKE_OUT"], "w") as f:
+        json.dump(out, f)
+    print("cli-llama: done", flush=True)
+
+
+def llama_cfg():
+    from modal_tpu_torch.models.llama import get_config
+
+    return get_config("llama3-8b")
+'''
+# prompts of `forward_last.map` in the cli phase (the app phase's first three:
+# 128, 256 and 384 tokens), and the output count after which its chaos
+# supervisor_crash fires: serve_all's one output, then the map's first. Each
+# map input holds CLI_HOLD_S after its forward: the plane's chaos loop polls
+# every 0.1 s, and the eager forward takes tens of ms, so without the hold
+# the crash would come after the last output instead of between them
+CLI_MAP_PROMPTS = 3
+CLI_CRASH_AFTER = 2
+CLI_HOLD_S = 0.5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli(env: dict, *args: str, timeout: float = 120.0, check: bool = True) -> tuple:
+    """One `python -m modal_tpu_torch.cli` subprocess: (stdout, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "modal_tpu_torch.cli", *args], capture_output=True, text=True,
+                          timeout=timeout, env=env, cwd=REPO)
+    seconds = time.perf_counter() - t0
+    if check and proc.returncode != 0:
+        raise AssertionError(f"cli: `{' '.join(args)}` exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout, seconds
+
+
+def _critical_paths(text: str) -> list:
+    """The critical-path table of each call (a trace with a `function.call`
+    root) in `app trace --critical-path` output: [{"trace": id, "segments":
+    {name: ms}, "total_ms": ms, "gap_share": x}]. A container's boot trace
+    outside any call (a map's placement) is not a call and is left out."""
+    out, cur, in_table = [], None, False
+    for line in text.splitlines():
+        if line.startswith("trace "):
+            cur = {"trace": line.split()[1], "segments": {}, "call": False}
+            in_table = False
+        elif cur is not None and not in_table and line.strip().startswith("function.call "):
+            cur["call"] = True
+        elif line.strip() == "critical path:" and cur is not None:
+            in_table = True
+        elif in_table and line.strip().startswith("segment"):
+            continue
+        elif in_table and "call(s), p50 total" in line:
+            total = line.split("p50 total", 1)[1].split("ms", 1)[0]
+            share = line.rsplit("gap share", 1)[1].strip().rstrip("%")
+            cur["total_ms"], cur["gap_share"] = float(total), float(share) / 100.0
+            if cur.pop("call"):
+                out.append(cur)
+            in_table = False
+        elif in_table and line.strip():
+            parts = line.split()
+            cur["segments"][parts[0]] = float(parts[1].rstrip("ms"))
+    return out
+
+
+def phase_cli(torch, ctx: dict) -> None:
+    """The port's command line on the card, one subprocess per command:
+    `cli server` starts the plane (chaos on, a supervisor_crash after
+    CLI_CRASH_AFTER outputs, the flight recorder on; the worker's probe
+    finds this card), `cli run` runs the app file's entrypoint (llama3-8b at
+    full width through serve_all and a forward_last map across the crash),
+    then the plane is read through the CLI: app list, container list, app
+    logs, app trace --critical-path, app attribute, metrics, top, journal
+    status before and after, debug bundle, trace gc, shell --gpu H100, and
+    deploy / app stop."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch.models.llama import get_config
+
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    cfg = get_config("llama3-8b")
+    root = tempfile.mkdtemp(prefix="cli-")
+    state_dir = os.path.join(root, "state")
+    app_file = os.path.join(root, "cli_llama.py")
+    with open(app_file, "w") as f:
+        f.write(CLI_APP.format(repo=REPO))
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MODAL_TPU_")}
+    # the containers import the app file by module name: its dir is on their path
+    env.update(PYTHONPATH=os.pathsep.join([REPO, root]), MODAL_TPU_STATE_DIR=state_dir,
+               MODAL_TPU_SERVER_URL=f"grpc://127.0.0.1:{port}", MODAL_TPU_AUTO_LOCAL_SERVER="0",
+               MODAL_TPU_HEARTBEAT_INTERVAL="3")
+    server_env = {**env, "MODAL_TPU_CHAOS": "1", "MODAL_TPU_CHAOS_SUPERVISOR_CRASH_AFTER": str(CLI_CRASH_AFTER)}
+    server_log = os.path.join(root, "server.log")
+    out: dict = {"nvidia_smi": smi, "commands": {}}
+    times = out["commands"]
+    server = None
+    try:
+        with open(server_log, "w") as log_f:
+            t0 = time.perf_counter()
+            server = subprocess.Popen([sys.executable, "-m", "modal_tpu_torch.cli", "server", "--port", str(port),
+                                       "--workers", "1", "--state-dir", state_dir], env=server_env, cwd=REPO,
+                                      stdout=log_f, stderr=subprocess.STDOUT)
+            deadline = time.time() + 120
+            while "control plane listening" not in open(server_log).read():
+                if server.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"cli: `server` did not come up:\n{open(server_log).read()[-3000:]}")
+                time.sleep(0.2)
+            times["server_up"] = time.perf_counter() - t0
+        boot_log = open(server_log).read()
+        if (f"events supervisor_crash@{CLI_CRASH_AFTER}" not in boot_log or "flight recorder on" not in boot_log):
+            raise AssertionError(f"cli: the server's log shows no chaos policy or flight recorder:\n{boot_log}")
+        log(f"[cli] `server --port {port} --workers 1` up in {times['server_up']:.2f}s: "
+            + "; ".join(line for line in boot_log.splitlines() if "chaos" in line or "recorder" in line)
+            + f" | {smi}")
+        status_before = json.loads(_cli(env, "journal", "status", "--json")[0])
+
+        result_path = os.path.join(root, "result.json")
+        text, times["run"] = _cli({**env, "CLI_SMOKE_OUT": result_path,
+                                   "MODAL_TPU_TRACE_DIR": os.path.join(state_dir, "traces")},
+                                  "run", f"{app_file}::main", timeout=900)
+        with open(result_path) as f:
+            r = json.load(f)
+        if "cli-llama: done" not in text:
+            raise AssertionError(f"cli: `run` printed no end line:\n{text[-3000:]}")
+        # serve_all: the serve phase's streams, K4 n_layers per decode step,
+        # the container's own count reached by the plane's merged heartbeats
+        s = r["serve_all"]
+        if s["device"] != kind or s["cuda_visible_devices"] != "0":
+            raise AssertionError(f"cli: serve_all ran on {s['device']!r} with CUDA_VISIBLE_DEVICES="
+                                 f"{s['cuda_visible_devices']!r}")
+        _check_streams("cli serve_all", s["streams"], cfg.vocab_size)
+        if s["decode_steps"] == 0 or s["paged_decode_launches"] != cfg.n_layers * s["decode_steps"] \
+                or s["heartbeat_paged_decode"] != s["container_paged_decode"]:
+            raise AssertionError(f"cli: paged_decode {s['paged_decode_launches']} over {s['decode_steps']} steps; "
+                                 f"heartbeats {s['heartbeat_paged_decode']}, the container {s['container_paged_decode']}")
+        if "serve_streams" in ctx:
+            bad = [d for d in _first_divergence(ctx["serve_streams"], s["streams"], ctx.get("serve_logits", {}), {})
+                   if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
+            if bad:
+                raise AssertionError(f"cli: serve_all streams differ from serve's beyond a near-tie: {bad}")
+        _add_launches(ctx, "paged_decode", s["paged_decode_launches"])
+        # the map across the crash: every index once, K1 n_layers a call,
+        # the logits' sha256 equal to the app phase's for the same prompt
+        app_shas = ctx.get("app", {}).get("forward_last", {}).get("logits_sha256") or []
+        lens = [128 * (1 + i % 4) for i in range(CLI_MAP_PROMPTS)]
+        if [m["index"] for m in r["map"]] != list(range(CLI_MAP_PROMPTS)):
+            raise AssertionError(f"cli: forward_last.map gave indices {[m['index'] for m in r['map']]}")
+        for m in r["map"] + [r["single"]]:
+            if (not m["finite"] or m["shape"] != [cfg.vocab_size] or m["flash_fwd_launches"] != cfg.n_layers
+                    or m["tokens"] not in lens):
+                raise AssertionError(f"cli: a forward_last result: {m}")
+            _add_launches(ctx, "flash_fwd", m["flash_fwd_launches"])
+        for i, m in enumerate(r["map"]):
+            if i < len(app_shas) and m["logits_sha256"] != app_shas[i]:
+                raise AssertionError(f"cli: forward_last prompt {i} logits sha256 {m['logits_sha256']}, the app "
+                                     f"phase's {app_shas[i]}")
+        if r["single"]["logits_sha256"] != r["map"][0]["logits_sha256"] \
+                or r["single"]["heartbeat_flash_fwd"] != cfg.n_layers:
+            raise AssertionError(f"cli: the last forward's sha256 or heartbeat count: {r['single']}")
+        pids = [m["pid"] for m in r["map"]]
+        if s["pid"] == r["single"]["pid"]:
+            raise AssertionError("cli: the crash_restart did not replace the container")
+        status_after = json.loads(_cli(env, "journal", "status", "--json")[0])
+        if status_after["seq"] <= status_before["seq"]:
+            raise AssertionError(f"cli: journal seq {status_before['seq']} → {status_after['seq']}")
+
+        # the plane through the CLI
+        listing, times["app list"] = _cli(env, "app", "list")
+        row = next((ln for ln in listing.splitlines() if ln.endswith(" cli-llama")), None)
+        if row is None:
+            raise AssertionError(f"cli: `app list` does not name the run's app:\n{listing}")
+        app_id = row.split()[0]
+        containers, times["container list"] = _cli(env, "container", "list", "--all")
+        mine = [ln for ln in containers.splitlines() if "cli-llama::Llama" in ln]
+        # tasks are not journaled: the listing holds the container of after
+        # the crash_restart
+        if not mine or not all("cards=[0]" in ln for ln in mine):
+            raise AssertionError(f"cli: `container list --all` shows {mine}")
+        logs, times["app logs"] = _cli(env, "app", "logs", app_id)
+        # logs are not journaled either: those of the container after the crash
+        if "cli-llama: forward_last over" not in logs or "cli-llama: @enter built" not in logs:
+            raise AssertionError(f"cli: `app logs` lacks the container's lines:\n{logs[-2000:]}")
+        traced, times["app trace"] = _cli(env, "app", "trace", r["function_id"], "--critical-path", "--last", "20")
+        paths = _critical_paths(traced)
+        if len(paths) < 2:
+            raise AssertionError(f"cli: `app trace --critical-path` attributed {len(paths)} calls:\n{traced[-3000:]}")
+        for p in paths:
+            summed = sum(p["segments"].values())
+            if abs(summed - p["total_ms"]) > 0.1 * len(p["segments"]) + 0.2 or p["gap_share"] > 0.10:
+                raise AssertionError(f"cli: trace {p['trace']}: segments sum to {summed:.1f} ms of "
+                                     f"{p['total_ms']:.1f} ms, gap share {p['gap_share']:.3f}")
+        # the same per call through `app attribute <trace id>` (its --json):
+        # the cold serve_all first, then the forward after the crash
+        attributions = []
+        for p in paths:
+            agg_text, times["app attribute"] = _cli(env, "app", "attribute", p["trace"], "--json")
+            agg = json.loads(agg_text)
+            if agg["calls"] != 1 or agg["gap_share"] > 0.10:
+                raise AssertionError(f"cli: `app attribute {p['trace']}` over {agg['calls']} calls, gap share "
+                                     f"{agg['gap_share']}")
+            attributions.append(agg)
+        cold = paths[0]["segments"]
+        metrics_text, times["metrics"] = _cli(env, "metrics", "--json")
+        metrics = json.loads(metrics_text)
+        launched = {k: v for k, v in metrics.items() if k.startswith("modal_tpu_kernel_launches{")}
+        # the gauge holds the last container's own counts, as its last
+        # heartbeat (awaited by the entrypoint) reported them
+        want = {f'modal_tpu_kernel_launches{{kernel="{k}"}}': float(v)
+                for k, v in r["single"]["container_launches"].items()}
+        if launched != want:
+            raise AssertionError(f"cli: `metrics --json` kernel launches {launched}, the last container's {want}")
+        if not any(k.startswith("modal_tpu_chaos_events_total{") and 'kind="supervisor_crash"' in k for k in metrics):
+            raise AssertionError("cli: `metrics --json` counts no supervisor_crash chaos event")
+        top, times["top"] = _cli(env, "top", "--once")
+        if not top.startswith("modal_tpu top"):
+            raise AssertionError(f"cli: `top --once` rendered:\n{top}")
+        bundle_text, times["debug bundle"] = _cli(env, "debug", "bundle", "--json")
+        bundle = json.loads(bundle_text)
+        pms = [pm for pm in bundle["postmortems"] if pm["event"] == "crash_restart"]
+        if (len(pms) != 1 or not pms[0]["samples"] or not pms[0]["journal_tail"]
+                or not any(e.get("kind") == "supervisor_crash" for e in pms[0]["chaos_events"])):
+            raise AssertionError(f"cli: `debug bundle` postmortems "
+                                 f"{[(pm['event'], len(pm['samples']), len(pm['journal_tail']), pm['chaos_events']) for pm in bundle['postmortems']]}")
+        t_crash = float(pms[0]["t"])
+        after_crash = [m["t_arrival"] for m in r["map"] if m["t_arrival"] > t_crash]
+        seen = [e.get("outputs_seen", 0) for e in pms[0]["chaos_events"] if e.get("kind") == "supervisor_crash"]
+        if not after_crash or seen[0] < CLI_CRASH_AFTER:
+            raise AssertionError(f"cli: the crash at {t_crash} is not between the map's outputs "
+                                 f"{[m['t_arrival'] for m in r['map']]}")
+        # an aged rotated span file: trace gc must prune it, and what it keeps
+        # fits the cap
+        aged = os.path.join(state_dir, "traces", "spans-1.jsonl.1")
+        with open(aged, "w") as f:
+            f.write(" " * (2 << 20))
+        os.utime(aged, (time.time() - 30 * 24 * 3600,) * 2)
+        gc_text, times["trace gc"] = _cli(env, "trace", "gc", "--max-mb", "1")
+        kept = int(gc_text.split("kept ", 1)[1].split("(", 1)[1].split(" bytes", 1)[0])
+        if os.path.exists(aged) or kept > (1 << 20):
+            raise AssertionError(f"cli: `trace gc --max-mb 1`: {gc_text}")
+        shell_text, times["shell"] = _cli(env, "shell", "--gpu", "H100", "-c",
+                                          "nvidia-smi --query-gpu=name --format=csv,noheader", timeout=300)
+        if shell_text.strip().splitlines()[-1].strip() != kind:
+            raise AssertionError(f"cli: `shell --gpu H100` printed {shell_text!r}, the card is {kind!r}")
+        deployed, times["deploy"] = _cli(env, "deploy", app_file, "--name", "cli-llama-deployed")
+        listing, _ = _cli(env, "app", "list")
+        row = next((ln for ln in listing.splitlines() if ln.endswith(" cli-llama-deployed")), None)
+        if "deployed" not in deployed or row is None or row.split()[1] != "deployed":
+            raise AssertionError(f"cli: `deploy`: {deployed!r}; `app list`:\n{listing}")
+        stopped, times["app stop"] = _cli(env, "app", "stop", row.split()[0])
+        listing, _ = _cli(env, "app", "list")
+        if not any(ln.split()[0] == row.split()[0] and ln.split()[1] == "stopped" for ln in listing.splitlines()):
+            raise AssertionError(f"cli: `app stop` left:\n{listing}")
+        out.update(result={k: v for k, v in r.items() if k != "serve_all"},
+                   serve_all={k: v for k, v in s.items() if k != "streams"}, critical_paths=paths,
+                   attribution=attributions, crash_t=t_crash, crash_to_next_output_s=min(after_crash) - t_crash,
+                   journal={"before": status_before["seq"], "after": status_after["seq"]},
+                   postmortem={"samples": len(pms[0]["samples"]), "spans": len(pms[0]["spans"]),
+                               "journal_tail": len(pms[0]["journal_tail"]), "chaos_events": pms[0]["chaos_events"]},
+                   map_pids=pids, shas=[m["logits_sha256"] for m in r["map"]])
+    finally:
+        if server is not None and server.poll() is None:
+            server.terminate()
+            try:
+                server.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    seg = lambda name: cold.get(name, 0.0) / 1e3  # noqa: E731
+    log(f"[cli] `run {os.path.basename(app_file)}::main` {times['run']:.2f}s: serve_all.remote() cold "
+        f"{s['t_result'] - s['t_call']:.2f}s (8 requests {s['wall_s']:.2f}s; critical path: container.boot "
+        f"{seg('container.boot'):.2f}s, container.imports {seg('container.imports'):.2f}s, container.enter_hooks "
+        f"{seg('container.enter_hooks'):.2f}s, user.execute {seg('user.execute'):.2f}s, gap "
+        f"{paths[0]['gap_share'] * 100:.1f}%); paged_decode {s['paged_decode_launches']} launches over "
+        f"{s['decode_steps']} steps (= {cfg.n_layers} x steps), heartbeats {s['heartbeat_paged_decode']}; streams "
+        f"equal to serve's{' (where it ran)' if 'serve_streams' in ctx else ' (serve did not run)'} | {smi}")
+    log(f"[cli] forward_last.map over {CLI_MAP_PROMPTS} prompts ({lens} tokens) in {r['map_s']:.2f}s across the "
+        f"chaos supervisor_crash after output {CLI_CRASH_AFTER}: each index once, flash_fwd {cfg.n_layers} launches "
+        f"each, logits sha256 "
+        + ("equal to the app phase's" if app_shas else "(app phase did not run)")
+        + f"; pids {pids}; crash → next output {out['crash_to_next_output_s']:.2f}s (each input holds "
+        f"{CLI_HOLD_S:.1f}s after its forward); one more forward "
+        f"{r['single']['remote_s']:.3f}s, its K1 {r['single']['heartbeat_flash_fwd']} launches read from the "
+        f"heartbeats | {smi}")
+    log(f"[cli] critical path per call (`app trace --critical-path`): "
+        + "; ".join(f"{p['total_ms'] / 1e3:.2f}s, gap {p['gap_share'] * 100:.1f}%" for p in paths)
+        + "; `app attribute <trace>` gap share " + ", ".join(f"{a['gap_share'] * 100:.1f}%" for a in attributions)
+        + f" | {smi}")
+    log(f"[cli] postmortem-crash_restart: {out['postmortem']['samples']} samples, {out['postmortem']['spans']} spans, "
+        f"{out['postmortem']['journal_tail']} journal records, chaos {out['postmortem']['chaos_events']}; journal seq "
+        f"{status_before['seq']} → {status_after['seq']} | {smi}")
+    log("[cli] wall time per command: " + ", ".join(f"{k} {v:.2f}s" for k, v in times.items()) + f" | {smi}")
+    ctx["cli"] = out
+
+
 # -- sandbox: a gpu="H100" sandbox on the card ---------------------------------
 
 
@@ -5937,9 +6415,10 @@ KERNELS = {
     "flash_bwd_dkv": ("modal_tpu_torch/csrc/flash_bwd_dkv.cu", "modal_tpu/ops/attention.py:152"),
 }
 # the phases whose run each kernel's launch count is read from
-PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "image", "graphs", "weights", "volume", "int8", "spec",
-                          "disagg", "web", "observe", "disagg_http"),
-         "flash_fwd": ("app", "image", "sandbox", "weights", "volume", "observe", "forward", "train", "moe", "mesh"),
+PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "image", "cli", "graphs", "weights", "volume", "int8",
+                          "spec", "disagg", "web", "observe", "disagg_http"),
+         "flash_fwd": ("app", "image", "cli", "sandbox", "weights", "volume", "observe", "forward", "train", "moe",
+                       "mesh"),
          "flash_bwd_dq": ("volume", "train", "moe", "mesh"),
          "flash_bwd_dkv": ("volume", "train", "moe", "mesh")}
 

@@ -1,4 +1,6 @@
-"""The part of the JAX package's CLI the port needs so far: resolving an
-import reference such as "file.py::app" (`import_refs.py`), which the hot
-reload's subprocess deploys by. The commands themselves come with ROADMAP
-Queue A 4e."""
+"""The command line of modal_tpu_torch: `python -m modal_tpu_torch.cli`
+(`entry_point.py`, the JAX package's command tree with `--gpu` for
+`--tpu`), and the resolution of an import reference such as
+"file.py::app" (`import_refs.py`) that `run`, `deploy`, `serve` and the hot
+reload's subprocess go through. What still waits: `lint`, which refuses
+until the analysis sub-slice (ROADMAP Queue A)."""

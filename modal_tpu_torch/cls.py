@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import time
 import typing
 from typing import Any, Callable, Optional, Sequence
 
@@ -210,8 +211,26 @@ class _BoundMethod:
         return invocation
 
     async def remote(self, *args: Any, **kwargs: Any) -> Any:
-        invocation = await self._invoke(args, kwargs, api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC)
-        return await invocation.run_function()
+        """The method's call, under the `function.call` root span that a
+        function's `.remote()` opens (functions.py), so `app trace` and `app
+        attribute` see method calls too; the JAX package's method calls open
+        no root span."""
+        from .observability import tracing
+        from .observability.catalog import DISPATCH_LATENCY
+
+        fn = await self._obj._get_bound_function()
+        t_dispatch0 = time.perf_counter()
+        with tracing.span(
+            "function.call",
+            attrs={"function_id": fn.object_id or "", "function": f"{fn.tag}.{self._method_name}"},
+        ) as root:
+            try:
+                with tracing.span("client.prepare"):
+                    invocation = await self._invoke(args, kwargs, api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC)
+                with tracing.span("client.await_output"):
+                    return await invocation.run_function()
+            finally:
+                DISPATCH_LATENCY.observe(time.perf_counter() - t_dispatch0, exemplar=root.trace_id)
 
     async def remote_gen(self, *args: Any, **kwargs: Any):
         invocation = await self._invoke(args, kwargs, api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC)

@@ -12,7 +12,9 @@ and defaults. Each is resolved at every read: the environment variable
 ``MODAL_TPU_<KEY>``, else the active profile's section of the TOML file
 (``MODAL_TPU_CONFIG_PATH``, default ``~/.modal_tpu.toml``; the profile is
 ``MODAL_TPU_PROFILE`` or the section marked ``active = true``), else the
-default.
+default. The command line's `token set`, `token new` and `profile
+activate` write that file (`_store_user_config`,
+`config_set_active_profile`).
 """
 
 from __future__ import annotations
@@ -53,6 +55,49 @@ def _active_profile(user_config: dict) -> str:
         if isinstance(values, dict) and values.get("active", False) is True:
             return key
     return "default"
+
+
+def config_profiles() -> list[str]:
+    return list(_read_user_config().keys())
+
+
+def config_set_active_profile(env: str) -> None:
+    """Mark `env` the active profile of the TOML file (creating its section)."""
+    user_config = _read_user_config()
+    for values in user_config.values():
+        values.pop("active", None)
+    user_config.setdefault(env, {})["active"] = True
+    _write_user_config(user_config)
+
+
+def _write_user_config(new_config: dict) -> None:
+    # tomllib has no writer: emit the subset the profiles use. Strings are
+    # escaped (a token may hold quotes or backslashes; an unescaped write
+    # would corrupt the file for every later read)
+    def _esc(s: str) -> str:
+        return s.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+    lines = []
+    for profile, values in new_config.items():
+        lines.append(f"[{profile}]")
+        for k, v in values.items():
+            if isinstance(v, bool):
+                lines.append(f"{k} = {'true' if v else 'false'}")
+            elif isinstance(v, (int, float)):
+                lines.append(f"{k} = {v}")
+            else:
+                lines.append(f'{k} = "{_esc(str(v))}"')
+        lines.append("")
+    with open(user_config_path(), "w") as f:
+        f.write("\n".join(lines))
+
+
+def _store_user_config(new_settings: dict, profile: Optional[str] = None) -> None:
+    """Merge `new_settings` into `profile`'s section (default: the active one)."""
+    user_config = _read_user_config()
+    profile = profile or _active_profile(user_config)
+    user_config.setdefault(profile, {}).update(**new_settings)
+    _write_user_config(user_config)
 
 
 class _Setting(NamedTuple):
@@ -132,6 +177,9 @@ class Config:
         """Point a setting elsewhere for this process and its children (a
         container adopts its task id this way)."""
         os.environ["MODAL_TPU_" + key.upper()] = value
+
+    def to_dict(self) -> dict[str, Any]:
+        return {key: self[key] for key in _SETTINGS}
 
 
 config = Config()

@@ -2,8 +2,9 @@
 app), device telemetry (step times, device memory), compile telemetry
 (kernel builds, CUDA-graph captures, the fleet compile cache), the SDK
 core (client RPCs, payload bytes), the App layer's dispatch, the control
-plane, its journal and local fast path, and the metrics plane (the
-time-series store, SLO alerts, the sampling profiler).
+plane, its journal and local fast path, the metrics plane (the
+time-series store, SLO alerts, the sampling profiler), chaos and the
+flight recorder.
 
 Names and help texts are those of the JAX package's catalog, so a scrape of
 either implementation reads the same way. Importing this module registers
@@ -448,4 +449,27 @@ SLO_ALERT_TRANSITIONS = REGISTRY.counter(
     "SLO alert state transitions (firing | resolved); each is also a "
     "journaled event, so firing alerts survive a supervisor crash_restart.",
     ("rule", "transition"),
+)
+
+# -- chaos and the flight recorder (chaos.py, observability/flight_recorder.py)
+
+CHAOS_SEED = REGISTRY.gauge(
+    "modal_tpu_chaos_seed",
+    "Active chaos policy seed (soak failures attribute to the exact run).",
+)
+CHAOS_INJECTIONS = REGISTRY.counter(
+    "modal_tpu_chaos_injections_total",
+    "Chaos faults injected, by RPC/route and kind (error|latency).",
+    ("rpc", "kind"),
+)
+CHAOS_EVENTS = REGISTRY.counter(
+    "modal_tpu_chaos_events_total",
+    "Scheduled chaos lifecycle events fired (worker_kill|worker_preempt|heartbeat_blackhole).",
+    ("kind",),
+)
+FLIGHT_RECORDER_DUMPS = REGISTRY.counter(
+    "modal_tpu_flight_recorder_dumps_total",
+    "Postmortem bundles frozen + dumped by the flight recorder, by trigger event "
+    "(crash_restart|takeover|fence|alert).",
+    ("event",),
 )

@@ -14,6 +14,7 @@ but nothing is written. In-process observers registered with
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import threading
@@ -89,17 +90,48 @@ class Span:
 _sink_lock = threading.Lock()
 _sink_file = None
 _sink_dir: Optional[str] = None
+_sink_bytes = 0
+
+# a sink file rotates at this size (MODAL_TPU_TRACE_MAX_BYTES): the open
+# file becomes spans-<pid>.jsonl.1, replacing the previous generation, so a
+# long-lived plane keeps at most two files per process
+TRACE_MAX_BYTES_ENV = "MODAL_TPU_TRACE_MAX_BYTES"
+DEFAULT_SINK_MAX_BYTES = 64 * 1024 * 1024
+
+
+def _sink_max_bytes() -> int:
+    try:
+        return int(os.environ.get(TRACE_MAX_BYTES_ENV, DEFAULT_SINK_MAX_BYTES))
+    except ValueError:
+        return DEFAULT_SINK_MAX_BYTES
 
 
 def configure(trace_dir: str) -> None:
     """Append finished spans as JSON lines under `trace_dir`."""
-    global _sink_file, _sink_dir
+    global _sink_file, _sink_dir, _sink_bytes
     os.makedirs(trace_dir, exist_ok=True)
     with _sink_lock:
+        if _sink_dir == trace_dir and _sink_file is not None:
+            return
         if _sink_file is not None:
             _sink_file.close()
-        _sink_file = open(os.path.join(trace_dir, f"spans-{os.getpid()}.jsonl"), "a", buffering=1)
+        path = os.path.join(trace_dir, f"spans-{os.getpid()}.jsonl")
+        _sink_file = open(path, "a", buffering=1)
+        _sink_bytes = os.path.getsize(path)
         _sink_dir = trace_dir
+
+
+def _rotate_locked() -> None:
+    """Rotate the sink (called with _sink_lock held): the open file becomes
+    `spans-<pid>.jsonl.1` and a fresh file takes the appends."""
+    global _sink_file, _sink_bytes
+    if _sink_file is None or _sink_dir is None:
+        return
+    path = os.path.join(_sink_dir, f"spans-{os.getpid()}.jsonl")
+    _sink_file.close()
+    os.replace(path, path + ".1")
+    _sink_file = open(path, "a", buffering=1)
+    _sink_bytes = 0
 
 
 def maybe_configure_from_env() -> None:
@@ -108,8 +140,24 @@ def maybe_configure_from_env() -> None:
         configure(os.environ[TRACE_DIR_ENV])
 
 
+def enabled() -> bool:
+    return _sink_file is not None
+
+
 def trace_dir() -> Optional[str]:
     return _sink_dir
+
+
+def _shutdown() -> None:
+    global _sink_file
+    with _sink_lock:
+        if _sink_file is not None:
+            _sink_file.flush()
+            _sink_file.close()
+            _sink_file = None
+
+
+atexit.register(_shutdown)
 
 
 # retention of the span store: `gc_trace_dir` (the supervisor's boot) drops
@@ -253,10 +301,14 @@ def _write(span: Span) -> None:
         tap(span)
     if _sink_file is None:
         return
+    global _sink_bytes
     line = json.dumps(span.to_dict(), default=str)
     with _sink_lock:
         if _sink_file is not None:
             _sink_file.write(line + "\n")
+            _sink_bytes += len(line) + 1
+            if _sink_bytes >= _sink_max_bytes():
+                _rotate_locked()
 
 
 _current_span: ContextVar[Optional[Span]] = ContextVar("modal_tpu_torch_span", default=None)
@@ -414,3 +466,31 @@ def record_span(
             attrs=dict(attrs or {}),
         )
     )
+
+
+def find_traces(trace_dir_path: str, needle: str) -> dict[str, list[dict]]:
+    """The traces that `needle` matches: a trace-id prefix, or the app_id,
+    function_call_id, input_id, task_id or function_id attr of any span.
+    Returns {trace_id: spans}."""
+    by_trace: dict[str, list[dict]] = {}
+    for rec in read_spans(trace_dir_path):
+        by_trace.setdefault(rec["trace_id"], []).append(rec)
+    if not needle:
+        return by_trace
+    matched: dict[str, list[dict]] = {}
+    for trace_id, spans in by_trace.items():
+        if trace_id.startswith(needle):
+            matched[trace_id] = spans
+            continue
+        for rec in spans:
+            attrs = rec.get("attrs") or {}
+            if needle in (
+                attrs.get("app_id"),
+                attrs.get("function_call_id"),
+                attrs.get("input_id"),
+                attrs.get("task_id"),
+                attrs.get("function_id"),
+            ):
+                matched[trace_id] = spans
+                break
+    return matched

@@ -54,11 +54,20 @@ def _assemble_parts(tmp: str, part_paths: list[str]) -> None:
 
 
 class BlobServer:
-    def __init__(self, state: ServerState, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, state: ServerState, host: str = "127.0.0.1", port: int = 0, chaos=None):
         self.state = state
         self.host = host
         self.port = port
+        # the plane's ChaosPolicy (chaos.py): the routes are injected under
+        # pseudo-RPC names (BlobPut, BlobGet, ...), so one seeded policy
+        # covers the HTTP data plane and the gRPC plane alike
+        self.chaos = chaos
         self._runner: Optional[web.AppRunner] = None
+
+    async def _inject(self, route: str) -> Optional[web.Response]:
+        if self.chaos is None:
+            return None
+        return await self.chaos.inject_http(route)
 
     async def _drain_to_file(self, content, tmp: str) -> int:
         """Stream an HTTP body to disk: the chunk reads stay on the loop,
@@ -183,6 +192,9 @@ class BlobServer:
             pass
 
     async def _put(self, request: web.Request) -> web.Response:
+        if (injected := await self._inject("BlobPut")) is not None:
+            BLOB_REQUESTS.inc(route="put", code=str(injected.status))
+            return injected
         path = self.state.blob_path(request.match_info["blob_id"])
         tmp = path + ".tmp"
         received = await self._drain_to_file(request.content, tmp)
@@ -193,6 +205,9 @@ class BlobServer:
 
     async def _put_part(self, request: web.Request) -> web.Response:
         """One multipart part (S3 presigned part PUT)."""
+        if (injected := await self._inject("BlobPutPart")) is not None:
+            BLOB_REQUESTS.inc(route="put_part", code=str(injected.status))
+            return injected
         path = self.state.blob_path(request.match_info["blob_id"]) + f".part{int(request.match_info['part'])}"
         tmp = path + ".tmp"
         received = await self._drain_to_file(request.content, tmp)
@@ -203,6 +218,8 @@ class BlobServer:
 
     async def _complete(self, request: web.Request) -> web.Response:
         """Assemble the parts into the final blob (the completion URL)."""
+        if (injected := await self._inject("BlobComplete")) is not None:
+            return injected
         final = self.state.blob_path(request.match_info["blob_id"])
         part_paths = [final + f".part{i}" for i in range(int(request.match_info["n_parts"]))]
         missing = [p for p in part_paths if not os.path.exists(p)]
@@ -218,6 +235,9 @@ class BlobServer:
     async def _get(self, request: web.Request) -> web.StreamResponse:
         """Blob GET with HTTP Range support: the client's parallel ranged
         part-downloads of a spilled payload hit this."""
+        if (injected := await self._inject("BlobGet")) is not None:
+            BLOB_REQUESTS.inc(route="get", code=str(injected.status))
+            return injected
         path = self.state.blob_path(request.match_info["blob_id"])
         if not os.path.exists(path):
             BLOB_REQUESTS.inc(route="get", code="404")
@@ -226,6 +246,9 @@ class BlobServer:
 
     async def _get_block(self, request: web.Request) -> web.StreamResponse:
         """One volume content block, with the Range semantics of a blob."""
+        if (injected := await self._inject("BlockGet")) is not None:
+            BLOB_REQUESTS.inc(route="block_get", code=str(injected.status))
+            return injected
         path = self.state.block_path(request.match_info["sha256_hex"])
         if not os.path.exists(path):
             BLOB_REQUESTS.inc(route="block_get", code="404")
@@ -235,6 +258,9 @@ class BlobServer:
     async def _get_volume_file(self, request: web.Request) -> web.StreamResponse:
         """A whole volume file with Range: the server stitches its blocks,
         so a client stripes a multi-GiB file with a few large ranged GETs."""
+        if (injected := await self._inject("VolumeFileGet")) is not None:
+            BLOB_REQUESTS.inc(route="volfile", code=str(injected.status))
+            return injected
         from .._utils.hash_utils import BLOCK_SIZE
 
         vol = self.state.volumes.get(request.match_info["volume_id"])
@@ -337,6 +363,9 @@ class BlobServer:
         """Idempotent content PUT: drain to a tmp file, hash it in a thread,
         move it into place. A body whose digest differs from the client's
         X-Content-SHA256 is refused."""
+        if (injected := await self._inject("CompilePut")) is not None:
+            BLOB_REQUESTS.inc(route="compile_put", code=str(injected.status))
+            return injected
         store = self.state.compile_cache
         key = request.match_info["key"]
         path = store.path(key)
@@ -357,6 +386,9 @@ class BlobServer:
         return web.Response(status=200)
 
     async def _compile_get(self, request: web.Request) -> web.StreamResponse:
+        if (injected := await self._inject("CompileGet")) is not None:
+            BLOB_REQUESTS.inc(route="compile_get", code=str(injected.status))
+            return injected
         store = self.state.compile_cache
         key = request.match_info["key"]
         path = store.path(key)
@@ -372,6 +404,9 @@ class BlobServer:
     async def _compile_delete(self, request: web.Request) -> web.Response:
         """Eviction: a client that caught an integrity mismatch deletes the
         entry; the next producer publishes it again."""
+        if (injected := await self._inject("CompileDelete")) is not None:
+            BLOB_REQUESTS.inc(route="compile_delete", code=str(injected.status))
+            return injected
         code = "200" if self.state.compile_cache.delete(request.match_info["key"]) else "404"
         BLOB_REQUESTS.inc(route="compile_delete", code=code)
         return web.Response(status=int(code))

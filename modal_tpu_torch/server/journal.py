@@ -160,6 +160,9 @@ class Journal:
             fsync if fsync is not None else os.environ.get("MODAL_TPU_JOURNAL_FSYNC", "0") in ("1", "true", "yes")
         )
         self.seq = 0
+        # a record observer (the flight recorder's journal tail): called with
+        # each appended payload dict; what it raises never reaches append
+        self.tap = None
         self._segment_index = 0
         self._segment_records = 0
         self._records_since_snapshot = 0
@@ -235,6 +238,12 @@ class Journal:
         payload["seq"] = self.seq
         payload["t"] = t
         line = json.dumps(payload, separators=(",", ":")) + "\n"
+        tap = self.tap
+        if tap is not None:
+            try:
+                tap(payload)
+            except Exception:
+                pass
         self._fh.write(line)
         if self._group_depth > 0 and self._current_task() is self._group_owner:
             self._group_dirty = True  # the group's exit commits the batch

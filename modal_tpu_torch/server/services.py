@@ -35,11 +35,15 @@ plane answers MetricsHistory (server/history.py), ProfileControl (the
 sampling profiler, fanned out to containers on their heartbeats),
 AppListProfiles (the runtime_debug traces) and TaskGetTimeline. This
 servicer serves 135 of the wire contract's 148 RPCs; the others answer gRPC
-UNIMPLEMENTED (proto/rpc.py): ContainerExec* and ContainerFilesystemExec,
-the input plane (Attempt*, MapStartOrContinue, MapAwait), and shard and
-journal administration (ShardControl, JournalReplicate) (ROADMAP Queue A
-4e). Exec and the filesystem of a sandbox, and the warm pool's handoff, are
-served by each worker's task command router (server/task_router.py).
+UNIMPLEMENTED (proto/rpc.py). Of those, the five ContainerExec* and
+ContainerFilesystemExec RPCs have no handler in the JAX package either
+(exec and the filesystem of a sandbox, and the warm pool's handoff, are
+served by each worker's task command router, server/task_router.py); the
+input plane's six (Attempt*, MapStartOrContinue, MapAwait) are the JAX
+package's InputPlaneServer's, not its servicer's; so against the JAX
+servicer this one lacks only ShardControl and JournalReplicate, which wait
+for the replication and shards sub-slices (ROADMAP Queue A). With chaos on
+(chaos.py), `stream_reset` charges abort FunctionStreamOutputs mid-flight.
 """
 
 from __future__ import annotations
@@ -107,6 +111,7 @@ class ModalTPUServicer:
     def __init__(self, state: ServerState):
         self.s = state
         self.scheduler = None  # wired by the supervisor (worker drains)
+        self.chaos = None  # the plane's ChaosPolicy, wired by the supervisor
         # throttling surfaced to containers on every GetInputs response
         self.rate_limit_sleep_duration = 0.0
 
@@ -863,12 +868,16 @@ class ModalTPUServicer:
     async def FunctionStreamOutputs(self, request: api_pb2.FunctionGetOutputsRequest, context):
         """The keep-alive server-streaming twin of FunctionGetOutputs: a batch
         is pushed as soon as it lands, an empty response every 5 s lets the
-        client tell a quiet call from a dead stream."""
+        client tell a quiet call from a dead stream. A chaos `stream_reset`
+        charge aborts the stream mid-flight: the client degrades to the
+        poll RPC."""
         call = self.s.function_calls.get(request.function_call_id)
         if call is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, f"call {request.function_call_id} not found")
         cursor = int(request.last_entry_id or 0)
         while True:
+            if self.chaos is not None and self.chaos.consume_knob("stream_reset"):
+                await context.abort(grpc.StatusCode.UNAVAILABLE, "chaos: output stream reset")
             start = call.outputs_consumed if request.clear_on_success else cursor
             if call.outputs[start:]:
                 resp = self._take_outputs(call, request, start)

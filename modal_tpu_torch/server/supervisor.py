@@ -23,8 +23,21 @@ journal replay rebuilt. `MODAL_TPU_PROFILE` starts the sampling profiler
 at boot (observability/profiler.py), and the span store is pruned before
 this run's sink opens (`tracing.gc_trace_dir`).
 
-Replication and shards, the input plane, chaos and the flight recorder
-(ROADMAP Queue A 4e) wait for their sub-slice.
+Chaos (chaos.py): a ChaosPolicy, given or from the environment
+(`MODAL_TPU_CHAOS=1`), wraps the servicer at the handler boundary, guards
+the blob routes, resets output streams, kills warm interpreters
+mid-handoff, and fires its scheduled events from `_chaos_event_loop`
+(`supervisor_crash` runs `crash_restart`; `worker_preempt`, `worker_kill`,
+`heartbeat_blackhole`). A chaos variable of a knob that waits for a later
+sub-slice is refused at construction. The flight recorder
+(observability/flight_recorder.py, on unless `MODAL_TPU_FLIGHT_RECORDER=0`)
+keeps the last minute of samples, spans, journal records and chaos events
+and dumps it as `<state_dir>/observability/postmortem-<event>-<t>.json` on
+a crash_restart (before the teardown) and when an SLO alert fires.
+
+Replication and shards, with the recorder's `fence` and `takeover` dumps
+and chaos's shard and replication knobs, and the input plane wait for
+their sub-slices (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from typing import Optional
 import grpc
 
 from .._utils import local_transport
+from ..chaos import ChaosPolicy, ChaosServicerProxy
 from ..config import config, logger, tune_switch_interval
 from ..observability import tracing
 from ..proto.rpc import build_generic_handler
@@ -62,6 +76,7 @@ class LocalSupervisor:
         worker_gpus: Optional[int] = None,
         worker_gpu_type: Optional[str] = None,
         recover: Optional[bool] = None,  # None: recover when a journal exists
+        chaos: Optional[ChaosPolicy] = None,  # one policy object, every layer
     ):
         self.num_workers = num_workers
         self.port = port
@@ -72,17 +87,23 @@ class LocalSupervisor:
         self.worker_gpu_type = worker_gpu_type
         self.recover = recover
         self.recovery_report: Optional[dict] = None  # set when start() replayed a journal
+        # an explicit policy, else the environment's (MODAL_TPU_CHAOS=1)
+        self.chaos = chaos if chaos is not None else ChaosPolicy.from_env()
         self.state = ServerState(self.state_dir)
         self.servicer = ModalTPUServicer(self.state)
+        self.servicer.chaos = self.chaos
         self.scheduler = Scheduler(self.state, self.servicer)
         self.servicer.scheduler = self.scheduler
-        self.blob_server = BlobServer(self.state)
+        self.blob_server = BlobServer(self.state, chaos=self.chaos)
         self.workers: list[WorkerAgent] = []
         self.uds_path = ""  # the plane's Unix socket (set at bind time)
         self._grpc_server: Optional[grpc.aio.Server] = None
         # two crash_restarts must not interleave their teardown and rebuild
         self._crash_lock = asyncio.Lock()
         self._sampler_task: Optional[asyncio.Task] = None
+        self.flight_recorder = None
+        self._chaos_task: Optional[asyncio.Task] = None
+        self._chaos_subtasks: set[asyncio.Task] = set()  # strong refs
 
     @property
     def server_url(self) -> str:
@@ -167,6 +188,11 @@ class LocalSupervisor:
         # client retry after a restart sees the replayed state, and the
         # dedupe wrapper takes state.idempotency at handler-build time
         self._attach_journal()
+        if self.chaos is not None:
+            # /metrics echoes the seed, so a failure names its fault sequence
+            from ..observability.catalog import CHAOS_SEED
+
+            CHAOS_SEED.set(float(self.chaos.seed))
         await self._start_control_plane(self.port)
         for _ in range(self.num_workers):
             worker = WorkerAgent(
@@ -182,9 +208,12 @@ class LocalSupervisor:
                 # fleet cache's url; co-located containers read the store
                 compile_cache_url=self.state.blob_url_base,
                 compile_cache_dir=self.state.compile_cache.root_dir,
+                chaos=self.chaos,
             )
             await worker.start()
             self.workers.append(worker)
+        if self.chaos is not None and self.chaos.events:
+            self._chaos_task = asyncio.create_task(self._chaos_event_loop(), name="chaos-events")
         logger.debug(f"local supervisor up at {self.server_url} ({self.num_workers} workers)")
 
     async def _start_control_plane(self, grpc_port: int) -> None:
@@ -199,7 +228,10 @@ class LocalSupervisor:
                 ("grpc.so_reuseport", 0),
             ]
         )
-        self._grpc_server.add_generic_rpc_handlers((build_generic_handler(self.servicer),))
+        # chaos wraps the handler boundary: the servicer itself (and every
+        # in-process caller: the scheduler, tests) stays clean
+        handler_target = ChaosServicerProxy(self.servicer, self.chaos) if self.chaos is not None else self.servicer
+        self._grpc_server.add_generic_rpc_handlers((build_generic_handler(handler_target),))
         try:
             self.port = self._grpc_server.add_insecure_port(f"127.0.0.1:{grpc_port}")
         except RuntimeError:
@@ -237,13 +269,22 @@ class LocalSupervisor:
             await self.blob_server.start()
         # the in-process rung: registered once the servers are live, so a
         # resolvable entry always means a serving plane
-        local_transport.register_local_server(self.server_url, self.servicer)
+        local_transport.register_local_server(self.server_url, handler_target)
         self._save_ports()
         self.scheduler.start()
         # built here (not in start()) so a crash_restart builds the store
         # and the evaluator against the new state: the evaluator adopts
         # state.alerts, which the replay just refilled
         self._start_sampler()
+        # the flight recorder, rebuilt with the plane so it taps the new
+        # journal
+        from ..observability import flight_recorder as obs_fr
+
+        if obs_fr.enabled():
+            self.flight_recorder = obs_fr.FlightRecorder(
+                self.state_dir, journal=self.state.journal, chaos=self.chaos, shard_index=0
+            )
+            self.flight_recorder.start()
 
     def _start_sampler(self) -> None:
         """Start the sampler task (MODAL_TPU_TS_INTERVAL not 0), building
@@ -277,7 +318,12 @@ class LocalSupervisor:
                 TIMESERIES_SAMPLE_SECONDS.observe(time.perf_counter() - t0)
                 for tier, n in store.point_counts().items():
                     TIMESERIES_POINTS.set(float(n), tier=tier)
-                evaluator.evaluate()
+                transitions = evaluator.evaluate()
+                recorder = self.flight_recorder
+                if recorder is not None:
+                    for tr in transitions:
+                        if tr.get("state") == "firing":
+                            recorder.dump("alert", extra={"alert": tr})
             except asyncio.CancelledError:
                 raise
             except Exception:
@@ -292,6 +338,48 @@ class LocalSupervisor:
             except asyncio.CancelledError:
                 pass
             self._sampler_task = None
+
+    def _stop_recorder(self) -> None:
+        if self.flight_recorder is not None:
+            self.flight_recorder.stop()
+            self.flight_recorder = None
+
+    async def _chaos_event_loop(self) -> None:
+        """Fire the scheduled chaos events once their output count passes.
+        Each fired event also goes into the flight recorder's chaos tail,
+        so a crash_restart's postmortem names the event that caused it."""
+        while True:
+            try:
+                for ev in self.chaos.pop_due_events():
+                    if self.flight_recorder is not None:
+                        self.flight_recorder.record_chaos(
+                            {"kind": ev.kind, "after_outputs": ev.after_outputs,
+                             "outputs_seen": self.chaos.outputs_seen, "t": round(time.time(), 3)}
+                        )
+                    if ev.kind == "supervisor_crash":
+                        logger.warning("chaos: crashing and recovering the control plane")
+                        t = asyncio.create_task(self.crash_restart())
+                        self._chaos_subtasks.add(t)
+                        t.add_done_callback(self._chaos_subtasks.discard)
+                        continue
+                    idx = min(ev.worker_index, len(self.workers) - 1)
+                    if idx < 0:
+                        continue
+                    if ev.kind == "worker_preempt":
+                        logger.warning(f"chaos: preempting worker {idx} (grace {ev.grace_s}s)")
+                        t = asyncio.create_task(self.workers[idx].preempt(ev.grace_s))
+                        self._chaos_subtasks.add(t)
+                        t.add_done_callback(self._chaos_subtasks.discard)
+                    elif ev.kind == "worker_kill":
+                        logger.warning(f"chaos: killing worker {idx} containers")
+                        self.workers[idx].kill_containers()
+                    elif ev.kind == "heartbeat_blackhole":
+                        self.chaos.start_heartbeat_blackhole(ev.duration_s)
+            except asyncio.CancelledError:
+                return
+            except Exception:
+                logger.exception("chaos event loop iteration failed")
+            await asyncio.sleep(0.1)
 
     async def preempt_worker(self, index: int = 0, grace_s: float = 10.0) -> None:
         """A preemption notice for one worker: drain, graceful container
@@ -328,6 +416,7 @@ class LocalSupervisor:
             self._grpc_server = None
         await self.scheduler.stop()
         await self._stop_sampler()  # it holds the abandoned state
+        self._stop_recorder()
         await self.blob_server.stop()
         if self.state.journal is not None:
             self.state.journal.close()
@@ -335,12 +424,17 @@ class LocalSupervisor:
 
     async def _crash_restart_locked(self) -> Optional[dict]:
         t0 = time.time()
+        if self.flight_recorder is not None:
+            # the dump comes before the teardown: the ring still holds the
+            # minute up to the crash (the rebuilt plane gets a fresh ring)
+            self.flight_recorder.dump("crash_restart")
         grpc_port, blob_port = await self.crash_abandon()
         self.state = ServerState(self.state_dir)
         self.servicer = ModalTPUServicer(self.state)
+        self.servicer.chaos = self.chaos
         self.scheduler = Scheduler(self.state, self.servicer)
         self.servicer.scheduler = self.scheduler
-        self.blob_server = BlobServer(self.state, port=blob_port)
+        self.blob_server = BlobServer(self.state, port=blob_port, chaos=self.chaos)
         self.recover = True
         self._attach_journal()
         await self._start_control_plane(grpc_port)
@@ -356,10 +450,21 @@ class LocalSupervisor:
                 os.unlink(self.uds_path)
             except OSError:
                 pass
+        if self._chaos_task is not None:
+            self._chaos_task.cancel()
+            try:
+                await self._chaos_task
+            except asyncio.CancelledError:
+                pass
+        for t in list(self._chaos_subtasks):
+            t.cancel()
+        if self._chaos_subtasks:
+            await asyncio.gather(*self._chaos_subtasks, return_exceptions=True)
         for worker in self.workers:
             await worker.stop()
         await self.scheduler.stop()
         await self._stop_sampler()
+        self._stop_recorder()
         await self.blob_server.stop()
         if self._grpc_server is not None:
             await self._grpc_server.stop(grace=0.5)
@@ -370,6 +475,11 @@ class LocalSupervisor:
 async def serve_forever(port: int = 9900, num_workers: int = 1, state_dir: Optional[str] = None) -> None:
     sup = LocalSupervisor(num_workers=num_workers, port=port, state_dir=state_dir)
     await sup.start()
+    if sup.chaos is not None:
+        events = ",".join(f"{ev.kind}@{ev.after_outputs}" for ev in sup.chaos.events) or "none"
+        print(f"chaos policy attached: seed {sup.chaos.seed}, events {events}", flush=True)
+    if sup.flight_recorder is not None:
+        print(f"flight recorder on: ring {sup.flight_recorder.samples.maxlen} samples", flush=True)
     print(f"modal_tpu_torch control plane listening on {sup.server_url}", flush=True)
     try:
         await asyncio.Event().wait()

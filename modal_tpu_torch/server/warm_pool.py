@@ -19,9 +19,10 @@ Protocol (over the worker's task router, server/task_router.py):
 
 The ack is the commit point: the worker treats the placement as adopted
 only once the interpreter confirms delivery. A parked process killed
-mid-handoff never acks; the adoption times out fast
-(`MODAL_TPU_WARM_POOL_ACK_TIMEOUT`) and `WorkerAgent._run_task` spawns
-fresh: a warm pool can make a cold start faster, never less reliable.
+mid-handoff (chaos `warm_kill_handoff`, or a real crash) never acks; the
+adoption times out fast (`MODAL_TPU_WARM_POOL_ACK_TIMEOUT`) and
+`WorkerAgent._run_task` spawns fresh: a warm pool can make a cold start
+faster, never less reliable.
 
 What a CUDA process changes (ROADMAP Queue C 28): the card pinning
 (`CUDA_VISIBLE_DEVICES`) and the kernels' build directory and fleet-cache
@@ -434,6 +435,15 @@ class WarmPool:
             # an evict sentinel is already queued: this entry is on its way out
             WARM_POOL_PLACEMENTS.inc(outcome="handoff_failed")
             return None
+        # chaos warm_kill_handoff: kill the interpreter with the payload
+        # queued and the ack pending; the fallback below spawns fresh
+        chaos = getattr(self.worker, "chaos", None)
+        if chaos is not None and chaos.consume_knob("warm_kill_handoff"):
+            logger.warning(f"chaos: killing warm interpreter {entry.pool_id} mid-handoff")
+            try:
+                entry.proc.kill()
+            except ProcessLookupError:
+                pass
         ack = asyncio.ensure_future(entry.ack_evt.wait())
         died = asyncio.ensure_future(entry.dead_evt.wait())
         try:

@@ -134,6 +134,7 @@ class WorkerAgent:
         compile_cache_dir: str = "",
         server_uds: str = "",  # the co-located plane's Unix socket
         blob_local_dir: str = "",  # the co-located blob store (handoff by path)
+        chaos=None,  # the plane's ChaosPolicy: the warm pool's warm_kill_handoff
     ):
         self.server_url = server_url
         # the local fast-path coordinates: from an in-process supervisor, else
@@ -154,6 +155,9 @@ class WorkerAgent:
         # co-located containers) and its HTTP leg
         self.compile_cache_url = compile_cache_url or os.environ.get("MODAL_TPU_COMPILE_CACHE_URL", "")
         self.compile_cache_dir = compile_cache_dir
+        # an in-process worker shares its plane's policy; its heartbeats are
+        # blackholed at the plane's servicer (chaos.HEARTBEAT_RPCS)
+        self.chaos = chaos
         self.gpu_type = ""
         self.card_indices: list[int] = []
         self._procs: dict[str, asyncio.subprocess.Process] = {}

@@ -347,7 +347,9 @@ def test_every_module_of_the_port_is_scanned():
                 "runtime/bucket_mounts.py", "runtime/clustered.py", "observability/quantile.py",
                 "observability/timeseries.py", "observability/slo.py", "observability/profiler.py",
                 "server/history.py", "builder/__init__.py", "server/image_builder.py", "global_objects.py",
-                "dict.py", "queue.py", "proxy.py", "environments.py", "workspace.py"):
+                "dict.py", "queue.py", "proxy.py", "environments.py", "workspace.py", "cli/entry_point.py",
+                "cli/__main__.py", "chaos.py", "observability/critical_path.py",
+                "observability/flight_recorder.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
@@ -369,14 +371,18 @@ def test_every_module_of_the_port_is_scanned():
                                     "modal_tpu_torch.observability.profiler",
                                     "modal_tpu_torch.server.image_builder", "modal_tpu_torch.dict",
                                     "modal_tpu_torch.queue", "modal_tpu_torch.proxy",
-                                    "modal_tpu_torch.workspace", "modal_tpu_torch.global_objects"])
+                                    "modal_tpu_torch.workspace", "modal_tpu_torch.global_objects",
+                                    "modal_tpu_torch.cli.entry_point", "modal_tpu_torch.chaos",
+                                    "modal_tpu_torch.observability.critical_path",
+                                    "modal_tpu_torch.observability.flight_recorder"])
 def test_the_function_path_loads_no_torch_at_import(module):
     """The client, the App layer, the control plane, the worker, its router
     and warm pool, the sandbox client, Volumes and their checkpointer, the
-    storage mounts, the gang runtime, the metrics plane and a container's
-    entrypoint import no torch: a container sends its hello before torch loads (a `gpu=`
-    function's container loads it after the hello, a warm-pool interpreter
-    while parked), and a user's file that builds an App loads none."""
+    storage mounts, the gang runtime, the metrics plane, the command line,
+    chaos, the flight recorder and a container's entrypoint import no torch:
+    a container sends its hello before torch loads (a `gpu=` function's
+    container loads it after the hello, a warm-pool interpreter while
+    parked), and a user's file that builds an App loads none."""
     code = f"import sys, {module}\nassert 'torch' not in sys.modules, 'torch loaded'\nprint('clean')\n"
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
     env["PYTHONPATH"] = REPO

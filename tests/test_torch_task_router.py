@@ -263,9 +263,13 @@ def test_the_served_rpc_counts():
     MetricsHistory, ProfileControl, AppListProfiles and TaskGetTimeline
     since the metrics plane; ImageList, ImageDelete and the 32 Environment*,
     TokenFlow*, Workspace*, Proxy*, Dict* and Queue* since images and the
-    SDK's objects); a worker's router serves all 8 of its own. The 13 left
-    are ContainerExec*, ContainerFilesystemExec, the input plane's six,
-    ShardControl and JournalReplicate."""
+    SDK's objects); a worker's router serves all 8 of its own. Of the 13
+    left, the five ContainerExec* and ContainerFilesystemExec RPCs have no
+    handler in the JAX package either (its sandboxes exec through the task
+    router), and the input plane's six are served by the JAX package's
+    InputPlaneServer, not by its servicer, which serves 137: against it the
+    port's servicer lacks only ShardControl and JournalReplicate."""
+    from modal_tpu.server.services import ModalTPUServicer as JaxServicer
     from modal_tpu_torch.proto.rpc import ROUTER_RPCS, RPCS
     from modal_tpu_torch.server.services import ModalTPUServicer
 
@@ -277,6 +281,10 @@ def test_the_served_rpc_counts():
         "ContainerExec", "ContainerExecGetOutput", "ContainerExecPutInput", "ContainerExecWait",
         "ContainerFilesystemExec", "AttemptStart", "AttemptStartBatch", "AttemptAwait", "AttemptRetry",
         "MapStartOrContinue", "MapAwait", "ShardControl", "JournalReplicate"])
+    jax_served = {n for n in RPCS if hasattr(JaxServicer, n)}
+    assert len(jax_served) == 137
+    assert jax_served - set(served) == {"ShardControl", "JournalReplicate"}
+    assert set(served) <= jax_served
     assert len([n for n in served if n.startswith(("Dict", "Queue"))]) == 18
     assert {"ImageList", "ImageDelete"} <= set(served)
     assert {"MetricsHistory", "ProfileControl", "AppListProfiles", "TaskGetTimeline"} <= set(served)
