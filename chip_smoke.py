@@ -116,9 +116,14 @@ result line):
               import torch, @enter, the method), the warm call, the map's
               time per input, and a warm `ping` through the App against raw
               FunctionMap + FunctionGetOutputs to the same container (the
-              App layer's own cost). Then the module-level, non-serialized
+              App layer's own cost). The maps ride the input plane (its RPC
+              counts; a method's `.remote()` stays on the control plane, as
+              in the JAX package). Then the module-level, non-serialized
               `app_file_function` (gpu="H100") runs in a container that
-              imported this script by path, pinned to the card.
+              imported this script by path, pinned to the card; its warm
+              `.remote()` on the input plane and, with
+              MODAL_TPU_DISABLE_INPUT_PLANE=1, on the control plane, in
+              turns.
 7b. pool    — the warm pool of the port's worker: the worker phase's
               llama3-8b function (gpu="H100") through a LocalSupervisor with
               MODAL_TPU_WARM_POOL=1 and =0 in turns (on, off), each
@@ -188,6 +193,23 @@ result line):
               1, shell --gpu H100 (the card's name from nvidia-smi in a
               sandbox), deploy and app stop. Printed: each command's wall
               time, the cold call's critical path, crash → next output.
+7b'''. fleet — `python -m modal_tpu_torch.server --shards 3 --workers 3`
+              (in-process shards, journal replication 2, federation and the
+              flight recorder on; each worker's probe finds this card),
+              chaos `shard_kill` of the app's home shard after
+              FLEET_KILL_AFTER outputs. `cli run` maps a `gpu="H100",
+              max_containers=1` llama3-8b function (its cache-less forward's
+              last-token logits) over 8 prompts through the client's
+              ShardRouterStub: each index once, K1 n_layers each, repeated
+              prompts bit-equal across the kill and equal to the cli phase's.
+              Then the director's ShardControl (a takeover in mode replica
+              at epoch 2, the dead shard's worker rehomed), `journal status`
+              (the survivors' sealed streams), `debug bundle` (a takeover
+              postmortem), `top --once --json` (fleet-merged, 3 active
+              shards before, 2 after) and one compute app on the card at
+              each output. Printed: the takeover by phase, kill → next
+              output, the quorum commit's p50/p95, warm pings through the
+              director.
 7c. sandbox — `Sandbox.create("sleep", "infinity", gpu="H100", app=...)`
               through `app.run()`, pinned to card 0; an exec'd
               `python -m modal_tpu_torch.tools.sandbox_forward` builds
@@ -225,8 +247,8 @@ result line):
               weights phase's) and serves the 8 requests (streams equal to
               serve's, paged_decode exactly n_layers per decode step).
               Then, with the weights' blocks dropped from the store, a
-              train state at llama3-8b's full width and 4 layers (bf16
-              params and AdamW's two moments, ~11.5 GB) takes two steps,
+              train state at llama3-8b's full width and 2 layers (bf16
+              params and AdamW's two moments, ~6 GB) takes two steps,
               is saved with `VolumeCheckpointer` (`parallel.train.state_tree`),
               restored into fresh tensors on the card (every tensor
               bit-equal) and steps once more from the restored and from the
@@ -363,7 +385,8 @@ import time
 from modal_tpu_torch import App  # the App layer loads no torch (a container imports this script)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "image", "cli", "sandbox", "graphs",
+PHASES = ("device", "build", "kernels", "serve", "sdk", "worker", "app", "pool", "image", "cli", "fleet", "sandbox",
+          "graphs",
           "weights",
           "volume",
           "int8",
@@ -4906,6 +4929,14 @@ def phase_app(torch, ctx: dict) -> None:
             if len(pids) != 1 or enters != {1}:
                 raise AssertionError(f"app: inputs ran in pids {pids} with @enter counts {enters}")
 
+            # the maps rode the input plane (its per-method counters); a
+            # method's .remote() stays on the control plane, as the JAX
+            # package's does (its _BoundMethod dispatches FunctionMap)
+            rode = dict(sup.input_plane.servicer.rpc_counts)
+            if (rode.get("MapStartOrContinue", 0) < 4 or rode.get("MapAwait", 0) < 2
+                    or rode.get("AttemptStart", 0) + rode.get("AttemptStartBatch", 0) + rode.get("AttemptAwait", 0)):
+                raise AssertionError(f"app: the input plane's RPC counts {rode}: the maps did not ride it, or a "
+                                     f"method's .remote() did")
             fn = llama._get_bound_function()
             app_ms, raw_ms = [], []
             for _ in range(APP_WARM_ROUNDS):
@@ -4922,13 +4953,16 @@ def phase_app(torch, ctx: dict) -> None:
                                    "logits_sha256": [hashlib.sha256(r["logits"].numpy().tobytes()).hexdigest()
                                                      for r in mapped],
                                    "argmax": [r["argmax"] for r in mapped], "gaps": gaps}
-            out["warm"] = {"app_ms": app_ms, "raw_ms": raw_ms, "app_layer_ms": statistics.median(app_ms)
-                           - statistics.median(raw_ms)}
+            out["warm"] = {"app_ms": app_ms, "raw_ms": raw_ms,
+                           "app_layer_ms": statistics.median(app_ms) - statistics.median(raw_ms),
+                           "input_plane_rpcs": rode}
             log(f"[app] forward_last.map over {len(fwd_prompts)} prompts ({[len(p) for p in fwd_prompts]} tokens) in "
                 f"{map_s:.2f}s ({map_s / len(fwd_prompts) * 1e3:.1f} ms per input), in order, flash_fwd "
                 f"{cfg.n_layers} launches each; .remote(prompt 0) and .spawn(prompt 1).get() bit-equal to map results 0 "
                 f"and 1; the prompts of 128 to 512 tokens held to the plain forward (above); every input in pid "
                 f"{pids.pop()}, @enter once | {smi}")
+            log(f"[app] the maps rode the input plane, the method .remote() calls the control plane: the input "
+                f"plane's RPC counts {rode} | {smi}")
             log(f"[app] warm ping, {APP_WARM_ROUNDS} rounds in turns, median [min, max]: .remote() through the App "
                 f"{statistics.median(app_ms):.2f} [{min(app_ms):.2f}, {max(app_ms):.2f}] ms, raw FunctionMap + "
                 f"FunctionGetOutputs to the same bound function {statistics.median(raw_ms):.2f} [{min(raw_ms):.2f}, "
@@ -4939,11 +4973,39 @@ def phase_app(torch, ctx: dict) -> None:
         t_enter = time.time()
         with APP.run():
             t0 = time.time()
+            before = dict(sup.input_plane.servicer.rpc_counts)
             r = app_file_function.remote()
             file_s = time.time() - t0
+            # a function's warm .remote() on the input plane and, with
+            # MODAL_TPU_DISABLE_INPUT_PLANE=1, on the control plane, in turns
+            ip_ms, cp_ms = [], []
+            for _ in range(APP_WARM_ROUNDS):
+                t0 = time.perf_counter()
+                app_file_function.remote()
+                ip_ms.append((time.perf_counter() - t0) * 1e3)
+                os.environ["MODAL_TPU_DISABLE_INPUT_PLANE"] = "1"
+                try:
+                    t0 = time.perf_counter()
+                    app_file_function.remote()
+                    cp_ms.append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    del os.environ["MODAL_TPU_DISABLE_INPUT_PLANE"]
+            after = dict(sup.input_plane.servicer.rpc_counts)
             run_id = APP.app_id
             fdef = next(f.definition for f in sup.state.functions.values() if f.app_id == run_id)
         plane.wait_finished(run_id)
+        starts = sum(after.get(k, 0) - before.get(k, 0) for k in ("AttemptStart", "AttemptStartBatch"))
+        awaits = after.get("AttemptAwait", 0) - before.get("AttemptAwait", 0)
+        if starts != 1 + APP_WARM_ROUNDS or awaits < 1 + APP_WARM_ROUNDS:
+            raise AssertionError(f"app: the file function's {1 + APP_WARM_ROUNDS} input-plane calls moved the input "
+                                 f"plane's counts {before} → {after}")
+        out["input_plane_ab"] = {"input_plane_ms": ip_ms, "control_plane_ms": cp_ms,
+                                 "attempt_starts": starts, "attempt_awaits": awaits}
+        log(f"[app] the file function's .remote() rode the input plane (AttemptStart {starts}, AttemptAwait "
+            f"{awaits}); warm, {APP_WARM_ROUNDS} rounds in turns, median [min, max]: input plane "
+            f"{statistics.median(ip_ms):.2f} [{min(ip_ms):.2f}, {max(ip_ms):.2f}] ms, control plane "
+            f"(MODAL_TPU_DISABLE_INPUT_PLANE=1) {statistics.median(cp_ms):.2f} [{min(cp_ms):.2f}, {max(cp_ms):.2f}] "
+            f"ms | {smi}")
         if (fdef.definition_type != "file" or not fdef.experimental_options.get("main_file_path", "").endswith(
                 "chip_smoke.py") or r["device"] != kind or r["cuda_visible_devices"] != "0"
                 or r["module"] != "__modal_tpu_main__"):
@@ -6243,6 +6305,357 @@ def phase_cli(torch, ctx: dict) -> None:
     ctx["cli"] = out
 
 
+# -- fleet: a three-shard plane loses the home shard of a map on the card ------
+
+FLEET_APP = '''
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, {repo!r})
+import chip_smoke as cs  # noqa: E402
+from modal_tpu_torch import App  # noqa: E402
+
+app = App("fleet-llama")
+_MODEL: dict = {{}}
+
+
+@app.function(gpu="H100", max_containers=1, scaledown_window=600)
+def forward_last(tokens: list, hold_s: float = 0.0) -> dict:
+    """The last-token logits of llama3-8b's cache-less forward (the model
+    built once per container); an empty prompt is a ping."""
+    base = {{"pid": os.getpid(), "task_id": os.environ.get("MODAL_TPU_TASK_ID", ""),
+             "server_url": os.environ.get("MODAL_TPU_SERVER_URL", ""),
+             "task_dir": os.environ.get("MODAL_TPU_TASK_DIR", "")}}
+    if not tokens:
+        return base
+    import hashlib
+
+    import torch
+
+    from modal_tpu_torch.models.llama import forward, get_config, init_params
+    from modal_tpu_torch.ops import _build
+
+    if "params" not in _MODEL:
+        t0 = time.time()
+        cfg = get_config("llama3-8b")
+        _MODEL.update(cfg=cfg, params=init_params(cfg, seed=0, device="cuda"))
+        torch.cuda.synchronize()
+        print(f"fleet-llama: built llama3-8b in {{time.time() - t0:.2f}}s", flush=True)
+    cfg, params = _MODEL["cfg"], _MODEL["params"]
+    with torch.inference_mode():
+        x = torch.tensor([tokens], dtype=torch.long, device="cuda")
+        k0 = _build.LAUNCHES["flash_fwd"]
+        logits, _ = forward(params, cfg, x)
+        last = logits[0, -1].float().cpu()
+    time.sleep(hold_s)
+    return {{**base, "tokens": len(tokens), "finite": bool(torch.isfinite(last).all()), "shape": list(last.shape),
+             "argmax": int(last.argmax()), "flash_fwd_launches": _build.LAUNCHES["flash_fwd"] - k0,
+             "container_launches": dict(_build.LAUNCHES),
+             "logits_sha256": hashlib.sha256(last.numpy().tobytes()).hexdigest()}}
+
+
+def _card() -> dict:
+    return {{"compute_apps": cs._compute_apps(), "used_bytes": cs._card_used_bytes(), "t": time.time()}}
+
+
+@app.local_entrypoint()
+def main():
+    from modal_tpu_torch.client import _Client
+    from modal_tpu_torch.models.llama import get_config
+
+    client = _Client._client_from_env
+    out = {{"stub": type(client._stub).__name__, "shard_urls": list(getattr(client._stub, "shard_urls", [])),
+            "card_before": _card()}}
+    prompts = cs._forward_prompts(get_config("llama3-8b"), 4, seed=2) * 2
+    out["map"] = []
+    t0 = time.time()
+    for i, r in enumerate(forward_last.map(prompts, kwargs={{"hold_s": cs.FLEET_HOLD_S}})):
+        out["map"].append({{**r, "index": i, "t_arrival": time.time(), "card": _card()}})
+    out["map_s"] = time.time() - t0
+    pings = []
+    for _ in range(cs.FLEET_WARM_ROUNDS):
+        t0 = time.perf_counter()
+        r = forward_last.remote([])
+        pings.append({{**r, "ms": (time.perf_counter() - t0) * 1e3}})
+    out["pings"] = pings
+    out["function_id"] = forward_last.object_id
+    with open(os.environ["FLEET_SMOKE_OUT"], "w") as f:
+        json.dump(out, f)
+    print("fleet-llama: done", flush=True)
+'''
+# the fleet phase's map: the app phase's first four prompts (128 to 512
+# tokens) twice; the home shard is killed once FLEET_KILL_AFTER outputs
+# exist, each input holding FLEET_HOLD_S after its forward so the kill lands
+# between outputs; then FLEET_WARM_ROUNDS warm pings through the director
+FLEET_KILL_AFTER = 3
+FLEET_HOLD_S = 0.5
+FLEET_WARM_ROUNDS = 5
+
+
+def _quantiles_of(metrics: dict, family: str, qs=(0.5, 0.95)) -> dict:
+    """Quantiles of a histogram family from a parsed /metrics exposition."""
+    from modal_tpu_torch.observability.quantile import bucket_quantile
+
+    buckets = sorted((float(k.split('le="', 1)[1].split('"', 1)[0]), v) for k, v in metrics.items()
+                     if k.startswith(f"{family}_bucket{{") and 'le="+Inf"' not in k)
+    total = metrics.get(f"{family}_count", 0.0)
+    if not buckets or not total:
+        return {"count": total}
+    bounds = [b for b, _ in buckets]
+    counts = [c - (buckets[i - 1][1] if i else 0.0) for i, (_, c) in enumerate(buckets)]
+    return {"count": total, **{f"p{int(q * 100)}": bucket_quantile(bounds, counts, q, total=total) for q in qs}}
+
+
+def phase_fleet(torch, ctx: dict) -> None:
+    """The sharded plane on the card: `python -m modal_tpu_torch.server
+    --shards 3 --workers 3` (in-process shards, journal replication at its
+    default of 2, federation and the flight recorder on; each worker's
+    probe finds this card), chaos `shard_kill` aimed at the app's home shard
+    after FLEET_KILL_AFTER outputs. `cli run` drives a gpu="H100" llama3-8b
+    function's map of 8 prompts through the client's shard router; the
+    director fences the dead shard, adopts its partition from a survivor's
+    replica stream, rehomes its worker, and the map finishes with every
+    index once and bit-equal logits. Then the director's ShardControl, the
+    journal's replica streams, the debug bundle's takeover postmortem, the
+    fleet-merged top and history, the quorum commit's histogram, warm pings
+    through the director, and the card's compute apps around the kill."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch._utils.shard_routing import partition_for_name
+    from modal_tpu_torch.cli.entry_point import _parse_prometheus
+    from modal_tpu_torch.client import _Client
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.server.state import partition_of_id
+
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    cfg = get_config("llama3-8b")
+    home = partition_for_name("fleet-llama", 3)
+    root = tempfile.mkdtemp(prefix="fleet-")
+    state_dir = os.path.join(root, "state")
+    app_file = os.path.join(root, "fleet_llama.py")
+    with open(app_file, "w") as f:
+        f.write(FLEET_APP.format(repo=REPO))
+    port = _free_port()
+    director = f"grpc://127.0.0.1:{port}"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MODAL_TPU_")}
+    env.update(PYTHONPATH=os.pathsep.join([REPO, root]), MODAL_TPU_STATE_DIR=state_dir,
+               MODAL_TPU_SERVER_URL=director, MODAL_TPU_AUTO_LOCAL_SERVER="0", MODAL_TPU_HEARTBEAT_INTERVAL="3")
+    # the shards sample every second and track the active-shard gauge, so
+    # the fleet-merged `top` shows 3 shards before the kill and 2 after it
+    server_env = {**env, "MODAL_TPU_CHAOS": "1", "MODAL_TPU_CHAOS_SHARD_KILL_AFTER": f"{home}:{FLEET_KILL_AFTER}",
+                  "MODAL_TPU_TS_INTERVAL": "1", "MODAL_TPU_TS_FAMILIES": "modal_tpu_control_shards_active"}
+    server_log = os.path.join(root, "server.log")
+    out: dict = {"nvidia_smi": smi, "home": home, "commands": {}}
+    times = out["commands"]
+    server = client = None
+    try:
+        with open(server_log, "w") as log_f:
+            t0 = time.perf_counter()
+            server = subprocess.Popen([sys.executable, "-m", "modal_tpu_torch.server", "--port", str(port),
+                                       "--shards", "3", "--workers", "3", "--state-dir", state_dir],
+                                      env=server_env, cwd=REPO, stdout=log_f, stderr=subprocess.STDOUT)
+            deadline = time.time() + 180
+            while "control plane listening" not in open(server_log).read():
+                if server.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"fleet: the sharded server did not come up:\n{open(server_log).read()[-3000:]}")
+                time.sleep(0.2)
+            times["server_up"] = time.perf_counter() - t0
+        boot_log = open(server_log).read()
+        if f"events shard_kill@{FLEET_KILL_AFTER}" not in boot_log or "flight recorder on" not in boot_log:
+            raise AssertionError(f"fleet: the server's log shows no shard_kill policy or flight recorder:\n{boot_log}")
+        with open(os.path.join(state_dir, "shards.json")) as f:
+            shard_urls = [s["url"] for s in json.load(f)["shards"]]
+        log(f"[fleet] `server --port {port} --shards 3 --workers 3` up in {times['server_up']:.2f}s: director "
+            f"{director}, shards {shard_urls}; the app's home shard {home}; "
+            + "; ".join(line for line in boot_log.splitlines() if "chaos" in line or "recorder" in line) + f" | {smi}")
+        deadline = time.time() + 60
+        while True:
+            top_before = json.loads(_cli(env, "top", "--once", "--json")[0])
+            if (top_before.get("fleet") or {}).get("control_shards_active") == 3.0:
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"fleet: `top --once --json` before the run: {top_before.get('fleet')}")
+            time.sleep(1.0)
+
+        result_path = os.path.join(root, "result.json")
+        text, times["run"] = _cli({**env, "FLEET_SMOKE_OUT": result_path}, "run", f"{app_file}::main", timeout=900)
+        with open(result_path) as f:
+            r = json.load(f)
+        if "fleet-llama: done" not in text:
+            raise AssertionError(f"fleet: `run` printed no end line:\n{text[-3000:]}")
+        if r["stub"] != "ShardRouterStub" or r["shard_urls"] != shard_urls:
+            raise AssertionError(f"fleet: the client's stub is {r['stub']} over {r['shard_urls']}, the shards "
+                                 f"{shard_urls}")
+
+        # the map: every index once, in order; K1 n_layers a call; repeated
+        # prompts bit-equal on either side of the kill; the cli phase's
+        # prompts (the same lengths, the same tokens) bit-equal to its
+        lens = [128 * (1 + i % 4) for i in range(8)]
+        if [m["index"] for m in r["map"]] != list(range(8)) or [m["tokens"] for m in r["map"]] != lens:
+            raise AssertionError(f"fleet: map indices {[m['index'] for m in r['map']]}, tokens "
+                                 f"{[m['tokens'] for m in r['map']]}")
+        for m in r["map"]:
+            if not m["finite"] or m["shape"] != [cfg.vocab_size] or m["flash_fwd_launches"] != cfg.n_layers:
+                raise AssertionError(f"fleet: a forward_last result: {m}")
+            _add_launches(ctx, "flash_fwd", m["flash_fwd_launches"])
+        shas = [m["logits_sha256"] for m in r["map"]]
+        if shas[:4] != shas[4:]:
+            raise AssertionError(f"fleet: repeated prompts gave different logits: {shas}")
+        cli_shas = ctx.get("cli", {}).get("shas") or []
+        if any(shas[i] != s for i, s in enumerate(cli_shas)):
+            raise AssertionError(f"fleet: logits {shas[:len(cli_shas)]}, the cli phase's {cli_shas}")
+        pids = [m["pid"] for m in r["map"]]
+        before_pid = pids[0]
+        switched = next((i for i, p in enumerate(pids) if p != before_pid), None)
+        if switched is None or switched < FLEET_KILL_AFTER or len(set(pids[switched:])) != 1 \
+                or len(set(pids[:switched])) != 1:
+            raise AssertionError(f"fleet: container pids per output {pids}: no one replacement after the kill")
+        if not any(i < switched <= i + 4 for i in range(4)):
+            raise AssertionError(f"fleet: no repeated prompt straddles the kill (new container at output {switched})")
+
+        # the director's view: the takeover of the home shard
+        client = _Client(director)
+        client._open()
+        client.hello()
+        topo = json.loads(synchronizer.run(client._stub.director.ShardControl(
+            api_pb2.ShardControlRequest(action="status"))).payload_json)
+        takeovers = [e for e in topo["takeovers"] if e["dead_shard"] == home]
+        if len(takeovers) != 1:
+            raise AssertionError(f"fleet: the director's takeovers {topo['takeovers']}")
+        tk = takeovers[0]
+        succ = tk["successor"]
+        if (tk["mode"] != "replica" or tk["epoch"] != 2 or topo["epoch"] != 2 or tk["report"]["records_applied"] <= 0
+                or not topo["dead"][home] or topo["assignments"][home] != succ
+                or list(tk["phases"]) != ["start", "fence", "seal", "adopt", "remap", "rehome"]):
+            raise AssertionError(f"fleet: the takeover {tk}, topology {topo}")
+
+        async def shard_status(url):
+            stub = await client.get_stub(url)
+            return json.loads((await stub.ShardControl(api_pb2.ShardControlRequest(action="status"))).payload_json)
+
+        succ_status = synchronizer.run(shard_status(shard_urls[succ]))
+        if succ_status["workers"] != 2 or succ_status["takeovers"] != 1 or succ_status["fenced"]:
+            raise AssertionError(f"fleet: the successor's status {succ_status}: the dead shard's worker not rehomed")
+        # which shard and worker placed each container: the task id's
+        # partition, the plane the container talks to, and the worker's dir
+        placed = []
+        for m in (r["map"][0], r["map"][switched]):
+            placed.append({"pid": m["pid"], "task_id": m["task_id"], "minted_by_shard": partition_of_id(m["task_id"]),
+                           "talks_to_shard": shard_urls.index(m["server_url"]),
+                           "worker_of": os.path.basename(os.path.dirname(os.path.dirname(m["task_dir"])))})
+        if placed[0]["minted_by_shard"] != home or placed[1]["minted_by_shard"] != succ \
+                or placed[1]["talks_to_shard"] != succ:
+            raise AssertionError(f"fleet: container placements {placed}")
+
+        # one container at a time holds the card: nvidia-smi's compute apps
+        # beside those of before the run, at each output (the sandbox shows
+        # every process as one pid, so they are counted)
+        base = r["card_before"]["compute_apps"]
+        held = [m["card"]["compute_apps"] - base for m in r["map"]]
+        if held != [1] * 8:
+            raise AssertionError(f"fleet: compute apps beside this process's at each output {held}")
+
+        # the journal's replica streams: both survivors hold the dead
+        # writer's stream, sealed at the takeover's epoch
+        status = json.loads(_cli(env, "journal", "status", "--json")[0])
+        sealed = {}
+        for st in status["shards"]:
+            idx = int(os.path.basename(os.path.dirname(st["dir"])).rsplit("-", 1)[1])
+            for s in st["replica_streams"]:
+                if s["writer"] == home:
+                    sealed[idx] = (s["sealed_epoch"], s["sealed_seq"], s["last_seq"])
+        if sorted(sealed) != sorted({0, 1, 2} - {home}) or any(e != 2 for e, _s, _l in sealed.values()):
+            raise AssertionError(f"fleet: replica streams of shard {home}: {sealed}")
+        bundle_text, times["debug bundle"] = _cli(env, "debug", "bundle", "--json")
+        bundle = json.loads(bundle_text)
+        pms = [pm for pm in bundle["postmortems"] if pm["event"] == "takeover"]
+        if not pms:
+            raise AssertionError(f"fleet: `debug bundle` postmortems {[pm['event'] for pm in bundle['postmortems']]}")
+        top_text, times["top"] = _cli(env, "top", "--once", "--json")
+        top = json.loads(top_text)
+        fed = top.get("federation") or {}
+        if (fed.get("shards") != sorted({0, 1, 2} - {home}) or fed.get("dead") != [home]
+                or (top.get("fleet") or {}).get("control_shards_active") != 2.0):
+            raise AssertionError(f"fleet: `top --once --json` federation {fed}, fleet {top.get('fleet')}")
+        with open(os.path.join(state_dir, "observability", "metrics_url")) as f:
+            metrics_url = f.read().strip()
+        hist = json.loads(urllib.request.urlopen(
+            metrics_url[: -len("/metrics")] + "/metrics/history?query=series&family=modal_tpu_control_shards_active"
+            "&window_s=3600", timeout=30).read())
+        active = [p[1] for pts in hist["series"].values() for p in sorted(pts)]
+        if 3.0 not in active or active[-1] != 2.0:
+            raise AssertionError(f"fleet: the fleet-merged modal_tpu_control_shards_active series {active}")
+        metrics = _parse_prometheus(urllib.request.urlopen(metrics_url, timeout=30).read().decode())
+        quorum = _quantiles_of(metrics, "modal_tpu_journal_quorum_commit_seconds")
+        lag = {k.split('follower="', 1)[1].split('"', 1)[0]: v for k, v in metrics.items()
+               if k.startswith("modal_tpu_journal_replication_lag_seconds{")}
+        launches = {k.split('kernel="', 1)[1].split('"', 1)[0]: v for k, v in metrics.items()
+                    if k.startswith("modal_tpu_kernel_launches{")}
+        if launches.get("flash_fwd") != r["map"][-1]["container_launches"]["flash_fwd"]:
+            raise AssertionError(f"fleet: the heartbeat's flash_fwd {launches}, the last container's own "
+                                 f"{r['map'][-1]['container_launches']}")
+        if not quorum.get("count"):
+            raise AssertionError("fleet: no quorum commit was observed")
+        out.update(map_pids=pids, switched_at=switched, shas=shas, takeover=tk, successor_status=succ_status,
+                   placed=placed, compute_apps=held, card_used=[m["card"]["used_bytes"] for m in r["map"]],
+                   sealed=sealed, quorum_commit_s=quorum, replication_lag_s=lag, control_shards_active=active,
+                   postmortems=len(pms), pings_ms=[p["ms"] for p in r["pings"]], map_s=r["map_s"],
+                   heartbeat_launches=launches)
+    finally:
+        if client is not None:
+            client._close()
+        if server is not None and server.poll() is None:
+            server.terminate()
+            try:
+                server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    # the app's end stopped its container: nothing of the fleet holds the card
+    deadline = time.time() + 60
+    while _compute_apps() > base:
+        if time.time() > deadline:
+            raise AssertionError(f"fleet: {_compute_apps() - base} compute apps outlived the plane")
+        time.sleep(1.0)
+    ph = tk["phases"]
+    steps = ", ".join(f"{b} {ph[b] - ph[a]:.3f}s" for a, b in zip(list(ph)[:-1], list(ph)[1:]))
+    arrivals = [m["t_arrival"] for m in r["map"]]
+    log(f"[fleet] `run {os.path.basename(app_file)}::main` {times['run']:.2f}s: forward_last.map over 8 prompts "
+        f"({lens} tokens) in {r['map_s']:.2f}s through the ShardRouterStub; chaos shard_kill of home shard {home} "
+        f"after output {FLEET_KILL_AFTER}; every index once, flash_fwd {cfg.n_layers} launches each, repeated "
+        f"prompts bit-equal across the kill"
+        + (", logits equal to the cli phase's" if cli_shas else " (cli phase did not run)")
+        + f"; container pid {pids[0]} → {pids[switched]} at output {switched} | {smi}")
+    log(f"[fleet] takeover of shard {home} by shard {succ} (mode {tk['mode']}, epoch {tk['epoch']}, "
+        f"{tk['report']['records_applied']} records applied, sealed seq {tk['report'].get('sealed_seq')}) in "
+        f"{tk['seconds']:.3f}s: {steps}; takeover start → next output "
+        f"{arrivals[switched] - ph['start']:.2f}s, previous output → next output "
+        f"{arrivals[switched] - arrivals[switched - 1]:.2f}s (a fresh container: llama3-8b built again) | {smi}")
+    log(f"[fleet] quorum commit (modal_tpu_journal_quorum_commit_seconds, {int(quorum['count'])} commits): p50 "
+        f"{quorum.get('p50', float('nan')) * 1e3:.3f} ms, p95 {quorum.get('p95', float('nan')) * 1e3:.3f} ms; "
+        f"replication lag by follower {lag}; survivors' sealed streams of shard {home} (epoch, sealed seq, last "
+        f"seq) {sealed} | {smi}")
+    app_ms = ctx.get("app", {}).get("warm", {}).get("app_ms")
+    log(f"[fleet] warm .remote() through the director, {FLEET_WARM_ROUNDS} pings, median "
+        f"{statistics.median(out['pings_ms']):.2f} [{min(out['pings_ms']):.2f}, {max(out['pings_ms']):.2f}] ms"
+        + (f"; the app phase's warm monolith .remote() median {statistics.median(app_ms):.2f} ms" if app_ms else "")
+        + f" | {smi}")
+    log(f"[fleet] containers: {placed}; compute apps beside this process's at each output {held}, card memory used "
+        f"{[round(b / 1e9, 2) for b in out['card_used']]} GB; control_shards_active {active[0]:.0f} → "
+        f"{active[-1]:.0f}; takeover postmortems {len(pms)}; heartbeat flash_fwd {launches.get('flash_fwd')} "
+        f"| {smi}")
+    log("[fleet] wall time per command: " + ", ".join(f"{k} {v:.2f}s" for k, v in times.items()) + f" | {smi}")
+    ctx["fleet"] = out
+
+
 # -- sandbox: a gpu="H100" sandbox on the card ---------------------------------
 
 
@@ -6417,8 +6830,8 @@ KERNELS = {
 # the phases whose run each kernel's launch count is read from
 PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "image", "cli", "graphs", "weights", "volume", "int8",
                           "spec", "disagg", "web", "observe", "disagg_http"),
-         "flash_fwd": ("app", "image", "cli", "sandbox", "weights", "volume", "observe", "forward", "train", "moe",
-                       "mesh"),
+         "flash_fwd": ("app", "image", "cli", "fleet", "sandbox", "weights", "volume", "observe", "forward", "train",
+                       "moe", "mesh"),
          "flash_bwd_dq": ("volume", "train", "moe", "mesh"),
          "flash_bwd_dkv": ("volume", "train", "moe", "mesh")}
 

@@ -16,8 +16,9 @@ its definition, and `schedule=` fires it from the control plane's cron loop.
 paths to Volumes and CloudBucketMounts, and `@clustered` makes a function a
 gang. `runtime_debug=True` profiles each input with torch.profiler in the
 container (runtime/container_entrypoint.py), and `proxy=` binds a
-static-egress Proxy. What waits for a later sub-slice of ROADMAP Queue A is
-refused at decoration with InvalidError naming it: `cloud=` (4e).
+static-egress Proxy. `cloud=` rides the definition (`cloud_provider_str`),
+which neither package's plane places by; `tpu=` is refused with
+InvalidError.
 """
 
 from __future__ import annotations
@@ -53,16 +54,7 @@ def _get_default_image() -> _Image:
     return _default_image
 
 
-def _refuse_waiting(**asked: Any) -> None:
-    """InvalidError for the first decorator argument whose feature waits for
-    a later sub-slice of ROADMAP Queue A."""
-    waits = {
-        "cloud": "cloud= waits for the port's multi-cloud placement (ROADMAP Queue A 4e)",
-        "tpu": "tpu= asks for TPU chips, which the port does not place: ask for cards with gpu=",
-    }
-    for name, value in asked.items():
-        if value:
-            raise InvalidError(waits[name])
+TPU_REFUSAL = "tpu= asks for TPU chips, which the port does not place: ask for cards with gpu="
 
 
 @dataclass
@@ -206,7 +198,8 @@ class _App:
             raise InvalidError("Did you forget parentheses? Use @app.function().")
         if payload_format not in ("pickle", "cbor"):
             raise InvalidError(f"payload_format must be 'pickle' or 'cbor', got {payload_format!r}")
-        _refuse_waiting(cloud=cloud, tpu=tpu)
+        if tpu:
+            raise InvalidError(TPU_REFUSAL)
         gpu_spec = parse_gpu_config(gpu, mesh)
 
         def wrapper(f: Union[Callable, _PartialFunction]) -> _Function:
@@ -228,6 +221,7 @@ class _App:
                 volumes={**self._volumes, **(volumes or {})},
                 mounts=list(mounts),
                 proxy=proxy,
+                cloud=cloud,
                 gpu=gpu_spec,
                 cpu=cpu,
                 memory=memory,

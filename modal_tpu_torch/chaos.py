@@ -2,10 +2,12 @@
 modal_tpu/chaos.py).
 
 `LocalSupervisor` attaches one ChaosPolicy to the control-plane servicer
-(through `ChaosServicerProxy`), the blob server's HTTP routes, the
-servicer's output stream, the warm pool's handoff and each worker's
-heartbeats, so a single policy object drives faults across the plane,
-reproducibly by seed.
+and the input plane (through `ChaosServicerProxy`), the blob server's HTTP
+routes, the servicer's output stream, the warm pool's handoff, each
+worker's heartbeats and the follower side of journal replication, so a
+single policy object drives faults across the plane, reproducibly by seed.
+A sharded plane (server/shards.py) owns the shard and director events and
+hands each shard an event-less clone.
 
 Determinism: every RPC name gets its own PRNG stream seeded with
 ``(seed, rpc_name)``. The k-th call of an RPC draws the same decision
@@ -19,17 +21,16 @@ Fault classes:
   before the handler runs;
 - latency: a per-call extra delay drawn from the same stream;
 - budgeted faults: named counters that fail the next N calls of an RPC
-  family (``fail_put_inputs`` etc.), and the lifecycle knobs a component
-  drains itself (``warm_kill_handoff``, ``stream_reset``);
+  family across both planes (``fail_put_inputs`` covers FunctionPutInputs,
+  FunctionMap, MapStartOrContinue and AttemptStart), and the lifecycle
+  knobs a component drains itself (``warm_kill_handoff``, ``stream_reset``
+  and the follower's ``repl_torn_tail``, ``repl_disk_full`` and
+  ``repl_ack_drop``);
 - scheduled events: one-shot ``supervisor_crash``, ``worker_kill``,
-  ``worker_preempt`` and ``heartbeat_blackhole`` events that fire once N
-  outputs exist (the output count is the deterministic clock of a map).
-
-What waits for a later sub-slice (ROADMAP Queue A) is refused by name, at
-the supervisor's boot for an environment variable and at construction for
-code, never ignored: the ``repl_*`` knobs wait for replication, the
-``shard_*`` and ``director_blackhole`` events for shards, and the input
-plane's RPCs join their knob families with the input plane.
+  ``worker_preempt`` and ``heartbeat_blackhole`` events, and the sharded
+  plane's ``shard_kill``, ``shard_partition`` and ``director_blackhole``,
+  that fire once N outputs exist (the output count is the deterministic
+  clock of a map).
 """
 
 from __future__ import annotations
@@ -50,11 +51,9 @@ from .exception import InvalidError
 KNOB_RPCS: dict[str, frozenset] = {
     "fail_get_inputs": frozenset({"FunctionGetInputs", "FunctionExchange"}),
     "fail_put_outputs": frozenset({"FunctionPutOutputs", "FunctionExchange"}),
-    "fail_put_inputs": frozenset({"FunctionPutInputs", "FunctionMap"}),
-    "fail_get_outputs": frozenset({"FunctionGetOutputs"}),
+    "fail_put_inputs": frozenset({"FunctionPutInputs", "FunctionMap", "MapStartOrContinue", "AttemptStart"}),
+    "fail_get_outputs": frozenset({"FunctionGetOutputs", "MapAwait", "AttemptAwait"}),
 }
-# the input plane's members of those families (MapStartOrContinue and
-# AttemptStart; MapAwait and AttemptAwait) wait for the input plane sub-slice
 
 HEARTBEAT_RPCS = frozenset({"ContainerHeartbeat", "WorkerHeartbeat"})
 
@@ -64,7 +63,12 @@ HEARTBEAT_RPCS = frozenset({"ContainerHeartbeat", "WorkerHeartbeat"})
 # placement falls back to a fresh spawn. stream_reset: FunctionStreamOutputs
 # aborts UNAVAILABLE mid-stream; the client degrades to the unary poll rung
 # and the call completes exactly once.
-LIFECYCLE_KNOBS = frozenset({"warm_kill_handoff", "stream_reset"})
+# repl_torn_tail / repl_disk_full / repl_ack_drop: the replica store
+# (server/replication.py) writes half a record line, refuses an append, or
+# appends durably and drops the ack, for its next N appends.
+LIFECYCLE_KNOBS = frozenset(
+    {"warm_kill_handoff", "stream_reset", "repl_torn_tail", "repl_disk_full", "repl_ack_drop"}
+)
 
 # HTTP blob routes are injected under pseudo-RPC names, so one policy and
 # one rate table cover the gRPC and HTTP planes alike.
@@ -72,33 +76,17 @@ BLOB_RPCS = frozenset(
     {"BlobPut", "BlobGet", "BlobPutPart", "BlobComplete", "BlockGet", "VolumeFileGet"}
 )
 
-# what waits, and for which sub-slice of ROADMAP Queue A
-WAITING_KNOBS: dict[str, str] = {
-    "repl_torn_tail": "replication",
-    "repl_disk_full": "replication",
-    "repl_ack_drop": "replication",
-}
-WAITING_EVENTS: dict[str, str] = {
-    "shard_kill": "shards",
-    "shard_partition": "shards",
-    "director_blackhole": "shards",
-}
-WAITING_ENV: dict[str, str] = {
-    "MODAL_TPU_CHAOS_SHARD_KILL_AFTER": "shards",
-    "MODAL_TPU_CHAOS_SHARD_PARTITION": "shards",
-    "MODAL_TPU_CHAOS_REPL_TORN_TAIL": "replication",
-    "MODAL_TPU_CHAOS_REPL_DISK_FULL": "replication",
-    "MODAL_TPU_CHAOS_REPL_ACK_DROP": "replication",
-    "MODAL_TPU_CHAOS_REPL_LAG_MS": "replication",
-}
-EVENT_KINDS = frozenset({"supervisor_crash", "worker_kill", "worker_preempt", "heartbeat_blackhole"})
-
-
-def _waiting(what: str, sub_slice: str) -> InvalidError:
-    return InvalidError(
-        f"chaos {what} waits for the {sub_slice} sub-slice of modal_tpu_torch "
-        f"(ROADMAP Queue A); this plane has no {sub_slice} yet"
-    )
+EVENT_KINDS = frozenset(
+    {
+        "supervisor_crash",
+        "worker_kill",
+        "worker_preempt",
+        "heartbeat_blackhole",
+        "shard_kill",
+        "shard_partition",
+        "director_blackhole",
+    }
+)
 
 
 @dataclass
@@ -109,9 +97,14 @@ class ChaosEvent:
     inputs requeued, checkpoint flush), ``worker_kill`` (SIGKILL the
     worker's containers, no grace), ``heartbeat_blackhole`` (drop heartbeat
     RPCs for `duration_s`), ``supervisor_crash`` (abandon the control
-    plane's state and rebuild it from the journal, server/journal.py).
-    ``shard_index`` is the JAX package's target of its shard events, which
-    wait for the shards sub-slice.
+    plane's state and rebuild it from the journal, server/journal.py),
+    ``shard_kill`` (kill shard `shard_index` with no drain and no flush; the
+    director's health loop takes its partition over, server/shards.py),
+    ``shard_partition`` (cut shard `shard_index` off the director's health
+    probes for `duration_s` while it keeps running: a false death, fenced
+    before its partition is adopted) and ``director_blackhole`` (the
+    director drops the RPCs it routes for `duration_s`; clients ride their
+    shard map and retries).
     """
 
     kind: str
@@ -140,8 +133,6 @@ class ChaosPolicy:
         max_faults: Optional[int] = None,
     ):
         for ev in events or ():
-            if ev.kind in WAITING_EVENTS:
-                raise _waiting(f"event {ev.kind!r}", WAITING_EVENTS[ev.kind])
             if ev.kind not in EVENT_KINDS:
                 raise InvalidError(f"unknown chaos event kind {ev.kind!r} (have {sorted(EVENT_KINDS)})")
         self.seed = seed
@@ -154,6 +145,9 @@ class ChaosPolicy:
         self.max_faults = max_faults
         # budgeted one-shot faults
         self.fail_counts: dict[str, int] = {}
+        # extra delay before each replicated append batch (the writer side
+        # of server/replication.py): stresses the quorum commit's timeout
+        self.repl_lag_ms = 0.0
         # observability
         self.call_counts: dict[str, int] = {}
         self.injected: dict[str, int] = {}
@@ -182,13 +176,16 @@ class ChaosPolicy:
           interpreters mid-handoff; the placements fall back to fresh spawns)
         - MODAL_TPU_CHAOS_STREAM_RESETS (int N: abort the next N
           FunctionStreamOutputs streams mid-flight)
-
-        The variables of the knobs that wait (WAITING_ENV) raise InvalidError
-        naming their sub-slice when set, whether or not chaos is on.
+        - MODAL_TPU_CHAOS_SHARD_KILL_AFTER ("shard:outputs" pairs, e.g.
+          "1:50,2:200": kill shard 1 after 50 outputs, shard 2 after 200; a
+          bare int targets shard 1)
+        - MODAL_TPU_CHAOS_SHARD_PARTITION ("shard:outputs[:duration_s]": cut
+          the shard off the director's health probes; it stays alive)
+        - MODAL_TPU_CHAOS_REPL_TORN_TAIL / _REPL_DISK_FULL / _REPL_ACK_DROP
+          (int N: budgeted follower-side replication faults)
+        - MODAL_TPU_CHAOS_REPL_LAG_MS (float: extra delay before every
+          replicated append batch)
         """
-        for env_name, sub_slice in WAITING_ENV.items():
-            if os.environ.get(env_name, "").strip():
-                raise _waiting(f"knob {env_name}", sub_slice)
         if os.environ.get("MODAL_TPU_CHAOS", "") not in ("1", "true", "yes"):
             return None
         events: list[ChaosEvent] = []
@@ -203,6 +200,23 @@ class ChaosPolicy:
                 logger.warning(
                     f"ignoring malformed MODAL_TPU_CHAOS_SUPERVISOR_CRASH_AFTER token {part!r}"
                 )
+        for env_name, kind in (
+            ("MODAL_TPU_CHAOS_SHARD_KILL_AFTER", "shard_kill"),
+            ("MODAL_TPU_CHAOS_SHARD_PARTITION", "shard_partition"),
+        ):
+            for part in filter(None, (p.strip() for p in os.environ.get(env_name, "").split(","))):
+                try:
+                    pieces = part.split(":")
+                    if len(pieces) == 1:
+                        shard, after, duration = 1, int(pieces[0]), 10.0
+                    else:
+                        shard, after = int(pieces[0]), int(pieces[1])
+                        duration = float(pieces[2]) if len(pieces) > 2 else 10.0
+                    events.append(
+                        ChaosEvent(kind=kind, after_outputs=after, shard_index=shard, duration_s=duration)
+                    )
+                except ValueError:
+                    logger.warning(f"ignoring malformed {env_name} token {part!r}")
         default_rate = float(os.environ.get("MODAL_TPU_CHAOS_ERROR_RATE", "0") or 0)
         rates: dict[str, float] = {}
         spec = os.environ.get("MODAL_TPU_CHAOS_RPCS", "")
@@ -225,6 +239,9 @@ class ChaosPolicy:
         for env_name, knob in (
             ("MODAL_TPU_CHAOS_WARM_KILL_HANDOFF", "warm_kill_handoff"),
             ("MODAL_TPU_CHAOS_STREAM_RESETS", "stream_reset"),
+            ("MODAL_TPU_CHAOS_REPL_TORN_TAIL", "repl_torn_tail"),
+            ("MODAL_TPU_CHAOS_REPL_DISK_FULL", "repl_disk_full"),
+            ("MODAL_TPU_CHAOS_REPL_ACK_DROP", "repl_ack_drop"),
         ):
             try:
                 budget = int(os.environ.get(env_name, "0") or 0)
@@ -233,6 +250,10 @@ class ChaosPolicy:
                 logger.warning(f"ignoring malformed {env_name}")
             if budget > 0:
                 policy.fail_counts[knob] = budget
+        try:
+            policy.repl_lag_ms = max(0.0, float(os.environ.get("MODAL_TPU_CHAOS_REPL_LAG_MS", "0") or 0))
+        except ValueError:
+            logger.warning("ignoring malformed MODAL_TPU_CHAOS_REPL_LAG_MS")
         return policy
 
     # -- deterministic decision engine --------------------------------------
@@ -345,8 +366,6 @@ class ChaosPolicy:
     # -- the knob surface ------------------------------------------------------
 
     def set_knob(self, knob: str, count: int) -> None:
-        if knob in WAITING_KNOBS:
-            raise _waiting(f"knob {knob!r}", WAITING_KNOBS[knob])
         if knob not in KNOB_RPCS and knob not in LIFECYCLE_KNOBS:
             raise KeyError(
                 f"unknown chaos knob {knob!r} (have {sorted(KNOB_RPCS) + sorted(LIFECYCLE_KNOBS)})"

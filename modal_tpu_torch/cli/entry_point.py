@@ -12,11 +12,10 @@ package's. Where the port differs:
   package shows its TPU chips.
 - `lint` keeps its options and refuses: the static analysis (`analysis/`)
   waits for its sub-slice (ROADMAP Queue A).
-- `journal status` and `journal compact` have no replica streams: journal
-  replication waits for its sub-slice. The readers of a sharded fleet's
-  files (`_shard_dirs`, `_shard_topology_hint`, the shard rows of `top`,
-  the per-shard span dirs of `trace gc`) are the JAX package's and find
-  nothing on a single plane.
+- `journal compact` of a sharded root installs each shard's fresh snapshot
+  in its siblings' replica streams under the journal's own snapshot name
+  (`snapshot-<seq:012d>.jsonl`); the JAX command names the file without the
+  zero padding and so replicates nothing (ROADMAP Queue C 44).
 
 A command that does not touch a card (`app list`, `volume ls`, `metrics`,
 `top --once`, `debug bundle`, `journal status`, ...) never imports torch:
@@ -50,13 +49,9 @@ def cli() -> None:
 def _refuse_tpu(ctx: click.Context, param: click.Parameter, value: Optional[str]) -> None:
     """`--tpu` is refused as a `tpu=` decorator argument is (app.py)."""
     if value:
-        from ..app import _refuse_waiting
-        from ..exception import InvalidError
+        from ..app import TPU_REFUSAL
 
-        try:
-            _refuse_waiting(tpu=value)
-        except InvalidError as exc:
-            raise click.UsageError(str(exc), ctx=ctx)
+        raise click.UsageError(TPU_REFUSAL, ctx=ctx)
 
 
 _refuse_tpu_option = click.option(
@@ -258,7 +253,7 @@ def server(port: int, workers: int, state_dir: Optional[str]) -> None:
 
 LINT_WAITS = (
     "lint waits for the analysis sub-slice of modal_tpu_torch (ROADMAP Queue A: "
-    "analysis/ with lint, after federation); the port has no static-analysis suite yet"
+    "analysis/ with lint, the next sub-slice); the port has no static-analysis suite yet"
 )
 
 
@@ -1105,32 +1100,67 @@ def _open_journal(state_dir: Optional[str]):
 @click.option("--json", "as_json", is_flag=True, help="Machine-readable status.")
 def journal_status(state_dir: Optional[str], as_json: bool) -> None:
     """Journal health: sequence position, snapshot coverage, segment sizes,
-    record counts by type. A sharded root (<root>/shard-*/) gets a per-shard
-    summary. The port's planes keep one copy of their journal: replication
-    waits for its sub-slice (ROADMAP Queue A), so no replica streams show."""
+    record counts by type, and the replica streams a shard holds for its
+    peers (server/replication.py), read off disk. A sharded root
+    (<root>/shard-*/) gets a per-shard summary."""
     from ..config import config as _config
     from ..server.journal import Journal
+    from ..server.replication import offline_stream_status, quorum_acks_needed, replicas_configured
 
     root = state_dir or _config["state_dir"]
     shards = _shard_dirs(root)
+    replicas = replicas_configured()
     if shards:
         statuses = []
         for sdir in shards:
             j = Journal(sdir)
-            statuses.append(j.status())
+            st = j.status()
             j.close()
+            st["replica_streams"] = offline_stream_status(sdir) if replicas > 0 else []
+            statuses.append(st)
         if as_json:
-            click.echo(json.dumps({"shards": statuses}, indent=2, sort_keys=True))
+            click.echo(
+                json.dumps(
+                    {
+                        "shards": statuses,
+                        "replication": {"replicas": replicas, "quorum_acks_needed": quorum_acks_needed(replicas)},
+                    },
+                    indent=2,
+                    sort_keys=True,
+                )
+            )
             return
-        click.echo(f"sharded control plane root {root} ({len(shards)} shard journal(s))")
+        click.echo(
+            f"sharded control plane root {root} ({len(shards)} shard journal(s), "
+            f"replication {replicas} follower(s)/writer"
+            + (f", quorum {quorum_acks_needed(replicas)} ack(s))" if replicas else " — off)")
+        )
+        writer_seqs = {}
+        for sdir, st in zip(shards, statuses):
+            try:
+                writer_seqs[int(os.path.basename(sdir).rsplit("-", 1)[1])] = st["seq"]
+            except (IndexError, ValueError):
+                pass
         for sdir, st in zip(shards, statuses):
             click.echo(f"  {os.path.basename(sdir):<10} seq {st['seq']:<8} "
                        f"snapshot<={st['snapshot_seq']:<8} {st['segments']} segment(s) "
                        f"{st['tail_records']} tail  {st['bytes']} bytes")
+            for stream in st["replica_streams"]:
+                seal = (
+                    f" SEALED@{stream['sealed_epoch']} seq<={stream['sealed_seq']}" if stream.get("sealed_epoch") else ""
+                )
+                lag = writer_seqs.get(stream["writer"], stream["last_seq"]) - stream["last_seq"]
+                click.echo(
+                    f"             replica of shard-{stream['writer']}: "
+                    f"seq {stream['last_seq']} epoch {stream['epoch']}"
+                    f" (lag {max(0, lag)} vs writer journal){seal}"
+                )
         return
     j = _open_journal(state_dir)
     st = j.status()
     j.close()
+    if replicas > 0:
+        st["replica_streams"] = offline_stream_status(root)
     if as_json:
         click.echo(json.dumps(st, indent=2, sort_keys=True))
         return
@@ -1140,6 +1170,9 @@ def journal_status(state_dir: Optional[str], as_json: bool) -> None:
     click.echo(f"  fsync per append: {'on' if st['fsync'] else 'off (page-cache durable)'}")
     for t, n in st["records_by_type"].items():
         click.echo(f"    {t:<20} {n}")
+    for stream in st.get("replica_streams") or []:
+        seal = f" SEALED@{stream['sealed_epoch']} seq<={stream['sealed_seq']}" if stream.get("sealed_epoch") else ""
+        click.echo(f"  replica of shard-{stream['writer']}: seq {stream['last_seq']} epoch {stream['epoch']}{seal}")
 
 
 @journal_group.command("compact")
@@ -1166,9 +1199,25 @@ def journal_compact(state_dir: Optional[str], force: bool) -> None:
                     f"{what} answers at {url} — live planes compact their own journals; "
                     "use --force to compact anyway (risks racing an open segment or a takeover)"
                 )
+    from ..server.replication import offline_replicate_snapshot, replicas_configured
+
     for target in targets:
         prefix = f"{os.path.basename(target)}: " if shards else ""
-        click.echo(prefix + _compact_one(target))
+        message, snapshot_path, snapshot_seq = _compact_one(target)
+        click.echo(prefix + message)
+        if shards and replicas_configured() > 0 and snapshot_seq > 0:
+            # a follower must never need the segments this compaction just
+            # pruned: the fresh snapshot goes into every sibling's stream
+            try:
+                writer = int(os.path.basename(target).rsplit("-", 1)[1])
+            except (IndexError, ValueError):
+                continue
+            updated = offline_replicate_snapshot(root, writer, snapshot_path, snapshot_seq)
+            if updated:
+                click.echo(
+                    f"{prefix}snapshot seq<={snapshot_seq} replicated to sibling shard(s) "
+                    + ", ".join(str(u) for u in updated)
+                )
 
 
 def _live_supervisor_url(root: str) -> Optional[str]:
@@ -1187,7 +1236,7 @@ def _live_supervisor_url(root: str) -> Optional[str]:
         return None
 
 
-def _compact_one(root: str) -> str:
+def _compact_one(root: str) -> tuple[str, str, int]:
     from ..server.journal import IdempotencyCache, Journal, recover_state, synthesize_records
     from ..server.state import ServerState
 
@@ -1199,14 +1248,15 @@ def _compact_one(root: str) -> str:
     state = ServerState(root)
     state.idempotency = IdempotencyCache(journal=None)
     report = recover_state(state, j)
-    j.write_snapshot(synthesize_records(state))
+    snapshot_path = j.write_snapshot(synthesize_records(state))
     after = j.status()
     j.close()
-    return (
+    message = (
         f"compacted: {before['tail_records']} tail record(s) -> snapshot at seq {after['snapshot_seq']} "
         f"({before['bytes']} -> {after['bytes']} bytes); "
         f"replayed {report['records_applied']} record(s), {report['open_calls']} open call(s)"
     )
+    return message, snapshot_path, int(after["snapshot_seq"])
 
 
 def _parse_prometheus(text: str) -> dict:

@@ -18,9 +18,11 @@ directory from its env (`MODAL_TPU_SERVER_UDS`, `MODAL_TPU_BLOB_LOCAL_DIR`);
 any other client from ClientHello. A path this process cannot stat keeps
 the stub on TCP and HTTP.
 
-The shard router waits for the shard fleet (ROADMAP Queue A 4e): a sharded
-control plane's director is used for every call, as the JAX client does
-with a one-owner shard map.
+A sharded control plane's director (server/shards.py) sends a shard map
+at ClientHello: with more than one owner the stub becomes a
+`ShardRouterStub`, which dials the owning shard of each routable unary RPC
+and leaves streams and unroutable RPCs to the director. With
+MODAL_TPU_SHARDS > 1, the auto-booted plane is a sharded one.
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ class _Client:
         self._owner_pid = os.getpid()
         self.image_builder_version: Optional[str] = None
         self.input_plane_url: Optional[str] = None
+        # the input plane's Unix socket, by its URL (from ClientHello): a
+        # get_stub of that URL takes the socket rung
+        self._uds_by_url: dict[str, str] = {}
         self._auth_token_manager: Optional[Any] = None
         # the TCP stub under the fast-path ladder: hello() re-wraps it once
         # the server advertises its local coordinates
@@ -136,13 +141,16 @@ class _Client:
         return self._stub
 
     async def get_stub(self, server_url: str) -> ModalTPUStub:
-        """Stub for an alternate server URL (input plane, worker data plane),
-        cached per URL (reference client.py:135); in process when the URL is
-        a plane of this process."""
+        """Stub for an alternate server URL (input plane, a shard, worker
+        data plane), cached per URL (reference client.py:135); in process
+        when the URL is a plane of this process, over its socket when
+        ClientHello named one."""
         if server_url not in self._stub_cache:
             channel = create_channel(server_url, metadata=self._metadata())
             self._channel_cache[server_url] = channel
-            self._stub_cache[server_url] = self._wrap_fastpath(server_url, ModalTPUStub(channel))
+            self._stub_cache[server_url] = self._wrap_fastpath(
+                server_url, ModalTPUStub(channel), uds_path=self._uds_by_url.get(server_url, "")
+            )
         return self._stub_cache[server_url]
 
     async def get_input_plane_metadata(self) -> list[tuple[str, str]]:
@@ -156,10 +164,9 @@ class _Client:
         return [("x-modal-tpu-auth-token", token)]
 
     async def hello(self) -> None:
-        """Learn the server's capabilities. The local coordinates it
-        advertises re-point the stub at the fast-path ladder when this
-        process can stat them; the input plane's socket and a shard map wait
-        for the input plane and the shard router (ROADMAP Queue A 4e)."""
+        """Learn the server's capabilities: the input plane's URL and socket,
+        the local coordinates that re-point the stub at the fast-path ladder
+        when this process can stat them, and a sharded plane's shard map."""
         resp = await retry_transient_errors(
             self.stub.ClientHello,
             api_pb2.ClientHelloRequest(client_version=CLIENT_VERSION, client_type=self.client_type),
@@ -168,10 +175,24 @@ class _Client:
             logger.warning(resp.warning)
         self.image_builder_version = resp.image_builder_version or None
         self.input_plane_url = resp.input_plane_url or None
+        if resp.input_plane_url and resp.input_plane_uds_path:
+            self._uds_by_url[resp.input_plane_url] = resp.input_plane_uds_path
         if self._stub_tcp is not None and (resp.uds_path or resp.blob_local_dir):
             self._stub = self._wrap_fastpath(
                 self.server_url, self._stub_tcp, uds_path=resp.uds_path, blob_local_dir=resp.blob_local_dir
             )
+        # a shard map with more than one owner: unary RPCs dial their owning
+        # shard, and the director leaves the data path
+        if resp.shard_map_json:
+            import json
+
+            from ._utils.shard_router import ShardRouterStub
+
+            shard_map = json.loads(resp.shard_map_json)
+            if isinstance(self._stub, ShardRouterStub):
+                self._stub.update_map(shard_map)
+            elif len(shard_map.get("urls") or []) > 1:
+                self._stub = ShardRouterStub(self, self._stub, shard_map)
 
     async def __aenter__(self) -> "_Client":
         await self._open()
@@ -206,7 +227,17 @@ class _Client:
             pass
         from .server.supervisor import LocalSupervisor
 
-        sup = LocalSupervisor(num_workers=1, port=int(port_s))
+        # MODAL_TPU_SHARDS > 1 boots the sharded plane (server/shards.py)
+        try:
+            num_shards = int(os.environ.get("MODAL_TPU_SHARDS", "1") or 1)
+        except ValueError:
+            num_shards = 1
+        if num_shards > 1:
+            from .server.shards import ShardedSupervisor
+
+            sup: Any = ShardedSupervisor(num_shards=num_shards, num_workers=1, port=int(port_s))
+        else:
+            sup = LocalSupervisor(num_workers=1, port=int(port_s))
         try:
             await sup.start()
         except Exception as exc:  # noqa: BLE001 — e.g. lost a port race

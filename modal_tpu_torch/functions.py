@@ -14,13 +14,16 @@ Resources carry a `GPUConfig` (`gpu="H100"`, `"H100:8"`, parsed by
 CloudBucketMounts (`cloud_bucket_mounts`); a `@clustered` function is a gang
 (`group_size`, `broadcast_inputs`, `fabric_size`); `target_ttft_ms` and
 `target_tokens_per_replica` feed the plane's SLO autoscaler; `proxy=` binds
-a static-egress Proxy (its containers see `MODAL_TPU_PROXY_IP`). What waits
-for a later sub-slice of ROADMAP Queue A, refused with InvalidError when a
-function asks for it: `cloud=` (4e). Every
-call goes through the control plane (the region-local input plane,
-`_InputPlaneInvocation` and the Attempt* RPCs, comes with 4e); concurrent
-FunctionMaps coalesce into one FunctionMapBatch through the client's
-micro-batcher (`_utils/coalescer.py`), as the JAX client's do. A web
+a static-egress Proxy (its containers see `MODAL_TPU_PROXY_IP`), and
+`cloud=` rides the definition (`cloud_provider_str`), as in the JAX
+package. A `.remote()` goes through the input plane
+(`_InputPlaneInvocation`: AttemptStart, AttemptAwait and AttemptRetry with
+the plane's JWT, server/input_plane.py) when ClientHello named one and
+MODAL_TPU_DISABLE_INPUT_PLANE is not 1, as the JAX client's does; else
+through the control plane's FunctionMap. Concurrent AttemptStarts coalesce
+into one AttemptStartBatch, and concurrent FunctionMaps into one
+FunctionMapBatch, through the client's micro-batcher
+(`_utils/coalescer.py`). A web
 function's URL comes from `get_web_url`, long-polled while its container
 boots.
 """
@@ -28,6 +31,7 @@ boots.
 from __future__ import annotations
 
 import asyncio
+import os
 import random
 import time
 import typing
@@ -47,7 +51,7 @@ from .exception import ExecutionError, FunctionTimeoutError, InvalidError, NotFo
 from .gpu_config import GPUSpec, parse_gpu_config
 from .object import LoadContext, Resolver, _Object, live_method, live_method_gen
 from .proto import api_pb2
-from .retries import Retries
+from .retries import Retries, RetryManager
 from .schedule import Schedule, SchedulerPlacement
 from .serialization import deserialize_data_format, deserialize_exception, serialize, serialize_payload_data_format
 
@@ -137,6 +141,7 @@ class _FunctionSpec:
     batch_wait_ms: int = 0
     schedule: Optional[Schedule] = None
     scheduler_placement: Optional[SchedulerPlacement] = None
+    cloud: Optional[str] = None  # cloud_provider_str; no plane places by it
     enable_memory_snapshot: bool = False
     restrict_output: bool = False
     # "pickle" (rich Python payloads) or "cbor" (cross-language wire format,
@@ -248,6 +253,7 @@ class _Function(_Object, type_prefix="fu"):
                 fabric_size=spec.fabric_size,
                 i6pn_enabled=spec.i6pn,
                 is_class=is_class,
+                cloud_provider_str=spec.cloud or "",
                 enable_memory_snapshot=spec.enable_memory_snapshot,
                 restrict_output=spec.restrict_output,
                 app_name=app.name or "",
@@ -439,6 +445,9 @@ class _Function(_Object, type_prefix="fu"):
     # Invocation side
     # ------------------------------------------------------------------
 
+    def _use_input_plane(self) -> bool:
+        return bool(self.client.input_plane_url and os.environ.get("MODAL_TPU_DISABLE_INPUT_PLANE") != "1")
+
     @live_method
     async def _call_function(self, args: tuple, kwargs: dict) -> Any:
         # root span of the distributed trace: the client's RPCs, the queue
@@ -454,7 +463,13 @@ class _Function(_Object, type_prefix="fu"):
         ) as root:
             try:
                 # client.prepare / client.await_output: the SDK's own wall
-                # time (serialize, FunctionMap) and the result wait
+                # time (serialize, FunctionMap or AttemptStart) and the
+                # result wait
+                if self._use_input_plane():
+                    with tracing.span("client.prepare"):
+                        ip_invocation = await _InputPlaneInvocation.create(self, args, kwargs, client=self.client)
+                    with tracing.span("client.await_output"):
+                        return await ip_invocation.run_function()
                 with tracing.span("client.prepare"):
                     invocation = await _Invocation.create(
                         self, args, kwargs, client=self.client, invocation_type=api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC
@@ -642,6 +657,37 @@ async def _submit_function_map(client: _Client, request: api_pb2.FunctionMapRequ
         return await retry_transient_errors(client.stub.FunctionMap, request)
     batcher = client._batchers.get("FunctionMap", lambda reqs: _flush_function_maps(client, reqs))
     return await batcher.submit(request)
+
+
+async def _flush_attempt_starts(client: _Client, stub, requests: list) -> list:
+    """One coalesced AttemptStart flush on the input plane, by
+    `_flush_function_maps`'s rule: one AttemptStartBatch for the window,
+    per-item AttemptStarts only after UNIMPLEMENTED or the server's upfront
+    NOT_FOUND (nothing executed). A sub-response with no token means the
+    function vanished mid-dispatch and fails its waiter alone."""
+    from .observability.catalog import FASTPATH_FALLBACKS
+
+    metadata = await client.get_input_plane_metadata()
+    if len(requests) > 1 and not getattr(client, "_attempt_batch_unsupported", False):
+        try:
+            resp = await retry_transient_errors(
+                stub.AttemptStartBatch, api_pb2.AttemptStartBatchRequest(requests=requests), metadata=metadata
+            )
+            return [
+                r if r.attempt_token else NotFoundError("function not found (removed mid-dispatch)")
+                for r in resp.responses
+            ]
+        except grpc.aio.AioRpcError as exc:
+            if exc.code() != grpc.StatusCode.UNIMPLEMENTED:
+                raise
+            client._attempt_batch_unsupported = True
+            FASTPATH_FALLBACKS.inc(rung="batch", reason="unimplemented")
+        except NotFoundError:
+            FASTPATH_FALLBACKS.inc(rung="batch", reason="validation")
+    return await asyncio.gather(
+        *(retry_transient_errors(stub.AttemptStart, r, metadata=metadata) for r in requests),
+        return_exceptions=True,
+    )
 
 
 async def _create_input(
@@ -960,6 +1006,99 @@ class _Invocation:
                     raise InvalidError("call produced a unary result, not a generator stream — use .get()")
                 continue
             await asyncio.sleep(0.01)
+
+
+MAX_INTERNAL_FAILURE_COUNT = 9
+
+
+class _InputPlaneInvocation:
+    """One call through the input plane (reference _InputPlaneInvocation,
+    _functions.py:394): AttemptStart, AttemptAwait and AttemptRetry with the
+    plane's JWT. Blobs still go through the control plane's stub; only the
+    invocation takes the input plane."""
+
+    def __init__(
+        self,
+        stub,
+        attempt_token: str,
+        client: _Client,
+        input_item: api_pb2.FunctionPutInputsItem,
+        function_id: str,
+        retry_policy: api_pb2.RetryPolicy,
+    ):
+        self.stub = stub
+        self.client = client
+        self.attempt_token = attempt_token
+        self.input_item = input_item
+        self.function_id = function_id
+        self.retry_policy = retry_policy
+
+    @staticmethod
+    async def create(
+        function: "_Function", args: tuple, kwargs: dict, *, client: _Client, method_name: str = ""
+    ) -> "_InputPlaneInvocation":
+        from ._utils.coalescer import coalescing_enabled
+
+        stub = await client.get_stub(client.input_plane_url)
+        item = await _create_input(
+            args,
+            kwargs,
+            client.stub,
+            method_name=method_name or function._use_method_name,
+            data_format=function._data_format,
+        )
+        request = api_pb2.AttemptStartRequest(function_id=function.object_id, input=item)
+        if coalescing_enabled():
+            batcher = client._batchers.get("AttemptStart", lambda reqs: _flush_attempt_starts(client, stub, reqs))
+            response = await batcher.submit(request)
+        else:
+            metadata = await client.get_input_plane_metadata()
+            response = await retry_transient_errors(stub.AttemptStart, request, metadata=metadata)
+        return _InputPlaneInvocation(stub, response.attempt_token, client, item, function.object_id, response.retry_policy)
+
+    async def run_function(self) -> Any:
+        user_retries = RetryManager(self.retry_policy)
+        user_retry_count = 0
+        internal_failure_count = 0
+        while True:
+            metadata = await self.client.get_input_plane_metadata()
+            response = await retry_transient_errors(
+                self.stub.AttemptAwait,
+                api_pb2.AttemptAwaitRequest(
+                    attempt_token=self.attempt_token, timeout=OUTPUTS_TIMEOUT, requested_at=time.time()
+                ),
+                attempt_timeout=OUTPUTS_TIMEOUT + 5.0,
+                max_retries=None,
+                metadata=metadata,
+            )
+            if not response.HasField("output"):
+                continue  # the poll window elapsed; await again
+            result = response.output.result
+            if result.status == api_pb2.GENERIC_STATUS_INTERNAL_FAILURE:
+                # a lost input (a worker's preemption): retried without
+                # spending the user's budget, paced by the policy's delays
+                internal_failure_count += 1
+                if internal_failure_count < MAX_INTERNAL_FAILURE_COUNT:
+                    await asyncio.sleep(user_retries.attempt_delay(internal_failure_count, jitter=True))
+                    await self._retry_input(metadata)
+                    continue
+            elif result.status not in (api_pb2.GENERIC_STATUS_SUCCESS, api_pb2.GENERIC_STATUS_TIMEOUT):
+                if user_retry_count < self.retry_policy.retries:
+                    user_retry_count += 1
+                    await asyncio.sleep(user_retries.attempt_delay(user_retry_count, jitter=True))
+                    await self._retry_input(metadata)
+                    continue
+            return await _process_result(result, response.output.data_format, self.client.stub, self.client)
+
+    async def _retry_input(self, metadata: list[tuple[str, str]]) -> None:
+        response = await retry_transient_errors(
+            self.stub.AttemptRetry,
+            api_pb2.AttemptRetryRequest(
+                function_id=self.function_id, input=self.input_item, attempt_token=self.attempt_token
+            ),
+            metadata=metadata,
+        )
+        self.attempt_token = response.attempt_token
 
 
 class _FunctionCall(_Object, type_prefix="fc"):

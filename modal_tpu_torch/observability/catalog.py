@@ -346,6 +346,32 @@ JOURNAL_COMPACTIONS = REGISTRY.counter(
     "modal_tpu_journal_compactions_total",
     "Journal compactions (snapshot written, covered segments pruned).",
 )
+# -- quorum journal replication (server/replication.py)
+
+JOURNAL_REPLICA_APPENDS = REGISTRY.counter(
+    "modal_tpu_journal_replica_appends_total",
+    "Replicated journal records this follower accepted (result=ok/snapshot) "
+    "or refused (stale_epoch/gap/disk_full/corrupt), per writer shard.",
+    ("writer", "result"),
+)
+JOURNAL_FENCE_REJECTIONS = REGISTRY.counter(
+    "modal_tpu_journal_fence_rejections_total",
+    "Stale-epoch journal replication messages rejected by this follower "
+    "(fencing tokens): a sustained storm means an undead writer.",
+    ("writer",),
+)
+JOURNAL_REPLICATION_LAG = REGISTRY.gauge(
+    "modal_tpu_journal_replication_lag_seconds",
+    "Age of the oldest journal record not yet acked by this follower "
+    "(0 = fully caught up).",
+    ("follower",),
+)
+JOURNAL_QUORUM_COMMIT_SECONDS = REGISTRY.histogram(
+    "modal_tpu_journal_quorum_commit_seconds",
+    "Wall time a mutating RPC waited at the quorum-commit barrier for "
+    "follower acks (server/replication.py).",
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.5, 2.5),
+)
 RECOVERIES = REGISTRY.counter(
     "modal_tpu_recoveries_total",
     "Control-plane recoveries from the journal, by outcome.",
@@ -472,4 +498,39 @@ FLIGHT_RECORDER_DUMPS = REGISTRY.counter(
     "Postmortem bundles frozen + dumped by the flight recorder, by trigger event "
     "(crash_restart|takeover|fence|alert).",
     ("event",),
+)
+
+# -- the sharded control plane and federation (server/shards.py,
+# observability/federation.py)
+
+CONTROL_SHARDS_ACTIVE = REGISTRY.gauge(
+    "modal_tpu_control_shards_active",
+    "Supervisor shards currently serving their partitions (dead/fenced shards excluded).",
+)
+SHARD_TAKEOVER_SECONDS = REGISTRY.gauge(
+    "modal_tpu_shard_takeover_seconds",
+    "Duration of the last journal-fed partition takeover (dead shard's segments replayed "
+    "into a surviving shard), by adopted partition.",
+    ("partition",),
+)
+SHARD_PLACEMENT_LATENCY = REGISTRY.histogram(
+    "modal_tpu_shard_placement_latency_seconds",
+    "Director-observed latency of routing one app-scoped RPC to its owning shard.",
+)
+DIRECTOR_REROUTES = REGISTRY.counter(
+    "modal_tpu_director_reroutes_total",
+    "RPCs the director re-routed away from their home shard (takeover reassignment or "
+    "shard-death retarget), by reason.",
+    ("reason",),
+)
+FEDERATION_QUERY_SECONDS = REGISTRY.histogram(
+    "modal_tpu_federation_query_seconds",
+    "Director-observed latency of one federated history query (fan-out to every live "
+    "shard's /metrics/history + merge), by query kind.",
+    ("query",),
+)
+FEDERATION_PARTIAL_ANSWERS = REGISTRY.counter(
+    "modal_tpu_federation_partial_answers_total",
+    "Federated queries answered from a strict subset of shards (a dead or timed-out "
+    "shard degraded the answer; the payload is labeled, never silently truncated).",
 )

@@ -6,9 +6,9 @@ observability state: cumulative metric snapshots at ~1 Hz, a span tail fed
 by a tracing tap, a journal tail fed by the journal's record tap, and
 recent chaos events. Nothing is written in steady state.
 
-On an event worth a look (``crash_restart``, or a burn-rate alert firing;
-the ``takeover`` and ``fence`` dumps wait for the shards sub-slice) the
-recorder freezes the rings, writes
+On an event worth a look (``crash_restart``, a shard's ``takeover`` or
+``fence``, a storm of ``fence_rejections``, or a burn-rate alert firing)
+the recorder freezes the rings, writes
 ``postmortem-<event>-<ts>.json`` under ``<state_dir>/observability/`` and
 resumes. ``python -m modal_tpu_torch.cli debug bundle`` collects the bundles
 and renders the merged timeline (cli/entry_point.py).

@@ -25,10 +25,12 @@ Failure story (reference parallel_map.py:241,793 + blob_utils.py:66):
 Every input rides a per-map MicroBatcher (a ~1 ms linger, at most
 MAP_INPUT_BATCH_SIZE a flush), as the JAX pump's do, so submission
 pipelines with the generator; MODAL_TPU_DISPATCH_COALESCE=0 puts them in
-batches of MAP_INPUT_BATCH_SIZE instead. The input plane's map transport
-(MapStartOrContinue / MapAwait) comes with ROADMAP Queue A 4e. Outputs
-arrive on one FunctionStreamOutputs stream, in process or over the plane's
-Unix socket when the plane is local (_utils/local_transport.py).
+batches of MAP_INPUT_BATCH_SIZE instead. A map goes through the input plane
+(MapStartOrContinue / MapAwait, `_InputPlaneMapTransport`) when the client's
+function would (`_Function._use_input_plane`), as the JAX client's does;
+else through the control plane, where its outputs arrive on one
+FunctionStreamOutputs stream, in process or over the plane's Unix socket
+when the plane is local (_utils/local_transport.py).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from ._utils.blob_utils import _ByteBudget
 from ._utils.function_utils import OUTPUTS_TIMEOUT
 from ._utils.grpc_utils import retry_transient_errors
 from .config import logger
+from .exception import InvalidError
 from .proto import api_pb2
 from .retries import RetryManager
 
@@ -188,6 +191,86 @@ class _ControlPlaneMapTransport:
         return list(resp.outputs), resp.last_entry_id or last_entry_id
 
 
+class _InputPlaneMapTransport:
+    """The input plane's map wire path (reference parallel_map.py:620):
+    MapStartOrContinue / MapAwait with the plane's JWT. The attempt token of
+    each item re-submits a failed attempt; blobs and MapCheckInputs stay on
+    the control plane."""
+
+    def __init__(self, client, ip_stub, function_id: str):
+        self.client = client
+        self.stub = ip_stub
+        self.function_id = function_id
+        self.token_by_idx: dict[int, str] = {}
+
+    @staticmethod
+    async def create_for(client, function_id: str) -> "_InputPlaneMapTransport":
+        ip_stub = await client.get_stub(client.input_plane_url)
+        return _InputPlaneMapTransport(client, ip_stub, function_id)
+
+    async def _start_or_continue(
+        self, call_id: str, items: list[api_pb2.MapStartOrContinueItem]
+    ) -> str:
+        metadata = await self.client.get_input_plane_metadata()
+        resp = await retry_transient_errors(
+            self.stub.MapStartOrContinue,
+            api_pb2.MapStartOrContinueRequest(
+                function_id=self.function_id, function_call_id=call_id, items=items
+            ),
+            max_retries=8,
+            max_delay=15.0,
+            additional_status_codes=_RESOURCE_EXHAUSTED,
+            metadata=metadata,
+        )
+        for item, token in zip(items, resp.attempt_tokens):
+            self.token_by_idx[item.input.idx] = token
+        return resp.function_call_id
+
+    async def create_call(self, return_exceptions: bool) -> str:
+        return await self._start_or_continue("", [])
+
+    async def put_batch(self, call_id: str, batch: list[api_pb2.FunctionPutInputsItem]) -> None:
+        await self._start_or_continue(
+            call_id, [api_pb2.MapStartOrContinueItem(input=item) for item in batch]
+        )
+
+    async def retry_inputs(
+        self, call_id: str, entries: list[tuple[str, int, int, Optional[api_pb2.FunctionPutInputsItem]]]
+    ) -> None:
+        items = []
+        for _input_id, _retry_count, idx, item in entries:
+            if item is None:
+                raise InvalidError(f"input-plane retry for idx {idx} lost its payload")
+            items.append(
+                api_pb2.MapStartOrContinueItem(input=item, attempt_token=self.token_by_idx.get(idx, ""))
+            )
+        await self._start_or_continue(call_id, items)
+
+    def discard(self, idx: int) -> None:
+        # a token is needed only while its input may be retried: the map
+        # stays bounded by its outstanding window, not its size
+        self.token_by_idx.pop(idx, None)
+
+    async def close(self) -> None:
+        pass  # MapAwait is unary; nothing persistent to release
+
+    async def get_outputs(self, call_id: str, last_entry_id: str) -> tuple[list, str]:
+        metadata = await self.client.get_input_plane_metadata()
+        resp = await retry_transient_errors(
+            self.stub.MapAwait,
+            api_pb2.MapAwaitRequest(
+                function_call_id=call_id,
+                timeout=OUTPUTS_TIMEOUT,
+                last_entry_id=last_entry_id,
+                requested_at=time.time(),
+            ),
+            attempt_timeout=OUTPUTS_TIMEOUT + 5.0,
+            max_retries=None,
+            metadata=metadata,
+        )
+        return list(resp.outputs), resp.last_entry_id or last_entry_id
+
+
 async def _map_invocation(
     function: "_Function",
     raw_input_gen: AsyncGenerator[tuple[tuple, dict], None],
@@ -204,7 +287,10 @@ async def _map_invocation(
     client = function.client
     stub = client.stub
 
-    transport = _ControlPlaneMapTransport(client, function.object_id)
+    if function._use_input_plane():
+        transport: Any = await _InputPlaneMapTransport.create_for(client, function.object_id)
+    else:
+        transport = _ControlPlaneMapTransport(client, function.object_id)
     function_call_id = await transport.create_call(return_exceptions)
     if function_call_id_out is not None:
         function_call_id_out.append(function_call_id)

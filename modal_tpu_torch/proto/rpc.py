@@ -430,15 +430,35 @@ def _maybe_dedupe(servicer: Any, method: RPCMethod, impl: Any) -> Any:
 
 
 def _maybe_quorum(servicer: Any, method: RPCMethod, impl: Any) -> Any:
-    """Quorum-commit layer for journaled RPCs: holds a response until a
-    quorum of follower shards has the journal's records. It wraps outside
-    `_maybe_dedupe`, as in the JAX package, so the dedupe record is covered
-    too. A standalone plane has no replicator and this returns `impl` as it
-    is, the JAX layer's path without one; replication and its shard fleet
-    come with ROADMAP Queue A 4e."""
-    if getattr(servicer, "replicator", None) is None:
+    """Quorum-commit layer for journaled RPCs (server/replication.py): after
+    the handler ran and its records reached the local journal, hold the
+    response until a quorum of follower shards has durably appended every
+    record up to the journal's seq. A fenced writer (a follower saw a newer
+    epoch) or a quorum timeout aborts UNAVAILABLE: the client's retry
+    re-sends, and the idempotency layer, which this wraps so its dedupe
+    record is covered by the barrier too, replays the cached response.
+
+    With MODAL_TPU_JOURNAL_REPLICAS=0, or no replicator on the servicer (a
+    standalone plane), this returns `impl` as it is."""
+    from ..server.journal import JOURNALED_RPCS  # lazy: proto must not pull server at import
+    from ..server.replication import replicas_configured
+
+    replicator = getattr(servicer, "replicator", None)
+    if replicator is None or method.name not in JOURNALED_RPCS or replicas_configured() == 0:
         return impl
-    raise NotImplementedError("journal quorum replication comes with replication and shards (ROADMAP Queue A 4e)")
+
+    async def quorum_committed(request, context, _impl=impl, _name=method.name, _repl=replicator):
+        response = await _impl(request, context)
+        if _repl.active and not await _repl.commit_barrier():
+            import grpc
+
+            reason = "writer fenced by a newer epoch" if _repl.fenced else "replication quorum timeout"
+            await context.abort(
+                grpc.StatusCode.UNAVAILABLE, f"{_name}: journal quorum commit failed ({reason}); safe to retry"
+            )
+        return response
+
+    return quorum_committed
 
 
 def _build_handler(servicer: Any, registry: dict[str, RPCMethod], service_name: str) -> "grpc.GenericRpcHandler":

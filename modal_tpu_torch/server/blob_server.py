@@ -54,10 +54,14 @@ def _assemble_parts(tmp: str, part_paths: list[str]) -> None:
 
 
 class BlobServer:
-    def __init__(self, state: ServerState, host: str = "127.0.0.1", port: int = 0, chaos=None):
+    def __init__(self, state: ServerState, host: str = "127.0.0.1", port: int = 0, chaos=None,
+                 fleet_root: Optional[str] = None):
         self.state = state
         self.host = host
         self.port = port
+        # the root of the sharded fleet this plane is a shard of; None on a
+        # monolith
+        self.fleet_root = fleet_root
         # the plane's ChaosPolicy (chaos.py): the routes are injected under
         # pseudo-RPC names (BlobPut, BlobGet, ...), so one seeded policy
         # covers the HTTP data plane and the gRPC plane alike
@@ -133,8 +137,26 @@ class BlobServer:
                 f.write(f"{url}/metrics\n")
         except OSError:
             pass
+        # a shard of a sharded fleet also writes a breadcrumb of its own
+        # under the fleet root (the director owns the root's metrics_url;
+        # the federation finds each shard's endpoint from these)
+        shard_crumb = self._fleet_shard_breadcrumb()
+        if shard_crumb is not None:
+            try:
+                os.makedirs(os.path.dirname(shard_crumb), exist_ok=True)
+                with open(shard_crumb, "w") as f:
+                    f.write(f"{url}/metrics\n")
+            except OSError:
+                pass
         logger.debug(f"blob server at {url}")
         return url
+
+    def _fleet_shard_breadcrumb(self) -> Optional[str]:
+        """``<fleet_root>/observability/shards/shard-<i>`` when this plane is
+        shard i of a sharded fleet; None for a monolith."""
+        if self.fleet_root is None:
+            return None
+        return os.path.join(self.fleet_root, "observability", "shards", f"shard-{self.state.shard_index}")
 
     async def _token_flow_approve(self, request: web.Request) -> web.Response:
         flow = self.state.pending_token_flows.get(request.match_info["flow_id"])

@@ -29,11 +29,15 @@ outputs, worker registrations and the idempotency seen-set) is replayable:
 The port's plane has the function path's tables, the App layer's images
 and secrets, volumes, SLO alerts, and the SDK's objects: dicts and queues
 (their registry; their contents are not journaled, as in the JAX package),
-proxies, environments, workspace settings and granted tokens. A journal
-written by the JAX package's plane may hold records of a table the port
-does not have yet (input-plane attempts): recovery counts them by type in
-its report and logs one warning per type naming the ROADMAP Queue A
-sub-slice that brings the table; it never drops them silently.
+proxies, environments, workspace settings, granted tokens and the input
+plane's attempt tokens: every record type of the JAX package's journal.
+Recovery counts a record it cannot apply by type in its report and logs a
+warning per type; it never drops one silently.
+
+Replication (server/replication.py) hooks in here: `observer` sees every
+appended record and `on_snapshot` ships a compaction's snapshot to the
+follower shards before the segments it covers are pruned. A journal with
+neither writes the same bytes.
 
 Durability: appends are flushed to the OS (no fsync by default): a
 ``kill -9`` of the plane loses nothing, since the page cache outlives the
@@ -65,6 +69,57 @@ COMPACT_EVERY_RECORDS = 20000
 # idempotency seen-set bound (journal-backed; oldest evicted first)
 IDEMPOTENCY_MAX_ENTRIES = 8192
 
+# Mutating RPCs whose effects are journaled (directly, or through the
+# journaled helpers they call), as in the JAX package: the quorum layer
+# (proto/rpc.py _maybe_quorum) holds their responses for the followers.
+JOURNALED_RPCS = frozenset(
+    {
+        "AppCreate",
+        "AppGetOrCreate",
+        "AppPublish",
+        "AppClientDisconnect",
+        "AppStop",
+        "AppDeploy",
+        "FunctionCreate",
+        "FunctionBindParams",
+        "FunctionUpdateSchedulingParams",
+        "FunctionMap",
+        "FunctionMapBatch",  # coalesced FunctionMaps; group-committed
+        "FunctionPutInputs",
+        "FunctionRetryInputs",
+        "FunctionGetOutputs",  # journals consumption (clear_on_success takes)
+        "FunctionStreamOutputs",  # journals consumption, same as the poll twin
+        "FunctionPutOutputs",
+        "FunctionExchange",  # put side journals via _append_output; claims transient like FunctionGetInputs
+        "FunctionCallCancel",
+        "ContainerCheckpoint",  # resume tokens survive the restart
+        "TaskResult",  # input retry/fail outcomes via _append_output/input_retry
+        "ImageGetOrCreate",
+        "ImageDelete",
+        "VolumeGetOrCreate",
+        "VolumePutFiles2",
+        "VolumeRemoveFile",
+        "VolumeCopyFiles",
+        "VolumeCommit",
+        "VolumeRename",
+        "VolumeDelete",
+        "SecretGetOrCreate",
+        "SecretDelete",
+        "ProxyCreate",
+        "ProxyDelete",
+        "DictGetOrCreate",
+        "DictDelete",
+        "QueueGetOrCreate",
+        "QueueDelete",
+        "EnvironmentCreate",
+        "EnvironmentDelete",
+        "EnvironmentUpdate",
+        "WorkspaceSettingsSet",
+        "TokenFlowWait",  # granted tokens survive the restart
+        "WorkerRegister",
+    }
+)
+
 # Mutating RPCs of the port's plane whose responses are deduped by the
 # client's idempotency key: a retry after a lost response or a restart
 # replays the cached response instead of re-executing.
@@ -81,12 +136,6 @@ IDEMPOTENT_RPCS = frozenset(
         "FunctionBindParams",
     }
 )
-
-# Record types of the JAX package's journal that the port's plane has no
-# table for yet, by the ROADMAP Queue A sub-slice that brings the table.
-WAITING_RECORD_TYPES: dict[str, str] = {
-    "attempt": "4e (the input plane)",
-}
 
 
 # Mutating RPCs of the port's plane deliberately not journaled, with the
@@ -121,6 +170,11 @@ EXEMPT_RPCS: dict[str, str] = {
     "QueueGet": "ephemeral data-plane payload (registry IS journaled)",
     "QueueClear": "ephemeral data-plane payload (registry IS journaled)",
     "TokenFlowCreate": "pending browser flows are transient until granted",
+    "ShardControl": "director↔shard topology administration; shard maps and epochs are runtime "
+    "state rebuilt by the director's health loop (the takeover IT TRIGGERS replays+compacts "
+    "journals, which is the durable part)",
+    "JournalReplicate": "replication plumbing (server/replication.py): the shipped records ARE "
+    "journal records — journaling the RPC that carries them would double-write every append",
 }
 
 
@@ -163,6 +217,12 @@ class Journal:
         # a record observer (the flight recorder's journal tail): called with
         # each appended payload dict; what it raises never reaches append
         self.tap = None
+        # the replication hooks (server/replication.py): `observer(payload,
+        # line)` sees every appended record, `on_snapshot(covered_seq, path)`
+        # is awaited by compact_async before pruning. None on a journal that
+        # is not replicated.
+        self.observer = None
+        self.on_snapshot = None
         self._segment_index = 0
         self._segment_records = 0
         self._records_since_snapshot = 0
@@ -244,6 +304,14 @@ class Journal:
                 tap(payload)
             except Exception:
                 pass
+        observer = self.observer
+        if observer is not None:
+            try:
+                # the serialized line rides along: the replicator never
+                # re-encodes the record it ships
+                observer(payload, line)
+            except Exception:
+                pass
         self._fh.write(line)
         if self._group_depth > 0 and self._current_task() is self._group_owner:
             self._group_dirty = True  # the group's exit commits the batch
@@ -320,6 +388,32 @@ class Journal:
         tail.sort(key=lambda r: int(r.get("seq", 0)))
         return snap_records, tail
 
+    def latest_snapshot(self) -> Optional[tuple[int, str]]:
+        """(covered_seq, path) of the newest snapshot, or None: the
+        replicator installs it on a follower whose gap predates the kept
+        segments."""
+        snapshots = self._list("snapshot-")
+        if not snapshots:
+            return None
+        name = snapshots[-1]
+        return int(name[len("snapshot-") : -len(".jsonl")]), os.path.join(self.dir, name)
+
+    def tail_lines(self, since_seq: int) -> list[tuple[int, str]]:
+        """(seq, line) of the on-disk records past `since_seq`, in seq order:
+        a follower's catch-up feed. A record still in the file buffer is not
+        here, but it is still in the replicator's in-memory buffer."""
+        out: list[tuple[int, str]] = []
+        for name in self._list("segment-"):
+            seg_max = self._segment_max_seq.get(name)
+            if seg_max is not None and seg_max <= since_seq:
+                continue
+            for rec in _read_records(os.path.join(self.dir, name)):
+                seq = int(rec.get("seq", 0))
+                if seq > since_seq:
+                    out.append((seq, json.dumps(rec, separators=(",", ":"))))
+        out.sort(key=lambda pair: pair[0])
+        return out
+
     # -- snapshot / compaction ----------------------------------------------
 
     @staticmethod
@@ -380,6 +474,15 @@ class Journal:
         covered_seq = self.seq
         path = self._snapshot_path(covered_seq)
         await asyncio.to_thread(self._write_snapshot_file, records, path)
+        on_snapshot = self.on_snapshot
+        if on_snapshot is not None:
+            # the followers get the snapshot before its segments are pruned:
+            # none ever needs pruned history to seal (the hook logs its own
+            # failures)
+            try:
+                await on_snapshot(covered_seq, path)
+            except Exception:
+                logger.exception("snapshot replication hook failed")
         self._finish_snapshot(path, covered_seq)
         return path
 
@@ -635,6 +738,7 @@ def _apply_input_retry(s, r):
     inp.status = "pending"
     inp.claimed_by = ""
     inp.claimed_at = 0.0
+    inp.delivered_to.clear()
     fn = s.functions.get(call.function_id) if call is not None else None
     if fn is not None and inp.input_id not in fn.pending:
         fn.pending.append(inp.input_id)
@@ -830,6 +934,12 @@ def _apply_token(s, r):
     s.token_granted_at.setdefault(r["token_id"], r.get("granted_at", time.time()))
 
 
+def _apply_attempt(s, r):
+    s.attempts[r["token"]] = (r.get("call_id", ""), r.get("input_id", ""), time.monotonic())
+    if r.get("supersedes"):
+        s.attempts.pop(r["supersedes"], None)
+
+
 def _apply_rpc_dedupe(s, r):
     if s.idempotency is not None:
         s.idempotency.put(r["key"], r.get("method", ""), _unb64(r.get("resp", "")), journal=False)
@@ -937,6 +1047,7 @@ _APPLIERS: dict[str, Callable] = {
     "environment_update": _apply_environment_update,
     "ws_setting": _apply_ws_setting,
     "token": _apply_token,
+    "attempt": _apply_attempt,
     "rpc_dedupe": _apply_rpc_dedupe,
     "alert": _apply_alert,
 }
@@ -1110,6 +1221,8 @@ def synthesize_records(s) -> list[dict]:
             out.append({"t": "consumed", "function_call_id": call.function_call_id, "n": call.outputs_consumed})
         if call.cancelled:
             out.append({"t": "call_cancel", "function_call_id": call.function_call_id})
+    for token, (call_id, input_id, _ts) in s.attempts.items():
+        out.append({"t": "attempt", "token": token, "call_id": call_id, "input_id": input_id})
     if s.idempotency is not None:
         for key, (method, resp) in s.idempotency._entries.items():
             out.append({"t": "rpc_dedupe", "key": key, "method": method, "resp": _b64(resp)})
@@ -1121,12 +1234,17 @@ def synthesize_records(s) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def recover_state(state, journal: Journal) -> dict:
+def recover_state(state, journal: Journal, preserve_live_workers: bool = False) -> dict:
     """Replay snapshot and tail into ``state``, then the post-passes: id
     counters past every recovered id, every unfinished input pending in its
     function's queue exactly once (claims are not journaled), and journaled
-    workers ``adoption_pending``. Returns the recovery report; records of
-    tables the port has no table for are counted in it by type."""
+    workers ``adoption_pending``. Returns the recovery report; a record no
+    applier takes is counted in it by type.
+
+    ``preserve_live_workers=True`` is a shard takeover (server/shards.py):
+    the journal is a dead sibling's and ``state`` a live shard's, whose own
+    heartbeating workers keep their placements; only the workers the replay
+    brought in await re-adoption."""
     from ..observability import tracing
     from ..observability.catalog import (
         RECOVERIES,
@@ -1137,6 +1255,7 @@ def recover_state(state, journal: Journal) -> dict:
     from .state import bump_id_counter
 
     t0 = time.time()
+    live_worker_ids = frozenset(state.workers) if preserve_live_workers else frozenset()
     snap_records, tail = journal.replay()
     applied = 0
     skipped = 0
@@ -1157,14 +1276,17 @@ def recover_state(state, journal: Journal) -> dict:
             skipped += 1
             skipped_by_type[t] = skipped_by_type.get(t, 0) + 1
     for t, n in sorted(skipped_by_type.items()):
-        waits = WAITING_RECORD_TYPES.get(t)
-        where = f"its table comes with ROADMAP Queue A {waits}" if waits else "no table of the port holds it"
-        logger.warning(f"journal recovery skipped {n} {t!r} record(s): {where}")
+        logger.warning(f"journal recovery skipped {n} {t!r} record(s): no table of the port holds it")
     # post-pass 1: id counters past every recovered id
     for pool in (state.apps, state.functions, state.function_calls, state.inputs, state.workers, state.secrets,
                  state.images, state.volumes, state.dicts, state.queues, state.proxies):
         for obj_id in pool:
             bump_id_counter(obj_id)
+    # attempt tokens are make_id("at") too: a re-minted token would overwrite
+    # a recovered one and answer a surviving client's AttemptAwait with
+    # another input's result
+    for token in state.attempts:
+        bump_id_counter(token)
     # post-pass 2: every unfinished input is pending, once in its queue
     requeued = 0
     for inp in state.inputs.values():
@@ -1181,10 +1303,14 @@ def recover_state(state, journal: Journal) -> dict:
     # post-pass 3: recovered workers take no placement until their next
     # heartbeat proves they outlived the crash
     now = time.time()
-    for worker in state.workers.values():
+    pending_adoption = 0
+    for worker_id, worker in state.workers.items():
+        if worker_id in live_worker_ids:
+            continue  # a takeover: the survivor's own workers stay placed
         worker.adoption_pending = True
         worker.recovered_at = now
         worker.last_heartbeat = 0.0
+        pending_adoption += 1
     open_calls = sum(1 for c in state.function_calls.values() if c.num_done < c.num_inputs)
     took = time.time() - t0
     RECOVERY_SECONDS.set(took)
@@ -1195,7 +1321,7 @@ def recover_state(state, journal: Journal) -> dict:
         "skipped_by_type": dict(sorted(skipped_by_type.items())),
         "inputs_requeued": requeued,
         "open_calls": open_calls,
-        "workers_pending_adoption": len(state.workers),
+        "workers_pending_adoption": pending_adoption,
         "seconds": round(took, 4),
     }
     tracing.record_span("recovery.replay", start=t0, end=time.time(),

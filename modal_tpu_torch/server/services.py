@@ -33,17 +33,19 @@ broadcast input reaches every rank, rank 0's result is the output, and a
 dead rank fails its gang's inputs and preempts its peers. The metrics
 plane answers MetricsHistory (server/history.py), ProfileControl (the
 sampling profiler, fanned out to containers on their heartbeats),
-AppListProfiles (the runtime_debug traces) and TaskGetTimeline. This
-servicer serves 135 of the wire contract's 148 RPCs; the others answer gRPC
-UNIMPLEMENTED (proto/rpc.py). Of those, the five ContainerExec* and
+AppListProfiles (the runtime_debug traces) and TaskGetTimeline. A shard
+of a sharded plane answers ShardControl (the director's probes, takeovers
+and fencing, server/shards.py) and JournalReplicate (its sibling writers'
+journal streams, server/replication.py). This servicer serves 137 of the
+wire contract's 148 RPCs, as the JAX package's does; the others answer gRPC
+UNIMPLEMENTED (proto/rpc.py). The input plane's six (Attempt*,
+MapStartOrContinue, MapAwait) are served by the input plane
+(server/input_plane.py), and the five ContainerExec* and
 ContainerFilesystemExec RPCs have no handler in the JAX package either
 (exec and the filesystem of a sandbox, and the warm pool's handoff, are
-served by each worker's task command router, server/task_router.py); the
-input plane's six (Attempt*, MapStartOrContinue, MapAwait) are the JAX
-package's InputPlaneServer's, not its servicer's; so against the JAX
-servicer this one lacks only ShardControl and JournalReplicate, which wait
-for the replication and shards sub-slices (ROADMAP Queue A). With chaos on
-(chaos.py), `stream_reset` charges abort FunctionStreamOutputs mid-flight.
+served by each worker's task command router, server/task_router.py). With
+chaos on (chaos.py), `stream_reset` charges abort FunctionStreamOutputs
+mid-flight.
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ class ModalTPUServicer:
         self.s = state
         self.scheduler = None  # wired by the supervisor (worker drains)
         self.chaos = None  # the plane's ChaosPolicy, wired by the supervisor
+        self.supervisor = None  # the LocalSupervisor (ShardControl, JournalReplicate)
         # throttling surfaced to containers on every GetInputs response
         self.rate_limit_sleep_duration = 0.0
 
@@ -180,6 +183,7 @@ class ModalTPUServicer:
             # the workspace-wide setting (WorkspaceSettingsSet) wins over the
             # build default: a client takes it at its handshake
             image_builder_version=self.s.workspace_settings.get("image_builder_version", "2026.07"),
+            input_plane_url=self.s.input_plane_url,
             # local fast-path coordinates: a client that can stat these paths
             # is co-located and upgrades its transport; others ignore them
             uds_path=self.s.uds_path,
@@ -1070,6 +1074,94 @@ class ModalTPUServicer:
         )
         return api_pb2.MetricsHistoryResponse(payload_json=json.dumps(payload))
 
+    async def ShardControl(self, request, context) -> api_pb2.ShardControlResponse:
+        """Administration of a shard (server/shards.py): the placement
+        director drives health probes, the takeover of a partition and epoch
+        fencing through this RPC, so a subprocess shard is driven as an
+        in-process one is. Not journaled: the topology is runtime state, and
+        the takeover it drives replays and compacts journals."""
+        sup = self.supervisor
+        if sup is None:
+            await context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                "shard administration requires a supervisor-attached servicer",
+            )
+        if request.epoch and hasattr(sup, "note_fleet_epoch"):
+            # the director's probes carry the fleet epoch: the replicator
+            # stamps later appends with it, so followers can fence a writer
+            # that missed a takeover
+            sup.note_fleet_epoch(request.epoch)
+        if request.action == "status":
+            return api_pb2.ShardControlResponse(payload_json=json.dumps(sup.shard_status()))
+        if request.action == "adopt":
+            report = await sup.adopt_partition(request.journal_dir, request.partition)
+            return api_pb2.ShardControlResponse(payload_json=json.dumps(report))
+        if request.action == "adopt_replica":
+            # a quorum takeover: adopt the partition from this shard's
+            # replica stream of the dead writer
+            report = await sup.adopt_from_replica(
+                request.shard_index, request.partition, request.epoch
+            )
+            return api_pb2.ShardControlResponse(payload_json=json.dumps(report))
+        if request.action == "fence":
+            # fencing stops the very gRPC server carrying this call: run it as
+            # a task so the response gets out before the listener dies
+            t = asyncio.create_task(sup.fence(request.epoch))
+            sup._chaos_subtasks.add(t)
+            t.add_done_callback(sup._chaos_subtasks.discard)
+            return api_pb2.ShardControlResponse(
+                payload_json=json.dumps({"fencing": True, "epoch": request.epoch})
+            )
+        await context.abort(
+            grpc.StatusCode.INVALID_ARGUMENT, f"unknown shard action {request.action!r}"
+        )
+
+    async def JournalReplicate(self, request, context) -> api_pb2.JournalReplicateResponse:
+        """The follower side of quorum journal replication
+        (server/replication.py): a peer writer streams its appends, its
+        compacted snapshots and seal requests here, into this shard's
+        ReplicaStore stream of that writer. Every message carries the
+        writer's fleet epoch and a stale one is refused (a fencing token), so
+        a cut-off old writer cannot commit past a takeover. Not journaled:
+        the payload is journal records."""
+        sup = self.supervisor
+        store = getattr(sup, "replica_store", None) if sup is not None else None
+        if store is None:
+            await context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                "journal replication requires a replica store (journaling + replicas > 0)",
+            )
+        kind = request.kind
+        # payload is newline-joined record lines, not a JSON array: the hot
+        # append path must not re-encode/re-parse what is already JSONL
+        lines = request.payload_json.split("\n") if request.payload_json else []
+        if kind == "append":
+            result = store.append(
+                request.writer_shard,
+                request.epoch,
+                lines,
+                incarnation=request.incarnation,
+                boot_seq=request.boot_seq,
+            )
+        elif kind == "snapshot":
+            result = store.install_snapshot(
+                request.writer_shard,
+                request.epoch,
+                request.base_seq,
+                lines,
+                incarnation=request.incarnation,
+                boot_seq=request.boot_seq,
+            )
+        elif kind == "seal":
+            result = store.seal(request.writer_shard, request.epoch)
+        elif kind == "status":
+            result = store.status(request.writer_shard)
+        else:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT, f"unknown replicate kind {request.kind!r}"
+            )
+        return api_pb2.JournalReplicateResponse(payload_json=json.dumps(result))
+
     async def AppListProfiles(self, request: api_pb2.AppListProfilesRequest, context) -> api_pb2.AppListProfilesResponse:
         """The torch.profiler traces that runtime_debug tasks of this app
         wrote (`<task_dir>/profile`, the container entrypoint's
@@ -1812,8 +1904,7 @@ class ModalTPUServicer:
 
     # ------------------------------------------------------------------
     # Secrets: env dicts, resolved into a container's env at placement
-    # (scheduler._container_arguments). The port has no workspace settings
-    # (ROADMAP Queue A 4e): an empty environment name stays "".
+    # (scheduler._container_arguments).
     # ------------------------------------------------------------------
 
     async def SecretGetOrCreate(self, request: api_pb2.SecretGetOrCreateRequest, context) -> api_pb2.SecretGetOrCreateResponse:

@@ -10,9 +10,10 @@ a count, and which cards are pinned to which task.
 
 The state is volatile dataclasses made durable by the write-ahead journal
 (server/journal.py): the supervisor attaches `journal` and `idempotency`,
-and a restarted plane replays them into a fresh ServerState. `replicator`
-stays None: quorum replication comes with the shard fleet (ROADMAP Queue A
-4e). Volumes (their files' block lists; the blocks live in `block_dir`) are
+and a restarted plane replays them into a fresh ServerState. A shard of a
+sharded plane (server/shards.py) also gets a `replicator`, which streams its
+journal to its sibling shards (server/replication.py), and mints its ids in
+its own partition (`make_id(prefix, namespace)`). Volumes (their files' block lists; the blocks live in `block_dir`) are
 journaled; sandboxes and their snapshots and tunnels are not, as in the JAX
 package: their processes live on the plane's host, and neither are gangs
 (`ClusterState`), whose tasks recover as gone. A dict's or a queue's
@@ -32,25 +33,45 @@ from typing import Optional
 from ..proto import api_pb2
 from .compile_cache import CompileCacheStore
 
-_id_counters: dict[str, itertools.count] = {}
+# The sharded control plane (server/shards.py): every object id embeds its
+# home partition, so an RPC that carries an id routes with no lookup table.
+# The number is `partition * PARTITION_STRIDE + local_counter`; partition 0
+# stays inside the stride, so a monolith mints the 8-digit ids it always did.
+PARTITION_STRIDE = 10**8
+
+_id_counters: dict[tuple[int, str], itertools.count] = {}
 
 
-def make_id(prefix: str) -> str:
-    """`<prefix>-NNNNNNNN`, the JAX control plane's ids of its first shard."""
-    counter = _id_counters.setdefault(prefix, itertools.count(1))
-    return f"{prefix}-{next(counter):08d}"
+def make_id(prefix: str, namespace: int = 0) -> str:
+    """`<prefix>-NNNNNNNN` in partition `namespace`, as the JAX control
+    plane mints them."""
+    counter = _id_counters.setdefault((namespace, prefix), itertools.count(1))
+    return f"{prefix}-{namespace * PARTITION_STRIDE + next(counter):08d}"
+
+
+def partition_of_id(object_id: str) -> Optional[int]:
+    """The home partition embedded in an object id, or None for an id
+    outside the `prefix-NNNNNNNN` scheme (content-hashed blob ids, names):
+    the placement director routes those."""
+    _, _, num = object_id.rpartition("-")
+    if not num.isdigit():
+        return None
+    return int(num) // PARTITION_STRIDE
 
 
 def bump_id_counter(existing_id: str) -> None:
-    """Advance the prefix's counter past an id recovered from the journal,
-    so a fresh make_id never re-issues it. Counters only move forward: safe
-    with several planes in one process."""
+    """Advance the counter of the id's prefix and partition past an id
+    recovered from the journal, so a fresh make_id never re-issues it.
+    Counters only move forward: safe with several planes in one process. A
+    takeover that replays a dead shard's journal bumps the dead partition's
+    counters, so a respawned shard cannot re-mint a migrated id either."""
     prefix, _, num = existing_id.rpartition("-")
     if not prefix or not num.isdigit():
         return
-    counter = _id_counters.setdefault(prefix, itertools.count(1))
+    namespace, floor = int(num) // PARTITION_STRIDE, int(num) % PARTITION_STRIDE + 1
+    counter = _id_counters.setdefault((namespace, prefix), itertools.count(1))
     # itertools.count has no peek: draw once, then keep the further one
-    _id_counters[prefix] = itertools.count(max(next(counter), int(num) + 1))
+    _id_counters[(namespace, prefix)] = itertools.count(max(next(counter), floor))
 
 
 @dataclass
@@ -348,16 +369,23 @@ class SandboxSnapshotState:
 class ServerState:
     """All control-plane state + the on-disk stores."""
 
-    def __init__(self, state_dir: str):
+    def __init__(self, state_dir: str, shard_index: int = 0, blob_dir: Optional[str] = None):
         self.state_dir = state_dir
-        self.blob_dir = os.path.join(state_dir, "blobs")
+        # the partition this state mints its ids in (server/shards.py); 0 on
+        # a monolith, whose ids and journal are those of an unsharded plane
+        self.shard_index = shard_index
+        # the shards of a fleet share one blob store (blob ids are content
+        # hashes or presigned, so any shard serves any blob): the sharded
+        # supervisor passes the fleet's dir; a monolith keeps its own
+        self.blob_dir = blob_dir or os.path.join(state_dir, "blobs")
         os.makedirs(self.blob_dir, exist_ok=True)
+        data_dir = os.path.dirname(self.blob_dir)
         # mount file contents and volume blocks by sha256 (MountPutFile,
         # VolumeBlockPut), in the JAX plane's block dir beside the blobs
-        self.block_dir = os.path.join(state_dir, "volume_blocks")
+        self.block_dir = os.path.join(data_dir, "volume_blocks")
         os.makedirs(self.block_dir, exist_ok=True)
         # the fleet compile cache beside the blob store (server/compile_cache.py)
-        self.compile_cache = CompileCacheStore(os.path.join(state_dir, "compile_cache"))
+        self.compile_cache = CompileCacheStore(os.path.join(data_dir, "compile_cache"))
 
         self.apps: dict[str, AppState] = {}
         self.deployed_apps: dict[tuple[str, str], str] = {}  # (env, name) -> app_id
@@ -403,15 +431,20 @@ class ServerState:
         # services.PROFILE_STOP_TTL_S so it never reaches a later container
         self.profile_command: str = ""
         self.profile_command_set_at: float = 0.0
+        # the input plane (server/input_plane.py): its URL, advertised at
+        # ClientHello; the HS256 secret of its JWTs (AuthTokenGet mints,
+        # the input plane verifies); attempt token -> (function_call_id,
+        # input_id, minted at)
+        self.input_plane_url: str = ""
+        self.auth_secret: bytes = os.urandom(32)
+        self.attempts: dict[str, tuple[str, str, float]] = {}
         # local fast-path coordinates advertised at ClientHello (set when
-        # the supervisor binds): the plane's Unix socket, the input plane's
-        # (empty until the input plane, ROADMAP Queue A 4e), and the blob
-        # store directory co-located clients read and write in place
+        # the supervisor binds): the plane's Unix socket, the input plane's,
+        # and the blob store directory co-located clients read and write in
+        # place
         self.uds_path: str = ""
         self.input_plane_uds: str = ""
         self.blob_local_dir: str = ""
-        # input-plane JWTs (AuthTokenGet): HS256 secret of this control plane
-        self.auth_secret: bytes = os.urandom(32)
 
         # scheduling wakeup
         self.schedule_event = asyncio.Event()
@@ -419,8 +452,9 @@ class ServerState:
         # the durable control plane's hooks, read by proto/rpc.py's
         # _maybe_dedupe and _maybe_quorum: the journal and its idempotency
         # cache (server/journal.py, attached by the supervisor; None with
-        # MODAL_TPU_JOURNAL=0), and the quorum replicator, None on a
-        # standalone plane (replication comes with ROADMAP Queue A 4e)
+        # MODAL_TPU_JOURNAL=0), and the quorum replicator
+        # (server/replication.py), None on a standalone plane and with
+        # MODAL_TPU_JOURNAL_REPLICAS=0
         self.journal = None
         self.idempotency = None
         self.replicator = None
@@ -434,7 +468,9 @@ class ServerState:
         self.alerts: dict[str, dict] = {}
 
     def make_id(self, prefix: str) -> str:
-        return make_id(prefix)
+        """An id in this shard's home partition: a migrated partition keeps
+        routing to its journaled home while new objects land on this shard."""
+        return make_id(prefix, self.shard_index)
 
     def blob_path(self, blob_id: str) -> str:
         return os.path.join(self.blob_dir, blob_id)

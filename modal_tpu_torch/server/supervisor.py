@@ -28,16 +28,26 @@ Chaos (chaos.py): a ChaosPolicy, given or from the environment
 the blob routes, resets output streams, kills warm interpreters
 mid-handoff, and fires its scheduled events from `_chaos_event_loop`
 (`supervisor_crash` runs `crash_restart`; `worker_preempt`, `worker_kill`,
-`heartbeat_blackhole`). A chaos variable of a knob that waits for a later
-sub-slice is refused at construction. The flight recorder
+`heartbeat_blackhole`; a sharded plane's director fires `shard_kill`,
+`shard_partition` and `director_blackhole`, server/shards.py). The flight
+recorder
 (observability/flight_recorder.py, on unless `MODAL_TPU_FLIGHT_RECORDER=0`)
 keeps the last minute of samples, spans, journal records and chaos events
 and dumps it as `<state_dir>/observability/postmortem-<event>-<t>.json` on
 a crash_restart (before the teardown) and when an SLO alert fires.
 
-Replication and shards, with the recorder's `fence` and `takeover` dumps
-and chaos's shard and replication knobs, and the input plane wait for
-their sub-slices (ROADMAP Queue A).
+The input plane (server/input_plane.py) runs beside the control plane on
+its own port and Unix socket; the port survives a crash_restart
+(`ports.json`). As one shard of a sharded plane (server/shards.py) a
+supervisor mints ids in its partition (`shard_index`), shares the fleet's
+blob store (`blob_dir`) and replicates its journal to its siblings
+(server/replication.py; peers from `replication_peers`, or from
+`<fleet_root>/shards.json` for a subprocess shard). A takeover adopts a dead
+sibling's partition (`adopt_partition` from its journal,
+`adopt_from_replica` from this shard's replica stream), and `fence` stops a
+shard that a takeover replaced; the flight recorder dumps a `fence` and a
+`takeover` postmortem, and a `fence_rejections` one when stale appends of
+an undead writer storm this shard's replica store.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ import asyncio
 import json
 import os
 import time
-from typing import Optional
+from typing import Any, Optional
 
 import grpc
 
@@ -56,6 +66,7 @@ from ..config import config, logger, tune_switch_interval
 from ..observability import tracing
 from ..proto.rpc import build_generic_handler
 from .blob_server import BlobServer
+from .input_plane import InputPlaneServer
 from .journal import IdempotencyCache, Journal, archive_existing, recover_state
 from .scheduler import Scheduler
 from .services import ModalTPUServicer
@@ -77,6 +88,16 @@ class LocalSupervisor:
         worker_gpu_type: Optional[str] = None,
         recover: Optional[bool] = None,  # None: recover when a journal exists
         chaos: Optional[ChaosPolicy] = None,  # one policy object, every layer
+        shard_index: int = 0,  # the partition of minted ids (server/shards.py)
+        blob_dir: Optional[str] = None,  # the fleet's shared blob store
+        # a shard's fleet (server/shards.py): `fleet_root` is the fleet's
+        # state dir (None on a monolith); journal replication
+        # (server/replication.py) takes the live siblings from
+        # `replication_peers()` -> [(shard_index, url)] (in-process shards),
+        # else from `<fleet_root>/shards.json` (subprocess shards). Neither:
+        # a standalone plane, which replicates nothing.
+        replication_peers: Optional[Any] = None,
+        fleet_root: Optional[str] = None,
     ):
         self.num_workers = num_workers
         self.port = port
@@ -87,14 +108,23 @@ class LocalSupervisor:
         self.worker_gpu_type = worker_gpu_type
         self.recover = recover
         self.recovery_report: Optional[dict] = None  # set when start() replayed a journal
+        self.shard_index = shard_index
+        self._blob_dir_override = blob_dir
+        # epoch fencing (server/shards.py): a fenced shard was replaced by a
+        # takeover and never serves or journals its partition again
+        self.fenced = False
+        self.fenced_at_epoch = 0
+        self.takeover_reports: list[dict] = []  # one per adopted partition
+        self.replication_peers = replication_peers
+        self.fleet_root = fleet_root
+        self.replica_store = None  # the follower side, set by _attach_replication
+        self._fence_rejection_times: list[float] = []  # the storm detector's window
+        self._fence_storm_dumped_at = 0.0
         # an explicit policy, else the environment's (MODAL_TPU_CHAOS=1)
         self.chaos = chaos if chaos is not None else ChaosPolicy.from_env()
-        self.state = ServerState(self.state_dir)
-        self.servicer = ModalTPUServicer(self.state)
-        self.servicer.chaos = self.chaos
-        self.scheduler = Scheduler(self.state, self.servicer)
-        self.servicer.scheduler = self.scheduler
-        self.blob_server = BlobServer(self.state, chaos=self.chaos)
+        self._build_plane()
+        self.blob_server = BlobServer(self.state, chaos=self.chaos, fleet_root=self.fleet_root)
+        self.input_plane = InputPlaneServer(self.state, self.servicer, chaos=self.chaos)
         self.workers: list[WorkerAgent] = []
         self.uds_path = ""  # the plane's Unix socket (set at bind time)
         self._grpc_server: Optional[grpc.aio.Server] = None
@@ -108,6 +138,16 @@ class LocalSupervisor:
     @property
     def server_url(self) -> str:
         return f"grpc://127.0.0.1:{self.port}"
+
+    def _build_plane(self) -> None:
+        """A fresh state, servicer and scheduler: at construction and on the
+        rebuild of a crash_restart."""
+        self.state = ServerState(self.state_dir, shard_index=self.shard_index, blob_dir=self._blob_dir_override)
+        self.servicer = ModalTPUServicer(self.state)
+        self.servicer.chaos = self.chaos
+        self.servicer.supervisor = self  # ShardControl and JournalReplicate
+        self.scheduler = Scheduler(self.state, self.servicer)
+        self.servicer.scheduler = self.scheduler
 
     def _attach_journal(self) -> None:
         """Open the journal and, when the state dir holds one, replay it into
@@ -145,6 +185,7 @@ class LocalSupervisor:
             self.state.idempotency = IdempotencyCache(journal=journal)
         else:
             self.state.idempotency.journal = journal
+        self._attach_replication(journal)
         # port continuity: clients that outlive a restart hold the old URLs
         # (the plane's, and the blob URLs of BlobCreate and BlobGet); binding
         # the same ports lands their retries on the recovered plane. A port
@@ -155,8 +196,66 @@ class LocalSupervisor:
                 saved = json.load(f)
             self.port = self.port or int(saved.get("grpc", 0))
             self.blob_server.port = self.blob_server.port or int(saved.get("blob", 0))
+            self.input_plane.port = self.input_plane.port or int(saved.get("input_plane", 0))
         except (OSError, ValueError):
             pass
+
+    def _attach_replication(self, journal: Journal) -> None:
+        """Wire the follower's ReplicaStore and the writer's
+        JournalReplicator onto the journal just opened. A standalone plane
+        (no peers, no fleet root) gets neither, and so does
+        MODAL_TPU_JOURNAL_REPLICAS=0: the journal then writes what an
+        unreplicated one does."""
+        from .replication import JournalReplicator, ReplicaStore, replicas_configured
+
+        if (self.replication_peers is None and not self.fleet_root) or replicas_configured() == 0:
+            return
+        # the follower's durability follows the journal's: with
+        # MODAL_TPU_JOURNAL_FSYNC=1 a quorum ack means fsynced there too
+        self.replica_store = ReplicaStore(
+            self.state_dir, fsync=journal.fsync, chaos=self.chaos, on_fence_rejection=self._note_fence_rejection
+        )
+        peers = self.replication_peers or self._peers_from_fleet_root
+        replicator = JournalReplicator(journal, self.shard_index, self.state_dir, peers=peers, chaos=self.chaos)
+        self.state.replicator = replicator
+        journal.observer = replicator.observe
+        journal.on_snapshot = replicator.ship_snapshot
+
+    def _peers_from_fleet_root(self) -> list[tuple[int, str]]:
+        """A subprocess shard's siblings: the director rewrites
+        <fleet_root>/shards.json on every change of the topology; dead and
+        unstarted ones are left out. Read per call, so a takeover or a
+        respawn needs no control channel."""
+        try:
+            with open(os.path.join(self.fleet_root, "shards.json")) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            return []
+        peers = []
+        for entry in doc.get("shards", ()):
+            try:
+                idx = int(entry.get("index", -1))
+            except (TypeError, ValueError):
+                continue
+            url = entry.get("url") or ""
+            if idx < 0 or idx == self.shard_index or not url or entry.get("dead"):
+                continue
+            peers.append((idx, url))
+        return peers
+
+    def _note_fence_rejection(self, writer: int) -> None:
+        """The fence-rejection storm detector: one stale append is routine
+        during a takeover; five in ten seconds mean an undead writer keeps
+        appending to a sealed stream, and the flight recorder dumps its last
+        minute (at most once a minute)."""
+        now = time.monotonic()
+        window = [t for t in self._fence_rejection_times if now - t < 10.0]
+        window.append(now)
+        self._fence_rejection_times = window
+        if len(window) >= 5 and now - self._fence_storm_dumped_at > 60.0:
+            self._fence_storm_dumped_at = now
+            if self.flight_recorder is not None:
+                self.flight_recorder.dump("fence_rejections", extra={"writer": writer, "rejections_10s": len(window)})
 
     def _save_ports(self) -> None:
         """Record the bound ports for the next (post-crash) boot."""
@@ -164,7 +263,7 @@ class LocalSupervisor:
             return
         try:
             with open(os.path.join(self.state.journal.dir, "ports.json"), "w") as f:
-                json.dump({"grpc": self.port, "blob": self.blob_server.port}, f)
+                json.dump({"grpc": self.port, "blob": self.blob_server.port, "input_plane": self.input_plane.port}, f)
         except OSError:
             pass
 
@@ -267,6 +366,7 @@ class LocalSupervisor:
             await self.blob_server.stop()
             self.blob_server.port = 0
             await self.blob_server.start()
+        await self.input_plane.start()
         # the in-process rung: registered once the servers are live, so a
         # resolvable entry always means a serving plane
         local_transport.register_local_server(self.server_url, handler_target)
@@ -282,9 +382,13 @@ class LocalSupervisor:
 
         if obs_fr.enabled():
             self.flight_recorder = obs_fr.FlightRecorder(
-                self.state_dir, journal=self.state.journal, chaos=self.chaos, shard_index=0
+                self.state_dir, journal=self.state.journal, chaos=self.chaos, shard_index=self.shard_index
             )
             self.flight_recorder.start()
+        # the replication senders need the running loop, and a crash_restart
+        # starts them again against the new journal
+        if self.state.replicator is not None:
+            self.state.replicator.start()
 
     def _start_sampler(self) -> None:
         """Start the sampler task (MODAL_TPU_TS_INTERVAL not 0), building
@@ -398,12 +502,14 @@ class LocalSupervisor:
         async with self._crash_lock:  # lint: disable=lock-across-await
             return await self._crash_restart_locked()
 
-    async def crash_abandon(self) -> tuple[int, int]:
+    async def crash_abandon(self) -> tuple[int, int, int]:
         """The teardown half of a crash: kill the container subprocesses and
         drop every serving surface with no drain and no state flush. The
-        journal is closed and its segments stay on disk for the rebuild.
-        Returns the (grpc, blob) ports for a same-port rebuild."""
-        ports = (self.port, self.blob_server.port)
+        journal is closed and its segments stay on disk: a crash_restart
+        rebuilds from them, and a sibling's takeover replays them (chaos
+        `shard_kill`, server/shards.py). Returns the (grpc, blob,
+        input-plane) ports for a same-port rebuild."""
+        ports = (self.port, self.blob_server.port, self.input_plane.port)
         # the workers are in process: a real crash of this process takes
         # their containers with it; the agents outlive it and re-adopt
         for worker in self.workers:
@@ -411,13 +517,16 @@ class LocalSupervisor:
         # the in-process rung dies with the plane (a stale registration would
         # serve the abandoned state) and registers again on the rebuild
         local_transport.unregister_local_server(self.server_url)
+        local_transport.unregister_local_server(self.state.input_plane_url)
         if self._grpc_server is not None:
             await self._grpc_server.stop(grace=None)
             self._grpc_server = None
         await self.scheduler.stop()
         await self._stop_sampler()  # it holds the abandoned state
         self._stop_recorder()
+        await self.input_plane.stop()
         await self.blob_server.stop()
+        await self._stop_replication()
         if self.state.journal is not None:
             self.state.journal.close()
         return ports
@@ -428,13 +537,10 @@ class LocalSupervisor:
             # the dump comes before the teardown: the ring still holds the
             # minute up to the crash (the rebuilt plane gets a fresh ring)
             self.flight_recorder.dump("crash_restart")
-        grpc_port, blob_port = await self.crash_abandon()
-        self.state = ServerState(self.state_dir)
-        self.servicer = ModalTPUServicer(self.state)
-        self.servicer.chaos = self.chaos
-        self.scheduler = Scheduler(self.state, self.servicer)
-        self.servicer.scheduler = self.scheduler
-        self.blob_server = BlobServer(self.state, port=blob_port, chaos=self.chaos)
+        grpc_port, blob_port, input_port = await self.crash_abandon()
+        self._build_plane()
+        self.blob_server = BlobServer(self.state, port=blob_port, chaos=self.chaos, fleet_root=self.fleet_root)
+        self.input_plane = InputPlaneServer(self.state, self.servicer, port=input_port, chaos=self.chaos)
         self.recover = True
         self._attach_journal()
         await self._start_control_plane(grpc_port)
@@ -443,8 +549,144 @@ class LocalSupervisor:
         logger.warning(f"control plane crash-restarted in {time.time() - t0:.2f}s: {self.recovery_report}")
         return self.recovery_report
 
+    async def adopt_partition(self, source_state_dir: str, partition: int = -1) -> dict:
+        """A takeover (server/shards.py): replay a dead sibling's journal into
+        this shard's live state (recover_state pointed at its segments),
+        compact the merged state into this shard's journal, which becomes
+        its one durable record, and archive the source's segments, so a
+        respawned stale shard can never replay them (with the director's
+        epoch bump, the fence against a split brain)."""
+        from ..observability.catalog import SHARD_TAKEOVER_SECONDS
+        from .journal import synthesize_records
+
+        t0 = time.time()
+        source = Journal(source_state_dir)
+        try:
+            report = recover_state(self.state, source, preserve_live_workers=True)
+        finally:
+            source.close()
+        archive_existing(source_state_dir)
+        if self.state.journal is not None:
+            await self.state.journal.compact_async(synthesize_records(self.state))
+        # the adopted partition's requeued inputs want placement now
+        self.state.schedule_event.set()
+        took = time.time() - t0
+        report = dict(report, partition=partition, source=source_state_dir, seconds=round(took, 4))
+        self.takeover_reports.append(report)
+        SHARD_TAKEOVER_SECONDS.set(took, partition=str(partition))
+        if self.flight_recorder is not None:
+            self.flight_recorder.dump("takeover", extra={"report": report})
+        tracing.record_span("control.takeover", start=t0, end=time.time(),
+                            attrs={k: v for k, v in report.items() if k != "skipped_by_type"})
+        logger.warning(f"shard {self.shard_index} adopted partition {partition}: {report}")
+        return report
+
+    async def fence(self, epoch: int) -> None:
+        """Epoch fencing: this shard's partition was taken over while it was
+        presumed dead (a stale rejoiner), or is about to be (a false death:
+        the director lost it, but it lives). Either way it stops serving:
+        clients get UNAVAILABLE, hello the director again and land on the
+        successor. The journal is closed but not archived: after a false
+        death the successor replays these segments next (adopt_partition is
+        the one archive point, after a replay that succeeded)."""
+        if self.fenced:
+            return
+        self.fenced = True
+        self.fenced_at_epoch = epoch
+        if self.flight_recorder is not None:
+            self.flight_recorder.dump("fence", extra={"epoch": epoch})
+        local_transport.unregister_local_server(self.server_url)
+        local_transport.unregister_local_server(self.state.input_plane_url)
+        for worker in self.workers:
+            worker.kill_containers()
+        if self._grpc_server is not None:
+            await self._grpc_server.stop(grace=None)
+            self._grpc_server = None
+        await self.scheduler.stop()
+        await self._stop_sampler()
+        self._stop_recorder()
+        await self.input_plane.stop()
+        await self.blob_server.stop()
+        await self._stop_replication()
+        if self.state.journal is not None:
+            self.state.journal.close()
+            self.state.journal = None
+        logger.warning(f"shard {self.shard_index} fenced at epoch {epoch}")
+
+    async def _stop_replication(self) -> None:
+        """Cancel the writer's senders and close the follower's files. The
+        replica streams stay on disk: a takeover seals and materializes
+        them once this shard, or its disk, is gone."""
+        replicator = self.state.replicator
+        if replicator is not None:
+            await replicator.stop()
+            self.state.replicator = None
+        if self.replica_store is not None:
+            self.replica_store.close()
+            self.replica_store = None
+
+    def note_fleet_epoch(self, epoch: int) -> None:
+        """Adopt the director's fleet epoch (carried by its health probes and
+        takeovers): the replicator stamps later appends with it, so
+        followers fence any incarnation of this shard that missed a
+        takeover."""
+        replicator = self.state.replicator
+        if replicator is not None:
+            replicator.note_epoch(epoch)
+
+    async def adopt_from_replica(self, writer: int, partition: int, epoch: int) -> dict:
+        """A quorum takeover (server/shards.py): adopt a dead writer's
+        partition from this shard's replica stream of its journal, the path
+        that survives a lost disk. Seal first (idempotent; the director
+        seals every other surviving holder at the same epoch, so the old
+        writer's quorum is gone), then materialize the sealed stream into a
+        journal-shaped directory and adopt it as adopt_partition does."""
+        if self.replica_store is None:
+            raise RuntimeError(f"shard {self.shard_index} holds no replica streams (replication off?)")
+        t0 = time.time()
+        sealed = self.replica_store.seal(writer, epoch)
+        if not sealed.get("ok"):
+            raise RuntimeError(f"seal of writer {writer} at epoch {epoch} refused: {sealed}")
+        source = self.replica_store.materialize(writer)
+        tracing.record_span(
+            "control.seal",
+            start=t0,
+            end=time.time(),
+            attrs={"writer": writer, "partition": partition, "epoch": epoch, "sealed_seq": sealed.get("sealed_seq", 0)},
+        )
+        self.note_fleet_epoch(epoch)
+        report = await self.adopt_partition(source, partition=partition)
+        report["mode"] = "replica"
+        report["writer"] = writer
+        report["sealed_seq"] = sealed.get("sealed_seq", 0)
+        return report
+
+    def shard_status(self) -> dict:
+        """This shard's health and topology, for the director's probes and
+        `journal status`."""
+        j = self.state.journal
+        return {
+            "shard_index": self.shard_index,
+            "state_dir": self.state_dir,
+            "url": self.server_url,
+            "fenced": self.fenced,
+            "fenced_at_epoch": self.fenced_at_epoch,
+            "workers": len(self.state.workers),
+            "open_calls": sum(1 for c in self.state.function_calls.values() if c.num_done < c.num_inputs),
+            "journal_seq": j.seq if j is not None else 0,
+            "takeovers": len(self.takeover_reports),
+            # the writer's followers (acks, lag, epoch) and the replica
+            # streams this shard holds for its peers
+            "replication": self.state.replicator.status() if self.state.replicator is not None else None,
+            "replica_streams": self.replica_store.status_all() if self.replica_store is not None else [],
+            # the director's chaos clock (a subprocess shard reports its
+            # output count through the probe)
+            "chaos_outputs_seen": self.chaos.outputs_seen if self.chaos is not None else 0,
+        }
+
     async def stop(self) -> None:
         local_transport.unregister_local_server(self.server_url)
+        local_transport.unregister_local_server(self.state.input_plane_url)
         if self.uds_path:
             try:
                 os.unlink(self.uds_path)
@@ -462,18 +704,44 @@ class LocalSupervisor:
             await asyncio.gather(*self._chaos_subtasks, return_exceptions=True)
         for worker in self.workers:
             await worker.stop()
+        if self.fenced:
+            return  # fence() or a kill already tore the surfaces and the journal down
         await self.scheduler.stop()
         await self._stop_sampler()
         self._stop_recorder()
+        await self.input_plane.stop()
         await self.blob_server.stop()
+        await self._stop_replication()
         if self._grpc_server is not None:
             await self._grpc_server.stop(grace=0.5)
         if self.state.journal is not None:
             self.state.journal.close()
 
 
-async def serve_forever(port: int = 9900, num_workers: int = 1, state_dir: Optional[str] = None) -> None:
-    sup = LocalSupervisor(num_workers=num_workers, port=port, state_dir=state_dir)
+async def serve_forever(
+    port: int = 9900,
+    num_workers: int = 1,
+    state_dir: Optional[str] = None,
+    shards: int = 1,
+    subprocess_shards: bool = False,
+    shard_index: int = 0,
+    blob_dir: Optional[str] = None,
+    fleet_root: Optional[str] = None,
+) -> None:
+    if shards > 1:
+        # the sharded plane (server/shards.py); one shard is the monolith,
+        # which never builds a director
+        from .shards import ShardedSupervisor
+
+        sup: Any = ShardedSupervisor(
+            num_shards=shards, num_workers=num_workers, port=port, state_dir=state_dir,
+            subprocess_shards=subprocess_shards,
+        )
+    else:
+        sup = LocalSupervisor(
+            num_workers=num_workers, port=port, state_dir=state_dir,
+            shard_index=shard_index, blob_dir=blob_dir, fleet_root=fleet_root,
+        )
     await sup.start()
     if sup.chaos is not None:
         events = ",".join(f"{ev.kind}@{ev.after_outputs}" for ev in sup.chaos.events) or "none"

@@ -37,8 +37,9 @@ does every process exec'd into it. The card pinning always wins over an
 image's env. Sandboxes and sidecars run in their image too; a snapshot
 image seeds a sandbox's workdir.
 
-Waiting for a later sub-slice (ROADMAP Queue A 4e): the re-homing of a
-worker onto a shard that took over its plane.
+A shard takeover (server/shards.py) re-homes the agents of the dead
+shard onto its successor (`rehome`): the same worker id registers there,
+and the successor's journal-replayed record of it is adopted in place.
 """
 
 from __future__ import annotations
@@ -247,6 +248,31 @@ class WorkerAgent:
             max_delay=2.0,
         )
         self.worker_id = resp.worker_id
+
+    async def rehome(self, server_url: str, server_uds: str = "") -> None:
+        """Point this agent at another control plane: the shard that owned
+        it died and a survivor adopted its partition. The stub is rebuilt as
+        start() builds it, and the agent registers again under the same
+        worker id: the successor's replayed WorkerState awaits adoption, so
+        it is adopted in place and in-flight maps resume on this worker."""
+        from .._utils import local_transport
+
+        old_channels = [self._channel, *self._uds_channels.values()]
+        self._uds_channels = {}
+        self.server_url = server_url
+        self.server_uds = server_uds
+        self._channel = create_channel(self.server_url)
+        self._stub = local_transport.wrap_stub(
+            self.server_url, ModalTPUStub(self._channel), self.server_uds, channels=self._uds_channels
+        )
+        for ch in old_channels:
+            if ch is not None:
+                try:
+                    await ch.close()
+                except Exception:  # noqa: BLE001 — the old plane is dead anyway
+                    pass
+        await self._register()
+        logger.warning(f"worker {self.worker_id} rehomed to {server_url}")
 
     async def stop(self) -> None:
         self._stopped = True

@@ -413,14 +413,15 @@ def test_a_file_function_is_found_by_its_module_and_unwrapped(planes):
     assert got["port"] == got["jax"] == {"value": 42, "module_is_the_file": True, "definition_type": "file"}
 
 
-def test_dispatch_metrics_and_the_call_span(planes):
+def test_dispatch_metrics_and_the_call_span(planes, monkeypatch):
     """What the App layer's row of the port's metrics reads on the CPU: one
     `.remote()` is one `function.call` root span and one DISPATCH_LATENCY
     observation no longer than that span; its output and a `.map()`'s
     arrive on FunctionStreamOutputs (OUTPUT_STREAM_EVENTS `open` and
     `batch`), and the map adds no dispatch observation. JAX's counterpart
     is tests/test_dispatch.py (its client's stream with the input plane
-    off)."""
+    off, as here: the input plane's calls have no output stream)."""
+    monkeypatch.setenv("MODAL_TPU_DISABLE_INPUT_PLANE", "1")
     from modal_tpu_torch.observability import tracing
     from modal_tpu_torch.observability.catalog import DISPATCH_LATENCY, OUTPUT_STREAM_EVENTS
 

@@ -157,11 +157,12 @@ def test_what_waits_is_refused_naming_its_sub_slice(tmp_path, planes):  # noqa: 
     modal_tpu_torch.App("with-volumes", volumes={"/data": object()})
     with pytest.raises(modal_tpu_torch.exception.InvalidError, match="gpu="):
         app.function(tpu="v5e-4")
-    # proxy= is accepted since the SDK's objects (4e-objects); cloud= still waits
+    # proxy= is accepted since the SDK's objects (4e-objects), and cloud=
+    # rides the definition as the JAX package's does (neither plane places by it)
     proxied = app.function(proxy=modal_tpu_torch.Proxy.from_name("egress"), serialized=True)(lambda: 0)
     assert proxied._spec.proxy is not None
-    with pytest.raises(modal_tpu_torch.exception.InvalidError, match="4e"):
-        app.function(cloud="aws")
+    clouded = app.function(cloud="aws", serialized=True)(lambda: 0)
+    assert clouded._spec.cloud == "aws"
     # a Cron is validated as the JAX package validates it
     for bad in ("* * *", "61 * * * *", "*/0 * * * *"):
         with pytest.raises(modal_tpu.exception.InvalidError):

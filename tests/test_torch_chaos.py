@@ -1,7 +1,7 @@
 """The port's chaos policy (chaos.py) against the JAX package's: the same
 seed and the same sequence of RPC calls give the same decisions and the
 same `fault_log` in both, and each `from_env` variable parses to the same
-policy; a knob that waits for a later sub-slice is refused by name. Then
+policy, the shard and replication knobs included, which fire in both. Then
 on the port's plane: a `supervisor_crash` mid-map delivers every index
 exactly once, the counterparts of tests/test_chaos_soak.py's
 single-supervisor cases (a 50-input map under 5% faults and a worker
@@ -125,32 +125,55 @@ def test_from_env_parses_each_variable_as_the_jax_package(name, monkeypatch):
         assert _policy_fields(tp) == _policy_fields(jp)
 
 
-@pytest.mark.parametrize("env_name", sorted(tchaos.WAITING_ENV))
-def test_a_waiting_knob_is_refused_by_name_at_boot(env_name, monkeypatch):
-    """The JAX package acts on these; the port has no replication or shards
-    yet, so it refuses them instead of ignoring them, chaos on or off, and
-    the supervisor does not come up."""
-    monkeypatch.setenv(env_name, "1:5")
-    sub_slice = tchaos.WAITING_ENV[env_name]
-    with pytest.raises(InvalidError, match=f"{env_name}.*{sub_slice} sub-slice"):
-        tchaos.ChaosPolicy.from_env()
+# the fleet's knobs: each variable, the value it gets, and what it sets
+FLEET_ENVS = {
+    "MODAL_TPU_CHAOS_SHARD_KILL_AFTER": ("1:5,2:9", lambda p: [(e.kind, e.shard_index, e.after_outputs) for e in p.events]),
+    "MODAL_TPU_CHAOS_SHARD_PARTITION": ("2:3:4.5", lambda p: [(e.kind, e.shard_index, e.duration_s) for e in p.events]),
+    "MODAL_TPU_CHAOS_REPL_TORN_TAIL": ("2", lambda p: p.fail_counts),
+    "MODAL_TPU_CHAOS_REPL_DISK_FULL": ("1", lambda p: p.fail_counts),
+    "MODAL_TPU_CHAOS_REPL_ACK_DROP": ("3", lambda p: p.fail_counts),
+    "MODAL_TPU_CHAOS_REPL_LAG_MS": ("7.5", lambda p: p.repl_lag_ms),
+}
+
+
+@pytest.mark.parametrize("env_name", sorted(FLEET_ENVS))
+def test_a_fleet_knob_parses_as_the_jax_package_and_the_plane_boots(env_name, monkeypatch):
+    """Each shard and replication variable sets what the JAX package's sets,
+    and a plane with it constructs."""
+    for k in list(os.environ):
+        if k.startswith("MODAL_TPU_CHAOS"):
+            monkeypatch.delenv(k)
+    value, read = FLEET_ENVS[env_name]
     monkeypatch.setenv("MODAL_TPU_CHAOS", "1")
-    with pytest.raises(InvalidError, match=f"{sub_slice} sub-slice"):
-        LocalSupervisor(num_workers=0, state_dir=tempfile.mkdtemp(prefix="chaos-", dir="/tmp"))
+    monkeypatch.setenv(env_name, value)
+    jp, tp = jchaos.ChaosPolicy.from_env(), tchaos.ChaosPolicy.from_env()
+    assert _policy_fields(tp) == _policy_fields(jp) and read(tp) == read(jp)
+    assert read(tp)  # the knob took effect
+    sup = LocalSupervisor(num_workers=0, state_dir=tempfile.mkdtemp(prefix="chaos-", dir="/tmp"))
+    assert read(sup.chaos) == read(tp)
 
 
-def test_waiting_knobs_and_events_are_refused_in_code():
-    p = tchaos.ChaosPolicy()
+def test_fleet_knobs_and_events_fire_in_code():
+    """The follower's replication knobs drain as the JAX package's do, and
+    the shard and director events pop once their output count passes."""
+    p, jp = tchaos.ChaosPolicy(), jchaos.ChaosPolicy()
     for knob in ("repl_torn_tail", "repl_disk_full", "repl_ack_drop"):
-        with pytest.raises(InvalidError, match="replication sub-slice"):
-            p.set_knob(knob, 1)
-    for kind in ("shard_kill", "shard_partition", "director_blackhole"):
-        with pytest.raises(InvalidError, match="shards sub-slice"):
-            tchaos.ChaosPolicy(events=[tchaos.ChaosEvent(kind=kind)])
+        p.set_knob(knob, 1)
+        jp.set_knob(knob, 1)
+        assert p.consume_knob(knob) and jp.consume_knob(knob) and not p.consume_knob(knob)
+    assert p.fault_log == jp.fault_log == ["repl_torn_tail#0", "repl_disk_full#0", "repl_ack_drop#0"]
+    kinds = ("shard_kill", "shard_partition", "director_blackhole")
+    ev = tchaos.ChaosPolicy(events=[tchaos.ChaosEvent(kind=k, after_outputs=i + 1) for i, k in enumerate(kinds)])
+    ev.note_outputs(2)
+    assert [e.kind for e in ev.pop_due_events()] == ["shard_kill", "shard_partition"]
+    ev.note_outputs(1)
+    assert [e.kind for e in ev.pop_due_events()] == ["director_blackhole"] and not ev.pop_due_events()
+    with pytest.raises(InvalidError, match="unknown chaos event kind"):
+        tchaos.ChaosPolicy(events=[tchaos.ChaosEvent(kind="no_such_event")])
     with pytest.raises(KeyError):
         p.set_knob("no_such_knob", 1)
     p.set_knob("stream_reset", 2)
-    assert p.get_knob("stream_reset") == 2 and p.consume_knob("stream_reset") and p.fault_log == ["stream_reset#0"]
+    assert p.get_knob("stream_reset") == 2 and p.consume_knob("stream_reset") and p.fault_log[-1] == "stream_reset#0"
 
 
 async def _http_injection():

@@ -3,7 +3,11 @@ tests/test_cli.py (and the CLI cases of test_observability.py,
 test_recovery.py and test_slo.py) runs through `modal_tpu.cli` against a
 JAX plane and through `modal_tpu_torch.cli` against the port's plane, and
 the exit codes and the output, with ids, times, counts and paths masked,
-must be the same.
+must be the same. A container's log lines reach the terminal on the
+worker's log tick, so where they fall among the CLI's own lines is a race
+in both packages (ROADMAP Queue C 48): a command's output is compared as
+two ordered streams, the lines the plane logged for its containers during
+the command and the CLI's own, each exactly.
 
 A fresh plane per package for each case (`tests.test_torch_app.Planes`),
 as tests/test_cli.py has a fresh supervisor for each. The two CLIs run one
@@ -15,6 +19,7 @@ subprocess runs `app list` and `debug bundle` with torch and jax
 unimportable.
 """
 
+import collections
 import json
 import os
 import re
@@ -45,6 +50,9 @@ def planes():
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     p = Planes(tempfile.mkdtemp(prefix="cli-", dir="/tmp"))
+    # the JAX client learns its plane's input plane as the port's does, as
+    # each package's CLI does through its env client's ClientHello
+    p.jclient.hello()
     try:
         yield p
     finally:
@@ -80,12 +88,33 @@ class Cli:
         self.transcript: list = []
 
     def run(self, *args: str, expect=0, input=None, keep=True) -> str:
+        logged = self._container_lines()
         result = CliRunner().invoke(self.cli, list(args), input=input)
         if expect is not None:
             assert result.exit_code == expect, (self.name, args, result.output, result.exception)
         if keep:
-            self.transcript.append((args[0], result.exit_code, mask(result.stdout)))
+            own, container = self._split(result.stdout, self._container_lines() - logged)
+            self.transcript.append((args[0], result.exit_code, mask(own), mask(container)))
         return result.stdout
+
+    def _container_lines(self) -> collections.Counter:
+        """Every line the plane holds in its apps' container logs."""
+        return collections.Counter(line for app in list(self.sup.state.apps.values())
+                                   for entry in list(app.log_entries) for line in entry.data.splitlines())
+
+    @staticmethod
+    def _split(stdout: str, new_lines: collections.Counter) -> tuple[str, str]:
+        """(the CLI's own lines, the container lines it printed), each in
+        its order: a line is a container's when the plane logged it during
+        the command."""
+        own, container = [], []
+        for line in stdout.splitlines():
+            if new_lines[line] > 0:
+                new_lines[line] -= 1
+                container.append(line)
+            else:
+                own.append(line)
+        return "\n".join(own), "\n".join(container)
 
     def script(self, body: str, name: str = "cli_app") -> str:
         """A user's app file for this package (`{pkg}` names it)."""

@@ -145,11 +145,14 @@ def _concurrent_remotes(m, client, sup, n: int = 8) -> dict:
     return {"results": list(results), **after}
 
 
-def test_concurrent_remotes_coalesce_into_function_map_batch(planes):
+def test_concurrent_remotes_coalesce_into_function_map_batch(planes, monkeypatch):
     """Eight concurrent `.remote()` calls from one loop reach the plane in
     fewer than eight RPCs, FunctionMapBatch among them (a window that
     happens to hold one call sends a plain FunctionMap), on both planes,
-    and each caller gets its own result."""
+    and each caller gets its own result. The control plane's transport, as
+    in the JAX package's tests/test_dispatch.py (the input plane off; its
+    AttemptStartBatch is tests/test_torch_input_plane.py's)."""
+    monkeypatch.setenv("MODAL_TPU_DISABLE_INPUT_PLANE", "1")
     got = planes.both(_concurrent_remotes)
     for name in ("jax", "port"):
         r = got[name]
@@ -159,8 +162,9 @@ def test_concurrent_remotes_coalesce_into_function_map_batch(planes):
 
 def test_the_kill_switch_sends_one_function_map_per_call(planes, monkeypatch):
     """MODAL_TPU_DISPATCH_COALESCE=0: every call is its own FunctionMap,
-    on both planes."""
+    on both planes (the control plane's transport)."""
     monkeypatch.setenv("MODAL_TPU_DISPATCH_COALESCE", "0")
+    monkeypatch.setenv("MODAL_TPU_DISABLE_INPUT_PLANE", "1")
     got = planes.both(_concurrent_remotes)
     assert got["port"] == got["jax"] == {"results": [i * i for i in range(8)], "FunctionMap": 8,
                                          "FunctionMapBatch": 0}

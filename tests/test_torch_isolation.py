@@ -349,7 +349,9 @@ def test_every_module_of_the_port_is_scanned():
                 "server/history.py", "builder/__init__.py", "server/image_builder.py", "global_objects.py",
                 "dict.py", "queue.py", "proxy.py", "environments.py", "workspace.py", "cli/entry_point.py",
                 "cli/__main__.py", "chaos.py", "observability/critical_path.py",
-                "observability/flight_recorder.py"):
+                "observability/flight_recorder.py", "server/input_plane.py", "server/replication.py",
+                "server/shards.py", "_utils/shard_router.py", "_utils/shard_routing.py",
+                "observability/federation.py", "tools/compare_smoke.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
@@ -374,12 +376,18 @@ def test_every_module_of_the_port_is_scanned():
                                     "modal_tpu_torch.workspace", "modal_tpu_torch.global_objects",
                                     "modal_tpu_torch.cli.entry_point", "modal_tpu_torch.chaos",
                                     "modal_tpu_torch.observability.critical_path",
-                                    "modal_tpu_torch.observability.flight_recorder"])
+                                    "modal_tpu_torch.observability.flight_recorder",
+                                    "modal_tpu_torch.server.input_plane", "modal_tpu_torch.server.replication",
+                                    "modal_tpu_torch.server.shards", "modal_tpu_torch._utils.shard_router",
+                                    "modal_tpu_torch._utils.shard_routing",
+                                    "modal_tpu_torch.observability.federation"])
 def test_the_function_path_loads_no_torch_at_import(module):
     """The client, the App layer, the control plane, the worker, its router
     and warm pool, the sandbox client, Volumes and their checkpointer, the
     storage mounts, the gang runtime, the metrics plane, the command line,
-    chaos, the flight recorder and a container's entrypoint import no torch:
+    chaos, the flight recorder, the input plane, the shard fleet with its
+    replication, routing and federation, and a container's entrypoint
+    import no torch:
     a container sends its hello before torch loads (a `gpu=` function's
     container loads it after the hello, a warm-pool interpreter while
     parked), and a user's file that builds an App loads none."""

@@ -353,12 +353,10 @@ async def test_the_function_path_journals_what_jax_journals(tmp_path):
 async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
     """A journal the JAX plane wrote (the function path, an image, a secret
     and a volume with a file, an environment, a workspace setting, a granted
-    token, a proxy, a named dict and queue, plus a record of a table the
-    port has not taken: an input-plane attempt) replays through the port's
-    recover_state into the same apps, functions, calls, pending inputs,
-    images, secrets, volumes and SDK objects as JAX's own recovery; the
-    JAX-only records are counted by type and each type is named in a
-    warning."""
+    token, a proxy, a named dict and queue, and an input-plane attempt)
+    replays through the port's recover_state into the same apps,
+    functions, calls, pending inputs, images, secrets, volumes, SDK objects
+    and attempt tokens as JAX's own recovery, with no record skipped."""
     jdir = str(tmp_path / "jax")
     servicer, ctx, fn_id, call_id = await _function_path(japi, jstate, jservices, JJ, jdir)
     await servicer.EnvironmentCreate(japi.EnvironmentCreateRequest(name="staging"), ctx)
@@ -437,22 +435,22 @@ async def test_a_jax_journal_replays_into_the_port(tmp_path, caplog):
     assert len(port_state.functions[fn_id].pending) == 3
     assert port_state.environments == {"main": "", "staging": ""} and len(port_state.tokens) == 1
     assert port_state.deployed_dicts == {("staging", "named"): next(iter(port_state.dicts))}
-    assert report["skipped_by_type"] == {"attempt": 1}
-    assert report["records_skipped"] == 1 and report["inputs_requeued"] == 3
-    warned = " ".join(r.getMessage() for r in caplog.records)
-    for t, waits in (("attempt", "4e"),):
-        assert f"skipped 1 {t!r} record(s): its table comes with ROADMAP Queue A {waits}" in warned, warned
+    # the JAX journal's attempt record replays into the port's attempts table
+    assert report["skipped_by_type"] == {} and report["records_skipped"] == 0 and report["inputs_requeued"] == 3
+    assert {t: v[:2] for t, v in port_state.attempts.items()} == {t: v[:2] for t, v in jax_state.attempts.items()}
+    assert len(port_state.attempts) == 1
+    assert "journal recovery skipped" not in " ".join(r.getMessage() for r in caplog.records)
     assert port_state.workers[next(iter(port_state.workers))].num_gpus == 0  # chips are not cards
 
 
 def test_every_jax_record_type_is_applied_or_named():
-    """Each record type of the JAX applier table is either applied by the
-    port's or named with the sub-slice that brings its table."""
-    assert set(JJ._APPLIERS) == set(J._APPLIERS) | set(J.WAITING_RECORD_TYPES)
-    assert not set(J._APPLIERS) & set(J.WAITING_RECORD_TYPES)
+    """Each record type of the JAX applier table is applied by the port's,
+    and the port journals and exempts the RPCs the JAX package does."""
+    assert set(JJ._APPLIERS) == set(J._APPLIERS)
     assert set(J.IDEMPOTENT_RPCS) == set(JJ.IDEMPOTENT_RPCS)
-    # since the SDK's objects (4e-objects) only the input plane's table waits
-    assert set(J.WAITING_RECORD_TYPES) == {"attempt"}
+    assert set(J.JOURNALED_RPCS) == set(JJ.JOURNALED_RPCS)
+    for rpc in ("ShardControl", "JournalReplicate"):
+        assert J.EXEMPT_RPCS[rpc] == JJ.EXEMPT_RPCS[rpc], rpc
     # a dict's or a queue's contents are exempt, as in the JAX table
     for rpc in ("DictUpdate", "DictPop", "DictClear", "QueuePut", "QueueGet", "QueueClear", "TokenFlowCreate"):
         assert J.EXEMPT_RPCS[rpc] == JJ.EXEMPT_RPCS[rpc], rpc

@@ -256,35 +256,33 @@ def test_the_heartbeat_device_sample_never_asks_the_driver(monkeypatch):
 
 
 def test_the_served_rpc_counts():
-    """The port's plane serves 135 of the wire contract's 148 RPCs (the 19
-    Sandbox*, TaskTunnelsUpdate, TunnelStart and TunnelStop since the
-    second data plane; the 13 Volume*, EphemeralObjectHeartbeat,
-    TaskClusterHello and ClusterList since storage and gangs;
-    MetricsHistory, ProfileControl, AppListProfiles and TaskGetTimeline
-    since the metrics plane; ImageList, ImageDelete and the 32 Environment*,
-    TokenFlow*, Workspace*, Proxy*, Dict* and Queue* since images and the
-    SDK's objects); a worker's router serves all 8 of its own. Of the 13
-    left, the five ContainerExec* and ContainerFilesystemExec RPCs have no
-    handler in the JAX package either (its sandboxes exec through the task
-    router), and the input plane's six are served by the JAX package's
-    InputPlaneServer, not by its servicer, which serves 137: against it the
-    port's servicer lacks only ShardControl and JournalReplicate."""
+    """The port's plane serves 137 of the wire contract's 148 RPCs, as the
+    JAX package's servicer does (ShardControl and JournalReplicate since the
+    fleet), and its input plane serves its six (Attempt*,
+    MapStartOrContinue, MapAwait); a worker's router serves all 8 of its
+    own. Only the five ContainerExec* and ContainerFilesystemExec RPCs are
+    left: they have no handler in the JAX package either (its sandboxes
+    exec through the task router)."""
+    from modal_tpu.server.input_plane import InputPlaneServicer as JaxInputPlane
     from modal_tpu.server.services import ModalTPUServicer as JaxServicer
     from modal_tpu_torch.proto.rpc import ROUTER_RPCS, RPCS
+    from modal_tpu_torch.server.input_plane import InputPlaneServicer
     from modal_tpu_torch.server.services import ModalTPUServicer
 
     assert sorted(n for n in ROUTER_RPCS if hasattr(trouter.TaskRouterServicer, n)) == sorted(ROUTER_RPCS)
     assert len(ROUTER_RPCS) == 8
     served = [n for n in RPCS if hasattr(ModalTPUServicer, n)]
-    assert (len(RPCS), len(served)) == (148, 135)
-    assert sorted(set(RPCS) - set(served)) == sorted([
+    assert (len(RPCS), len(served)) == (148, 137)
+    input_plane = {n for n in RPCS if hasattr(InputPlaneServicer, n)}
+    assert input_plane == {"AttemptStart", "AttemptStartBatch", "AttemptAwait", "AttemptRetry",
+                           "MapStartOrContinue", "MapAwait"}
+    assert input_plane == {n for n in RPCS if hasattr(JaxInputPlane, n)}
+    assert sorted(set(RPCS) - set(served) - input_plane) == sorted([
         "ContainerExec", "ContainerExecGetOutput", "ContainerExecPutInput", "ContainerExecWait",
-        "ContainerFilesystemExec", "AttemptStart", "AttemptStartBatch", "AttemptAwait", "AttemptRetry",
-        "MapStartOrContinue", "MapAwait", "ShardControl", "JournalReplicate"])
+        "ContainerFilesystemExec"])
     jax_served = {n for n in RPCS if hasattr(JaxServicer, n)}
-    assert len(jax_served) == 137
-    assert jax_served - set(served) == {"ShardControl", "JournalReplicate"}
-    assert set(served) <= jax_served
+    assert jax_served == set(served)
+    assert {"ShardControl", "JournalReplicate"} <= set(served)
     assert len([n for n in served if n.startswith(("Dict", "Queue"))]) == 18
     assert {"ImageList", "ImageDelete"} <= set(served)
     assert {"MetricsHistory", "ProfileControl", "AppListProfiles", "TaskGetTimeline"} <= set(served)
