@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases device,build,pool,sandbox
     python3 chip_smoke.py --phases device,build,serve,sdk,image
     python3 chip_smoke.py --phases device,build,lint,serve,volume,flash
+    python3 chip_smoke.py --phases device,build,examples
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -38,8 +39,9 @@ result line):
               computing the same function (a yardstick only: the port never
               calls it). K4 is also checked at q_pos on and around its
               chunk boundaries, and timed cold (L2 flushed before each call)
-              beside its warm time, at llama3-8b's head shape and at the
-              speculative draft's (hd 64).
+              beside its warm time, at llama3-8b's head shape, at the
+              speculative draft's (hd 64) and at the examples' tiny
+              service's (hd 32, n_rep 2).
 4. serve    — llama3-8b at full width with seeded random weights: the
               ServingEngine answers 8 requests (one through the ASGI app's
               /v1/generate, driven in process) with its decode step captured
@@ -239,7 +241,8 @@ result line):
               reloaded params launches the flash kernel once per layer and
               equals the original's; a serve run on them gives the serve
               phase's streams. The reloaded params replace the originals.
-9b. volume  — llama3-8b's weights in a Volume of the port's plane (booted by
+9b. volume  — llama3-8b's weights at full width and VOLUME_SERVE_LAYERS
+              (8) layers in a Volume of the port's plane (booted by
               `app.run()` in a fresh state dir, free space checked first):
               `export_checkpoint(params, cfg, (vol, "llama3-8b"))`, upload
               GB/s; each shard file the upload hashes is hashed by both
@@ -254,11 +257,12 @@ result line):
               reads land in the tensors' host buffers; load GB/s beside the
               weights phase's), runs the weights phase's cache-less forward
               (flash_fwd exactly n_layers, logits checksum equal to the
-              weights phase's) and serves the 8 requests (streams equal to
-              serve's, paged_decode exactly n_layers per decode step).
+              same forward on the same params in this process) and serves
+              the 8 requests (streams equal to this process's engine on
+              them, paged_decode exactly n_layers per decode step).
               Then, with the weights' blocks dropped from the store, a
-              train state at llama3-8b's full width and 4 layers (bf16
-              params and AdamW's two moments, ~6 GB) takes two steps,
+              train state at llama3-8b's full width and VOLUME_TRAIN_LAYERS
+              (2) layers (params and AdamW's two moments) takes two steps,
               is saved with `VolumeCheckpointer` (`parallel.train.state_tree`),
               restored into fresh tensors on the card (every tensor
               bit-equal) and steps once more from the restored and from the
@@ -269,7 +273,7 @@ result line):
               graphed engine on it (64 tokens each, K4 exact), and its decode
               step's device ms beside the bf16 step's.
 11. spec     — the same traffic through speculative decoding with the
-              target at llama3-8b's width and SPEC_TARGET_LAYERS (16) of its
+              target at llama3-8b's width and SPEC_TARGET_LAYERS (8) of its
               32 layers (spec_k 3, the
               two slot groups of a round queued before either is read back;
               a host sync inside a dispatch raises): (a) a llama3-1b-proxy
@@ -316,6 +320,20 @@ result line):
               min_containers 0 it decides 0. The member drains: the pool is
               empty (drain → empty timed) and the call returns K4's
               launches, exactly n_layers per decode step.
+13c. examples — the six examples of `modal_tpu_torch/examples/`, each a
+              script in a subprocess as a user runs it, against a port
+              plane in this process (a one-card worker, a fresh state dir):
+              01 hello world, 02 decode on the card, 03 a two-rank gloo gang,
+              04 a checkpoint through a Volume onto the card, 05 a sandbox
+              with a sidecar, 06 an `llm_service` replica answering one
+              request; each one's output lines are checked as
+              tests/test_torch_examples.py checks them. Then 02 and 06 run
+              once more at llama3-8b (random weights from the seed), from a
+              temporary copy with the config name replaced: 06's tokens,
+              TTFT and tokens/s, and K4's launches in the replica (its last
+              heartbeat's launch counts, n_layers per decode step of its
+              batch-occupancy count, more than 0); 02's decode wall time;
+              03's world and sum.
 13b. observe — the metrics plane on an SLO-targeted llm_service replica of
               llama3-8b (gpu="H100", max_containers 2, target_ttft_ms a
               quarter of the web phase's TTFT p50, at most 250 ms; its
@@ -394,6 +412,16 @@ print the kernel-vs-plain gap and require that the kernel land at least as close
 fp32 attention as the plain version does, and pick fp32 attention's greedy
 token at least as often.
 
+Containers: those of every phase load the build phase's kernel libraries
+but the worker phase's coldstart boots and the image phase's, which build
+their own, as on a fresh host.
+
+Processes: none outlives the run. The script is its descendants'
+subreaper; at the end it waits up to LEFTOVER_WAIT_S for every process it
+started to exit and fails if one is left. Past RUN_BUDGET_S from its start,
+or on SIGTERM, it prints its threads' stacks, stops every process it
+started and exits non-zero.
+
 Output: progress lines, then the nvidia-smi line, then one JSON line
 {"kernels": [...]}, and last {"ok": true, "device": {...}}.
 """
@@ -410,7 +438,9 @@ import subprocess
 import sys
 import time
 
-from modal_tpu_torch import App  # the App layer loads no torch (a container imports this script)
+T_START = time.time()  # RUN_BUDGET_S counts from here
+
+from modal_tpu_torch import App  # noqa: E402 — the App layer loads no torch (a container imports this script)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "lint", "kernels", "serve", "sdk", "worker", "app", "pool", "image", "cli", "fleet",
@@ -419,7 +449,7 @@ PHASES = ("device", "build", "lint", "kernels", "serve", "sdk", "worker", "app",
           "weights",
           "volume",
           "int8",
-          "spec", "disagg", "web", "flash", "observe", "disagg_http", "parity", "forward", "train", "moe", "mesh")
+          "spec", "disagg", "web", "flash", "examples", "observe", "disagg_http", "parity", "forward", "train", "moe", "mesh")
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and dense
 # bf16 tensor-core FLOP/s
@@ -552,6 +582,12 @@ def phase_build(torch, ctx: dict) -> None:
             raise AssertionError("ptxas reported no paged_decode_kernel<64, 4> instance")
         for ln in lines:
             log(f"[build] paged_decode hd 64 n_rep 4 (the draft's instance): {ln}")
+        # the instance the examples' tiny service runs: hd 32, n_rep 2
+        lines = _ptxas_instance(report["paged_decode"]["log"], "paged_decode_kernelILi32ELi2E")
+        if not lines:
+            raise AssertionError("ptxas reported no paged_decode_kernel<32, 2> instance")
+        for ln in lines:
+            log(f"[build] paged_decode hd 32 n_rep 2 (the tiny service's instance): {ln}")
     log(f"[build] all kernels in {ctx['build_s']:.1f}s")
     from modal_tpu_torch.runtime import aot
 
@@ -586,9 +622,16 @@ def _ptxas_instance(ptxas_log: str, mangled: str) -> list[str]:
 
 # K4's serving shapes (S, n_kv, n_rep, hd, page, pages per slot): 8 slots,
 # an 8192-token span per slot, at llama3-8b's heads and at those of the
-# speculative draft, llama3-1b-proxy (hd 64)
+# speculative draft, llama3-1b-proxy (hd 64); and the tiny service of the
+# examples phase's 06 (max_slots 8, n_kv 2, n_rep 2, hd 32, 256 / 16 pages)
 K4_SHAPE = (8, 8, 4, 128, 16, 512)
 K4_DRAFT_SHAPE = (8, 8, 4, 64, 16, 512)
+K4_TINY_SHAPE = (8, 2, 2, 32, 16, 16)
+# the q_pos of each shape's two checks: the serving lengths (slot 3
+# inactive) and q_pos on and around the chunk (DECODE_CHUNK = 256) and page
+# boundaries and at the span's end; tiny's span is one chunk
+K4_LENGTHS = {8192: ([0, 4095, 1, 0, 2047, 517, 3000, 100], [0, 255, 256, 257, 8191, 511, 512, 4097]),
+              256: ([0, 255, 1, 0, 127, 17, 200, 100], [0, 15, 16, 17, 127, 128, 254, 255])}
 
 
 def _k4_pages(torch, gen, shape):
@@ -671,6 +714,7 @@ def phase_kernels(torch, ctx: dict) -> None:
     # -- K4: paged decode attention, at the target's heads and the draft's --
     results["paged_decode"] = _k4_measure(torch, gen, K4_SHAPE, "hd 128")
     ctx["paged_decode_draft_shape"] = _k4_measure(torch, gen, K4_DRAFT_SHAPE, "hd 64")
+    ctx["paged_decode_tiny_shape"] = _k4_measure(torch, gen, K4_TINY_SHAPE, "hd 32")
 
     # -- K1: flash-attention forward ---------------------------------------
     def qkv(b, sq, h, d):
@@ -723,12 +767,11 @@ def phase_kernels(torch, ctx: dict) -> None:
 
 def _k4_measure(torch, gen, shape, label: str) -> dict:
     """K4 at `shape`: checked against its plain version at the serving
-    lengths (spread over 1..4096, slot 3 inactive) and at q_pos on and
-    around its chunk boundaries and at the span's end; then timed warm (in
-    turns with SDPA over the pre-gathered span), cold, and as the plain
-    version, beside the bound of the live KV bytes."""
+    lengths of K4_LENGTHS (slot 3 inactive) and at q_pos on and around its
+    chunk boundaries and at the span's end; then timed warm (in turns with
+    SDPA over the pre-gathered span), cold, and as the plain version, beside
+    the bound of the live KV bytes."""
     from modal_tpu_torch.ops.paged_attention import (
-        DECODE_CHUNK,
         paged_decode_attention,
         paged_decode_attention_ref,
     )
@@ -737,11 +780,11 @@ def _k4_measure(torch, gen, shape, label: str) -> dict:
     q, kp, vp = _k4_pages(torch, gen, shape)
     s, n_kv, n_rep, hd = q.shape
     span = shape[4] * shape[5]
-    pt, sl = _k4_tables(torch, gen, shape, [0, 4095, 1, 0, 2047, 517, 3000, 100], inactive=[3])
+    serving, boundaries = K4_LENGTHS[span]
+    pt, sl = _k4_tables(torch, gen, shape, serving, inactive=[3])
     live = [i for i in range(s) if i != 3]
     err = _k4_check(torch, f"{label} serving lengths", q, kp, vp, pt, sl, live)
-    bpt, bsl = _k4_tables(torch, gen, shape, [0, DECODE_CHUNK - 1, DECODE_CHUNK, DECODE_CHUNK + 1, span - 1,
-                                               2 * DECODE_CHUNK - 1, 2 * DECODE_CHUNK, 16 * DECODE_CHUNK + 1])
+    bpt, bsl = _k4_tables(torch, gen, shape, boundaries)
     err = max(err, _k4_check(torch, f"{label} chunk boundaries", q, kp, vp, bpt, bsl, list(range(s))))
     del bpt, bsl
     live_tokens = sum(int(sl[i]) + 1 for i in live)
@@ -847,6 +890,32 @@ def _flash_bwd_kernels(torch, gen, qkv, results: dict) -> None:
             f"plain_ms={m['plain_ms']:.4f} (whole plain backward) bound_ms={m['bound_ms']:.4f} "
             f"library_ms={_spread(t['library'])} (SDPA backward, dQ+dK+dV; median [min, max] of "
             f"{TIMING_ROUNDS} rounds) (B1 S2048 H32 D128 causal, {flops / 1e9:.1f} GFLOP)")
+
+
+def _built_kernels(phase):
+    """Run `phase` with TORCH_EXTENSIONS_DIR naming the build phase's kernel
+    libraries: the containers its workers start (the worker reads it at each
+    spawn, a server subprocess inherits it) load them instead of running
+    nvcc in a build directory of their own. A container's own build on a
+    fresh host is what the worker phase's coldstart and the image phase go
+    on measuring."""
+    import functools
+
+    @functools.wraps(phase)
+    def run(torch, ctx: dict) -> None:
+        from modal_tpu_torch.ops import _build
+
+        saved = os.environ.get("TORCH_EXTENSIONS_DIR")
+        os.environ["TORCH_EXTENSIONS_DIR"] = _build.build_dir()
+        try:
+            phase(torch, ctx)
+        finally:
+            if saved is None:
+                os.environ.pop("TORCH_EXTENSIONS_DIR", None)
+            else:
+                os.environ["TORCH_EXTENSIONS_DIR"] = saved
+
+    return run
 
 
 def _load_8b(torch, ctx: dict):
@@ -1448,7 +1517,6 @@ def phase_weights(torch, ctx: dict) -> None:
                              f"(want {cfg.n_layers}) or gave non-finite logits")
     same_fwd = torch.equal(logits, forward(params, cfg, tokens)[0])
     _build.reset_launches()  # the comparison forward does not count toward the path
-    ctx["weights_logits_checksum"] = _checksum(torch, logits)  # the volume phase's reference
     del logits
     if not same_fwd:
         raise AssertionError("weights: the forward on the reloaded params differs from the original's")
@@ -1479,13 +1547,16 @@ def phase_weights(torch, ctx: dict) -> None:
 
 
 # the train state's depth: 32 layers would be ~48 GB of bf16 params and
-# moments; 4 (8 until the observe phase came) keeps the whole run under
-# ~1000 s of its 1200 s limit
-VOLUME_TRAIN_LAYERS = 4
+# moments; 2 (8 until the observe phase came, 4 until the examples phase)
+# keeps the whole run well inside its 1200 s limit
+VOLUME_TRAIN_LAYERS = 2
+# the served weights' depth (of llama3-8b's 32): the upload, its hashing
+# and the container's load scale with it
+VOLUME_SERVE_LAYERS = 8
 VOLUME_NAME = "llama3-8b-weights"
 
 
-def _volume_serving_fn(cfg_name: str, volume_name: str, prefix: str, prompts: list):
+def _volume_serving_fn(cfg_name: str, n_layers: int, volume_name: str, prefix: str, prompts: list):
     """The volume phase's function, run in a container of the port's worker
     with the Volume mounted: the params from the Volume, the weights phase's
     cache-less forward, the serving traffic. Cloudpickle takes it by value,
@@ -1499,7 +1570,7 @@ def _volume_serving_fn(cfg_name: str, volume_name: str, prefix: str, prompts: li
         from modal_tpu_torch.models.weights import load_params
         from modal_tpu_torch.ops import _build
 
-        cfg = get_config(cfg_name)
+        cfg = get_config(cfg_name, n_layers=n_layers)
         vol = Volume.from_name(volume_name)
         vol.hydrate()
         t0 = time.perf_counter()
@@ -1628,6 +1699,7 @@ class _BothHashRoutes:
         return self.bytes / self.seconds[route] / 1e9 if self.seconds[route] else float("nan")
 
 
+@_built_kernels
 def phase_volume(torch, ctx: dict) -> None:
     """Weights in a Volume served by a gpu="H100" function, and a train
     state checkpointed to a Volume and resumed (the docstring's 9b)."""
@@ -1639,33 +1711,34 @@ def phase_volume(torch, ctx: dict) -> None:
     from modal_tpu_torch._utils.async_utils import synchronizer
     from modal_tpu_torch.checkpoint import VolumeCheckpointer
     from modal_tpu_torch.client import _Client
-    from modal_tpu_torch.models.llama import forward
+    from modal_tpu_torch.models.llama import forward, get_config
     from modal_tpu_torch.models.quant import quantized_bytes
     from modal_tpu_torch.models.weights import DEFAULT_SHARD_BYTES, export_checkpoint
     from modal_tpu_torch.ops import _build
 
     smi = ctx.get("nvidia_smi") or _nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    params, cfg = _load_8b(torch, ctx)
-    prompts = _prompts(cfg, 8, seed=1)
-    want = ctx.get("serve_streams")
-    if want is None:
-        want, *_ = _run_traffic(_engine_8b(params, cfg), prompts, cfg.vocab_size, "volume reference")
-        log("[volume] the serve phase did not run: reference streams from the params in this process")
-    want_checksum = ctx.get("weights_logits_checksum")
-    if want_checksum is None:
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(3)
-        tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
-        want_checksum = _checksum(torch, forward(params, cfg, tokens)[0])
-        _build.reset_launches()  # a reference forward, not the path
-        log("[volume] the weights phase did not run: reference logits from the params in this process")
+    full, full_cfg = _load_8b(torch, ctx)
+    cfg = get_config("llama3-8b", n_layers=VOLUME_SERVE_LAYERS)
+    params = {**full, "layers": {n: w[:VOLUME_SERVE_LAYERS] for n, w in full["layers"].items()}}
+    prompts = _prompts(full_cfg, 8, seed=1)
+    # the references: this process's engine and forward on the same params
+    t0 = time.perf_counter()
+    want, *_ = _run_traffic(_engine_8b(params, cfg), prompts, cfg.vocab_size, "volume reference")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    want_checksum = _checksum(torch, forward(params, cfg, tokens)[0])
+    del tokens
+    _build.reset_launches()  # references, not the path
+    log(f"[volume] reference streams and logits at {cfg.n_layers} layers in this process in "
+        f"{time.perf_counter() - t0:.1f}s")
     nbytes = quantized_bytes(params)
     saved = {k: os.environ.pop(k, None) for k in ("MODAL_TPU_SERVER_URL", "MODAL_TPU_STATE_DIR",
                                                  "MODAL_TPU_AUTO_LOCAL_SERVER")}
     state_dir = os.environ["MODAL_TPU_STATE_DIR"] = tempfile.mkdtemp(prefix="volume-")
     free = _free_bytes(state_dir)
-    train_bytes = 3 * nbytes * VOLUME_TRAIN_LAYERS // cfg.n_layers  # an upper bound: params and two moments
+    train_bytes = 3 * quantized_bytes(full) * VOLUME_TRAIN_LAYERS // full_cfg.n_layers  # params and two moments
     need = max(nbytes + DEFAULT_SHARD_BYTES, train_bytes) * 1.1 + (2 << 30)
     log(f"[volume] {nbytes / 1e9:.2f} GB of params; {free / 1e9:.1f} GB free under {state_dir}, "
         f"{need / 1e9:.1f} GB needed | {smi}")
@@ -1676,7 +1749,7 @@ def phase_volume(torch, ctx: dict) -> None:
     app = App("chip_smoke volume")
     vol = Volume.from_name(VOLUME_NAME, create_if_missing=True)
     fn = app.function(serialized=True, gpu="H100", volumes={"/weights": vol}, scaledown_window=2, timeout=1800)(
-        _volume_serving_fn("llama3-8b", VOLUME_NAME, "llama3-8b", prompts))
+        _volume_serving_fn("llama3-8b", VOLUME_SERVE_LAYERS, VOLUME_NAME, "llama3-8b", prompts))
     try:
         with app.run():
             sup = _Client._local_supervisor
@@ -1725,13 +1798,13 @@ def phase_volume(torch, ctx: dict) -> None:
                                      f"(CUDA_VISIBLE_DEVICES={r['cuda_visible_devices']!r}, task cards {task.gpu_ids})")
             if k1 != cfg.n_layers or not r["logits_finite"] or r["logits_checksum"] != want_checksum:
                 raise AssertionError(f"volume: the forward in the container launched flash_fwd {k1} times (want "
-                                     f"{cfg.n_layers}), logits checksum {r['logits_checksum']} vs the weights "
-                                     f"phase's {want_checksum}, finite {r['logits_finite']}")
+                                     f"{cfg.n_layers}), logits checksum {r['logits_checksum']} vs this "
+                                     f"process's {want_checksum}, finite {r['logits_finite']}")
             if k4 != cfg.n_layers * r["decode_steps"]:
                 raise AssertionError(f"volume: paged_decode launched {k4} times over {r['decode_steps']} steps")
             differ = [i for i, (a, b) in enumerate(zip(r["streams"], want)) if a != b]
             if differ:
-                raise AssertionError(f"volume: streams {differ} served from the Volume differ from the serve phase's")
+                raise AssertionError(f"volume: streams {differ} served from the Volume differ from this process's")
             _add_launches(ctx, "flash_fwd", k1)
             _add_launches(ctx, "paged_decode", k4)
             load_gbps = r["bytes"] / r["load_s"] / 1e9
@@ -1741,7 +1814,7 @@ def phase_volume(torch, ctx: dict) -> None:
                 f"load_params from the Volume {r['bytes'] / 1e9:.2f} GB in {r['load_s']:.2f}s ({load_gbps:.2f} GB/s; "
                 f"the weights phase's local-directory load: "
                 f"{ctx.get('weights', {}).get('load_gb_per_s', float('nan')):.2f} GB/s); forward flash_fwd {k1}, "
-                f"logits checksum equal to the weights phase's; 8/8 streams equal serve's, paged_decode {k4} "
+                f"logits checksum equal to this process's; 8/8 streams equal this process's, paged_decode {k4} "
                 f"(= {cfg.n_layers} x {r['decode_steps']}); cold call {call_s:.2f}s | {smi}")
             # the weights' blocks leave the store: the train state needs the disk
             for f in vol.listdir("llama3-8b"):
@@ -1909,11 +1982,11 @@ def _walk_rounds(torch, records: list, verifies: list, drafts: list, k: int) -> 
     return {"accepted": accepted, "rejections": rejections}
 
 
-# the spec phase's target depth: llama3-8b's width at the first 16 of the
-# serve params' 32 layers (views), cut (with the volume phase's train state)
-# to keep the whole run under ~1000 s of its 1200 s limit; the breakdown
-# still times the full-depth target
-SPEC_TARGET_LAYERS = 16
+# the spec phase's target depth: llama3-8b's width at the first 8 of the
+# serve params' 32 layers (views; 16 until the examples phase came), cut
+# with the volume phase's depths to keep the whole run well inside its
+# 1200 s limit; the breakdown still times the full-depth target
+SPEC_TARGET_LAYERS = 8
 
 
 def phase_spec(torch, ctx: dict) -> None:
@@ -2327,6 +2400,7 @@ WEB_CRON_WINDOW_S = 10.0
 WEB_STREAMED = (1, 3, 5, 7)
 
 
+@_built_kernels
 def phase_web(torch, ctx: dict) -> None:
     """llama3-8b served over HTTP by an `llm_service` replica: `app.run()`
     boots the port's plane in this process (a fresh state dir), the
@@ -2571,6 +2645,7 @@ def _inflight(url: str) -> float:
     return float(stats["active_slots"] + stats["waiting"])
 
 
+@_built_kernels
 def phase_flash(torch, ctx: dict) -> None:
     """Flash at llama3-8b's full width: `app.run()` boots the port's plane
     in this process (a fresh state dir); a gpu="H100", max_containers=2
@@ -2906,6 +2981,7 @@ def _journal_alerts(sup) -> list:
     return [r for r in snap + tail if r.get("t") == "alert"]
 
 
+@_built_kernels
 def phase_observe(torch, ctx: dict) -> None:
     """The metrics plane on an SLO-targeted llama3-8b `llm_service` replica:
     `app.run()` boots the port's plane (a fresh state dir) with its sampler
@@ -4926,6 +5002,7 @@ def phase_worker(torch, ctx: dict) -> None:
     from modal_tpu_torch.models.llama import get_config, init_params_abstract
     from modal_tpu_torch.models.quant import quantized_bytes
     from modal_tpu_torch.observability.catalog import JOURNAL_APPEND_SECONDS, JOURNAL_APPENDS, JOURNAL_BYTES
+    from modal_tpu_torch.ops import _build
     from modal_tpu_torch.server.journal import Journal
     from modal_tpu_torch.server.supervisor import LocalSupervisor
 
@@ -4941,6 +5018,7 @@ def phase_worker(torch, ctx: dict) -> None:
     if free < nbytes * 1.1 + (2 << 30):
         raise AssertionError(f"worker: {free / 1e9:.1f} GB free under {parent}, the snapshot needs {nbytes / 1e9:.1f}")
     roots = [tempfile.mkdtemp(prefix="worker-", dir=parent), tempfile.mkdtemp(prefix="coldstart-", dir=parent)]
+    kernels = _build.build_dir()
     saved = {}
     for key, value in _worker_env(roots[1]).items():
         saved[key] = os.environ.pop(key, None)
@@ -4954,7 +5032,12 @@ def phase_worker(torch, ctx: dict) -> None:
     try:
         for root, step in zip(roots, ("serve", "coldstart")):
             # each step has its own control plane: the coldstart's fresh boot
-            # must find an empty fleet store
+            # must find an empty fleet store and build in its own directory;
+            # the serve step's containers load the build phase's kernels
+            if step == "serve":
+                os.environ["TORCH_EXTENSIONS_DIR"] = kernels
+            else:
+                os.environ.pop("TORCH_EXTENSIONS_DIR", None)
             sup = LocalSupervisor(num_workers=1, state_dir=root)
             synchronizer.run(sup.start())
             try:
@@ -5147,6 +5230,7 @@ def _app_split(sup, task, trace_id: str, t_call: float, t_result: float) -> dict
             "spawn_to_first_output_s": task.first_output_at - t0}
 
 
+@_built_kernels
 def phase_app(torch, ctx: dict) -> None:
     """The App layer on the card: `app.run()` with no server configured boots
     the port's LocalSupervisor in this process (its worker probes the card
@@ -5602,14 +5686,18 @@ def phase_pool(torch, ctx: dict) -> None:
     import shutil
     import tempfile
 
+    from modal_tpu_torch.ops import _build
+
     for key in ("params", "cfg"):  # the containers build their own 16 GB
         ctx.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
     smi = ctx.get("nvidia_smi") or _nvidia_smi()
     root = tempfile.mkdtemp(prefix="pool-")
+    # the pooled and the unpooled boots load the build phase's kernels: the
+    # pool's gain is the interpreter and its `import torch`
     env = {**_worker_env(root), "MODAL_TPU_WARM_POOL_PREIMPORT": "torch", "MODAL_TPU_HEARTBEAT_INTERVAL": "3",
-           "MODAL_TPU_WARM_POOL": None}
+           "MODAL_TPU_WARM_POOL": None, "TORCH_EXTENSIONS_DIR": _build.build_dir()}
     saved = {}
     for key, value in env.items():
         saved[key] = os.environ.pop(key, None)
@@ -6425,6 +6513,7 @@ def _critical_paths(text: str) -> list:
     return out
 
 
+@_built_kernels
 def phase_cli(torch, ctx: dict) -> None:
     """The port's command line on the card, one subprocess per command:
     `cli server` starts the plane (chaos on, a supervisor_crash after
@@ -6762,6 +6851,7 @@ def _quantiles_of(metrics: dict, family: str, qs=(0.5, 0.95)) -> dict:
     return {"count": total, **{f"p{int(q * 100)}": bucket_quantile(bounds, counts, q, total=total) for q in qs}}
 
 
+@_built_kernels
 def phase_fleet(torch, ctx: dict) -> None:
     """The sharded plane on the card: `python -m modal_tpu_torch.server
     --shards 3 --workers 3` (in-process shards, journal replication at its
@@ -7023,6 +7113,7 @@ SANDBOX_LENGTHS = "128,256,384,512"
 SANDBOX_TUNNEL_ROUNDS = 20
 
 
+@_built_kernels
 def phase_sandbox(torch, ctx: dict) -> None:
     """A `gpu="H100"` sandbox through `app.run()` (the port's plane booted in
     this process): `sleep infinity` pinned to card 0, then an exec'd
@@ -7052,7 +7143,7 @@ def phase_sandbox(torch, ctx: dict) -> None:
     kind = torch.cuda.get_device_name(0)
     cfg = get_config("llama3-8b")
     saved = {k: os.environ.pop(k, None) for k in ("MODAL_TPU_SERVER_URL", "MODAL_TPU_STATE_DIR",
-                                                 "MODAL_TPU_AUTO_LOCAL_SERVER", "TORCH_EXTENSIONS_DIR",
+                                                 "MODAL_TPU_AUTO_LOCAL_SERVER",
                                                  "MODAL_TPU_COMPILE_CACHE_DIR", "MODAL_TPU_COMPILE_CACHE_URL")}
     state_dir = os.environ["MODAL_TPU_STATE_DIR"] = tempfile.mkdtemp(prefix="sandbox-")
     app = App("chip_smoke sandbox")
@@ -7175,6 +7266,185 @@ def phase_sandbox(torch, ctx: dict) -> None:
     ctx["sandbox"] = out
 
 
+# -- examples: the six examples as a user runs them -------------------------
+
+EXAMPLES_DIR = os.path.join(REPO, "modal_tpu_torch", "examples")
+# (file, arguments, the lines its output must hold): the counterparts of
+# tests/test_torch_examples.py's checks, on the card
+EXAMPLES = (("01_hello_world.py", (), ("square(12) = 144", "[0, 1, 4, 9, 16]")),
+            ("02_gpu_decode.py", (), ("decoded tokens:", "decode wall time:")),
+            ("03_clustered_training.py", (), ("'world': 2", "'sum': 1.0", "'backend': 'gloo'")),
+            ("04_volumes_and_checkpoints.py", (), ("exported", "restored param leaves:", "on cuda")),
+            ("05_sandbox_and_sidecars.py", (), ("hello-from-sandbox", "via shared fs: sidecar-wrote-this")),
+            ("06_serving.py", (), ("serving at", "tokens:")))
+# the two examples run again at full width, and the config each names
+EXAMPLES_FULL = ("02_gpu_decode.py", "06_serving.py")
+EXAMPLES_FULL_CONFIG = "llama3-8b"
+
+
+def _run_example(env: dict, path: str, args: tuple, want: tuple, timeout: float) -> tuple:
+    """(stdout, seconds) of one example run as a script; raises unless it
+    exits 0 and prints every line of `want`."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, path, *args], capture_output=True, text=True, timeout=timeout, env=env)
+    seconds = time.perf_counter() - t0
+    name = os.path.basename(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"examples: {name} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    missing = [w for w in want if w not in proc.stdout]
+    if missing:
+        raise AssertionError(f"examples: {name} printed no {missing}:\n{proc.stdout[-2000:]}")
+    return proc.stdout, seconds
+
+
+# an example's first sys.path entry, the checkout three directories up from
+# the file; a copy outside the checkout names the checkout instead
+EXAMPLE_CHECKOUT = "os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))"
+
+
+def _full_width_copy(name: str, root: str) -> str:
+    """A copy of example `name` in `root` naming EXAMPLES_FULL_CONFIG where
+    it names "tiny", and this checkout where it puts its own checkout first
+    on sys.path (the copy's and its containers')."""
+    with open(os.path.join(EXAMPLES_DIR, name)) as f:
+        text = f.read()
+    for old, new in (('"tiny"', f'"{EXAMPLES_FULL_CONFIG}"'), (EXAMPLE_CHECKOUT, repr(REPO))):
+        if text.count(old) != 1:
+            raise AssertionError(f"examples: {name} holds {old} {text.count(old)} times, not once")
+        text = text.replace(old, new)
+    path = os.path.join(root, name)
+    os.makedirs(root, exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _service_task(sup, name: str, since: float):
+    """The one task of the class service `name` created after `since` (a
+    sandbox's task has no function)."""
+    tasks = [t for t in list(sup.state.tasks.values()) if t.created_at >= since
+             and getattr(sup.state.functions.get(t.function_id), "tag", "") == name]
+    if len(tasks) != 1:
+        raise AssertionError(f"examples: {len(tasks)} tasks of {name} ({[t.task_id for t in tasks]})")
+    return tasks[0]
+
+
+def _serving_line(stdout: str) -> dict:
+    """06's `tokens: [...] (TTFT 0.123s, 16 tokens in 0.456s)` line."""
+    import re
+
+    m = re.search(r"^tokens: \[(.*)\] \(TTFT ([0-9.]+)s, ([0-9]+) tokens in ([0-9.]+)s\)$", stdout, re.M)
+    if m is None:
+        raise AssertionError(f"examples: 06 printed no tokens line:\n{stdout[-2000:]}")
+    tokens = [int(t) for t in m.group(1).split(",") if t.strip()]
+    return {"tokens": tokens, "ttft_s": float(m.group(2)), "n_tokens": int(m.group(3)), "wall_s": float(m.group(4)),
+            "tokens_per_s": int(m.group(3)) / float(m.group(4))}
+
+
+def _example_run(ctx: dict, sup, env: dict, smi: str, name: str, path: str, args: tuple, want: tuple,
+                 config: str) -> dict:
+    """One example run as a script, its output checked; 06's replica's K4
+    launches read from its last heartbeat."""
+    import ast
+
+    from modal_tpu_torch.models.llama import get_config
+    from modal_tpu_torch.models.paged_kv import DecodeGraph
+
+    cfg = get_config(config)
+    t_start = time.time()
+    # a class whose @enter raises is respawned and its call never fails
+    # (ROADMAP Queue C 57): the timeout bounds such a run
+    stdout, seconds = _run_example(env, path, args, want, timeout=120.0 if config == "tiny" else 240.0)
+    key = f"{name}@{config}"
+    r = {"seconds": seconds}
+    if name.startswith("02_"):
+        lines = stdout.splitlines()
+        r["decode_s"] = float(next(ln for ln in lines if ln.startswith("decode wall time:")).split()[3])
+        r["tokens"] = ast.literal_eval(next(ln for ln in lines if ln.startswith("decoded tokens:")).split(":", 1)[1])
+        if len(r["tokens"]) != 8 or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+            raise AssertionError(f"examples: {key} decoded {r['tokens']}")
+    elif name.startswith("03_"):
+        r["result"] = ast.literal_eval(stdout.strip().splitlines()[-1])
+    elif name.startswith("06_"):
+        r.update(_serving_line(stdout))
+        if r["n_tokens"] != 16 or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+            raise AssertionError(f"examples: {key} answered {r['tokens']}")
+        task = _service_task(sup, "TinyLLM", t_start)
+        _wait_app_tasks(sup, task.app_id)
+        # the replica's last heartbeat (sent at its exit): every launch of
+        # its process, the decode graph's eager warm-up steps and the
+        # request's decode steps (the batch-occupancy count)
+        k4, steps = _k4_and_steps(_report_of(task))
+        if steps < r["n_tokens"] - 1 or k4 != cfg.n_layers * (steps + DecodeGraph.WARMUP) or task.gpu_ids != [0]:
+            raise AssertionError(f"examples: {key}'s replica on cards {task.gpu_ids} reported paged_decode {k4} "
+                                 f"launches over {steps} decode steps ({cfg.n_layers} layers, "
+                                 f"{DecodeGraph.WARMUP} warm-up steps)")
+        r.update({"paged_decode_launches": k4, "decode_steps": steps})
+        _add_launches(ctx, "paged_decode", k4)
+    log(f"[examples] {key}: exit 0 in {seconds:.1f}s"
+        + (f"; decode {r['decode_s']:.4f}s in the container, tokens {r['tokens']}" if "decode_s" in r else "")
+        + (f"; {r['result']}" if "result" in r else "")
+        + (f"; {r['n_tokens']} tokens, TTFT {r['ttft_s']:.3f}s, {r['tokens_per_s']:.1f} tokens/s over the "
+           f"request, paged_decode {r['paged_decode_launches']} launches in the replica (its last heartbeat): "
+           f"{cfg.n_layers} x ({r['decode_steps']} decode steps + {DecodeGraph.WARMUP} warm-up)"
+           if "paged_decode_launches" in r else "")
+        + f" | {smi}")
+    return {key: r}
+
+
+@_built_kernels
+def phase_examples(torch, ctx: dict) -> None:
+    """The six examples, each a subprocess against a port plane that this
+    process starts with a one-card worker; then 02 and 06 at llama3-8b. The
+    examples that ask for no card (01, 03, 04, 05) run beside those that do
+    (02, 06), one after another in each group."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    from modal_tpu_torch._utils.async_utils import synchronizer
+    from modal_tpu_torch.server.supervisor import LocalSupervisor
+
+    smi = ctx.get("nvidia_smi") or _nvidia_smi()
+    _free_parent(torch, ctx, "examples")
+    root = tempfile.mkdtemp(prefix="examples-")
+    # the containers read these from this process's environment at spawn
+    plane_env = {"MODAL_TPU_HEARTBEAT_INTERVAL": "1", "MODAL_TPU_SNAPSHOT_DIR": os.path.join(root, "snapshots")}
+    saved = {k: os.environ.get(k) for k in plane_env}
+    os.environ.update(plane_env)
+    sup = LocalSupervisor(num_workers=1, state_dir=os.path.join(root, "state"))
+    synchronizer.run(sup.start())
+    out: dict = {"nvidia_smi": smi, "runs": {}}
+    try:
+        worker = sup.workers[0]
+        if len(worker.card_indices) != 1 or worker.gpu_type != torch.cuda.get_device_name(0):
+            raise AssertionError(f"examples: the worker's probe found {worker.card_indices} x {worker.gpu_type!r}")
+        env = {k: v for k, v in os.environ.items() if k not in ("MODAL_TPU_STATE_DIR", "MODAL_TPU_AUTO_LOCAL_SERVER")}
+        env.update({"MODAL_TPU_SERVER_URL": sup.server_url, "PYTHONPATH": REPO})
+        runs = {name: (name, os.path.join(EXAMPLES_DIR, name), args, want, "tiny") for name, args, want in EXAMPLES}
+        card = [runs.pop("02_gpu_decode.py"), runs.pop("06_serving.py")]
+        card += [(name, _full_width_copy(name, os.path.join(root, "full")), args, want, EXAMPLES_FULL_CONFIG)
+                 for name, args, want in EXAMPLES if name in EXAMPLES_FULL]
+
+        def group(runs: list) -> dict:
+            done = {}
+            for run in runs:
+                done.update(_example_run(ctx, sup, env, smi, *run))
+            return done
+
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for fut in [pool.submit(group, list(runs.values())), pool.submit(group, card)]:
+                out["runs"].update(fut.result())
+    finally:
+        synchronizer.run(sup.stop())
+        shutil.rmtree(root, ignore_errors=True)
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+    ctx["examples"] = out
+
 KERNELS = {
     "paged_decode": ("modal_tpu_torch/csrc/paged_decode.cu", "modal_tpu/ops/paged_attention.py:42"),
     "flash_fwd": ("modal_tpu_torch/csrc/flash_fwd.cu", "modal_tpu/ops/attention.py:50"),
@@ -7183,11 +7453,120 @@ KERNELS = {
 }
 # the phases whose run each kernel's launch count is read from
 PATHS = {"paged_decode": ("serve", "sdk", "worker", "app", "pool", "image", "cli", "graphs", "weights", "volume", "int8",
-                          "spec", "disagg", "web", "flash", "observe", "disagg_http"),
+                          "spec", "disagg", "web", "flash", "examples", "observe", "disagg_http"),
          "flash_fwd": ("app", "image", "cli", "fleet", "sandbox", "weights", "volume", "observe", "forward", "train",
                        "moe", "mesh"),
          "flash_bwd_dq": ("volume", "train", "moe", "mesh"),
          "flash_bwd_dkv": ("volume", "train", "moe", "mesh")}
+
+
+# -- the run's processes: none outlives it ------------------------------------
+
+# the whole run's budget from the interpreter's start: a run still going
+# then stops itself and every process it started, and fails (the release
+# check allows 1200 s)
+RUN_BUDGET_S = 1185.0
+# how long the end of a run waits for its processes to exit on their own
+LEFTOVER_WAIT_S = 15.0
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def _descendants(root: int) -> list:
+    """[(pid, state, command)] of every live process below `root` (zombies
+    left out), from /proc."""
+    children: dict = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the command in field 2 may hold spaces: the fields after it follow its ')'
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        children.setdefault(int(ppid), []).append((int(entry), state))
+    out, todo = [], [root]
+    while todo:
+        for pid, state in children.get(todo.pop(), []):
+            todo.append(pid)
+            if state != "Z":
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+                except OSError:
+                    cmd = "?"
+                out.append((pid, state, cmd[:200]))
+    return out
+
+
+class _ProcessGuard:
+    """Every process the run starts stops with it. The script becomes its
+    descendants' subreaper (a process whose parent dies is re-parented here,
+    not to init), so /proc shows them all; `leftovers` waits for them at the
+    end of a run, `stop_all` stops them; past RUN_BUDGET_S, or on SIGTERM,
+    the run dumps its threads' stacks, stops them all and exits non-zero."""
+
+    def __init__(self, budget_s: float):
+        import ctypes
+        import signal
+        import threading
+
+        self.phase = "start"
+        self.subreaper = False
+        try:
+            libc = ctypes.CDLL(None, use_errno=True)
+            self.subreaper = libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0
+        except (OSError, AttributeError):
+            pass
+        signal.signal(signal.SIGTERM, lambda *_: self._abort("SIGTERM came", 143))
+        self._timer = threading.Timer(max(0.0, budget_s - (time.time() - T_START)), self._abort,
+                                      (f"the run passed its budget of {budget_s:.0f}s", 3))
+        self._timer.daemon = True
+        self._timer.start()
+
+    def _abort(self, why: str, code: int) -> None:
+        import faulthandler
+
+        print(f"chip_smoke: {why} in phase {self.phase}; stopping every process it started", file=sys.stderr,
+              flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        self.stop_all()
+        os._exit(code)
+
+    def stop_all(self, grace: float = 5.0) -> list:
+        """SIGTERM to every live descendant, SIGKILL to what outlives
+        `grace`, until none is left (a killed parent's children come here)
+        or `grace` has passed three times; returns the ones it found first."""
+        import signal
+
+        first = _descendants(os.getpid())
+        deadline = time.time() + grace
+        sig = signal.SIGTERM
+        left = first
+        while left and time.time() < deadline + 2 * grace:
+            for pid, _state, _cmd in left:
+                try:
+                    os.kill(pid, sig)
+                except (ProcessLookupError, PermissionError):
+                    pass
+            time.sleep(0.2)
+            if time.time() > deadline:
+                sig = signal.SIGKILL
+            left = _descendants(os.getpid())
+        return first
+
+    def leftovers(self, wait_s: float = LEFTOVER_WAIT_S) -> list:
+        """The live descendants still there after up to `wait_s`."""
+        deadline = time.time() + wait_s
+        left = _descendants(os.getpid())
+        while left and time.time() < deadline:
+            time.sleep(0.5)
+            left = _descendants(os.getpid())
+        return left
+
+    def cancel(self) -> None:
+        self._timer.cancel()
 
 
 def main() -> int:
@@ -7208,14 +7587,30 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import modal_tpu_torch  # noqa: F401 — fails outside a checkout of the repo
 
+    guard = _ProcessGuard(RUN_BUDGET_S)
     ctx: dict = {}
     t_all = time.perf_counter()
-    for name in PHASES:
-        if name in phases:
-            t0 = time.perf_counter()
-            globals()[f"phase_{name}"](torch, ctx)
-            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s, "
-                f"{torch.cuda.memory_allocated() / 1e6:.1f} MB allocated; {_host_room()}")
+    try:
+        for name in PHASES:
+            if name in phases:
+                guard.phase = name
+                t0 = time.perf_counter()
+                globals()[f"phase_{name}"](torch, ctx)
+                log(f"[{name}] phase done in {time.perf_counter() - t0:.1f}s, "
+                    f"{torch.cuda.memory_allocated() / 1e6:.1f} MB allocated; {_host_room()}")
+        guard.phase = "end"
+        left = guard.leftovers()
+    except BaseException:
+        guard.cancel()
+        for pid, state, cmd in guard.stop_all():
+            print(f"chip_smoke: the failed run stopped pid {pid} ({state}) {cmd}", file=sys.stderr, flush=True)
+        raise
+    guard.cancel()
+    if left:
+        guard.stop_all()
+        raise AssertionError(f"{len(left)} processes the run started outlived it by {LEFTOVER_WAIT_S:.0f}s "
+                             f"(stopped now): {left}")
+    log(f"[end] no process the run started is left (subreaper {guard.subreaper})")
     for key in ("params", "cfg", "serve_logits"):  # tensors, and logits keyed by (request, token)
         ctx.pop(key, None)
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

@@ -53,16 +53,66 @@ each module's counterpart is easy to find:
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 
-Importing the package imports nothing else (not torch, grpc or protobuf):
-a boot traces its imports with `runtime.telemetry` before anything heavy
-loads. Each public name below loads its module on first access.
+Importing the package imports only its settings (`config.py`, standard
+library alone), never torch, grpc or protobuf: a boot traces its imports
+with `runtime.telemetry` before anything heavy loads. `config` is bound
+here, as in the JAX package, to the `Config` object; every other public
+name below loads its module on first access.
+
+The top-level names are the JAX package's, under `JAX_NAMES` for the two
+that name TPU slices; `__all__` is JAX's list so mapped. `Obj`, `serving`,
+`logger` and `resolve_device` are top-level names outside `__all__`: the
+first two as in JAX, the last two the port's own (its logger, and the rule
+by which every entry point picks CUDA unless asked for the CPU).
 """
+
+from .config import config
+
+__version__ = "0.1.0"
+
+# a JAX top-level name -> the port's counterpart, where the two differ
+JAX_NAMES = {"TPUSliceSpec": "GPUSpec", "parse_tpu_config": "parse_gpu_config"}
 
 # public name -> the module that defines it
 _EXPORTS = {
     "logger": "config",
     "resolve_device": "config",
     "App": "app",
+    "_App": "app",
+    "Client": "client",
+    "_Client": "client",
+    "_Cls": "cls",
+    "_Function": "functions",
+    "_FunctionCall": "functions",
+    "_Image": "image",
+    "_Mount": "mount",
+    "_Secret": "secret",
+    "_Volume": "volume",
+    **dict.fromkeys(
+        (
+            "Error",
+            "AlreadyExistsError",
+            "AuthError",
+            "ClusterError",
+            "DeserializationError",
+            "ExecutionError",
+            "FunctionTimeoutError",
+            "InputCancellation",
+            "InvalidError",
+            "NotFoundError",
+            "RemoteError",
+            "SandboxTerminatedError",
+            "SandboxTimeoutError",
+            "SerializationError",
+            "TimeoutError",
+            "VersionError",
+        ),
+        "exception",
+    ),
+    "FileIO": "sandbox_fs",
+    "FilePatternMatcher": "file_pattern_matcher",
+    "GPUSpec": "gpu_config",
+    "parse_gpu_config": "gpu_config",
     "Function": "functions",
     "FunctionCall": "functions",
     "Cls": "cls",
@@ -112,7 +162,66 @@ _EXPORTS = {
     "Workspace": "workspace",
 }
 
-__all__ = [*_EXPORTS, "serving"]
+# the JAX package's __all__, in its order, under JAX_NAMES
+__all__ = [
+    JAX_NAMES.get(name, name)
+    for name in (
+        "App",
+        "Client",
+        "Cls",
+        "ClusterInfo",
+        "Cron",
+        "Dict",
+        "Environment",
+        "Error",
+        "FilePatternMatcher",
+        "Function",
+        "FunctionCall",
+        "Image",
+        "Mount",
+        "NetworkFileSystem",
+        "CloudBucketMount",
+        "Period",
+        "Probe",
+        "Proxy",
+        "Queue",
+        "Retries",
+        "Sandbox",
+        "SandboxSnapshot",
+        "Tunnel",
+        "ContainerProcess",
+        "SandboxFS",
+        "FileIO",
+        "SchedulerPlacement",
+        "Secret",
+        "TPUSliceSpec",
+        "Volume",
+        "Workspace",
+        "batched",
+        "clustered",
+        "concurrent",
+        "config",
+        "current_function_call_id",
+        "current_input_id",
+        "enable_output",
+        "enter",
+        "exit",
+        "forward",
+        "get_cluster_info",
+        "get_fabric_peers",
+        "is_local",
+        "resume_token",
+        "set_resume_token",
+        "method",
+        "parameter",
+        "parse_tpu_config",
+        "asgi_app",
+        "fastapi_endpoint",
+        "web_endpoint",
+        "web_server",
+        "wsgi_app",
+    )
+]
 
 
 def __getattr__(name: str):

@@ -20,8 +20,8 @@ polling the input queue, and `get_web_url` long-polls for its URL.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
-import time
 import typing
 from typing import Any, Callable, Optional, Sequence
 
@@ -30,7 +30,7 @@ from ._utils.function_utils import FunctionInfo
 from ._utils.grpc_utils import retry_transient_errors
 from .client import _Client
 from .exception import ExecutionError, InvalidError
-from .functions import _Function, _Invocation
+from .functions import _Function, _Invocation, traced_call
 from .object import LoadContext, Resolver, _Object
 from .partial_function import (
     _PartialFunction,
@@ -215,22 +215,11 @@ class _BoundMethod:
         function's `.remote()` opens (functions.py), so `app trace` and `app
         attribute` see method calls too; the JAX package's method calls open
         no root span."""
-        from .observability import tracing
-        from .observability.catalog import DISPATCH_LATENCY
-
         fn = await self._obj._get_bound_function()
-        t_dispatch0 = time.perf_counter()
-        with tracing.span(
-            "function.call",
-            attrs={"function_id": fn.object_id or "", "function": f"{fn.tag}.{self._method_name}"},
-        ) as root:
-            try:
-                with tracing.span("client.prepare"):
-                    invocation = await self._invoke(args, kwargs, api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC)
-                with tracing.span("client.await_output"):
-                    return await invocation.run_function()
-            finally:
-                DISPATCH_LATENCY.observe(time.perf_counter() - t_dispatch0, exemplar=root.trace_id)
+        return await traced_call(
+            {"function_id": fn.object_id or "", "function": f"{fn.tag}.{self._method_name}"},
+            functools.partial(self._invoke, args, kwargs, api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC),
+        )
 
     async def remote_gen(self, *args: Any, **kwargs: Any):
         invocation = await self._invoke(args, kwargs, api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC)

@@ -31,6 +31,7 @@ boots.
 from __future__ import annotations
 
 import asyncio
+import functools
 import os
 import random
 import time
@@ -172,6 +173,34 @@ class _FunctionSpec:
         if isinstance(self.retries, int):
             return Retries(max_retries=self.retries).to_proto()
         return self.retries.to_proto()
+
+
+async def traced_call(attrs: dict, prepare: Callable[[], Any]) -> Any:
+    """One blocking call under the `function.call` root span of its
+    distributed trace: the client's RPCs, the queue wait, the placement,
+    the container's boot and the user's execution stitch under this trace
+    id (observability/tracing.py). `prepare()` returns the invocation
+    (serialize, FunctionMap or AttemptStart); its `run_function()` waits
+    for the result.
+
+    `client.prepare` opens at the root's start stamp and
+    `client.await_output` at `client.prepare`'s end stamp, so the SDK's
+    own time between them (the first child's span write) is attributed
+    and not left as `gap` (observability/critical_path.py); the
+    dispatch-latency observation runs after the root closes."""
+    from .observability import tracing
+    from .observability.catalog import DISPATCH_LATENCY
+
+    t_dispatch0 = time.perf_counter()
+    root = None
+    try:
+        with tracing.span("function.call", attrs=attrs) as root:
+            with tracing.span("client.prepare", start=root.start) as prep:
+                invocation = await prepare()
+            with tracing.span("client.await_output", start=prep.end):
+                return await invocation.run_function()
+    finally:
+        DISPATCH_LATENCY.observe(time.perf_counter() - t_dispatch0, exemplar=root.trace_id if root else None)
 
 
 class _Function(_Object, type_prefix="fu"):
@@ -450,34 +479,14 @@ class _Function(_Object, type_prefix="fu"):
 
     @live_method
     async def _call_function(self, args: tuple, kwargs: dict) -> Any:
-        # root span of the distributed trace: the client's RPCs, the queue
-        # wait, the placement, the container's boot and the user's
-        # execution stitch under this trace id (observability/tracing.py)
-        from .observability import tracing
-        from .observability.catalog import DISPATCH_LATENCY
-
-        t_dispatch0 = time.perf_counter()
-        with tracing.span(
-            "function.call",
-            attrs={"function_id": self.object_id or "", "function": self.tag},
-        ) as root:
-            try:
-                # client.prepare / client.await_output: the SDK's own wall
-                # time (serialize, FunctionMap or AttemptStart) and the
-                # result wait
-                if self._use_input_plane():
-                    with tracing.span("client.prepare"):
-                        ip_invocation = await _InputPlaneInvocation.create(self, args, kwargs, client=self.client)
-                    with tracing.span("client.await_output"):
-                        return await ip_invocation.run_function()
-                with tracing.span("client.prepare"):
-                    invocation = await _Invocation.create(
-                        self, args, kwargs, client=self.client, invocation_type=api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC
-                    )
-                with tracing.span("client.await_output"):
-                    return await invocation.run_function()
-            finally:
-                DISPATCH_LATENCY.observe(time.perf_counter() - t_dispatch0, exemplar=root.trace_id)
+        if self._use_input_plane():
+            prepare = functools.partial(_InputPlaneInvocation.create, self, args, kwargs, client=self.client)
+        else:
+            prepare = functools.partial(
+                _Invocation.create,
+                self, args, kwargs, client=self.client, invocation_type=api_pb2.FUNCTION_CALL_INVOCATION_TYPE_SYNC,
+            )
+        return await traced_call({"function_id": self.object_id or "", "function": self.tag}, prepare)
 
     @live_method_gen
     async def _call_function_generator(self, args: tuple, kwargs: dict) -> AsyncGenerator[Any, None]:

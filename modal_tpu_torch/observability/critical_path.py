@@ -55,7 +55,11 @@ SEGMENT_RULES: list[tuple[str, str, int]] = [
     ("dispatch.coalesce", "coalesce", 28),
     ("rpc.client.*", "rpc.client", 25),
     # SDK residue around the RPCs: stub/token prep and the output-wait loop;
-    # lowest priorities, so they claim only what nothing else explains
+    # lowest priorities, so they claim only what nothing else explains. The
+    # port's two spans tile their root (functions.traced_call):
+    # `client.await_output` starts at `client.prepare`'s end stamp, so
+    # `output_deliver` also holds the SDK's own write of the prepare span
+    # and whatever time the process gave other threads between the two
     ("client.prepare", "client.prepare", 12),
     ("client.await_output", "output_deliver", 11),
 ]

@@ -411,9 +411,11 @@ def span(
     name: str,
     attrs: Optional[dict] = None,
     parent: Optional[SpanContext] = None,
+    start: Optional[float] = None,
 ) -> Iterator[Span]:
-    """Open a span as the current one; written on exit."""
-    sp = _child(name, parent, None, attrs)
+    """Open a span as the current one; written on exit. `start` backdates
+    it (a phase that begins where its sibling's end was stamped)."""
+    sp = _child(name, parent, start, attrs)
     token = _current_span.set(sp)
     try:
         yield sp

@@ -602,6 +602,7 @@ async def main_async() -> int:
                 from .clustered import shutdown_cluster
 
                 shutdown_cluster()
+            await io.send_last_report()
             # which rung of the local fast path each of this container's RPCs
             # took (calls by "<method>:<rung>"), under the boot's trace; written
             # before TaskResult, which the worker's stop waits for

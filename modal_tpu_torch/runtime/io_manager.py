@@ -109,6 +109,7 @@ class ContainerIOManager:
         # via SIGUSR1 instead of task.cancel (container_entrypoint._call_sync)
         self._mt_jobs: dict[str, Any] = {}
         self.terminate = False
+        self._sent_report: Optional[str] = None  # the telemetry of the last beat the plane took
         # preemption resume plumbing (execution_context.resume_token /
         # set_resume_token): tokens redelivered WITH inputs, and tokens user
         # code recorded for in-flight inputs (flushed on preempt)
@@ -144,21 +145,12 @@ class ContainerIOManager:
         profiling plane: each beat pushes the container's device/compile
         metric families up (ContainerHeartbeatRequest.telemetry_json) and
         applies the plane's profiling command coming back down."""
-        from ..observability import device_telemetry, profiler
+        from ..observability import profiler
 
         interval = float(config["heartbeat_interval"]) / 3
         while not self.terminate:
             try:
-                resp = await retry_transient_errors(
-                    self.stub.ContainerHeartbeat,
-                    api_pb2.ContainerHeartbeatRequest(
-                        task_id=self.task_id,
-                        supports_graceful_input_cancellation=True,
-                        telemetry_json=device_telemetry.container_report(),
-                    ),
-                    attempt_timeout=10.0,
-                    max_retries=2,
-                )
+                resp = await self.send_heartbeat()
                 if resp.profile_command:
                     profiler.apply_command(
                         resp.profile_command, os.environ.get(profiler.PROFILE_DIR_ENV, ""), tag=self.task_id
@@ -174,6 +166,44 @@ class ContainerIOManager:
             except Exception as exc:
                 logger.warning(f"heartbeat failed: {type(exc).__name__}: {exc}")
             await asyncio.sleep(max(1.0, interval))
+
+    async def send_heartbeat(self, attempt_timeout: float = 10.0, max_retries: int = 2, report: str = ""):
+        """One beat carrying the container's telemetry report (`report`, or
+        one taken now)."""
+        from ..observability import device_telemetry
+
+        report = report or device_telemetry.container_report()
+        resp = await retry_transient_errors(
+            self.stub.ContainerHeartbeat,
+            api_pb2.ContainerHeartbeatRequest(
+                task_id=self.task_id,
+                supports_graceful_input_cancellation=True,
+                telemetry_json=report,
+            ),
+            attempt_timeout=attempt_timeout,
+            max_retries=max_retries,
+        )
+        self._sent_report = report
+        return resp
+
+    async def send_last_report(self) -> None:
+        """The exit path's last beat, after the exit hooks and before
+        TaskResult, sent only when the report changed since the last beat
+        the plane took: so the plane's report holds every kernel launch of
+        the container, not only those up to its last periodic beat (the
+        JAX package's containers send no last beat). One attempt of 1 s,
+        well inside the worker's stop grace; a lost beat loses only
+        telemetry. The response's cancellations are moot: no input runs
+        after the exit hooks."""
+        from ..observability import device_telemetry
+
+        report = device_telemetry.container_report()
+        if report == self._sent_report:
+            return
+        try:
+            await self.send_heartbeat(attempt_timeout=1.0, max_retries=0, report=report)
+        except Exception:  # noqa: BLE001 — a lost last beat loses only telemetry
+            logger.debug("the last heartbeat failed", exc_info=True)
 
     def _cancel_inputs(self, input_ids: set[str]) -> None:
         """Cancel running/pending inputs (reference IOContext.cancel,

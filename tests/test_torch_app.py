@@ -19,6 +19,7 @@ parametrised bind, with_options).
 
 import asyncio
 import concurrent.futures
+import json
 import os
 import tempfile
 import time
@@ -273,6 +274,9 @@ def test_the_exit_work_runs_through_a_late_cancel():
         task = asyncio.ensure_future(container())
         await asyncio.sleep(0)  # the exit work starts; its hook waits for a thread
         task.cancel()  # the SIGTERM
+        # one turn of the loop delivers the cancel to the hook's future while
+        # the busy thread still holds the hook queued, then the thread frees
+        await asyncio.sleep(0)
         gate.set()
         with contextlib.suppress(asyncio.CancelledError):
             await task
@@ -281,6 +285,36 @@ def test_the_exit_work_runs_through_a_late_cancel():
 
     assert asyncio.run(stop(carried=False)) is False
     assert asyncio.run(stop(carried=True)) is True
+
+
+def test_an_exiting_containers_last_report_reaches_the_plane(planes):
+    """The port's container sends one last heartbeat after its exit hooks
+    (io_manager.send_last_report), so the report the plane keeps for the
+    task holds kernel launches counted after the last periodic beat. The
+    heartbeat loop stops before the exit hooks run, so only that last beat
+    can carry the launches the exit hook counts. The JAX package's
+    containers send no last beat."""
+    app = modal_tpu_torch.App("last-beat")
+
+    @app.cls(serialized=True)
+    class Counted:
+        @modal_tpu_torch.method()
+        def ping(self):
+            return "pong"
+
+        @modal_tpu_torch.exit()
+        def launch(self):
+            from modal_tpu_torch.ops import _build
+
+            _build.LAUNCHES["flash_fwd"] += 7
+
+    with app.run(client=planes.tclient):
+        assert Counted().ping.remote() == "pong"
+        app_id = app.app_id
+    _wait_tasks_finished(planes.tsup, app_id)
+    (task,) = [t for t in list(planes.tsup.state.tasks.values()) if t.app_id == app_id]
+    report = json.loads(task.telemetry_prev_json)
+    assert report["modal_tpu_kernel_launches"]["series"]["flash_fwd"] == 7
 
 
 def test_cls_parametrized_bind_and_parameter_fields(planes):

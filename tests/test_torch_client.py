@@ -12,6 +12,7 @@ of `synchronize_api`, and its `Resolver` loads an object once under
 concurrent loads."""
 
 import asyncio
+import importlib
 import socket
 import threading
 import time
@@ -26,13 +27,15 @@ from modal_tpu.client import _Client as JClient
 from modal_tpu.serialization import deserialize as jdeserialize
 from modal_tpu.serialization import serialize as jserialize
 from modal_tpu_torch import client as tclient
-from modal_tpu_torch import config as tconfig
 from modal_tpu_torch import object as tobject
 from modal_tpu_torch._utils import async_utils as tasync
 from modal_tpu_torch._utils import grpc_utils as tgrpc
 from modal_tpu_torch.exception import NotFoundError
 from modal_tpu_torch.proto import api_pb2
 from modal_tpu_torch.serialization import deserialize, serialize
+
+# the settings module: the package's attribute `config` is the Config object
+tconfig = importlib.import_module("modal_tpu_torch.config")
 
 
 @pytest.fixture

@@ -355,7 +355,10 @@ def test_every_module_of_the_port_is_scanned():
                 "observability/federation.py", "tools/compare_smoke.py", "analysis/__init__.py",
                 "analysis/core.py", "analysis/concurrency.py", "analysis/donation.py", "analysis/jit_purity.py",
                 "analysis/knob_catalog.py", "analysis/knobs.py", "experimental/__init__.py",
-                "experimental/flash.py", "_native/__init__.py"):
+                "experimental/flash.py", "_native/__init__.py", "docs_gen/__init__.py", "docs_gen/__main__.py",
+                "examples/__init__.py", "examples/01_hello_world.py", "examples/02_gpu_decode.py",
+                "examples/03_clustered_training.py", "examples/04_volumes_and_checkpoints.py",
+                "examples/05_sandbox_and_sidecars.py", "examples/06_serving.py"):
         assert os.path.join("modal_tpu_torch", rel) in scanned, rel
 
 
@@ -386,14 +389,14 @@ def test_every_module_of_the_port_is_scanned():
                                     "modal_tpu_torch._utils.shard_routing",
                                     "modal_tpu_torch.observability.federation", "modal_tpu_torch.analysis",
                                     "modal_tpu_torch.experimental", "modal_tpu_torch._native",
-                                    "modal_tpu_torch._utils.hash_utils"])
+                                    "modal_tpu_torch._utils.hash_utils", "modal_tpu_torch.docs_gen"])
 def test_the_function_path_loads_no_torch_at_import(module):
     """The client, the App layer, the control plane, the worker, its router
     and warm pool, the sandbox client, Volumes and their checkpointer, the
     storage mounts, the gang runtime, the metrics plane, the command line,
     chaos, the flight recorder, the input plane, the shard fleet with its
     replication, routing and federation, the static analysis, Flash, the
-    native block hasher, and a container's entrypoint import no torch:
+    native block hasher, the docs generator, and a container's entrypoint import no torch:
     a container sends its hello before torch loads (a `gpu=` function's
     container loads it after the hello, a warm-pool interpreter while
     parked), and a user's file that builds an App loads none."""
