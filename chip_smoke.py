@@ -48,7 +48,11 @@ result line):
               as a CUDA graph (the engine's default on a card); every request
               must finish with 64 tokens and the paged decode kernel must have
               launched exactly n_layers times per decode step, replays counted.
-5. sdk      — the SDK core at llama3-8b's full width: `gpu="H100"` through
+5. sdk      — the SDK core at llama3-8b's full width (PLUMB_LAYERS deep,
+              as every phase below that shows placement and plumbing: 4 of
+              its 32 layers; their streams are held to the same traffic on
+              the same depth in this process, a greedy one differing only at
+              a near-tie): `gpu="H100"` through
               GPUConfig's bytes and back must name this card; a serving
               function defined here, closing over the serve phase's traffic,
               goes through the port's cloudpickle `serialize` to a fresh
@@ -57,8 +61,8 @@ result line):
               returns the streams, the last decode step's logits as a CUDA
               tensor and K4's launches through `serialize_payload` (K4
               exactly n_layers per decode step; the logits come back a CPU
-              tensor whose bytes hash as the child's did; the streams equal
-              the serve phase's, a greedy one may differ only at a near-tie);
+              tensor whose bytes hash as the child's did; the streams held
+              to the reference at PLUMB_LAYERS);
               then the 1.05 GB bf16 embedding table on the card goes through
               `serialize_payload` → frame bytes → `deserialize`: bit-equal,
               its pickle stream under 4 KiB, GB/s each way and peak host RSS.
@@ -72,7 +76,8 @@ result line):
               (CUDA_VISIBLE_DEVICES); two inputs, served by the same task:
               each result through the blob server, its logits rebuilt on
               this card and hashing as the container's and the sdk child's,
-              K4 exactly n_layers per decode step, streams equal to serve's;
+              K4 exactly n_layers per decode step, streams held to the
+              reference;
               each call's boot split from the control plane's span sink;
               then gpu="H100:2" refused as unsatisfiable after the grace
               window, no task launched. The control plane journals (its
@@ -94,7 +99,8 @@ result line):
               twice as containers of a second control plane (its own fleet
               store and snapshot dir): a serialized class whose
               `@enter(snap=True)` builds the state (init_params, seed 0,
-              16.06 GB, a lambda and a closure), run by the entrypoint's
+              PLUMB_LAYERS deep, 3.85 GB, a lambda and a closure), run by the
+              entrypoint's
               boot order (compile hooks, fleet cache, restore or enter and
               save, ContainerCheckpoint, the AOT warm-up of K4), then its
               `serve` method: 8 greedy requests through the graphed
@@ -108,11 +114,12 @@ result line):
               server configured boots the port's LocalSupervisor in this
               process (a fresh state dir; the worker's nvidia-smi probe must
               find this card). A serialized `@app.cls(gpu="H100")` holds
-              llama3-8b at full width: `@enter` builds the params (seed 0)
+              llama3-8b at full width, PLUMB_LAYERS deep: `@enter` builds the
+              params (seed 0)
               and the graphed engine; `serve_all.remote()`, cold then warm,
               runs the sdk phase's 8 requests (logits sha256 equal to the
               sdk and worker phases' when they ran, K4 exactly n_layers per
-              decode step, streams equal to serve's); `forward_last.map` over
+              decode step, streams held to the reference); `forward_last.map` over
               8 prompts of 128-512 tokens returns its results in order (K1
               exactly n_layers each), `.remote(prompt 0)` and
               `.spawn(prompt 1).get()` bit-equal to map results 0 and 1;
@@ -135,6 +142,11 @@ result line):
               MODAL_TPU_WARM_POOL=1 and =0 in turns (on, off), each
               run a control plane of its own. A pooled call must be a warm
               hit (`warm_pool_hit` on its task) served by the parked pid,
+              the unpooled one a container with no nvcc (PATH stripped,
+              CUDA_HOME naming none, an empty build dir) whose AOT warm-up
+              computes K4's key and fetches K4 from a fleet store where this
+              process published the build phase's library (its source
+              "fleet", nothing built),
               its `import torch` span shorter than every unpooled one's,
               its logits bit-equal to the unpooled calls', K4 exactly
               n_layers per decode step in the container and the same count
@@ -152,8 +164,9 @@ result line):
               an env layer (MODAL_TPU_AOT_LOWER=train,decode), a pip layer
               (a local package, --no-index) and `.prewarm` (K1-K4 built by
               nvcc into the image, counted as source=prewarm) is built by
-              the port's worker; llama3-8b at full width (seed 0) runs as a
-              gpu="H100" function on it: the serve phase's 8 requests (K4
+              the port's worker; llama3-8b at full width, PLUMB_LAYERS deep
+              (seed 0) runs as a gpu="H100" function on it: the serve
+              phase's 8 requests (K4
               in the graphed step, n_layers per decode step), one
               cache-less forward of [1, 512] (K1 n_layers), each decode
               step's tokens put into an ephemeral Queue that this process
@@ -164,7 +177,7 @@ result line):
               the pip layer (not importable here), see every epoch pin at
               its installed version, record no cache_miss and no nvcc run
               and load its libraries from under the image's rootfs; the
-              streams and logits are held to serve's and sdk's. An image
+              streams are held to the reference, the logits to sdk's. An image
               whose RUN exits 3 fails its call with INIT_FAILURE and the
               build log's tail, nothing run; ImageList counts the
               references and ImageDelete refuses a referenced image. A
@@ -181,15 +194,18 @@ result line):
               started (chaos on, a supervisor_crash after CLI_CRASH_AFTER
               outputs; the flight recorder on; its worker's nvidia-smi probe
               finds this card). An app file written to a temp dir holds a
-              `@app.cls(gpu="H100")` with llama3-8b at full width (seed 0)
-              and the graphed engine; `cli run file::main` calls serve_all
-              (the serve phase's 8 requests: streams equal to serve's, K4
+              `@app.cls(gpu="H100")` with llama3-8b at full width,
+              PLUMB_LAYERS deep (seed 0) and the graphed engine; `cli run
+              file::main`, between `profile start` and `profile stop`, calls
+              serve_all (the serve phase's 8 requests: streams held to the
+              reference, K4
               exactly n_layers per decode step, the plane's heartbeat gauge
               equal to the container's count) and maps forward_last over 3
               prompts across the crash (each index once, K1 n_layers each,
               logits sha256 equal to the app phase's), then one more forward
               whose K1 count is read from the heartbeats. Then, through the
-              CLI: app list, container list (card 0), app logs, app trace
+              CLI: profile show (a non-empty self%/cum% table of the run's
+              folded stacks), app list, container list (card 0), app logs, app trace
               --critical-path and app attribute per call (segments and gap
               sum to the call's wall time, gap at most 10%), metrics --json
               (the gauge equal to the last container's counts, the
@@ -204,7 +220,8 @@ result line):
               flight recorder on; each worker's probe finds this card),
               chaos `shard_kill` of the app's home shard after
               FLEET_KILL_AFTER outputs. `cli run` maps a `gpu="H100",
-              max_containers=1` llama3-8b function (its cache-less forward's
+              max_containers=1` llama3-8b function (PLUMB_LAYERS deep; its
+              cache-less forward's
               last-token logits) over 8 prompts through the client's
               ShardRouterStub: each index once, K1 n_layers each, repeated
               prompts bit-equal across the kill and equal to the cli phase's.
@@ -242,7 +259,7 @@ result line):
               equals the original's; a serve run on them gives the serve
               phase's streams. The reloaded params replace the originals.
 9b. volume  — llama3-8b's weights at full width and VOLUME_SERVE_LAYERS
-              (8) layers in a Volume of the port's plane (booted by
+              (PLUMB_LAYERS, 4) layers in a Volume of the port's plane (booted by
               `app.run()` in a fresh state dir, free space checked first):
               `export_checkpoint(params, cfg, (vol, "llama3-8b"))`, upload
               GB/s; each shard file the upload hashes is hashed by both
@@ -262,7 +279,7 @@ result line):
               them, paged_decode exactly n_layers per decode step).
               Then, with the weights' blocks dropped from the store, a
               train state at llama3-8b's full width and VOLUME_TRAIN_LAYERS
-              (2) layers (params and AdamW's two moments) takes two steps,
+              (1) layer (params and AdamW's two moments) takes two steps,
               is saved with `VolumeCheckpointer` (`parallel.train.state_tree`),
               restored into fresh tensors on the card (every tensor
               bit-equal) and steps once more from the restored and from the
@@ -322,18 +339,23 @@ result line):
               launches, exactly n_layers per decode step.
 13c. examples — the six examples of `modal_tpu_torch/examples/`, each a
               script in a subprocess as a user runs it, against a port
-              plane in this process (a one-card worker, a fresh state dir):
+              plane in this process (EXAMPLES_WORKERS workers on the one
+              card, a fresh state dir; the groups below side by side):
               01 hello world, 02 decode on the card, 03 a two-rank gloo gang,
               04 a checkpoint through a Volume onto the card, 05 a sandbox
               with a sidecar, 06 an `llm_service` replica answering one
               request; each one's output lines are checked as
               tests/test_torch_examples.py checks them. Then 02 and 06 run
               once more at llama3-8b (random weights from the seed), from a
-              temporary copy with the config name replaced: 06's tokens,
+              temporary copy with the config name replaced (02's at
+              PLUMB_LAYERS: its boot saves every param to a snapshot): 06's tokens,
               TTFT and tokens/s, and K4's launches in the replica (its last
               heartbeat's launch counts, n_layers per decode step of its
               batch-occupancy count, more than 0); 02's decode wall time;
-              03's world and sum.
+              03's world and sum. Beside them a `gpu="H100"` class whose
+              `@enter` puts a tensor on the card and raises: each boot
+              reports INIT_FAILURE and `.remote()` raises after exactly two
+              containers (the seconds and the count printed).
 13b. observe — the metrics plane on an SLO-targeted llm_service replica of
               llama3-8b (gpu="H100", max_containers 2, target_ttft_ms a
               quarter of the web phase's TTFT p50, at most 250 ms; its
@@ -353,10 +375,17 @@ result line):
               cost derived from them), the folded stacks' top
               frames of the replica and of the plane's process; then a
               `runtime_debug=True` class (gpu="H100") runs the cache-less
-              forward of llama3-8b on [1, 512] twice: AppListProfiles lists
-              2 traces, each naming flash_fwd_kernel n_layers times, and the
-              same class without runtime_debug gives the unprofiled call.
-              The host line is logged again at its start.
+              forward of llama3-8b (PLUMB_LAYERS deep) on [1, 512] three
+              times: AppListProfiles lists 3 traces, each naming
+              flash_fwd_kernel n_layers times, and the same class without
+              runtime_debug gives the unprofiled call (the two on a plane
+              of two workers on the card, their boots side by side, their
+              warm calls in turns). Last, the catalogs
+              against the run: every span name in the plane's span store is
+              declared in SPAN_CATALOG, and every RPC method that
+              `modal_tpu_rpc_total` counted is in instrumented_rpc_names()
+              (both counts printed). The host line is logged again at its
+              start.
 14. disagg_http — the prefill and decode roles as two processes on card 0,
               each llama3-8b at full width behind AsgiHttpServer, shipping
               PUT → GET through a LocalSupervisor's blob server
@@ -414,7 +443,8 @@ token at least as often.
 
 Containers: those of every phase load the build phase's kernel libraries
 but the worker phase's coldstart boots and the image phase's, which build
-their own, as on a fresh host.
+their own, as on a fresh host, and the pool phase's unpooled container,
+which has no nvcc and fetches K4 from a fleet store by its key.
 
 Processes: none outlives the run. The script is its descendants'
 subreaper; at the end it waits up to LEFTOVER_WAIT_S for every process it
@@ -1038,6 +1068,66 @@ def _keep_decode_logits(engine, engine_mod) -> tuple:
     return kept, lambda: setattr(engine_mod, "paged_decode_step", step)
 
 
+# the depth at which the phases that show placement and plumbing run
+# llama3-8b (sdk, worker, app, pool, image, cli, fleet, volume and the
+# examples' 02 at full width): its full width, the first PLUMB_LAYERS of its
+# 32 layers; the serve phase and the in-process measurements keep all 32
+PLUMB_LAYERS = 4
+
+
+def _plumb_cfg():
+    from modal_tpu_torch.models.llama import get_config
+
+    return get_config("llama3-8b", n_layers=PLUMB_LAYERS)
+
+
+def _plumb_reference(torch, ctx: dict) -> tuple:
+    """(streams, kept logits rows) of the serving traffic on llama3-8b at
+    PLUMB_LAYERS (seed 0) in this process, made once: the reference that the
+    plumbing phases' containers are held to, as the serve phase's run is at
+    full depth. Its launches are a reference's, not a path's."""
+    if "plumb" not in ctx:
+        from modal_tpu_torch.models.llama import init_params
+        from modal_tpu_torch.ops import _build
+        from modal_tpu_torch.serving import engine as engine_mod
+
+        cfg = _plumb_cfg()
+        launches = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        engine = _engine_8b(init_params(cfg, seed=0, device="cuda"), cfg)
+        kept, unwrap = _keep_decode_logits(engine, engine_mod)
+        try:
+            streams, reqs, _wall, _stats = _run_traffic(engine, _prompts(cfg, 8, seed=1), cfg.vocab_size,
+                                                        "plumbing reference")
+        finally:
+            unwrap()
+        ids = [r.id for r in reqs]
+        rows = {(ids.index(rid), n): row.cpu() for (rid, n), row in kept.items()}
+        del engine, kept
+        torch.cuda.empty_cache()
+        _build.LAUNCHES.update(launches)
+        ctx["plumb"] = (streams, rows)
+        log(f"[plumb] reference streams of llama3-8b at {cfg.n_layers} layers in this process in "
+            f"{time.perf_counter() - t0:.1f}s")
+    return ctx["plumb"]
+
+
+def _hold_to_plumb(torch, ctx: dict, label: str, streams) -> int:
+    """Raise unless `streams` equal the plumbing reference's, a greedy one
+    differing only at a near-tie of its logits (SELF_DRAFT_TIE) and a
+    sampled one not at all; the count of equal streams."""
+    want, rows = _plumb_reference(torch, ctx)
+    diverged = _first_divergence(want, streams, rows, {})
+    for d in diverged:
+        log(f"[{label}] request {d['request']} ({'sampled' if d['sampled'] else 'greedy'}) differs from the "
+            f"reference at {PLUMB_LAYERS} layers first at token {d['token']}: the reference's logit of its token "
+            f"over the other's {d['gap']:.4f}, its top-2 gap {d['top2_gap']:.4f}")
+    bad = [d for d in diverged if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
+    if bad:
+        raise AssertionError(f"{label}: streams differ from the reference beyond a greedy near-tie: {bad}")
+    return len(streams) - len(diverged)
+
+
 def phase_serve(torch, ctx: dict) -> None:
     from modal_tpu_torch.ops import _build
     from modal_tpu_torch.serving import asgi_request, serving_asgi_app
@@ -1096,12 +1186,13 @@ def phase_serve(torch, ctx: dict) -> None:
         f"TTFT p50 {p50:.3f}s p95 {p95:.3f}s, launches={launches} (= {cfg.n_layers} x {steps} graph replays)")
 
 
-def _sdk_serving_fn(cfg_name: str, seed: int, prompts: list):
+def _sdk_serving_fn(cfg_name: str, seed: int, prompts: list, n_layers: int):
     """The serving function the sdk phase ships to a fresh interpreter. It
     is defined in this script's __main__, so the port's cloudpickle takes it
     by value, as it takes a user's script function, together with the
     helpers it calls (`_engine_8b`, `_run_traffic` and the traffic they
-    hold); it closes over the config name, the seed and the prompts."""
+    hold); it closes over the config name and depth, the seed and the
+    prompts."""
 
     def serve() -> dict:
         import hashlib
@@ -1111,7 +1202,7 @@ def _sdk_serving_fn(cfg_name: str, seed: int, prompts: list):
         from modal_tpu_torch.models.llama import get_config, init_params
         from modal_tpu_torch.ops import _build
 
-        cfg = get_config(cfg_name)
+        cfg = get_config(cfg_name, n_layers=n_layers)
         engine = _engine_8b(init_params(cfg, seed=seed, device="cuda"), cfg)
         if engine.decode_graph is None:
             raise AssertionError("the engine on CUDA did not capture its decode step")
@@ -1170,7 +1261,6 @@ def phase_sdk(torch, ctx: dict) -> None:
     import threading
 
     from modal_tpu_torch.gpu_config import from_proto, parse_gpu_config
-    from modal_tpu_torch.models.llama import get_config
     from modal_tpu_torch.proto import api_pb2
     from modal_tpu_torch.serialization import deserialize, serialize, serialize_payload
 
@@ -1183,13 +1273,13 @@ def phase_sdk(torch, ctx: dict) -> None:
         raise AssertionError(f"sdk: gpu='H100' gave {spec} -> {wire!r} -> {back}; the card is {kind!r} x {count}")
     log(f"[sdk] gpu='H100' -> {spec!r} -> GPUConfig {wire!r} -> {back}: matches {kind!r} (count {count})")
 
-    cfg = get_config("llama3-8b")
+    cfg = _plumb_cfg()
     prompts = _prompts(cfg, 8, seed=1)
-    fn = _sdk_serving_fn("llama3-8b", 0, prompts)
+    fn = _sdk_serving_fn("llama3-8b", 0, prompts, cfg.n_layers)
     t0 = time.perf_counter()
     blob = serialize(fn)
     fn_serialize_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.empty_cache()  # the child builds its own 16 GB of params beside ours
+    torch.cuda.empty_cache()  # the child builds its own params beside ours
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", str(torch.cuda.current_device())).split(",")[0]
     with tempfile.TemporaryDirectory(prefix="sdk-") as tmp:
         fn_path, out_path = os.path.join(tmp, "fn.pkl"), os.path.join(tmp, "result.bin")
@@ -1232,28 +1322,18 @@ def phase_sdk(torch, ctx: dict) -> None:
     stream_bytes = _stream_len(data)
     if stream_bytes >= SDK_STREAM_BOUND:
         raise AssertionError(f"sdk: the result's pickle stream is {stream_bytes} bytes (the logits went in band)")
-    equal = None
-    if "serve_streams" in ctx:
-        # the child keeps no logits of its own: a greedy stream may differ
-        # only at a near-tie of the serve phase's row, a sampled one not at all
-        diverged = _first_divergence(ctx["serve_streams"], streams, ctx.get("serve_logits", {}), {})
-        for d in diverged:
-            log(f"[sdk] request {d['request']} ({'sampled' if d['sampled'] else 'greedy'}) differs from the serve "
-                f"phase first at token {d['token']}: serve's logit of its token over the child's {d['gap']:.4f}, "
-                f"serve's top-2 gap {d['top2_gap']:.4f} (a greedy stream may differ only at a gap <= "
-                f"{SELF_DRAFT_TIE})")
-        bad = [d for d in diverged if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
-        if bad:
-            raise AssertionError(f"sdk: streams differ from the serve phase's beyond a greedy near-tie: {bad}")
-        equal = 8 - len(diverged)
+    # the child keeps no logits of its own: a greedy stream may differ only
+    # at a near-tie of the reference's row, a sampled one not at all
+    equal = _hold_to_plumb(torch, ctx, "sdk", streams)
     _add_launches(ctx, "paged_decode", k4)
-    log(f"[sdk] serialized llama3-8b serving function: {len(blob)} bytes (serialize {fn_serialize_ms:.2f} ms here, "
+    log(f"[sdk] serialized llama3-8b ({cfg.n_layers} layers) serving function: {len(blob)} bytes (serialize "
+        f"{fn_serialize_ms:.2f} ms here, "
         f"deserialize {child['fn_deserialize_ms']:.2f} ms in the child); the child (one card visible, "
         f"{result['device']}) served 8 requests x {NEW_TOKENS} tokens in {result['wall_s']:.2f}s, {steps} decode "
         f"steps, paged_decode launches {k4} (= {cfg.n_layers} x {steps}); its result: {child['result_bytes']} "
         f"payload bytes, pickle stream {stream_bytes} bytes, serialize {child['result_serialize_ms']:.2f} ms "
         f"there, deserialize {result_deserialize_ms:.2f} ms here; logits [8, {cfg.vocab_size}] fp32 back on the "
-        f"CPU, sha256 equal; streams equal to serve's: {'serve not run' if equal is None else f'{equal}/8'}; "
+        f"CPU, sha256 equal; streams equal to the reference's: {equal}/8; "
         f"child process {child_s:.1f}s | {smi}")
 
     params, _cfg = _load_8b(torch, ctx)
@@ -1547,12 +1627,12 @@ def phase_weights(torch, ctx: dict) -> None:
 
 
 # the train state's depth: 32 layers would be ~48 GB of bf16 params and
-# moments; 2 (8 until the observe phase came, 4 until the examples phase)
-# keeps the whole run well inside its 1200 s limit
-VOLUME_TRAIN_LAYERS = 2
+# moments; 1 keeps the whole run well inside its 1200 s limit (each layer
+# adds ~2.6 GB to save and restore, over the embedding's and head's ~6.3 GB)
+VOLUME_TRAIN_LAYERS = 1
 # the served weights' depth (of llama3-8b's 32): the upload, its hashing
 # and the container's load scale with it
-VOLUME_SERVE_LAYERS = 8
+VOLUME_SERVE_LAYERS = PLUMB_LAYERS
 VOLUME_NAME = "llama3-8b-weights"
 
 
@@ -2896,9 +2976,9 @@ OBSERVE_ROUNDS = ((True, False), (True, True))
 OBSERVE_DEBUG_CALLS = 3
 
 
-def _debug_forward_class(app, cfg_name: str, profiled: bool, name: str):
-    """A `gpu="H100"` class whose `@enter` builds `cfg_name`'s weights from
-    seed 0 on the card and runs one untimed cache-less forward (K1 loaded,
+def _debug_forward_class(app, cfg_name: str, n_layers: int, profiled: bool, name: str):
+    """A `gpu="H100"` class whose `@enter` builds `cfg_name`'s weights at
+    `n_layers` from seed 0 on the card and runs one untimed cache-less forward (K1 loaded,
     the libraries warm), and whose `forward(length)` runs `llama.forward`
     cache-less on `length` seeded tokens: the call `runtime_debug=True`
     profiles (`profiled`), or the same call unprofiled."""
@@ -2911,7 +2991,7 @@ def _debug_forward_class(app, cfg_name: str, profiled: bool, name: str):
 
             from modal_tpu_torch.models.llama import forward, get_config, init_params
 
-            self.cfg = get_config(cfg_name)
+            self.cfg = get_config(cfg_name, n_layers=n_layers)
             self.params = init_params(self.cfg, seed=0, device="cuda")
             forward(self.params, self.cfg, torch.zeros(1, 128, dtype=torch.long, device="cuda"))
             torch.cuda.synchronize()
@@ -2936,8 +3016,8 @@ def _debug_forward_class(app, cfg_name: str, profiled: bool, name: str):
                     "checksum": float(logits.float().sum())}
 
     _DebugForward.__name__ = _DebugForward.__qualname__ = name
-    return app.cls(serialized=True, gpu="H100", runtime_debug=profiled, scaledown_window=2, timeout=600)(
-        _DebugForward)
+    return app.cls(serialized=True, gpu="H100", runtime_debug=profiled, scaledown_window=2, timeout=600,
+                   max_containers=1)(_DebugForward)
 
 
 def _scrape(url: str, openmetrics: bool = False) -> tuple:
@@ -2994,7 +3074,9 @@ def phase_observe(torch, ctx: dict) -> None:
     (one task, one replica context), TaskGetTimeline, ProfileControl around
     a round (folded stacks of the plane and the container), then a
     `runtime_debug=True` class whose cache-less forward's torch.profiler
-    trace AppListProfiles lists and names K1 once per layer. Measured:
+    trace AppListProfiles lists and names K1 once per layer (beside the
+    same class unprofiled, on a second plane of two workers), and the
+    catalogs against the planes' span stores and RPC counts. Measured:
     `/metrics` scrape ms, each round's tokens/s and TTFT (not a cost: one
     round per condition cannot resolve one), and the debug call against the
     same call unprofiled."""
@@ -3009,6 +3091,7 @@ def phase_observe(torch, ctx: dict) -> None:
     from modal_tpu_torch.observability.catalog import SERVING_TTFT
     from modal_tpu_torch.observability.quantile import bucket_quantile
     from modal_tpu_torch.proto import api_pb2
+    from modal_tpu_torch.server.supervisor import LocalSupervisor
     from modal_tpu_torch.serving import llm_service
 
     smi = ctx.get("nvidia_smi") or _nvidia_smi()
@@ -3246,63 +3329,80 @@ def phase_observe(torch, ctx: dict) -> None:
             run_id = app.app_id
         _wait_app_tasks(sup, run_id)
 
-        # -- the debug profile: the cache-less forward, profiled and not
-        debug_app = App("chip_smoke observe debug")
-        profiled_cls = _debug_forward_class(debug_app, "llama3-8b", True, "DebugForward")
-        plain_cls = _debug_forward_class(debug_app, "llama3-8b", False, "PlainForward")
-        calls = {}
-        with debug_app.run():
-            for label, cls in (("profiled", profiled_cls), ("unprofiled", plain_cls)):
-                obj = cls()
-                rows = []
-                for _ in range(OBSERVE_DEBUG_CALLS):
+        # -- the debug profile: the cache-less forward, profiled and not, on
+        # a plane of two workers on the one card: the two classes' first
+        # calls (their containers' boots) run side by side, the warm calls
+        # in turns
+        debug_sup = LocalSupervisor(num_workers=2, state_dir=os.path.join(state_dir, "debug"))
+        synchronizer.run(debug_sup.start())
+        debug_plane = _Plane(debug_sup)
+        try:
+            debug_app = App("chip_smoke observe debug")
+            dcfg = _plumb_cfg()
+            classes = {"profiled": _debug_forward_class(debug_app, "llama3-8b", dcfg.n_layers, True, "DebugForward"),
+                       "unprofiled": _debug_forward_class(debug_app, "llama3-8b", dcfg.n_layers, False,
+                                                          "PlainForward")}
+            with debug_app.run(client=debug_plane.client):
+                objs = {label: cls() for label, cls in classes.items()}
+
+                def debug_call(label: str) -> dict:
                     t_call = time.perf_counter()
-                    res = obj.forward.remote(OBSERVE_DEBUG_LENGTH)
+                    res = objs[label].forward.remote(OBSERVE_DEBUG_LENGTH)
                     res["call_s"] = time.perf_counter() - t_call
-                    if (res["launches"] != cfg.n_layers or not res["finite"]
-                            or res["shape"] != [1, OBSERVE_DEBUG_LENGTH, cfg.vocab_size]):
+                    if (res["launches"] != dcfg.n_layers or not res["finite"]
+                            or res["shape"] != [1, OBSERVE_DEBUG_LENGTH, dcfg.vocab_size]):
                         raise AssertionError(f"observe: the {label} debug forward {res}")
-                    rows.append(res)
-                calls[label] = rows
-                _add_launches(ctx, "flash_fwd", sum(r["launches"] for r in rows))
-                if label == "profiled":
-                    listed = synchronizer.run(_Client._client_from_env.stub.AppListProfiles(
-                        api_pb2.AppListProfilesRequest(app_id=debug_app.app_id))).profiles
-                    fn_debug = profiled_cls._service_function.object_id
-                    (entry,) = [p for p in listed if sup.state.tasks[p.task_id].function_id == fn_debug]
-                    traces = sorted(n for n in os.listdir(entry.path) if n.endswith(".pt.trace.json"))
-                    if entry.num_traces != OBSERVE_DEBUG_CALLS or len(traces) != OBSERVE_DEBUG_CALLS:
-                        raise AssertionError(f"observe: AppListProfiles lists {entry}")
-                    k1_named = []
-                    for name in traces:
-                        with open(os.path.join(entry.path, name)) as fh:
-                            events = json.load(fh)["traceEvents"]
-                        k1_named.append(sum(1 for e in events if e.get("cat") == "kernel"
-                                            and "flash_fwd_kernel" in str(e.get("name", ""))))
-                        kernels = sum(1 for e in events if e.get("cat") == "kernel")
-                    if k1_named != [cfg.n_layers] * OBSERVE_DEBUG_CALLS:
-                        raise AssertionError(f"observe: the traces name K1 {k1_named} times, want {cfg.n_layers}")
-                    dtask = sup.state.tasks[entry.task_id]
-                    tl = synchronizer.run(_Client._client_from_env.stub.TaskGetTimeline(
-                        api_pb2.TaskGetTimelineRequest(task_id=dtask.task_id))).tasks[0]
-                    if not 0 < tl.created_at <= tl.started_at <= tl.first_input_at <= tl.first_output_at:
-                        raise AssertionError(f"observe: the debug task's timeline {tl}")
-                    out["debug_trace"] = {"path": entry.path, "num_traces": entry.num_traces,
-                                          "size_bytes": entry.size_bytes, "k1_named": k1_named,
-                                          "kernel_events_last": kernels}
-                    log(f"[observe] AppListProfiles: {entry.num_traces} traces, {entry.size_bytes / 1e6:.1f} MB in "
-                        f"{entry.path}; each names flash_fwd_kernel {k1_named} times ({kernels} kernel events in "
-                        f"the last); TaskGetTimeline of the debug task: created → started "
-                        f"{tl.started_at - tl.created_at:.2f}s → first input {tl.first_input_at - tl.started_at:.2f}s"
-                        f" → first output {tl.first_output_at - tl.first_input_at:.2f}s")
-            debug_run = debug_app.app_id
-        _wait_app_tasks(sup, debug_run)
+                    return res
+
+                with concurrent.futures.ThreadPoolExecutor(len(objs)) as pool:
+                    firsts = {label: pool.submit(debug_call, label) for label in objs}
+                    calls = {label: [fut.result()] for label, fut in firsts.items()}
+                for _ in range(OBSERVE_DEBUG_CALLS - 1):
+                    for label in objs:
+                        calls[label].append(debug_call(label))
+                for rows in calls.values():
+                    _add_launches(ctx, "flash_fwd", sum(r["launches"] for r in rows))
+                stub = debug_plane.client.stub
+                listed = synchronizer.run(stub.AppListProfiles(
+                    api_pb2.AppListProfilesRequest(app_id=debug_app.app_id))).profiles
+                fn_debug = classes["profiled"]._service_function.object_id
+                (entry,) = [p for p in listed if debug_sup.state.tasks[p.task_id].function_id == fn_debug]
+                traces = sorted(n for n in os.listdir(entry.path) if n.endswith(".pt.trace.json"))
+                if entry.num_traces != OBSERVE_DEBUG_CALLS or len(traces) != OBSERVE_DEBUG_CALLS:
+                    raise AssertionError(f"observe: AppListProfiles lists {entry}")
+                k1_named = []
+                for name in traces:
+                    with open(os.path.join(entry.path, name)) as fh:
+                        events = json.load(fh)["traceEvents"]
+                    k1_named.append(sum(1 for e in events if e.get("cat") == "kernel"
+                                        and "flash_fwd_kernel" in str(e.get("name", ""))))
+                    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+                if k1_named != [dcfg.n_layers] * OBSERVE_DEBUG_CALLS:
+                    raise AssertionError(f"observe: the traces name K1 {k1_named} times, want {dcfg.n_layers}")
+                dtask = debug_sup.state.tasks[entry.task_id]
+                tl = synchronizer.run(stub.TaskGetTimeline(api_pb2.TaskGetTimelineRequest(task_id=dtask.task_id))).tasks[0]
+                if not 0 < tl.created_at <= tl.started_at <= tl.first_input_at <= tl.first_output_at:
+                    raise AssertionError(f"observe: the debug task's timeline {tl}")
+                out["debug_trace"] = {"path": entry.path, "num_traces": entry.num_traces,
+                                      "size_bytes": entry.size_bytes, "k1_named": k1_named,
+                                      "kernel_events_last": kernels}
+                log(f"[observe] AppListProfiles: {entry.num_traces} traces, {entry.size_bytes / 1e6:.1f} MB in "
+                    f"{entry.path}; each names flash_fwd_kernel {k1_named} times ({kernels} kernel events in "
+                    f"the last); TaskGetTimeline of the debug task: created → started "
+                    f"{tl.started_at - tl.created_at:.2f}s → first input {tl.first_input_at - tl.started_at:.2f}s"
+                    f" → first output {tl.first_output_at - tl.first_input_at:.2f}s")
+                debug_run = debug_app.app_id
+            _wait_app_tasks(debug_sup, debug_run)
+        finally:
+            debug_plane.close()
+            synchronizer.run(debug_sup.stop())
         out["debug_calls"] = calls
         for label, rows in calls.items():
             call_s = ", ".join("%.3f" % r["call_s"] for r in rows)
             forward_ms = ", ".join("%.1f" % (r["forward_s"] * 1e3) for r in rows)
-            log(f"[observe] debug forward [1, {OBSERVE_DEBUG_LENGTH}] {label}: call {call_s} s, the forward in "
-                f"the container {forward_ms} ms, flash_fwd {[r['launches'] for r in rows]} a call | {smi}")
+            log(f"[observe] debug forward [1, {OBSERVE_DEBUG_LENGTH}] of llama3-8b at {dcfg.n_layers} layers, {label}: "
+                f"call {call_s} s, the forward in the container {forward_ms} ms, flash_fwd "
+                f"{[r['launches'] for r in rows]} a call | {smi}")
         warm = {label: {"call_s": statistics.mean(r["call_s"] for r in rows[1:]),
                         "forward_ms": statistics.mean(r["forward_s"] * 1e3 for r in rows[1:])}
                 for label, rows in calls.items()}
@@ -3315,6 +3415,12 @@ def phase_observe(torch, ctx: dict) -> None:
         log(f"[observe] the profiled and the unprofiled forward's logits sum "
             f"{calls['profiled'][0]['checksum']!r} and {calls['unprofiled'][0]['checksum']!r}"
             + (" (equal)" if same else " (they differ)"))
+        out["contracts"] = _observability_contracts(
+            [os.path.join(state_dir, "traces"), os.path.join(state_dir, "debug", "traces")], metrics_url)
+        c = out["contracts"]
+        log(f"[observe] the catalogs against this run: {c['span_names']} span names ({c['spans']} spans) in the "
+            f"planes' span stores, each declared in SPAN_CATALOG; {len(c['rpc_methods'])} RPC methods counted in "
+            f"modal_tpu_rpc_total ({c['rpc_calls']:.0f} calls), each in instrumented_rpc_names() | {smi}")
     finally:
         profiler.stop()
         if _Client._local_supervisor is not None:
@@ -3330,6 +3436,30 @@ def phase_observe(torch, ctx: dict) -> None:
                 os.environ[key] = value
     _add_launches(ctx, "paged_decode", k4_total)
     ctx["observe"] = out
+
+
+def _observability_contracts(trace_dirs: list, metrics_url: str) -> dict:
+    """Raise unless every span name in the span stores `trace_dirs` is
+    declared in SPAN_CATALOG and every RPC method that the plane's
+    `modal_tpu_rpc_total` counted is an instrumented RPC; the counts."""
+    import collections
+    import re
+
+    from modal_tpu_torch.observability import tracing
+    from modal_tpu_torch.observability.catalog import declared_span_name, instrumented_rpc_names
+
+    names = collections.Counter(s["name"] for d in trace_dirs for s in tracing.read_spans(d))
+    undeclared = sorted(n for n in names if not declared_span_name(n))
+    text, _ms = _scrape(metrics_url)
+    calls: dict = {}
+    for method, value in re.findall(r'^modal_tpu_rpc_total\{[^}]*method="([^"]+)"[^}]*\} (\S+)$', text, re.M):
+        calls[method] = calls.get(method, 0.0) + float(value)
+    unknown = sorted(set(calls) - instrumented_rpc_names())
+    if not names or not calls or undeclared or unknown:
+        raise AssertionError(f"observe: span names not in SPAN_CATALOG {undeclared} (of {len(names)}); RPCs counted "
+                             f"but not instrumented {unknown} (of {len(calls)})")
+    return {"span_names": len(names), "spans": sum(names.values()), "rpc_methods": sorted(calls),
+            "rpc_calls": sum(calls.values())}
 
 
 def _wait_app_tasks(sup, app_id: str, timeout: float = 60.0) -> None:
@@ -4277,21 +4407,23 @@ def _sample_peak_rss(peak: list, stop) -> None:
         peak[0] = max(peak[0], _rss_bytes())
 
 
-def _worker_serving_fn(cfg_name: str, seed: int, prompts: list):
+def _worker_serving_fn(cfg_name: str, seed: int, prompts: list, n_layers: int):
     """The sdk phase's serving function, run as a container of the port's
     worker: it also returns what the container saw of its card."""
-    serve = _sdk_serving_fn(cfg_name, seed, prompts)
+    serve = _sdk_serving_fn(cfg_name, seed, prompts, n_layers)
 
     def serve_in_container() -> dict:
         import hashlib
 
         import torch
 
+        from modal_tpu_torch.ops import _build
         from modal_tpu_torch.runtime import telemetry
 
         torch.cuda.reset_peak_memory_stats()
         out = serve()
         out.update(pid=os.getpid(), cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   nvcc=_build.find_nvcc(), k4_library=os.path.basename(_build.library_path("paged_decode")),
                    peak_device_bytes=torch.cuda.max_memory_allocated(),
                    logits_sha256=hashlib.sha256(out["logits"].cpu().numpy().tobytes()).hexdigest(),
                    imports_top=[{"module": e["module"], "s": e["duration_s"]}
@@ -4301,7 +4433,7 @@ def _worker_serving_fn(cfg_name: str, seed: int, prompts: list):
     return serve_in_container
 
 
-def _coldstart_class(cfg_name: str, prompts: list):
+def _coldstart_class(cfg_name: str, n_layers: int, prompts: list):
     """The coldstart boots' serialized class: `@enter(snap=True)` builds the
     replica's state (init_params, seed 0, on the card, and a lambda and a
     closure that the standard library's pickle refuses and cloudpickle
@@ -4330,7 +4462,7 @@ def _coldstart_class(cfg_name: str, prompts: list):
             from modal_tpu_torch.models.llama import get_config, init_params
 
             t0 = time.time()
-            cfg = get_config(cfg_name)
+            cfg = get_config(cfg_name, n_layers=n_layers)
             self.params = init_params(cfg, seed=0, device="cuda")
             self.cfg = cfg
             self.count_tokens = lambda streams: sum(len(s) for s in streams)
@@ -4548,6 +4680,7 @@ def _boot_split(sup, task, call: dict) -> dict:
     t0, ready = spans["container.boot"]["start"], spans["container.boot"]["end"]
     part = {name: spans[name]["end"] - spans[name]["start"] for name in BOOT_PARTS}
     return {
+        "aot_sources": spans["container.aot_lower"]["attrs"].get("sources", {}),
         "spawn_to_hello_s": task.started_at - t0,
         "import_torch_s": part["container.import_torch"],
         "user_import_s": part["container.imports"],
@@ -4610,33 +4743,39 @@ def _serve_through_worker(torch, ctx: dict, sup, smi: str) -> None:
     """Steps 1-5: the llama3-8b serving function asked for with gpu="H100",
     placed, run in a container pinned to the card, twice; then an ask the
     host cannot hold."""
+    import concurrent.futures
     import hashlib
 
-    from modal_tpu_torch.models.llama import get_config
     from modal_tpu_torch.proto import api_pb2
     from modal_tpu_torch.serialization import deserialize, serialize
     from modal_tpu_torch.server.scheduler import PLACEMENT_UNSAT_GRACE_S
 
-    cfg = get_config("llama3-8b")
+    cfg = _plumb_cfg()
     prompts = _prompts(cfg, 8, seed=1)
     plane = _Plane(sup)
     try:
         plane.new_app("chip_smoke worker")
-        blob = serialize(_worker_serving_fn("llama3-8b", 0, prompts))
+        blob = serialize(_worker_serving_fn("llama3-8b", 0, prompts, cfg.n_layers))
         fn_id = plane.create("serve", "H100", function_serialized=blob)
         log(f"[worker] FunctionCreate serve ({len(blob)} bytes, gpu='H100'); {torch.cuda.memory_allocated() / 1e6:.1f} MB "
             f"allocated here before the container spawns")
+        # the ask the host cannot hold waits out the placement grace on the
+        # plane alone (no container): it runs beside the two serve calls
+        unsat_id = plane.create("unsat", WORKER_UNSAT_GPU, function_serialized=serialize(lambda: "never"))
         calls, results = [], []
-        for i in range(2):
-            call = plane.remote(fn_id)
-            if call["status"] != api_pb2.GENERIC_STATUS_SUCCESS:
-                raise AssertionError(f"worker: input {i} failed: {call['exception']}\n{call['traceback'][-4000:]}\n"
-                                     f"{plane.task_logs()}")
-            t0 = time.perf_counter()
-            result = deserialize(call["data"])
-            call["deserialize_s"] = time.perf_counter() - t0
-            calls.append(call)
-            results.append(result)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            refusal = pool.submit(plane.remote, unsat_id, timeout=120)
+            for i in range(2):
+                call = plane.remote(fn_id)
+                if call["status"] != api_pb2.GENERIC_STATUS_SUCCESS:
+                    raise AssertionError(f"worker: input {i} failed: {call['exception']}\n"
+                                         f"{call['traceback'][-4000:]}\n{plane.task_logs()}")
+                t0 = time.perf_counter()
+                result = deserialize(call["data"])
+                call["deserialize_s"] = time.perf_counter() - t0
+                calls.append(call)
+                results.append(result)
+            refused = refusal.result()
         tasks = plane.call("TaskList", api_pb2.TaskListRequest()).tasks
         mine = [t for t in tasks if t.app_id == plane.app_id]
         first, second = results
@@ -4667,13 +4806,7 @@ def _serve_through_worker(torch, ctx: dict, sup, smi: str) -> None:
                                      f"{r['cuda_visible_devices']!r} and {r['device']!r}; pinned {list(mine[0].gpu_ids)}, "
                                      f"the card is {kind!r}")
             _check_streams("worker", r["streams"], cfg.vocab_size)
-            if "serve_streams" in ctx:
-                diverged = _first_divergence(ctx["serve_streams"], r["streams"], ctx.get("serve_logits", {}), {})
-                bad = [d for d in diverged if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
-                if bad:
-                    raise AssertionError(f"worker: input {i}'s streams differ from the serve phase's beyond a greedy "
-                                         f"near-tie: {bad}")
-                r["streams_equal"] = 8 - len(diverged)
+            r["streams_equal"] = _hold_to_plumb(torch, ctx, f"worker input {i}", r["streams"])
             _add_launches(ctx, "paged_decode", k4)
             del on_card
         split = _boot_split(sup, task, calls[0])
@@ -4695,15 +4828,13 @@ def _serve_through_worker(torch, ctx: dict, sup, smi: str) -> None:
                 f"decode steps, paged_decode launches {r['paged_decode_launches']} (= {cfg.n_layers} x "
                 f"{r['decode_steps']}); logits [8, {cfg.vocab_size}] fp32 sha256 {r['logits_sha256'][:16]}… equal to "
                 f"the container's{' and the sdk child' + chr(39) + 's' if 'sdk' in ctx else ''}; streams equal to "
-                f"serve's: {r.get('streams_equal', 'serve not run')}/8; result {len(c['data'])} bytes through blob "
+                f"the reference's: {r['streams_equal']}/8; result {len(c['data'])} bytes through blob "
                 f"{c['blob_id']}, fetched in {c['download_s'] * 1e3:.2f} ms, deserialized in "
                 f"{c['deserialize_s'] * 1e3:.2f} ms; the container's peak device memory "
                 f"{r['peak_device_bytes'] / 1e9:.2f} GB")
         log(f"[worker] blob server, the result payload ({nbytes} bytes) from this process: upload {up_s * 1e3:.2f} ms "
             f"({nbytes / up_s / 1e9:.3f} GB/s), download {down_s * 1e3:.2f} ms ({nbytes / down_s / 1e9:.3f} GB/s)")
 
-        unsat_id = plane.create("unsat", WORKER_UNSAT_GPU, function_serialized=serialize(lambda: "never"))
-        refused = plane.remote(unsat_id, timeout=120)
         waited = refused["t_output"] - refused["t_map"]
         want = f"unsatisfiable placement for unsat: gpu={WORKER_UNSAT_GPU} matches no registered worker"
         if refused["status"] != api_pb2.GENERIC_STATUS_FAILURE or refused["exception"] != want:
@@ -4915,15 +5046,15 @@ async def _blob_download(blob_id: str, stub):
 def _coldstart_through_worker(torch, ctx: dict, sup, root: str, smi: str) -> None:
     """Step 6: the replica booted fresh, then warm, each a container of the
     port's worker running the real entrypoint's boot order."""
-    from modal_tpu_torch.models.llama import get_config, init_params_abstract
+    from modal_tpu_torch.models.llama import init_params_abstract
     from modal_tpu_torch.models.quant import quantized_bytes
     from modal_tpu_torch.proto import api_pb2
     from modal_tpu_torch.serialization import deserialize, serialize
 
-    cfg = get_config("llama3-8b")
+    cfg = _plumb_cfg()
     nbytes = quantized_bytes(init_params_abstract(cfg))
     plane = _Plane(sup)
-    class_bytes = serialize(_coldstart_class("llama3-8b", _prompts(cfg, 8, seed=1)))
+    class_bytes = serialize(_coldstart_class("llama3-8b", cfg.n_layers, _prompts(cfg, 8, seed=1)))
     boots: dict = {}
     try:
         for role in ("fresh", "warm"):
@@ -4952,7 +5083,7 @@ def _coldstart_through_worker(torch, ctx: dict, sup, root: str, smi: str) -> Non
         raise AssertionError(f"coldstart: restored fresh={fresh['restored']} warm={warm['restored']}")
     if fresh["snapshot_bytes"] != nbytes or fresh["state_bytes"] != nbytes:
         raise AssertionError(f"coldstart: snapshot holds {fresh['snapshot_bytes']} bytes of array files, "
-                             f"the state {fresh['state_bytes']}; llama3-8b has {nbytes}")
+                             f"the state {fresh['state_bytes']}; llama3-8b at {cfg.n_layers} layers has {nbytes}")
     if warm["state_bytes"] != fresh["state_bytes"] or warm["checksums"] != fresh["checksums"]:
         bad = [p for p in fresh["checksums"] if warm["checksums"].get(p) != fresh["checksums"][p]]
         raise AssertionError(f"coldstart: restored leaves differ from the saved ones: {bad[:8]}")
@@ -4983,7 +5114,8 @@ def _coldstart_through_worker(torch, ctx: dict, sup, root: str, smi: str) -> Non
     ratio = warm["first_token_s"] / fresh["first_token_s"]
     log(f"[worker:coldstart] the warm boot restored the snap-enter lambda and closure and called them: "
         f"{warm['snap_functions']}")
-    log(f"[worker:coldstart] {len(fresh['streams'])} streams equal; {nbytes / 1e9:.2f} GB restored bit-equal; warm / "
+    log(f"[worker:coldstart] {len(fresh['streams'])} streams equal; {nbytes / 1e9:.2f} GB ({cfg.n_layers} layers) "
+        f"restored bit-equal; warm / "
         f"fresh spawn → first token {warm['first_token_s']:.2f}s / {fresh['first_token_s']:.2f}s = {ratio:.3f} | {smi}")
     ctx["coldstart"] = {"fresh": fresh, "warm": warm, "warm_over_fresh": ratio, "nvidia_smi": smi}
 
@@ -4999,20 +5131,21 @@ def phase_worker(torch, ctx: dict) -> None:
     import tempfile
 
     from modal_tpu_torch._utils.async_utils import synchronizer
-    from modal_tpu_torch.models.llama import get_config, init_params_abstract
+    from modal_tpu_torch.models.llama import init_params_abstract
     from modal_tpu_torch.models.quant import quantized_bytes
     from modal_tpu_torch.observability.catalog import JOURNAL_APPEND_SECONDS, JOURNAL_APPENDS, JOURNAL_BYTES
     from modal_tpu_torch.ops import _build
     from modal_tpu_torch.server.journal import Journal
     from modal_tpu_torch.server.supervisor import LocalSupervisor
 
-    for key in ("params", "cfg"):  # the containers build their own 16 GB beside this process's context
+    _plumb_reference(torch, ctx)  # before the 16 GB of params go
+    for key in ("params", "cfg"):  # the containers build their own params beside this process's context
         ctx.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     smi = ctx.get("nvidia_smi") or _nvidia_smi()
-    nbytes = quantized_bytes(init_params_abstract(get_config("llama3-8b")))
+    nbytes = quantized_bytes(init_params_abstract(_plumb_cfg()))
     parent = tempfile.gettempdir()
     free = _free_bytes(parent)
     if free < nbytes * 1.1 + (2 << 30):
@@ -5116,7 +5249,7 @@ def _forward_prompts(cfg, n: int, seed: int) -> list:
     return [rng.integers(0, cfg.vocab_size, size=128 * (1 + i % 4)).tolist() for i in range(n)]
 
 
-def _app_serving_class(app, cfg_name: str, prompts: list):
+def _app_serving_class(app, cfg_name: str, n_layers: int, prompts: list):
     """The serialized serving class of the app phase, registered on `app`:
     `@enter` builds llama3-8b's params (seed 0) and the graphed engine of the
     sdk and worker phases; `serve_all` runs their 8-request traffic (a fresh
@@ -5138,7 +5271,7 @@ def _app_serving_class(app, cfg_name: str, prompts: list):
 
             t0 = time.time()
             self.enter_calls += 1
-            self.cfg = get_config(cfg_name)
+            self.cfg = get_config(cfg_name, n_layers=n_layers)
             self.params = init_params(self.cfg, seed=0, device="cuda")
             self.engine = _engine_8b(self.params, self.cfg)
             if self.engine.decode_graph is None:
@@ -5211,6 +5344,64 @@ def _app_serving_class(app, cfg_name: str, prompts: list):
     return Llama
 
 
+def _enter_raises_run(sup, smi: str) -> dict:
+    """A class whose @enter puts a tensor on the card, then raises, called
+    through the App on `sup`'s plane: each boot reports INIT_FAILURE and the
+    plane fails the call after two (the port's rule; the JAX package
+    respawns such a class without end). Returns the seconds, the count."""
+    from modal_tpu_torch.exception import RemoteError
+    from modal_tpu_torch.proto import api_pb2
+
+    kind = sup.workers[0].gpu_type
+    plane = _Plane(sup)
+    try:
+        fail_app = App("chip_smoke enter raises")
+        broken = _enter_raises_class(fail_app)
+        with fail_app.run(client=plane.client):
+            t0 = time.time()
+            try:
+                broken().never.remote()
+                raise AssertionError("examples: the call of a class whose @enter raises returned")
+            except RemoteError as exc:
+                failed_with = str(exc)
+            seconds = time.time() - t0
+            run_id = fail_app.app_id
+        plane.wait_finished(run_id)
+    finally:
+        plane.close()
+    boots = sorted((t for t in sup.state.tasks.values() if t.app_id == run_id), key=lambda t: t.created_at)
+    statuses = [api_pb2.GenericResultStatus.Name(t.result.status) if t.result else None for t in boots]
+    if (statuses != ["GENERIC_STATUS_INIT_FAILURE"] * 2 or kind not in failed_with
+            or any(t.gpu_ids != [0] for t in boots)):
+        raise AssertionError(f"examples: the class whose @enter raises gave {failed_with!r} after boots "
+                             f"{[(t.task_id, t.gpu_ids, s) for t, s in zip(boots, statuses)]}")
+    log(f"[examples] a gpu=\"H100\" class whose @enter put a tensor on the card and raised: .remote() raised "
+        f"{failed_with!r} after {seconds:.2f}s and {len(boots)} containers on card 0, each INIT_FAILURE | {smi}")
+    return {"seconds": seconds, "containers": len(boots), "exception": failed_with}
+
+
+def _enter_raises_class(app):
+    """A serialized `@app.cls(gpu="H100")` whose `@enter` puts a tensor on
+    the card and raises, naming the card; its one method is never run."""
+    from modal_tpu_torch import enter, method
+
+    @app.cls(gpu="H100", serialized=True)
+    class EnterRaises:
+        @enter()
+        def load(self):
+            import torch
+
+            x = torch.ones(1 << 20, device="cuda")
+            torch.cuda.synchronize()
+            raise RuntimeError(f"@enter put {x.numel()} floats on {torch.cuda.get_device_name(0)}, then raised")
+
+        @method()
+        def never(self) -> int:
+            return 0
+
+    return EnterRaises
+
+
 def _app_split(sup, task, trace_id: str, t_call: float, t_result: float) -> dict:
     """The cold `.remote()` by part, from the spans of its trace: the
     worker's spawn decision to ContainerHello, `import torch` on the main
@@ -5235,10 +5426,10 @@ def phase_app(torch, ctx: dict) -> None:
     """The App layer on the card: `app.run()` with no server configured boots
     the port's LocalSupervisor in this process (its worker probes the card
     with nvidia-smi, its state in a fresh dir); a serialized
-    `@app.cls(gpu="H100")` serves llama3-8b at full width through
-    `.remote()`, `.map()` and `.spawn()`, in one container pinned to card 0;
-    then the module-level file function runs in a container that imported
-    this script by path."""
+    `@app.cls(gpu="H100")` serves llama3-8b at full width (PLUMB_LAYERS
+    deep) through `.remote()`, `.map()` and `.spawn()`, in one container
+    pinned to card 0; then the module-level file function runs in a
+    container that imported this script by path."""
     import hashlib
     import shutil
     import tempfile
@@ -5246,20 +5437,20 @@ def phase_app(torch, ctx: dict) -> None:
     from modal_tpu_torch._utils.async_utils import synchronizer
     from modal_tpu_torch._utils.grpc_utils import retry_transient_errors
     from modal_tpu_torch.client import _Client
-    from modal_tpu_torch.models.llama import get_config
     from modal_tpu_torch.observability import tracing
     from modal_tpu_torch.proto import api_pb2
 
     smi = ctx.get("nvidia_smi") or _nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    cfg = get_config("llama3-8b")
+    cfg = _plumb_cfg()
+    _plumb_reference(torch, ctx)
     prompts = _prompts(cfg, 8, seed=1)
     fwd_prompts = _forward_prompts(cfg, 8, seed=2)
     saved = {k: os.environ.pop(k, None) for k in ("MODAL_TPU_SERVER_URL", "MODAL_TPU_STATE_DIR",
                                                  "MODAL_TPU_AUTO_LOCAL_SERVER")}
     state_dir = os.environ["MODAL_TPU_STATE_DIR"] = tempfile.mkdtemp(prefix="app-")
     serve_app = App("chip_smoke app")
-    Llama = _app_serving_class(serve_app, "llama3-8b", prompts)
+    Llama = _app_serving_class(serve_app, "llama3-8b", cfg.n_layers, prompts)
     out: dict = {"nvidia_smi": smi}
     plane = None
     try:
@@ -5312,11 +5503,7 @@ def phase_app(torch, ctx: dict) -> None:
                     raise AssertionError(f"app: the container saw CUDA_VISIBLE_DEVICES={r['cuda_visible_devices']!r} "
                                          f"and {r['device']!r}")
                 _check_streams("app", r["streams"], cfg.vocab_size)
-                if "serve_streams" in ctx:
-                    diverged = _first_divergence(ctx["serve_streams"], r["streams"], ctx.get("serve_logits", {}), {})
-                    bad = [d for d in diverged if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
-                    if bad:
-                        raise AssertionError(f"app: serve_all ({label}) streams differ from serve's beyond a near-tie: {bad}")
+                _hold_to_plumb(torch, ctx, f"app serve_all ({label})", r["streams"])
                 _add_launches(ctx, "paged_decode", k4)
             split = _app_split(sup, task, serves[0]["trace_id"], serves[0]["t_call"], serves[0]["t_result"])
             out["serve_all"] = [{k: v for k, v in r.items() if k not in ("logits", "streams")} for r in serves]
@@ -5453,6 +5640,7 @@ def phase_app(torch, ctx: dict) -> None:
         log(f"[app] file function (not serialized): the container imported {fdef.experimental_options['main_file_path']} "
             f"as {r['module']!r}, saw {r['device']!r} with CUDA_VISIBLE_DEVICES={r['cuda_visible_devices']!r}; cold "
             f".remote() {file_s:.2f}s | {smi}")
+
     finally:
         if plane is not None:
             plane.close()
@@ -5536,29 +5724,65 @@ def _parked_entry(sup, timeout: float = 180.0):
     return entry, park_s
 
 
+def _no_nvcc_env(root: str) -> dict:
+    """A container environment without the CUDA toolkit's compiler: PATH
+    without any directory that holds `nvcc`, CUDA_HOME naming none, an empty
+    build dir, and a fleet store in which this process published the build
+    phase's K4 and its metadata under K4's key. Returns the env and the key."""
+    import shutil
+
+    from modal_tpu_torch.ops import _build
+    from modal_tpu_torch.runtime.compile_client import FleetCompileCache
+
+    key = _build.cache_key("paged_decode")
+    lib = _build.library_path("paged_decode", key)
+    with open(lib + ".nvcc") as f:
+        meta = f.read()
+    with open(lib, "rb") as f:
+        data = f.read()
+    store = os.path.join(root, "fleet-k4")
+    os.makedirs(store, exist_ok=True)
+    fleet = FleetCompileCache(local_dir=store)
+    if not (fleet.put_meta(key, meta) and fleet.put(key, data)):
+        raise AssertionError(f"pool: K4 ({key}) could not be published to {store}")
+    path = os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                           if d and not os.path.isfile(os.path.join(d, "nvcc")))
+    env = {"PATH": path, "CUDA_HOME": os.path.join(root, "no-cuda-toolkit"), "MODAL_TPU_COMPILE_CACHE_DIR": store,
+           "TORCH_EXTENSIONS_DIR": os.path.join(root, "kernels-empty")}
+    if shutil.which("nvcc", path=path) is not None:
+        raise AssertionError("pool: nvcc is still on the stripped PATH")
+    return env, key
+
+
 def _pool_run(torch, ctx: dict, root: str, label: str, pooled: bool, smi: str) -> dict:
     """One control plane with the pool on or off: the worker phase's
     llama3-8b serving function (gpu="H100") called once, its boot split, K4
     counted in the container and in its heartbeat; then the app stopped and
     the re-park rule checked (an interpreter whose placement made a CUDA
-    context exits, a fresh one parks)."""
+    context exits, a fresh one parks). The unpooled container has no nvcc:
+    its AOT warm-up computes K4's key and fetches K4 from the fleet store
+    (`_no_nvcc_env`), and builds nothing."""
     from modal_tpu_torch._utils.async_utils import synchronizer
-    from modal_tpu_torch.models.llama import get_config
     from modal_tpu_torch.proto import api_pb2
     from modal_tpu_torch.serialization import deserialize, serialize
     from modal_tpu_torch.server.supervisor import LocalSupervisor
 
-    cfg = get_config("llama3-8b")
+    cfg = _plumb_cfg()
     os.environ["MODAL_TPU_WARM_POOL"] = "1" if pooled else "0"
     sup = LocalSupervisor(num_workers=1, state_dir=os.path.join(root, label))
     synchronizer.run(sup.start())
     plane = None
+    # the containers take this process's environment at spawn (the worker's
+    # nvidia-smi probe ran at the plane's start, with the full PATH)
+    no_nvcc, k4_key = _no_nvcc_env(os.path.join(root, label)) if not pooled else ({}, "")
+    env_saved = {k: os.environ.get(k) for k in no_nvcc}
+    os.environ.update(no_nvcc)
     try:
         parked, park_s = _parked_entry(sup) if pooled else (None, 0.0)
         plane = _Plane(sup)
         plane.new_app(f"chip_smoke pool {label}")
-        fn_id = plane.create("serve", "H100",
-                             function_serialized=serialize(_worker_serving_fn("llama3-8b", 0, _prompts(cfg, 8, seed=1))))
+        fn_id = plane.create("serve", "H100", function_serialized=serialize(
+            _worker_serving_fn("llama3-8b", 0, _prompts(cfg, 8, seed=1), cfg.n_layers)))
         call = plane.remote(fn_id)
         if call["status"] != api_pb2.GENERIC_STATUS_SUCCESS:
             raise AssertionError(f"pool {label}: the call failed: {call['exception']}\n{call['traceback'][-4000:]}"
@@ -5575,11 +5799,16 @@ def _pool_run(torch, ctx: dict, root: str, label: str, pooled: bool, smi: str) -
         report = _wait_report(task, lambda rep: _k4_and_steps(rep)[0] == k4)
         _check_streams(f"pool {label}", r["streams"], cfg.vocab_size)
         split = _boot_split(sup, task, call)
+        if not pooled and (split["aot_sources"] != {"decode": {"paged_decode": "fleet"}} or r["nvcc"] is not None
+                           or r["k4_library"] != f"paged_decode-{k4_key}.so"):
+            raise AssertionError(f"pool {label}: the container without nvcc took K4 from {split['aot_sources']}, "
+                                 f"found nvcc {r['nvcc']!r}, loaded {r['k4_library']} (the key {k4_key})")
         plane.stop_app()
         out = {"label": label, "pooled": pooled, "warm_pool_hit": task.warm_pool_hit, "served_pid": r["pid"],
                "logits_sha256": r["logits_sha256"], "decode_steps": steps, "paged_decode_launches": k4,
                "heartbeat_k4": _k4_and_steps(report)[0], "split": split, "wall_s": r["wall_s"],
-               "peak_device_bytes": r["peak_device_bytes"], "imports_top": r["imports_top"]}
+               "peak_device_bytes": r["peak_device_bytes"], "imports_top": r["imports_top"],
+               "aot_sources": split["aot_sources"], "k4_key": k4_key}
         if pooled:
             pool = sup.workers[0].pool
             # the re-park rule: the placement made a CUDA context, so its
@@ -5603,8 +5832,17 @@ def _pool_run(torch, ctx: dict, root: str, label: str, pooled: bool, smi: str) -
                              if pooled else "") + f"; {_split_line(split)}; K4 {k4} = {cfg.n_layers} x {steps} in the "
             f"container, {out['heartbeat_k4']} in its heartbeat; logits sha256 {r['logits_sha256'][:16]}…; serve "
             f"{r['wall_s']:.2f}s; peak device {r['peak_device_bytes'] / 1e9:.2f} GB | {smi}")
+        if not pooled:
+            log(f"[pool] {label}: the container had no nvcc (PATH stripped, CUDA_HOME naming none) and an empty "
+                f"build dir; its AOT warm-up computed K4's key {k4_key} and fetched K4 from the fleet store in "
+                f"{split['aot_s']:.2f}s ({split['aot_sources']}): fetched, not built; K4 launched {k4} times from "
+                f"it | {smi}")
         return out
     finally:
+        for key, value in env_saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
         if plane is not None:
             plane.close()
         synchronizer.run(sup.stop())
@@ -5688,7 +5926,7 @@ def phase_pool(torch, ctx: dict) -> None:
 
     from modal_tpu_torch.ops import _build
 
-    for key in ("params", "cfg"):  # the containers build their own 16 GB
+    for key in ("params", "cfg"):  # the containers build their own params
         ctx.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5774,7 +6012,7 @@ def _image_prewarm():
     return prewarm
 
 
-def _image_serving_fn(cfg_name: str, seed: int, prompts: list, fwd_tokens: list):
+def _image_serving_fn(cfg_name: str, n_layers: int, seed: int, prompts: list, fwd_tokens: list):
     """The image phase's serving function: the serve phase's engine and
     traffic over llama3-8b, each decode step's tokens put into `queue` (a
     thread does the puts, so the engine's loop never waits on an RPC), each
@@ -5809,7 +6047,7 @@ def _image_serving_fn(cfg_name: str, seed: int, prompts: list, fwd_tokens: list)
             except md.PackageNotFoundError:
                 installed[name] = None
         t0 = time.time()
-        cfg = get_config(cfg_name)
+        cfg = get_config(cfg_name, n_layers=n_layers)
         params = init_params(cfg, seed=seed, device="cuda")
         torch.cuda.synchronize()
         params_s = time.time() - t0
@@ -5997,11 +6235,7 @@ def _image_call(torch, ctx: dict, sup, client, app, fn, label: str, cfg, queue, 
         raise AssertionError(f"image {label}: the container saw {r['cuda_visible_devices']!r}, {r['device']!r}, "
                              f"torch.version.cuda {r['torch_cuda']!r}")
     _check_streams(f"image {label}", r["streams"], cfg.vocab_size)
-    if "serve_streams" in ctx:
-        bad = [d for d in _first_divergence(ctx["serve_streams"], r["streams"], ctx.get("serve_logits", {}), {})
-               if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
-        if bad:
-            raise AssertionError(f"image {label}: streams differ from serve's beyond a near-tie: {bad}")
+    _hold_to_plumb(torch, ctx, f"image {label}", r["streams"])
     want = ctx.get("sdk", {}).get("function", {}).get("logits_sha256")
     if want is not None and r["logits_sha256"] != want:
         raise AssertionError(f"image {label}: logits sha256 {r['logits_sha256']}, the sdk phase's {want}")
@@ -6059,7 +6293,8 @@ def _image_pooled(torch, ctx: dict, sup, client, image, cfg, prompts, fwd) -> di
 
     app = App("chip_smoke image pooled")
     fn = app.function(image=image, gpu="H100", serialized=True, min_containers=1, max_containers=1,
-                      scaledown_window=600, name="serve_one")(_image_serving_fn("llama3-8b", 0, prompts, fwd))
+                      scaledown_window=600, name="serve_one")(
+        _image_serving_fn("llama3-8b", cfg.n_layers, 0, prompts, fwd))
     from modal_tpu_torch import Dict, Queue
     from modal_tpu_torch._utils.async_utils import synchronizer
     from modal_tpu_torch._utils.grpc_utils import retry_transient_errors
@@ -6127,17 +6362,17 @@ def phase_image(torch, ctx: dict) -> None:
     from modal_tpu_torch._utils.async_utils import synchronizer
     from modal_tpu_torch._utils.grpc_utils import retry_transient_errors
     from modal_tpu_torch.client import _Client
-    from modal_tpu_torch.models.llama import get_config
     from modal_tpu_torch.observability.catalog import COMPILE_EVENTS
     from modal_tpu_torch.proto import api_pb2
     from modal_tpu_torch.server.supervisor import LocalSupervisor
 
-    for key in ("params", "cfg"):  # the containers build their own 16 GB
+    _plumb_reference(torch, ctx)  # before the 16 GB of params go
+    for key in ("params", "cfg"):  # the containers build their own params
         ctx.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
     smi = ctx.get("nvidia_smi") or _nvidia_smi()
-    cfg = get_config("llama3-8b")
+    cfg = _plumb_cfg()
     prompts = _prompts(cfg, 8, seed=1)
     fwd = _forward_prompts(cfg, 4, seed=2)[3]
     if len(fwd) != IMAGE_FORWARD_TOKENS:
@@ -6181,7 +6416,7 @@ def phase_image(torch, ctx: dict) -> None:
         image = images(True)
         app = App("chip_smoke image")
         fn = app.function(image=image, gpu="H100", serialized=True, scaledown_window=600,
-                          name="serve_image")(_image_serving_fn("llama3-8b", 0, prompts, fwd))
+                          name="serve_image")(_image_serving_fn("llama3-8b", cfg.n_layers, 0, prompts, fwd))
         marker = os.path.join(root, "failed-image-ran")
 
         def never(path=marker):
@@ -6247,7 +6482,7 @@ def phase_image(torch, ctx: dict) -> None:
         sups.append((sup2, client2))
         app2 = App("chip_smoke image twin")
         fn2 = app2.function(image=images(), gpu="H100", serialized=True, scaledown_window=600,
-                            name="serve_image")(_image_serving_fn("llama3-8b", 0, prompts, fwd))
+                            name="serve_image")(_image_serving_fn("llama3-8b", cfg.n_layers, 0, prompts, fwd))
         queue2, texts2 = Queue.ephemeral(client=client2), Dict.lookup("chip-smoke-image-texts", client=client2,
                                                                       create_if_missing=True)
         with app2.run(client=client2):
@@ -6327,10 +6562,10 @@ class Llama:
     def load(self):
         import torch
 
-        from modal_tpu_torch.models.llama import get_config, init_params
+        from modal_tpu_torch.models.llama import init_params
 
         t0 = time.time()
-        self.cfg = get_config("llama3-8b")
+        self.cfg = cs._plumb_cfg()
         self.params = init_params(self.cfg, seed=0, device="cuda")
         self.engine = cs._engine_8b(self.params, self.cfg)
         if self.engine.decode_graph is None:
@@ -6449,9 +6684,7 @@ def main():
 
 
 def llama_cfg():
-    from modal_tpu_torch.models.llama import get_config
-
-    return get_config("llama3-8b")
+    return cs._plumb_cfg()
 '''
 # prompts of `forward_last.map` in the cli phase (the app phase's first three:
 # 128, 256 and 384 tokens), and the output count after which its chaos
@@ -6519,20 +6752,19 @@ def phase_cli(torch, ctx: dict) -> None:
     `cli server` starts the plane (chaos on, a supervisor_crash after
     CLI_CRASH_AFTER outputs, the flight recorder on; the worker's probe
     finds this card), `cli run` runs the app file's entrypoint (llama3-8b at
-    full width through serve_all and a forward_last map across the crash),
-    then the plane is read through the CLI: app list, container list, app
-    logs, app trace --critical-path, app attribute, metrics, top, journal
-    status before and after, debug bundle, trace gc, shell --gpu H100, and
-    deploy / app stop."""
-    import hashlib
+    full width, PLUMB_LAYERS deep, through serve_all and a forward_last map
+    across the crash) between `profile start` and `profile stop`, then the
+    plane is read through the CLI: profile show, app list, container list,
+    app logs, app trace --critical-path, app attribute, metrics, top,
+    journal status before and after, debug bundle, trace gc, shell --gpu
+    H100, and deploy / app stop."""
     import shutil
     import tempfile
 
-    from modal_tpu_torch.models.llama import get_config
-
     smi = ctx.get("nvidia_smi") or _nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    cfg = get_config("llama3-8b")
+    cfg = _plumb_cfg()
+    _plumb_reference(torch, ctx)
     root = tempfile.mkdtemp(prefix="cli-")
     state_dir = os.path.join(root, "state")
     app_file = os.path.join(root, "cli_llama.py")
@@ -6569,10 +6801,23 @@ def phase_cli(torch, ctx: dict) -> None:
             + f" | {smi}")
         status_before = json.loads(_cli(env, "journal", "status", "--json")[0])
 
+        started, times["profile start"] = _cli(env, "profile", "start")
         result_path = os.path.join(root, "result.json")
         text, times["run"] = _cli({**env, "CLI_SMOKE_OUT": result_path,
                                    "MODAL_TPU_TRACE_DIR": os.path.join(state_dir, "traces")},
                                   "run", f"{app_file}::main", timeout=900)
+        stopped_profile, times["profile stop"] = _cli(env, "profile", "stop")
+        shown, times["profile show"] = _cli(env, "profile", "show", "--state-dir", state_dir, "--top", "5")
+        table = shown.splitlines()
+        header = next((i for i, ln in enumerate(table) if ln.split() == ["self%", "cum%", "self", "cum", "frame"]),
+                      None)
+        if ("profiling started" not in started or "profiling stopped" not in stopped_profile or header is None
+                or not table[-1].endswith(" samples total") or int(table[-1].split()[0]) <= 0
+                or len(table) < header + 3):
+            raise AssertionError(f"cli: profile start / stop / show printed {started!r}, {stopped_profile!r}, "
+                                 f"{shown!r}")
+        out["profile"] = {"files": header - 1, "samples": int(table[-1].split()[0]),
+                          "top": [ln.rsplit("  ", 1)[-1] for ln in table[header + 1:-1]]}
         with open(result_path) as f:
             r = json.load(f)
         if "cli-llama: done" not in text:
@@ -6588,11 +6833,7 @@ def phase_cli(torch, ctx: dict) -> None:
                 or s["heartbeat_paged_decode"] != s["container_paged_decode"]:
             raise AssertionError(f"cli: paged_decode {s['paged_decode_launches']} over {s['decode_steps']} steps; "
                                  f"heartbeats {s['heartbeat_paged_decode']}, the container {s['container_paged_decode']}")
-        if "serve_streams" in ctx:
-            bad = [d for d in _first_divergence(ctx["serve_streams"], s["streams"], ctx.get("serve_logits", {}), {})
-                   if d["sampled"] or d["gap"] > SELF_DRAFT_TIE]
-            if bad:
-                raise AssertionError(f"cli: serve_all streams differ from serve's beyond a near-tie: {bad}")
+        _hold_to_plumb(torch, ctx, "cli serve_all", s["streams"])
         _add_launches(ctx, "paged_decode", s["paged_decode_launches"])
         # the map across the crash: every index once, K1 n_layers a call,
         # the logits' sha256 equal to the app phase's for the same prompt
@@ -6728,7 +6969,10 @@ def phase_cli(torch, ctx: dict) -> None:
         f"{seg('container.enter_hooks'):.2f}s, user.execute {seg('user.execute'):.2f}s, gap "
         f"{paths[0]['gap_share'] * 100:.1f}%); paged_decode {s['paged_decode_launches']} launches over "
         f"{s['decode_steps']} steps (= {cfg.n_layers} x steps), heartbeats {s['heartbeat_paged_decode']}; streams "
-        f"equal to serve's{' (where it ran)' if 'serve_streams' in ctx else ' (serve did not run)'} | {smi}")
+        f"held to the reference at {cfg.n_layers} layers | {smi}")
+    log(f"[cli] `profile start` before the run, `profile stop` after it, then `profile show`: "
+        f"{out['profile']['files']} folded file(s), {out['profile']['samples']} samples, top frames (self) "
+        f"{out['profile']['top']} | {smi}")
     log(f"[cli] forward_last.map over {CLI_MAP_PROMPTS} prompts ({lens} tokens) in {r['map_s']:.2f}s across the "
         f"chaos supervisor_crash after output {CLI_CRASH_AFTER}: each index once, flash_fwd {cfg.n_layers} launches "
         f"each, logits sha256 "
@@ -6777,12 +7021,12 @@ def forward_last(tokens: list, hold_s: float = 0.0) -> dict:
 
     import torch
 
-    from modal_tpu_torch.models.llama import forward, get_config, init_params
+    from modal_tpu_torch.models.llama import forward, init_params
     from modal_tpu_torch.ops import _build
 
     if "params" not in _MODEL:
         t0 = time.time()
-        cfg = get_config("llama3-8b")
+        cfg = cs._plumb_cfg()
         _MODEL.update(cfg=cfg, params=init_params(cfg, seed=0, device="cuda"))
         torch.cuda.synchronize()
         print(f"fleet-llama: built llama3-8b in {{time.time() - t0:.2f}}s", flush=True)
@@ -6806,12 +7050,11 @@ def _card() -> dict:
 @app.local_entrypoint()
 def main():
     from modal_tpu_torch.client import _Client
-    from modal_tpu_torch.models.llama import get_config
 
     client = _Client._client_from_env
     out = {{"stub": type(client._stub).__name__, "shard_urls": list(getattr(client._stub, "shard_urls", [])),
             "card_before": _card()}}
-    prompts = cs._forward_prompts(get_config("llama3-8b"), 4, seed=2) * 2
+    prompts = cs._forward_prompts(cs._plumb_cfg(), 4, seed=2) * 2
     out["map"] = []
     t0 = time.time()
     for i, r in enumerate(forward_last.map(prompts, kwargs={{"hold_s": cs.FLEET_HOLD_S}})):
@@ -6873,13 +7116,12 @@ def phase_fleet(torch, ctx: dict) -> None:
     from modal_tpu_torch._utils.shard_routing import partition_for_name
     from modal_tpu_torch.cli.entry_point import _parse_prometheus
     from modal_tpu_torch.client import _Client
-    from modal_tpu_torch.models.llama import get_config
     from modal_tpu_torch.proto import api_pb2
     from modal_tpu_torch.server.state import partition_of_id
 
     smi = ctx.get("nvidia_smi") or _nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    cfg = get_config("llama3-8b")
+    cfg = _plumb_cfg()
     home = partition_for_name("fleet-llama", 3)
     root = tempfile.mkdtemp(prefix="fleet-")
     state_dir = os.path.join(root, "state")
@@ -7277,8 +7519,11 @@ EXAMPLES = (("01_hello_world.py", (), ("square(12) = 144", "[0, 1, 4, 9, 16]")),
             ("04_volumes_and_checkpoints.py", (), ("exported", "restored param leaves:", "on cuda")),
             ("05_sandbox_and_sidecars.py", (), ("hello-from-sandbox", "via shared fs: sidecar-wrote-this")),
             ("06_serving.py", (), ("serving at", "tokens:")))
-# the two examples run again at full width, and the config each names
-EXAMPLES_FULL = ("02_gpu_decode.py", "06_serving.py")
+# the two examples run again at full width from a copy, each with what the
+# copy names in place of "tiny": 02 (whose boot saves a snapshot of every
+# param) llama3-8b at PLUMB_LAYERS, 06 (`llm_service` takes a config's name)
+# llama3-8b at all 32
+EXAMPLES_FULL = {"02_gpu_decode.py": f'"llama3-8b", n_layers={PLUMB_LAYERS}', "06_serving.py": '"llama3-8b"'}
 EXAMPLES_FULL_CONFIG = "llama3-8b"
 
 
@@ -7304,12 +7549,12 @@ EXAMPLE_CHECKOUT = "os.path.dirname(os.path.dirname(os.path.dirname(os.path.absp
 
 
 def _full_width_copy(name: str, root: str) -> str:
-    """A copy of example `name` in `root` naming EXAMPLES_FULL_CONFIG where
-    it names "tiny", and this checkout where it puts its own checkout first
-    on sys.path (the copy's and its containers')."""
+    """A copy of example `name` in `root` naming its EXAMPLES_FULL entry
+    where it names "tiny", and this checkout where it puts its own checkout
+    first on sys.path (the copy's and its containers')."""
     with open(os.path.join(EXAMPLES_DIR, name)) as f:
         text = f.read()
-    for old, new in (('"tiny"', f'"{EXAMPLES_FULL_CONFIG}"'), (EXAMPLE_CHECKOUT, repr(REPO))):
+    for old, new in (('"tiny"', EXAMPLES_FULL[name]), (EXAMPLE_CHECKOUT, repr(REPO))):
         if text.count(old) != 1:
             raise AssertionError(f"examples: {name} holds {old} {text.count(old)} times, not once")
         text = text.replace(old, new)
@@ -7320,14 +7565,15 @@ def _full_width_copy(name: str, root: str) -> str:
     return path
 
 
-def _service_task(sup, name: str, since: float):
-    """The one task of the class service `name` created after `since` (a
-    sandbox's task has no function)."""
+def _service_tasks(sup, name: str, since: float) -> list:
+    """The tasks of the class service `name` created after `since` (a
+    sandbox's task has no function): its replicas, one or more (a plane
+    with a free card may start a second while the first boots)."""
     tasks = [t for t in list(sup.state.tasks.values()) if t.created_at >= since
              and getattr(sup.state.functions.get(t.function_id), "tag", "") == name]
-    if len(tasks) != 1:
-        raise AssertionError(f"examples: {len(tasks)} tasks of {name} ({[t.task_id for t in tasks]})")
-    return tasks[0]
+    if not tasks:
+        raise AssertionError(f"examples: no task of {name}")
+    return tasks
 
 
 def _serving_line(stdout: str) -> dict:
@@ -7353,8 +7599,7 @@ def _example_run(ctx: dict, sup, env: dict, smi: str, name: str, path: str, args
 
     cfg = get_config(config)
     t_start = time.time()
-    # a class whose @enter raises is respawned and its call never fails
-    # (ROADMAP Queue C 57): the timeout bounds such a run
+    # the timeout bounds a run that hangs
     stdout, seconds = _run_example(env, path, args, want, timeout=120.0 if config == "tiny" else 240.0)
     key = f"{name}@{config}"
     r = {"seconds": seconds}
@@ -7370,35 +7615,53 @@ def _example_run(ctx: dict, sup, env: dict, smi: str, name: str, path: str, args
         r.update(_serving_line(stdout))
         if r["n_tokens"] != 16 or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
             raise AssertionError(f"examples: {key} answered {r['tokens']}")
-        task = _service_task(sup, "TinyLLM", t_start)
-        _wait_app_tasks(sup, task.app_id)
-        # the replica's last heartbeat (sent at its exit): every launch of
+        tasks = _service_tasks(sup, "TinyLLM", t_start)
+        _wait_app_tasks(sup, tasks[0].app_id)
+        # each replica's last heartbeat (sent at its exit): every launch of
         # its process, the decode graph's eager warm-up steps and the
-        # request's decode steps (the batch-occupancy count)
-        k4, steps = _k4_and_steps(_report_of(task))
-        if steps < r["n_tokens"] - 1 or k4 != cfg.n_layers * (steps + DecodeGraph.WARMUP) or task.gpu_ids != [0]:
-            raise AssertionError(f"examples: {key}'s replica on cards {task.gpu_ids} reported paged_decode {k4} "
-                                 f"launches over {steps} decode steps ({cfg.n_layers} layers, "
-                                 f"{DecodeGraph.WARMUP} warm-up steps)")
-        r.update({"paged_decode_launches": k4, "decode_steps": steps})
-        _add_launches(ctx, "paged_decode", k4)
+        # request's decode steps (the batch-occupancy count). One replica
+        # served the request; another one, idle, launched its warm-up steps
+        # at most, or nothing when it was stopped before its capture
+        replicas = [(t, *_k4_and_steps(_report_of(t))) for t in tasks]
+        served = [(t, k4, steps) for t, k4, steps in replicas if steps]
+        idle_ok = all(not steps and (k4 or 0) in (0, cfg.n_layers * DecodeGraph.WARMUP)
+                      for _t, k4, steps in replicas if (_t, k4, steps) not in served)
+        if (len(served) != 1 or served[0][2] < r["n_tokens"] - 1 or not idle_ok
+                or served[0][1] != cfg.n_layers * (served[0][2] + DecodeGraph.WARMUP)
+                or any(t.gpu_ids != [0] for t in tasks)):
+            raise AssertionError(f"examples: {key}'s replicas (task, cards, paged_decode launches, decode steps) "
+                                 f"{[(t.task_id, t.gpu_ids, k4, steps) for t, k4, steps in replicas]} "
+                                 f"({cfg.n_layers} layers, {DecodeGraph.WARMUP} warm-up steps)")
+        k4, steps = served[0][1], served[0][2]
+        r.update({"paged_decode_launches": k4, "decode_steps": steps, "replicas": len(tasks)})
+        _add_launches(ctx, "paged_decode", sum(k or 0 for _t, k, _s in replicas))
     log(f"[examples] {key}: exit 0 in {seconds:.1f}s"
         + (f"; decode {r['decode_s']:.4f}s in the container, tokens {r['tokens']}" if "decode_s" in r else "")
         + (f"; {r['result']}" if "result" in r else "")
         + (f"; {r['n_tokens']} tokens, TTFT {r['ttft_s']:.3f}s, {r['tokens_per_s']:.1f} tokens/s over the "
-           f"request, paged_decode {r['paged_decode_launches']} launches in the replica (its last heartbeat): "
-           f"{cfg.n_layers} x ({r['decode_steps']} decode steps + {DecodeGraph.WARMUP} warm-up)"
+           f"request, paged_decode {r['paged_decode_launches']} launches in the replica that served it (its last "
+           f"heartbeat): {cfg.n_layers} x ({r['decode_steps']} decode steps + {DecodeGraph.WARMUP} warm-up), "
+           f"{r['replicas']} replica(s)"
            if "paged_decode_launches" in r else "")
         + f" | {smi}")
     return {key: r}
 
 
+# the examples plane's workers, each of which probes the one card: the
+# groups below run side by side, each card group's containers on a worker
+# of their own
+EXAMPLES_WORKERS = 3
+
+
 @_built_kernels
 def phase_examples(torch, ctx: dict) -> None:
     """The six examples, each a subprocess against a port plane that this
-    process starts with a one-card worker; then 02 and 06 at llama3-8b. The
-    examples that ask for no card (01, 03, 04, 05) run beside those that do
-    (02, 06), one after another in each group."""
+    process starts with EXAMPLES_WORKERS workers on the one card; 02 and 06
+    each run again from a full-width copy. Four groups run side by side,
+    one after another in each: the examples that ask for no card (01, 03,
+    04, 05); 02 then its copy; 06 then its copy; and a class whose `@enter`
+    puts a tensor on the card and raises, whose call must fail after two
+    boots."""
     import concurrent.futures
     import shutil
     import tempfile
@@ -7413,19 +7676,19 @@ def phase_examples(torch, ctx: dict) -> None:
     plane_env = {"MODAL_TPU_HEARTBEAT_INTERVAL": "1", "MODAL_TPU_SNAPSHOT_DIR": os.path.join(root, "snapshots")}
     saved = {k: os.environ.get(k) for k in plane_env}
     os.environ.update(plane_env)
-    sup = LocalSupervisor(num_workers=1, state_dir=os.path.join(root, "state"))
+    sup = LocalSupervisor(num_workers=EXAMPLES_WORKERS, state_dir=os.path.join(root, "state"))
     synchronizer.run(sup.start())
     out: dict = {"nvidia_smi": smi, "runs": {}}
     try:
-        worker = sup.workers[0]
-        if len(worker.card_indices) != 1 or worker.gpu_type != torch.cuda.get_device_name(0):
-            raise AssertionError(f"examples: the worker's probe found {worker.card_indices} x {worker.gpu_type!r}")
+        for worker in sup.workers:
+            if len(worker.card_indices) != 1 or worker.gpu_type != torch.cuda.get_device_name(0):
+                raise AssertionError(f"examples: a worker's probe found {worker.card_indices} x {worker.gpu_type!r}")
         env = {k: v for k, v in os.environ.items() if k not in ("MODAL_TPU_STATE_DIR", "MODAL_TPU_AUTO_LOCAL_SERVER")}
         env.update({"MODAL_TPU_SERVER_URL": sup.server_url, "PYTHONPATH": REPO})
         runs = {name: (name, os.path.join(EXAMPLES_DIR, name), args, want, "tiny") for name, args, want in EXAMPLES}
-        card = [runs.pop("02_gpu_decode.py"), runs.pop("06_serving.py")]
-        card += [(name, _full_width_copy(name, os.path.join(root, "full")), args, want, EXAMPLES_FULL_CONFIG)
-                 for name, args, want in EXAMPLES if name in EXAMPLES_FULL]
+        card = {name: [runs.pop(name), (name, _full_width_copy(name, os.path.join(root, "full")), args, want,
+                                        EXAMPLES_FULL_CONFIG)]
+                for name, args, want in EXAMPLES if name in EXAMPLES_FULL}
 
         def group(runs: list) -> dict:
             done = {}
@@ -7433,9 +7696,12 @@ def phase_examples(torch, ctx: dict) -> None:
                 done.update(_example_run(ctx, sup, env, smi, *run))
             return done
 
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            for fut in [pool.submit(group, list(runs.values())), pool.submit(group, card)]:
+        with concurrent.futures.ThreadPoolExecutor(2 + len(card)) as pool:
+            futs = [pool.submit(group, list(runs.values()))] + [pool.submit(group, c) for c in card.values()]
+            enter = pool.submit(_enter_raises_run, sup, smi)
+            for fut in futs:
                 out["runs"].update(fut.result())
+            out["enter_raises"] = enter.result()
     finally:
         synchronizer.run(sup.stop())
         shutil.rmtree(root, ignore_errors=True)
@@ -7611,7 +7877,7 @@ def main() -> int:
         raise AssertionError(f"{len(left)} processes the run started outlived it by {LEFTOVER_WAIT_S:.0f}s "
                              f"(stopped now): {left}")
     log(f"[end] no process the run started is left (subreaper {guard.subreaper})")
-    for key in ("params", "cfg", "serve_logits"):  # tensors, and logits keyed by (request, token)
+    for key in ("params", "cfg", "serve_logits", "plumb"):  # tensors, and logits keyed by (request, token)
         ctx.pop(key, None)
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     rows = []

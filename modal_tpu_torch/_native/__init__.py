@@ -153,6 +153,13 @@ def hash_blocks(data, block_size: int, n_threads: int = 0) -> list[str]:
     return [raw[i * 32 : (i + 1) * 32].hex() for i in range(n_blocks)]
 
 
+def sha256_hex(data) -> str:
+    """SHA-256 hex digest of `data` as one block, by the native library
+    (the JAX package's falls back to hashlib where its library does not
+    load; this one raises NativeHashError, as every native route here)."""
+    return hash_blocks(data, max(1, memoryview(data).nbytes), n_threads=1)[0]
+
+
 def hash_file_blocks(path: str, block_size: int, n_threads: int = 0) -> list[str]:
     """SHA-256 hex digest of each `block_size` block of a file, hashed by
     worker threads preading through private buffers: the file never

@@ -7,11 +7,13 @@ key's canonical form or lookups silently miss.
 The port's compiled artefacts are the shared libraries `nvcc` builds from
 `csrc/`. :func:`compile_cache_key` names one by a length-prefixed sha256
 over everything that makes it reusable: the `.cu` source, the shared
-headers (by file name, never by path), the flags, the full `nvcc --version`
-output and the target arch. A toolkit upgrade therefore mints a new key and
-can never be served another toolkit's library. Keys carry their own prefix,
-``tc-``, so they never collide with the JAX package's (``xc-`` or jax's own
-cache names) in a store both packages share.
+headers (by file name, never by path), the flags, the toolchain's identity
+and the target arch. The kernels' builder (`ops/_build.py`) names the
+toolchain without asking a compiler, and keeps the `nvcc --version` of
+each build beside its library as metadata (`META_SUFFIX`); the native
+hasher names its `g++ --version`. Keys carry their own prefix, ``tc-``, so
+they never collide with the JAX package's (``xc-`` or jax's own cache
+names) in a store both packages share.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ _KEY_UNSAFE = re.compile(r"[^A-Za-z0-9._=-]")
 _MAX_KEY_LEN = 240  # under common 255-byte filename limits with sidecar suffix
 
 KEY_PREFIX = "tc-"
+# a library's metadata: `<library>.nvcc` beside it, `<key>.nvcc` in the store
+META_SUFFIX = ".nvcc"
 
 
 def sanitize_key(key: str) -> str:

@@ -194,6 +194,17 @@ class _LocalContext:
     async def abort(self, code: grpc.StatusCode, details: str = "") -> None:
         raise _AbortError(code, details)
 
+    # the rest of grpc.aio.ServicerContext's surface that a handler may
+    # call, so one that does works on the in-process rung too
+
+    def peer(self) -> str:
+        return "inproc:"
+
+    def set_code(self, code) -> None:
+        pass
+
+    def set_details(self, details) -> None:
+        pass
 
 
 # -- the fast-path stub -------------------------------------------------------

@@ -116,6 +116,11 @@ class _App:
         return self._app_id
 
     @property
+    def is_interactive(self) -> bool:
+        """Always False: no app runs attached to a terminal."""
+        return False
+
+    @property
     def image(self) -> Optional[_Image]:
         return self._image
 

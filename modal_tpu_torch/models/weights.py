@@ -29,6 +29,7 @@ writes to either. `shardings=` places the loaded params on a mesh.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import os
 import struct
@@ -611,3 +612,24 @@ def load_params(
 
         params = place(mesh, params, shardings)
     return params
+
+
+async def load_params_async(
+    source: Any,
+    cfg: LlamaConfig,
+    *,
+    shardings: Optional[dict] = None,
+    mesh: Any = None,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+    layout: str = "stacked",
+) -> dict:
+    """`load_params` for an async caller, such as an async `@enter`: the
+    same load on a worker thread, so the caller's loop (a container's
+    heartbeat, its RPCs) runs on while the reads and the copies to the
+    device go on. The reads are blocking calls on the load's own threads,
+    so the coroutine wraps the blocking load, where the JAX package's
+    blocking load and its coroutine share one plan."""
+    return await asyncio.to_thread(
+        load_params, source, cfg, shardings=shardings, mesh=mesh, dtype=dtype, device=device, layout=layout
+    )

@@ -4,11 +4,23 @@ app), device telemetry (step times, device memory), compile telemetry
 core (client RPCs, payload bytes), the App layer's dispatch, the control
 plane, its journal and local fast path, the metrics plane (the
 time-series store, SLO alerts, the sampling profiler), chaos and the
-flight recorder.
+flight recorder; and every span name the port emits (`SPAN_CATALOG`).
 
 Names and help texts are those of the JAX package's catalog, so a scrape of
-either implementation reads the same way. Importing this module registers
-every family on the process-wide REGISTRY.
+either implementation reads the same way, but where a family counts the
+port's own machinery: the compile families count kernel builds and graph
+captures, not XLA's compiles; device memory is torch's; three label sets
+lack values the port never emits (tests/test_torch_api_parity.py lists
+those families). The port adds one
+family, the kernel-launch gauge. Importing this module registers every
+family on the process-wide REGISTRY; `METRIC_CATALOG` maps each
+registered name to its help text.
+
+`instrumented_rpc_names()` backs the instrumentation-parity check
+(tests/test_torch_api_parity.py): `proto/rpc.py` wraps every registered
+handler with the RPC latency and count instruments, so an RPC that a
+servicer implements but the registry lacks would be unreachable and
+uninstrumented, and the check fails it.
 """
 
 from __future__ import annotations
@@ -23,15 +35,22 @@ SERVING_TTFT = REGISTRY.histogram(
 )
 SERVING_TTFT_P95 = REGISTRY.gauge(
     "modal_tpu_serving_ttft_p95_seconds",
-    "p95 TTFT over the engine's recent-request window.",
+    "p95 TTFT over the engine's recent-request window — the SLO signal "
+    "the scheduler scales serving replicas on "
+    "(AutoscalerSettings.target_ttft_ms).",
 )
 SERVING_TOKENS_PER_S = REGISTRY.gauge(
     "modal_tpu_serving_tokens_per_second",
-    "Generated tokens/s over the engine's trailing 10s window.",
+    "Generated tokens/s over the engine's trailing 10s window "
+    "(continuous-batching throughput; the capacity signal for SLO "
+    "scale-down).",
 )
 SERVING_TOKENS = REGISTRY.counter(
     "modal_tpu_serving_tokens_total",
-    "Generated tokens, cumulative.",
+    "Generated tokens, cumulative. The throughput-floor SLO rule reads "
+    "this as a rate-over-window — unlike the tokens/s gauge, a wedged "
+    "engine's zero deltas read as zero throughput instead of a frozen "
+    "healthy value.",
 )
 SERVING_BATCH_OCCUPANCY = REGISTRY.histogram(
     "modal_tpu_serving_batch_occupancy",
@@ -60,20 +79,23 @@ SERVING_STREAM_EVENTS = REGISTRY.counter(
 )
 KV_PAGES_ALLOCATED = REGISTRY.gauge(
     "modal_tpu_kv_pages_allocated",
-    "KV-cache pages currently allocated out of the shared pool.",
+    "KV-cache pages currently allocated out of the shared pool "
+    "(models/paged_kv.py block allocator).",
 )
 KV_PAGES_FREE = REGISTRY.gauge(
     "modal_tpu_kv_pages_free",
-    "KV-cache pages free in the shared pool.",
+    "KV-cache pages free in the shared pool (total HBM is bounded by the "
+    "pool, never by num_requests × max_len).",
 )
 SERVING_PREFIX_HITS = REGISTRY.counter(
     "modal_tpu_serving_prefix_cache_hits_total",
-    "Admissions that reused cached prefix KV pages (the follower prefills "
-    "only its suffix).",
+    "Admissions that reused cached prefix KV pages (content-keyed lookup; "
+    "the follower prefills only its suffix).",
 )
 SERVING_PREFIX_MISSES = REGISTRY.counter(
     "modal_tpu_serving_prefix_cache_misses_total",
-    "Admissions with no cached prefix.",
+    "Admissions with no cached prefix (prefix cache enabled but cold for "
+    "this prompt content).",
 )
 KV_PAGES_COW = REGISTRY.counter(
     "modal_tpu_kv_pages_cow_copies_total",
@@ -82,7 +104,8 @@ KV_PAGES_COW = REGISTRY.counter(
 )
 SERVING_SAMPLED_TOKENS = REGISTRY.counter(
     "modal_tpu_serving_sampled_tokens_total",
-    "Tokens emitted via temperature/top-k/top-p sampling (temperature > 0).",
+    "Tokens emitted via temperature/top-k/top-p sampling (temperature > "
+    "0), as opposed to greedy argmax.",
 )
 SERVING_SPEC_ACCEPT_RATIO = REGISTRY.gauge(
     "modal_tpu_serving_spec_accept_ratio",
@@ -292,6 +315,10 @@ INPUT_QUEUE_WAIT = REGISTRY.histogram(
 WORKER_HEARTBEATS = REGISTRY.counter(
     "modal_tpu_worker_heartbeats_total",
     "Worker heartbeats received by the control plane.",
+)
+WORKER_PREEMPTIONS = REGISTRY.counter(
+    "modal_tpu_worker_preemptions_total",
+    "Worker drains entered (preemption notices honored by the scheduler).",
 )
 TASK_RESULTS = REGISTRY.counter(
     "modal_tpu_task_results_total",
@@ -534,3 +561,109 @@ FEDERATION_PARTIAL_ANSWERS = REGISTRY.counter(
     "Federated queries answered from a strict subset of shards (a dead or timed-out "
     "shard degraded the answer; the payload is labeled, never silently truncated).",
 )
+
+
+METRIC_CATALOG: dict[str, str] = {m: REGISTRY.get(m).help for m in REGISTRY.names()}
+
+
+# Every span name the port emits; entries ending in ".*" cover a dynamic
+# family (one rpc.client.<Method> span per RPC). The parity check
+# (tests/test_torch_api_parity.py) extracts the literal first argument of
+# every tracing.span/open_span/record_span call under modal_tpu_torch/ and
+# fails a name not declared here, or an entry that nothing emits. The JAX
+# package's entries keep its names and text; the port's own say what they
+# time. The attribution rules (critical_path.SEGMENT_RULES) are JAX's, so a
+# port span they do not name counts as the segment of the span that covers
+# it: container.import_torch, .cluster_init and .snapshot_state as
+# container.boot, image.build_part as image.build, container.blob_upload as
+# whatever covers the client's wait (output_deliver or gap, as JAX's
+# unspanned upload). The rest are marks or roots outside a call's trace.
+SPAN_CATALOG: dict[str, str] = {
+    "function.call": "client root of one .remote(): everything stitches under it",
+    "client.serialize": "client-side argument serialization (+ blob offload)",
+    "client.deserialize": "client-side result decode (+ blob fetch for spilled results)",
+    "client.prepare": "SDK prep around invocation create: stub/token setup, retry wrapper",
+    "client.await_output": "SDK output-wait loop around the GetOutputs/AttemptAwait polls",
+    "client.stream_outputs": "push-streamed output wait (FunctionStreamOutputs keep-alive rung)",
+    "dispatch.coalesce": "coalescing window: enqueue→flush wait inside a MicroBatcher",
+    "rpc.client.*": "client-observed unary RPC (interceptor, _utils/grpc_utils.py)",
+    "rpc.server.*": "server handler span for a traced caller (proto/rpc.py)",
+    "scheduler.queue_wait": "enqueue→claim wait, recorded retroactively at claim",
+    "scheduler.place": "worker pick + chip pin + assignment",
+    "worker.launch_task": "image prep + container spawn/handoff on the worker",
+    "image.build": "image materialization (cache hits are fast)",
+    "image.build_part": "the port's: one part of an image build (the venv, a pip layer, the #PREWARM kernel builds)",
+    "container.boot": "spawn decision → ready for inputs (MODAL_TPU_TRACE_T0)",
+    "container.import_torch": (
+        "the port's: `import torch` on the container's main thread after its hello, for a function "
+        "that asks for a card; JAX imports jax inside the user's import (container.imports), so "
+        "the attribution counts this as container.boot where JAX counts container.imports"
+    ),
+    "container.cluster_init": (
+        "the port's: a gang member's rendezvous and torch.distributed process group before the "
+        "user's import (JAX's initialize_clustered, unspanned: container.boot in both)"
+    ),
+    "container.imports": "user-code import inside the container",
+    "container.snapshot_state": (
+        "the port's: the memory snapshot's restore, or the @enter(snap=True) hooks and the save, "
+        "and the ContainerCheckpoint notice (unspanned in JAX: container.boot in both)"
+    ),
+    "container.enter_hooks": "@enter lifecycle hooks",
+    "container.aot_lower": "@enter-path AOT lowering of MODAL_TPU_AOT_LOWER entry points",
+    "container.input_deliver": "input delivery hop: fetch response → user.execute (deserialize + spawn)",
+    "container.blob_upload": "the port's: one output's upload from the container to the blob store, by path or HTTP",
+    "container.fastpath": "the port's: a zero-length mark at exit with the container's RPCs by transport rung",
+    "user.execute": "one input's user-code execution (cold_call marks jit)",
+    "coldstart.handoff": "warm-pool adoption: handoff enqueue → interpreter ack",
+    "coldstart.preimport": "warm-pool parked pre-import of a configured module",
+    "coldstart.preinit": (
+        "warm-pool opt-in backend pre-initialization (the port primes torch's CPU side, never "
+        "CUDA, where JAX initializes its jax backend)"
+    ),
+    "coldstart.aot_lower": "warm-pool parked AOT lowering of MODAL_TPU_AOT_LOWER entry points",
+    "coldstart.park": "the port's: a warm-pool interpreter parked, with its torch and CUDA state",
+    "coldstart.exit_after_cuda": (
+        "the port's: a pooled interpreter whose placement made a CUDA context exits instead of "
+        "parking again"
+    ),
+    "recovery.replay": "journal replay into a fresh ServerState",
+    "recovery.crash_restart": "chaos supervisor crash + same-port rebuild",
+    "control.takeover": "journal-fed partition takeover: dead shard's segments replayed into a survivor",
+    "journal.replicate": "one replicated journal append/catch-up batch shipped to a follower shard",
+    "control.seal": "quorum takeover seal: survivor's replica stream fenced at the takeover epoch and materialized",
+    "director.route": "placement director routing one app-scoped RPC to its owning shard",
+    "federation.query": "director-resident federated history query: fan-out to live shards + merge",
+    "debug.bundle": "crash-forensics collection: postmortem rings gathered + merged timeline rendered",
+    "import_cost.remote": "the port's: tools/import_cost.py's measured call, `import torch` in a function's body",
+    "serving.admit": "serving-tier admission: queue wait → decode-slot + KV pages",
+    "serving.prefill": "serving-tier prompt prefill (chunked; ends at the first token)",
+    "serving.prefill_chunk": "one prefill chunk's device compute (per-request timeline detail)",
+    "serving.decode": "periodic decode progress mark (every N tokens; batch occupancy + KV pages attrs)",
+    "serving.preempt": "KV-pool-pressure preemption: slot freed, request requeued with its prefix",
+    "serving.spec_verify": "one speculative round: draft proposals → target verify → acceptance",
+    "serving.request": "root of one serving request's lifecycle: submit → done",
+    "serving.stream": "one SSE token stream: open → done/reset (serving/api.py)",
+    "serving.route": "fleet router dispatch: prefix-map/affinity/cold pick → replica call",
+    "serving.kv_ship": "KV-page shipment leg: export off the prefill replica / import on the decode replica",
+}
+
+
+def declared_span_name(name: str) -> bool:
+    """Is `name` (an exact span name or an f-string prefix like
+    'rpc.server.') covered by the span catalog?"""
+    if name in SPAN_CATALOG:
+        return True
+    for entry in SPAN_CATALOG:
+        if entry.endswith(".*") and name.startswith(entry[:-1]):
+            return True
+    return False
+
+
+def instrumented_rpc_names() -> frozenset:
+    """Every RPC name covered by the server-side latency/count instruments:
+    proto/rpc.py wraps each registered handler, so coverage == the registry
+    (the control and input planes' ModalTPU service and the worker's
+    TaskCommandRouter)."""
+    from ..proto.rpc import ROUTER_RPCS, RPCS
+
+    return frozenset(RPCS) | frozenset(ROUTER_RPCS)

@@ -23,7 +23,9 @@ from typing import Optional
 # span-name rule -> (segment, priority). Rules ending in '*' are prefix
 # matches. Higher priority wins where spans overlap in time. The segment
 # order tells the dispatch story: queue_wait → place → handoff → serialize →
-# rpc → user.execute → output delivery.
+# rpc → user.execute → output delivery. The rules are the JAX package's; the
+# port's own span names (catalog.SPAN_CATALOG says which, and where each
+# one counts) have none, so each counts as the span that covers it.
 SEGMENT_RULES: list[tuple[str, str, int]] = [
     ("user.execute", "user.execute", 90),
     ("container.imports", "container.imports", 80),

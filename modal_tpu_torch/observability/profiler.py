@@ -331,3 +331,19 @@ def top_table(stacks: dict[str, int], top: int = 20) -> list[dict]:
     ]
     rows.sort(key=lambda r: (-r["self"], -r["cum"], r["frame"]))
     return rows[: max(1, top)]
+
+
+def format_top_table(stacks: dict[str, int], top: int = 20) -> str:
+    """`top_table` as the text `profile show` prints: self%, cum%, self and
+    cum samples per frame, then the total."""
+    total = sum(stacks.values())
+    if not total:
+        return "(no samples)"
+    lines = [f"{'self%':>7} {'cum%':>7} {'self':>8} {'cum':>8}  frame"]
+    for row in top_table(stacks, top):
+        lines.append(
+            f"{row['self_pct']:6.1f}% {row['cum_pct']:6.1f}% "
+            f"{row['self']:>8} {row['cum']:>8}  {row['frame']}"
+        )
+    lines.append(f"{total} samples total")
+    return "\n".join(lines)

@@ -6,18 +6,25 @@ plain C interface (no PyTorch headers: seconds, not minutes), loaded with
 when it is set (as the JAX package honours `JAX_COMPILATION_CACHE_DIR`),
 else `modal_tpu_torch/_build/`, under a name that carries the library's
 key (`_utils/compile_keys.compile_cache_key`: the source, the shared
-headers `csrc/*.cuh`, the flags, the full `nvcc --version` output and the
-arch), so an edited source or another toolkit never loads a stale build. A
-finished build is moved into place atomically, so concurrent processes can
-race on the same target safely.
+headers `csrc/*.cuh`, the flags, the arch, the CUDA version torch was
+built for and the image builder's epoch), so an edited source never loads
+a stale build. The key asks no compiler, as the JAX package's keys ask
+none: a container without the CUDA toolkit finds a library it can load.
+Beside each library nvcc builds lies its metadata, the full `nvcc
+--version` output (`<library>.nvcc`, and `<key>.nvcc` in the fleet store).
+A machine whose nvcc disagrees with a library's metadata does not load
+it: it builds under a key that also names its own nvcc (`library_key`).
+A finished build is moved into place atomically, so concurrent processes
+can race on the same target safely.
 
 The fleet tier (`runtime/compile_client.install_fleet_cache`) sits under
 the build as the JAX package's `TieredJaxCache` sits under jax's cache: a
 library missing from the build directory is first asked of the fleet store
 by its key, and a library `nvcc` had to build is published to it. The tier
-only changes where a library comes from. Nothing here falls back: no
-`nvcc`, a failed compile or a failed load raises, and a fleet failure means
-a local build.
+only changes where a library comes from. Nothing here falls back: a
+library that is nowhere with no `nvcc` to build it raises and names its
+key, a failed compile or a failed load raises, and a fleet failure means a
+local build.
 
 `report_compile` feeds the compile telemetry (`nvcc`, `local` and `fleet`
 per library, `cache_miss` per build-directory miss, `graph_capture` from
@@ -45,7 +52,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
-from .._utils.compile_keys import compile_cache_key, tmp_suffix
+from .._utils.compile_keys import META_SUFFIX, compile_cache_key, tmp_suffix
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -143,18 +150,17 @@ class CountedGraph:
             LAUNCHES[name] += n
 
 
-def nvcc_path() -> str:
+def find_nvcc() -> Optional[str]:
+    """nvcc on PATH, else under `$CUDA_HOME/bin`; None when neither has it."""
     path = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
     )
-    if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
-    return path
+    return path if os.path.isfile(path) else None
 
 
 def nvcc_version(nvcc: str) -> str:
-    """The full `nvcc --version` output (part of every library's key), asked
-    once per process and nvcc; this compiles nothing."""
+    """The full `nvcc --version` output (the metadata beside each library it
+    builds), asked once per process and nvcc; this compiles nothing."""
     if nvcc not in _nvcc_versions:
         out = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60)
         if out.returncode != 0:
@@ -167,51 +173,110 @@ def build_dir() -> str:
     return os.environ.get("TORCH_EXTENSIONS_DIR") or DEFAULT_BUILD_DIR
 
 
-def cache_key(name: str) -> str:
-    """The library's key, in the fleet store and in its file name."""
+def toolchain() -> str:
+    """What a library's key names besides its sources, flags and arch: the
+    CUDA version torch was built for and the image builder's epoch, which
+    pins the torch stack. It asks no compiler."""
+    from ..config import config
+
+    return f"torch.version.cuda={torch.version.cuda} builder={config['image_builder_version']}"
+
+
+def cache_key(name: str, compiler: str = "") -> str:
+    """The library's key, in the fleet store and in its file name. With
+    `compiler` (an `nvcc --version` output), the key of that nvcc's build
+    where the library under the plain key came from another nvcc."""
     headers = []
     for fname in sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             headers.append((fname, f.read()))
     with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
         source = f.read()
-    return compile_cache_key(source, headers, NVCC_FLAGS, nvcc_version(nvcc_path()), ARCH)
+    ident = toolchain() + (f"\n{compiler}" if compiler else "")
+    return compile_cache_key(source, headers, NVCC_FLAGS, ident, ARCH)
+
+
+def _built_by(name: str, key: str) -> Optional[str]:
+    """The metadata of the library under `key`: the build directory's copy,
+    else the fleet's; None when neither holds the library ("" for a local
+    library without metadata, which no nvcc then claims)."""
+    local = os.path.join(build_dir(), f"{name}-{key}.so")
+    if os.path.exists(local):
+        try:
+            with open(local + META_SUFFIX) as f:
+                return f.read()
+        except OSError:
+            return ""
+    return _fleet.get_meta(key) if _fleet is not None else None
+
+
+def library_key(name: str) -> str:
+    """The key this process finds `name` under: `cache_key(name)`, unless
+    this machine has nvcc and the library under that key was built by
+    another nvcc; then the key that also names this nvcc, so the other
+    build is never loaded here."""
+    key = cache_key(name)
+    nvcc = find_nvcc()
+    if nvcc is None:
+        return key
+    built_by = _built_by(name, key)
+    if built_by is None or built_by == nvcc_version(nvcc):
+        return key
+    return cache_key(name, nvcc_version(nvcc))
 
 
 def library_path(name: str, key: Optional[str] = None) -> str:
-    return os.path.join(build_dir(), f"{name}-{key or cache_key(name)}.so")
+    return os.path.join(build_dir(), f"{name}-{key or library_key(name)}.so")
+
+
+def _write(path: str, data: bytes) -> None:
+    tmp = path + tmp_suffix()
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    except OSError:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
+        raise
 
 
 def _fetch(key: str, target: str) -> bool:
-    """Place the fleet's copy of `key` at `target`; False when there is no
-    tier, no entry, or the copy cannot be written (then nvcc builds it)."""
+    """Place the fleet's copy of `key` and its metadata at `target`; False
+    when there is no tier, no entry, the copy cannot be written, or this
+    machine has nvcc and the entry's metadata does not name it (an entry
+    without metadata included: this machine builds and publishes a pair)."""
     if _fleet is None:
+        return False
+    meta = _fleet.get_meta(key)
+    nvcc = find_nvcc()
+    if nvcc is not None and meta != nvcc_version(nvcc):
         return False
     data = _fleet.get(key)
     if data is None:
         return False
-    tmp = target + tmp_suffix()
     try:
-        with open(tmp, "wb") as f:
-            f.write(data)
-        os.replace(tmp, target)
+        _write(target + META_SUFFIX, (meta or "").encode())
+        _write(target, data)
     except OSError:
-        with contextlib.suppress(OSError):
-            os.unlink(tmp)
         return False
     return True
 
 
 def _publish(key: str, target: str) -> None:
-    """Offer a library nvcc just built to the fleet; a failed put only means
-    the next container builds it too."""
+    """Offer a library nvcc just built, its metadata first, to the fleet; a
+    failed put only means the next container builds it too."""
     if _fleet is None:
         return
     try:
+        with open(target + META_SUFFIX) as f:
+            meta = f.read()
         with open(target, "rb") as f:
-            _fleet.put(key, f.read())
+            data = f.read()
     except OSError:
-        pass
+        return
+    if _fleet.put_meta(key, meta):
+        _fleet.put(key, data)
 
 
 def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> dict[str, dict]:
@@ -228,7 +293,7 @@ def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> dict[
     t0 = time.perf_counter()
     for name in names:
         t_name = time.perf_counter()
-        key = cache_key(name)
+        key = library_key(name)
         target = library_path(name, key)
         if os.path.exists(target):
             source = "local"
@@ -240,8 +305,13 @@ def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> dict[
             report[name] = {"seconds": seconds, "source": source, "log": ""}
             report_compile(source, seconds)
             continue
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise RuntimeError(f"{name}: no library under key {key} in {build_dir()} or the fleet store, and "
+                               "no nvcc (PATH, $CUDA_HOME/bin) to build it")
+        _write(target + META_SUFFIX, nvcc_version(nvcc).encode())
         tmp = target + tmp_suffix()
-        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
                "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, target, key)
     failures = []

@@ -38,7 +38,7 @@ import threading
 import time
 from typing import Optional
 
-from .._utils.compile_keys import compile_cache_key, entry_digest, sanitize_key, tmp_suffix
+from .._utils.compile_keys import META_SUFFIX, compile_cache_key, entry_digest, sanitize_key, tmp_suffix
 
 __all__ = [
     "ENV_DIR",
@@ -249,40 +249,57 @@ class FleetCompileCache:
 
     # -- public api --------------------------------------------------------
 
-    def get(self, key: str) -> Optional[bytes]:
+    def _get(self, key: str) -> tuple[Optional[bytes], str]:
+        """(the entry's bytes or None, the transport asked last)."""
         key = sanitize_key(key)
         if not key:
-            return None
+            return None, ""
         if self.local_dir:
             data = self._local_get(key)
             if data is not None:
-                _count("hit", "local_dir")
-                return data
+                return data, "local_dir"
         if self._http_usable():
             data = self._http_get(key)
             if data is not None:
-                _count("hit", "http")
                 if self.local_dir:
                     self._local_put(key, data)  # warm the co-located store
-                return data
-        _count("miss", "local_dir" if self.local_dir else "http")
-        return None
+                return data, "http"
+        return None, "local_dir" if self.local_dir else "http"
 
-    def put(self, key: str, data: bytes) -> bool:
+    def _put(self, key: str, data: bytes) -> str:
+        """The transport that took the entry; "" when none did."""
         key = sanitize_key(key)
         if not key or not isinstance(data, (bytes, bytearray, memoryview)):
-            return False
+            return ""
         data = bytes(data)
-        ok = False
         if self.local_dir and self._local_put(key, data):
-            _count("put", "local_dir")
-            ok = True
+            return "local_dir"
         # the local dir IS the supervisor's store (worker exports the state
         # sibling): when it took the write, skip the redundant HTTP round trip
-        if not ok and self._http_usable() and self._http_put(key, data):
-            _count("put", "http")
-            ok = True
-        return ok
+        if self._http_usable() and self._http_put(key, data):
+            return "http"
+        return ""
+
+    def get(self, key: str) -> Optional[bytes]:
+        data, source = self._get(key)
+        if source:
+            _count("hit" if data is not None else "miss", source)
+        return data
+
+    def put(self, key: str, data: bytes) -> bool:
+        source = self._put(key, data)
+        if source:
+            _count("put", source)
+        return bool(source)
+
+    def get_meta(self, key: str) -> Optional[str]:
+        """The metadata beside the entry `key` (its build's `nvcc
+        --version`); not counted as a hit or a miss of the cache."""
+        data, _source = self._get(key + META_SUFFIX)
+        return None if data is None else data.decode(errors="replace")
+
+    def put_meta(self, key: str, text: str) -> bool:
+        return bool(self._put(key + META_SUFFIX, text.encode()))
 
 
 def install_fleet_cache() -> bool:

@@ -568,7 +568,11 @@ async def main_async() -> int:
             exit_status = api_pb2.GENERIC_STATUS_TERMINATED
             exit_exception = "terminated"
         else:
-            exit_status = api_pb2.GENERIC_STATUS_FAILURE
+            # a boot that raised (the user's import, the class's construction,
+            # an @enter hook) is an init failure: the plane fails the backlog
+            # after two, where the JAX package reports FAILURE and respawns
+            # the container without end
+            exit_status = api_pb2.GENERIC_STATUS_INIT_FAILURE if service is None else api_pb2.GENERIC_STATUS_FAILURE
             exit_exception = f"{type(exc).__name__}: {exc}"
             traceback.print_exc()
     finally:
@@ -736,11 +740,6 @@ def park_state() -> dict:
     }
 
 
-def _pool_span(name: str, start: float, attrs: dict) -> None:
-    """A root span of the warm pool's own (no placement's trace holds it)."""
-    tracing.close_span(tracing.open_span(name, start=start, attrs=attrs))
-
-
 def _pool_preimport() -> None:
     """Pay the import bill while parked, on the main thread (ROADMAP Queue C
     24): torch (or what `MODAL_TPU_WARM_POOL_PREIMPORT` names) is imported
@@ -755,7 +754,8 @@ def _pool_preimport() -> None:
         t0 = time.time()
         try:
             importlib.import_module(mod)
-            _pool_span("coldstart.preimport", t0, {"module": mod, "thread": threading.current_thread().name})
+            tracing.close_span(tracing.open_span("coldstart.preimport", start=t0, attrs={
+                "module": mod, "thread": threading.current_thread().name}))
         except Exception as exc:  # noqa: BLE001 — a missing module must not kill the pool
             logger.warning(f"warm pool pre-import of {mod!r} failed: {exc}")
     if config["warm_pool_preinit"]:
@@ -764,7 +764,8 @@ def _pool_preimport() -> None:
             import torch
 
             x = torch.randn(64, 64, generator=torch.Generator().manual_seed(0))
-            _pool_span("coldstart.preinit", t0, {"device": "cpu", "checksum": float((x @ x).sum())})
+            tracing.close_span(tracing.open_span("coldstart.preinit", start=t0, attrs={
+                "device": "cpu", "checksum": float((x @ x).sum())}))
         except Exception as exc:  # noqa: BLE001
             logger.warning(f"warm pool pre-init failed: {exc}")
     _park_aot_warmup()
@@ -812,11 +813,11 @@ def _park_aot_warmup() -> None:
             else:
                 os.environ[k] = v
     if report is not None:
-        _pool_span("coldstart.aot_lower", t0, {
+        tracing.close_span(tracing.open_span("coldstart.aot_lower", start=t0, attrs={
             "build_dir": build_env.get("TORCH_EXTENSIONS_DIR", ""), "errors": report.get("errors", {}),
             "sources": {k: v.get("sources", {}) for k, v in report.items() if k != "errors"}, "loaded": loaded,
             "load_errors": load_errors, **park_state(),
-        })
+        }))
 
 
 def _reset_process_state(base_env: dict, base_cwd: str, added_paths: list) -> None:
@@ -871,7 +872,9 @@ async def _pool_runner(state: dict) -> int:
     rc = 0
     try:
         while not state["evict"]:
-            _pool_span("coldstart.park", time.time(), {"pool_id": pool_id, "generation": generation, **park_state()})
+            # the warm pool's spans are roots of their own: no placement's trace holds them
+            tracing.close_span(tracing.open_span("coldstart.park", attrs={
+                "pool_id": pool_id, "generation": generation, **park_state()}))
             poll = asyncio.ensure_future(stub.PoolAwaitArguments(api_pb2.PoolAwaitRequest(
                 pool_id=pool_id, token=token, generation=generation, pid=os.getpid(), timeout=50.0)))
             state["poll"] = poll
@@ -953,8 +956,8 @@ async def _pool_runner(state: dict) -> int:
                 # a CUDA context, its pinned card and cached blocks stay with
                 # the process: exit instead of re-parking (Queue C 28)
                 logger.debug("warm pool interpreter initialized CUDA in its placement; exiting")
-                _pool_span("coldstart.exit_after_cuda", time.time(),
-                           {"pool_id": pool_id, "generation": generation, "pid": os.getpid()})
+                tracing.close_span(tracing.open_span("coldstart.exit_after_cuda", attrs={
+                    "pool_id": pool_id, "generation": generation, "pid": os.getpid()}))
                 break
     finally:
         try:

@@ -520,21 +520,25 @@ class ImageBuilder:
     def _publish_prewarm_cache(self, kernel_dir: str) -> int:
         """Put the prewarm's libraries into the fleet compile store, under
         the key each one's file name carries (`<kernel>-<key>.so`, the key
-        `ops/_build` asks the fleet for), so containers of other images, or
-        other hosts over the blob plane, load what this build built. A
-        failed publish costs fleet hits, never the build."""
+        `ops/_build` asks the fleet for), each after its metadata (the
+        build's `nvcc --version`, `<key>.nvcc`), so containers of other
+        images, or other hosts over the blob plane, load what this build
+        built. A failed publish costs fleet hits, never the build."""
         try:
+            from .._utils.compile_keys import META_SUFFIX
             from .compile_cache import CompileCacheStore
 
             store = CompileCacheStore(self.compile_store_dir)
             published = 0
             for name in sorted(os.listdir(kernel_dir)):
                 m = re.fullmatch(r"[A-Za-z0-9_]+-(tc-[0-9a-f]+)\.so", name)
-                if m is None:
+                if m is None or store.has(m.group(1)):
                     continue
+                with open(os.path.join(kernel_dir, name + META_SUFFIX), "rb") as f:
+                    meta = f.read()
                 with open(os.path.join(kernel_dir, name), "rb") as f:
                     data = f.read()
-                if not store.has(m.group(1)) and store.put_bytes(m.group(1), data):
+                if store.put_bytes(m.group(1) + META_SUFFIX, meta) and store.put_bytes(m.group(1), data):
                     published += 1
             if published:
                 logger.info(f"prewarm published {published} kernel libraries to the fleet store")

@@ -66,6 +66,7 @@ from ..observability.catalog import (
     SCHED_QUEUE_DEPTH,
     SCHED_TASKS_LAUNCHED,
     SCHED_TASKS_REAPED,
+    WORKER_PREEMPTIONS,
 )
 from ..proto import api_pb2
 from .state import ClusterState, FunctionState, ServerState, TaskState_, WorkerState
@@ -758,6 +759,7 @@ class Scheduler:
             return
         worker.draining = True
         worker.drain_deadline = time.time() + grace_s + DRAIN_REAP_MARGIN
+        WORKER_PREEMPTIONS.inc()
         logger.warning(f"worker {worker_id} draining (grace {grace_s}s)")
         for task_id in list(worker.active_tasks):
             task = self.s.tasks.get(task_id)

@@ -665,6 +665,7 @@ class ModalTPUServicer:
         fn = self.s.functions.get(request.function_id)
         if fn is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, "function not found")
+        fn.init_failures = 0  # a web container has booted
         fn.web_url = request.web_url
         async with fn.input_condition:
             fn.input_condition.notify_all()
@@ -1000,9 +1001,6 @@ class ModalTPUServicer:
         task.last_heartbeat = time.time()
         if request.warm_pool_hit:
             task.warm_pool_hit = True  # served by a pre-forked warm-pool interpreter
-        fn = self.s.functions.get(task.function_id)
-        if fn is not None:
-            fn.init_failures = 0  # a container came up: init is healthy
         if request.sandbox_workdir:
             # the cwd the worker chose: a fs snapshot tars this, not a guess
             for sb in self.s.sandboxes.values():
@@ -1285,6 +1283,9 @@ class ModalTPUServicer:
         task = self.s.tasks.get(request.task_id)
         if fn is None or task is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, "function or task not found")
+        # a container that asks for inputs has booted: init is healthy (its
+        # hello comes before the user's import and @enter hooks)
+        fn.init_failures = 0
         if request.average_call_time > 0:
             fn.reported_call_time = request.average_call_time
         # long-poll for inputs; kill switch when the app stops or the task

@@ -578,6 +578,40 @@ def test_cli_app_trace_attribute_metrics_and_profile(planes):
     both(planes, scenario)
 
 
+FOLDED = """main;serve;decode_step;attention 120
+main;serve;decode_step;matmul 300
+main;serve;prefill;matmul 80
+main;heartbeat 7
+main;serve;decode_step 13
+"""
+
+
+@pytest.mark.parametrize("where", ["file", "store"])
+def test_cli_profile_show_prints_the_jax_packages_table(tmp_path, where):
+    """`profile show` through `python -m modal_tpu.cli` and `python -m
+    modal_tpu_torch.cli`: one folded file (`--file`), or the store of a
+    state dir with `--match`, prints the same self%/cum% table."""
+    profiles = tmp_path / "observability" / "profiles"
+    profiles.mkdir(parents=True)
+    (profiles / "profile-ta-1-100.folded").write_text(FOLDED)
+    (profiles / "profile-ta-2-100.folded").write_text("main;other 5\n")
+    if where == "file":
+        args = ["--file", str(profiles / "profile-ta-1-100.folded"), "--top", "4"]
+    else:
+        args = ["--state-dir", str(tmp_path), "--match", "ta-1"]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    out = {}
+    for m in (modal_tpu, modal_tpu_torch):
+        proc = subprocess.run([sys.executable, "-m", f"{m.__name__}.cli", "profile", "show", *args],
+                              capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        out[m.__name__] = proc.stdout.splitlines()
+    assert out["modal_tpu_torch"] == out["modal_tpu"]
+    lines = out["modal_tpu_torch"]
+    assert lines[0] == "1 profile file(s):" and lines[2].split() == ["self%", "cum%", "self", "cum", "frame"]
+    assert lines[-1] == "520 samples total" and lines[3].endswith("  matmul")
+
+
 def test_cli_metrics_reports_stale_breadcrumb(planes, tmp_path):
     from modal_tpu._utils.grpc_utils import find_free_port
 

@@ -307,17 +307,61 @@ def no_fleet(monkeypatch):
 
 
 def test_library_key_changes_with_the_nvcc_version(tmp_path, monkeypatch, no_fleet):
-    """Today's key lacked the toolkit: an upgrade would have loaded a stale
-    library. Now the library's name carries the full `--version` output."""
+    """The key asks no compiler, and each build keeps its full `--version`
+    output beside the library: a machine whose nvcc disagrees with it never
+    loads that library, and builds under a key that names its own nvcc."""
     monkeypatch.setenv("TORCH_EXTENSIONS_DIR", str(tmp_path / "build"))
-    _stub_nvcc(tmp_path, monkeypatch, "release 12.8")
+    calls = _stub_nvcc(tmp_path, monkeypatch, "release 12.8")
+    assert _build.build(["paged_decode"])["paged_decode"]["source"] == "nvcc"
     old = _build.library_path("paged_decode")
+    assert old == _build.library_path("paged_decode", _build.cache_key("paged_decode"))
+    with open(old + ".nvcc") as f:
+        assert "release 12.8" in f.read()
     _stub_nvcc(tmp_path, monkeypatch, "release 12.9")
     new = _build.library_path("paged_decode")
     assert old != new and os.path.dirname(old) == str(tmp_path / "build")
     assert os.path.basename(new).startswith("paged_decode-tc-")
+    assert _build.build(["paged_decode"])["paged_decode"]["source"] == "nvcc"
+    assert len(_compiles(calls())) == 2 and os.path.exists(new)
     monkeypatch.delenv("TORCH_EXTENSIONS_DIR")
     assert os.path.dirname(_build.library_path("paged_decode")) == _build.DEFAULT_BUILD_DIR
+
+
+def test_a_library_is_found_by_its_key_with_no_nvcc(tmp_path, monkeypatch, no_fleet):
+    """A container with the torch stack and no CUDA toolkit: its key needs
+    no compiler, so it finds the library the fleet store holds under that
+    key and runs no subprocess. With no library anywhere, it raises and
+    names the key it looked for (nothing falls back)."""
+    import subprocess
+
+    bare = tmp_path / "bin-bare"
+    bare.mkdir()
+    monkeypatch.setenv("PATH", str(bare))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    assert _build.find_nvcc() is None
+
+    def no_subprocess(*a, **k):
+        raise AssertionError(f"a subprocess ran: {a}")
+
+    monkeypatch.setattr(subprocess, "run", no_subprocess)
+    monkeypatch.setattr(subprocess, "Popen", no_subprocess)
+    key = _build.cache_key("paged_decode")
+    assert _build.library_key("paged_decode") == key
+    fleet = FleetCompileCache(local_dir=str(tmp_path / "fleet"))
+    os.makedirs(fleet.local_dir)
+    assert fleet.put_meta(key, "nvcc: release 12.8") and fleet.put(key, b"the library")
+    monkeypatch.setattr(_build, "_fleet", fleet)
+    monkeypatch.setenv("TORCH_EXTENSIONS_DIR", str(tmp_path / "build"))
+    assert _build.build(["paged_decode"])["paged_decode"]["source"] == "fleet"
+    with open(_build.library_path("paged_decode"), "rb") as f:
+        assert f.read() == b"the library"
+    with open(_build.library_path("paged_decode") + ".nvcc") as f:
+        assert f.read() == "nvcc: release 12.8"
+    os.makedirs(tmp_path / "fleet-empty")
+    monkeypatch.setattr(_build, "_fleet", FleetCompileCache(local_dir=str(tmp_path / "fleet-empty")))
+    monkeypatch.setenv("TORCH_EXTENSIONS_DIR", str(tmp_path / "build-empty"))
+    with pytest.raises(RuntimeError, match=f"no library under key {key}.*no nvcc"):
+        _build.build(["paged_decode"])
 
 
 def test_cold_fleet_rollout_builds_with_zero_compiles(tmp_path, monkeypatch, no_fleet):
@@ -338,7 +382,7 @@ def test_cold_fleet_rollout_builds_with_zero_compiles(tmp_path, monkeypatch, no_
         assert first["source"] == "nvcc"
         assert len(_compiles(calls())) == 1
         key = _build.cache_key("paged_decode")
-        assert CompileCacheStore(str(store)).keys() == [key]
+        assert CompileCacheStore(str(store)).keys() == [key, key + ".nvcc"]
         monkeypatch.setenv("TORCH_EXTENSIONS_DIR", str(tmp_path / "build-b"))
         h0 = catalog.COMPILE_CACHE_HITS.total()
         before = len(calls())
@@ -389,4 +433,5 @@ def test_maybe_aot_lower_installs_the_tier_and_publishes(tmp_path, monkeypatch, 
         compile_client.uninstall_fleet_cache()
     assert out["decode"]["kernels"] == ["paged_decode"] and "errors" not in out
     assert len(_compiles(calls())) == 1
-    assert CompileCacheStore(str(store)).keys() == [_build.cache_key("paged_decode")]
+    key = _build.cache_key("paged_decode")
+    assert CompileCacheStore(str(store)).keys() == [key, key + ".nvcc"]

@@ -41,6 +41,14 @@ def test_block_digests_equal_hashlib_and_jax(size, block):
     assert jnative.hash_blocks(data, block) == want
 
 
+@pytest.mark.parametrize("size", [0, 1, 4096 * 3 + 17])
+def test_sha256_hex_equals_hashlib_and_jax(size):
+    data = _seeded(size, seed=size)
+    want = hashlib.sha256(data).hexdigest()
+    assert tnative.sha256_hex(data) == jnative.sha256_hex(data) == want
+    assert tnative.sha256_hex(memoryview(data)) == want
+
+
 @pytest.mark.parametrize("size", [0, 8192 * 4, 8192 * 4 + 11])
 def test_file_digests_equal_hashlib_and_jax(tmp_path, monkeypatch, size):
     block = 8192

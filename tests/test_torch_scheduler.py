@@ -312,3 +312,23 @@ def test_reaping_and_draining_equal_jax(tmp_path, scenario, retries):
         outcomes.append(_outcome(s, pkg_api))
     assert outcomes[1] == outcomes[0]
     assert outcomes[0]["finished"]
+
+
+def test_a_drain_counts_one_preemption_as_jax_does(tmp_path):
+    """`drain_worker` increments modal_tpu_worker_preemptions_total once per
+    drain entered, in both packages; a worker the plane does not know
+    counts nothing."""
+    from modal_tpu.observability.catalog import WORKER_PREEMPTIONS as JAX_PREEMPTIONS
+    from modal_tpu_torch.observability.catalog import WORKER_PREEMPTIONS
+
+    deltas = []
+    for pkg_state, pkg_api, pkg_services, sched_mod, field, counter in (
+        (jstate, japi, jservices, jsched, "num_chips", JAX_PREEMPTIONS),
+        (tstate, tapi, tservices, tsched, "num_gpus", WORKER_PREEMPTIONS),
+    ):
+        s, servicer, scheduler = _claimed(pkg_state, pkg_api, pkg_services, sched_mod, tmp_path / field, 0, field)
+        before = counter.value()
+        asyncio.run(scheduler.drain_worker("wk-1", grace_s=5.0))
+        asyncio.run(scheduler.drain_worker("wk-gone", grace_s=5.0))
+        deltas.append(counter.value() - before)
+    assert deltas == [1, 1]

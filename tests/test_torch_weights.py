@@ -89,6 +89,21 @@ def test_jax_export_loads_bit_equal_in_the_port(dtype, tmp_path):
         np.testing.assert_allclose(got.detach().numpy(), want, atol=LOGITS_ATOL, rtol=0)
 
 
+def test_the_async_load_equals_the_jax_packages_and_the_blocking_one(tmp_path):
+    """`load_params_async` of both packages on one JAX-written checkpoint:
+    the port's coroutine gives the blocking load's params, bit for bit, and
+    JAX's coroutine the same values."""
+    import asyncio
+
+    jcfg, jparams, tcfg, tparams = _models("fp32")
+    jweights.export_checkpoint(jparams, jcfg, str(tmp_path), max_shard_bytes=SMALL_SHARDS)
+    got = asyncio.run(tweights.load_params_async(str(tmp_path), tcfg, device="cpu"))
+    _assert_port_params_equal(got, tweights.load_params(str(tmp_path), tcfg, device="cpu"))
+    _assert_port_params_equal(got, tparams)
+    want = asyncio.run(jweights.load_params_async(str(tmp_path), jcfg))
+    _assert_port_params_equal(got, params_from_jax(jax.tree_util.tree_map(np.asarray, want), device="cpu"))
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_port_export_loads_bit_equal_in_jax(dtype, tmp_path):
     jcfg, jparams, tcfg, tparams = _models(dtype)
