@@ -637,7 +637,9 @@ SPAN_CATALOG: dict[str, str] = {
     "import_cost.remote": "the port's: tools/import_cost.py's measured call, `import torch` in a function's body",
     "serving.admit": "serving-tier admission: queue wait → decode-slot + KV pages",
     "serving.prefill": "serving-tier prompt prefill (chunked; ends at the first token)",
-    "serving.prefill_chunk": "one prefill chunk's device compute (per-request timeline detail)",
+    "serving.prefill_chunk": (
+        "one prefill chunk's host enqueue (per-request timeline detail; its device time is the trace's)"
+    ),
     "serving.decode": "periodic decode progress mark (every N tokens; batch occupancy + KV pages attrs)",
     "serving.preempt": "KV-pool-pressure preemption: slot freed, request requeued with its prefix",
     "serving.spec_verify": "one speculative round: draft proposals → target verify → acceptance",
@@ -645,6 +647,12 @@ SPAN_CATALOG: dict[str, str] = {
     "serving.stream": "one SSE token stream: open → done/reset (serving/api.py)",
     "serving.route": "fleet router dispatch: prefix-map/affinity/cold pick → replica call",
     "serving.kv_ship": "KV-page shipment leg: export off the prefill replica / import on the decode replica",
+    "serving.step": (
+        "the port's: one serving-loop iteration, a root of its own: the host's contiguous phases "
+        "in ms (admit, prefill with its prefill_sync, grow, launch, sync, emit), batch, "
+        "prefill_tokens, finished and replay_at_ms (the decode step's launch); every tap sees "
+        "each one, the file sink at most one a second"
+    ),
 }
 
 

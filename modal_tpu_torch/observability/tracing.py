@@ -9,7 +9,9 @@ spans go to ``spans-<pid>.jsonl`` under the directory given to
 its workers export it to their containers (`maybe_configure_from_env`).
 Without it, spans still carry ids (so children stitch under their parent)
 but nothing is written. In-process observers registered with
-`add_span_tap` see every finished span, sink or no sink.
+`add_span_tap` see every finished span, sink or no sink. `active()` says
+whether anything reads spans at all: a hot loop builds none when it is
+false, and `record_span` is then a no-op.
 """
 
 from __future__ import annotations
@@ -142,6 +144,11 @@ def maybe_configure_from_env() -> None:
 
 def enabled() -> bool:
     return _sink_file is not None
+
+
+def active() -> bool:
+    """Does a finished span reach anyone: a file sink or a tap?"""
+    return _sink_file is not None or bool(_span_taps)
 
 
 def trace_dir() -> Optional[str]:
@@ -296,9 +303,15 @@ def remove_span_tap(tap) -> None:
         _span_taps.remove(tap)
 
 
-def _write(span: Span) -> None:
+def notify_taps(span: Span) -> None:
+    """Hand a finished span to the taps alone, not to the file sink (a
+    hot loop's span that the sink takes only now and then)."""
     for tap in list(_span_taps):
         tap(span)
+
+
+def _write(span: Span) -> None:
+    notify_taps(span)
     if _sink_file is None:
         return
     global _sink_bytes
@@ -439,8 +452,9 @@ def open_span(
     return _child(name, parent, start, attrs)
 
 
-def close_span(span: Span, status: str = "ok") -> None:
-    span.end = time.time()
+def close_span(span: Span, status: str = "ok", end: Optional[float] = None) -> None:
+    """Finish `span` (at `end`, default now) and write it."""
+    span.end = time.time() if end is None else end
     span.status = status
     _write(span)
 
@@ -453,21 +467,15 @@ def record_span(
     attrs: Optional[dict] = None,
 ) -> None:
     """Record a retroactive span under `parent` (or the current span); a
-    no-op with neither."""
+    no-op with neither, and while nothing reads spans (`active()`)."""
+    if not active():
+        return
     ctx = parent or current_context()
     if ctx is None:
         return
-    _write(
-        Span(
-            trace_id=ctx.trace_id,
-            span_id=new_span_id(),
-            parent_id=ctx.span_id,
-            name=name,
-            start=start,
-            end=end,
-            attrs=dict(attrs or {}),
-        )
-    )
+    sp = _child(name, ctx, start, attrs)
+    sp.end = end
+    _write(sp)
 
 
 def find_traces(trace_dir_path: str, needle: str) -> dict[str, list[dict]]:

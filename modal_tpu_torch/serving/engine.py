@@ -31,6 +31,8 @@ Two serving modes ride the same loop:
 The loop runs on its own thread and does its device work on the device's
 default stream; it reads results back to the host through `.cpu()`, once
 per prefill chunk, once per decode step and once per speculative slot group.
+While spans are read, each iteration is one `serving.step` span of
+contiguous host phases (step_trace.py).
 
 On CUDA the decode step is a captured CUDA graph (`cuda_graphs=None` or
 True; `paged_kv.DecodeGraph`): the target's step, or in speculative mode the
@@ -97,6 +99,7 @@ from ..observability.catalog import (
     SERVING_TTFT_P95,
 )
 from .router import prefix_digest
+from .step_trace import StepPhases
 
 _req_counter = itertools.count()
 
@@ -166,6 +169,11 @@ def _env_on(name: str, default: str = "1") -> bool:
 
 def _spans_enabled() -> bool:
     return _env_on(SPANS_ENV)
+
+
+def _spans_on() -> bool:
+    """The engine builds spans only while something reads them."""
+    return tracing.active() and _spans_enabled()
 
 
 def _span_mark_tokens() -> int:
@@ -451,6 +459,7 @@ class ServingEngine:
             self.chaos_step_delay = float(os.environ.get(CHAOS_STEP_DELAY_ENV, "0") or 0)
         except ValueError:
             self.chaos_step_delay = 0.0
+        self._step: Optional[StepPhases] = None  # the running iteration's, while spans are read
         self._ttft_window: deque[float] = deque(maxlen=100)
         self._rate_window: deque[tuple[float, int]] = deque()
         self._lock = threading.Lock()
@@ -546,7 +555,7 @@ class ServingEngine:
         )
         req._export = bool(export)
         req._shipment = shipment
-        if _spans_enabled():
+        if _spans_on():
             req.root_span = tracing.open_span(
                 "serving.request", attrs={"request_id": req.id, "prompt_tokens": len(prompt)}
             )
@@ -662,10 +671,22 @@ class ServingEngine:
     def run_once(self) -> None:
         """One loop iteration: admit, advance one prefill chunk, one decode
         step (or speculative round). The thread calls it; a test may drive
-        the engine with it."""
-        self._admit()
-        self._prefill_one()
-        self._decode_step()
+        the engine with it. While spans are read, the iteration is one
+        `serving.step` span of contiguous host phases (step_trace.py)."""
+        step = self._step = StepPhases() if _spans_on() else None
+        completed = self.requests_completed
+        try:
+            if step is not None:
+                step.enter("admit")
+            self._admit()
+            if step is not None:
+                step.enter("prefill")
+            self._prefill_one()
+            self._decode_step()
+        finally:
+            self._step = None
+            if step is not None:
+                step.close(finished=self.requests_completed - completed)
 
     def _fail_all(self, message: str) -> None:
         with self._lock:
@@ -908,6 +929,7 @@ class ServingEngine:
             return
         idx, slot = min(candidates, key=lambda t: t[1].admitted_step)
         req = slot.request
+        step = self._step
         total = len(slot.prefill_tokens)
         t0 = time.time()
         target_done_now = False
@@ -933,6 +955,8 @@ class ServingEngine:
                         "bucket": prefill_bucket(len(chunk), self.max_context),
                     },
                 )
+            if step is not None:
+                step.prefill_tokens = len(chunk)
             slot.prefill_done += len(chunk)
             slot.pos = slot.prefill_done
             target_done_now = slot.prefill_done >= total
@@ -942,6 +966,8 @@ class ServingEngine:
                 slot.draft_prefill_done,
             )
             slot.draft_prefill_done += len(dchunk)
+            if step is not None and not step.prefill_tokens:
+                step.prefill_tokens = len(dchunk)
             if slot.draft_prefill_done >= total:
                 if self.draft_prefix_cache is not None and len(req.prompt) >= self.page_size:
                     # full pages only: the draft pool has no copy-on-write
@@ -964,7 +990,10 @@ class ServingEngine:
             )[0]
             self.sampled_tokens += 1
             SERVING_SAMPLED_TOKENS.inc()
+        t_sync = time.perf_counter()
         tok = int(next_tok.cpu())
+        if step is not None:
+            step.prefill_sync(t_sync)
         if req._export:
             self._export_shipment(slot, tok)
         if req.trace_context is not None:
@@ -1157,6 +1186,9 @@ class ServingEngine:
             s.tokens_at_mark = len(req.tokens)
 
     def _decode_step(self) -> None:
+        step = self._step
+        if step is not None:
+            step.enter("grow")
         if self.spec_k:
             return self._spec_round()
         if not self._grow_pages():
@@ -1164,12 +1196,17 @@ class ServingEngine:
         decoding = self._decoding()
         if not decoding:
             return
+        if step is not None:
+            step.enter("launch")
+            step.batch = len(decoding)
         tokens = np.zeros((self.max_slots,), np.int64)
         active = np.zeros((self.max_slots,), bool)
         for i, s in decoding:
             tokens[i] = s.cur_token
             active[i] = True
         tokens_d, active_d = host_to_device(tokens, self.device), host_to_device(active, self.device)
+        if step is not None:
+            step.mark_replay()
         if self.decode_graph is not None:
             logits, next_tokens = self.decode_graph(tokens_d, active_d)
         else:
@@ -1183,7 +1220,11 @@ class ServingEngine:
             next_tokens = sample_step(logits, *self._sampling_arrays(decoding))
             self.sampled_tokens += n_sampled
             SERVING_SAMPLED_TOKENS.inc(n_sampled)
+        if step is not None:
+            step.enter("sync")
         next_host = next_tokens.cpu().tolist()
+        if step is not None:
+            step.enter("emit")
         self.step_count += 1
         SERVING_BATCH_OCCUPANCY.observe(float(len(decoding)))
         spans_on = _spans_enabled()
@@ -1221,12 +1262,18 @@ class ServingEngine:
             return
         k = self.spec_k
         t0 = time.time()
+        step = self._step
+        if step is not None:
+            step.enter("launch")
+            step.batch = len(decoding)
         self.step_count += 1
         SERVING_BATCH_OCCUPANCY.observe(float(len(decoding)))
         groups = [decoding]
         if self.spec_overlap and len(decoding) >= 2:
             mid = (len(decoding) + 1) // 2
             groups = [decoding[:mid], decoding[mid:]]
+        if step is not None:
+            step.mark_replay()
         pendings = [self._spec_dispatch(g) for g in groups]
         totals = [self._spec_accept(g, p, batch=len(decoding)) for g, p in zip(groups, pendings)]
         total_emitted = sum(t[0] for t in totals)
@@ -1317,8 +1364,13 @@ class ServingEngine:
         sampled)."""
         k, k1 = self.spec_k, self.spec_k + 1
         proposals_dev, targets_dev = pending
+        step = self._step
+        if step is not None:
+            step.enter("sync")
         proposals = proposals_dev.cpu().numpy()  # [slots, k]: the host sync
         targets = targets_dev.cpu().numpy().reshape(self.max_slots, k1)
+        if step is not None:
+            step.enter("emit")
         spans_on = _spans_enabled()
         mark_every = _span_mark_tokens()
         new_lens = np.zeros((self.max_slots,), np.int32)
